@@ -1,0 +1,41 @@
+"""Weights from the JAX package into the port.
+
+``params_from_jax`` takes the JAX ``init_params`` pytree as numpy arrays
+(``jax.tree.map(np.asarray, params)``) and returns the port's parameter dict.
+The layouts are the same (``x @ W`` with ``W: [D_in, D_out]``, stacked
+``[L, ...]`` layer leaves, same key names), so conversion is a copy with no
+transposes.  This module takes numpy only: it never imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_jax"]
+
+
+def _tensor(arr: np.ndarray, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch counterpart in numpy
+        t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> Dict:
+    """Nested dict of numpy arrays -> the same nest of torch tensors on
+    ``device`` (default: the card), optionally cast to ``dtype``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {key: conv(val) for key, val in node.items()}
+        return _tensor(np.asarray(node), dev, dtype)
+
+    return conv(tree)

@@ -1,0 +1,131 @@
+"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``repro/kernels/flash_attention.py::flash_attention_fwd``.
+The kernel is ``csrc/flash_fwd.cu`` (see the note at its top for the design).
+Only the forward is ported; the backward kernels (dQ, dK/dV) come with the
+training slice.
+
+The wrapper launches the kernel for CUDA tensors and runs the plain version
+(``ref.attention_ref``) for CPU tensors; there is no other fallback.
+``flash_attention_fwd.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_KV = 128
+KERNEL_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+BandArg = Union[Sequence[Union[int, torch.Tensor]], torch.Tensor]
+
+
+def _band_tuple(band: BandArg, batch: int):
+    """Band as a 4-tuple for the plain version: ints, or [B] tensors for a
+    per-row [B, 4] band tensor."""
+    if isinstance(band, torch.Tensor):
+        if band.dim() == 1:
+            return tuple(int(x) for x in band.tolist())
+        if band.shape != (batch, 4):
+            raise ValueError(f"band tensor must be [4] or [B={batch}, 4], got {tuple(band.shape)}")
+        return tuple(band[:, i] for i in range(4))
+    return tuple(band)
+
+
+def _band_device(band: BandArg, batch: int, device) -> Tuple[torch.Tensor, int]:
+    """(int32 band on the device, batch stride) for the kernel."""
+    if not isinstance(band, torch.Tensor):
+        entries = list(band)
+        if any(isinstance(x, torch.Tensor) and x.dim() == 1 for x in entries):
+            band = torch.stack(
+                [torch.as_tensor(x, device=device).to(torch.int32).expand(batch) for x in entries],
+                dim=1,
+            )
+        else:
+            band = torch.tensor([int(x) for x in entries], dtype=torch.int32)
+    band = band.to(device=device, dtype=torch.int32).contiguous()
+    if band.dim() == 1 and band.shape == (4,):
+        return band, 0
+    if band.shape == (batch, 4):
+        return band, 4
+    raise ValueError(f"band must be [4] or [B={batch}, 4], got {tuple(band.shape)}")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,
+    band: BandArg,  # 4 ints / int32 [4] / int32 [B, 4]: (q_off, kv_off, lo, hi)
+    *,
+    scale: float,
+    stride_q: int = 1,
+    stride_kv: int = 1,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_kv: int = DEFAULT_BLOCK_KV,
+    seg_q: Optional[torch.Tensor] = None,  # [Sq] int32 segment ids
+    seg_kv: Optional[torch.Tensor] = None,  # [Skv]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (o [B,Sq,H,D] in q.dtype, lse [B,H,Sq] fp32).
+
+    ``block_q``/``block_kv`` are kept for signature parity with the TPU
+    kernel; the CUDA tile is the kernel's own, and it masks the ragged edge
+    instead of requiring ``Sq % block_q == 0``."""
+    del block_q, block_kv
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if H % Hkv:
+        raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
+    if (seg_q is None) != (seg_kv is None):
+        raise ValueError("pass both seg_q and seg_kv, or neither")
+    if q.device.type == "cpu":
+        return ref.attention_ref(
+            q, k, v, scale=scale, band=_band_tuple(band, B),
+            stride_q=stride_q, stride_kv=stride_kv, seg_q=seg_q, seg_kv=seg_kv,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name} must match q's device and dtype ({q.device}, {q.dtype})")
+        if t.shape != (B, Skv, Hkv, D):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(B, Skv, Hkv, D)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {q.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if stride_q < 1 or stride_kv < 1:
+        raise ValueError("strides must be >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    band_d, band_stride = _band_device(band, B, q.device)
+    if seg_q is not None:
+        seg_q = seg_q.to(device=q.device, dtype=torch.int32).contiguous()
+        seg_kv = seg_kv.to(device=q.device, dtype=torch.int32).contiguous()
+        if seg_q.shape != (Sq,) or seg_kv.shape != (Skv,):
+            raise ValueError("seg_q must be [Sq] and seg_kv [Skv]")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B == 0 or Sq == 0:
+        return o, lse.fill_(ref.NEG_INF)
+    lib = _build.load("flash_fwd")
+    err = lib.flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), band_d.data_ptr(), band_stride,
+        seg_q.data_ptr() if seg_q is not None else None,
+        seg_kv.data_ptr() if seg_kv is not None else None,
+        o.data_ptr(), lse.data_ptr(),
+        B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_fwd")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0

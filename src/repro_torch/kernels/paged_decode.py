@@ -1,0 +1,209 @@
+"""Paged split-K flash-decode: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``repro/kernels/paged_decode.py``.  The kernel
+(``csrc/paged_decode.cu``) decodes one token per slot row straight off the
+page pool: it reads the block table (-1 = unallocated) and each row's
+position itself, walks only the logical pages that can be visible (allocated,
+at or before the row's depth, inside the sliding window) within its split,
+masks the partial last page by global position, and writes per-split fp32
+partials (o, lse).  ``combine_split_partials`` merges them; it stays plain
+PyTorch, as it is plain jnp outside the Pallas call in JAX.
+
+Geometry matches ``core/decode_attention.py``: local slot ``j`` holds global
+position ``kv_offset + stride_kv * j`` and lives at offset ``j % page_size``
+of logical page ``j // page_size``.  A dense ``[B, m]`` cache is the
+degenerate case (reshape to ``[B * m/chunk, chunk]`` pages with the identity
+block table), so the same kernel serves the dense decode path too.
+
+The wrapper launches the kernel for CUDA tensors and runs the plain version
+(:func:`paged_decode_ref`: gather the row's pages, then the band math) for
+CPU tensors.  ``paged_flash_decode.launches`` counts kernel launches.  The
+quantized (int8/fp8) pool branch of the TPU kernel is not ported: its scale
+tables are accepted by the plain version only, and the wrapper raises for
+them on CUDA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.ref import BAND_INF, NEG_INF
+
+__all__ = [
+    "paged_flash_decode",
+    "paged_decode_ref",
+    "combine_split_partials",
+    "default_num_splits",
+    "dense_chunk_for",
+]
+
+# default logical pages each split-K partial covers
+DEFAULT_PAGES_PER_SPLIT = 4
+
+# candidate chunk sizes (local positions) for viewing a DENSE cache row as an
+# implicit page run; the largest divisor of m wins
+_DENSE_CHUNKS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_MAX_GROUP = 16
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+PosArg = Union[int, torch.Tensor]
+
+
+def default_num_splits(max_pages: int) -> int:
+    return max(1, -(-max_pages // DEFAULT_PAGES_PER_SPLIT))
+
+
+def dense_chunk_for(m: int) -> int:
+    """Page size for the dense-cache-as-one-page-run view of a [B, m] slice:
+    the largest candidate dividing m (1 always divides)."""
+    return next(c for c in _DENSE_CHUNKS if c <= m and m % c == 0)
+
+
+def combine_split_partials(
+    o_parts: torch.Tensor,  # [B, S, H, D] fp32 per-split partial outputs
+    lse_parts: torch.Tensor,  # [B, S, H] fp32 per-split lse (NEG_INF = empty)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Numerically-stable LSE reduce over the split axis -> ([B,1,H,D] fp32,
+    [B,H,1] fp32).  Empty splits weigh 0 even when every split is empty, so a
+    fully-hidden row combines to exactly o = 0, lse = NEG_INF."""
+    m = lse_parts.amax(dim=1).clamp_min(NEG_INF)  # [B, H]
+    nonempty = lse_parts > NEG_INF / 2
+    w = torch.where(nonempty, torch.exp(lse_parts - m[:, None]), torch.zeros_like(lse_parts))
+    den = w.sum(dim=1)  # [B, H]
+    num = (w[..., None] * o_parts).sum(dim=1)  # [B, H, D], exact fp32 (no TF32)
+    den_safe = torch.where(den > 0, den, torch.ones_like(den))
+    o = num / den_safe[..., None]
+    lse = torch.where(den > 0, m + torch.log(den_safe), torch.full_like(den, NEG_INF))
+    return o[:, None], lse[..., None]
+
+
+def _pos_vector(pos: PosArg, batch: int, device) -> torch.Tensor:
+    return torch.as_tensor(pos, device=device).to(torch.int64).expand(batch)
+
+
+def paged_decode_ref(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D]
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32; -1 = unallocated
+    pos: PosArg,  # scalar or [B]: attends to global positions <= pos
+    kv_offset: int,
+    *,
+    stride_kv: int,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [num_pages, page_size, Hkv] f32
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: gather each row's pages into its dense local view and
+    run the band math (position <= pos, inside the window, page allocated).
+    Returns (o [B,1,H,D] in q.dtype, lse [B,H,1] fp32)."""
+    B, _, H, D = q.shape
+    num_pages, page_size = k_pool.shape[0], k_pool.shape[1]
+    max_pages = block_table.shape[1]
+    if scale is None:
+        scale = D**-0.5
+    hi = (window - 1) if window else BAND_INF
+    bt = block_table.to(q.device)
+    idx = bt.clamp(0, num_pages - 1).long()
+    views = []
+    for pool, scales in ((k_pool, k_scale), (v_pool, v_scale)):
+        pages = pool[idx]  # [B, max_pages, page_size, Hkv, D]
+        if scales is not None:
+            pages = pages.float() * scales[idx][..., None].float()
+        views.append(pages.reshape(B, max_pages * page_size, *pool.shape[2:]))
+    k_loc, v_loc = views
+    pos_v = _pos_vector(pos, B, q.device)
+    gpos = kv_offset + stride_kv * torch.arange(max_pages * page_size, device=q.device)
+    win_lo = (pos_v - hi).clamp_min(0)
+    alloc = (bt >= 0).repeat_interleave(page_size, dim=1)  # [B, m]
+    mask = (gpos[None] <= pos_v[:, None]) & (gpos[None] >= win_lo[:, None]) & alloc
+    return ref.masked_attention(q, k_loc, v_loc, mask[:, None, None, :], scale)
+
+
+def paged_flash_decode(
+    q: torch.Tensor,  # [B, 1, H, D] the new token's queries
+    k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D]
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32; -1 = unallocated
+    pos: PosArg,  # int32 scalar or [B]: attends to global positions <= pos
+    kv_offset: int,  # global position of local slot 0
+    *,
+    stride_kv: int,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    num_splits: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode partial straight off the page pool: (o [B,1,H,D] in q.dtype,
+    lse [B,H,1] fp32)."""
+    B, _, H, D = q.shape
+    num_pages, page_size, hkv, _ = k_pool.shape
+    max_pages = block_table.shape[1]
+    if H % hkv:
+        raise ValueError(f"H={H} not divisible by Hkv={hkv}")
+    if q.device.type == "cpu":
+        return paged_decode_ref(
+            q, k_pool, v_pool, block_table, pos, kv_offset, stride_kv=stride_kv,
+            window=window, scale=scale, k_scale=k_scale, v_scale=v_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode runs on cuda or cpu tensors, not {q.device}")
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the quantized (int8/fp8) page pool is not ported to the GPU yet"
+        )
+    if scale is None:
+        scale = D**-0.5
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name} must match q's device and dtype ({q.device}, {q.dtype})")
+        if t.shape != (num_pages, page_size, hkv, D):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(num_pages, page_size, hkv, D)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.shape != (B, 1, H, D):
+        raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_flash_decode kernel takes float32 or bfloat16, not {q.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_flash_decode kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if H // hkv > KERNEL_MAX_GROUP:
+        raise ValueError(f"GQA group {H // hkv} > {KERNEL_MAX_GROUP}")
+    if stride_kv < 1:
+        raise ValueError("stride_kv must be >= 1")
+    q2 = q.reshape(B, H, D).contiguous()
+    bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    if bt.shape != (B, max_pages):
+        raise ValueError(f"block_table must be [B={B}, max_pages], got {tuple(bt.shape)}")
+    pos_d = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(B).contiguous()
+    if num_splits is None:
+        num_splits = default_num_splits(max_pages)
+    num_splits = max(1, min(int(num_splits), max_pages))
+    pages_per_split = -(-max_pages // num_splits)
+    hi = (window - 1) if window else BAND_INF
+    o_parts = torch.empty((B, num_splits, H, D), dtype=torch.float32, device=q.device)
+    lse_parts = torch.empty((B, num_splits, H), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return q.new_empty((0, 1, H, D)), lse_parts.new_empty((0, H, 1))
+    lib = _build.load("paged_decode")
+    err = lib.paged_decode(
+        q2.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos_d.data_ptr(),
+        o_parts.data_ptr(), lse_parts.data_ptr(),
+        B, H, hkv, D, page_size, max_pages, num_splits, pages_per_split,
+        int(kv_offset), int(stride_kv), int(hi), float(scale),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_decode")
+    paged_flash_decode.launches += 1
+    o, lse = combine_split_partials(o_parts, lse_parts)
+    return o.to(q.dtype), lse
+
+
+paged_flash_decode.launches = 0

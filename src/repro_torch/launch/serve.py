@@ -1,0 +1,168 @@
+"""Serving entry point of the port: static-batch generation or streaming
+continuous batching over the slot-pool engine (the CLI of
+``repro/launch/serve.py``).
+
+    # static batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+        [--batch 4] [--prompt-len 16] [--new-tokens 8]
+
+    # streaming: replay a mixed-length arrival trace through the scheduler
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --stream \
+        [--trace 16:0,32:1,64:2,16:4] [--slots 4] [--paged --page-size 4]
+
+``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
+plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
+machinery is not ported yet (multi-device, continuous prefill, speculative
+decode, quantized KV, oversubscription, chaos) are accepted for parity and
+raise when set.
+"""
+
+import argparse
+import json
+import sys
+
+
+def _parse_trace(spec: str):
+    items = []
+    for part in spec.split(","):
+        if ":" in part:
+            ln, tick = part.split(":")
+        else:
+            ln, tick = part, 0
+        items.append((int(ln), int(tick)))
+    return items
+
+
+def _not_ported(args) -> list:
+    return [
+        flag for flag, on in (
+            ("--fake-devices", args.fake_devices),
+            ("--kv-dtype", args.kv_dtype != "fp"),
+            ("--prefill-chunk", args.prefill_chunk is not None),
+            ("--tick-token-budget", args.tick_token_budget is not None),
+            ("--spec-k", args.spec_k),
+            ("--check-spec-identical", args.check_spec_identical),
+            ("--oversubscribe", args.oversubscribe != 1.0),
+            ("--chaos-seed", args.chaos_seed is not None),
+            ("--check-deterministic", args.check_deterministic),
+        ) if on
+    ]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda runs the CUDA kernels; cpu their plain PyTorch versions")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="weights, activations and KV cache")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous batching: replay --trace through the scheduler")
+    ap.add_argument("--trace", default="16:0,32:1,64:2,16:4",
+                    help="comma list of prompt_len[:arrival_tick]")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (block tables + prefix sharing)")
+    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--decode-kernel", default="auto", choices=("auto", "native", "gather"),
+                    help="auto (paged -> split-K native kernel), native, or gather")
+    ap.add_argument("--deadline-ticks", type=int, default=None)
+    ap.add_argument("--health-every", type=int, default=0)
+    ap.add_argument("--cancel", default=None,
+                    help="comma list of request_index:tick cancellations (--stream)")
+    # parity with the JAX CLI; not ported yet
+    ap.add_argument("--fake-devices", type=int, default=0)
+    ap.add_argument("--kv-dtype", default="fp", choices=("fp", "int8", "fp8"))
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--tick-token-budget", type=int, default=None)
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--spec-draft", default="ngram", choices=("ngram", "off"))
+    ap.add_argument("--spec-max-misses", type=int, default=4)
+    ap.add_argument("--check-spec-identical", action="store_true")
+    ap.add_argument("--oversubscribe", type=float, default=1.0)
+    ap.add_argument("--chaos-seed", type=int, default=None)
+    ap.add_argument("--chaos-ticks", type=int, default=24)
+    ap.add_argument("--check-deterministic", action="store_true")
+    args = ap.parse_args(argv)
+
+    missing = _not_ported(args)
+    if missing:
+        raise NotImplementedError(
+            f"not ported to the PyTorch engine yet: {', '.join(missing)}"
+        )
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    dtype = getattr(torch, args.dtype)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    ctx = ParallelCtx(device=args.device, decode_kernel=args.decode_kernel)
+    params = tfm.init_params(cfg, seed=0, dtype=dtype, device=args.device)
+    eng = ServeEngine(cfg, params, ctx=ctx, serve=ServeConfig(
+        max_seq=args.max_seq, num_slots=args.slots, cache_dtype=dtype, paged=args.paged,
+        page_size=args.page_size, num_pages=args.num_pages,
+        health_every=args.health_every,
+    ))
+    rng = np.random.default_rng(0)
+
+    if args.stream:
+        trace = _parse_trace(args.trace)
+        prompts = [rng.integers(0, cfg.vocab_size, (ln,), dtype=np.int32) for ln, _ in trace]
+        cancels = {}
+        if args.cancel:
+            for part in args.cancel.split(","):
+                idx, t = part.split(":")
+                cancels.setdefault(int(t), []).append(int(idx))
+        rids = [
+            eng.submit(p, max_new_tokens=args.new_tokens, arrival_tick=tick,
+                       deadline_ticks=args.deadline_ticks)
+            for p, (_, tick) in zip(prompts, trace)
+        ]
+        ticks = 0
+        while eng.has_work:
+            for idx in cancels.get(eng._tick, []):
+                eng.cancel(rids[idx])
+            for req in eng.step():
+                print(
+                    f"rid={req.rid} len={len(req.prompt)} slot={req.slot} "
+                    f"arrived@{req.arrival_tick} admitted@{req.admit_tick} "
+                    f"finished@{req.finish_tick} status={req.status}: {req.generated}"
+                )
+            ticks += 1
+        stats = eng.tick_stats()
+        summary = {
+            "device": str(eng.device),
+            "requests": len(trace),
+            "ticks": ticks,
+            "prefill_launches": eng.prefill_launches,
+            "prefill_tokens": int(sum(stats["prefill_tokens"])),
+            "decode_tokens": int(sum(stats["decode_tokens"])),
+        }
+        if args.paged:
+            summary["kv_cache"] = eng.kv_cache_stats()
+        print(json.dumps(summary))
+        return 0
+
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    out = eng.generate(prompts, max_new_tokens=args.new_tokens)
+    for i, row in enumerate(out):
+        print(f"request {i}: {row.tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

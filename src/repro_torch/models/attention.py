@@ -1,0 +1,128 @@
+"""Attention layer: GQA/MHA projections over the dispatch seam (copy of
+``repro/models/attention.py`` for the dense decoder).
+
+The projections are plain matrix products; the attention itself goes through
+``repro_torch.core.dispatch``.  No backend module is imported here.  MLA,
+cross-attention and the latent wire come in later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
+from repro_torch.core.masking import MaskSpec
+from repro_torch.models.layers import dense_init, rms_norm, rope
+from repro_torch.parallel.context import ParallelCtx
+
+__all__ = [
+    "init_attention_params",
+    "attention_block",
+    "distributed_attention",
+    "decode_attention_step",
+]
+
+
+# --------------------------------------------------------------------------
+# dispatch adapters
+# --------------------------------------------------------------------------
+
+
+def distributed_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    ctx: ParallelCtx,
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    layout: str = "striped",
+    segments: Optional[torch.Tensor] = None,  # [S] int32, same order as tokens
+) -> torch.Tensor:
+    """``segments`` switches the mask to causal-within-document (packed
+    multi-document rows)."""
+    if segments is not None:
+        cfg = dispatch.plan_from_ctx(ctx, mask=MaskSpec.segment(window=window), layout=layout)
+        return dispatch.distributed_attention(q, k, v, cfg=cfg, ctx=ctx, segments=segments)
+    cfg = dispatch.plan_from_ctx(ctx, causal=causal, window=window, layout=layout)
+    return dispatch.distributed_attention(q, k, v, cfg=cfg, ctx=ctx)
+
+
+def decode_attention_step(
+    q, k_new, v_new, k_cache, v_cache, pos, ctx: ParallelCtx,
+    *,
+    window: Optional[int] = None,
+    layout: str = "striped",
+    scale: Optional[float] = None,
+    block_table: Optional[torch.Tensor] = None,  # [B, max_pages]: paged cache
+    decode_kernel: Optional[str] = None,  # None -> ctx.decode_kernel
+    write_coords=None,  # paged: the append's coordinates, shared by all layers
+):
+    """Returns (o, k_cache, v_cache), the caches updated in place."""
+    return dispatch.decode_attention_step(
+        q, k_new, v_new, k_cache, v_cache, pos, ctx,
+        window=window, layout=layout, scale=scale, block_table=block_table,
+        decode_kernel=decode_kernel, write_coords=write_coords,
+    )
+
+
+# --------------------------------------------------------------------------
+# parameters and projections (one layer slice: params without the L dim)
+# --------------------------------------------------------------------------
+
+
+def init_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, dtype, device) -> dict:
+    D, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {
+        "ln": torch.zeros((L, D), dtype=dtype, device=device),
+        "wq": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
+        "wk": dense_init(gen, (L, D, Hkv * hd), dtype=dtype, device=device),
+        "wv": dense_init(gen, (L, D, Hkv * hd), dtype=dtype, device=device),
+        "wo": dense_init(gen, (L, H * hd, D), dtype=dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        p.update(
+            bq=torch.zeros((L, H * hd), dtype=dtype, device=device),
+            bk=torch.zeros((L, Hkv * hd), dtype=dtype, device=device),
+            bv=torch.zeros((L, Hkv * hd), dtype=dtype, device=device),
+        )
+    return p
+
+
+def _project_qkv(x, p, cfg: ModelConfig, positions):
+    """-> q [B,S,H,hd], k [B,S,Hkv,hd], v [B,S,Hkv,hd] (q, k roped)."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.reshape(B, S, cfg.num_heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    return q, k, v
+
+
+def attention_block(
+    x: torch.Tensor,  # [B, S, D]
+    p: dict,  # one layer's params
+    cfg: ModelConfig,
+    ctx: ParallelCtx,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    segments: Optional[torch.Tensor] = None,  # [S] int32 packed-document ids
+) -> torch.Tensor:
+    """Pre-norm self-attention with residual."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    q, k, v = _project_qkv(h, p, cfg, positions)
+    o = distributed_attention(
+        q, k, v, ctx, causal=causal, window=cfg.window, layout=cfg.causal_layout,
+        segments=segments,
+    )
+    return x + o.reshape(B, S, -1) @ p["wo"]

@@ -1,0 +1,58 @@
+"""Shared building blocks: norm, rotary embedding, initializer (copy of
+``repro/models/layers.py`` for the dense decoder)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+__all__ = ["rms_norm", "rope", "dense_init"]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the JAX package's ``(1 + w)`` gain (weights init at 0)."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over the last dim of x [B, S, H, D]: fp32
+    angles, pairs split as [first half, second half] (llama convention).
+    ``positions``: [S] or [B, S] true token positions."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (
+        theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    )
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(device=x.device, dtype=torch.float32) * freqs  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(
+    generator: torch.Generator,
+    shape: Sequence[int],
+    in_axis: int = -2,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Truncated-normal fan-in init (std 1/sqrt(fan_in), cut at 2 std) drawn
+    from ``generator``.  A stacked [L, ...] leaf is drawn one layer at a time,
+    so the fp32 scratch stays one layer's size."""
+    shape = tuple(shape)
+    std = shape[in_axis] ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    slices = [out] if len(shape) < 3 else list(out)
+    for dst in slices:
+        tmp = torch.empty(dst.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(tmp, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
+        dst.copy_(tmp.mul_(std))
+    return out

@@ -1,0 +1,404 @@
+"""Dense decoder: init / forward / cache / prefill / decode (the dense family
+of ``repro/models/transformer.py``).
+
+Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
+leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
+JAX convert by copy (``repro_torch.convert.params_from_jax``).  Layers run
+as a Python loop over per-layer slices (views of the stacked leaves).
+
+The cache functions update the cache dict and its tensors IN PLACE (slice
+and index assignment, where JAX rebuilds the arrays) and return the same
+dict.  Writes that JAX drops with ``mode="drop"`` and sentinel indices are
+filtered with a boolean mask before writing here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import dense_init, rms_norm, rope
+from repro_torch.models.mlp import init_mlp_params, mlp_block
+from repro_torch.parallel.context import ParallelCtx
+
+__all__ = [
+    "init_params",
+    "forward",
+    "init_cache",
+    "prefill",
+    "prefill_packed",
+    "decode_step",
+    "param_count",
+]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """This slice serves the dense family: GQA/MHA attention, RMSNorm, gated MLP."""
+    unsupported = [
+        name for name, bad in (
+            ("family != dense", cfg.family != "dense"),
+            ("MoE", cfg.moe is not None),
+            ("SSM", cfg.ssm is not None),
+            ("MLA", cfg.mla is not None),
+            ("hybrid", cfg.hybrid),
+            ("encoder", bool(cfg.encoder_layers)),
+            ("frontend", cfg.frontend is not None),
+            ("layernorm", cfg.norm != "rmsnorm"),
+            ("ungated MLP", not cfg.mlp_gated),
+        ) if bad
+    ]
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unsupported)} not ported yet; this slice serves the "
+            "dense decoder family"
+        )
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> Dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``
+    (default: the card).  Same pytree and init law as JAX's ``init_params``,
+    but not the same numbers: tests convert JAX weights instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    p: Dict = {"embed": dense_init(gen, (V, D), in_axis=-1, dtype=dtype, device=dev)}
+    p["layers"] = {
+        "attn": attn.init_attention_params(gen, cfg, L, dtype, dev),
+        "mlp": init_mlp_params(gen, cfg, L, dtype, dev),
+    }
+    p["final_ln"] = torch.zeros((D,), dtype=dtype, device=dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (D, V), dtype=dtype, device=dev)
+    return p
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
+def _layer(params: Dict, i: int) -> Dict:
+    """One layer's params: views of the stacked leaves."""
+    return {
+        group: {name: leaf[i] for name, leaf in leaves.items()}
+        for group, leaves in params["layers"].items()
+    }
+
+
+def _head(params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_ln"])
+    return x @ _head(params, cfg).to(x.dtype)
+
+
+def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.to(device=params["embed"].device, dtype=torch.int64)]
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segments=None):
+    x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments)
+    return mlp_block(x, lp["mlp"], cfg)
+
+
+def forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict) -> torch.Tensor:
+    """-> logits [B, S, V].  batch: tokens [B, S], positions [S], optional
+    segments [S] (packed multi-document rows: causal within each document)."""
+    check_supported(cfg)
+    positions = batch["positions"]
+    segments = batch.get("segments")
+    x = _embed(params, batch["tokens"])
+    for i in range(cfg.num_layers):
+        x = _decoder_block(x, _layer(params, i), cfg, ctx, positions, segments)
+    return _logits(x, params, cfg)
+
+
+# --------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx=None,
+               paged=None, kv_dtype: str = "fp"):
+    """Decode cache with a per-slot position vector ``pos: [B]`` on
+    ``ctx.device``.  Dense: K/V ``[L, B, cap, Hkv, D]``.  ``paged`` (a
+    ``serve.kv_pool.PagedLayout``) switches K/V to a physical page pool
+    ``[L, num_pages, page_size, Hkv, D]`` plus an int32 block table
+    ``"bt": [B, max_pages]`` (-1 = unallocated)."""
+    check_supported(cfg)
+    ctx = ctx or ParallelCtx()
+    dev = resolve_device(ctx.device)
+    if kv_dtype != "fp":
+        raise NotImplementedError(
+            "the quantized (int8/fp8) KV pool is not ported yet; use kv_dtype='fp'"
+        )
+    L, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+    cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if paged is not None:
+        if paged.n != ctx.sp_size:
+            raise ValueError(
+                f"paged layout is sharded over n={paged.n} but the ctx has sp_size={ctx.sp_size}"
+            )
+        if paged.virtual_cap < cap:
+            raise ValueError(f"paged virtual capacity {paged.virtual_cap} < cap {cap}")
+        shape = (L, paged.num_pages, paged.chunk, hkv, d)
+        cache["bt"] = torch.full((batch, paged.max_pages), -1, dtype=torch.int32, device=dev)
+    else:
+        shape = (L, batch, cap, hkv, d)
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
+
+
+def _decode_qkv(h, lp, cfg: ModelConfig, pos):
+    """Cache-space projections for decode.  h [B,S,D] -> (q [B,S,H,hd],
+    k_new [B,S,Hkv,hd], v_new, scale).  ``pos``: scalar, [B] per-slot
+    vector (S=1 decode) or a [B, S] position grid."""
+    B, S = h.shape[0], h.shape[1]
+    pos = torch.as_tensor(pos, device=h.device)
+    if pos.dim() == 2:
+        positions = pos
+    elif pos.dim() == 1:
+        positions = pos[:, None]
+    else:
+        positions = pos.reshape(1)
+    hd = cfg.hd
+    q = h @ lp["wq"]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = rope(q.reshape(B, S, cfg.num_heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    return q, k, v, hd**-0.5
+
+
+def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=None,
+                  write_coords=None):
+    """One layer's decode over this layer's cache slices (updated in place);
+    ``bt`` is the layer-shared block table when the cache is paged, and
+    ``write_coords`` the layer-shared coordinates of the append."""
+    B, S = x.shape[0], x.shape[1]
+    h = rms_norm(x, lp["attn"]["ln"])
+    q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, pos)
+    # the decode cache is always striped (one shard on one card)
+    o, _, _ = attn.decode_attention_step(
+        q, k_new, v_new, cache_l["k"], cache_l["v"], pos, ctx,
+        window=cfg.window, layout="striped", scale=scale, block_table=bt,
+        write_coords=write_coords,
+    )
+    y = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
+    return mlp_block(y, lp["mlp"], cfg)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
+    """One greedy decode step over all slots: tokens [B,1] -> (next [B,1],
+    cache, logits [B,1,V]).  The cache is updated in place (K/V appended at
+    each row's ``pos``, then ``pos`` advanced by one for every row); rows of
+    free slots tick harmlessly -- their writes are filtered past capacity or
+    through unallocated pages, and the engine ignores their outputs.  The
+    paged append's coordinates depend only on ``pos`` and the block table,
+    so they are computed once here for every layer."""
+    pos = cache["pos"]
+    bt = cache.get("bt")
+    coords = None
+    if bt is not None:
+        page_size = cache["k"].shape[2] // ctx.sp_size
+        coords = dispatch.paged_write_coords(bt, pos, page_size, None, ctx.sp_size, layout="striped")
+    x = _embed(params, tokens)
+    for i in range(cfg.num_layers):
+        cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _decode_block(x, _layer(params, i), cache_l, cfg, ctx, pos, bt=bt,
+                          write_coords=coords)
+    logits = _logits(x, params, cfg)
+    nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
+    cache["pos"] = pos + 1
+    return nxt, cache, logits
+
+
+def _paged_prefill_coords(positions, bt_rows, n: int, page_size: int, write_mask):
+    """Scatter coordinates for writing true positions ``positions`` [S]
+    through a block table into the pool ``[num_pages, n*page_size, ...]``.
+    ``bt_rows`` is one request's row [max_pages], or a per-token
+    [S, max_pages] (packed prefill).  Returns ``(tokens, pages, cols)``:
+    the indices of the tokens that are written and where -- masked,
+    unallocated and past-capacity tokens are filtered out (JAX sends them to
+    an out-of-range page that ``mode="drop"`` discards)."""
+    max_pages = bt_rows.shape[-1]
+    p = positions.to(torch.int64)
+    j = p // n
+    lp = j // page_size
+    col = (p % n) * page_size + j % page_size
+    lp_c = lp.clamp(0, max_pages - 1)
+    if bt_rows.dim() == 1:
+        page = bt_rows[lp_c]
+    else:
+        page = torch.gather(bt_rows, 1, lp_c[:, None])[:, 0]
+    write = write_mask & (page >= 0) & (lp < max_pages)
+    toks = torch.nonzero(write).squeeze(1)
+    return toks, page[toks].to(torch.int64), col[toks]
+
+
+def _project_kv_for_cache(h, lp, cfg: ModelConfig, positions):
+    """The K/V a prefill writes into the cache for ``h`` [B, S, D]."""
+    B, S = h.shape[0], h.shape[1]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        k, v = k + lp["bk"], v + lp["bv"]
+    k = rope(k.reshape(B, S, cfg.num_kv_heads, cfg.hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    return k, v
+
+
+def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
+    """Forward over the prompt, writing the KV cache per layer (in place).
+
+    ``batch``: tokens [B, S], positions [S], optional ``length`` [B] of true
+    prompt lengths when tokens are right-padded to a bucket: logits are
+    taken at each row's last REAL position (``positions == length - 1``) and
+    ``pos`` starts each row at its length; pads are causally invisible to the
+    real tokens and decode overwrites each pad's cache entry before reading it.
+
+    A PAGED cache (it carries ``"bt"``) is the whole slot pool: K/V of the
+    single request (batch 1) scatter through the block-table row of
+    ``batch["slot"]``; positions below ``batch["shared_len"]`` (a prefix
+    admitted as shared pages) and pads are not written.
+
+    Returns (logits [B, 1, V], cache)."""
+    check_supported(cfg)
+    tokens, positions = batch["tokens"], batch["positions"]
+    positions = torch.as_tensor(positions, device=params["embed"].device)
+    B, S = tokens.shape
+    x = _embed(params, tokens)
+    paged = "bt" in cache
+    if paged:
+        if B != 1:
+            raise ValueError("paged prefill writes one request (batch=1) per call")
+        n = ctx.sp_size
+        page_size = cache["k"].shape[2] // n
+        slot = int(batch["slot"])
+        shared_len = int(batch.get("shared_len", 0))
+        length_s = int(torch.as_tensor(batch["length"]).reshape(-1)[0]) if "length" in batch else S
+        write_mask = (positions < length_s) & (positions >= shared_len)
+        toks, pages, cols = _paged_prefill_coords(
+            positions, cache["bt"][slot], n, page_size, write_mask
+        )
+    elif S > cache["k"].shape[2]:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache capacity {cache['k'].shape[2]}")
+
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["attn"]["ln"])
+        kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
+        for key, new in (("k", kk), ("v", vv)):
+            dst = cache[key][i]
+            if paged:
+                dst[pages, cols] = new[0, toks].to(dst.dtype)
+            else:
+                # one shard: prefill index j is cache index j (JAX's
+                # _cache_scatter_indices for n == 1)
+                dst[:, :S] = new.to(dst.dtype)
+        x = _decoder_block(x, lp, cfg, ctx, positions)
+
+    if "length" in batch:
+        length = torch.as_tensor(batch["length"], device=x.device).to(torch.int64).reshape(B)
+        last_idx = (positions[None, :] == (length[:, None] - 1)).to(torch.int32).argmax(dim=1)
+        new_pos = length
+    else:
+        # the last position need not be the last index (striped layouts)
+        last_idx = torch.argmax(positions).expand(B)
+        new_pos = torch.full((B,), S, device=x.device)
+    x_last = x[torch.arange(B, device=x.device), last_idx][:, None]  # [B, 1, D]
+    logits = _logits(x_last, params, cfg)
+    if paged:
+        # the pool cache's pos covers every slot; only this one was prefilled
+        cache["pos"][slot] = length_s
+    else:
+        cache["pos"] = new_pos.to(device=cache["pos"].device, dtype=torch.int32)
+    return logits, cache
+
+
+def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
+    """Packed multi-document prefill: several prompts share ONE batch row
+    under a segment mask (causal within each prompt, nothing across), and
+    each document's K/V is written into ITS OWN slot of the pool cache.
+
+    ``batch``: tokens [1, P] (the packed, right-padded row), positions [P]
+    (per-document, restarting at each document; RoPE uses these, while the
+    causal band runs over the row index), segments [P] (document id; pads
+    carry an id >= k), doc_lens [k], slots [k], optional shared_lens [k]
+    (paged only: positions below are left to the pages' owner).
+
+    ``cache`` is the dense pool ([L, num_slots, cap, ...]) or the paged pool
+    with its block table.  Returns (first-token logits [k, V], cache)."""
+    check_supported(cfg)
+    dev = params["embed"].device
+    tokens = batch["tokens"]
+    positions = torch.as_tensor(batch["positions"], device=dev)
+    segments = torch.as_tensor(batch["segments"], device=dev).to(torch.int32)
+    doc_lens = torch.as_tensor(batch["doc_lens"], device=dev).to(torch.int64)
+    slots = torch.as_tensor(batch["slots"], device=dev).to(torch.int64)
+    k_docs = slots.shape[0]
+    n = ctx.sp_size
+    x = _embed(params, tokens)
+
+    pad = segments >= k_docs
+    seg_c = segments.clamp(0, k_docs - 1).to(torch.int64)
+    if "bt" in cache:
+        page_size = cache["k"].shape[2] // n
+        shared = batch.get("shared_lens")
+        shared = (
+            torch.zeros((k_docs,), dtype=torch.int64, device=dev) if shared is None
+            else torch.as_tensor(shared, device=dev).to(torch.int64)
+        )
+        write_mask = (~pad) & (positions >= shared[seg_c])
+        toks, rows, cols = _paged_prefill_coords(
+            positions, cache["bt"][slots[seg_c]], n, page_size, write_mask
+        )
+    else:
+        # document d's position p lands in slot row slots[d] at cache index p
+        # (one shard); pads are filtered out
+        toks = torch.nonzero(~pad).squeeze(1)
+        rows = slots[seg_c[toks]]
+        cols = positions[toks].to(torch.int64)
+
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["attn"]["ln"])
+        kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
+        for key, new in (("k", kk), ("v", vv)):
+            dst = cache[key][i]
+            dst[rows, cols] = new[0, toks].to(dst.dtype)
+        x = _decoder_block(x, lp, cfg, ctx, positions, segments=segments)
+
+    # document d's last real token sits where segments == d AND positions ==
+    # doc_lens[d] - 1
+    match = (segments[None, :] == torch.arange(k_docs, device=dev)[:, None]) & (
+        positions[None, :] == (doc_lens - 1)[:, None]
+    )
+    last_idx = match.to(torch.int32).argmax(dim=1)  # [k]
+    logits = _logits(x[0, last_idx], params, cfg)  # [k, V]
+    cache["pos"][slots] = doc_lens.to(torch.int32)
+    return logits, cache

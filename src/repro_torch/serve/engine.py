@@ -1,0 +1,519 @@
+"""Continuous-batching serving engine over the KV cache (the one-shot-prefill
+engine of ``repro/serve/engine.py``, in PyTorch).
+
+The engine owns a fixed pool of ``num_slots`` cache rows -- dense, or a paged
+pool with block tables -- allocated ONCE at construction on the device of
+``ctx.device`` (the card by default).  Each ``step()`` is one tick:
+
+  * **admission**: ``serve/scheduler.py`` assigns free slots to arrived
+    requests (paged: the allocator books the request's pages first);
+  * **prefill**: same-tick admissions pack into shared bucket rows under a
+    segment mask (``pack_prefill``), or each prompt is prefilled alone,
+    right-padded to its bucket; the first token comes off the prefill logits;
+  * **decode**: ONE ``decode_step`` advances every decodable slot at its own
+    depth (per-slot ``pos``);
+  * **retire**: EOS / max-token checks free the slot, and the per-slot NaN
+    guard retires only a slot whose logits are not finite.
+
+PyTorch runs eagerly, so there are no traces to count; the cache is updated
+in place.  Not ported yet: continuous (chunked) prefill, speculative decode,
+the quantized pool, oversubscription with preemption, and the chaos
+injector -- ``ServeConfig`` and the constructor raise for them.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.parallel.context import ParallelCtx
+from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.kv_pool import PageAllocator, PagedLayout
+from repro_torch.serve.scheduler import Request, RequestResult, Scheduler, default_buckets
+
+__all__ = ["ServeEngine"]
+
+
+class ServeEngine:
+    """Slot-based continuous-batching engine: ``submit()`` requests,
+    ``step()`` ticks, ``run()`` drains; ``generate(prompts, n)`` is the
+    static-batch wrapper (greedy, exactly n tokens per row)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        ctx: Optional[ParallelCtx] = None,
+        *,
+        serve: Optional[ServeConfig] = None,
+        chaos=None,
+    ):
+        if chaos is not None:
+            raise NotImplementedError("the chaos fault injector is not ported yet")
+        tfm.check_supported(cfg)
+        serve = serve or ServeConfig()
+        self.serve = serve
+        self.cfg = cfg
+        self.ctx = ctx or ParallelCtx()
+        if serve.decode_kernel != "auto":
+            # "band" is the dense spelling of the non-native path
+            kernel = "gather" if serve.decode_kernel == "band" else serve.decode_kernel
+            self.ctx = ParallelCtx(
+                sp_size=self.ctx.sp_size, block_q=self.ctx.block_q,
+                block_kv=self.ctx.block_kv, decode_kernel=kernel, device=self.ctx.device,
+            )
+        self.device = resolve_device(self.ctx.device)
+        embed = params["embed"]
+        if embed.device.type != self.device.type:
+            raise ValueError(
+                f"params live on {embed.device} but the engine runs on {self.device}"
+            )
+        if embed.dtype != serve.cache_dtype:
+            raise ValueError(
+                f"cache_dtype {serve.cache_dtype} must match the params' dtype {embed.dtype} "
+                "(the attention kernels take one input type)"
+            )
+        self.params = params
+        self.max_seq = serve.max_seq
+        self.num_slots = serve.num_slots
+        self.eos_id = serve.eos_id
+        self.pack_plan = serve.pack_plan
+        n = self.ctx.sp_size
+        self.paged = serve.paged
+        self.allocator: Optional[PageAllocator] = None
+        if serve.paged:
+            layout = PagedLayout.for_engine(
+                serve.max_seq, n, serve.num_slots,
+                page_size=serve.page_size, num_pages=serve.num_pages,
+            )
+            self.allocator = PageAllocator(layout)
+        self._native_decode = (
+            dispatch._resolve_decode_kernel(self.ctx.decode_kernel, paged=serve.paged) == "native"
+        )
+        buckets = (
+            tuple(serve.prefill_buckets)
+            if serve.prefill_buckets
+            else default_buckets(serve.max_seq, n)
+        )
+        self.scheduler = Scheduler(self.num_slots, buckets, self.max_seq, allocator=self.allocator)
+        self.pack_max = max(1, serve.pack_max)
+        self._can_pack = serve.pack_prefill
+        # THE cache: allocated once, updated in place for the engine's lifetime
+        self._cache = tfm.init_cache(
+            cfg, self.num_slots, self.max_seq, dtype=serve.cache_dtype, ctx=self.ctx,
+            paged=self.allocator.layout if self.allocator else None,
+        )
+        self._cur = np.zeros((self.num_slots, 1), np.int32)  # last token per slot
+        self._depth = np.zeros((self.num_slots,), np.int64)  # host view of pos
+        self._bt_version = -1  # device block table staleness marker
+        self.bt_uploads = 0  # version-gated block-table uploads
+        self._tick = 0
+        self._finished: Dict[int, RequestResult] = {}
+        # launch accounting: the pack planner's padded-prefill cost is
+        # launches x bucket tokens
+        self.prefill_launches = 0
+        self.prefill_launch_tokens = 0
+        # per-tick series: prompt tokens ingested vs tokens generated, and the
+        # host wall time of each tick's prefill and decode phases (each phase
+        # ends by reading its tokens back, so the clock covers the device work)
+        self.tick_prefill_tokens: List[int] = []
+        self.tick_decode_tokens: List[int] = []
+        self.tick_prefill_s: List[float] = []
+        self.tick_decode_s: List[float] = []
+        # debug logit capture (set before the first tick): every generated
+        # token's full logits row per rid
+        self.capture_logits = False
+        self.debug_logits: Dict[int, List[np.ndarray]] = {}
+        self.nan_guard = serve.nan_guard
+        self.health_every = serve.health_every
+        self.cancelled = 0
+        self.deadline_expired = 0
+        self.numeric_errors = 0
+        self.rejected_requests = 0
+        self.health_sweeps = 0
+
+    # -- device helpers -----------------------------------------------------
+
+    def _to_device(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array)).to(self.device)
+
+    def _sync_block_table(self):
+        """Upload the allocator's block table when it moved since last sync."""
+        if self.allocator is None or self.allocator.version == self._bt_version:
+            return
+        self._cache["bt"] = self._to_device(self.allocator.device_table(self.num_slots))
+        self._bt_version = self.allocator.version
+        self.bt_uploads += 1
+
+    # -- streaming API ------------------------------------------------------
+
+    def submit(
+        self, prompt: np.ndarray, max_new_tokens: int = 16, arrival_tick: int = 0,
+        *, deadline_ticks: Optional[int] = None, priority: int = 0,
+    ) -> int:
+        """Queue one request; returns its rid.  ``arrival_tick`` defers
+        admission until the engine clock reaches it (trace replay)."""
+        req = self.scheduler.submit(
+            prompt, max_new_tokens, arrival_tick,
+            deadline_ticks=deadline_ticks, priority=priority,
+        )
+        return req.rid
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    def _finish(self, slot: int, status: str = "ok") -> RequestResult:
+        req = self.scheduler.retire(slot, self._tick, status=status)
+        freed: List[int] = []
+        if self.allocator is not None:
+            freed = self.allocator.free_slot(slot)
+        if status == "numeric_error":
+            self._scrub_numeric(slot, freed)
+        result = RequestResult.from_request(req)
+        self._finished[req.rid] = result
+        return result
+
+    def _scrub_numeric(self, slot: int, freed: List[int]) -> None:
+        """Zero a numeric_error slot's K/V before the data can be re-read:
+        a masked-out key's score is replaced, but its NaN value would still
+        meet a zero weight in P·V, and 0 * NaN is NaN.  Shared pages (still
+        referenced) hold live prefix data and are left alone."""
+        if self.allocator is not None:
+            if not freed:
+                return
+            idx = torch.as_tensor(freed, dtype=torch.int64, device=self.device)
+            for key in ("k", "v"):
+                self._cache[key][:, idx] = 0
+        else:
+            for key in ("k", "v"):
+                self._cache[key][:, slot] = 0
+
+    def _finish_queued(self, req: Request) -> RequestResult:
+        """Terminal path for a request that never held a slot."""
+        req.finish_tick = self._tick
+        result = RequestResult.from_request(req)
+        self._finished[req.rid] = result
+        return result
+
+    def cancel(self, rid: int) -> Optional[RequestResult]:
+        """Cancel a live request (queued or mid-flight); frees its slot and
+        pages at once, partial tokens kept (status ``"cancelled"``).  None if
+        the rid is not in flight."""
+        req = self.scheduler.cancel_queued(rid)
+        if req is not None:
+            self.cancelled += 1
+            return self._finish_queued(req)
+        req = self.scheduler.find(rid)
+        if req is None or req.slot is None:
+            return None
+        self.cancelled += 1
+        return self._finish(req.slot, status="cancelled")
+
+    def health(self) -> Dict[str, object]:
+        """Invariant sweep (allocator refcounts / free list + slot
+        cross-checks); raises on any violation, else returns a summary."""
+        self.health_sweeps += 1
+        problems: List[str] = []
+        if self.allocator is not None:
+            problems += self.allocator.check_invariants()
+            for slot in self.allocator._slot_pages:
+                if not (0 <= slot < self.num_slots):
+                    problems.append(f"allocator holds pages for bad slot {slot}")
+                elif self.scheduler.slots[slot] is None:
+                    problems.append(
+                        f"orphaned slot {slot}: holds "
+                        f"{self.allocator.slot_pages(slot)} pages but no request"
+                    )
+            for slot, req in enumerate(self.scheduler.slots):
+                if req is not None and self.allocator.slot_pages(slot) == 0:
+                    problems.append(f"slot {slot} (rid {req.rid}) active without pages")
+        if problems:
+            raise RuntimeError(
+                "engine.health() invariant sweep failed:\n  " + "\n  ".join(problems)
+            )
+        out = {
+            "ok": True,
+            "tick": self._tick,
+            "active_slots": len(self.scheduler.active_slots()),
+            "queued": self.scheduler.pending,
+        }
+        if self.allocator is not None:
+            out.update(
+                pages_in_use=self.allocator.pages_in_use,
+                pages_reserved=self.allocator.pages_reserved,
+            )
+        return out
+
+    def _req_done(self, req: Request, tok: int) -> bool:
+        if self.eos_id is not None and tok == self.eos_id:
+            return True
+        return len(req.generated) >= req.max_new_tokens
+
+    def _alloc_pages(self, slot: int, req: Request) -> int:
+        """Paged admission: claim (or prefix-share) the slot's pages; returns
+        the shared-prefix length the prefill scatter must skip."""
+        return self.allocator.alloc_slot(slot, req.prompt, req.max_new_tokens).shared_len
+
+    def _prefill_single(self, slot: int, req: Request) -> int:
+        """One request alone in a bucket-padded row; returns its first token."""
+        plen = len(req.prompt)
+        bucket = self.scheduler.bucket_for(plen)
+        self.prefill_launches += 1
+        self.prefill_launch_tokens += bucket
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :plen] = req.prompt
+        batch = {
+            "tokens": self._to_device(toks),
+            "positions": torch.arange(bucket, dtype=torch.int32, device=self.device),
+            "length": torch.tensor([plen]),
+        }
+        if self.paged:
+            batch["slot"] = slot
+            batch["shared_len"] = self._alloc_pages(slot, req)
+            self._sync_block_table()
+            logits, self._cache = tfm.prefill(self.params, self.cfg, self.ctx, batch, self._cache)
+        else:
+            # prefill straight into the slot's row: a view of the pool cache
+            row = {
+                "k": self._cache["k"][:, slot : slot + 1],
+                "v": self._cache["v"][:, slot : slot + 1],
+                "pos": torch.zeros((1,), dtype=torch.int32, device=self.device),
+            }
+            logits, _ = tfm.prefill(self.params, self.cfg, self.ctx, batch, row)
+            self._cache["pos"][slot] = plen
+        if self.capture_logits:
+            self.debug_logits.setdefault(req.rid, []).append(logits[0, 0].float().cpu().numpy())
+        self._depth[slot] = plen
+        return int(torch.argmax(logits[0, 0]))
+
+    def _prefill_group(self, group) -> List[int]:
+        """Packed prefill: the group's prompts concatenate into one bucket
+        row under a segment mask; each document's K/V lands in its own slot.
+        Returns the first generated token per request."""
+        lens = [len(req.prompt) for _, req in group]
+        bucket = self.scheduler.bucket_for(sum(lens))
+        self.prefill_launches += 1
+        self.prefill_launch_tokens += bucket
+        k = len(group)
+        toks = np.zeros((1, bucket), np.int32)
+        off = 0
+        for (_, req), ln in zip(group, lens):
+            toks[0, off : off + ln] = req.prompt
+            off += ln
+        shared = [self._alloc_pages(slot, req) if self.paged else 0 for slot, req in group]
+        self._sync_block_table()
+        # segment id and per-document position of every row index; pads get
+        # id k, which matches no document
+        j = np.arange(bucket)
+        cum = np.cumsum(lens)
+        starts = np.concatenate([[0], cum[:-1]])
+        seg = np.sum(j[:, None] >= starts[None, :], axis=1) - 1
+        seg = np.where(j >= cum[-1], k, seg)
+        positions = j - starts[np.clip(seg, 0, k - 1)]
+        batch = {
+            "tokens": self._to_device(toks),
+            "positions": self._to_device(positions.astype(np.int32)),
+            "segments": self._to_device(seg.astype(np.int32)),
+            "doc_lens": self._to_device(np.asarray(lens, np.int64)),
+            "slots": self._to_device(np.asarray([slot for slot, _ in group], np.int64)),
+        }
+        if self.paged:
+            batch["shared_lens"] = self._to_device(np.asarray(shared, np.int64))
+        logits, self._cache = tfm.prefill_packed(
+            self.params, self.cfg, self.ctx, batch, self._cache
+        )
+        if self.capture_logits:
+            rows = logits.float().cpu().numpy()
+            for d, (_, req) in enumerate(group):
+                self.debug_logits.setdefault(req.rid, []).append(rows[d])
+        for (slot, _), ln in zip(group, lens):
+            self._depth[slot] = ln
+        return [int(t) for t in torch.argmax(logits, dim=-1).cpu()]
+
+    def _record_first_token(self, slot: int, req: Request, tok: int, finished) -> None:
+        req.generated.append(tok)
+        req.token_ticks.append(self._tick)
+        if req.first_token_tick is None:
+            req.first_token_tick = self._tick
+        self._cur[slot, 0] = tok
+        if self._req_done(req, tok):
+            finished.append(self._finish(slot))
+
+    def _apply_copies(self, copies) -> None:
+        """Copy-on-write: physical page src -> dst in every layer's pool."""
+        if not copies:
+            return
+        src = torch.as_tensor([s for s, _ in copies], dtype=torch.int64, device=self.device)
+        dst = torch.as_tensor([d for _, d in copies], dtype=torch.int64, device=self.device)
+        for key in ("k", "v"):
+            pool = self._cache[key]  # [L, num_pages, page_size, Hkv, D]
+            pool[:, dst] = pool[:, src]
+
+    def _vanilla_decode_tick(self, decodable, finished) -> int:
+        """One decode launch over every decodable slot; returns tokens
+        generated this tick."""
+        if self.paged:
+            # make every decodable slot's write position appendable:
+            # allocate tail pages on page boundaries, CoW shared tails
+            copies = []
+            for slot in decodable:
+                cp = self.allocator.ensure_append(slot, int(self._depth[slot]))
+                if cp is not None:
+                    copies.append(cp)
+            self._apply_copies(copies)
+            self._sync_block_table()
+        nxt, self._cache, logits = tfm.decode_step(
+            self.params, self._cache, self._to_device(self._cur), self.cfg, self.ctx
+        )
+        ok = torch.isfinite(logits).all(dim=2).all(dim=1)
+        nxt_np = nxt.cpu().numpy()
+        ok_np = ok.cpu().numpy()
+        logits_np = logits.float().cpu().numpy() if self.capture_logits else None
+        tokens = 0
+        for slot in decodable:
+            req = self.scheduler.slots[slot]
+            if self.nan_guard and not bool(ok_np[slot]):
+                # non-finite logits: retire ONLY this slot; every other row
+                # came off the same launch unaffected (rows are independent)
+                self.numeric_errors += 1
+                finished.append(self._finish(slot, status="numeric_error"))
+                continue
+            self._depth[slot] += 1
+            tok = int(nxt_np[slot, 0])
+            if logits_np is not None:
+                self.debug_logits.setdefault(req.rid, []).append(logits_np[slot, 0])
+            req.generated.append(tok)
+            req.token_ticks.append(self._tick)
+            tokens += 1
+            self._cur[slot, 0] = tok
+            if self._req_done(req, tok):
+                finished.append(self._finish(slot))
+        return tokens
+
+    @torch.no_grad()
+    def step(self) -> List[RequestResult]:
+        """One engine tick: lifecycle expiry, admission + prefill, then one
+        decode over every decodable slot.  Returns requests finished this
+        tick."""
+        finished: List[RequestResult] = []
+        prefill_tokens = 0
+        decode_tokens = 0
+        for req in self.scheduler.take_expired(self._tick):
+            self.deadline_expired += 1
+            finished.append(self._finish_queued(req))
+        for slot, req in enumerate(self.scheduler.slots):
+            if (
+                req is not None
+                and req.deadline_ticks is not None
+                and self._tick - req.arrival_tick >= req.deadline_ticks
+            ):
+                self.deadline_expired += 1
+                finished.append(self._finish(slot, status="deadline"))
+        t0 = time.perf_counter()
+        assigned = self.scheduler.admit(self._tick)
+        for req in self.scheduler.take_rejected():
+            self.rejected_requests += 1
+            finished.append(self._finish_queued(req))
+        if self._can_pack:
+            groups = self.scheduler.pack_groups(
+                assigned, pack_max=self.pack_max, plan=self.pack_plan
+            )
+        else:
+            groups = [[x] for x in assigned]
+        for group in groups:
+            if self._can_pack:
+                firsts = self._prefill_group(group)
+            else:
+                firsts = [self._prefill_single(slot, req) for slot, req in group]
+            for tok, (slot, req) in zip(firsts, group):
+                prefill_tokens += len(req.prompt)
+                decode_tokens += 1  # first token off the prefill logits
+                self._record_first_token(slot, req, tok, finished)
+        t1 = time.perf_counter()
+        decodable = self.scheduler.active_slots()
+        if decodable:
+            decode_tokens += self._vanilla_decode_tick(decodable, finished)
+        t2 = time.perf_counter()
+        self.tick_prefill_tokens.append(prefill_tokens)
+        self.tick_decode_tokens.append(decode_tokens)
+        self.tick_prefill_s.append(t1 - t0)
+        self.tick_decode_s.append(t2 - t1 if decodable else 0.0)
+        self._tick += 1
+        if self.health_every and self._tick % self.health_every == 0:
+            self.health()
+        return finished
+
+    def run(self) -> Dict[int, RequestResult]:
+        """Drain the queue; returns {rid: RequestResult}."""
+        while self.has_work:
+            self.step()
+        return dict(self._finished)
+
+    def tick_stats(self) -> Dict[str, object]:
+        """Per-tick series: prompt tokens ingested vs tokens generated, and
+        the host wall seconds of each tick's prefill and decode phases."""
+        return {
+            "ticks": self._tick,
+            "prefill_tokens": list(self.tick_prefill_tokens),
+            "decode_tokens": list(self.tick_decode_tokens),
+            "prefill_s": list(self.tick_prefill_s),
+            "decode_s": list(self.tick_decode_s),
+        }
+
+    def kv_cache_stats(self) -> Dict[str, float]:
+        """Attention-cache memory accounting.  Dense: bytes are fixed at
+        ``num_slots x max_seq``.  Paged: the pool reservation plus the
+        allocator's peak usage and sharing/CoW counters."""
+        cfg = self.cfg
+        lifecycle = {
+            "cancelled": float(self.cancelled),
+            "deadline_expired": float(self.deadline_expired),
+            "numeric_errors": float(self.numeric_errors),
+            "rejected_requests": float(self.rejected_requests),
+            "health_sweeps": float(self.health_sweeps),
+        }
+        k, v = self._cache["k"], self._cache["v"]
+        per_tok = cfg.num_layers * k.shape[-2] * (k.shape[-1] + v.shape[-1]) * k.element_size()
+        if self.allocator is None:
+            return {
+                "paged": 0,
+                "cache_bytes": float(self.num_slots * self.max_seq * per_tok),
+                **lifecycle,
+            }
+        lay = self.allocator.layout
+        stats = self.allocator.stats()
+        return {
+            "paged": 1,
+            "page_size": lay.page_size,
+            "chunk_tokens": lay.chunk,
+            "num_pages": lay.num_pages,
+            "cache_bytes": float(lay.num_pages * lay.chunk * per_tok),
+            "peak_page_bytes": float(stats["peak_in_use"] * lay.chunk * per_tok),
+            "bt_uploads": float(self.bt_uploads),
+            **{key: float(val) for key, val in stats.items()},
+            **lifecycle,
+        }
+
+    # -- static-batch API ---------------------------------------------------
+
+    def generate(self, prompts: np.ndarray, max_new_tokens: int = 16) -> np.ndarray:
+        """prompts: [B, S0] int32 -> [B, max_new_tokens] greedy tokens; B
+        requests arrive at once and are served by the slot pool (in waves
+        when B > num_slots)."""
+        prompts = np.asarray(prompts, np.int32)
+        rids = [self.submit(prompts[i], max_new_tokens, self._tick) for i in range(len(prompts))]
+        self.run()
+        out = []
+        for rid in rids:
+            row = self._finished.pop(rid).generated[:max_new_tokens]
+            row = row + [self.eos_id or 0] * (max_new_tokens - len(row))
+            out.append(row)
+        return np.asarray(out, np.int32)

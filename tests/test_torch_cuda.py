@@ -1,0 +1,210 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips on hosts without CUDA (the
+``cuda`` marker).  This file imports neither JAX nor ``repro``: it runs on
+the machine with the card, where JAX is not installed.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_decode as pk
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+# (atol, rtol) of o.  fp32: the kernel and the plain version both sum in
+# fp32, in another order; bf16: o is rounded to bf16 on output, and one ulp
+# is at most 2**-7 of the value
+TOLS = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2**-7)}
+# lse is fp32 for either input type
+LSE_TOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, *shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+FLASH_CASES = {
+    # name: (B, Sq, Skv, H, Hkv, D, band, stride_q, stride_kv, segments)
+    "full": (2, 64, 96, 4, 2, 32, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
+    "causal_ragged": (1, 100, 100, 4, 1, 64, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+    "striped": (1, 128, 128, 8, 2, 128, (1, 0, 0, ref.BAND_INF), 2, 2, False),
+    "window": (1, 160, 160, 4, 4, 128, (0, 0, 0, 31), 1, 1, False),
+    "segments": (1, 96, 96, 4, 2, 64, (0, 0, 0, ref.BAND_INF), 1, 1, True),
+    "hidden_rows": (1, 64, 64, 2, 2, 32, (0, 40, 0, ref.BAND_INF), 1, 1, False),
+    "decode_row": (3, 1, 200, 8, 2, 128, (150, 0, 0, ref.BAND_INF), 1, 1, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_fwd_matches_plain(dev, case, dtype):
+    B, Sq, Skv, H, Hkv, D, band, sq, skv, seg = FLASH_CASES[case]
+    rng = np.random.default_rng(7)
+    q = _randn(rng, B, Sq, H, D, dtype=dtype, dev=dev)
+    k = _randn(rng, B, Skv, Hkv, D, dtype=dtype, dev=dev)
+    v = _randn(rng, B, Skv, Hkv, D, dtype=dtype, dev=dev)
+    kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv)
+    if seg:
+        ids = np.sort(rng.integers(0, 4, Sq)).astype(np.int32)
+        kw["seg_q"] = kw["seg_kv"] = torch.from_numpy(ids).to(dev)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, band, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    o_ref, lse_ref = ref.attention_ref(q, k, v, band=band, **kw)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+    # empty rows: exactly o = 0 and lse = NEG_INF
+    assert torch.equal(lse[~live], lse_ref[~live])
+    assert torch.all(o.transpose(1, 2)[~live] == 0)
+    if case == "hidden_rows":
+        assert (~live).any()
+
+
+def test_flash_fwd_per_row_band(dev):
+    """[B, 4] bands: every batch row at its own depth in one launch (the
+    dense-cache decode step)."""
+    rng = np.random.default_rng(3)
+    B, Skv, H, Hkv, D = 4, 300, 8, 2, 128
+    q = _randn(rng, B, 1, H, D, dtype=torch.float32, dev=dev)
+    k = _randn(rng, B, Skv, Hkv, D, dtype=torch.float32, dev=dev)
+    v = _randn(rng, B, Skv, Hkv, D, dtype=torch.float32, dev=dev)
+    pos = torch.tensor([0, 17, 299, 5000], dtype=torch.int32, device=dev)
+    band = torch.stack([pos, 0 * pos, 0 * pos, 0 * pos + 63], dim=1)
+    o, lse = fa.flash_attention_fwd(q, k, v, band, scale=D**-0.5)
+    o_ref, lse_ref = ref.attention_ref(
+        q, k, v, scale=D**-0.5, band=tuple(band[:, i] for i in range(4))
+    )
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+
+
+def _pool(rng, depths, page_size, max_pages, hkv, d, dtype, dev, holes=False):
+    """Random block tables over a shuffled pool: pages past a row's depth stay
+    -1, unwritten page tails hold garbage the kernel must not see."""
+    B = len(depths)
+    num_pages = B * max_pages + 3
+    perm = rng.permutation(num_pages)
+    bt = np.full((B, max_pages), -1, np.int32)
+    nxt = 0
+    for b, depth in enumerate(depths):
+        for lp in range(-(-depth // page_size)):
+            if holes and lp == 1:
+                continue  # an unallocated page inside the visible range
+            bt[b, lp] = perm[nxt]
+            nxt += 1
+    k_pool = _randn(rng, num_pages, page_size, hkv, d, dtype=dtype, dev=dev) * 3
+    v_pool = _randn(rng, num_pages, page_size, hkv, d, dtype=dtype, dev=dev)
+    return k_pool, v_pool, torch.from_numpy(bt).to(dev)
+
+
+PAGED_CASES = {
+    # name: (depths, page_size, H, Hkv, D, stride_kv, kv_off, window, num_splits, holes)
+    "granite_like": ((37, 1, 250, 16, 0, 129), 16, 32, 8, 128, 1, 0, None, None, False),
+    "one_token_pages": ((5, 9, 2), 1, 4, 2, 32, 1, 0, None, 3, False),
+    "big_pages": ((70, 200, 33), 48, 8, 8, 64, 1, 0, None, 2, False),
+    "striped_window": ((30, 64, 11), 4, 16, 4, 128, 2, 1, 24, None, False),
+    "holes": ((40, 45), 8, 8, 2, 64, 1, 0, None, None, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_decode_matches_plain(dev, case, dtype):
+    depths, ps, H, Hkv, D, stride, kv_off, window, splits, holes = PAGED_CASES[case]
+    rng = np.random.default_rng(11)
+    max_pages = -(-max(depths) // ps) + 1
+    k_pool, v_pool, bt = _pool(rng, depths, ps, max_pages, Hkv, D, dtype, dev, holes)
+    B = len(depths)
+    q = _randn(rng, B, 1, H, D, dtype=dtype, dev=dev)
+    # the last visible local slot of each row is depth - 1 (depth 0: empty row)
+    pos = torch.tensor(
+        [kv_off + stride * (d - 1) if d else -1 for d in depths], dtype=torch.int32, device=dev
+    )
+    kw = dict(stride_kv=stride, window=window)
+    before = pk.paged_flash_decode.launches
+    o, lse = pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, kv_off, num_splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert pk.paged_flash_decode.launches == before + 1
+    o_ref, lse_ref = pk.paged_decode_ref(q, k_pool, v_pool, bt, pos, kv_off, **kw)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+    assert torch.equal(lse[~live], lse_ref[~live])
+    assert torch.all(o[:, 0][~live[..., 0]] == 0)
+
+
+def test_combine_all_empty_rows_exact(dev):
+    o_parts = torch.randn(2, 3, 4, 32, device=dev)
+    lse_parts = torch.full((2, 3, 4), ref.NEG_INF, device=dev)
+    o, lse = pk.combine_split_partials(o_parts, lse_parts)
+    assert torch.all(o == 0) and torch.all(lse == ref.NEG_INF)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_dense_decode_native_and_band_match_plain(dev, window):
+    """The dense cache through the split-K kernel (identity block table) and
+    through the band kernel agree with the CPU plain versions."""
+    from repro_torch.core import decode_attention as da
+
+    rng = np.random.default_rng(9)
+    B, m, H_, Hkv, D_ = 3, 48, 8, 2, 64
+    q = _randn(rng, B, 1, H_, D_, dtype=torch.float32, dev=dev)
+    kc = _randn(rng, B, m, Hkv, D_, dtype=torch.float32, dev=dev)
+    vc = _randn(rng, B, m, Hkv, D_, dtype=torch.float32, dev=dev)
+    pos = torch.tensor([0, 20, 47], dtype=torch.int32, device=dev)
+    want = da.sharded_cache_decode(q.cpu(), kc.cpu(), vc.cpu(), pos.cpu(), None, 1, window=window)
+    for kernel in ("band", "native"):
+        got = da.sharded_cache_decode(q, kc, vc, pos, None, 1, window=window, kernel=kernel)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("pack", [True, False], ids=["packed", "single"])
+def test_engine_on_card_matches_cpu(dev, paged, pack):
+    """Reduced granite-8b, fp32: the engine on the card (kernels) and on the
+    CPU (plain versions) serve identical greedy streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("granite-8b").reduced()
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = {k: val.to(dev) for k, val in params.items() if k != "layers"}
+    on_card["layers"] = {
+        g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in params["layers"].items()
+    }
+    serve = ServeConfig(max_seq=64, num_slots=3, paged=paged, page_size=4 if paged else None,
+                        pack_prefill=pack)
+    rng = np.random.default_rng(0)
+    trace = [(5, 0), (19, 0), (11, 1), (30, 3)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n, _ in trace]
+    streams = {}
+    for name, p, device in (("card", on_card, "cuda"), ("cpu", params, "cpu")):
+        eng = ServeEngine(cfg, p, ParallelCtx(device=device), serve=serve)
+        rids = [eng.submit(x, 6, arrival_tick=t) for x, (_, t) in zip(prompts, trace)]
+        done = eng.run()
+        streams[name] = [done[r].generated for r in rids]
+        if paged:
+            assert eng.kv_cache_stats()["pages_in_use"] == 0
+    assert streams["card"] == streams["cpu"]

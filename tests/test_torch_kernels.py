@@ -1,0 +1,309 @@
+"""The port's kernels (plain PyTorch versions, as they run on the CPU) against
+the JAX package's Pallas kernels in interpret mode and its jnp oracles.
+
+Inputs come from numpy with a fixed seed and go through both packages.  The
+tolerances are the JAX kernel tests' own: 2e-5 for the flash forward
+(tests/test_kernels.py), ``_TOLS["fp"] = (2e-5, 1e-5)`` for the paged decode
+(tests/test_paged_decode.py).  The CUDA kernels themselves are held against
+these plain versions on the card (tests/test_torch_cuda.py).
+"""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import decode_attention as jda
+from repro.kernels import flash_attention as jfa
+from repro.kernels import paged_decode as jpk
+from repro.kernels import ref as jref
+from repro_torch.core import decode_attention as tda
+from repro_torch.core import dispatch as tdispatch
+from repro_torch.core.masking import MaskSpec
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_decode as tpk
+from repro_torch.kernels import ref as tref
+from repro_torch.parallel.context import ParallelCtx
+
+INF = jref.BAND_INF
+FWD_TOL = 2e-5
+PAGED_ATOL, PAGED_RTOL = 2e-5, 1e-5
+
+
+def _np(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _both(x):
+    return jnp.asarray(x), torch.from_numpy(np.array(x))
+
+
+BANDS = {
+    # name: (band, stride_q, stride_kv, segments)
+    "full": ((0, 0, -INF, INF), 1, 1, False),
+    "causal": ((0, 0, 0, INF), 1, 1, False),
+    "striped": ((1, 0, 0, INF), 2, 2, False),  # stride-2 stripes, chunk 1 vs 0
+    "window": ((0, 0, 0, 7), 1, 1, False),
+    "segment": ((0, 0, 0, INF), 1, 1, True),
+    "empty_rows": ((0, 8, 0, INF), 1, 1, False),  # rows 0..7 see nothing
+}
+SHAPES = [
+    (1, 32, 32, 2, 2, 16),  # MHA
+    (2, 32, 16, 4, 1, 8),  # GQA 4:1, rectangular
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["mha", "gqa"])
+@pytest.mark.parametrize("name", list(BANDS))
+def test_attention_ref_matches_pallas_and_jnp(name, shape):
+    B, Sq, Skv, H, Hkv, D = shape
+    band, sq, skv, seg = BANDS[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    qj, qt = _both(_np(rng, B, Sq, H, D))
+    kj, kt = _both(_np(rng, B, Skv, Hkv, D))
+    vj, vt = _both(_np(rng, B, Skv, Hkv, D))
+    jkw, tkw = {}, {}
+    if seg:
+        ids_q = np.sort(rng.integers(0, 3, Sq)).astype(np.int32)
+        ids_k = np.sort(rng.integers(0, 3, Skv)).astype(np.int32)
+        jkw = dict(seg_q=jnp.asarray(ids_q), seg_kv=jnp.asarray(ids_k))
+        tkw = dict(seg_q=torch.from_numpy(ids_q), seg_kv=torch.from_numpy(ids_k))
+    scale = D**-0.5
+    o_t, lse_t = tref.attention_ref(
+        qt, kt, vt, scale=scale, band=band, stride_q=sq, stride_kv=skv, **tkw
+    )
+    o_p, lse_p = jfa.flash_attention_fwd(
+        qj, kj, vj, jnp.asarray(band, jnp.int32), scale=scale, stride_q=sq, stride_kv=skv,
+        block_q=16, block_kv=16 if Skv >= 16 else Skv, interpret=True, **jkw,
+    )
+    o_r, lse_r = jref.attention_ref(
+        qj, kj, vj, scale=scale, band=band, stride_q=sq, stride_kv=skv, **jkw
+    )
+    for o_j, lse_j in ((o_p, lse_p), (o_r, lse_r)):
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=FWD_TOL, rtol=FWD_TOL)
+        np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=FWD_TOL, rtol=FWD_TOL)
+    if name == "empty_rows":
+        assert np.all(lse_t.numpy()[..., :8] == tref.NEG_INF)
+        assert np.all(o_t.numpy()[:, :8] == 0)
+    # the kernel wrapper takes the plain version for CPU tensors
+    o_w, lse_w = tfa.flash_attention_fwd(
+        qt, kt, vt, band, scale=scale, stride_q=sq, stride_kv=skv, **tkw
+    )
+    assert torch.equal(o_w, o_t) and torch.equal(lse_w, lse_t)
+
+
+def test_per_row_band_matches_rowwise_jnp():
+    """A [B, 4] band (the dense decode step's one launch for every slot)
+    equals the JAX row-by-row band calls."""
+    rng = np.random.default_rng(0)
+    B, Skv, H, Hkv, D = 3, 24, 4, 2, 16
+    q, k, v = _np(rng, B, 1, H, D), _np(rng, B, Skv, Hkv, D), _np(rng, B, Skv, Hkv, D)
+    pos = np.array([0, 9, 23], np.int32)
+    band = torch.stack([torch.from_numpy(pos)] + [torch.zeros(B, dtype=torch.int32)] * 2
+                       + [torch.full((B,), 5, dtype=torch.int32)], dim=1)
+    o_t, lse_t = tops.block_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), band
+    )
+    for b in range(B):
+        o_j, lse_j = jref.attention_ref(
+            jnp.asarray(q[b : b + 1]), jnp.asarray(k[b : b + 1]), jnp.asarray(v[b : b + 1]),
+            band=(int(pos[b]), 0, 0, 5),
+        )
+        np.testing.assert_allclose(o_t[b : b + 1].numpy(), np.asarray(o_j), atol=FWD_TOL, rtol=FWD_TOL)
+        np.testing.assert_allclose(lse_t[b : b + 1].numpy(), np.asarray(lse_j), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 5)])
+def test_flash_attention_op_matches_jax(causal, window):
+    rng = np.random.default_rng(1)
+    qj, qt = _both(_np(rng, 1, 20, 4, 8))
+    kj, kt = _both(_np(rng, 1, 20, 2, 8))
+    vj, vt = _both(_np(rng, 1, 20, 2, 8))
+    from repro.kernels import ops as jops
+
+    o_t = tops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    o_j = jops.flash_attention(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+def test_flash_attention_backward_is_not_ported():
+    q = torch.randn(1, 8, 2, 8, requires_grad=True)
+    k = torch.randn(1, 8, 2, 8)
+    o = tops.flash_attention(q, k, k, causal=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        o.sum().backward()
+
+
+def test_combine_partials_matches_jax():
+    rng = np.random.default_rng(2)
+    o1, o2 = _np(rng, 2, 4, 3, 8), _np(rng, 2, 4, 3, 8)
+    l1, l2 = _np(rng, 2, 3, 4), _np(rng, 2, 3, 4)
+    l2[0, 0, :] = tref.NEG_INF  # one empty partial
+    ot, lt = tref.combine_partials(*(torch.from_numpy(x) for x in (o1, l1, o2, l2)))
+    oj, lj = jref.combine_partials(*(jnp.asarray(x) for x in (o1, l1, o2, l2)))
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-6, rtol=1e-6)
+
+
+def test_combine_split_partials_matches_jax_and_empty_guard():
+    rng = np.random.default_rng(3)
+    o_parts, lse_parts = _np(rng, 3, 4, 2, 8), _np(rng, 3, 4, 2)
+    lse_parts[1, 2] = tref.NEG_INF  # one empty split
+    lse_parts[2] = tref.NEG_INF  # an all-empty row
+    ot, lt = tpk.combine_split_partials(torch.from_numpy(o_parts), torch.from_numpy(lse_parts))
+    oj, lj = jpk.combine_split_partials(jnp.asarray(o_parts), jnp.asarray(lse_parts))
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-6, rtol=1e-6)
+    assert np.all(ot.numpy()[2] == 0) and np.all(lt.numpy()[2] == tref.NEG_INF)
+
+
+def test_dense_chunk_and_splits_match_jax():
+    for m in (1, 6, 16, 48, 96, 128, 2048):
+        assert tpk.dense_chunk_for(m) == jpk.dense_chunk_for(m)
+    for mp in (1, 3, 4, 5, 128):
+        assert tpk.default_num_splits(mp) == jpk.default_num_splits(mp)
+
+
+def _paged_case(rng, depths, page_size, hkv, d, holes=False):
+    """Shuffled pool, -1 past each row's depth; unwritten page tails hold
+    large garbage the decode must not see."""
+    B = len(depths)
+    max_pages = -(-max(depths) // page_size) + 1
+    num_pages = B * max_pages + 2
+    perm = rng.permutation(num_pages)
+    bt = np.full((B, max_pages), -1, np.int32)
+    nxt = 0
+    for b, depth in enumerate(depths):
+        for lp in range(-(-depth // page_size)):
+            if holes and b == 0 and lp == 1:
+                continue
+            bt[b, lp] = perm[nxt]
+            nxt += 1
+    k_pool = _np(rng, num_pages, page_size, hkv, d) * 3
+    v_pool = _np(rng, num_pages, page_size, hkv, d)
+    return k_pool, v_pool, bt
+
+
+PAGED = {
+    # name: (depths, page_size, stride, shard, window, holes)
+    "mixed_depths": ((5, 13, 1, 8), 4, 1, 0, None, False),
+    "one_token_pages": ((3, 7), 1, 1, 0, None, False),
+    "striped_window": ((9, 12, 4), 2, 4, 1, 6, False),
+    "window_partial": ((17, 23), 4, 1, 0, 5, False),
+    "empty_row": ((0, 6), 4, 1, 0, None, False),
+    "unallocated_page": ((12, 5), 4, 1, 0, None, True),
+}
+
+
+@pytest.mark.parametrize("vector_pos", [True, False], ids=["vec_pos", "scalar_pos"])
+@pytest.mark.parametrize("name", list(PAGED))
+def test_paged_decode_plain_matches_pallas(name, vector_pos):
+    depths, ps, stride, shard, window, holes = PAGED[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    H, Hkv, D = 4, 2, 8
+    k_pool, v_pool, bt = _paged_case(rng, depths, ps, Hkv, D, holes)
+    q = _np(rng, len(depths), 1, H, D)
+    pos = np.array([shard + stride * (d - 1) if d else -1 for d in depths], np.int32)
+    if not vector_pos:
+        pos = pos.min()  # every row at the same (lowest) depth
+    o_t, lse_t = tpk.paged_flash_decode(
+        torch.from_numpy(q), torch.from_numpy(k_pool), torch.from_numpy(v_pool),
+        torch.from_numpy(bt), torch.from_numpy(np.asarray(pos)), shard,
+        stride_kv=stride, window=window,
+    )
+    o_j, lse_j = jpk.paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool), jnp.asarray(bt),
+        jnp.asarray(pos), shard, stride_kv=stride, window=window, interpret=True,
+    )
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=PAGED_ATOL, rtol=PAGED_RTOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=PAGED_ATOL, rtol=PAGED_RTOL)
+    if name == "empty_row" and vector_pos:
+        assert np.all(o_t.numpy()[0] == 0) and np.all(lse_t.numpy()[0] == tref.NEG_INF)
+
+
+@pytest.mark.parametrize("kernel", ["band", "native"])
+@pytest.mark.parametrize("window", [None, 6])
+def test_dense_cache_decode_matches_jax(kernel, window):
+    """Dense cache: the band path and the split-K kernel through the
+    identity block table both equal JAX's dense decode."""
+    rng = np.random.default_rng(4)
+    B, m, H, Hkv, D = 3, 24, 4, 2, 8
+    k_cache, v_cache = _np(rng, B, m, Hkv, D), _np(rng, B, m, Hkv, D)
+    q = _np(rng, B, 1, H, D)
+    pos = np.array([0, 11, 23], np.int32)
+    o_t = tda.sharded_cache_decode(
+        torch.from_numpy(q), torch.from_numpy(k_cache), torch.from_numpy(v_cache),
+        torch.from_numpy(pos), None, 1, window=window, kernel=kernel,
+    )
+    o_j = jda.sharded_cache_decode(
+        jnp.asarray(q), jnp.asarray(k_cache), jnp.asarray(v_cache), jnp.asarray(pos),
+        None, 1, window=window, kernel=kernel,
+    )
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=PAGED_ATOL, rtol=PAGED_RTOL)
+
+
+def test_paged_cache_update_matches_jax_bitwise():
+    """Append through the block table; rows past capacity and rows on
+    unallocated pages write nothing (JAX drops them, the port filters)."""
+    rng = np.random.default_rng(5)
+    num_pages, ps, Hkv, D, max_pages = 6, 4, 2, 8, 3
+    k_pool, v_pool = _np(rng, num_pages, ps, Hkv, D), _np(rng, num_pages, ps, Hkv, D)
+    bt = np.array([[2, 0, -1], [5, -1, -1], [1, 3, 4], [4, 1, 3]], np.int32)
+    pos = np.array([6, 4, 11, 2**30], np.int32)  # live, unallocated, live, parked
+    k_new, v_new = _np(rng, 4, 1, Hkv, D), _np(rng, 4, 1, Hkv, D)
+    kt, vt = tda.paged_cache_update(
+        torch.from_numpy(k_pool.copy()), torch.from_numpy(v_pool.copy()),
+        torch.from_numpy(k_new), torch.from_numpy(v_new), torch.from_numpy(bt),
+        torch.from_numpy(pos), None, 1,
+    )
+    kj, vj = jda.paged_cache_update(
+        jnp.asarray(k_pool), jnp.asarray(v_pool), jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(bt), jnp.asarray(pos), None, 1,
+    )
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert not np.array_equal(kt.numpy(), k_pool)  # something was written
+
+
+@pytest.mark.parametrize("kernel", ["gather", "native"])
+def test_paged_cache_decode_matches_jax_gather(kernel):
+    rng = np.random.default_rng(6)
+    H, Hkv, D = 4, 2, 8
+    k_pool, v_pool, bt = _paged_case(rng, (7, 16, 3), 4, Hkv, D)
+    q = _np(rng, 3, 1, H, D)
+    pos = np.array([6, 15, 2], np.int32)
+    o_t = tda.paged_cache_decode(
+        torch.from_numpy(q), torch.from_numpy(k_pool), torch.from_numpy(v_pool),
+        torch.from_numpy(bt), torch.from_numpy(pos), None, 1, kernel=kernel,
+    )
+    o_j = jda.paged_cache_decode(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool), jnp.asarray(bt),
+        jnp.asarray(pos), None, 1, kernel="gather",
+    )
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=PAGED_ATOL, rtol=PAGED_RTOL)
+
+
+def test_dispatch_resolution_and_unported_backends():
+    assert tdispatch._resolve_decode_kernel("auto", paged=True) == "native"
+    assert tdispatch._resolve_decode_kernel("auto", paged=False) == "band"
+    assert tdispatch._resolve_decode_kernel("gather", paged=False) == "band"
+    assert tdispatch._resolve_decode_kernel("gather", paged=True) == "gather"
+    with pytest.raises(ValueError):
+        tdispatch._resolve_decode_kernel("nope", paged=True)
+    ctx = ParallelCtx(device="cpu")
+    plan = tdispatch.plan_from_ctx(ctx, causal=True)
+    assert plan.resolved_backend() == "local-flash"
+    q = torch.randn(1, 8, 2, 8)
+    for name in ("mesh", "ring", "ulysses"):
+        cfg = tdispatch.AttentionPlanConfig(backend=name, causal=True)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            tdispatch.distributed_attention(q, q, q, cfg=cfg)
+    with pytest.raises(NotImplementedError):
+        ParallelCtx(sp_size=2)
+    seg_plan = tdispatch.plan_from_ctx(ctx, mask=MaskSpec.segment())
+    with pytest.raises(ValueError, match="segment"):
+        tdispatch.distributed_attention(q, q, q, cfg=seg_plan)
+    assert "local-flash" in tdispatch.available_backends()
