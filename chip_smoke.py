@@ -9,10 +9,12 @@ Phases, each printing one JSON line:
                  and the time to build the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all started at once).
   2. kernels  -- each CUDA kernel against its plain PyTorch version on the card,
-                 at the main path's shapes (granite-8b heads: H=32, Hkv=8, D=128),
+                 at the main paths' shapes (granite-8b heads: H=32, Hkv=8, D=128),
                  in fp32 and bf16: max |delta| against the stated tolerance, the
                  kernel's time, the plain version's time, the library call's time
                  where one PyTorch call computes the same function, and the bound.
+                 The backward cases (dQ and dK/dV) also check that two launches
+                 give bitwise-identical gradients.
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
                  weights served by the engine on the card (kernels) and on the
                  CPU (plain versions), dense and paged caches; the greedy streams
@@ -21,8 +23,19 @@ Phases, each printing one JSON line:
                  weights): ServeEngine over the paged pool serves eight requests
                  of mixed lengths and arrival ticks, 32 new tokens each.  The
                  kernels' launch counters are set to 0 just before this run and
-                 read just after it: both kernels must have run.
-  5. the kernels line, the card line, and the final line
+                 read just after it: the serving kernels must have run.
+  5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
+                 one make_train_step on the card and one on the CPU from the same
+                 weights and batch; loss, grad norm, and per leaf the gradients
+                 and the updated params held to stated tolerances.
+  6. train    -- granite-8b at full width cut to 8 layers, fp32 params, AdamW,
+                 remat, seq 4096, batch 1: 4 causal steps, then 2 steps with 4
+                 packed documents, through ``repro_torch.train.loop.fit``.  The
+                 counters are set to 0 just before and read just after: the
+                 forward kernel must have run 2 x 8 x 6 times, dQ and dK/dV
+                 8 x 6 times each.  One more step runs under torch.profiler for
+                 the device time per kernel class.
+  7. the kernels line, the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the final
@@ -44,13 +57,16 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_decode as pk  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # noqa: E402
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
 from repro_torch.serve.config import ServeConfig  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
@@ -65,6 +81,11 @@ TOLS = {
     ("paged_flash_decode", torch.float32): 1e-4,
     ("paged_flash_decode", torch.bfloat16): 1e-3,
 }
+# dq/dk/dv against the plain backward: |delta| <= atol + rtol * |want|.  fp32:
+# the JAX kernel tests' own 2e-4 (sums in another order).  bf16: the inputs
+# are the same bf16 values on both sides and the arithmetic fp32, but the
+# outputs are rounded to bf16, so one ulp (2**-7 of the value at most) on top
+BWD_TOLS = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-4, 2**-7 + 2e-4)}
 # lse is fp32 for either input type (largest reading 1.9e-6); skipping one
 # 16-token page at depth ~1500 moves it by ~1e-2
 LSE_TOL = 1e-4
@@ -72,6 +93,9 @@ DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:153"
+BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
+BWD_DQ_REPLACES = "src/repro/kernels/flash_attention.py:411"
+BWD_DKV_REPLACES = "src/repro/kernels/flash_attention.py:461"
 PAGED_SRC = "src/repro_torch/csrc/paged_decode.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_decode.py:205"
 
@@ -263,6 +287,115 @@ def paged_case(window, dtype, gen, flush):
     return rec
 
 
+def device_time(prof, per=1):
+    """(device ms per kernel class, device ms per kernel name) of a
+    torch.profiler run, divided by ``per`` (ticks, steps or calls)."""
+    by_class, by_kernel = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / per
+        cls = _kernel_class(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_kernel[ev.key[:80]] = by_kernel.get(ev.key[:80], 0.0) + ms
+    return by_class, by_kernel
+
+
+def _profiled(fn, reps):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def bwd_case(name, S, dtype, gen):
+    """One flash-backward case (dQ and dK/dV kernels) at granite-8b's heads.
+    The segment case gives row 0 a document id no key has: a fully masked
+    row, whose dq must be exactly 0.  The window and striped cases pass
+    delta in; the others derive it from o."""
+    INF = ref.BAND_INF
+    band, sq, skv, seg_q, seg_kv, given = (0, 0, 0, INF), 1, 1, None, None, False
+    if name == "window":
+        band, given = (0, 0, 0, 255), True
+    elif name == "striped":
+        band, sq, skv, given = (1, 0, 0, INF), 2, 2, True
+    elif name == "segment":
+        cuts = np.sort(np.random.default_rng(S).choice(np.arange(1, S), 5, replace=False))
+        ids = np.searchsorted(cuts, np.arange(S), side="right").astype(np.int32)
+        seg_kv = torch.from_numpy(ids.copy()).cuda()
+        ids[0] = -1
+        seg_q = torch.from_numpy(ids).cuda()
+    q = randn(gen, 1, S, H, D, dtype=dtype)
+    k = randn(gen, 1, S, HKV, D, dtype=dtype)
+    v = randn(gen, 1, S, HKV, D, dtype=dtype)
+    do = randn(gen, 1, S, H, D, dtype=dtype)
+    kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv, seg_q=seg_q, seg_kv=seg_kv)
+    o, lse = ref.attention_ref(q, k, v, band=band, **kw)  # the forward's saved state
+    delta = (do.float() * o.float()).sum(-1) if given else None
+    run = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, None if given else o, lse, do, band, delta=delta, **kw)
+    plain = lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, band=band, delta=delta, **kw)  # noqa: E731
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    atol, rtol = BWD_TOLS[dtype]
+    errs, ratio = {}, 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        errs[gname] = float(diff.max())
+        ratio = max(ratio, float((diff / (atol + rtol * w.float().abs())).max()))
+    masked_row_zero = seg_q is None or bool(torch.all(got[0][:, 0] == 0))
+    del got, again, want
+    mask = ref.band_mask(S, S, band, stride_q=sq, stride_kv=skv, device="cuda")
+    if seg_q is not None:
+        mask = mask & (seg_q[:, None] == seg_kv[None, :])
+    pairs = int(mask.sum())
+    vis_keys = int(mask.any(dim=0).sum())
+    vis_rows = int(mask.any(dim=1).sum())
+    # library yardstick: the backward of one SDPA call (dq, dk, dv together)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    if name == "causal":
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=D**-0.5,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=D**-0.5,
+                                             enable_gqa=True)
+    dout = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dout, retain_graph=True)  # noqa: E731
+    item = q.element_size()
+    seg_bytes = 2 * S * 4 if seg_q is not None else 0
+    # dQ: q, dO read and dq written for every row, K/V of the visible keys,
+    # lse and delta; dK/dV: q, dO, lse, delta of the rows that see a key,
+    # k, v read and dk, dv written
+    dq_bytes = 3 * S * H * D * item + 2 * vis_keys * HKV * D * item + 2 * H * S * 4 + seg_bytes
+    dkv_bytes = 2 * vis_rows * H * D * item + 4 * S * HKV * D * item + 2 * H * vis_rows * 4 \
+        + seg_bytes
+    dq_bound, dq_by = bound(dq_bytes, 6 * D * H * pairs, dtype)
+    dkv_bound, dkv_by = bound(dkv_bytes, 8 * D * H * pairs, dtype)
+    split, _ = device_time(_profiled(run, 5), per=5)  # the two kernels' device ms apart
+    rec = dict(
+        kernel="flash_attention_bwd", case=name, S=S, dtype=DTYPE_NAMES[dtype],
+        delta="given" if given else "from_o", max_abs_err=errs, tol_atol=atol, tol_rtol=rtol,
+        max_err_over_tol=ratio, bitwise_repeat=bitwise, masked_row_dq_zero=masked_row_zero,
+        ms_dq=split.get("flash_bwd_dq", 0.0), ms_dkv=split.get("flash_bwd_dkv", 0.0),
+        ms_pair=time_ms(run, reps=10), plain_ms_pair=time_ms(plain, reps=5),
+        library_ms_pair=time_ms(lib, reps=10),
+        bound_ms_dq=dq_bound, bound_by_dq=dq_by, bound_ms_dkv=dkv_bound, bound_by_dkv=dkv_by,
+        visible_pairs_per_head=pairs,
+    )
+    del out, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    check(ratio <= 1.0 and bitwise and masked_row_zero,
+          f"flash_attention_bwd disagrees with its plain version or repeats unequal: {rec}")
+    check(rec["ms_dq"] > 0 and rec["ms_dkv"] > 0,
+          f"the profiler saw no device time for the backward kernels: {split}")
+    return rec
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the engine
 # --------------------------------------------------------------------------
@@ -386,6 +519,10 @@ def full_serve(card):
 def _kernel_class(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attention_fwd"
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_bwd_dq"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_bwd_dkv"
     if "paged_decode_kernel" in name:
         return "paged_flash_decode"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "matmul")):
@@ -414,17 +551,7 @@ def profile_decode(eng, cfg, ticks=4):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
-    device_ms, by_kernel = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        ms = us / 1e3 / ticks
-        cls = _kernel_class(ev.key)
-        device_ms[cls] = device_ms.get(cls, 0.0) + ms
-        by_kernel[ev.key[:80]] = by_kernel.get(ev.key[:80], 0.0) + ms
+    device_ms, by_kernel = device_time(prof, per=ticks)
     busy = sum(device_ms.values())
     per_tick_wall = wall_ms / ticks
     return {
@@ -433,6 +560,165 @@ def profile_decode(eng, cfg, ticks=4):
         "top_kernels_ms_per_tick": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]),
         # the profiler's own host cost inflates this window's wall clock
         "device_idle_share": (1 - busy / per_tick_wall) if device_ms else None,
+    }
+
+
+# --------------------------------------------------------------------------
+# phases 5 and 6: training
+# --------------------------------------------------------------------------
+
+# card vs CPU after one train step, fp32 (granite-8b width, 2 layers, seq 512).
+# The two sides sum the same fp32 products in other orders (cuBLAS vs the
+# CPU's BLAS over K = 4096 / 14336).  Readings on an H100: loss 9.5e-7, grad
+# norm equal, per-leaf gradient 4.7e-6 of the leaf's max |g|, params 7.0e-7;
+# the loss, grad-norm and gradient limits sit a few times above them.
+# params: one AdamW step from zero moments moves a weight by lr_1 * (~1 +
+# wd*|p|) with lr_1 = 3e-6 (warmup 1/100), so two sides that disagree on the
+# sign of a near-zero gradient may differ by ~6e-6: the limit allows that.
+PARITY_TOLS = {"loss": 1e-5, "grad_norm_rel": 1e-5, "grad_rel": 5e-5, "param": 1e-5}
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.detach().to(device)
+            for k, v in tree.items()}
+
+
+def train_parity():
+    """One make_train_step on the card and on the CPU from the same weights."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    opt = AdamWConfig()
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    sides = {"cuda": params, "cpu": _tree_to(params, "cpu")}
+    out, launches = {}, {}
+    for dev, p in sides.items():
+        ctx = ParallelCtx(device=dev)
+        state = init_opt_state(p)
+        batch = make_batch(cfg, 512, 1, seed=0, step=0, ctx=ctx)
+        before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
+                  fa.flash_attention_bwd.launches_dkv)
+        t0 = time.perf_counter()
+        p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
+                 fa.flash_attention_bwd.launches_dkv)
+        launches[dev] = [a - b for a, b in zip(after, before)]
+        out[dev] = dict(loss=loss, grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                        params=p, m=state.m)
+    card, cpu = out["cuda"], out["cpu"]
+    leaves = {}
+    # the gradient the step applied (after clipping), read back from the first
+    # moment: m = (1 - b1) * g after one step from zero moments
+    m_cpu = dict(tree_leaves(cpu["m"]))
+    p_cpu = dict(tree_leaves(cpu["params"]))
+    p_card = dict(tree_leaves(card["params"]))
+    for path, m_card in tree_leaves(card["m"]):
+        g_card = m_card.cpu() / (1 - opt.b1)
+        g_cpu = m_cpu[path] / (1 - opt.b1)
+        gmax = float(g_cpu.abs().max())
+        leaves[path] = dict(
+            grad_max_abs_err=float((g_card - g_cpu).abs().max()), grad_max_abs=gmax,
+            param_max_abs_err=float((p_card[path].detach().cpu()
+                                     - p_cpu[path].detach()).abs().max()),
+        )
+    rec = {
+        "phase": "train_parity", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
+        "seq": 512, "batch": 1, "loss": {"cuda": card["loss"], "cpu": cpu["loss"]},
+        "grad_norm": {"cuda": card["grad_norm"], "cpu": cpu["grad_norm"]},
+        "wall_s": {"cuda": card["wall_s"], "cpu": cpu["wall_s"]},
+        "launches": {dev: dict(zip(("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"), n))
+                     for dev, n in launches.items()},
+        "leaves": leaves, "tols": PARITY_TOLS,
+    }
+    emit(rec)
+    del sides, out, card, cpu, params
+    torch.cuda.empty_cache()
+    check(abs(rec["loss"]["cuda"] - rec["loss"]["cpu"]) <= PARITY_TOLS["loss"],
+          "train_parity: loss differs")
+    check(abs(rec["grad_norm"]["cuda"] - rec["grad_norm"]["cpu"])
+          <= PARITY_TOLS["grad_norm_rel"] * rec["grad_norm"]["cpu"], "train_parity: grad norm differs")
+    for path, leaf in leaves.items():
+        check(leaf["grad_max_abs_err"] <= PARITY_TOLS["grad_rel"] * leaf["grad_max_abs"],
+              f"train_parity: gradient of {path} differs: {leaf}")
+        check(leaf["param_max_abs_err"] <= PARITY_TOLS["param"],
+              f"train_parity: updated {path} differs: {leaf}")
+    check(launches["cuda"] == [2 * 2, 2, 2] and launches["cpu"] == [0, 0, 0],
+          f"train_parity: kernels must run on the card only, with remat: {launches}")
+
+
+def full_train(card):
+    """granite-8b at full width, 8 layers, fp32 + AdamW, remat, seq 4096."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=8)
+    ctx = ParallelCtx(device="cuda")
+    seq, steps, steps_docs = 4096, 4, 2
+    grad_norms = []
+    hooks = {"on_step": lambda s, m: grad_norms.append(float(m["grad_norm"]))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
+    runs, last = [], None
+    for n, docs in ((steps, None), (steps_docs, 4)):
+        last = None  # the previous run's params go before the next run starts
+        t0 = time.perf_counter()
+        last = fit(cfg, ctx, TrainConfig(steps=n, seq=seq, batch=1, seed=0, docs=docs),
+                   hooks=hooks)
+        runs.append(dict(docs=docs, losses=last["history"], step_s=last["step_seconds"],
+                         fit_s=time.perf_counter() - t0, params=tfm.param_count(last["params"])))
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_train_step(cfg, ctx, last.pop("params"), seq)
+    del last
+    torch.cuda.empty_cache()
+    losses = [x for r in runs for x in r["losses"]]
+    step_s = [x for r in runs for x in r["step_s"]]
+    total = steps + steps_docs
+    rec = {
+        "phase": "train", "arch": "granite-8b", "num_layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "params": runs[0]["params"], "param_dtype": "fp32",
+        "optimizer": "adamw", "remat": True, "seq": seq, "batch": 1,
+        "runs": [{k: v for k, v in r.items() if k != "params"} for r in runs],
+        "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
+        "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
+        "launches": launches, "ln_vocab": float(np.log(cfg.vocab_size)),
+        "profile": profile, "card": card,
+    }
+    emit(rec)
+    check(len(losses) == total and all(np.isfinite(losses)), f"train: losses not finite: {losses}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) < 1.5,
+          f"train: first loss {losses[0]} is not near ln(vocab) = {np.log(cfg.vocab_size)}")
+    check(launches == {"flash_attention_fwd": 2 * cfg.num_layers * total,
+                       "flash_bwd_dq": cfg.num_layers * total,
+                       "flash_bwd_dkv": cfg.num_layers * total},
+          f"train: launch counts off the remat schedule: {launches}")
+    return {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def profile_train_step(cfg, ctx, params, seq):
+    """Device time per kernel class of one more train step (4 packed
+    documents) under torch.profiler; after the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = init_opt_state(params)
+    step_fn = make_train_step(cfg, ctx, AdamWConfig(total_steps=2))
+    batch = make_batch(cfg, seq, 1, seed=0, step=2, ctx=ctx, docs=4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, metrics = step_fn(params, state, {}, batch)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, by_kernel = device_time(prof)
+    busy = sum(device_ms.values())
+    del state, params
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "device_busy_ms": busy,
+        "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]),
+        # the profiler's own host cost inflates this window's wall clock
+        "device_idle_share": (1 - busy / wall_ms) if device_ms else None,
     }
 
 
@@ -453,7 +739,7 @@ def main():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    flash, paged = [], []
+    flash, paged, bwd = [], [], []
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1024, 2048):
             for name in ("causal", "window", "striped", "segment", "decode"):
@@ -464,14 +750,24 @@ def main():
         for window in (None, 512):
             paged.append(paged_case(window, dtype, gen, flush))
     del scratch
-    emit({"phase": "kernels", "card": card, "cases": flash + paged})
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1024, 2048, 4096):
+            for name in ("causal", "window", "striped", "segment"):
+                if S != 2048 or name == "causal":
+                    bwd.append(bwd_case(name, S, dtype, gen))
+    emit({"phase": "kernels", "card": card, "cases": flash + paged + bwd})
 
     cross_device()
     launches = full_serve(card)
+    train_parity()
+    launches.update(full_train(card))
 
     main_flash = next(r for r in flash
                       if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "bf16")
     main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16")
+    # the training path runs the backward in fp32 at 4096 causal tokens
+    main_bwd = next(r for r in bwd
+                    if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
     kernels = []
     for name, src, replaces, rec in (
         ("flash_attention_fwd", FLASH_SRC, FLASH_REPLACES, main_flash),
@@ -482,6 +778,20 @@ def main():
             "launches": launches[name], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    # plain_ms and library_ms of the backward pair are the pair's: both the
+    # plain backward and the SDPA backward compute dq, dk and dv together
+    for name, replaces, part, err in (
+        ("flash_bwd_dq", BWD_DQ_REPLACES, "dq", main_bwd["max_abs_err"]["dq"]),
+        ("flash_bwd_dkv", BWD_DKV_REPLACES, "dkv",
+         max(main_bwd["max_abs_err"]["dk"], main_bwd["max_abs_err"]["dv"])),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": BWD_SRC, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": main_bwd[f"ms_{part}"],
+            "plain_ms": main_bwd["plain_ms_pair"], "bound_ms": main_bwd[f"bound_ms_{part}"],
+            "bound_by": main_bwd[f"bound_by_{part}"],
+            "library_ms": main_bwd["library_ms_pair"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,12 @@
-"""Weights from the JAX package into the port.
+"""Weights and optimizer state from the JAX package into the port.
 
 ``params_from_jax`` takes the JAX ``init_params`` pytree as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns the port's parameter dict.
 The layouts are the same (``x @ W`` with ``W: [D_in, D_out]``, stacked
 ``[L, ...]`` layer leaves, same key names), so conversion is a copy with no
-transposes.  This module takes numpy only: it never imports JAX.
+transposes.  ``opt_state_from_jax`` does the same for JAX's AdamW
+``OptState(step, m, v)``, so a JAX run can continue in the port.  This module
+takes numpy only: it never imports JAX.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -39,3 +42,16 @@ def params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch.dty
         return _tensor(np.asarray(node), dev, dtype)
 
     return conv(tree)
+
+
+def opt_state_from_jax(opt_state, device=None) -> OptState:
+    """JAX's ``OptState(step, m, v)`` with numpy leaves (``jax.tree.map(
+    np.asarray, opt_state)``) -> the port's ``OptState`` on ``device``
+    (default: the card): an int32 step and fp32 moments."""
+    step, m, v = opt_state
+    dev = resolve_device(device)
+    return OptState(
+        step=_tensor(np.asarray(step, np.int32), dev, torch.int32),
+        m=params_from_jax(m, device=dev, dtype=torch.float32),
+        v=params_from_jax(v, device=dev, dtype=torch.float32),
+    )

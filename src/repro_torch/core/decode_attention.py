@@ -90,10 +90,16 @@ def sharded_cache_update(
     B, m = k_cache.shape[0], k_cache.shape[1]
     pos_v = _pos_vector(pos, B, k_cache.device)
     is_owner, slot = _owner_slot(pos_v, i, n, m, layout)
-    # rows past capacity (retired slots still ticking) must not write; each
-    # row only ever touches its own slice, so the masked-off rows put back
-    # the value they read and no other row's data can be hit
-    write = is_owner & (pos_v < n * m)
+    if torch.as_tensor(pos).dim() == 0:
+        # one position for every row: JAX's dynamic_update_slice clamps a
+        # slot past capacity onto the last one, and the owner writes there
+        write = is_owner
+    else:
+        # per-row positions: rows past capacity (retired slots still
+        # ticking) must not write, as JAX masks them off; each row only ever
+        # touches its own slice, so the masked-off rows put back the value
+        # they read and no other row's data can be hit
+        write = is_owner & (pos_v < n * m)
     slot = slot.clamp(0, m - 1)
     b = torch.arange(B, device=k_cache.device)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):

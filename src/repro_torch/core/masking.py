@@ -9,7 +9,9 @@ This slice needs three kinds, each with an optional sliding window:
             along with q/k/v): packed multi-document prefill rows
 
 The document and block-sparse kinds, and the schedule-pruning queries
-(``block_visibility`` ...), arrive with the mesh executors.
+(``block_visibility`` ...), arrive with the mesh executors.  The numpy
+helpers that turn document lengths into segment ids and per-document
+positions (the training data pipeline's) are copied here.
 """
 
 from __future__ import annotations
@@ -17,11 +19,25 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["MaskSpec", "BAND_INF"]
+import numpy as np
+
+__all__ = ["MaskSpec", "BAND_INF", "segment_ids_from_doc_lens", "positions_from_doc_lens"]
 
 BAND_INF = 2**30  # matches kernels/ref.py
 
 _KINDS = ("full", "causal", "segment")
+
+
+def segment_ids_from_doc_lens(doc_lens, seq: int) -> np.ndarray:
+    """[S] int32 document id per position (contiguous original order)."""
+    if sum(doc_lens) != seq:
+        raise ValueError(f"doc_lens {tuple(doc_lens)} do not sum to seq={seq}")
+    return np.repeat(np.arange(len(doc_lens), dtype=np.int32), np.asarray(doc_lens))
+
+
+def positions_from_doc_lens(doc_lens) -> np.ndarray:
+    """[S] int32 per-document positions (restart at each document start)."""
+    return np.concatenate([np.arange(l, dtype=np.int32) for l in doc_lens])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -102,6 +102,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # stride_q stride_kv dtype stream
         lib.flash_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd.restype = i
+    elif name == "flash_bwd":
+        # q k v do lse delta band seg_q seg_kv dq B Sq Skv H Hkv D scale
+        # stride_q stride_kv dtype stream
+        lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+        lib.flash_bwd_dq.restype = i
+        # as flash_bwd_dq with dk dv in place of dq
+        lib.flash_bwd_dkv.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p
+        ]
+        lib.flash_bwd_dkv.restype = i
     elif name == "paged_decode":
         # q k_pool v_pool bt pos o_parts lse_parts B H Hkv D page_size max_pages
         # num_splits pages_per_split kv_off stride_kv hi scale dtype stream

@@ -1,13 +1,16 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of ``repro/kernels/flash_attention.py::flash_attention_fwd``.
-The kernel is ``csrc/flash_fwd.cu`` (see the note at its top for the design).
-Only the forward is ported; the backward kernels (dQ, dK/dV) come with the
-training slice.
+Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_fwd``
+and ``flash_attention_bwd``).  The kernels are ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (dQ and dK/dV; see the notes at their tops for the
+design).
 
-The wrapper launches the kernel for CUDA tensors and runs the plain version
-(``ref.attention_ref``) for CPU tensors; there is no other fallback.
-``flash_attention_fwd.launches`` counts kernel launches.
+The wrappers launch the kernels for CUDA tensors and run the plain versions
+(``ref.attention_ref``, ``ref.attention_bwd_ref``) for CPU tensors; there is
+no other fallback.  ``flash_attention_fwd.launches`` counts forward launches,
+``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` the two backward
+kernels' launches.
 """
 
 from __future__ import annotations
@@ -57,6 +60,38 @@ def _band_device(band: BandArg, batch: int, device) -> Tuple[torch.Tensor, int]:
     raise ValueError(f"band must be [4] or [B={batch}, 4], got {tuple(band.shape)}")
 
 
+def _check_kernel_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         stride_q: int, stride_kv: int) -> None:
+    """What the CUDA kernels take: q [B,Sq,H,D]; k, v [B,Skv,Hkv,D] with
+    q's device and dtype (fp32/bf16), D in KERNEL_HEAD_DIMS, contiguous."""
+    B, _, _, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name} must match q's device and dtype ({q.device}, {q.dtype})")
+        if t.shape != (B, Skv, Hkv, D):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(B, Skv, Hkv, D)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes float32 or bfloat16, not {q.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{fn} kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if stride_q < 1 or stride_kv < 1:
+        raise ValueError("strides must be >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _seg_device(seg_q, seg_kv, Sq: int, Skv: int, device):
+    if seg_q is None:
+        return None, None
+    seg_q = seg_q.to(device=device, dtype=torch.int32).contiguous()
+    seg_kv = seg_kv.to(device=device, dtype=torch.int32).contiguous()
+    if seg_q.shape != (Sq,) or seg_kv.shape != (Skv,):
+        raise ValueError("seg_q must be [Sq] and seg_kv [Skv]")
+    return seg_q, seg_kv
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
@@ -90,26 +125,9 @@ def flash_attention_fwd(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError(f"{name} must match q's device and dtype ({q.device}, {q.dtype})")
-        if t.shape != (B, Skv, Hkv, D):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {(B, Skv, Hkv, D)}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
-    if stride_q < 1 or stride_kv < 1:
-        raise ValueError("strides must be >= 1")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_kernel_inputs("flash_attention_fwd", q, k, v, stride_q, stride_kv)
     band_d, band_stride = _band_device(band, B, q.device)
-    if seg_q is not None:
-        seg_q = seg_q.to(device=q.device, dtype=torch.int32).contiguous()
-        seg_kv = seg_kv.to(device=q.device, dtype=torch.int32).contiguous()
-        if seg_q.shape != (Sq,) or seg_kv.shape != (Skv,):
-            raise ValueError("seg_q must be [Sq] and seg_kv [Skv]")
+    seg_q, seg_kv = _seg_device(seg_q, seg_kv, Sq, Skv, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B == 0 or Sq == 0:
@@ -129,3 +147,95 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,
+    o: Optional[torch.Tensor],  # [B, Sq, H, D]; may be None when delta is given
+    lse: torch.Tensor,  # [B, H, Sq] fp32
+    do: torch.Tensor,  # [B, Sq, H, D]
+    band: BandArg,  # 4 ints / int32 [4]: (q_off, kv_off, lo, hi)
+    *,
+    scale: float,
+    stride_q: int = 1,
+    stride_kv: int = 1,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_kv: int = DEFAULT_BLOCK_KV,
+    delta: Optional[torch.Tensor] = None,  # [B, Sq, H] = rowsum(do * o)
+    seg_q: Optional[torch.Tensor] = None,  # [Sq] int32 segment ids
+    seg_kv: Optional[torch.Tensor] = None,  # [Skv]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward from the saved (o, lse): (dq, dk, dv) in the
+    input types, dk/dv summed over the GQA group.
+
+    ``delta`` is computed in plain PyTorch from ``o`` when it is not passed,
+    as JAX does outside its Pallas calls; the kernels read it as fp32
+    [B, H, Sq].  The band is one for the whole batch (JAX's backward takes
+    no per-row band).  ``block_q``/``block_kv`` are kept for signature
+    parity; the CUDA tiles are the kernels' own."""
+    del block_q, block_kv
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if H % Hkv:
+        raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
+    if (seg_q is None) != (seg_kv is None):
+        raise ValueError("pass both seg_q and seg_kv, or neither")
+    if delta is None and o is None:
+        raise ValueError("pass o or delta")
+    if isinstance(band, torch.Tensor):
+        if band.shape != (4,):
+            raise ValueError(
+                f"the backward takes one band for the batch ([4]), not {tuple(band.shape)}"
+            )
+    else:
+        band = tuple(int(x) for x in band)
+        if len(band) != 4:
+            raise ValueError(f"band must have 4 entries, got {band}")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(
+            q, k, v, o, lse, do, scale=scale, band=_band_tuple(band, B), stride_q=stride_q,
+            stride_kv=stride_kv, delta=delta, seg_q=seg_q, seg_kv=seg_kv,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, stride_q, stride_kv)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q ({tuple(q.shape)}, {q.dtype}, {q.device})")
+    if not do.is_contiguous():
+        raise ValueError("do must be contiguous")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 [B, H, Sq] = {(B, H, Sq)} on {q.device}")
+    if delta is None:
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+    if delta.shape != (B, Sq, H) or delta.device != q.device:
+        raise ValueError(f"delta must be [B, Sq, H] = {(B, Sq, H)} on {q.device}")
+    delta_t = delta.float().transpose(1, 2).contiguous()  # [B, H, Sq], the kernels' layout
+    lse = lse.contiguous()
+    band_d, _ = _band_device(band, B, q.device)
+    seg_q, seg_kv = _seg_device(seg_q, seg_kv, Sq, Skv, q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if B == 0 or Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _build.load("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    seg_ptrs = (
+        seg_q.data_ptr() if seg_q is not None else None,
+        seg_kv.data_ptr() if seg_kv is not None else None,
+    )
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta_t.data_ptr(), band_d.data_ptr(), *seg_ptrs)
+    dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv),
+            _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib.flash_bwd_dq(*common, dq.data_ptr(), *dims), "flash_bwd_dq")
+    flash_attention_bwd.launches_dq += 1
+    _build.check(lib.flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *dims), "flash_bwd_dkv")
+    flash_attention_bwd.launches_dkv += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0

@@ -114,6 +114,59 @@ def attention_ref(
     return masked_attention(q, k, v, mask, scale)
 
 
+def attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: Optional[torch.Tensor],
+    lse: torch.Tensor,  # [B, H, Sq]
+    do: torch.Tensor,  # [B, Sq, H, D]
+    *,
+    scale: Optional[float] = None,
+    band: Optional[Sequence[int]] = None,
+    stride_q: int = 1,
+    stride_kv: int = 1,
+    delta: Optional[torch.Tensor] = None,  # [B, Sq, H]; derived from o if None
+    seg_q: Optional[torch.Tensor] = None,  # [Sq] int32 segment ids
+    seg_kv: Optional[torch.Tensor] = None,  # [Skv]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward from the saved (o, lse): returns (dq, dk, dv)
+    in the input types; fp32 arithmetic.
+
+    The math of the backward kernels: P = exp(S - lse) on visible pairs,
+    dS = P * (dP - delta) * scale, with dk/dv summed over the GQA query-head
+    group.  ``delta`` (= rowsum(do * o)) may be passed instead of ``o``.
+    Masked pairs are selected to 0, so an empty row (lse = NEG_INF) gives 0.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D**-0.5
+    g = H // Hkv
+    kr = repeat_kv(k, H).float()
+    vr = repeat_kv(v, H).float()
+    qf = q.float()
+    dof = do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    p = torch.exp(s - lse.float()[..., None])  # true softmax weights via the final lse
+    mask = None
+    if band is not None:
+        mask = band_mask(Sq, Sk, band, stride_q=stride_q, stride_kv=stride_kv, device=q.device)
+    if seg_q is not None:
+        sm = seg_q.to(q.device)[:, None] == seg_kv.to(q.device)[None, :]
+        mask = sm if mask is None else (mask & sm)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    if delta is None:
+        delta = torch.sum(dof * o.float(), dim=-1)  # [B, Sq, H]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta.float().transpose(1, 2)[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(B, Sk, Hkv, g, D).sum(dim=3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, Sk, Hkv, g, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def combine_partials(
     o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor, lse2: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

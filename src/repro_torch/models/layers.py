@@ -3,11 +3,11 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["rms_norm", "rope", "dense_init"]
+__all__ = ["rms_norm", "rope", "dense_init", "vocab_cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -56,3 +56,21 @@ def dense_init(
         torch.nn.init.trunc_normal_(tmp, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
         dst.copy_(tmp.mul_(std))
     return out
+
+
+def vocab_cross_entropy(
+    logits: torch.Tensor,  # [B, S, V] (any float dtype; reductions in fp32)
+    labels: torch.Tensor,  # [B, S] int
+    mask: Optional[torch.Tensor] = None,  # [B, S] 0/1
+) -> torch.Tensor:
+    """Mean token negative log-likelihood, fp32 log-sum-exp; with ``mask``
+    the mean over the unmasked tokens (at least one)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = labels.to(device=lf.device, dtype=torch.int64)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(device=lf.device, dtype=torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

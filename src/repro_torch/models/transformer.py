@@ -1,10 +1,13 @@
-"""Dense decoder: init / forward / cache / prefill / decode (the dense family
-of ``repro/models/transformer.py``).
+"""Dense decoder: init / forward / loss / cache / prefill / decode (the dense
+family of ``repro/models/transformer.py``).
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
 JAX convert by copy (``repro_torch.convert.params_from_jax``).  Layers run
 as a Python loop over per-layer slices (views of the stacked leaves).
+Gradients are taken with respect to the stacked leaves; with ``ctx.remat``
+each layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward, as ``jax.checkpoint`` makes JAX's layer scan do.
 
 The cache functions update the cache dict and its tensors IN PLACE (slice
 and index assignment, where JAX rebuilds the arrays) and return the same
@@ -17,18 +20,20 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import dense_init, rms_norm, rope
+from repro_torch.models.layers import dense_init, rms_norm, rope, vocab_cross_entropy
 from repro_torch.models.mlp import init_mlp_params, mlp_block
 from repro_torch.parallel.context import ParallelCtx
 
 __all__ = [
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "prefill",
     "prefill_packed",
@@ -90,12 +95,19 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def _layer(params: Dict, i: int) -> Dict:
-    """One layer's params: views of the stacked leaves."""
-    return {
-        group: {name: leaf[i] for name, leaf in leaves.items()}
+def _layer_slices(params: Dict):
+    """Every layer's params: views of the stacked leaves, one ``unbind`` per
+    leaf, so a backward stacks each leaf's per-layer gradients in one op."""
+    per_leaf = {
+        group: {name: leaf.unbind(0) for name, leaf in leaves.items()}
         for group, leaves in params["layers"].items()
     }
+    n = len(next(iter(per_leaf["attn"].values())))
+    return [
+        {group: {name: views[i] for name, views in leaves.items()}
+         for group, leaves in per_leaf.items()}
+        for i in range(n)
+    ]
 
 
 def _head(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -123,14 +135,32 @@ def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segment
 
 def forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict) -> torch.Tensor:
     """-> logits [B, S, V].  batch: tokens [B, S], positions [S], optional
-    segments [S] (packed multi-document rows: causal within each document)."""
+    segments [S] (packed multi-document rows: causal within each document).
+    Under autograd with ``ctx.remat`` each layer is checkpointed."""
     check_supported(cfg)
     positions = batch["positions"]
     segments = batch.get("segments")
     x = _embed(params, batch["tokens"])
-    for i in range(cfg.num_layers):
-        x = _decoder_block(x, _layer(params, i), cfg, ctx, positions, segments)
+    remat = ctx.remat and torch.is_grad_enabled()
+    for lp in _layer_slices(params):
+        if remat:
+            x = checkpoint(
+                _decoder_block, x, lp, cfg, ctx, positions, segments, use_reentrant=False
+            )
+        else:
+            x = _decoder_block(x, lp, cfg, ctx, positions, segments)
     return _logits(x, params, cfg)
+
+
+def loss_fn(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
+    """-> (loss, metrics {"loss", "ce", "aux"}).  batch as ``forward`` plus
+    labels [B, S] and an optional loss mask [B, S]; ``aux`` (the MoE load
+    balance term in JAX) is 0 for the dense family."""
+    logits = forward(params, cfg, ctx, batch)
+    ce = vocab_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + 0.01 * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -227,10 +257,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
         page_size = cache["k"].shape[2] // ctx.sp_size
         coords = dispatch.paged_write_coords(bt, pos, page_size, None, ctx.sp_size, layout="striped")
     x = _embed(params, tokens)
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(_layer_slices(params)):
         cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _decode_block(x, _layer(params, i), cache_l, cfg, ctx, pos, bt=bt,
-                          write_coords=coords)
+        x = _decode_block(x, lp, cache_l, cfg, ctx, pos, bt=bt, write_coords=coords)
     logits = _logits(x, params, cfg)
     nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
     cache["pos"] = pos + 1
@@ -308,8 +337,7 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
     elif S > cache["k"].shape[2]:
         raise ValueError(f"prompt of {S} tokens exceeds the cache capacity {cache['k'].shape[2]}")
 
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layer_slices(params)):
         h = rms_norm(x, lp["attn"]["ln"])
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
         for key, new in (("k", kk), ("v", vv)):
@@ -384,8 +412,7 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
         rows = slots[seg_c[toks]]
         cols = positions[toks].to(torch.int64)
 
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layer_slices(params)):
         h = rms_norm(x, lp["attn"]["ln"])
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
         for key, new in (("k", kk), ("v", vv)):

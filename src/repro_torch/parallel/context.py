@@ -26,6 +26,7 @@ class ParallelCtx:
     decode_kernel: str = "auto"  # auto (paged -> native split-K kernel,
     # dense -> the band kernel per row) | native | gather
     device: Union[str, torch.device] = "cuda"
+    remat: bool = True  # recompute each layer's activations in the backward
 
     def __post_init__(self):
         if self.sp_size != 1:

@@ -96,6 +96,85 @@ def test_flash_fwd_per_row_band(dev):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
 
 
+BWD_CASES = {
+    # name: (B, Sq, Skv, H, Hkv, D, band, stride_q, stride_kv, segments)
+    "full_gqa": (2, 64, 96, 4, 2, 32, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
+    "causal_ragged": (1, 100, 100, 4, 1, 64, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+    "striped": (1, 128, 128, 8, 2, 128, (1, 0, 0, ref.BAND_INF), 2, 2, False),
+    "window": (1, 160, 160, 4, 4, 128, (0, 0, 0, 31), 1, 1, False),
+    "segments": (1, 96, 96, 4, 2, 64, (0, 0, 0, ref.BAND_INF), 1, 1, True),
+    "hidden_rows": (1, 64, 70, 2, 2, 32, (0, 40, 0, ref.BAND_INF), 1, 1, False),
+    "granite_gqa": (1, 200, 200, 32, 8, 128, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+}
+# (atol, rtol) of dq/dk/dv.  fp32: both sides sum in fp32 in other orders;
+# bf16: the outputs are rounded to bf16 (one ulp is at most 2**-7 of the value)
+BWD_TOLS = {torch.float32: (2e-4, 0.0), torch.bfloat16: (2e-3, 2**-7)}
+
+
+def _bwd_inputs(case, dtype, dev, seed=5):
+    B, Sq, Skv, H, Hkv, D, band, sq, skv, seg = BWD_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, B, Sq, H, D, dtype=dtype, dev=dev)
+    k = _randn(rng, B, Skv, Hkv, D, dtype=dtype, dev=dev)
+    v = _randn(rng, B, Skv, Hkv, D, dtype=dtype, dev=dev)
+    do = _randn(rng, B, Sq, H, D, dtype=dtype, dev=dev)
+    kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv)
+    if seg:
+        ids = torch.from_numpy(np.sort(rng.integers(0, 4, Sq)).astype(np.int32)).to(dev)
+        kw["seg_q"] = kw["seg_kv"] = ids
+    o, lse = ref.attention_ref(q, k, v, band=band, **kw)
+    return q, k, v, o, lse, do, band, kw
+
+
+@pytest.mark.parametrize("with_delta", [False, True], ids=["from_o", "delta"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_bwd_matches_plain(dev, case, dtype, with_delta):
+    q, k, v, o, lse, do, band, kw = _bwd_inputs(case, dtype, dev)
+    delta = (do.float() * o.float()).sum(-1) if with_delta else None
+    before = (fa.flash_attention_bwd.launches_dq, fa.flash_attention_bwd.launches_dkv)
+    got = fa.flash_attention_bwd(q, k, v, None if with_delta else o, lse, do, band,
+                                 delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.launches_dq, fa.flash_attention_bwd.launches_dkv) == (
+        before[0] + 1, before[1] + 1)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, band=band, delta=delta, **kw)
+    atol, rtol = BWD_TOLS[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+    if case == "hidden_rows":  # rows 0..39 see no key: their dq is exactly 0
+        assert torch.all(got[0][:, :40] == 0)
+
+
+def test_flash_bwd_repeat_is_bitwise(dev):
+    """No atomics: two launches give identical gradients."""
+    q, k, v, o, lse, do, band, kw = _bwd_inputs("granite_gqa", torch.float32, dev)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_op_grads_on_card(dev):
+    """The autograd op on the card (forward + dQ/dKV kernels) against the
+    same op on the CPU (plain versions)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(8)
+    B, S, H, Hkv, D = 1, 96, 4, 2, 64
+    base = [_randn(rng, B, S, h, D, dtype=torch.float32, dev=dev) for h in (H, Hkv, Hkv)]
+    w = _randn(rng, B, S, H, D, dtype=torch.float32, dev=dev)
+    seg = torch.from_numpy(np.repeat(np.arange(3), [30, 50, 16]).astype(np.int32))
+    grads = {}
+    for where in ("cuda", "cpu"):
+        xs = [t.to(where).requires_grad_(True) for t in base]
+        o = ops.flash_attention(*xs, causal=True, seg_q=seg.to(where))
+        grads[where] = torch.autograd.grad((o * w.to(where)).sum(), xs)
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g_card.cpu(), g_cpu, atol=2e-4, rtol=0)
+
+
 def _pool(rng, depths, page_size, max_pages, hkv, d, dtype, dev, holes=False):
     """Random block tables over a shuffled pool: pages past a row's depth stay
     -1, unwritten page tails hold garbage the kernel must not see."""

@@ -2,14 +2,16 @@
 the JAX package's Pallas kernels in interpret mode and its jnp oracles.
 
 Inputs come from numpy with a fixed seed and go through both packages.  The
-tolerances are the JAX kernel tests' own: 2e-5 for the flash forward
-(tests/test_kernels.py), ``_TOLS["fp"] = (2e-5, 1e-5)`` for the paged decode
-(tests/test_paged_decode.py).  The CUDA kernels themselves are held against
+tolerances are the JAX kernel tests' own: 2e-5 for the flash forward and
+2e-4 for its backward (tests/test_kernels.py), 1e-4 for gradients through
+the autograd op (``test_custom_vjp_matches_autodiff``), ``_TOLS["fp"] =
+(2e-5, 1e-5)`` for the paged decode (tests/test_paged_decode.py).  The CUDA kernels themselves are held against
 these plain versions on the card (tests/test_torch_cuda.py).
 """
 
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,8 @@ from repro_torch.parallel.context import ParallelCtx
 
 INF = jref.BAND_INF
 FWD_TOL = 2e-5
+BWD_TOL = 2e-4
+GRAD_TOL = 1e-4
 PAGED_ATOL, PAGED_RTOL = 2e-5, 1e-5
 
 
@@ -129,12 +133,129 @@ def test_flash_attention_op_matches_jax(causal, window):
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=FWD_TOL, rtol=FWD_TOL)
 
 
-def test_flash_attention_backward_is_not_ported():
-    q = torch.randn(1, 8, 2, 8, requires_grad=True)
-    k = torch.randn(1, 8, 2, 8)
-    o = tops.flash_attention(q, k, k, causal=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        o.sum().backward()
+BWD_CASES = {
+    # name: (B, Sq, Skv, H, Hkv, D, bq, bk, band, stride_q, stride_kv, segments, delta)
+    "causal": (1, 32, 32, 2, 2, 16, 16, 16, (0, 0, 0, INF), 1, 1, False, False),
+    "window": (1, 32, 32, 2, 2, 16, 16, 16, (0, 0, 0, 7), 1, 1, False, False),
+    "striped": (1, 32, 32, 2, 2, 16, 16, 16, (1, 0, 0, INF), 2, 2, False, False),
+    "segment": (1, 32, 32, 2, 2, 16, 16, 16, (0, 0, 0, INF), 1, 1, True, False),
+    "gqa_2to1": (1, 64, 32, 4, 2, 8, 32, 16, (0, 0, -INF, INF), 1, 1, False, False),
+    "gqa_3to1": (2, 32, 64, 3, 1, 16, 16, 32, (0, 0, 0, INF), 1, 1, False, False),
+    "delta_given": (1, 32, 32, 4, 2, 16, 16, 16, (0, 0, 0, INF), 1, 1, False, True),
+    "empty_rows": (1, 32, 32, 2, 1, 16, 16, 16, (0, 8, 0, INF), 1, 1, False, False),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_attention_bwd_ref_matches_pallas_and_jnp(name):
+    """The plain backward (and the wrapper on CPU tensors) against JAX's
+    Pallas backward in interpret mode and its jnp oracle."""
+    B, Sq, Skv, H, Hkv, D, bq, bk, band, sq, skv, seg, given = BWD_CASES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    arrays = [_np(rng, B, Sq, H, D), _np(rng, B, Skv, Hkv, D), _np(rng, B, Skv, Hkv, D),
+              _np(rng, B, Sq, H, D)]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (_both(x) for x in arrays)
+    jkw, tkw = {}, {}
+    if seg:
+        ids = np.sort(rng.integers(0, 3, Sq)).astype(np.int32)
+        jkw = dict(seg_q=jnp.asarray(ids), seg_kv=jnp.asarray(ids))
+        tkw = dict(seg_q=torch.from_numpy(ids), seg_kv=torch.from_numpy(ids))
+    scale = D**-0.5
+    oj, lsej = jref.attention_ref(qj, kj, vj, scale=scale, band=band, stride_q=sq,
+                                  stride_kv=skv, **jkw)
+    ot, lset = torch.from_numpy(np.array(oj)), torch.from_numpy(np.array(lsej))
+    deltaj = deltat = None
+    if given:
+        delta = np.array(jnp.sum(doj * oj, axis=-1))
+        deltaj, deltat = jnp.asarray(delta), torch.from_numpy(delta)
+    got = tref.attention_bwd_ref(
+        qt, kt, vt, None if given else ot, lset, dot, scale=scale, band=band, stride_q=sq,
+        stride_kv=skv, delta=deltat, **tkw,
+    )
+    pallas = jfa.flash_attention_bwd(
+        qj, kj, vj, oj, lsej, doj, jnp.asarray(band, jnp.int32), scale=scale, stride_q=sq,
+        stride_kv=skv, block_q=bq, block_kv=bk, interpret=True, delta=deltaj, **jkw,
+    )
+    oracle = jref.attention_bwd_ref(
+        qj, kj, vj, oj, lsej, doj, scale=scale, band=band, stride_q=sq, stride_kv=skv,
+        delta=deltaj, **jkw,
+    )
+    for want in (pallas, oracle):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BWD_TOL, rtol=BWD_TOL)
+    if name == "empty_rows":
+        assert np.all(got[0].numpy()[:, :8] == 0)
+    wrapped = tfa.flash_attention_bwd(
+        qt, kt, vt, None if given else ot, lset, dot, band, scale=scale, stride_q=sq,
+        stride_kv=skv, delta=deltat, **tkw,
+    )
+    for g, w in zip(wrapped, got):
+        assert torch.equal(g, w)
+    assert tops.block_attention_bwd(
+        qt, kt, vt, None if given else ot, lset, dot, band, stride_q=sq, stride_kv=skv,
+        delta=deltat, **tkw,
+    )[0].shape == qt.shape
+
+
+def test_flash_attention_bwd_argument_checks():
+    q = torch.zeros(2, 8, 2, 8)
+    lse = torch.zeros(2, 2, 8)
+    with pytest.raises(ValueError, match=r"\[4\]"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q, torch.zeros(2, 4, dtype=torch.int32),
+                                scale=1.0)
+    with pytest.raises(ValueError, match="o or delta"):
+        tfa.flash_attention_bwd(q, q, q, None, lse, q, (0, 0, 0, INF), scale=1.0)
+
+
+@pytest.mark.parametrize("segments", [False, True], ids=["band", "segments"])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 5)])
+def test_flash_attention_op_grads_match_jax(causal, window, segments):
+    """torch.autograd.grad through the port's op against jax.grad through
+    repro.kernels.ops.flash_attention (custom_vjp), fp32."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(11)
+    arrays = [_np(rng, 1, 20, 4, 8), _np(rng, 1, 20, 2, 8), _np(rng, 1, 20, 2, 8)]
+    w = _np(rng, 1, 20, 4, 8)
+    ids = np.repeat(np.arange(3), [6, 9, 5]).astype(np.int32) if segments else None
+
+    def jloss(q, k, v):
+        o = jops.flash_attention(q, k, v, causal=causal, window=window,
+                                 seg_q=None if ids is None else jnp.asarray(ids))
+        return jnp.sum(o * jnp.asarray(w))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in arrays))
+    xs = [torch.from_numpy(x.copy()).requires_grad_(True) for x in arrays]
+    o = tops.flash_attention(*xs, causal=causal, window=window,
+                             seg_q=None if ids is None else torch.from_numpy(ids))
+    tg = torch.autograd.grad((o * torch.from_numpy(w)).sum(), xs)
+    for g, want in zip(tg, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("layout", ["striped", "contiguous"])
+@pytest.mark.parametrize("pos", [24, 30, 2**20])
+def test_dense_scalar_pos_update_past_capacity_matches_jax(pos, layout):
+    """A scalar ``pos`` at or past capacity: JAX's dynamic_update_slice clamps
+    the slot onto the last one (striped, n = 1: the row owns every position);
+    the contiguous layout's owner test fails there and nothing is written.
+    The port writes the same bits."""
+    rng = np.random.default_rng(12)
+    B, m, Hkv, D = 3, 24, 2, 8
+    k_cache, v_cache = _np(rng, B, m, Hkv, D), _np(rng, B, m, Hkv, D)
+    k_new, v_new = _np(rng, B, 1, Hkv, D), _np(rng, B, 1, Hkv, D)
+    kt, vt = tda.sharded_cache_update(
+        torch.from_numpy(k_cache.copy()), torch.from_numpy(v_cache.copy()),
+        torch.from_numpy(k_new), torch.from_numpy(v_new), pos, None, 1, layout=layout,
+    )
+    kj, vj = jda.sharded_cache_update(
+        jnp.asarray(k_cache), jnp.asarray(v_cache), jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(pos, jnp.int32), None, 1, layout=layout,
+    )
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    written = not np.array_equal(kt.numpy(), k_cache)
+    assert written == (layout == "striped")
 
 
 def test_combine_partials_matches_jax():
