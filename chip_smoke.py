@@ -24,6 +24,21 @@ Phases, each printing one JSON line:
                  of mixed lengths and arrival ticks, 32 new tokens each.  The
                  kernels' launch counters are set to 0 just before this run and
                  read just after it: the serving kernels must have run.
+  4a. slice_quant -- granite-8b at full width cut to 2 layers, fp32: the same
+                 weights served on the card and on the CPU from an fp, an int8
+                 and an fp8 paged pool, with continuous prefill and speculative
+                 verify, on a short trace with a shared prefix: streams
+                 identical (a flip only on a near-tie, printed), first-token
+                 logits within 1e-3 (fp) / 5e-3 (int8, fp8: see
+                 SLICE_LOGIT_TOL), pages and scale entries drained, the
+                 decode ticks on the card through the fp or the quantized
+                 decode kernel only; how far the pools' codes are apart is
+                 printed.
+  4b. serve_quant -- the serve phase's model and trace with continuous prefill
+                 (chunk 256, budget 512) and speculative verify (spec_k 4), three
+                 times: an fp, an int8 and an fp8 pool.  Counters set to 0
+                 before each run: a quantized run's decode ticks launch only the
+                 quantized decode kernel, 36 times per plain decode launch.
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -37,6 +52,10 @@ Phases, each printing one JSON line:
                  the device time per kernel class.
   7. the kernels line, the card line, and the final line
      ``{"ok": true, "device": {...}}``.
+
+Each phase line carries the phase's wall ``seconds``.  The kernels phase also
+holds the quantized decode (int8 / fp8 pools, fp32 / bf16 queries, windows
+None / 512) against its plain version.
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -57,6 +76,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import kv_quant  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -98,6 +118,23 @@ BWD_DQ_REPLACES = "src/repro/kernels/flash_attention.py:411"
 BWD_DKV_REPLACES = "src/repro/kernels/flash_attention.py:461"
 PAGED_SRC = "src/repro_torch/csrc/paged_decode.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_decode.py:205"
+QUANT_REPLACES = "src/repro/kernels/paged_decode.py:205 (quantized branch :161-167)"
+QUANT_DTYPES = ("int8", "fp8")
+# slice_quant, card vs CPU, first-token logits.  The fp pool on the chunked
+# and speculative trace is held to the serving slice's 1e-3 (reading on an
+# H100: 1.3e-5).  The quantized pools quantize K/V that card and CPU compute
+# ~1e-5 apart, so a value near a rounding boundary takes neighbouring codes
+# on the two sides: 529 of 854,508 int8 codes (every one a single step) in
+# the first reading, which moved the first-token logits by up to 1.04e-3
+# (int8) and 1.58e-3 (fp8) -- the one-shot runs, whose first token reads no
+# pool, stayed at 1.1e-5.  Quantization itself moved them by 0.057 (int8)
+# and 0.199 (fp8) against the fp pool on the card.  So the quantized pools
+# are held to 5e-3: 3x the flip noise, 11-40x below the quantization's own
+# effect.  A greedy flip between the two sides is allowed only on a
+# near-tie: both score the two candidates within twice the limit
+# (dist_check quant_kv's rule).
+SLICE_LOGIT_TOL = {"fp": 1e-3, "int8": 5e-3, "fp8": 5e-3}
+QMAX = {"int8": 127.0, "fp8": 448.0}
 
 # granite-8b attention geometry
 H, HKV, D = 32, 8, 128
@@ -112,7 +149,15 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_PHASE_T0 = [time.perf_counter()]
+
+
 def emit(record):
+    """Print a phase line with the wall seconds since the previous one."""
+    now = time.perf_counter()
+    if "phase" in record:
+        record = {**record, "seconds": now - _PHASE_T0[0]}
+    _PHASE_T0[0] = now
     print(json.dumps(record), flush=True)
 
 
@@ -284,6 +329,64 @@ def paged_case(window, dtype, gen, flush):
     )
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"paged_flash_decode disagrees with its plain version: {rec}")
+    return rec
+
+
+def quant_paged_case(kv_dtype, window, dtype, gen, flush):
+    """The quantized decode (4q) at the main path's pool: 8 slots, page 16,
+    max_seq 2048, granite heads; codes and scales quantized on the card from
+    random K/V; the same depths as ``paged_case`` (an all-empty row last)."""
+    B, ps, max_seq = 8, 16, 2048
+    max_pages = max_seq // ps
+    num_pages = B * max_pages
+    depths = [1, 17, 250, 777, 1000, 1500, 2047, 0]
+    rng = np.random.default_rng(6)
+    perm = rng.permutation(num_pages)
+    bt = np.full((B, max_pages), -1, np.int32)
+    nxt = 0
+    for b, depth in enumerate(depths):
+        n_pages = -(-depth // ps)
+        bt[b, :n_pages] = perm[nxt : nxt + n_pages]
+        nxt += n_pages
+    bt_t = torch.from_numpy(bt).cuda()
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device="cuda")
+    kq, ks = kv_quant.quantize(randn(gen, num_pages, ps, HKV, D, dtype=torch.float32), kv_dtype)
+    vq, vs = kv_quant.quantize(randn(gen, num_pages, ps, HKV, D, dtype=torch.float32), kv_dtype)
+    q = randn(gen, B, 1, H, D, dtype=dtype)
+    kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs)
+    run = lambda: pk.paged_flash_decode(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
+    plain = lambda: pk.paged_decode_ref(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
+    before = pk.paged_flash_decode.quant_launches
+    o, lse = run()
+    o_ref, lse_ref = plain()
+    torch.cuda.synchronize()
+    launched = pk.paged_flash_decode.quant_launches - before
+    live = lse_ref > ref.NEG_INF / 2
+    err = float((o.float() - o_ref.float()).abs().max())
+    err_lse = float((lse - lse_ref)[live].abs().max())
+    empty_exact = bool(torch.all(lse[~live] == ref.NEG_INF)) and bool(torch.all(o[7] == 0))
+    lo = [max(d - 1 - (window - 1), 0) if window else 0 for d in depths]
+    visible_pages = sum(
+        len({p // ps for p in range(lo_b, d)}) for d, lo_b in zip(depths, lo)
+    )
+    # bytes this data needs: the visible pages' K and V codes (1 byte) and
+    # their fp32 scales, q read and o written, lse, block table and pos
+    nbytes = 2 * visible_pages * ps * HKV * (D * kq.element_size() + 4) \
+        + 2 * q.numel() * q.element_size() + lse.numel() * 4 + bt.nbytes + pos.numel() * 4
+    visible_tokens = sum(max(d - lo_b, 0) for d, lo_b in zip(depths, lo))
+    bound_ms, bound_by = bound(nbytes, 4 * D * H * visible_tokens, dtype)
+    tol = TOLS[("paged_flash_decode", dtype)]
+    rec = dict(
+        kernel="paged_flash_decode_quant", case=f"window{window}" if window else "full",
+        kv_dtype=kv_dtype, B=B, page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
+        max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
+        empty_rows_exact=empty_exact, quant_launches=launched,
+        ms=time_ms(run, flush=flush), plain_ms=time_ms(plain, flush=flush), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, visible_pages=visible_pages, bytes=nbytes,
+    )
+    check(launched == 1, f"the quantized decode did not go through its kernel: {rec}")
+    check(err <= tol and err_lse <= LSE_TOL and empty_exact,
+          f"quantized paged_flash_decode disagrees with its plain version: {rec}")
     return rec
 
 
@@ -514,6 +617,215 @@ def full_serve(card):
     check(launches["flash_attention_fwd"] > 0 and launches["paged_flash_decode"] > 0,
           f"a kernel of the serving path never launched: {launches}")
     return launches
+
+
+def _code_steps(a, b):
+    """|a - b| in steps of the codes' own format (int8: 1; fp8-e4m3: the
+    spacing at the larger magnitude, 2**(exponent - 3), 2**-9 below the
+    normals)."""
+    fa, fb = a.float(), b.float()
+    if a.dtype == torch.int8:
+        return (fa - fb).abs()
+    mag = torch.maximum(fa.abs(), fb.abs()).clamp_min(2.0**-6)
+    return (fa - fb).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 3)
+
+
+def _first_flip(a, b):
+    return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+
+def cross_device_quant():
+    """Full width, 2 layers, fp32, int8 and fp8 pools with continuous
+    prefill and speculative verify: card (kernels) vs CPU (plain versions)."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params_cpu = _tree_to(params, "cpu")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, V, (64,), dtype=np.int32)
+    prompts = [
+        np.tile(rng.integers(0, V, (12,), dtype=np.int32), 8),  # repetitive: drafts accepted
+        rng.integers(0, V, (137,), dtype=np.int32),
+        np.concatenate([prefix, rng.integers(0, V, (40,), dtype=np.int32)]),  # shared prefix
+        np.concatenate([prefix, rng.integers(0, V, (56,), dtype=np.int32)]),
+    ]
+    arrivals = [0, 0, 1, 2]
+    out, card_first, problems = {}, {}, []
+    for kv_dtype in ("fp",) + QUANT_DTYPES:
+        tol = SLICE_LOGIT_TOL[kv_dtype]
+        serve = ServeConfig(max_seq=256, num_slots=4, paged=True, page_size=16,
+                            cache_dtype=torch.float32, prefill_chunk=64, tick_token_budget=128,
+                            spec_k=4, kv_dtype=kv_dtype)
+        side, pools = {}, {}
+        for dev, p in (("cuda", params), ("cpu", params_cpu)):
+            fa.flash_attention_fwd.launches = 0
+            pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
+            eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
+            eng.capture_logits = True
+            rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(prompts, arrivals)]
+            done = eng.run()
+            kv = eng.kv_cache_stats()
+            # the final pools (freed pages keep their data): card vs CPU
+            pools[dev] = {key: eng._cache[key].cpu() for key in ("k", "v", "k_scale", "v_scale")
+                          if key in eng._cache}
+            side[dev] = dict(
+                streams=[done[r].generated for r in rids],
+                logits=[eng.debug_logits[r] for r in rids],
+                launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                          "paged_flash_decode": pk.paged_flash_decode.launches,
+                          "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches},
+                counters={"chunk_launches": eng.chunk_launches,
+                          "verify_launches": eng.verify_launches,
+                          "decode_launches": eng.decode_launches,
+                          "spec_accepted": eng.spec_accepted, "shared_hits": kv["shared_hits"],
+                          "pages_in_use": kv["pages_in_use"],
+                          "scale_entries_in_use": kv["scale_entries_in_use"],
+                          "dequant_fallbacks": kv["dequant_fallbacks"]},
+            )
+        card, cpu = side["cuda"], side["cpu"]
+        err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu["logits"]))
+        card_first[kv_dtype] = [x[0] for x in card["logits"]]
+        # printed, not gated: how far the card's and CPU's final pools are
+        # apart (comparable while both sides served the same tokens).  A
+        # layer's flipped codes move its output, so deeper layers' K/V and
+        # codes drift further apart than the first layer's
+        pool_rec = {}
+        if kv_dtype != "fp" and card["streams"] == cpu["streams"]:
+            for key in ("k", "v"):
+                a, b = pools["cuda"][key], pools["cpu"][key]
+                sa, sb = pools["cuda"][f"{key}_scale"], pools["cpu"][f"{key}_scale"]
+                apart = a.view(torch.uint8) != b.view(torch.uint8)
+                pool_rec[key] = dict(
+                    codes_apart=int(apart.sum()), codes=int(apart.numel()),
+                    max_code_steps=float(_code_steps(a, b).max()),
+                    max_amax_diff=float((sa - sb).abs().max()) * QMAX[kv_dtype],
+                )
+        flips = []
+        for i, (a, b) in enumerate(zip(card["streams"], cpu["streams"])):
+            if a != b:
+                j = _first_flip(a, b)
+                la, lb = card["logits"][i][j], cpu["logits"][i][j]
+                flips.append(dict(request=i, token=j, card=a[j], cpu=b[j],
+                                  card_gap=float(la[a[j]] - la[b[j]]),
+                                  cpu_gap=float(lb[b[j]] - lb[a[j]])))
+        out[kv_dtype] = dict(
+            streams_identical=card["streams"] == cpu["streams"], near_tie_flips=flips,
+            first_logits_max_abs_err=err, logit_tol=tol, pools=pool_rec,
+            cuda_launches=card["launches"], cpu_launches=sum(cpu["launches"].values()),
+            cuda=card["counters"], cpu=cpu["counters"],
+        )
+        if kv_dtype != "fp":
+            # what quantization itself does to the first token, on the card
+            out[kv_dtype]["card_vs_fp_first_logits_max_abs_err"] = max(
+                float(np.abs(a - b).max()) for a, b in zip(card_first[kv_dtype], card_first["fp"])
+            )
+        for f in flips:
+            if max(f["card_gap"], f["cpu_gap"]) > 2 * tol:
+                problems.append(f"slice_quant {kv_dtype}: streams differ beyond a near-tie: {f}")
+        if err > tol:
+            problems.append(f"slice_quant {kv_dtype}: first-token logits differ by {err} > {tol}")
+        for dev in ("cuda", "cpu"):
+            c = side[dev]["counters"]
+            if not c["pages_in_use"] == c["scale_entries_in_use"] == c["dequant_fallbacks"] == 0:
+                problems.append(f"slice_quant {kv_dtype} on {dev}: pages or scales left, or a "
+                                f"fallback: {c}")
+        used, unused = (("paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
+                        else ("paged_flash_decode_quant", "paged_flash_decode"))
+        if not (card["launches"][unused] == 0 and card["launches"][used]
+                == cfg.num_layers * card["counters"]["decode_launches"] > 0):
+            problems.append(f"slice_quant {kv_dtype}: decode ticks must run {used}: "
+                            f"{card['launches']}, {card['counters']}")
+        if out[kv_dtype]["cpu_launches"]:
+            problems.append("slice_quant: kernels launched on the CPU side")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_quant", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
+          "lengths": [len(x) for x in prompts], "arrivals": arrivals, "new_tokens": 8,
+          "page_size": 16, "prefill_chunk": 64, "tick_token_budget": 128, "spec_k": 4,
+          **out})
+    check(not problems, "; ".join(problems))
+
+
+def full_serve_quant(card):
+    """The serve phase's model and trace with continuous prefill and
+    speculative verify, from an fp, an int8 and an fp8 pool."""
+    cfg = get_config("granite-8b")
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    lengths = [96, 200, 333, 512, 640, 777, 1000, 1500]
+    arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
+    runs, streams, launches_out, problems = {}, {}, {}, []
+    for kv_dtype in ("fp",) + QUANT_DTYPES:
+        eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=ServeConfig(
+            max_seq=2048, num_slots=8, paged=True, page_size=16, cache_dtype=torch.bfloat16,
+            prefill_chunk=256, tick_token_budget=512, spec_k=4, kv_dtype=kv_dtype,
+        ))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention_fwd.launches = 0
+        pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
+        t0 = time.perf_counter()
+        res = serve_trace(eng, lengths, arrivals, 32, cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                    "paged_flash_decode": pk.paged_flash_decode.launches,
+                    "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches}
+        stats = eng.tick_stats()
+        kv = eng.kv_cache_stats()
+        pf_tok, pf_s = sum(stats["prefill_tokens"]), sum(stats["prefill_s"])
+        dec_ticks = [i for i in range(stats["ticks"]) if stats["decode_s"][i] > 0]
+        dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+        # tokens committed by decode and verify launches (each request's
+        # first token comes off its last chunk's logits)
+        dec_tok = sum(stats["decode_tokens"]) - len(res)
+        streams[kv_dtype] = [r.generated for r in res]
+        rec = {
+            "kv_dtype": kv_dtype, "statuses": [r.status for r in res], "ticks": stats["ticks"],
+            "wall_s": wall, "prefill_tokens": pf_tok, "prefill_s": pf_s,
+            "prefill_tok_per_s": pf_tok / pf_s, "decode_tokens": dec_tok, "decode_s": dec_s,
+            "decode_tok_per_s": dec_tok / dec_s, "decode_ticks": len(dec_ticks),
+            "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+            "verify_launches": eng.verify_launches, "decode_launches": eng.decode_launches,
+            "chunk_launches": eng.chunk_launches,
+            "tokens_per_verify_launch": (eng.verify_tokens / eng.verify_launches
+                                         if eng.verify_launches else None),
+            "spec_proposed": eng.spec_proposed, "spec_accepted": eng.spec_accepted,
+            "ttft_ticks": [r.ttft_ticks for r in res], "chunks": [r.chunks for r in res],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pool_bytes": kv["cache_bytes"] + kv["scale_table_bytes"],
+            "pages_in_use": kv["pages_in_use"], "scale_entries_in_use": kv["scale_entries_in_use"],
+            "peak_pages": kv["peak_in_use"], "dequant_fallbacks": kv["dequant_fallbacks"],
+            "launches": launches,
+        }
+        if kv_dtype != "fp":
+            pairs = [(a, b) for x, y in zip(streams[kv_dtype], streams["fp"]) for a, b in zip(x, y)]
+            rec["tokens_matching_fp"] = sum(a == b for a, b in pairs) / len(pairs)
+        runs[kv_dtype] = rec
+        launches_out[kv_dtype] = launches
+        del eng
+        torch.cuda.empty_cache()
+        if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+            problems.append(f"serve_quant {kv_dtype}: not every request finished ok")
+        if not rec["pages_in_use"] == rec["scale_entries_in_use"] == 0:
+            problems.append(f"serve_quant {kv_dtype}: pages or scale entries left after the drain")
+        if rec["dequant_fallbacks"]:
+            problems.append(f"serve_quant {kv_dtype}: a gather fallback served a decode tick")
+        if not (launches["flash_attention_fwd"] > 0 and rec["chunk_launches"] > 0):
+            problems.append(f"serve_quant {kv_dtype}: chunks must run the flash forward")
+        used, unused = (("paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
+                        else ("paged_flash_decode_quant", "paged_flash_decode"))
+        if not (launches[unused] == 0
+                and launches[used] == cfg.num_layers * rec["decode_launches"] > 0):
+            problems.append(f"serve_quant {kv_dtype}: decode ticks must launch {used} 36 times "
+                            f"each: {launches}, {rec['decode_launches']} decode launches")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_quant", "arch": "granite-8b", "num_layers": cfg.num_layers,
+          "dtype": "bf16", "paged": True, "page_size": 16, "max_seq": 2048, "num_slots": 8,
+          "prefill_chunk": 256, "tick_token_budget": 512, "spec_k": 4, "lengths": lengths,
+          "arrival_ticks": arrivals, "new_tokens": 32, "runs": runs, "card": card})
+    check(not problems, "; ".join(problems))
+    return launches_out["int8"]
 
 
 def _kernel_class(name: str) -> str:
@@ -749,33 +1061,44 @@ def main():
     for dtype in (torch.float32, torch.bfloat16):
         for window in (None, 512):
             paged.append(paged_case(window, dtype, gen, flush))
+    quant = []
+    for kv_dtype in QUANT_DTYPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (None, 512):
+                quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
     del scratch
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1024, 2048, 4096):
             for name in ("causal", "window", "striped", "segment"):
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
-    emit({"phase": "kernels", "card": card, "cases": flash + paged + bwd})
+    emit({"phase": "kernels", "card": card, "cases": flash + paged + quant + bwd})
 
     cross_device()
     launches = full_serve(card)
+    cross_device_quant()
+    launches["paged_flash_decode_quant"] = full_serve_quant(card)["paged_flash_decode_quant"]
     train_parity()
     launches.update(full_train(card))
 
     main_flash = next(r for r in flash
                       if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "bf16")
     main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16")
+    main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
+                      and r["kv_dtype"] == "int8")
     # the training path runs the backward in fp32 at 4096 causal tokens
     main_bwd = next(r for r in bwd
                     if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
     kernels = []
-    for name, src, replaces, rec in (
-        ("flash_attention_fwd", FLASH_SRC, FLASH_REPLACES, main_flash),
-        ("paged_flash_decode", PAGED_SRC, PAGED_REPLACES, main_paged),
+    for name, key, src, replaces, rec in (
+        ("flash_attention_fwd", "flash_attention_fwd", FLASH_SRC, FLASH_REPLACES, main_flash),
+        ("paged_flash_decode", "paged_flash_decode", PAGED_SRC, PAGED_REPLACES, main_paged),
+        ("paged_flash_decode (quantized branch)", "paged_flash_decode_quant", PAGED_SRC,
+         QUANT_REPLACES, main_quant),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "launches": launches[key], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })

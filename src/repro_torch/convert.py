@@ -5,8 +5,11 @@
 The layouts are the same (``x @ W`` with ``W: [D_in, D_out]``, stacked
 ``[L, ...]`` layer leaves, same key names), so conversion is a copy with no
 transposes.  ``opt_state_from_jax`` does the same for JAX's AdamW
-``OptState(step, m, v)``, so a JAX run can continue in the port.  This module
-takes numpy only: it never imports JAX.
+``OptState(step, m, v)``, so a JAX run can continue in the port, and
+``cache_from_jax`` for a decode cache (pools, scale tables, block table,
+positions), so both can continue from one pool.  ml_dtypes' bfloat16 and
+float8_e4m3fn arrays carry over bit for bit.  This module takes numpy only:
+it never imports JAX.
 """
 
 from __future__ import annotations
@@ -19,13 +22,17 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import OptState
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "cache_from_jax"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch counterpart in numpy
+    # ml_dtypes' bfloat16 and float8_e4m3fn have no numpy counterpart in
+    # torch: carry the bits over and reinterpret them
+    if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(arr.copy())
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
@@ -55,3 +62,18 @@ def opt_state_from_jax(opt_state, device=None) -> OptState:
         m=params_from_jax(m, device=dev, dtype=torch.float32),
         v=params_from_jax(v, device=dev, dtype=torch.float32),
     )
+
+
+def cache_from_jax(cache: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """JAX's decode cache with numpy leaves (``jax.tree.map(np.asarray,
+    cache)``: ``k``/``v``, optional ``k_scale``/``v_scale`` and ``bt``, and
+    ``pos``) -> the port's cache dict on ``device`` (default: the card), the
+    element types kept (int8 and fp8 codes bit for bit)."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in cache.items():
+        if key not in ("k", "v", "k_scale", "v_scale", "bt", "pos"):
+            raise ValueError(f"cache_from_jax: no port counterpart for cache entry {key!r}")
+        out[key] = _tensor(np.asarray(val), dev, None)
+    out["pos"] = out["pos"].to(torch.int32)
+    return out

@@ -2,8 +2,10 @@
 ``repro/core/dispatch.py``).
 
 Every attention call goes through ``distributed_attention`` (batched
-prefill / forward) or ``decode_attention_step`` (one cached token).  An
-``AttentionPlanConfig`` names a backend from the registry.  On one card the
+prefill / forward), ``decode_attention_step`` (one cached token) or
+``chunk_attention_step`` (a chunk of cached tokens: continuous prefill and
+speculative verify).  An ``AttentionPlanConfig`` names a backend from the
+registry.  On one card the
 ``local-flash`` backend serves the batched path and the ``decode`` backend
 the cached path; ``mesh``, ``ring`` and ``ulysses`` are registered so a plan
 naming them fails loudly -- they need a sequence-sharded mesh (n > 1), which
@@ -18,9 +20,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.core.decode_attention import (
+    chunk_write_coords,
+    paged_cache_chunk_decode,
+    paged_cache_chunk_update,
     paged_cache_decode,
     paged_cache_update,
     paged_write_coords,
+    sharded_cache_chunk_decode,
+    sharded_cache_chunk_update,
     sharded_cache_decode,
     sharded_cache_update,
 )
@@ -36,6 +43,8 @@ __all__ = [
     "resolve_backend_name",
     "distributed_attention",
     "decode_attention_step",
+    "chunk_attention_step",
+    "chunk_write_coords",
     "paged_write_coords",
     "plan_from_ctx",
 ]
@@ -186,19 +195,22 @@ def _local_flash_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
 
 def _decode_step_local(
     q, k_new, v_new, k_cache, v_cache, pos, cfg: AttentionPlanConfig, bt=None, write_coords=None,
+    ks=None, vs=None,
 ):
     """One decode tick over the local cache: update in place, then decode.
     With ``cfg.paged`` the caches are the page pool, ``bt`` the block table
-    and ``write_coords`` (optional) the append's ``paged_write_coords``."""
+    and ``write_coords`` (optional) the append's ``paged_write_coords``;
+    ``ks``/``vs`` are a quantized pool's scale tables (updated in place)."""
     if cfg.paged:
-        k_cache, v_cache = paged_cache_update(
+        paged_cache_update(
             k_cache, v_cache, k_new, v_new, bt, pos, None, cfg.n, layout=cfg.layout,
-            coords=write_coords,
+            coords=write_coords, k_scale=ks, v_scale=vs,
         )
         o = paged_cache_decode(
             q, k_cache, v_cache, bt, pos, None, cfg.n,
             layout=cfg.layout, window=cfg.window, scale=cfg.scale,
             kernel=_resolve_decode_kernel(cfg.decode_kernel, paged=True),
+            k_scale=ks, v_scale=vs,
         )
         return o, k_cache, v_cache
     k_cache, v_cache = sharded_cache_update(
@@ -208,6 +220,35 @@ def _decode_step_local(
         q, k_cache, v_cache, pos, None, cfg.n,
         layout=cfg.layout, window=cfg.window, scale=cfg.scale,
         kernel=_resolve_decode_kernel(cfg.decode_kernel, paged=False),
+    )
+    return o, k_cache, v_cache
+
+
+def _chunk_step_local(
+    q, k_new, v_new, k_cache, v_cache, starts, lens, wstarts, cfg: AttentionPlanConfig,
+    bt=None, ks=None, vs=None, write_coords=None,
+):
+    """One chunk over the local cache: scatter the chunk's K/V by absolute
+    position (in place; quantized with ``ks``/``vs``; at ``write_coords``
+    when given), then prefix-causal chunk attention over everything
+    resident."""
+    if cfg.paged:
+        paged_cache_chunk_update(
+            k_cache, v_cache, k_new, v_new, bt, starts, lens, wstarts, None, cfg.n,
+            layout=cfg.layout, k_scale=ks, v_scale=vs, coords=write_coords,
+        )
+        o = paged_cache_chunk_decode(
+            q, k_cache, v_cache, bt, starts, None, cfg.n,
+            layout=cfg.layout, window=cfg.window, scale=cfg.scale, k_scale=ks, v_scale=vs,
+        )
+        return o, k_cache, v_cache
+    sharded_cache_chunk_update(
+        k_cache, v_cache, k_new, v_new, starts, lens, wstarts, None, cfg.n, layout=cfg.layout,
+        coords=write_coords,
+    )
+    o = sharded_cache_chunk_decode(
+        q, k_cache, v_cache, starts, None, cfg.n,
+        layout=cfg.layout, window=cfg.window, scale=cfg.scale,
     )
     return o, k_cache, v_cache
 
@@ -267,21 +308,29 @@ def decode_attention_step(
     block_table=None,  # int32 [B, max_pages]: switches to the paged cache
     decode_kernel: Optional[str] = None,  # None -> ctx.decode_kernel
     write_coords=None,  # paged: paged_write_coords(block_table, pos, ...), shared by layers
+    k_scale=None,  # [num_pages, page_size, Hkv] f32: quantized pool (paged only)
+    v_scale=None,
 ):
     """One token of cache-based decode through the 'decode' backend.
     Returns (o, k_cache, v_cache); the caches are updated in place.  Vector
-    ``pos`` serves mixed-depth slots in one step (continuous batching)."""
+    ``pos`` serves mixed-depth slots in one step (continuous batching).
+    ``k_scale``/``v_scale`` mark a quantized pool: writes quantize, reads
+    dequantize (in the kernel on the native path), and the return extends to
+    ``(o, k_cache, v_cache, k_scale, v_scale)`` as in JAX."""
     n = ctx.sp_size
     if n != 1:
         raise NotImplementedError("sequence-sharded decode (n > 1) comes with the mesh slice")
     if decode_kernel is None:
         decode_kernel = ctx.decode_kernel
+    if k_scale is not None and block_table is None:
+        raise ValueError("k_scale/v_scale (quantized pool) require block_table")
     if block_table is not None:
-        return _decode_attention_step_paged(
+        out = _decode_attention_step_paged(
             q, k_new, v_new, k_cache, v_cache, pos, block_table, ctx,
             window=window, layout=layout, scale=scale, decode_kernel=decode_kernel,
-            write_coords=write_coords,
+            write_coords=write_coords, k_scale=k_scale, v_scale=v_scale,
         )
+        return out + (k_scale, v_scale) if k_scale is not None else out
     cfg = AttentionPlanConfig(
         backend="decode", n=n, window=window, layout=layout, scale=scale,
         decode_kernel=decode_kernel,
@@ -291,7 +340,8 @@ def decode_attention_step(
 
 def _decode_attention_step_paged(
     q, k_new, v_new, k_pool, v_pool, pos, block_table, ctx,
-    *, window, layout, scale, decode_kernel="auto", write_coords=None,
+    *, window, layout, scale, decode_kernel="auto", write_coords=None, k_scale=None,
+    v_scale=None,
 ):
     """Paged decode step on one card: the pool update and the split-K (or
     gather) decode over the whole pool."""
@@ -301,5 +351,48 @@ def _decode_attention_step_paged(
     )
     bt = torch.as_tensor(block_table, device=q.device).to(torch.int32)
     return get_backend("decode").step(
-        q, k_new, v_new, k_pool, v_pool, pos, cfg, bt=bt, write_coords=write_coords
+        q, k_new, v_new, k_pool, v_pool, pos, cfg, bt=bt, write_coords=write_coords,
+        ks=k_scale, vs=v_scale,
     )
+
+
+def chunk_attention_step(
+    q,  # [B, C, H, D] chunk queries (pad rows beyond lens compute garbage)
+    k_new,  # [B, C, Hkv, D]
+    v_new,
+    k_cache,  # [B, cap, Hkv, D] -- or, paged: the pool
+    v_cache,
+    starts,  # [B]: global position of each row's chunk base
+    lens,  # [B]: valid tokens per row (0 = inactive row, nothing written)
+    write_starts,  # [B]: skip K/V writes below this position (shared prefix)
+    ctx,
+    *,
+    window: Optional[int] = None,
+    layout: str = "striped",
+    scale: Optional[float] = None,
+    block_table=None,  # int32 [B, max_pages]: switches to the paged cache
+    k_scale=None,  # f32 scale tables: quantized pool (paged only)
+    v_scale=None,
+    write_coords=None,  # chunk_write_coords(...) of this chunk, shared by layers
+):
+    """One continuous-prefill chunk (or speculative verify): row b's C tokens
+    land at ``starts[b] .. starts[b]+lens[b]-1`` and attend prefix-causally
+    to every resident position.  Returns (o, k_cache, v_cache), updated in
+    place, plus the scale tables for a quantized pool, like
+    ``decode_attention_step``.  Chunks always run the gather/band path
+    through the flash forward; the split-K kernel stays single-token."""
+    n = ctx.sp_size
+    if n != 1:
+        raise NotImplementedError("sequence-sharded chunks (n > 1) come with the mesh slice")
+    if k_scale is not None and block_table is None:
+        raise ValueError("k_scale/v_scale (quantized pool) require block_table")
+    paged = block_table is not None
+    cfg = AttentionPlanConfig(
+        backend="decode", n=n, window=window, layout=layout, scale=scale, paged=paged,
+    )
+    bt = torch.as_tensor(block_table, device=q.device).to(torch.int32) if paged else None
+    out = _chunk_step_local(
+        q, k_new, v_new, k_cache, v_cache, starts, lens, write_starts, cfg,
+        bt=bt, ks=k_scale, vs=v_scale, write_coords=write_coords,
+    )
+    return out + (k_scale, v_scale) if k_scale is not None else out

@@ -113,9 +113,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         ]
         lib.flash_bwd_dkv.restype = i
     elif name == "paged_decode":
-        # q k_pool v_pool bt pos o_parts lse_parts B H Hkv D page_size max_pages
-        # num_splits pages_per_split kv_off stride_kv hi scale dtype stream
-        lib.paged_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p]
+        # q k_pool v_pool k_scale v_scale bt pos o_parts lse_parts B H Hkv D
+        # page_size max_pages num_splits pages_per_split kv_off stride_kv hi
+        # scale dtype pool_type stream
+        lib.paged_decode.argtypes = [
+            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p
+        ]
         lib.paged_decode.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")

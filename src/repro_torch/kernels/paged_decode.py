@@ -15,12 +15,17 @@ of logical page ``j // page_size``.  A dense ``[B, m]`` cache is the
 degenerate case (reshape to ``[B * m/chunk, chunk]`` pages with the identity
 block table), so the same kernel serves the dense decode path too.
 
+A quantized pool (int8 or fp8-e4m3 codes, ``k_scale``/``v_scale``
+``[num_pages, page_size, Hkv]`` fp32 per-(token, kv-head) scales) runs the
+same kernel with another load path: codes are read 16 bytes per thread and
+the scales are folded into the score and the P.V weight (the quantized
+branch of the TPU kernel, ``repro/kernels/paged_decode.py:161-167``).
+
 The wrapper launches the kernel for CUDA tensors and runs the plain version
-(:func:`paged_decode_ref`: gather the row's pages, then the band math) for
-CPU tensors.  ``paged_flash_decode.launches`` counts kernel launches.  The
-quantized (int8/fp8) pool branch of the TPU kernel is not ported: its scale
-tables are accepted by the plain version only, and the wrapper raises for
-them on CUDA.
+(:func:`paged_decode_ref`: gather the row's pages, dequantize, then the band
+math) for CPU tensors.  ``paged_flash_decode.launches`` counts launches over
+an fp pool, ``paged_flash_decode.quant_launches`` launches over a quantized
+pool.
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ _DENSE_CHUNKS = (128, 64, 32, 16, 8, 4, 2, 1)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_MAX_GROUP = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the pool's element type at the C interface: 0 = q's type, 1 = int8, 2 = fp8
+_POOL_CODES = {torch.int8: 1}
+if hasattr(torch, "float8_e4m3fn"):
+    _POOL_CODES[torch.float8_e4m3fn] = 2
 
 PosArg = Union[int, torch.Tensor]
 
@@ -148,6 +157,13 @@ def paged_flash_decode(
     max_pages = block_table.shape[1]
     if H % hkv:
         raise ValueError(f"H={H} not divisible by Hkv={hkv}")
+    quantized = k_pool.dtype in _POOL_CODES
+    if quantized != (k_scale is not None) or quantized != (v_scale is not None):
+        raise TypeError(
+            "an int8/fp8 pool needs both scale tables, and scale tables need an int8/fp8 "
+            f"pool (pool {k_pool.dtype}, k_scale {k_scale is not None}, "
+            f"v_scale {v_scale is not None})"
+        )
     if q.device.type == "cpu":
         return paged_decode_ref(
             q, k_pool, v_pool, block_table, pos, kv_offset, stride_kv=stride_kv,
@@ -155,19 +171,29 @@ def paged_flash_decode(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode runs on cuda or cpu tensors, not {q.device}")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the quantized (int8/fp8) page pool is not ported to the GPU yet"
-        )
     if scale is None:
         scale = D**-0.5
+    pool_dtype = k_pool.dtype if quantized else q.dtype
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError(f"{name} must match q's device and dtype ({q.device}, {q.dtype})")
+        if t.device != q.device or t.dtype != pool_dtype:
+            raise TypeError(
+                f"{name} must be on q's device with q's dtype, or int8/fp8 with scale "
+                f"tables ({q.device}, {pool_dtype}); got {t.device}, {t.dtype}"
+            )
         if t.shape != (num_pages, page_size, hkv, D):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(num_pages, page_size, hkv, D)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device or t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32 on {q.device}, got {t.dtype} on {t.device}")
+            if t.shape != (num_pages, page_size, hkv):
+                raise ValueError(f"{name} shape {tuple(t.shape)} != {(num_pages, page_size, hkv)}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if D % 16:
+            raise ValueError(f"the quantized kernel loads 16 codes at a time: D={D} % 16 != 0")
     if q.shape != (B, 1, H, D):
         raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES:
@@ -194,16 +220,22 @@ def paged_flash_decode(
         return q.new_empty((0, 1, H, D)), lse_parts.new_empty((0, H, 1))
     lib = _build.load("paged_decode")
     err = lib.paged_decode(
-        q2.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos_d.data_ptr(),
-        o_parts.data_ptr(), lse_parts.data_ptr(),
+        q2.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        bt.data_ptr(), pos_d.data_ptr(), o_parts.data_ptr(), lse_parts.data_ptr(),
         B, H, hkv, D, page_size, max_pages, num_splits, pages_per_split,
         int(kv_offset), int(stride_kv), int(hi), float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPE_CODES[q.dtype], _POOL_CODES.get(k_pool.dtype, 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode")
-    paged_flash_decode.launches += 1
+    if quantized:
+        paged_flash_decode.quant_launches += 1
+    else:
+        paged_flash_decode.launches += 1
     o, lse = combine_split_partials(o_parts, lse_parts)
     return o.to(q.dtype), lse
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.quant_launches = 0

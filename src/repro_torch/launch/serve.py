@@ -8,13 +8,18 @@ continuous batching over the slot-pool engine (the CLI of
 
     # streaming: replay a mixed-length arrival trace through the scheduler
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --stream \
-        [--trace 16:0,32:1,64:2,16:4] [--slots 4] [--paged --page-size 4]
+        [--trace 16:0,32:1,64:2,16:4] [--slots 4] [--paged --page-size 4] \
+        [--kv-dtype int8] [--prefill-chunk 64 --tick-token-budget 128] \
+        [--spec-k 4 --check-spec-identical]
 
+``--kv-dtype int8|fp8`` stores the paged pool quantized; ``--prefill-chunk``
+(with ``--tick-token-budget``) ingests prompts through continuous prefill;
+``--spec-k`` verifies prompt-lookup drafts, and ``--check-spec-identical``
+replays the trace with ``spec_k=0`` and exits 1 unless every stream matches.
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
 plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
-machinery is not ported yet (multi-device, continuous prefill, speculative
-decode, quantized KV, oversubscription, chaos) are accepted for parity and
-raise when set.
+machinery is not ported yet (multi-device, oversubscription, chaos) are
+accepted for parity and raise when set.
 """
 
 import argparse
@@ -37,11 +42,6 @@ def _not_ported(args) -> list:
     return [
         flag for flag, on in (
             ("--fake-devices", args.fake_devices),
-            ("--kv-dtype", args.kv_dtype != "fp"),
-            ("--prefill-chunk", args.prefill_chunk is not None),
-            ("--tick-token-budget", args.tick_token_budget is not None),
-            ("--spec-k", args.spec_k),
-            ("--check-spec-identical", args.check_spec_identical),
             ("--oversubscribe", args.oversubscribe != 1.0),
             ("--chaos-seed", args.chaos_seed is not None),
             ("--check-deterministic", args.check_deterministic),
@@ -76,15 +76,25 @@ def main(argv=None):
     ap.add_argument("--health-every", type=int, default=0)
     ap.add_argument("--cancel", default=None,
                     help="comma list of request_index:tick cancellations (--stream)")
+    ap.add_argument("--kv-dtype", default="fp", choices=("fp", "int8", "fp8"),
+                    help="paged-pool storage: fp keeps --dtype; int8/fp8 store codes + "
+                         "per-(token, kv-head) fp32 scales (requires --paged)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="continuous prefill: ingest prompts in chunks of this many tokens")
+    ap.add_argument("--tick-token-budget", type=int, default=None,
+                    help="cap decode + chunk tokens per tick (requires --prefill-chunk)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode: verify up to this many tokens per slot per "
+                         "tick (0 disables; needs >= 2)")
+    ap.add_argument("--spec-draft", default="ngram", choices=("ngram", "off"))
+    ap.add_argument("--spec-max-misses", type=int, default=4,
+                    help="suspend a slot's drafting after this many consecutive missed "
+                         "verify ticks (0 = never)")
+    ap.add_argument("--check-spec-identical", action="store_true",
+                    help="replay the --stream trace with spec_k=0; exit 1 unless every "
+                         "token stream matches")
     # parity with the JAX CLI; not ported yet
     ap.add_argument("--fake-devices", type=int, default=0)
-    ap.add_argument("--kv-dtype", default="fp", choices=("fp", "int8", "fp8"))
-    ap.add_argument("--prefill-chunk", type=int, default=None)
-    ap.add_argument("--tick-token-budget", type=int, default=None)
-    ap.add_argument("--spec-k", type=int, default=0)
-    ap.add_argument("--spec-draft", default="ngram", choices=("ngram", "off"))
-    ap.add_argument("--spec-max-misses", type=int, default=4)
-    ap.add_argument("--check-spec-identical", action="store_true")
     ap.add_argument("--oversubscribe", type=float, default=1.0)
     ap.add_argument("--chaos-seed", type=int, default=None)
     ap.add_argument("--chaos-ticks", type=int, default=24)
@@ -112,11 +122,17 @@ def main(argv=None):
         cfg = cfg.reduced()
     ctx = ParallelCtx(device=args.device, decode_kernel=args.decode_kernel)
     params = tfm.init_params(cfg, seed=0, dtype=dtype, device=args.device)
-    eng = ServeEngine(cfg, params, ctx=ctx, serve=ServeConfig(
-        max_seq=args.max_seq, num_slots=args.slots, cache_dtype=dtype, paged=args.paged,
-        page_size=args.page_size, num_pages=args.num_pages,
-        health_every=args.health_every,
-    ))
+
+    def make_serve(spec_k):
+        return ServeConfig(
+            max_seq=args.max_seq, num_slots=args.slots, cache_dtype=dtype, paged=args.paged,
+            page_size=args.page_size, num_pages=args.num_pages, kv_dtype=args.kv_dtype,
+            prefill_chunk=args.prefill_chunk, tick_token_budget=args.tick_token_budget,
+            spec_k=spec_k, spec_draft=args.spec_draft,
+            spec_max_misses=args.spec_max_misses or None, health_every=args.health_every,
+        )
+
+    eng = ServeEngine(cfg, params, ctx=ctx, serve=make_serve(args.spec_k))
     rng = np.random.default_rng(0)
 
     if args.stream:
@@ -127,23 +143,30 @@ def main(argv=None):
             for part in args.cancel.split(","):
                 idx, t = part.split(":")
                 cancels.setdefault(int(t), []).append(int(idx))
-        rids = [
-            eng.submit(p, max_new_tokens=args.new_tokens, arrival_tick=tick,
-                       deadline_ticks=args.deadline_ticks)
-            for p, (_, tick) in zip(prompts, trace)
-        ]
-        ticks = 0
-        while eng.has_work:
-            for idx in cancels.get(eng._tick, []):
-                eng.cancel(rids[idx])
-            for req in eng.step():
-                print(
-                    f"rid={req.rid} len={len(req.prompt)} slot={req.slot} "
-                    f"arrived@{req.arrival_tick} admitted@{req.admit_tick} "
-                    f"finished@{req.finish_tick} status={req.status}: {req.generated}"
-                )
-            ticks += 1
+
+        def replay(engine, quiet=False):
+            rids = [
+                engine.submit(p, max_new_tokens=args.new_tokens, arrival_tick=tick,
+                              deadline_ticks=args.deadline_ticks)
+                for p, (_, tick) in zip(prompts, trace)
+            ]
+            ticks = 0
+            while engine.has_work:
+                for idx in cancels.get(engine._tick, []):
+                    engine.cancel(rids[idx])
+                for req in engine.step():
+                    if not quiet:
+                        print(
+                            f"rid={req.rid} len={len(req.prompt)} slot={req.slot} "
+                            f"arrived@{req.arrival_tick} admitted@{req.admit_tick} "
+                            f"finished@{req.finish_tick} status={req.status}: {req.generated}"
+                        )
+                ticks += 1
+            return rids, ticks
+
+        rids, ticks = replay(eng)
         stats = eng.tick_stats()
+        kv = eng.kv_cache_stats()
         summary = {
             "device": str(eng.device),
             "requests": len(trace),
@@ -152,9 +175,31 @@ def main(argv=None):
             "prefill_tokens": int(sum(stats["prefill_tokens"])),
             "decode_tokens": int(sum(stats["decode_tokens"])),
         }
+        if args.prefill_chunk:
+            summary["chunk_launches"] = eng.chunk_launches
+        if eng._spec_on:
+            summary["speculative"] = {
+                key: kv[key] for key in (
+                    "verify_launches", "spec_proposed", "spec_accepted", "spec_accept_rate",
+                    "spec_rolled_back_pages",
+                )
+            }
         if args.paged:
-            summary["kv_cache"] = eng.kv_cache_stats()
+            summary["kv_cache"] = kv
         print(json.dumps(summary))
+        if args.check_spec_identical:
+            if not eng._spec_on:
+                print("check-spec-identical needs --spec-k >= 2", file=sys.stderr)
+                return 1
+            ref = ServeEngine(cfg, params, ctx=ctx, serve=make_serve(0))
+            ref_rids, _ = replay(ref, quiet=True)
+            for rid, ref_rid in zip(rids, ref_rids):
+                got, want = eng._finished[rid].generated, ref._finished[ref_rid].generated
+                if got != want:
+                    print(f"check-spec-identical: rid={rid} speculative stream {got} != "
+                          f"vanilla {want}", file=sys.stderr)
+                    return 1
+            print(f"check-spec-identical: {len(rids)} streams match vanilla greedy")
         return 0
 
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)

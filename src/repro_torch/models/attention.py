@@ -23,6 +23,7 @@ __all__ = [
     "attention_block",
     "distributed_attention",
     "decode_attention_step",
+    "chunk_attention_step",
 ]
 
 
@@ -60,12 +61,37 @@ def decode_attention_step(
     block_table: Optional[torch.Tensor] = None,  # [B, max_pages]: paged cache
     decode_kernel: Optional[str] = None,  # None -> ctx.decode_kernel
     write_coords=None,  # paged: the append's coordinates, shared by all layers
+    k_scale: Optional[torch.Tensor] = None,  # f32 scale tables: quantized pool
+    v_scale: Optional[torch.Tensor] = None,
 ):
-    """Returns (o, k_cache, v_cache), the caches updated in place."""
+    """Returns (o, k_cache, v_cache), the caches updated in place; with
+    ``k_scale``/``v_scale`` (quantized paged pool) ``(o, k_cache, v_cache,
+    k_scale, v_scale)``."""
     return dispatch.decode_attention_step(
         q, k_new, v_new, k_cache, v_cache, pos, ctx,
         window=window, layout=layout, scale=scale, block_table=block_table,
         decode_kernel=decode_kernel, write_coords=write_coords,
+        k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+def chunk_attention_step(
+    q, k_new, v_new, k_cache, v_cache, starts, lens, write_starts, ctx: ParallelCtx,
+    *,
+    window: Optional[int] = None,
+    layout: str = "striped",
+    scale: Optional[float] = None,
+    block_table: Optional[torch.Tensor] = None,  # [B, max_pages]: paged cache
+    k_scale: Optional[torch.Tensor] = None,  # f32 scale tables: quantized pool
+    v_scale: Optional[torch.Tensor] = None,
+    write_coords=None,  # the chunk's write coordinates, shared by all layers
+):
+    """Continuous-prefill chunk append + prefix-causal attention; returns
+    like ``decode_attention_step``."""
+    return dispatch.chunk_attention_step(
+        q, k_new, v_new, k_cache, v_cache, starts, lens, write_starts, ctx,
+        window=window, layout=layout, scale=scale, block_table=block_table,
+        k_scale=k_scale, v_scale=v_scale, write_coords=write_coords,
     )
 
 

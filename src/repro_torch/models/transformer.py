@@ -11,8 +11,11 @@ backward, as ``jax.checkpoint`` makes JAX's layer scan do.
 
 The cache functions update the cache dict and its tensors IN PLACE (slice
 and index assignment, where JAX rebuilds the arrays) and return the same
-dict.  Writes that JAX drops with ``mode="drop"`` and sentinel indices are
-filtered with a boolean mask before writing here.
+dict.  A quantized paged pool (``init_cache(kv_dtype="int8"|"fp8")``) holds
+codes plus ``k_scale``/``v_scale`` tables; every write path (prefill, packed
+prefill, decode append, chunk, verify) quantizes at write time.  Writes that
+JAX drops with ``mode="drop"`` and sentinel indices are filtered with a
+boolean mask before writing here.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import dispatch
+from repro_torch.core import dispatch, kv_quant
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import dense_init, rms_norm, rope, vocab_cross_entropy
@@ -37,7 +40,9 @@ __all__ = [
     "init_cache",
     "prefill",
     "prefill_packed",
+    "prefill_chunk",
     "decode_step",
+    "verify_step",
     "param_count",
 ]
 
@@ -174,14 +179,16 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     ``ctx.device``.  Dense: K/V ``[L, B, cap, Hkv, D]``.  ``paged`` (a
     ``serve.kv_pool.PagedLayout``) switches K/V to a physical page pool
     ``[L, num_pages, page_size, Hkv, D]`` plus an int32 block table
-    ``"bt": [B, max_pages]`` (-1 = unallocated)."""
+    ``"bt": [B, max_pages]`` (-1 = unallocated).  ``kv_dtype`` "int8" /
+    "fp8" (paged only) stores the pool quantized, with per-(token, kv-head)
+    fp32 scales ``"k_scale"/"v_scale": [L, num_pages, page_size, Hkv]``
+    indexed like the pool."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
     dev = resolve_device(ctx.device)
-    if kv_dtype != "fp":
-        raise NotImplementedError(
-            "the quantized (int8/fp8) KV pool is not ported yet; use kv_dtype='fp'"
-        )
+    store = kv_quant.storage_dtype(kv_dtype, dtype)
+    if kv_dtype != "fp" and paged is None:
+        raise ValueError("quantized KV storage requires the paged cache")
     L, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.hd
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if paged is not None:
@@ -193,11 +200,27 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
             raise ValueError(f"paged virtual capacity {paged.virtual_cap} < cap {cap}")
         shape = (L, paged.num_pages, paged.chunk, hkv, d)
         cache["bt"] = torch.full((batch, paged.max_pages), -1, dtype=torch.int32, device=dev)
+        if kv_dtype != "fp":
+            for key in ("k_scale", "v_scale"):
+                cache[key] = torch.zeros(shape[:-1], dtype=kv_quant.SCALE_DTYPE, device=dev)
     else:
         shape = (L, batch, cap, hkv, d)
-    cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-    cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    cache["k"] = torch.zeros(shape, dtype=store, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=store, device=dev)
     return cache
+
+
+def _layer_cache(cache, i: int) -> Dict:
+    """Layer i's views of the K/V (and scale) tensors."""
+    return {key: cache[key][i] for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+
+
+def _write_kv(cache, i: int, index, kk, vv) -> None:
+    """Write K/V at ``index`` of layer i's cache (quantized for a quantized
+    pool, its scales at the same index)."""
+    for key, new in (("k", kk), ("v", vv)):
+        scales = cache.get(f"{key}_scale")
+        kv_quant.store(cache[key][i], None if scales is None else scales[i], index, new)
 
 
 def _decode_qkv(h, lp, cfg: ModelConfig, pos):
@@ -233,11 +256,12 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
     h = rms_norm(x, lp["attn"]["ln"])
     q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, pos)
     # the decode cache is always striped (one shard on one card)
-    o, _, _ = attn.decode_attention_step(
+    o = attn.decode_attention_step(
         q, k_new, v_new, cache_l["k"], cache_l["v"], pos, ctx,
         window=cfg.window, layout="striped", scale=scale, block_table=bt,
-        write_coords=write_coords,
-    )
+        write_coords=write_coords, k_scale=cache_l.get("k_scale"),
+        v_scale=cache_l.get("v_scale"),
+    )[0]
     y = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
     return mlp_block(y, lp["mlp"], cfg)
 
@@ -258,8 +282,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
         coords = dispatch.paged_write_coords(bt, pos, page_size, None, ctx.sp_size, layout="striped")
     x = _embed(params, tokens)
     for i, lp in enumerate(_layer_slices(params)):
-        cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _decode_block(x, lp, cache_l, cfg, ctx, pos, bt=bt, write_coords=coords)
+        x = _decode_block(x, lp, _layer_cache(cache, i), cfg, ctx, pos, bt=bt,
+                          write_coords=coords)
     logits = _logits(x, params, cfg)
     nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
     cache["pos"] = pos + 1
@@ -340,14 +364,12 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
     for i, lp in enumerate(_layer_slices(params)):
         h = rms_norm(x, lp["attn"]["ln"])
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
-        for key, new in (("k", kk), ("v", vv)):
-            dst = cache[key][i]
-            if paged:
-                dst[pages, cols] = new[0, toks].to(dst.dtype)
-            else:
-                # one shard: prefill index j is cache index j (JAX's
-                # _cache_scatter_indices for n == 1)
-                dst[:, :S] = new.to(dst.dtype)
+        if paged:
+            _write_kv(cache, i, (pages, cols), kk[0, toks], vv[0, toks])
+        else:
+            # one shard: prefill index j is cache index j (JAX's
+            # _cache_scatter_indices for n == 1)
+            _write_kv(cache, i, (slice(None), slice(None, S)), kk, vv)
         x = _decoder_block(x, lp, cfg, ctx, positions)
 
     if "length" in batch:
@@ -415,9 +437,7 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
     for i, lp in enumerate(_layer_slices(params)):
         h = rms_norm(x, lp["attn"]["ln"])
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
-        for key, new in (("k", kk), ("v", vv)):
-            dst = cache[key][i]
-            dst[rows, cols] = new[0, toks].to(dst.dtype)
+        _write_kv(cache, i, (rows, cols), kk[0, toks], vv[0, toks])
         x = _decoder_block(x, lp, cfg, ctx, positions, segments=segments)
 
     # document d's last real token sits where segments == d AND positions ==
@@ -429,3 +449,112 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
     logits = _logits(x[0, last_idx], params, cfg)  # [k, V]
     cache["pos"][slots] = doc_lens.to(torch.int32)
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# continuous prefill and speculative verify: chunks over the live cache
+# --------------------------------------------------------------------------
+
+
+def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, lens,
+                   write_starts, cache) -> torch.Tensor:
+    """Shared core of ``prefill_chunk`` and ``verify_step``: append a [B, C]
+    chunk batch into the live cache (in place) through the banded multi-row
+    attention and return the hidden states [B, C, D] of every chunk
+    position, before the final norm."""
+    check_supported(cfg)
+    dev = params["embed"].device
+    starts = torch.as_tensor(starts, device=dev).to(torch.int64)
+    lens = torch.as_tensor(lens, device=dev).to(torch.int64)
+    write_starts = torch.as_tensor(write_starts, device=dev).to(torch.int64)
+    B, C = tokens.shape
+    positions = starts[:, None] + torch.arange(C, device=dev)[None, :]
+    bt = cache.get("bt")
+    # where the chunk's K/V land depends only on the rows and the block
+    # table: computed once (one host read-back) for every layer
+    n = ctx.sp_size
+    coords = dispatch.chunk_write_coords(
+        starts, lens, write_starts, C, None, n, "striped", m=cache["k"].shape[2],
+        block_table=bt, page_size=cache["k"].shape[2] // n,
+    )
+    x = _embed(params, tokens)
+    for i, lp in enumerate(_layer_slices(params)):
+        cache_l = _layer_cache(cache, i)
+        h = rms_norm(x, lp["attn"]["ln"])
+        q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, positions)
+        # the decode cache is always striped: chunk rows scatter by absolute
+        # position exactly like single-token appends
+        o = attn.chunk_attention_step(
+            q, k_new, v_new, cache_l["k"], cache_l["v"], starts, lens, write_starts, ctx,
+            window=cfg.window, layout="striped", scale=scale, block_table=bt,
+            k_scale=cache_l.get("k_scale"), v_scale=cache_l.get("v_scale"),
+            write_coords=coords,
+        )[0]
+        x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
+        x = mlp_block(x, lp["mlp"], cfg)
+    return x
+
+
+def prefill_chunk(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
+    """Continuous prefill: append one C-token chunk per slot into the live
+    cache (in place) and attend prefix-causally over everything resident.
+
+    ``batch`` holds [B (= num_slots), C] operands: ``tokens`` (right-padded
+    per row), ``starts`` [B] (absolute position of each row's chunk base),
+    ``lens`` [B] (valid tokens; 0 = inactive row: nothing written, output
+    ignored), ``write_starts`` [B] (skip K/V writes below: a shared prefix
+    already resident) and ``pos_set`` [B] (new ``cache["pos"]`` per row, or
+    -1 to keep it: mid-prefill rows stay parked past capacity).
+
+    Returns (logits [B, V] at each row's last valid chunk token, cache)."""
+    tokens = batch["tokens"]
+    dev = params["embed"].device
+    lens = torch.as_tensor(batch["lens"], device=dev).to(torch.int64)
+    pos_set = torch.as_tensor(batch["pos_set"], device=dev).to(torch.int32)
+    B, C = tokens.shape
+    x = _chunk_forward(params, cfg, ctx, tokens, batch["starts"], lens,
+                       batch["write_starts"], cache)
+    last = (lens - 1).clamp(0, C - 1)
+    logits = _logits(x[torch.arange(B, device=dev), last], params, cfg)  # [B, V]
+    cache["pos"] = torch.where(pos_set >= 0, pos_set, cache["pos"])
+    return logits, cache
+
+
+def verify_step(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache,
+                return_logits: bool = False):
+    """Speculative verify: score K candidate tokens per slot in ONE chunk
+    launch and commit the longest accepted prefix.
+
+    ``batch``: ``tokens`` [B, K] (column 0 the row's current token, columns
+    1.. the draft), ``starts`` [B] (each row's cache position), ``lens`` [B]
+    (0: inactive; 1: a plain decode tick; k: a k-1 token draft) and
+    ``write_starts`` [B].  With ``y[i]`` the argmax at chunk position i,
+    draft token ``tokens[i+1]`` is accepted while it equals ``y[i]``; the
+    committed tokens are ``y[0 .. commit-1]`` with ``commit = accepted + 1``.
+    K/V past the committed prefix is stale and band-invisible.
+
+    Returns ``(y [B, K] int32, commit [B] int32, cache)`` with ``pos =
+    starts + commit`` for active rows, plus the logits [B, K, V] with
+    ``return_logits``."""
+    tokens = batch["tokens"]
+    dev = params["embed"].device
+    starts = torch.as_tensor(batch["starts"], device=dev).to(torch.int64)
+    lens = torch.as_tensor(batch["lens"], device=dev).to(torch.int64)
+    B, K = tokens.shape
+    x = _chunk_forward(params, cfg, ctx, tokens, starts, lens, batch["write_starts"], cache)
+    logits = _logits(x, params, cfg)  # [B, K, V]
+    y = torch.argmax(logits, dim=-1).to(torch.int32)
+    if K > 1:
+        drafts = tokens[:, 1:].to(device=dev, dtype=torch.int32)
+        match = (drafts == y[:, :-1]) & (torch.arange(1, K, device=dev)[None, :] < lens[:, None])
+        accepted = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+    else:
+        accepted = torch.zeros((B,), dtype=torch.int64, device=dev)
+    commit = torch.where(lens > 0, torch.minimum(accepted + 1, lens), torch.zeros_like(lens))
+    cache["pos"] = torch.where(lens > 0, starts + commit, cache["pos"].to(torch.int64)).to(
+        torch.int32
+    )
+    commit = commit.to(torch.int32)
+    if return_logits:
+        return y, commit, cache, logits
+    return y, commit, cache

@@ -2,10 +2,21 @@
 ``repro/serve/config.py``: same fields, same defaults, same validation).
 
 ``cache_dtype`` is a torch dtype (default ``torch.float32``, as in JAX).
-Knobs whose machinery is not ported yet raise ``NotImplementedError`` here:
-continuous prefill (``prefill_chunk`` / ``tick_token_budget``), speculative
-decode (``spec_k >= 2``), the quantized pool (``kv_dtype != "fp"``) and
-oversubscription (``oversubscribe > 1.0``).
+
+* ``prefill_chunk`` / ``tick_token_budget``: continuous prefill -- admitted
+  prompts stream into their slot in chunks, interleaved with decode, at most
+  ``tick_token_budget`` decode + chunk tokens per tick (the head-of-line
+  chunk is always granted).
+* ``spec_k`` (>= 2), ``spec_draft``, ``spec_max_misses``: speculative
+  decode -- verify the current token plus up to ``spec_k - 1`` prompt-lookup
+  drafts per slot in one chunk launch; greedy accept/reject keeps the tokens
+  identical to plain decode.  After ``spec_max_misses`` consecutive missed
+  verify ticks a slot stops drafting for ``16 * spec_max_misses`` ticks.
+* ``kv_dtype`` ("int8" / "fp8", paged only): the pool stores codes plus
+  per-(token, kv-head) fp32 scales, dequantized inside the decode kernel.
+
+Oversubscription (``oversubscribe > 1.0``, preempt-and-recompute) is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,9 +26,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core import kv_quant
+
 __all__ = ["ServeConfig"]
 
-KV_DTYPES = ("fp", "int8", "fp8")
 _DECODE_KERNELS = ("auto", "native", "gather", "band")
 _PACK_PLANS = ("greedy", "binpack")
 _SPEC_DRAFTS = ("ngram", "off")
@@ -39,12 +51,13 @@ class ServeConfig:
     page_size: Optional[int] = None  # tokens per page (paged)
     num_pages: Optional[int] = None  # physical pool size (paged)
     decode_kernel: str = "auto"  # auto | native | gather | band
-    kv_dtype: str = "fp"  # fp | int8 | fp8 (only fp is ported)
-    prefill_chunk: Optional[int] = None  # continuous prefill (not ported)
-    tick_token_budget: Optional[int] = None  # (not ported)
-    spec_k: int = 0  # speculative decode (not ported)
-    spec_draft: str = "ngram"
-    spec_max_misses: Optional[int] = 4
+    kv_dtype: str = "fp"  # fp | int8 | fp8: paged-pool storage precision
+    prefill_chunk: Optional[int] = None  # continuous prefill: chunk size
+    tick_token_budget: Optional[int] = None  # cap decode+chunk tokens per tick
+    spec_k: int = 0  # speculative decode: tokens verified per slot per tick
+    spec_draft: str = "ngram"  # ngram (prompt lookup) | off
+    spec_max_misses: Optional[int] = 4  # consecutive missed verify ticks
+    # before a slot's drafting suspends for a cooldown (None = never)
     oversubscribe: float = 1.0  # (> 1.0 not ported)
     nan_guard: bool = True  # retire (not propagate) non-finite-logit slots
     health_every: int = 0  # invariant sweep every N ticks (0 = on demand)
@@ -75,8 +88,28 @@ class ServeConfig:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
         if self.num_pages is not None and self.num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {self.num_pages}")
-        if self.kv_dtype not in KV_DTYPES:
-            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {self.kv_dtype!r}")
+        if self.kv_dtype not in kv_quant.KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {kv_quant.KV_DTYPES}, got {self.kv_dtype!r}"
+            )
+        if self.kv_dtype != "fp":
+            if not self.paged:
+                raise ValueError("kv_dtype requires paged=True (pool storage)")
+            if self.kv_dtype == "fp8" and not kv_quant.fp8_supported():
+                raise ValueError(
+                    "kv_dtype='fp8' requires torch.float8_e4m3fn; use 'int8'"
+                )
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.tick_token_budget is not None:
+            if self.prefill_chunk is None:
+                raise ValueError(
+                    "tick_token_budget only budgets continuous prefill; set prefill_chunk as well"
+                )
+            if self.tick_token_budget < 1:
+                raise ValueError(
+                    f"tick_token_budget must be >= 1, got {self.tick_token_budget}"
+                )
         if self.spec_k < 0 or self.spec_k == 1:
             raise ValueError(
                 f"spec_k must be 0 (off) or >= 2 (current token + drafts), got {self.spec_k}"
@@ -89,16 +122,8 @@ class ServeConfig:
             raise ValueError(f"oversubscribe must be >= 1.0, got {self.oversubscribe}")
         if self.health_every < 0:
             raise ValueError(f"health_every must be >= 0, got {self.health_every}")
-        not_ported = [
-            name for name, on in (
-                ("prefill_chunk / tick_token_budget (continuous prefill)",
-                 self.prefill_chunk is not None or self.tick_token_budget is not None),
-                ("spec_k >= 2 (speculative decode)", self.spec_k >= 2),
-                (f"kv_dtype={self.kv_dtype!r} (quantized KV pool)", self.kv_dtype != "fp"),
-                ("oversubscribe > 1.0 (preempt-and-recompute)", self.oversubscribe > 1.0),
-            ) if on
-        ]
-        if not_ported:
+        if self.oversubscribe > 1.0:
             raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + "; ".join(not_ported)
+                "not ported to the PyTorch engine yet: oversubscribe > 1.0 "
+                "(preempt-and-recompute)"
             )

@@ -1,30 +1,37 @@
-"""Continuous-batching serving engine over the KV cache (the one-shot-prefill
-engine of ``repro/serve/engine.py``, in PyTorch).
+"""Continuous-batching serving engine over the KV cache (``repro/serve/
+engine.py`` in PyTorch).
 
 The engine owns a fixed pool of ``num_slots`` cache rows -- dense, or a paged
-pool with block tables -- allocated ONCE at construction on the device of
+pool with block tables, stored in the cache dtype or quantized to int8 / fp8
+with scale tables -- allocated ONCE at construction on the device of
 ``ctx.device`` (the card by default).  Each ``step()`` is one tick:
 
   * **admission**: ``serve/scheduler.py`` assigns free slots to arrived
     requests (paged: the allocator books the request's pages first);
-  * **prefill**: same-tick admissions pack into shared bucket rows under a
-    segment mask (``pack_prefill``), or each prompt is prefilled alone,
-    right-padded to its bucket; the first token comes off the prefill logits;
+  * **prefill**, one-shot: same-tick admissions pack into shared bucket rows
+    under a segment mask (``pack_prefill``), or each prompt is prefilled
+    alone, right-padded to its bucket; the first token comes off the prefill
+    logits.  **Continuous** (``prefill_chunk``): admitted slots are parked
+    past capacity and their prompts stream in through ONE [num_slots, chunk]
+    chunk launch per tick under ``tick_token_budget``; a slot samples its
+    first token off its last chunk and decodes the same tick;
   * **decode**: ONE ``decode_step`` advances every decodable slot at its own
-    depth (per-slot ``pos``);
+    depth (per-slot ``pos``).  With ``spec_k >= 2`` a tick where some slot
+    has a granted prompt-lookup draft runs ONE [num_slots, spec_k] verify
+    launch instead and commits the longest accepted prefix per slot (the
+    paged pool rolls rejected pages back);
   * **retire**: EOS / max-token checks free the slot, and the per-slot NaN
     guard retires only a slot whose logits are not finite.
 
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
-in place.  Not ported yet: continuous (chunked) prefill, speculative decode,
-the quantized pool, oversubscription with preemption, and the chaos
-injector -- ``ServeConfig`` and the constructor raise for them.
+in place.  Not ported yet: oversubscription with preempt-and-recompute and
+the chaos injector -- ``ServeConfig`` and the constructor raise for them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +44,14 @@ from repro_torch.parallel.context import ParallelCtx
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.kv_pool import PageAllocator, PagedLayout
 from repro_torch.serve.scheduler import Request, RequestResult, Scheduler, default_buckets
+from repro_torch.serve.speculative import propose_ngram
 
 __all__ = ["ServeEngine"]
+
+# mid-prefill slots park their cache position past any capacity: the shared
+# decode step still ticks their row, but every write guard (pos < n*m) drops
+# the append, so a half-ingested prompt cannot be corrupted by decode
+_PARKED = 2**30
 
 
 class ServeEngine:
@@ -86,14 +99,24 @@ class ServeEngine:
         self.eos_id = serve.eos_id
         self.pack_plan = serve.pack_plan
         n = self.ctx.sp_size
+        # continuous prefill (None = one-shot bucketed prefill)
+        self.prefill_chunk = serve.prefill_chunk
+        # speculative decode: verify spec_k tokens per slot per tick through
+        # the chunk path; greedy accept/reject keeps the tokens of plain decode
+        self.spec_k = serve.spec_k
+        self.spec_max_misses = serve.spec_max_misses
+        self._spec_on = serve.spec_k >= 2 and serve.spec_draft != "off"
         self.paged = serve.paged
+        # quantized pool: int8/fp8 pages + per-(token, kv-head) scale tables
+        self._quantized = serve.kv_dtype != "fp"
+        self.dequant_fallbacks = 0  # quantized ticks served by the gather path
         self.allocator: Optional[PageAllocator] = None
         if serve.paged:
             layout = PagedLayout.for_engine(
                 serve.max_seq, n, serve.num_slots,
                 page_size=serve.page_size, num_pages=serve.num_pages,
             )
-            self.allocator = PageAllocator(layout)
+            self.allocator = PageAllocator(layout, quantized=self._quantized)
         self._native_decode = (
             dispatch._resolve_decode_kernel(self.ctx.decode_kernel, paged=serve.paged) == "native"
         )
@@ -102,24 +125,38 @@ class ServeEngine:
             if serve.prefill_buckets
             else default_buckets(serve.max_seq, n)
         )
-        self.scheduler = Scheduler(self.num_slots, buckets, self.max_seq, allocator=self.allocator)
+        self.scheduler = Scheduler(
+            self.num_slots, buckets, self.max_seq, allocator=self.allocator,
+            prefill_chunk=serve.prefill_chunk, tick_token_budget=serve.tick_token_budget,
+        )
         self.pack_max = max(1, serve.pack_max)
         self._can_pack = serve.pack_prefill
         # THE cache: allocated once, updated in place for the engine's lifetime
         self._cache = tfm.init_cache(
             cfg, self.num_slots, self.max_seq, dtype=serve.cache_dtype, ctx=self.ctx,
-            paged=self.allocator.layout if self.allocator else None,
+            paged=self.allocator.layout if self.allocator else None, kv_dtype=serve.kv_dtype,
         )
         self._cur = np.zeros((self.num_slots, 1), np.int32)  # last token per slot
         self._depth = np.zeros((self.num_slots,), np.int64)  # host view of pos
+        # per-slot consecutive missed verify ticks (negative: cooldown left)
+        self._spec_misses = np.zeros((self.num_slots,), np.int64)
+        self._shared_len = np.zeros((self.num_slots,), np.int64)  # paged prefix
         self._bt_version = -1  # device block table staleness marker
         self.bt_uploads = 0  # version-gated block-table uploads
         self._tick = 0
         self._finished: Dict[int, RequestResult] = {}
         # launch accounting: the pack planner's padded-prefill cost is
-        # launches x bucket tokens
+        # launches x bucket tokens; chunk launches count their device tokens
+        # (pad rows included)
         self.prefill_launches = 0
         self.prefill_launch_tokens = 0
+        self.chunk_launches = 0
+        self.chunk_launch_tokens = 0
+        self.decode_launches = 0  # plain one-token decode launches
+        self.verify_launches = 0
+        self.verify_tokens = 0  # tokens committed by verify launches
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         # per-tick series: prompt tokens ingested vs tokens generated, and the
         # host wall time of each tick's prefill and decode phases (each phase
         # ends by reading its tokens back, so the clock covers the device work)
@@ -186,14 +223,15 @@ class ServeEngine:
         a masked-out key's score is replaced, but its NaN value would still
         meet a zero weight in P·V, and 0 * NaN is NaN.  Shared pages (still
         referenced) hold live prefix data and are left alone."""
+        keys = [key for key in ("k", "v", "k_scale", "v_scale") if key in self._cache]
         if self.allocator is not None:
             if not freed:
                 return
             idx = torch.as_tensor(freed, dtype=torch.int64, device=self.device)
-            for key in ("k", "v"):
+            for key in keys:
                 self._cache[key][:, idx] = 0
         else:
-            for key in ("k", "v"):
+            for key in keys:
                 self._cache[key][:, slot] = 0
 
     def _finish_queued(self, req: Request) -> RequestResult:
@@ -249,6 +287,7 @@ class ServeEngine:
             out.update(
                 pages_in_use=self.allocator.pages_in_use,
                 pages_reserved=self.allocator.pages_reserved,
+                scale_entries_in_use=self.allocator.scale_entries_in_use,
             )
         return out
 
@@ -261,6 +300,25 @@ class ServeEngine:
         """Paged admission: claim (or prefix-share) the slot's pages; returns
         the shared-prefix length the prefill scatter must skip."""
         return self.allocator.alloc_slot(slot, req.prompt, req.max_new_tokens).shared_len
+
+    def _resident_shared_len(self, slot: int, shared: int) -> int:
+        """Shared-prefix tokens whose CONTENT is already resident.  Continuous
+        prefill may admit a sharer while its prefix donor is still mid-chunk:
+        the shared pages are booked but not yet written.  Cap the credit at
+        every mid-prefill donor's written watermark (page-aligned); the sharer
+        rewrites the rest of the prefix itself -- the same values into the
+        same pages."""
+        lay = self.allocator.layout
+        mine = {int(p) for p in self.allocator.block_table[slot, : lay.pages_for(shared)]}
+        for s2, r2 in enumerate(self.scheduler.slots):
+            if s2 == slot or r2 is None or r2.prefill_pos >= r2.ingest_len:
+                continue
+            if self.allocator.slot_pages(s2) == 0:
+                continue  # admitted this tick, pages not allocated yet
+            theirs = self.allocator.block_table[s2, : lay.pages_for(r2.ingest_len)]
+            if mine & {int(p) for p in theirs}:
+                shared = min(shared, (r2.prefill_pos // lay.chunk) * lay.chunk)
+        return shared
 
     def _prefill_single(self, slot: int, req: Request) -> int:
         """One request alone in a bucket-padded row; returns its first token."""
@@ -347,15 +405,74 @@ class ServeEngine:
         if self._req_done(req, tok):
             finished.append(self._finish(slot))
 
+    def _run_chunks(self, plan, finished):
+        """Launch this tick's chunk plan as ONE [num_slots, C] call; rows
+        without work carry lens=0 (nothing written).  Rows whose LAST chunk
+        this is get their position un-parked to the prompt length and sample
+        their first token off the returned logits, the same tick a one-shot
+        prefill would.  Returns (prompt tokens ingested, first tokens)."""
+        C, B = self.prefill_chunk, self.num_slots
+        tokens = np.zeros((B, C), np.int32)
+        starts = np.zeros((B,), np.int64)
+        lens = np.zeros((B,), np.int64)
+        wstarts = np.zeros((B,), np.int64)
+        pos_set = np.full((B,), -1, np.int32)
+        finishing = []
+        total = 0
+        for slot, req, start, take in plan:
+            tokens[slot, :take] = req.prompt[start : start + take]
+            starts[slot] = start
+            lens[slot] = take
+            wstarts[slot] = self._shared_len[slot]  # skip the resident shared prefix
+            if req.first_chunk_tick is None:
+                req.first_chunk_tick = self._tick
+            req.prefill_pos = start + take
+            req.chunks += 1
+            total += take
+            if req.prefill_pos >= req.ingest_len:
+                pos_set[slot] = req.ingest_len
+                finishing.append((slot, req))
+        self.chunk_launches += 1
+        self.chunk_launch_tokens += B * C  # device tokens (pad rows included)
+        self._sync_block_table()  # paged: admission allocated this plan's pages
+        batch = {
+            "tokens": self._to_device(tokens), "starts": self._to_device(starts),
+            "lens": self._to_device(lens), "write_starts": self._to_device(wstarts),
+            "pos_set": self._to_device(pos_set),
+        }
+        logits, self._cache = tfm.prefill_chunk(self.params, self.cfg, self.ctx, batch,
+                                                self._cache)
+        # first token and finiteness bit per row, read back together
+        first_ok = torch.stack(
+            [torch.argmax(logits, dim=-1), torch.isfinite(logits).all(dim=1).to(torch.int64)],
+            dim=1,
+        ).cpu().numpy()
+        logits_np = logits.float().cpu().numpy() if self.capture_logits else None
+        n_first = 0
+        for slot, req in finishing:
+            if self.nan_guard and not bool(first_ok[slot, 1]):
+                self.numeric_errors += 1
+                finished.append(self._finish(slot, status="numeric_error"))
+                continue
+            self._depth[slot] = req.ingest_len
+            if logits_np is not None:
+                self.debug_logits.setdefault(req.rid, []).append(logits_np[slot])
+            self._record_first_token(slot, req, int(first_ok[slot, 0]), finished)
+            n_first += 1
+        return total, n_first
+
     def _apply_copies(self, copies) -> None:
-        """Copy-on-write: physical page src -> dst in every layer's pool."""
+        """Copy-on-write: physical page src -> dst in every layer's pool; a
+        quantized pool's scale tables move in lockstep (a copied page with
+        stale scales would dequantize garbage)."""
         if not copies:
             return
         src = torch.as_tensor([s for s, _ in copies], dtype=torch.int64, device=self.device)
         dst = torch.as_tensor([d for _, d in copies], dtype=torch.int64, device=self.device)
-        for key in ("k", "v"):
-            pool = self._cache[key]  # [L, num_pages, page_size, Hkv, D]
-            pool[:, dst] = pool[:, src]
+        for key in ("k", "v", "k_scale", "v_scale"):
+            if key in self._cache:
+                pool = self._cache[key]  # [L, num_pages, page_size, Hkv(, D)]
+                pool[:, dst] = pool[:, src]
 
     def _vanilla_decode_tick(self, decodable, finished) -> int:
         """One decode launch over every decodable slot; returns tokens
@@ -370,6 +487,9 @@ class ServeEngine:
                     copies.append(cp)
             self._apply_copies(copies)
             self._sync_block_table()
+        if self._quantized and not self._native_decode:
+            self.dequant_fallbacks += 1  # gather-path dequant served this tick
+        self.decode_launches += 1
         nxt, self._cache, logits = tfm.decode_step(
             self.params, self._cache, self._to_device(self._cur), self.cfg, self.ctx
         )
@@ -398,14 +518,180 @@ class ServeEngine:
                 finished.append(self._finish(slot))
         return tokens
 
+    def _spec_drafts(self, decodable) -> Dict[int, List[int]]:
+        """Prompt-lookup drafts of the decodable slots whose drafting is on.
+        After ``spec_max_misses`` consecutive missed verify ticks a slot is
+        suspended until the next global probe tick (every ``16 *
+        spec_max_misses`` ticks, so suspended slots probe in one shared
+        launch); the counter counts the cooldown down as a negative number."""
+        drafts = {}
+        for slot in decodable:
+            if self.spec_max_misses is not None:
+                m = self._spec_misses[slot]
+                period = 16 * self.spec_max_misses
+                if m >= self.spec_max_misses:
+                    self._spec_misses[slot] = -(period - self._tick % period)
+                    continue
+                if m < 0:
+                    # the cooldown ends at max_misses - 1: one missed probe
+                    # re-trips, a fully accepted probe re-enables drafting
+                    self._spec_misses[slot] = self.spec_max_misses - 1 if m == -1 else m + 1
+                    continue
+            req = self.scheduler.slots[slot]
+            # the furthest write stays inside the slot's reserved capacity
+            k_cap = min(self.spec_k, req.max_new_tokens - len(req.generated))
+            if k_cap < 2:
+                continue
+            d = propose_ngram(req.prompt, req.generated, k_cap - 1)
+            if d:
+                drafts[slot] = d
+        return drafts
+
+    def _spec_decode_tick(self, decodable, finished, prefill_tokens) -> int:
+        """Speculative tick: verify every decodable row's current token plus
+        its granted draft in ONE [num_slots, spec_k] chunk launch and commit
+        the longest accepted prefix.  The token stream is that of plain
+        greedy decode; only the commit count per tick changes.  Falls back to
+        the plain decode launch when no slot has a granted draft.  Returns
+        tokens generated this tick."""
+        drafts = self._spec_drafts(decodable)
+        # drafts spend only the budget left after decode rows and chunks
+        granted = self.scheduler.plan_spec(drafts, len(decodable), prefill_tokens)
+        granted = {s: d for s, d in granted.items() if d}
+        if not granted:
+            return self._vanilla_decode_tick(decodable, finished)
+        K, B = self.spec_k, self.num_slots
+        tokens = np.zeros((B, K), np.int32)
+        starts = np.zeros((B,), np.int64)
+        lens = np.zeros((B,), np.int64)
+        for slot in decodable:
+            d = granted.get(slot, [])
+            tokens[slot, 0] = self._cur[slot, 0]
+            tokens[slot, 1 : 1 + len(d)] = d
+            starts[slot] = self._depth[slot]
+            lens[slot] = 1 + len(d)
+        if self.paged:
+            copies = []
+            for slot in decodable:
+                copies += self.allocator.ensure_span(slot, int(self._depth[slot]), int(lens[slot]))
+            self._apply_copies(copies)
+            self._sync_block_table()
+        for slot, d in granted.items():
+            self.scheduler.slots[slot].spec_proposed += len(d)
+            self.spec_proposed += len(d)
+        self.verify_launches += 1
+        if self._quantized and not self._native_decode:
+            self.dequant_fallbacks += 1  # gather-path dequant served this tick
+        starts_d, lens_d = self._to_device(starts), self._to_device(lens)
+        batch = {"tokens": self._to_device(tokens), "starts": starts_d, "lens": lens_d,
+                 # verify appends everything it scores
+                 "write_starts": starts_d}
+        y, commit, self._cache, logits = tfm.verify_step(
+            self.params, self.cfg, self.ctx, batch, self._cache, return_logits=True,
+        )
+        # finiteness over each row's valid positions only: pad positions
+        # (c >= lens) attend stale data and are never committed
+        valid = torch.arange(K, device=logits.device)[None, :] < lens_d[:, None]
+        ok = (torch.isfinite(logits).all(dim=2) | ~valid).all(dim=1)
+        # one read-back per tick: y, commit and the finiteness bit together
+        host = torch.cat([y, commit[:, None], ok[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        y_np, commit_np, ok_np = host[:, :K], host[:, K], host[:, K + 1]
+        logits_np = logits.float().cpu().numpy() if self.capture_logits else None
+        generated = 0
+        for slot in decodable:
+            req = self.scheduler.slots[slot]
+            if self.nan_guard and not bool(ok_np[slot]):
+                # non-finite verify logits: commit nothing, retire this slot
+                self.numeric_errors += 1
+                finished.append(self._finish(slot, status="numeric_error"))
+                continue
+            committed = int(commit_np[slot])
+            drafted = int(lens[slot]) - 1
+            if drafted:
+                accepted = committed - 1
+                req.spec_accepted += accepted
+                self.spec_accepted += accepted
+                # a miss is any verify tick with a rejection
+                self._spec_misses[slot] = 0 if accepted == drafted else self._spec_misses[slot] + 1
+            self._depth[slot] += committed
+            done = False
+            for i in range(committed):
+                tok = int(y_np[slot, i])
+                if logits_np is not None:
+                    self.debug_logits.setdefault(req.rid, []).append(logits_np[slot, i])
+                req.generated.append(tok)
+                req.token_ticks.append(self._tick)  # same tick: all one launch
+                generated += 1
+                self._cur[slot, 0] = tok
+                if self._req_done(req, tok):
+                    # EOS (or the cap) mid-commit: later accepted tokens are
+                    # dropped; their writes sit past the final depth
+                    self._depth[slot] -= committed - (i + 1)
+                    done = True
+                    finished.append(self._finish(slot))
+                    break
+            if not done and self.paged and drafted:
+                # free pages written past the accepted prefix; every launch
+                # re-syncs the block table before it runs
+                self.allocator.rollback(slot, int(self._depth[slot]))
+        self.verify_tokens += generated
+        return generated
+
+    def _decodable(self) -> List[int]:
+        return [
+            s for s in self.scheduler.active_slots()
+            if self.scheduler.slots[s].prefill_pos >= self.scheduler.slots[s].ingest_len
+        ]
+
+    def _ingest_chunked(self, assigned, finished) -> Tuple[int, int]:
+        """Continuous prefill: allocate and park this tick's admissions, then
+        launch the budgeted chunk plan.  Returns (prompt tokens ingested,
+        first tokens sampled)."""
+        for slot, req in assigned:
+            shared = self._alloc_pages(slot, req) if self.paged else 0
+            if shared:
+                shared = self._resident_shared_len(slot, shared)
+            self._shared_len[slot] = shared
+            # fully shared chunks never launch, but the LAST prompt token
+            # always runs forward: its logits give the first token
+            req.prefill_pos = min(shared, req.ingest_len - 1)
+        if assigned:
+            idx = torch.as_tensor([slot for slot, _ in assigned], device=self.device)
+            self._cache["pos"][idx] = _PARKED
+        plan = self.scheduler.plan_chunks(len(self._decodable()))
+        if not plan:
+            return 0, 0
+        return self._run_chunks(plan, finished)
+
+    def _ingest_one_shot(self, assigned, finished) -> Tuple[int, int]:
+        """One-shot prefill of this tick's admissions (packed or alone)."""
+        if self._can_pack:
+            groups = self.scheduler.pack_groups(
+                assigned, pack_max=self.pack_max, plan=self.pack_plan
+            )
+        else:
+            groups = [[x] for x in assigned]
+        prompt_tokens = firsts_n = 0
+        for group in groups:
+            if self._can_pack:
+                firsts = self._prefill_group(group)
+            else:
+                firsts = [self._prefill_single(slot, req) for slot, req in group]
+            for tok, (slot, req) in zip(firsts, group):
+                req.prefill_pos = len(req.prompt)
+                req.chunks = 1
+                req.first_chunk_tick = self._tick
+                prompt_tokens += len(req.prompt)
+                firsts_n += 1  # first token off the prefill logits
+                self._record_first_token(slot, req, tok, finished)
+        return prompt_tokens, firsts_n
+
     @torch.no_grad()
     def step(self) -> List[RequestResult]:
-        """One engine tick: lifecycle expiry, admission + prefill, then one
-        decode over every decodable slot.  Returns requests finished this
-        tick."""
+        """One engine tick: lifecycle expiry, admission and prompt ingestion
+        (one-shot or chunked), then one decode (or verify) launch over every
+        decodable slot.  Returns requests finished this tick."""
         finished: List[RequestResult] = []
-        prefill_tokens = 0
-        decode_tokens = 0
         for req in self.scheduler.take_expired(self._tick):
             self.deadline_expired += 1
             finished.append(self._finish_queued(req))
@@ -422,25 +708,17 @@ class ServeEngine:
         for req in self.scheduler.take_rejected():
             self.rejected_requests += 1
             finished.append(self._finish_queued(req))
-        if self._can_pack:
-            groups = self.scheduler.pack_groups(
-                assigned, pack_max=self.pack_max, plan=self.pack_plan
-            )
-        else:
-            groups = [[x] for x in assigned]
-        for group in groups:
-            if self._can_pack:
-                firsts = self._prefill_group(group)
-            else:
-                firsts = [self._prefill_single(slot, req) for slot, req in group]
-            for tok, (slot, req) in zip(firsts, group):
-                prefill_tokens += len(req.prompt)
-                decode_tokens += 1  # first token off the prefill logits
-                self._record_first_token(slot, req, tok, finished)
+        for slot, _ in assigned:
+            self._spec_misses[slot] = 0  # fresh request: drafting re-enabled
+        ingest = self._ingest_chunked if self.prefill_chunk is not None else self._ingest_one_shot
+        prefill_tokens, decode_tokens = ingest(assigned, finished)
         t1 = time.perf_counter()
-        decodable = self.scheduler.active_slots()
+        decodable = self._decodable()
         if decodable:
-            decode_tokens += self._vanilla_decode_tick(decodable, finished)
+            if self._spec_on:
+                decode_tokens += self._spec_decode_tick(decodable, finished, prefill_tokens)
+            else:
+                decode_tokens += self._vanilla_decode_tick(decodable, finished)
         t2 = time.perf_counter()
         self.tick_prefill_tokens.append(prefill_tokens)
         self.tick_decode_tokens.append(decode_tokens)
@@ -474,6 +752,14 @@ class ServeEngine:
         allocator's peak usage and sharing/CoW counters."""
         cfg = self.cfg
         lifecycle = {
+            "spec_proposed": float(self.spec_proposed),
+            "spec_accepted": float(self.spec_accepted),
+            "spec_accept_rate": (
+                self.spec_accepted / self.spec_proposed if self.spec_proposed else 0.0
+            ),
+            "verify_launches": float(self.verify_launches),
+            "chunk_launches": float(self.chunk_launches),
+            "decode_launches": float(self.decode_launches),
             "cancelled": float(self.cancelled),
             "deadline_expired": float(self.deadline_expired),
             "numeric_errors": float(self.numeric_errors),
@@ -481,11 +767,17 @@ class ServeEngine:
             "health_sweeps": float(self.health_sweeps),
         }
         k, v = self._cache["k"], self._cache["v"]
+        # the pool's storage width: int8/fp8 codes with fp32 scales apart
         per_tok = cfg.num_layers * k.shape[-2] * (k.shape[-1] + v.shape[-1]) * k.element_size()
+        scale_per_tok = (
+            cfg.num_layers * k.shape[-2] * 2 * self._cache["k_scale"].element_size()
+            if "k_scale" in self._cache else 0
+        )
         if self.allocator is None:
             return {
                 "paged": 0,
                 "cache_bytes": float(self.num_slots * self.max_seq * per_tok),
+                "spec_rolled_back_pages": 0.0,
                 **lifecycle,
             }
         lay = self.allocator.layout
@@ -498,6 +790,8 @@ class ServeEngine:
             "cache_bytes": float(lay.num_pages * lay.chunk * per_tok),
             "peak_page_bytes": float(stats["peak_in_use"] * lay.chunk * per_tok),
             "bt_uploads": float(self.bt_uploads),
+            "scale_table_bytes": float(lay.num_pages * lay.chunk * scale_per_tok),
+            "dequant_fallbacks": float(self.dequant_fallbacks),
             **{key: float(val) for key, val in stats.items()},
             **lifecycle,
         }

@@ -1,10 +1,10 @@
 """Paged KV-cache pool: block tables, refcounted pages, prefix sharing.
 
-The port's own copy of ``repro/serve/kv_pool.py`` (numpy only), cut to what
-the one-shot engine uses: conservative admission, prefix sharing, tail-page
-allocation and copy-on-write on append, and retirement.  The speculative
-(``ensure_span`` / ``rollback``), oversubscription, quantized-scale and chaos
-hooks of the JAX module come with the slices that port those features.
+The port's own copy of ``repro/serve/kv_pool.py`` (numpy only): conservative
+admission, prefix sharing, tail-page allocation and copy-on-write on append,
+speculative spans and rollback, the quantized pool's scale-entry count, and
+retirement.  Oversubscription (``seize``/``restore``, virtual capacity) and
+the chaos hooks of the JAX module come with the slice that ports them.
 
 The dense engine stores each slot's KV as a full ``[cap]`` row, so memory is
 ``num_slots x max_seq`` no matter how deep any request actually is, and two
@@ -126,8 +126,13 @@ class PageAllocator:
 
     FREE = -1
 
-    def __init__(self, layout: PagedLayout):
+    def __init__(self, layout: PagedLayout, quantized: bool = False):
         self.layout = layout
+        # a quantized pool carries a scale tile per physical page (side table
+        # indexed by the same block table); its liveness is counted apart
+        # from the free list, so "scales drain with pages" is a real check
+        self.quantized = bool(quantized)
+        self.scale_entries_in_use = 0
         self.block_table = np.full((0, layout.max_pages), self.FREE, np.int32)
         self.ref = np.zeros((layout.num_pages,), np.int32)
         self.gen = np.zeros((layout.num_pages,), np.int64)  # bumped on free
@@ -142,6 +147,8 @@ class PageAllocator:
         self.fresh_allocs = 0  # pages taken off the free list, ever
         self.shared_hits = 0  # pages admitted by prefix match instead
         self.cow_copies = 0
+        self.spec_rolled_back = 0  # pages freed by speculative rollback
+        self.double_free_noops = 0  # idempotent free/rollback of a retired slot
         self.peak_in_use = 0
         # bumped on every block-table mutation: the engine re-uploads the
         # device table only when this moved since the last sync
@@ -156,6 +163,11 @@ class PageAllocator:
     @property
     def pages_reserved(self) -> int:
         return sum(self._reserved.values())
+
+    @property
+    def pages_referenced(self) -> int:
+        """Pages with at least one live block-table reference."""
+        return int(np.count_nonzero(self.ref > 0))
 
     def slot_pages(self, slot: int) -> int:
         return self._slot_pages.get(slot, 0)
@@ -200,6 +212,8 @@ class PageAllocator:
         pid = self._free.pop()
         self.ref[pid] = 1
         self.fresh_allocs += 1
+        if self.quantized:
+            self.scale_entries_in_use += 1
         self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
         return pid
 
@@ -208,6 +222,8 @@ class PageAllocator:
         if self.ref[pid] == 0:
             self.gen[pid] += 1  # invalidate any prefix-registry entries
             self._free.append(pid)
+            if self.quantized:
+                self.scale_entries_in_use -= 1
         elif self.ref[pid] < 0:
             raise RuntimeError(f"double free of page {pid}")
 
@@ -279,11 +295,57 @@ class PageAllocator:
             return (pid, dst)
         return None
 
+    def ensure_span(self, slot: int, start: int, count: int) -> List[Tuple[int, int]]:
+        """Make positions ``start .. start + count - 1`` writable for ``slot``
+        (speculative verify): walk the span's logical pages in order,
+        allocating tail pages and copy-on-writing shared ones.  Returns every
+        ``(src, dst)`` physical copy the engine must apply before the write."""
+        copies: List[Tuple[int, int]] = []
+        if count <= 0:
+            return copies
+        chunk = self.layout.chunk
+        for lp in range(start // chunk, (start + count - 1) // chunk + 1):
+            if lp >= self.layout.max_pages:
+                break  # past virtual capacity: those writes mask off anyway
+            cp = self.ensure_append(slot, max(start, lp * chunk))
+            if cp is not None:
+                copies.append(cp)
+        return copies
+
+    def rollback(self, slot: int, keep_len: int) -> int:
+        """Free every page of ``slot`` beyond what ``keep_len`` committed
+        positions need: rejected speculative tokens become page frees, not
+        cache rewrites.  Stale K/V inside the kept tail page is harmless (the
+        band never reads past ``pos``).  Speculative pages are never in the
+        prefix registry, so no sharer maps what is freed here.  Rolling back a
+        slot that holds no pages is a no-op counted in ``double_free_noops``.
+        Returns the number of pages freed."""
+        if slot not in self._slot_pages:
+            self.double_free_noops += 1
+            return 0
+        held = self._slot_pages[slot]
+        target = self.layout.pages_for(keep_len)
+        freed = 0
+        for lp in range(held - 1, target - 1, -1):
+            self._release_page(int(self.block_table[slot, lp]))
+            self.block_table[slot, lp] = self.FREE
+            freed += 1
+        if freed:
+            self._slot_pages[slot] = target
+            self.spec_rolled_back += freed
+            self.version += 1
+        return freed
+
     def free_slot(self, slot: int) -> List[int]:
         """Retire a slot: drop its references; pages survive while shared.
-        Returns the physical pages whose refcount hit zero (the engine
-        scrubs them after a numeric error)."""
-        held = self._slot_pages.pop(slot, 0)
+        Freeing an already-free slot is a no-op counted in
+        ``double_free_noops``.  Returns the physical pages whose refcount hit
+        zero (the engine scrubs them after a numeric error)."""
+        if slot not in self._slot_pages:
+            self.double_free_noops += 1
+            self._reserved.pop(slot, None)
+            return []
+        held = self._slot_pages.pop(slot)
         self._reserved.pop(slot, None)
         freed: List[int] = []
         for c in range(held):
@@ -331,11 +393,15 @@ class PageAllocator:
                 f"page {int(pid)}: refcount {int(self.ref[pid])} != "
                 f"{int(counted[pid])} block-table references"
             )
-        referenced = int(np.count_nonzero(self.ref > 0))
-        if len(free) + referenced != lay.num_pages:
+        if len(free) + self.pages_referenced != lay.num_pages:
             problems.append(
-                f"page conservation: {len(free)} free + {referenced} referenced "
+                f"page conservation: {len(free)} free + {self.pages_referenced} referenced "
                 f"!= {lay.num_pages}"
+            )
+        if self.quantized and self.scale_entries_in_use != self.pages_referenced:
+            problems.append(
+                f"scale entries ({self.scale_entries_in_use}) out of lockstep "
+                f"with referenced pages ({self.pages_referenced})"
             )
         if self.pages_reserved > lay.num_pages:
             problems.append(f"reserved {self.pages_reserved} exceeds the pool {lay.num_pages}")
@@ -360,5 +426,9 @@ class PageAllocator:
             "fresh_allocs": self.fresh_allocs,
             "shared_hits": self.shared_hits,
             "cow_copies": self.cow_copies,
+            "spec_rolled_back_pages": self.spec_rolled_back,
+            "quantized_pages": self.pages_in_use if self.quantized else 0,
+            "scale_entries_in_use": self.scale_entries_in_use,
             "pages_reserved": self.pages_reserved,
+            "double_free_noops": self.double_free_noops,
         }

@@ -1,9 +1,10 @@
 """Continuous-batching scheduler: request queue over a fixed slot pool.
 
-The port's own copy of ``repro/serve/scheduler.py`` (numpy only), cut to what
-the one-shot engine uses.  Continuous-prefill and speculative planning
-(``plan_chunks`` / ``plan_spec``), preemption and the exact (unpadded) mode of
-SSM archs come with the slices that port those features.
+The port's own copy of ``repro/serve/scheduler.py`` (numpy only): admission,
+bucketed one-shot prefill, and the continuous-prefill and speculative
+planners (``plan_chunks`` / ``plan_spec``) under the tick token budget.
+Preemption and the exact (unpadded) mode of SSM archs come with the slices
+that port those features.
 
 Pure-python bookkeeping: the engine owns the device tensors, this module owns
 WHO occupies WHICH slot WHEN.  Lifecycle of a request:
@@ -19,7 +20,7 @@ shapes are bounded by ``len(buckets)``, not by the mix of prompt lengths.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -61,6 +62,16 @@ class Request:
     finish_tick: Optional[int] = None
     # terminal state: ok | cancelled | deadline | numeric_error | rejected
     status: str = "ok"
+    # continuous prefill: the ingest target (frozen at admission), how far
+    # into it the cache is, and how many chunk launches it took (a one-shot
+    # prefill counts as one chunk)
+    ingest_len: int = 0
+    prefill_pos: int = 0
+    chunks: int = 0
+    first_chunk_tick: Optional[int] = None
+    # speculative decode: draft tokens sent to verify / accepted
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def done(self) -> bool:
@@ -83,6 +94,10 @@ class RequestResult:
     finish_tick: int
     max_new_tokens: int
     slot: int
+    chunks: int = 0  # prefill launches (1 = one-shot)
+    first_chunk_tick: int = 0  # tick the first prompt chunk landed
+    spec_proposed: int = 0  # draft tokens verified for this request
+    spec_accepted: int = 0  # ... of which matched greedy decode
     status: str = "ok"  # ok | cancelled | deadline | numeric_error | rejected
 
     @property
@@ -112,6 +127,12 @@ class RequestResult:
             finish_tick=req.finish_tick,
             max_new_tokens=req.max_new_tokens,
             slot=req.slot,
+            chunks=req.chunks,
+            first_chunk_tick=(
+                req.first_chunk_tick if req.first_chunk_tick is not None else req.admit_tick
+            ),
+            spec_proposed=req.spec_proposed,
+            spec_accepted=req.spec_accepted,
             status=req.status,
         )
 
@@ -126,10 +147,17 @@ class Scheduler:
         max_seq: int,
         *,
         allocator=None,
+        prefill_chunk: Optional[int] = None,
+        tick_token_budget: Optional[int] = None,
     ):
         if num_slots < 1:
             raise ValueError("need at least one slot")
         self.num_slots = num_slots
+        # continuous prefill: prompts stream into their slot prefill_chunk
+        # tokens per launch; tick_token_budget caps decode + chunk tokens per
+        # tick (None = unbudgeted: every pending chunk runs every tick)
+        self.prefill_chunk = prefill_chunk
+        self.tick_token_budget = tick_token_budget
         # paged KV pool: admission accounts PAGES, not slot rows -- a request
         # is only admitted when its whole lifetime (prompt + token budget)
         # fits the unreserved pool, so decode can never exhaust mid-flight
@@ -162,7 +190,8 @@ class Scheduler:
                 f"prompt({len(prompt)}) + max_new_tokens({max_new_tokens}) exceeds "
                 f"cache capacity {self.max_seq}"
             )
-        self.bucket_for(len(prompt))  # raise early on un-bucketable prompts
+        if self.prefill_chunk is None:
+            self.bucket_for(len(prompt))  # raise early on un-bucketable prompts
         req = Request(
             self._next_rid, prompt, max_new_tokens, arrival_tick,
             deadline_ticks=deadline_ticks, priority=priority,
@@ -289,6 +318,7 @@ class Scheduler:
                 pending_pages += self.allocator.reserve_for(plen, req.max_new_tokens)
             self._queue.remove(req)
             req.slot, req.admit_tick = slot, tick
+            req.ingest_len = len(req.prompt)
             self.slots[slot] = req
             assigned.append((slot, req))
         return assigned
@@ -331,6 +361,54 @@ class Scheduler:
             self._queue.remove(r)
             r.status = "deadline"
         return out
+
+    def plan_chunks(self, decode_slots: int) -> List[Tuple[int, Request, int, int]]:
+        """Continuous prefill: this tick's chunk work under the token budget,
+        ``[(slot, request, start, take)]``; the engine launches exactly this
+        plan and advances ``request.prefill_pos``.  Oldest request first
+        (admission order).  The budget charges one token per decodable slot
+        first, then grants whole chunks until it runs out; the head-of-line
+        chunk is always granted, so prefill progresses every tick."""
+        if self.prefill_chunk is None:
+            return []
+        work = sorted(
+            (r.admit_tick, r.rid, slot, r)
+            for slot, r in enumerate(self.slots)
+            if r is not None and r.prefill_pos < r.ingest_len
+        )
+        budget = None
+        if self.tick_token_budget is not None:
+            budget = max(self.tick_token_budget - decode_slots, 0)
+        plan: List[Tuple[int, Request, int, int]] = []
+        spent = 0
+        for _, _, slot, r in work:
+            take = min(self.prefill_chunk, r.ingest_len - r.prefill_pos)
+            if plan and budget is not None and spent + take > budget:
+                break
+            plan.append((slot, r, r.prefill_pos, take))
+            spent += take
+        return plan
+
+    def plan_spec(
+        self, drafts: Dict[int, List[int]], decode_slots: int, chunk_tokens: int
+    ) -> Dict[int, List[int]]:
+        """Grant speculative draft tokens from the budget LEFT after one token
+        per decodable slot and this tick's chunk tokens, oldest request first;
+        a draft may be cut to what is left.  No budget = grant everything."""
+        if not drafts:
+            return {}
+        if self.tick_token_budget is None:
+            return dict(drafts)
+        left = max(self.tick_token_budget - decode_slots - chunk_tokens, 0)
+        granted: Dict[int, List[int]] = {}
+        order = sorted((self.slots[s].admit_tick, self.slots[s].rid, s) for s in drafts)
+        for _, _, slot in order:
+            if left <= 0:
+                break
+            take = drafts[slot][:left]
+            granted[slot] = take
+            left -= len(take)
+        return granted
 
     def retire(self, slot: int, tick: int, status: str = "ok") -> Request:
         req = self.slots[slot]

@@ -231,6 +231,74 @@ def test_paged_decode_matches_plain(dev, case, dtype):
     assert torch.all(o[:, 0][~live[..., 0]] == 0)
 
 
+QUANT_DTYPES = ["int8"] + (["fp8"] if hasattr(torch, "float8_e4m3fn") else [])
+
+
+def _quant_pool(rng, depths, kv_dtype, dev, page_size=16, hkv=8, d=128):
+    """A granite-shaped quantized pool: codes and per-(token, head) scales
+    from random K/V, a shuffled block table, -1 past each row's depth."""
+    from repro_torch.core import kv_quant
+
+    max_pages = -(-max(depths) // page_size) + 1
+    k_pool, v_pool, bt = _pool(rng, depths, page_size, max_pages, hkv, d, torch.float32, dev)
+    (kq, ks), (vq, vs) = (kv_quant.quantize(t, kv_dtype) for t in (k_pool, v_pool))
+    return kq, vq, ks, vs, bt
+
+
+@pytest.mark.parametrize("window", [None, 512], ids=["full", "window512"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kv_dtype", QUANT_DTYPES)
+def test_paged_decode_quant_matches_plain(dev, kv_dtype, dtype, window):
+    """The quantized branch (int8 / fp8 codes + fp32 scales) against the
+    plain version, which dequantizes the same codes; granite heads, mixed
+    depths with partial last pages and an empty row."""
+    depths = (1, 17, 250, 777, 1500, 0)
+    rng = np.random.default_rng(12)
+    kq, vq, ks, vs, bt = _quant_pool(rng, depths, kv_dtype, dev)
+    q = _randn(rng, len(depths), 1, 32, 128, dtype=dtype, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs)
+    before = (pk.paged_flash_decode.launches, pk.paged_flash_decode.quant_launches)
+    o, lse = pk.paged_flash_decode(q, kq, vq, bt, pos, 0, **kw)
+    torch.cuda.synchronize()
+    assert (pk.paged_flash_decode.launches, pk.paged_flash_decode.quant_launches) == (
+        before[0], before[1] + 1)
+    o_ref, lse_ref = pk.paged_decode_ref(q, kq, vq, bt, pos, 0, **kw)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+    # the empty row: exactly o = 0, lse = NEG_INF
+    assert torch.all(o[-1] == 0) and torch.all(lse[-1] == ref.NEG_INF)
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT_DTYPES)
+def test_paged_decode_quant_repeat_is_bitwise(dev, kv_dtype):
+    rng = np.random.default_rng(13)
+    kq, vq, ks, vs, bt = _quant_pool(rng, (40, 300, 5), kv_dtype, dev)
+    q = _randn(rng, 3, 1, 32, 128, dtype=torch.bfloat16, dev=dev)
+    pos = torch.tensor([39, 299, 4], dtype=torch.int32, device=dev)
+    a = pk.paged_flash_decode(q, kq, vq, bt, pos, 0, stride_kv=1, k_scale=ks, v_scale=vs)
+    b = pk.paged_flash_decode(q, kq, vq, bt, pos, 0, stride_kv=1, k_scale=ks, v_scale=vs)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_paged_decode_scale_checks(dev):
+    """Scales need a quantized pool and a quantized pool needs scales, on the
+    card as on the CPU; no fallback path exists."""
+    rng = np.random.default_rng(14)
+    kq, vq, ks, vs, bt = _quant_pool(rng, (20,), "int8", dev)
+    q = _randn(rng, 1, 1, 32, 128, dtype=torch.float32, dev=dev)
+    with pytest.raises(TypeError):
+        pk.paged_flash_decode(q, kq, vq, bt, 19, 0, stride_kv=1)
+    with pytest.raises(TypeError):
+        pk.paged_flash_decode(q, kq.float(), vq.float(), bt, 19, 0, stride_kv=1,
+                              k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError):
+        pk.paged_flash_decode(q, kq, vq, bt, 19, 0, stride_kv=1,
+                              k_scale=ks[:, :8].contiguous(), v_scale=vs[:, :8].contiguous())
+
+
 def test_combine_all_empty_rows_exact(dev):
     o_parts = torch.randn(2, 3, 4, 32, device=dev)
     lse_parts = torch.full((2, 3, 4), ref.NEG_INF, device=dev)
@@ -254,6 +322,46 @@ def test_dense_decode_native_and_band_match_plain(dev, window):
     for kernel in ("band", "native"):
         got = da.sharded_cache_decode(q, kc, vc, pos, None, 1, window=window, kernel=kernel)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT_DTYPES)
+def test_quant_chunk_spec_engine_on_card_matches_cpu(dev, kv_dtype):
+    """Reduced granite-8b, fp32, quantized paged pool with continuous prefill
+    and speculative verify: the card (4q for decode ticks, the flash
+    forward for chunks and verify) and the CPU serve the same streams, the
+    decode ticks went through 4q only, and pages and scales drain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("granite-8b").reduced()
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = {k: val.to(dev) for k, val in params.items() if k != "layers"}
+    on_card["layers"] = {
+        g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in params["layers"].items()
+    }
+    serve = ServeConfig(max_seq=64, num_slots=3, paged=True, page_size=4, kv_dtype=kv_dtype,
+                        prefill_chunk=8, tick_token_budget=16, spec_k=4)
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(np.array([7, 11, 13, 7], np.int32), 6),
+               rng.integers(0, cfg.vocab_size, (21,), dtype=np.int32)]
+    streams = {}
+    for name, p, device in (("card", on_card, "cuda"), ("cpu", params, "cpu")):
+        before = (pk.paged_flash_decode.launches, pk.paged_flash_decode.quant_launches)
+        eng = ServeEngine(cfg, p, ParallelCtx(device=device), serve=serve)
+        rids = [eng.submit(x, 10, arrival_tick=t) for t, x in enumerate(prompts)]
+        done = eng.run()
+        streams[name] = [done[r].generated for r in rids]
+        kv = eng.kv_cache_stats()
+        assert kv["pages_in_use"] == 0 and kv["scale_entries_in_use"] == 0
+        assert kv["dequant_fallbacks"] == 0
+        launched = (pk.paged_flash_decode.launches - before[0],
+                    pk.paged_flash_decode.quant_launches - before[1])
+        if device == "cuda":
+            assert launched == (0, cfg.num_layers * eng.decode_launches)
+    assert streams["card"] == streams["cpu"]
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])

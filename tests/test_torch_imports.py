@@ -23,6 +23,8 @@ names = ["repro_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+missing = {{"repro_torch.core.kv_quant", "repro_torch.serve.speculative"}} - set(names)
+assert not missing, missing
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v is not None]
@@ -83,5 +85,5 @@ def test_launch_serve_cpu_tour_and_unported_flags(capsys):
                        "--page-size", "4", "--trace", "8:0,12:1", "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert '"pages_in_use": 0.0' in out and "status=ok" in out
-    with pytest.raises(NotImplementedError, match="--spec-k"):
-        serve.main(["--device", "cpu", "--reduced", "--spec-k", "4"])
+    with pytest.raises(NotImplementedError, match="--oversubscribe"):
+        serve.main(["--device", "cpu", "--reduced", "--oversubscribe", "1.5"])

@@ -137,13 +137,25 @@ def _replay_two(eng, prompts, poison):
 
 
 def test_unported_knobs_raise_and_dtype_is_checked(weights):
+    """Only oversubscription and the chaos injector are still unported;
+    continuous prefill, speculation and the quantized pool construct, and
+    the combination checks are JAX's."""
     _, _, tcfg, tp = weights
-    for kw in (dict(prefill_chunk=8), dict(spec_k=4), dict(paged=True, kv_dtype="int8"),
-               dict(paged=True, oversubscribe=1.5)):
-        with pytest.raises(NotImplementedError):
-            TServe(**kw)
+    with pytest.raises(NotImplementedError):
+        TServe(paged=True, prefill_chunk=8, oversubscribe=1.5)
     with pytest.raises(NotImplementedError):
         TEngine(tcfg, tp, TCTX, chaos=object())
+    for kw in (dict(prefill_chunk=8, tick_token_budget=16), dict(spec_k=4),
+               dict(paged=True, kv_dtype="int8"), dict(paged=True, kv_dtype="fp8")):
+        TServe(**kw)
+    for kw in (dict(kv_dtype="int8"), dict(tick_token_budget=16), dict(prefill_chunk=0),
+               dict(spec_k=1)):
+        with pytest.raises(ValueError):
+            TServe(**kw)  # as JAX's ServeConfig
+        with pytest.raises(ValueError):
+            JServe(**kw)
+    with pytest.raises(ValueError, match="paged"):
+        ttfm.init_cache(tcfg, 2, 16, ctx=TCTX, kv_dtype="int8")  # dense + quantized
     with pytest.raises(ValueError, match="cache_dtype"):
         TEngine(tcfg, tp, TCTX, serve=TServe(cache_dtype=torch.bfloat16))
     with pytest.raises(ValueError):
