@@ -39,6 +39,19 @@ Phases, each printing one JSON line:
                  times: an fp, an int8 and an fp8 pool.  Counters set to 0
                  before each run: a quantized run's decode ticks launch only the
                  quantized decode kernel, 36 times per plain decode launch.
+  4c. slice_ssm -- mamba2-370m and hymba-1.5b at full width cut to 2 layers,
+                 fp32: the same weights served on the card (the SSD scan
+                 kernel, and the flash forward for hymba's attention) and on
+                 the CPU (plain versions), prompts of 48, 64, 192 and 320
+                 tokens, 8 new tokens each: streams identical, first-token
+                 logits within 1e-3.
+  4d. serve_ssm -- mamba2-370m and hymba-1.5b at full width and depth, bf16,
+                 seeded random weights, 8 slots, max_seq 2048, exact-length
+                 prefill: eight prompts of 48 ... 1536 tokens arriving at
+                 ticks 0 ... 13, 32 greedy tokens each.  Counters set to 0
+                 before each run: the SSD kernel must launch once per layer
+                 per prefill (384 and 256), and hymba's flash forward once
+                 per layer per prefill and per decode tick.
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -55,7 +68,9 @@ Phases, each printing one JSON line:
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
 holds the quantized decode (int8 / fp8 pools, fp32 / bf16 queries, windows
-None / 512) against its plain version.
+None / 512) and the SSD chunked scan (mamba2-370m and hymba-1.5b heads, fp32,
+a short chunk, batch 4 and a reduced shape; a bitwise repeat) against their
+plain versions.
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -81,6 +96,7 @@ from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_decode as pk  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # noqa: E402
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
@@ -120,6 +136,12 @@ PAGED_SRC = "src/repro_torch/csrc/paged_decode.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_decode.py:205"
 QUANT_REPLACES = "src/repro/kernels/paged_decode.py:205 (quantized branch :161-167)"
 QUANT_DTYPES = ("int8", "fp8")
+SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:90"
+# the SSD scan against its plain version: both sum fp32 in other orders, so
+# y and the final state are held to 1e-4 of the output's scale
+SSD_REL_TOL = 1e-4
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
 # slice_quant, card vs CPU, first-token logits.  The fp pool on the chunked
 # and speculative trace is held to the serving slice's 1e-3 (reading on an
 # H100: 1.3e-5).  The quantized pools quantize K/V that card and CPU compute
@@ -387,6 +409,51 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
     check(launched == 1, f"the quantized decode did not go through its kernel: {rec}")
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"quantized paged_flash_decode disagrees with its plain version: {rec}")
+    return rec
+
+
+def ssd_case(name, B, S, H, P, G, N, chunk, gen):
+    """One SSD chunked-scan case, fp32 inputs as the model gives them (dt
+    through softplus, A = -exp(.)), against the plain chunked dual form."""
+    x = randn(gen, B, S, H, P, dtype=torch.float32)
+    dt = F.softplus(randn(gen, B, S, H, dtype=torch.float32))
+    A = -torch.exp(0.5 * randn(gen, H, dtype=torch.float32))
+    Bm = randn(gen, B, S, G, N, dtype=torch.float32)
+    Cm = randn(gen, B, S, G, N, dtype=torch.float32)
+    run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
+    plain = lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
+    before = ssd.ssd_scan_fwd.launches
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    launched = ssd.ssd_scan_fwd.launches - before
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = SSD_REL_TOL * max(1.0, float(want[0].abs().max()))
+    err_y = float((got[0] - want[0]).abs().max())
+    err_state = float((got[1] - want[1]).abs().max())
+    finite = bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+    c = min(chunk, S)
+    # inputs read once, y and the final state written once
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel() + Cm.numel()
+                  + B * H * P * N)
+    # what the function needs (S is a multiple of c): the causal half of each
+    # chunk, (c+1)/2 pairs a token, for the group's C.B^T scores (N each) and
+    # each head's intra-chunk y (P each), plus each head's inter-chunk term and
+    # state update (2*P*N each); or the sequential recurrence's 5*P*N a token
+    # and head, whichever is less
+    chunked = B * S * (c + 1) * (G * N + H * P) + 4 * B * H * S * P * N
+    flops = min(chunked, 5 * B * H * S * P * N)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    rec = dict(
+        kernel="ssd_scan_fwd", case=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=c, dtype="fp32",
+        max_abs_err=max(err_y, err_state), max_abs_err_y=err_y, max_abs_err_state=err_state,
+        tol=tol, bitwise_repeat=bitwise, launched=launched,
+        ms=time_ms(run), plain_ms=time_ms(plain, reps=5), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+    )
+    del got, again, want
+    check(launched == 2, f"ssd_scan_fwd did not go through its kernel: {rec}")
+    check(finite and err_y <= tol and err_state <= tol and bitwise,
+          f"ssd_scan_fwd disagrees with its plain version or repeats unequal: {rec}")
     return rec
 
 
@@ -828,6 +895,134 @@ def full_serve_quant(card):
     return launches_out["int8"]
 
 
+def _ssm_state_bytes(eng):
+    """Bytes of the engine's SSM cache (conv windows and states, all slots)."""
+    return sum(t.numel() * t.element_size() for t in eng._cache["ssm"].values())
+
+
+def cross_device_ssm():
+    """mamba2-370m and hymba-1.5b at full width, 2 layers, fp32: card (the
+    SSD kernel; hymba's attention on the flash forward) vs CPU (plain
+    versions), exact-length prefill."""
+    lengths, arrivals = [48, 64, 192, 320], [0, 0, 1, 2]
+    out, problems = {}, []
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        serve = ServeConfig(max_seq=512, num_slots=4, cache_dtype=torch.float32)
+        side = {}
+        for dev, p in (("cuda", params), ("cpu", _tree_to(params, "cpu"))):
+            fa.flash_attention_fwd.launches = ssd.ssd_scan_fwd.launches = 0
+            eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
+            eng.capture_logits = True
+            res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=4)
+            side[dev] = dict(
+                streams=[r.generated for r in res],
+                first=[eng.debug_logits[r.rid][0] for r in res],
+                launches={"ssd_scan_fwd": ssd.ssd_scan_fwd.launches,
+                          "flash_attention_fwd": fa.flash_attention_fwd.launches},
+                prefill_launches=eng.prefill_launches, decode_launches=eng.decode_launches,
+                statuses=[r.status for r in res],
+            )
+        card, cpu = side["cuda"], side["cpu"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
+        want_ssd = cfg.num_layers * card["prefill_launches"]
+        want_flash = (cfg.num_layers * (card["prefill_launches"] + card["decode_launches"])
+                      if cfg.hybrid else 0)
+        out[arch] = dict(
+            streams_identical=card["streams"] == cpu["streams"], first_logits_max_abs_err=err,
+            cuda_launches=card["launches"], cpu_launches=sum(cpu["launches"].values()),
+            prefill_launches=card["prefill_launches"], decode_launches=card["decode_launches"],
+        )
+        if card["streams"] != cpu["streams"]:
+            problems.append(f"slice_ssm {arch}: card and CPU streams differ: {side}")
+        if err > 1e-3:
+            problems.append(f"slice_ssm {arch}: first-token logits differ by {err} > 1e-3")
+        if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+            problems.append(f"slice_ssm {arch}: not every request finished ok")
+        if card["launches"] != {"ssd_scan_fwd": want_ssd, "flash_attention_fwd": want_flash} \
+                or out[arch]["cpu_launches"]:
+            problems.append(f"slice_ssm {arch}: launches {card['launches']} (CPU "
+                            f"{out[arch]['cpu_launches']}), want ssd {want_ssd}, "
+                            f"flash {want_flash}")
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_ssm", "num_layers": 2, "dtype": "fp32", "lengths": lengths,
+          "arrivals": arrivals, "new_tokens": 8, **out})
+    check(not problems, "; ".join(problems))
+
+
+def full_serve_ssm(card):
+    """mamba2-370m and hymba-1.5b at full width and depth, bf16, 8 slots,
+    max_seq 2048; every prompt <= 64 or a multiple of 64 (exact mode)."""
+    lengths = [48, 64, 128, 256, 384, 640, 1024, 1536]
+    arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
+    runs, launches_total, problems = {}, 0, []
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=ServeConfig(
+            max_seq=2048, num_slots=8, cache_dtype=torch.bfloat16,
+        ))
+        # warm-up (cuBLAS handles, allocator), outside the measured run
+        eng.generate(np.arange(64, dtype=np.int32)[None], max_new_tokens=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        skip = eng.tick_stats()["ticks"]
+        prefills0, decodes0 = eng.prefill_launches, eng.decode_launches
+        fa.flash_attention_fwd.launches = ssd.ssd_scan_fwd.launches = 0
+        t0 = time.perf_counter()
+        res = serve_trace(eng, lengths, [a + skip for a in arrivals], 32, cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ssd_scan_fwd": ssd.ssd_scan_fwd.launches,
+                    "flash_attention_fwd": fa.flash_attention_fwd.launches}
+        prefills = eng.prefill_launches - prefills0
+        decodes = eng.decode_launches - decodes0
+        stats = eng.tick_stats()
+        pf_tok = sum(stats["prefill_tokens"][skip:])
+        pf_s = sum(stats["prefill_s"][skip:])
+        dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+        dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+        dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+        ssm_bytes = _ssm_state_bytes(eng)
+        rec = {
+            "arch": arch, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+            "ssm": dataclasses.asdict(cfg.ssm), "vocab": cfg.vocab_size,
+            "params": tfm.param_count(params), "statuses": [r.status for r in res],
+            "ticks": stats["ticks"] - skip, "wall_s": wall, "init_s": init_s,
+            "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+            "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+            "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+            "ttft_ticks": [r.ttft_ticks for r in res],
+            "ssm_state_bytes": ssm_bytes, "ssm_state_bytes_per_slot": ssm_bytes / 8,
+            "kv_cache_bytes": eng.kv_cache_stats()["cache_bytes"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefill_launches": prefills, "decode_launches": decodes, "launches": launches,
+        }
+        rec["decode_profile"] = profile_decode(eng, cfg)
+        runs[arch] = rec
+        launches_total += launches["ssd_scan_fwd"]
+        want_flash = cfg.num_layers * (prefills + decodes) if cfg.hybrid else 0
+        if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+            problems.append(f"serve_ssm {arch}: not every request finished ok: {rec['statuses']}")
+        if launches != {"ssd_scan_fwd": cfg.num_layers * len(lengths),
+                        "flash_attention_fwd": want_flash} or prefills != len(lengths):
+            problems.append(f"serve_ssm {arch}: launches {launches} over {prefills} prefill and "
+                            f"{decodes} decode launches; want ssd {cfg.num_layers * len(lengths)}"
+                            f", flash {want_flash}")
+        del eng, params
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_ssm", "dtype": "bf16", "max_seq": 2048, "num_slots": 8,
+          "lengths": lengths, "arrival_ticks": arrivals, "new_tokens": 32, "runs": runs,
+          "card": card})
+    check(not problems, "; ".join(problems))
+    return launches_total
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attention_fwd"
@@ -837,6 +1032,8 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_dkv"
     if "paged_decode_kernel" in name:
         return "paged_flash_decode"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan_fwd"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
     return "other"
@@ -1067,17 +1264,27 @@ def main():
             for window in (None, 512):
                 quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
     del scratch
+    ssd_cases = [
+        ssd_case("mamba2", 1, 2048, 32, 64, 1, 128, 64, gen),
+        ssd_case("mamba2", 1, 1536, 32, 64, 1, 128, 64, gen),
+        ssd_case("mamba2_short_chunk", 1, 48, 32, 64, 1, 128, 64, gen),
+        ssd_case("hymba", 1, 1024, 50, 64, 1, 16, 64, gen),
+        ssd_case("mamba2_batch4", 4, 512, 32, 64, 1, 128, 64, gen),
+        ssd_case("reduced", 1, 256, 16, 16, 1, 16, 8, gen),
+    ]
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1024, 2048, 4096):
             for name in ("causal", "window", "striped", "segment"):
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
-    emit({"phase": "kernels", "card": card, "cases": flash + paged + quant + bwd})
+    emit({"phase": "kernels", "card": card, "cases": flash + paged + quant + ssd_cases + bwd})
 
     cross_device()
     launches = full_serve(card)
     cross_device_quant()
     launches["paged_flash_decode_quant"] = full_serve_quant(card)["paged_flash_decode_quant"]
+    cross_device_ssm()
+    launches["ssd_scan_fwd"] = full_serve_ssm(card)
     train_parity()
     launches.update(full_train(card))
 
@@ -1086,6 +1293,7 @@ def main():
     main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16")
     main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
                       and r["kv_dtype"] == "int8")
+    main_ssd = next(r for r in ssd_cases if r["case"] == "mamba2" and r["S"] == 2048)
     # the training path runs the backward in fp32 at 4096 causal tokens
     main_bwd = next(r for r in bwd
                     if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
@@ -1095,6 +1303,7 @@ def main():
         ("paged_flash_decode", "paged_flash_decode", PAGED_SRC, PAGED_REPLACES, main_paged),
         ("paged_flash_decode (quantized branch)", "paged_flash_decode_quant", PAGED_SRC,
          QUANT_REPLACES, main_quant),
+        ("ssd_scan_fwd", "ssd_scan_fwd", SSD_SRC, SSD_REPLACES, main_ssd),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the two dense decoders this slice
-serves.  ``--arch <id>`` resolves here."""
+"""Architecture registry of the port: the dense decoders, the attention-free
+SSD stack and the hybrid attention + SSD model.  ``--arch <id>`` resolves
+here."""
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, register
 
-ARCHS = ["granite-8b", "paper-mha-7b"]
+ARCHS = ["granite-8b", "paper-mha-7b", "mamba2-370m", "hymba-1.5b"]

@@ -2,8 +2,8 @@
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` gives the
 family-preserving small config the CPU tests use.  The sub-configs (MoE, SSM,
-MLA) are kept so a config reads the same in both packages, although this
-slice of the port serves the dense family only.
+MLA) are kept so a config reads the same in both packages, although the
+port serves the dense, SSM and hybrid families only (no MoE or MLA yet).
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; this port serves {list(ARCHS)}")
     if name not in _REGISTRY:
-        importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+        importlib.import_module(f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
     return _REGISTRY[name]
 
 

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -120,6 +120,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p
         ]
         lib.paged_decode.restype = i
+    elif name == "ssd_scan":
+        # x dt A Bm Cm y state B S H P G N chunk, the (batch, seq, head)
+        # strides of x, dt, Bm, Cm, stream
+        ll = ctypes.c_longlong
+        lib.ssd_scan.argtypes = [p] * 7 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

@@ -182,3 +182,40 @@ def combine_partials(
     o = o1 * c1.to(o1.dtype) + o2 * c2.to(o2.dtype)
     lse = torch.where(tot > 0, m + torch.log(tot_safe), torch.full_like(tot, NEG_INF))
     return o, lse
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) oracle: the sequential recurrence
+# --------------------------------------------------------------------------
+
+
+def ssd_ref(
+    x: torch.Tensor,  # [B, S, H, P]   (P = head channel dim)
+    dt: torch.Tensor,  # [B, S, H]     (softplus-activated step sizes)
+    A: torch.Tensor,  # [H]            (negative decay rates)
+    Bm: torch.Tensor,  # [B, S, G, N]  (input projection, G state groups)
+    Cm: torch.Tensor,  # [B, S, G, N]  (output projection)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential reference of the SSD recurrence (arXiv:2405.21060):
+
+        h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t B_t^T
+        y_t = C_t h_t
+
+    in fp32, one step per token from h_0 = 0.  Returns (y [B,S,H,P] in x's
+    dtype, final_state [B,H,P,N] fp32)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    f32 = torch.float32
+    Bh = Bm.to(f32).repeat_interleave(rep, dim=2)  # [B,S,H,N]
+    Ch = Cm.to(f32).repeat_interleave(rep, dim=2)
+    xf, dtf = x.to(f32), dt.to(f32)
+    decay = torch.exp(dtf * A.to(f32)[None, None, :])  # [B,S,H]
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) * Bh[:, t, :, None, :]
+        h = decay[:, t, :, None, None] * h + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, H, P))
+    return y.to(x.dtype), h

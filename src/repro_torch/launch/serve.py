@@ -16,8 +16,11 @@ continuous batching over the slot-pool engine (the CLI of
 (with ``--tick-token-budget``) ingests prompts through continuous prefill;
 ``--spec-k`` verifies prompt-lookup drafts, and ``--check-spec-identical``
 replays the trace with ``spec_k=0`` and exits 1 unless every stream matches.
-``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
-plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
+``--arch mamba2-370m`` / ``hymba-1.5b`` serve SSM and hybrid models with
+exact-length prefill (each prompt at most the SSD chunk or a multiple of
+it); ``--paged``, ``--prefill-chunk`` and ``--spec-k`` raise the engine's
+``ValueError`` for them.  ``--device`` defaults to ``cuda`` (the CUDA
+kernels); ``cpu`` runs their plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
 machinery is not ported yet (multi-device, oversubscription, chaos) are
 accepted for parity and raise when set.
 """

@@ -1,5 +1,9 @@
-"""Dense decoder: init / forward / loss / cache / prefill / decode (the dense
-family of ``repro/models/transformer.py``).
+"""Decoder stack: init / forward / loss / cache / prefill / decode for the
+dense, SSM and hybrid families of ``repro/models/transformer.py``.
+
+  dense   -- attention + gated MLP
+  ssm     -- SSD blocks only (``models/ssm.py``; attention-free, no MLP)
+  hybrid  -- parallel attention + SSD heads, mean-fused, then the MLP (hymba)
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
@@ -15,7 +19,9 @@ dict.  A quantized paged pool (``init_cache(kv_dtype="int8"|"fp8")``) holds
 codes plus ``k_scale``/``v_scale`` tables; every write path (prefill, packed
 prefill, decode append, chunk, verify) quantizes at write time.  Writes that
 JAX drops with ``mode="drop"`` and sentinel indices are filtered with a
-boolean mask before writing here.
+boolean mask before writing here.  The SSM state and conv window stay
+per-slot dense (``cache["ssm"]``); the paged, packed, chunked and verify
+paths raise for SSM and hybrid archs, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_quant
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, rms_norm, rope, vocab_cross_entropy
 from repro_torch.models.mlp import init_mlp_params, mlp_block
 from repro_torch.parallel.context import ParallelCtx
@@ -48,14 +55,16 @@ __all__ = [
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice serves the dense family: GQA/MHA attention, RMSNorm, gated MLP."""
+    """The port serves the dense, SSM and hybrid families: GQA/MHA attention,
+    SSD blocks, RMSNorm, gated MLP."""
     unsupported = [
         name for name, bad in (
-            ("family != dense", cfg.family != "dense"),
+            ("family not dense / ssm / hybrid", cfg.family not in ("dense", "ssm", "hybrid")),
+            ("SSM config or hybrid flag off its family",
+             (cfg.ssm is not None) != (cfg.family in ("ssm", "hybrid"))
+             or cfg.hybrid != (cfg.family == "hybrid")),
             ("MoE", cfg.moe is not None),
-            ("SSM", cfg.ssm is not None),
             ("MLA", cfg.mla is not None),
-            ("hybrid", cfg.hybrid),
             ("encoder", bool(cfg.encoder_layers)),
             ("frontend", cfg.frontend is not None),
             ("layernorm", cfg.norm != "rmsnorm"),
@@ -64,8 +73,8 @@ def check_supported(cfg: ModelConfig) -> None:
     ]
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet; this slice serves the "
-            "dense decoder family"
+            f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port serves the "
+            "dense, ssm and hybrid decoder families"
         )
 
 
@@ -84,10 +93,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     gen.manual_seed(seed)
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     p: Dict = {"embed": dense_init(gen, (V, D), in_axis=-1, dtype=dtype, device=dev)}
-    p["layers"] = {
-        "attn": attn.init_attention_params(gen, cfg, L, dtype, dev),
-        "mlp": init_mlp_params(gen, cfg, L, dtype, dev),
-    }
+    layers: Dict = {}
+    if cfg.family != "ssm":
+        layers["attn"] = attn.init_attention_params(gen, cfg, L, dtype, dev)
+    if cfg.ssm is not None:
+        layers["ssm"] = ssm_mod.init_ssm_params(gen, cfg, L, dtype, dev)
+    if cfg.family != "ssm" and cfg.d_ff > 0:
+        layers["mlp"] = init_mlp_params(gen, cfg, L, dtype, dev)
+    p["layers"] = layers
     p["final_ln"] = torch.zeros((D,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, V), dtype=dtype, device=dev)
@@ -107,7 +120,7 @@ def _layer_slices(params: Dict):
         group: {name: leaf.unbind(0) for name, leaf in leaves.items()}
         for group, leaves in params["layers"].items()
     }
-    n = len(next(iter(per_leaf["attn"].values())))
+    n = len(next(iter(next(iter(per_leaf.values())).values())))
     return [
         {group: {name: views[i] for name, views in leaves.items()}
          for group, leaves in per_leaf.items()}
@@ -133,9 +146,29 @@ def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segments=None):
-    x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments)
-    return mlp_block(x, lp["mlp"], cfg)
+def _ssm_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, ssm_cache=None):
+    """The SSD block; with ``ssm_cache`` (one layer's cache views, as
+    ``_layer_cache`` gives them) its final conv window and state land there."""
+    if ssm_cache is None:
+        return ssm_mod.ssm_block(x, lp["ssm"], cfg, ctx)
+    y, state = ssm_mod.ssm_block(x, lp["ssm"], cfg, ctx, return_state=True)
+    _write_ssm(ssm_cache, state)
+    return y
+
+
+def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segments=None,
+                   ssm_cache=None):
+    if cfg.family == "ssm":
+        return _ssm_block(x, lp, cfg, ctx, ssm_cache)
+    if cfg.hybrid:
+        a = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments) - x
+        s = _ssm_block(x, lp, cfg, ctx, ssm_cache) - x
+        x = x + 0.5 * (a + s)
+    else:
+        x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments)
+    if cfg.d_ff > 0:
+        x = mlp_block(x, lp["mlp"], cfg)
+    return x
 
 
 def forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict) -> torch.Tensor:
@@ -182,7 +215,9 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     ``"bt": [B, max_pages]`` (-1 = unallocated).  ``kv_dtype`` "int8" /
     "fp8" (paged only) stores the pool quantized, with per-(token, kv-head)
     fp32 scales ``"k_scale"/"v_scale": [L, num_pages, page_size, Hkv]``
-    indexed like the pool."""
+    indexed like the pool.  SSM and hybrid archs add the per-slot dense
+    ``"ssm": {"conv": [L, B, width-1, conv_dim] in ``dtype``, "state":
+    [L, B, H, P, N] fp32}``; the attention-free family has no K/V."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
     dev = resolve_device(ctx.device)
@@ -191,6 +226,10 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
         raise ValueError("quantized KV storage requires the paged cache")
     L, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.hd
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.ssm is not None:
+        cache["ssm"] = ssm_mod.init_ssm_cache(cfg, L, batch, dtype, dev)
+    if cfg.family == "ssm":
+        return cache
     if paged is not None:
         if paged.n != ctx.sp_size:
             raise ValueError(
@@ -211,8 +250,17 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
 
 
 def _layer_cache(cache, i: int) -> Dict:
-    """Layer i's views of the K/V (and scale) tensors."""
-    return {key: cache[key][i] for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+    """Layer i's views of the K/V (and scale) tensors and of the SSM state."""
+    out = {key: cache[key][i] for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+    if "ssm" in cache:
+        out["ssm"] = {key: val[i] for key, val in cache["ssm"].items()}
+    return out
+
+
+def _write_ssm(cache_l: Dict, new: Dict) -> None:
+    """Copy a layer's new conv window and state into its cache views."""
+    for key in ("conv", "state"):
+        cache_l["ssm"][key].copy_(new[key])
 
 
 def _write_kv(cache, i: int, index, kk, vv) -> None:
@@ -252,6 +300,10 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
     """One layer's decode over this layer's cache slices (updated in place);
     ``bt`` is the layer-shared block table when the cache is paged, and
     ``write_coords`` the layer-shared coordinates of the append."""
+    if cfg.family == "ssm":
+        y, new = ssm_mod.ssm_decode_step(x, lp["ssm"], cache_l["ssm"], cfg)
+        _write_ssm(cache_l, new)
+        return y
     B, S = x.shape[0], x.shape[1]
     h = rms_norm(x, lp["attn"]["ln"])
     q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, pos)
@@ -263,7 +315,13 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
         v_scale=cache_l.get("v_scale"),
     )[0]
     y = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
-    return mlp_block(y, lp["mlp"], cfg)
+    if cfg.hybrid:
+        s, new = ssm_mod.ssm_decode_step(x, lp["ssm"], cache_l["ssm"], cfg)
+        _write_ssm(cache_l, new)
+        y = x + 0.5 * ((y - x) + (s - x))
+    if cfg.d_ff > 0:
+        y = mlp_block(y, lp["mlp"], cfg)
+    return y
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
@@ -271,9 +329,10 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
     cache, logits [B,1,V]).  The cache is updated in place (K/V appended at
     each row's ``pos``, then ``pos`` advanced by one for every row); rows of
     free slots tick harmlessly -- their writes are filtered past capacity or
-    through unallocated pages, and the engine ignores their outputs.  The
-    paged append's coordinates depend only on ``pos`` and the block table,
-    so they are computed once here for every layer."""
+    through unallocated pages, and the engine ignores their outputs (an SSM
+    row's state advances too; the next prefill into the slot overwrites it).
+    The paged append's coordinates depend only on ``pos`` and the block
+    table, so they are computed once here for every layer."""
     pos = cache["pos"]
     bt = cache.get("bt")
     coords = None
@@ -339,14 +398,21 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
     ``batch["slot"]``; positions below ``batch["shared_len"]`` (a prefix
     admitted as shared pages) and pads are not written.
 
+    SSM and hybrid archs keep each layer's final conv window and state in
+    ``cache["ssm"]`` (dense cache only): the prompt must be unpadded, since
+    the recurrence has no pad correction (the engine's exact mode).
+
     Returns (logits [B, 1, V], cache)."""
     check_supported(cfg)
     tokens, positions = batch["tokens"], batch["positions"]
     positions = torch.as_tensor(positions, device=params["embed"].device)
     B, S = tokens.shape
     x = _embed(params, tokens)
+    has_attn = cfg.family != "ssm"
     paged = "bt" in cache
     if paged:
+        if cfg.ssm is not None:
+            raise ValueError("the paged cache serves attention-only decoder archs")
         if B != 1:
             raise ValueError("paged prefill writes one request (batch=1) per call")
         n = ctx.sp_size
@@ -358,19 +424,22 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
         toks, pages, cols = _paged_prefill_coords(
             positions, cache["bt"][slot], n, page_size, write_mask
         )
-    elif S > cache["k"].shape[2]:
+    elif has_attn and S > cache["k"].shape[2]:
         raise ValueError(f"prompt of {S} tokens exceeds the cache capacity {cache['k'].shape[2]}")
 
     for i, lp in enumerate(_layer_slices(params)):
-        h = rms_norm(x, lp["attn"]["ln"])
-        kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
-        if paged:
-            _write_kv(cache, i, (pages, cols), kk[0, toks], vv[0, toks])
-        else:
-            # one shard: prefill index j is cache index j (JAX's
-            # _cache_scatter_indices for n == 1)
-            _write_kv(cache, i, (slice(None), slice(None, S)), kk, vv)
-        x = _decoder_block(x, lp, cfg, ctx, positions)
+        if has_attn:
+            h = rms_norm(x, lp["attn"]["ln"])
+            kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
+            if paged:
+                _write_kv(cache, i, (pages, cols), kk[0, toks], vv[0, toks])
+            else:
+                # one shard: prefill index j is cache index j (JAX's
+                # _cache_scatter_indices for n == 1)
+                _write_kv(cache, i, (slice(None), slice(None, S)), kk, vv)
+        # the SSD block keeps its final conv window and state in the cache
+        ssm_cache = _layer_cache(cache, i) if cfg.ssm is not None else None
+        x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache)
 
     if "length" in batch:
         length = torch.as_tensor(batch["length"], device=x.device).to(torch.int64).reshape(B)
@@ -402,8 +471,11 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
     (paged only: positions below are left to the pages' owner).
 
     ``cache`` is the dense pool ([L, num_slots, cap, ...]) or the paged pool
-    with its block table.  Returns (first-token logits [k, V], cache)."""
+    with its block table.  Returns (first-token logits [k, V], cache).
+    Attention-only decoder archs: the SSD state has no per-document reset."""
     check_supported(cfg)
+    if cfg.ssm is not None:
+        raise ValueError("packed prefill supports attention-only decoder archs")
     dev = params["embed"].device
     tokens = batch["tokens"]
     positions = torch.as_tensor(batch["positions"], device=dev)
@@ -463,6 +535,8 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
     attention and return the hidden states [B, C, D] of every chunk
     position, before the final norm."""
     check_supported(cfg)
+    if cfg.ssm is not None:
+        raise ValueError("chunked prefill serves attention-only decoder archs")
     dev = params["embed"].device
     starts = torch.as_tensor(starts, device=dev).to(torch.int64)
     lens = torch.as_tensor(lens, device=dev).to(torch.int64)

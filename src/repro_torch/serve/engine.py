@@ -23,6 +23,12 @@ with scale tables -- allocated ONCE at construction on the device of
   * **retire**: EOS / max-token checks free the slot, and the per-slot NaN
     guard retires only a slot whose logits are not finite.
 
+SSM and hybrid archs (``cfg.ssm``) serve in **exact** mode, as in JAX: each
+prompt is prefilled alone at its own length (the recurrent state has no pad
+correction, so no buckets and no packing) straight into its slot's rows, the
+per-slot conv window and SSD state included; the paged pool, continuous
+prefill and speculative verify raise ``ValueError`` for them.
+
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
 in place.  Not ported yet: oversubscription with preempt-and-recompute and
 the chaos injector -- ``ServeConfig`` and the constructor raise for them.
@@ -101,17 +107,32 @@ class ServeEngine:
         n = self.ctx.sp_size
         # continuous prefill (None = one-shot bucketed prefill)
         self.prefill_chunk = serve.prefill_chunk
+        if self.prefill_chunk is not None and cfg.ssm is not None:
+            raise ValueError(
+                "continuous prefill serves attention-only decoder archs "
+                "(SSM state / encoder / frontend inputs have no chunk-append)"
+            )
         # speculative decode: verify spec_k tokens per slot per tick through
         # the chunk path; greedy accept/reject keeps the tokens of plain decode
         self.spec_k = serve.spec_k
         self.spec_max_misses = serve.spec_max_misses
         self._spec_on = serve.spec_k >= 2 and serve.spec_draft != "off"
+        if self._spec_on and cfg.ssm is not None:
+            raise ValueError(
+                "speculative decode rides the chunk-attention verify path: "
+                "attention-only decoder archs (no SSM / encoder / frontend)"
+            )
         self.paged = serve.paged
         # quantized pool: int8/fp8 pages + per-(token, kv-head) scale tables
         self._quantized = serve.kv_dtype != "fp"
         self.dequant_fallbacks = 0  # quantized ticks served by the gather path
         self.allocator: Optional[PageAllocator] = None
         if serve.paged:
+            if cfg.ssm is not None:
+                raise ValueError(
+                    "the paged KV cache serves attention-only decoder archs "
+                    "(SSM state / encoder cross-K/V have no page structure)"
+                )
             layout = PagedLayout.for_engine(
                 serve.max_seq, n, serve.num_slots,
                 page_size=serve.page_size, num_pages=serve.num_pages,
@@ -125,12 +146,17 @@ class ServeEngine:
             if serve.prefill_buckets
             else default_buckets(serve.max_seq, n)
         )
+        # SSD's recurrent state has no pad-correction: prefill exactly
+        exact = cfg.ssm is not None
         self.scheduler = Scheduler(
-            self.num_slots, buckets, self.max_seq, allocator=self.allocator,
+            self.num_slots, buckets, self.max_seq, exact=exact,
+            chunk=cfg.ssm.chunk if exact else None, allocator=self.allocator,
             prefill_chunk=serve.prefill_chunk, tick_token_budget=serve.tick_token_budget,
         )
         self.pack_max = max(1, serve.pack_max)
-        self._can_pack = serve.pack_prefill
+        # packed prefill: attention-only decoder archs (the SSD state does
+        # not pack)
+        self._can_pack = serve.pack_prefill and cfg.ssm is None
         # THE cache: allocated once, updated in place for the engine's lifetime
         self._cache = tfm.init_cache(
             cfg, self.num_slots, self.max_seq, dtype=serve.cache_dtype, ctx=self.ctx,
@@ -339,12 +365,16 @@ class ServeEngine:
             self._sync_block_table()
             logits, self._cache = tfm.prefill(self.params, self.cfg, self.ctx, batch, self._cache)
         else:
-            # prefill straight into the slot's row: a view of the pool cache
+            # prefill straight into the slot's rows: views of every cache
+            # leaf (K/V, and the SSM conv window and state)
             row = {
-                "k": self._cache["k"][:, slot : slot + 1],
-                "v": self._cache["v"][:, slot : slot + 1],
-                "pos": torch.zeros((1,), dtype=torch.int32, device=self.device),
+                key: self._cache[key][:, slot : slot + 1] for key in ("k", "v")
+                if key in self._cache
             }
+            if "ssm" in self._cache:
+                row["ssm"] = {key: val[:, slot : slot + 1]
+                              for key, val in self._cache["ssm"].items()}
+            row["pos"] = torch.zeros((1,), dtype=torch.int32, device=self.device)
             logits, _ = tfm.prefill(self.params, self.cfg, self.ctx, batch, row)
             self._cache["pos"][slot] = plen
         if self.capture_logits:
@@ -766,6 +796,8 @@ class ServeEngine:
             "rejected_requests": float(self.rejected_requests),
             "health_sweeps": float(self.health_sweeps),
         }
+        if cfg.family == "ssm":
+            return {"cache_bytes": 0.0, **lifecycle}
         k, v = self._cache["k"], self._cache["v"]
         # the pool's storage width: int8/fp8 codes with fp32 scales apart
         per_tok = cfg.num_layers * k.shape[-2] * (k.shape[-1] + v.shape[-1]) * k.element_size()

@@ -2,9 +2,9 @@
 
 The port's own copy of ``repro/serve/scheduler.py`` (numpy only): admission,
 bucketed one-shot prefill, and the continuous-prefill and speculative
-planners (``plan_chunks`` / ``plan_spec``) under the tick token budget.
-Preemption and the exact (unpadded) mode of SSM archs come with the slices
-that port those features.
+planners (``plan_chunks`` / ``plan_spec``) under the tick token budget, and
+the exact (unpadded) prefill of SSM and hybrid archs.  Preemption comes with
+the slice that ports it.
 
 Pure-python bookkeeping: the engine owns the device tensors, this module owns
 WHO occupies WHICH slot WHEN.  Lifecycle of a request:
@@ -15,6 +15,9 @@ WHO occupies WHICH slot WHEN.  Lifecycle of a request:
 
 Prompts are right-padded to a **bucket** length for prefill, so prefill
 shapes are bounded by ``len(buckets)``, not by the mix of prompt lengths.
+In **exact** mode (SSM / hybrid archs: the recurrent state has no pad
+correction) a prompt is prefilled at its own length, which the SSD chunked
+scan needs to be at most the chunk or a multiple of it.
 """
 
 from __future__ import annotations
@@ -146,6 +149,8 @@ class Scheduler:
         buckets: Sequence[int],
         max_seq: int,
         *,
+        exact: bool = False,
+        chunk: Optional[int] = None,
         allocator=None,
         prefill_chunk: Optional[int] = None,
         tick_token_budget: Optional[int] = None,
@@ -153,6 +158,7 @@ class Scheduler:
         if num_slots < 1:
             raise ValueError("need at least one slot")
         self.num_slots = num_slots
+        self.chunk = chunk  # SSD scan chunk (exact mode only)
         # continuous prefill: prompts stream into their slot prefill_chunk
         # tokens per launch; tick_token_budget caps decode + chunk tokens per
         # tick (None = unbudgeted: every pending chunk runs every tick)
@@ -166,6 +172,7 @@ class Scheduler:
         if not self.buckets or self.buckets[-1] > max_seq:
             raise ValueError(f"buckets {buckets} must be non-empty and <= max_seq={max_seq}")
         self.max_seq = max_seq
+        self.exact = exact
         self.slots: List[Optional[Request]] = [None] * num_slots
         self._queue: List[Request] = []
         self._next_rid = 0
@@ -201,9 +208,18 @@ class Scheduler:
         return req
 
     def bucket_for(self, length: int) -> int:
-        """Smallest bucket >= length."""
+        """Smallest bucket >= length (or the exact length in exact mode)."""
         if length < 1 or length > self.max_seq:
             raise ValueError(f"prompt length {length} outside (0, {self.max_seq}]")
+        if self.exact:
+            # no padding: the SSD chunked scan takes the prompt as it is (one
+            # card, so no sequence-parallel divisibility as in JAX)
+            if self.chunk is not None and length > self.chunk and length % self.chunk:
+                raise ValueError(
+                    f"the SSD chunked scan needs the prompt length ({length}) to be "
+                    f"<= or a multiple of the chunk ({self.chunk})"
+                )
+            return length
         for b in self.buckets:
             if b >= length:
                 return b
@@ -226,9 +242,11 @@ class Scheduler:
         cheaper of the two (total bucketed tokens, then fewer groups) wins,
         so binpack never prefills more padding than ``plan="greedy"`` — the
         old behavior, kept for the serve bench's TTFT comparison.  Groups
-        close at ``pack_max`` documents or the largest bucket.
+        close at ``pack_max`` documents or the largest bucket.  Exact mode
+        (SSM/hybrid) never packs -- the recurrent state has no per-document
+        reset.
         """
-        if pack_max <= 1:
+        if self.exact or pack_max <= 1:
             return [[x] for x in assigned]
         if plan not in ("greedy", "binpack"):
             raise ValueError(f"unknown pack plan {plan!r} (greedy | binpack)")

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode as pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -394,4 +395,122 @@ def test_engine_on_card_matches_cpu(dev, paged, pack):
         streams[name] = [done[r].generated for r in rids]
         if paged:
             assert eng.kv_cache_stats()["pages_in_use"] == 0
+    assert streams["card"] == streams["cpu"]
+
+
+# --------------------------------------------------------------------------
+# kernel #5: the SSD chunked scan
+# --------------------------------------------------------------------------
+
+SSD_CASES = {
+    # name: (B, S, H, P, G, N, chunk) -- the chip_smoke shapes
+    "mamba2_2048": (1, 2048, 32, 64, 1, 128, 64),
+    "mamba2_1536": (1, 1536, 32, 64, 1, 128, 64),
+    "mamba2_short": (1, 48, 32, 64, 1, 128, 64),  # one chunk of 48
+    "hymba_1024": (1, 1024, 50, 64, 1, 16, 64),
+    "batch4_512": (4, 512, 32, 64, 1, 128, 64),
+    "reduced": (2, 64, 16, 16, 1, 16, 8),
+    "groups": (1, 96, 8, 32, 4, 32, 32),
+}
+
+
+def _ssd_inputs(B, S, H, P, G, N, dev, seed=3, dt_value=None):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    x, Bm, Cm = f(B, S, H, P), f(B, S, G, N), f(B, S, G, N)
+    dt = torch.nn.functional.softplus(f(B, S, H)) if dt_value is None else \
+        torch.full((B, S, H), dt_value, device=dev)
+    A = -torch.exp(0.5 * f(H)) if dt_value is None else -torch.ones(H, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_check(got, want):
+    """y and state within 1e-4 * max(1, max |y_plain|): fp32 sums in another
+    order (the state's scale is the output's)."""
+    tol = 1e-4 * max(1.0, float(want[0].abs().max()))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_scan_matches_plain(dev, case):
+    B, S, H, P, G, N, chunk = SSD_CASES[case]
+    args = _ssd_inputs(B, S, H, P, G, N, dev)
+    before = ssd.ssd_scan_fwd.launches
+    got = ssd.ssd_scan_fwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_fwd.launches == before + 1
+    _ssd_check(got, ssd.ssd_scan_plain(*args, chunk=chunk))
+    assert got[0].dtype == torch.float32 and got[1].shape == (B, H, P, N)
+
+
+def test_ssd_scan_large_dt_and_strided_views(dev):
+    """dt = 3, A = -1: a chunk's decay passes exp(-88), where a product mask
+    would give NaN; and x / B / C as views into one fused projection."""
+    B, S, H, P, G, N = 1, 256, 4, 64, 1, 128
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, G, N, dev, dt_value=3.0)
+    fused = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, N), Cm.reshape(B, S, N)], dim=-1)
+    xv = fused[..., : H * P].reshape(B, S, H, P)
+    bv = fused[..., H * P : H * P + N].reshape(B, S, G, N)
+    cv = fused[..., H * P + N :].reshape(B, S, G, N)
+    assert not xv.is_contiguous()
+    got = ssd.ssd_scan_fwd(xv, dt, A, bv, cv, chunk=64)
+    torch.cuda.synchronize()
+    _ssd_check(got, ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64))
+
+
+def test_ssd_scan_repeat_is_bitwise_and_x_is_fp32_only(dev):
+    args = _ssd_inputs(2, 256, 8, 64, 1, 128, dev, seed=9)
+    a = ssd.ssd_scan_fwd(*args, chunk=64)
+    b = ssd.ssd_scan_fwd(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    # the model casts the scan's inputs to fp32, so the kernel takes no other x
+    with pytest.raises(TypeError):
+        ssd.ssd_scan_fwd(args[0].to(torch.bfloat16), *args[1:], chunk=64)
+
+
+def test_ssd_scan_refuses_other_shapes(dev):
+    for P, N in ((8, 16), (64, 12), (128, 16)):
+        args = _ssd_inputs(1, 64, 2, P, 1, N, dev)
+        with pytest.raises(ValueError):
+            ssd.ssd_scan_fwd(*args, chunk=64)
+    args = _ssd_inputs(1, 256, 2, 64, 1, 16, dev)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan_fwd(*args, chunk=128)  # chunks of at most 64
+    with pytest.raises(NotImplementedError):
+        ssd.ssd_scan_fwd(args[0].requires_grad_(True), *args[1:], chunk=64)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_engine_on_card_matches_cpu(dev, arch):
+    """Reduced SSM / hybrid models, fp32: the engine on the card (SSD kernel,
+    flash forward for hymba) and on the CPU serve identical streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = {k: val.to(dev) for k, val in params.items() if k != "layers"}
+    on_card["layers"] = {
+        g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in params["layers"].items()
+    }
+    rng = np.random.default_rng(0)
+    trace = [(8, 0), (24, 0), (5, 1), (32, 3)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n, _ in trace]
+    streams = {}
+    for name, p, device in (("card", on_card, "cuda"), ("cpu", params, "cpu")):
+        eng = ServeEngine(cfg, p, ParallelCtx(device=device),
+                          serve=ServeConfig(max_seq=64, num_slots=3))
+        before = ssd.ssd_scan_fwd.launches
+        rids = [eng.submit(x, 6, arrival_tick=t) for x, (_, t) in zip(prompts, trace)]
+        done = eng.run()
+        streams[name] = [done[r].generated for r in rids]
+        launched = ssd.ssd_scan_fwd.launches - before
+        assert launched == (cfg.num_layers * eng.prefill_launches if device == "cuda" else 0)
     assert streams["card"] == streams["cpu"]

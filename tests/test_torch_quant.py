@@ -335,5 +335,33 @@ def test_cache_from_jax_keeps_codes_bit_for_bit(kv_dtype):
     fp8 = np.asarray(jnp.asarray([0.5, -448.0, 3.25], jnp.float8_e4m3fn))
     t = params_from_jax({"w": fp8}, device="cpu")["w"]
     assert t.dtype == torch.float8_e4m3fn and t.float().tolist() == [0.5, -448.0, 3.25]
-    with pytest.raises(ValueError, match="ssm"):
-        cache_from_jax({"ssm": np.zeros(1), "pos": np.zeros(1)}, device="cpu")
+    with pytest.raises(ValueError, match="cross_k"):
+        cache_from_jax({"cross_k": np.zeros(1), "pos": np.zeros(1)}, device="cpu")
+
+
+@pytest.mark.parametrize("arch,dtype", [("mamba2-370m", jnp.bfloat16), ("hymba-1.5b", jnp.float32)])
+def test_cache_from_jax_carries_the_ssm_state(arch, dtype):
+    """The per-slot SSM entry ``{conv, state}`` crosses bit for bit: the conv
+    window in its own dtype, the state in fp32."""
+    cfg = jget_config(arch).reduced()
+    jc = jtfm.init_cache(cfg, 2, 32, dtype=dtype, ctx=JCtx())
+    rng = np.random.default_rng(27)
+    ssm = {key: jnp.asarray(_np(rng, *val.shape)).astype(val.dtype)
+           for key, val in jc["ssm"].items()}
+    jc = dict(jc, ssm=ssm, pos=jnp.asarray([5, 9], jnp.int32))
+    tc = cache_from_jax(jax.tree.map(np.asarray, jc), device="cpu")
+    assert set(tc) == set(jc) and set(tc["ssm"]) == {"conv", "state"}
+    assert tc["ssm"]["state"].dtype == torch.float32
+    assert tc["ssm"]["conv"].dtype == (torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    for key in ("conv", "state"):
+        got = tc["ssm"][key]
+        got = got.view(torch.int16) if got.dtype == torch.bfloat16 else got
+        np.testing.assert_array_equal(got.numpy().view(np.uint8),
+                                      np.asarray(ssm[key]).view(np.uint8))
+    mine = ttfm.init_cache(tget_config(arch).reduced(), 2, 32,
+                           dtype=torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32,
+                           ctx=TCtx(device="cpu"))
+    assert {k: tuple(v.shape) for k, v in tc["ssm"].items()} == \
+        {k: tuple(v.shape) for k, v in mine["ssm"].items()}
+    with pytest.raises(ValueError, match="conv, state"):
+        cache_from_jax({"ssm": {"state": np.zeros(1)}, "pos": np.zeros(1)}, device="cpu")
