@@ -13,6 +13,14 @@ Phases, each printing one JSON line:
                  in fp32 and bf16: max |delta| against the stated tolerance, the
                  kernel's time, the plain version's time, the library call's time
                  where one PyTorch call computes the same function, and the bound.
+                 The flash forward also at granite's speculative verify (B 8,
+                 Sq 4) and prefill chunk (B 8, Sq 256) shapes and at hymba-1.5b's
+                 heads (25 / 5 of 64: window prefill at S 1024 and 1536, the
+                 Sq = 1 decode tick of 8 slots), each case with the body that
+                 ran (the fp32 CUDA-core body, or the bf16 tensor-core tile or
+                 decode body, checked against the wrapper's plan) and its
+                 device time (torch.profiler).  The env line carries ptxas's
+                 registers and spills of the tensor-core kernels.
                  The backward cases (dQ and dK/dV) also check that two launches
                  give bitwise-identical gradients.
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
@@ -23,7 +31,8 @@ Phases, each printing one JSON line:
                  weights): ServeEngine over the paged pool serves eight requests
                  of mixed lengths and arrival ticks, 32 new tokens each.  The
                  kernels' launch counters are set to 0 just before this run and
-                 read just after it: the serving kernels must have run.
+                 read just after it: the serving kernels must have run, and
+                 every flash launch (bf16 prefill) on the tile body.
   4a. slice_quant -- granite-8b at full width cut to 2 layers, fp32: the same
                  weights served on the card and on the CPU from an fp, an int8
                  and an fp8 paged pool, with continuous prefill and speculative
@@ -38,7 +47,9 @@ Phases, each printing one JSON line:
                  (chunk 256, budget 512) and speculative verify (spec_k 4), three
                  times: an fp, an int8 and an fp8 pool.  Counters set to 0
                  before each run: a quantized run's decode ticks launch only the
-                 quantized decode kernel, 36 times per plain decode launch.
+                 quantized decode kernel, 36 times per plain decode launch; the
+                 fp pool's bf16 chunks and verifies never reach the fp32 flash
+                 body, a quantized pool's (fp32 dequantized views) only it.
   4c. slice_ssm -- mamba2-370m and hymba-1.5b at full width cut to 2 layers,
                  fp32: the same weights served on the card (the SSD scan
                  kernel, and the flash forward for hymba's attention) and on
@@ -51,7 +62,8 @@ Phases, each printing one JSON line:
                  ticks 0 ... 13, 32 greedy tokens each.  Counters set to 0
                  before each run: the SSD kernel must launch once per layer
                  per prefill (384 and 256), and hymba's flash forward once
-                 per layer per prefill and per decode tick.
+                 per layer per prefill (tile body) and per decode tick (decode
+                 body).
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -60,8 +72,8 @@ Phases, each printing one JSON line:
                  remat, seq 4096, batch 1: 4 causal steps, then 2 steps with 4
                  packed documents, through ``repro_torch.train.loop.fit``.  The
                  counters are set to 0 just before and read just after: the
-                 forward kernel must have run 2 x 8 x 6 times, dQ and dK/dV
-                 8 x 6 times each.  One more step runs under torch.profiler for
+                 forward kernel must have run 2 x 8 x 6 times (all on the fp32
+                 body), dQ and dK/dV 8 x 6 times each.  One more step runs under torch.profiler for
                  the device time per kernel class.
   7. the kernels line, the card line, and the final line
      ``{"ok": true, "device": {...}}``.
@@ -79,6 +91,7 @@ line.  It exits non-zero at once when CUDA is not available.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -127,7 +140,7 @@ BWD_TOLS = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-4, 2**-7 + 2e-4)}
 LSE_TOL = 1e-4
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
-FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"
+FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"  # the fp32 body
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:153"
 BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
 BWD_DQ_REPLACES = "src/repro/kernels/flash_attention.py:411"
@@ -160,6 +173,9 @@ QMAX = {"int8": 127.0, "fp8": 448.0}
 
 # granite-8b attention geometry
 H, HKV, D = 32, 8, 128
+# hymba-1.5b's (H, Hkv, D)
+HYMBA_HEADS = (25, 5, 64)
+FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -189,6 +205,47 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(lib_path, prefix="flash_fwd_"):
+    """Registers and spill bytes per kernel of one library, from the
+    ``nvcc -Xptxas -v`` log the build keeps beside it (None when the
+    library was not built in this run); a kernel whose wgmma products
+    ptxas serialized is marked."""
+    log_path = f"{lib_path}.log"
+    if not os.path.exists(log_path):
+        return None
+
+    def kernel_name(mangled):
+        # <length><prefix><word>_kernel[I<template args>E]
+        k = re.search(r"\d(" + prefix + r"[a-z]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+        if k is None:
+            return None
+        args = re.findall(r"Li(\d+)E", k.group(2) or "")
+        return k.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+    out, name = {}, None
+    for line in open(log_path, errors="replace"):
+        if "Potential Performance Loss" in line:
+            serialized = kernel_name(line)
+            if serialized is not None:
+                out.setdefault(serialized, {})["serialized_wgmma"] = True
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            if name is not None:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def time_ms(fn, reps=20, warmup=3, flush=None):
@@ -225,30 +282,50 @@ def randn(gen, *shape, dtype):
 # --------------------------------------------------------------------------
 
 
-def flash_case(name, S, dtype, gen):
-    """One flash-forward case at granite-8b's heads."""
+FWD_BODIES = ("tile", "decode", "fp32")
+
+
+def fwd_body_counts():
+    return {b: getattr(fa.flash_attention_fwd, f"launches_{b}") for b in FWD_BODIES}
+
+
+def fwd_body_delta(before):
+    return {b: n - before[b] for b, n in fwd_body_counts().items()}
+
+
+def flash_case(name, S, dtype, gen, heads=(H, HKV, D)):
+    """One flash-forward case; granite-8b's heads unless ``heads`` (H, Hkv,
+    D) says otherwise.  ``verify`` and ``chunk`` are the serving path's
+    speculative verify (spec_k 4) and prefill chunk (256) over S cached
+    positions, each batch row at its own depth; ``decode`` is a dense-cache
+    tick, one band per slot (with hymba's heads, its window of 1024)."""
     INF = ref.BAND_INF
+    nh, nkv, hd = heads
     B, Sq, Skv, sq, skv, seg = 1, S, S, 1, 1, None
     band = (0, 0, 0, INF)
+    per_row_hi = INF if nh == H else 1023
     if name == "window":
-        band = (0, 0, 0, 255)
+        band = (0, 0, 0, 255 if nh == H else 1023)
     elif name == "striped":
         band, sq, skv = (1, 0, 0, INF), 2, 2
     elif name == "segment":
         cuts = np.sort(np.random.default_rng(S).choice(np.arange(1, S), 5, replace=False))
         seg = torch.from_numpy(np.searchsorted(cuts, np.arange(S), side="right").astype(np.int32)).cuda()
-    elif name == "decode":
-        B, Sq = 8, 1
-        pos = torch.from_numpy(np.random.default_rng(S).integers(0, S, B).astype(np.int32)).cuda()
-        band = torch.stack([pos, 0 * pos, 0 * pos, 0 * pos + INF], dim=1)
-    q = randn(gen, B, Sq, H, D, dtype=dtype)
-    k = randn(gen, B, Skv, HKV, D, dtype=dtype)
-    v = randn(gen, B, Skv, HKV, D, dtype=dtype)
-    kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv, seg_q=seg, seg_kv=seg)
+    elif name in ("decode", "verify", "chunk"):
+        B, Sq = 8, {"decode": 1, "verify": 4, "chunk": 256}[name]
+        pos = torch.from_numpy(
+            np.random.default_rng(S).integers(0, S - Sq + 1, B).astype(np.int32)).cuda()
+        band = torch.stack([pos, 0 * pos, 0 * pos, 0 * pos + per_row_hi], dim=1)
+    q = randn(gen, B, Sq, nh, hd, dtype=dtype)
+    k = randn(gen, B, Skv, nkv, hd, dtype=dtype)
+    v = randn(gen, B, Skv, nkv, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, stride_q=sq, stride_kv=skv, seg_q=seg, seg_kv=seg)
     plain_band = band if not isinstance(band, torch.Tensor) else tuple(band[:, i] for i in range(4))
     run = lambda: fa.flash_attention_fwd(q, k, v, band, **kw)  # noqa: E731
     plain = lambda: ref.attention_ref(q, k, v, band=plain_band, **kw)  # noqa: E731
+    before = fwd_body_counts()
     o, lse = run()
+    body = [b for b, n in fwd_body_delta(before).items() if n]
     o_ref, lse_ref = plain()
     torch.cuda.synchronize()
     live = lse_ref > ref.NEG_INF / 2
@@ -270,26 +347,31 @@ def flash_case(name, S, dtype, gen):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if name == "causal":
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, scale=D**-0.5, enable_gqa=True)
+            qt, kt, vt, is_causal=True, scale=hd**-0.5, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=attn_mask, scale=D**-0.5, enable_gqa=True)
+            qt, kt, vt, attn_mask=attn_mask, scale=hd**-0.5, enable_gqa=True)
     item = q.element_size()
     # q read and o written once, the visible keys' K and V read once, lse
     # written, the segment ids read
-    nbytes = (2 * q.numel() + 2 * visible_keys * HKV * D) * item + lse.numel() * 4 \
+    nbytes = (2 * q.numel() + 2 * visible_keys * nkv * hd) * item + lse.numel() * 4 \
         + (2 * seg.numel() * 4 if seg is not None else 0)
-    flops = 4 * D * H * visible_pairs
+    flops = 4 * hd * nh * visible_pairs
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     tol = TOLS[("flash_attention_fwd", dtype)]
+    device_ms, _ = device_time(_profiled(run, 5), per=5)
     rec = dict(
-        kernel="flash_attention_fwd", case=name, S=S, B=B, Sq=Sq, dtype=DTYPE_NAMES[dtype],
+        kernel="flash_attention_fwd", case=name, S=S, B=B, Sq=Sq, heads=list(heads),
+        dtype=DTYPE_NAMES[dtype], body=body[0] if len(body) == 1 else body,
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact,
-        ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+        ms=time_ms(run), device_ms=device_ms.get("flash_attention_fwd", 0.0),
+        plain_ms=time_ms(plain), library_ms=time_ms(lib),
         bound_ms=bound_ms, bound_by=bound_by, visible_pairs=visible_pairs,
         visible_keys=visible_keys,
     )
+    want_body = fa._fwd_plan(B, Sq, nh, nkv, hd, dtype)[0]
+    check(body == [want_body], f"flash_attention_fwd ran {body}, not the {want_body} body: {rec}")
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"flash_attention_fwd disagrees with its plain version: {rec}")
     return rec
@@ -645,12 +727,14 @@ def full_serve(card):
     arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
     fa.flash_attention_fwd.launches = 0
     pk.paged_flash_decode.launches = 0
+    bodies0 = fwd_body_counts()
     t0 = time.perf_counter()
     res = serve_trace(eng, lengths, [a + skip for a in arrivals], 32, cfg.vocab_size, seed=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "paged_flash_decode": pk.paged_flash_decode.launches}
+    bodies = fwd_body_delta(bodies0)
     stats = eng.tick_stats()
     pf_tok = sum(stats["prefill_tokens"][skip:])
     pf_s = sum(stats["prefill_s"][skip:])
@@ -674,7 +758,7 @@ def full_serve(card):
         "ttft_ticks": [r.ttft_ticks for r in res],
         "pages_in_use": kv["pages_in_use"], "peak_pages": kv["peak_in_use"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "card": card,
+        "launches": launches, "flash_attention_fwd_bodies": bodies, "card": card,
     }
     rec["decode_profile"] = profile_decode(eng, cfg)
     emit(rec)
@@ -683,7 +767,10 @@ def full_serve(card):
     check(kv["pages_in_use"] == 0, f"pages still in use after the drain: {kv['pages_in_use']}")
     check(launches["flash_attention_fwd"] > 0 and launches["paged_flash_decode"] > 0,
           f"a kernel of the serving path never launched: {launches}")
-    return launches
+    # bf16 one-shot prefill: every flash launch on the tile body
+    check(bodies == {"tile": launches["flash_attention_fwd"], "decode": 0, "fp32": 0},
+          f"serve: bf16 prefill launches must all run the tile body: {bodies}")
+    return {**launches, "flash_attention_fwd (tile)": bodies["tile"]}
 
 
 def _code_steps(a, b):
@@ -830,6 +917,7 @@ def full_serve_quant(card):
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention_fwd.launches = 0
         pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
+        bodies0 = fwd_body_counts()
         t0 = time.perf_counter()
         res = serve_trace(eng, lengths, arrivals, 32, cfg.vocab_size, seed=2)
         torch.cuda.synchronize()
@@ -837,6 +925,7 @@ def full_serve_quant(card):
         launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                     "paged_flash_decode": pk.paged_flash_decode.launches,
                     "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches}
+        bodies = fwd_body_delta(bodies0)
         stats = eng.tick_stats()
         kv = eng.kv_cache_stats()
         pf_tok, pf_s = sum(stats["prefill_tokens"]), sum(stats["prefill_s"])
@@ -862,7 +951,7 @@ def full_serve_quant(card):
             "pool_bytes": kv["cache_bytes"] + kv["scale_table_bytes"],
             "pages_in_use": kv["pages_in_use"], "scale_entries_in_use": kv["scale_entries_in_use"],
             "peak_pages": kv["peak_in_use"], "dequant_fallbacks": kv["dequant_fallbacks"],
-            "launches": launches,
+            "launches": launches, "flash_attention_fwd_bodies": bodies,
         }
         if kv_dtype != "fp":
             pairs = [(a, b) for x, y in zip(streams[kv_dtype], streams["fp"]) for a, b in zip(x, y)]
@@ -879,6 +968,13 @@ def full_serve_quant(card):
             problems.append(f"serve_quant {kv_dtype}: a gather fallback served a decode tick")
         if not (launches["flash_attention_fwd"] > 0 and rec["chunk_launches"] > 0):
             problems.append(f"serve_quant {kv_dtype}: chunks must run the flash forward")
+        # bf16 chunks (tile body) and verifies (decode body) over the fp pool;
+        # a quantized pool's fp32 dequantized view takes q to fp32
+        want = ({"fp32": 0} if kv_dtype == "fp"
+                else {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]})
+        if any(bodies[b] != n for b, n in want.items()) \
+                or sum(bodies.values()) != launches["flash_attention_fwd"]:
+            problems.append(f"serve_quant {kv_dtype}: flash bodies {bodies}, want {want}")
         used, unused = (("paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
                         else ("paged_flash_decode_quant", "paged_flash_decode"))
         if not (launches[unused] == 0
@@ -958,6 +1054,7 @@ def full_serve_ssm(card):
     lengths = [48, 64, 128, 256, 384, 640, 1024, 1536]
     arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
     runs, launches_total, problems = {}, 0, []
+    decode_body_launches = 0
     for arch in SSM_ARCHS:
         cfg = get_config(arch)
         t0 = time.perf_counter()
@@ -974,12 +1071,14 @@ def full_serve_ssm(card):
         skip = eng.tick_stats()["ticks"]
         prefills0, decodes0 = eng.prefill_launches, eng.decode_launches
         fa.flash_attention_fwd.launches = ssd.ssd_scan_fwd.launches = 0
+        bodies0 = fwd_body_counts()
         t0 = time.perf_counter()
         res = serve_trace(eng, lengths, [a + skip for a in arrivals], 32, cfg.vocab_size, seed=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"ssd_scan_fwd": ssd.ssd_scan_fwd.launches,
                     "flash_attention_fwd": fa.flash_attention_fwd.launches}
+        bodies = fwd_body_delta(bodies0)
         prefills = eng.prefill_launches - prefills0
         decodes = eng.decode_launches - decodes0
         stats = eng.tick_stats()
@@ -1002,6 +1101,7 @@ def full_serve_ssm(card):
             "kv_cache_bytes": eng.kv_cache_stats()["cache_bytes"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "prefill_launches": prefills, "decode_launches": decodes, "launches": launches,
+            "flash_attention_fwd_bodies": bodies,
         }
         rec["decode_profile"] = profile_decode(eng, cfg)
         runs[arch] = rec
@@ -1014,17 +1114,24 @@ def full_serve_ssm(card):
             problems.append(f"serve_ssm {arch}: launches {launches} over {prefills} prefill and "
                             f"{decodes} decode launches; want ssd {cfg.num_layers * len(lengths)}"
                             f", flash {want_flash}")
+        # hymba: window prefill on the tile body, each Sq = 1 tick on the decode body
+        want_bodies = ({"tile": cfg.num_layers * prefills, "decode": cfg.num_layers * decodes,
+                        "fp32": 0} if cfg.hybrid else {"tile": 0, "decode": 0, "fp32": 0})
+        if bodies != want_bodies:
+            problems.append(f"serve_ssm {arch}: flash bodies {bodies}, want {want_bodies}")
+        if cfg.hybrid:
+            decode_body_launches = bodies["decode"]
         del eng, params
         torch.cuda.empty_cache()
     emit({"phase": "serve_ssm", "dtype": "bf16", "max_seq": 2048, "num_slots": 8,
           "lengths": lengths, "arrival_ticks": arrivals, "new_tokens": 32, "runs": runs,
           "card": card})
     check(not problems, "; ".join(problems))
-    return launches_total
+    return launches_total, decode_body_launches
 
 
 def _kernel_class(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:  # the fp32, tile, decode and combine kernels
         return "flash_attention_fwd"
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd_dq"
@@ -1166,6 +1273,7 @@ def full_train(card):
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
+    bodies0 = fwd_body_counts()
     runs, last = [], None
     for n, docs in ((steps, None), (steps_docs, 4)):
         last = None  # the previous run's params go before the next run starts
@@ -1177,6 +1285,7 @@ def full_train(card):
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
                 "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
+    bodies = fwd_body_delta(bodies0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = profile_train_step(cfg, ctx, last.pop("params"), seq)
     del last
@@ -1192,7 +1301,8 @@ def full_train(card):
         "runs": [{k: v for k, v in r.items() if k != "params"} for r in runs],
         "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
         "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
-        "launches": launches, "ln_vocab": float(np.log(cfg.vocab_size)),
+        "launches": launches, "flash_attention_fwd_bodies": bodies,
+        "ln_vocab": float(np.log(cfg.vocab_size)),
         "profile": profile, "card": card,
     }
     emit(rec)
@@ -1203,7 +1313,10 @@ def full_train(card):
                        "flash_bwd_dq": cfg.num_layers * total,
                        "flash_bwd_dkv": cfg.num_layers * total},
           f"train: launch counts off the remat schedule: {launches}")
-    return {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]},
+          f"train: the fp32 forward must run the fp32 body: {bodies}")
+    return {**{k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
+            "flash_attention_fwd (fp32)": bodies["fp32"]}
 
 
 def profile_train_step(cfg, ctx, params, seq):
@@ -1242,17 +1355,26 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
+    ptxas = ptxas_summary(libs["flash_fwd_tc"])
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "build_s": build_s,
-          "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()}})
+          "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
+          "ptxas": ptxas})
 
+    check(not any(k.get("serialized_wgmma") for k in (ptxas or {}).values()),
+          f"ptxas serialized the wgmma products of a tensor-core kernel: {ptxas}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flash, paged, bwd = [], [], []
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1024, 2048):
-            for name in ("causal", "window", "striped", "segment", "decode"):
+            for name in ("causal", "window", "striped", "segment", "decode", "verify", "chunk"):
                 flash.append(flash_case(name, S, dtype, gen))
+        # hymba-1.5b's attention: window prefill, and the dense-cache decode
+        # tick of its 8 slots over max_seq 2048
+        for S in (1024, 1536):
+            flash.append(flash_case("window", S, dtype, gen, heads=HYMBA_HEADS))
+        flash.append(flash_case("decode", 2048, dtype, gen, heads=HYMBA_HEADS))
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     flush = lambda: scratch.add_(1)  # noqa: E731
     for dtype in (torch.float32, torch.bfloat16):
@@ -1284,12 +1406,18 @@ def main():
     cross_device_quant()
     launches["paged_flash_decode_quant"] = full_serve_quant(card)["paged_flash_decode_quant"]
     cross_device_ssm()
-    launches["ssd_scan_fwd"] = full_serve_ssm(card)
+    launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
     train_parity()
     launches.update(full_train(card))
 
     main_flash = next(r for r in flash
                       if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "bf16")
+    # the decode body's main path: hymba's dense-cache ticks
+    main_flash_decode = next(r for r in flash if r["case"] == "decode" and r["dtype"] == "bf16"
+                             and r["heads"] == list(HYMBA_HEADS))
+    # the fp32 body's main path: the training forward
+    main_flash_fp32 = next(r for r in flash
+                           if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "fp32")
     main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16")
     main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
                       and r["kv_dtype"] == "int8")
@@ -1299,7 +1427,12 @@ def main():
                     if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
     kernels = []
     for name, key, src, replaces, rec in (
-        ("flash_attention_fwd", "flash_attention_fwd", FLASH_SRC, FLASH_REPLACES, main_flash),
+        ("flash_attention_fwd", "flash_attention_fwd (tile)", FLASH_TC_SRC, FLASH_REPLACES,
+         main_flash),
+        ("flash_attention_fwd (decode body)", "flash_attention_fwd (decode)", FLASH_TC_SRC,
+         FLASH_REPLACES, main_flash_decode),
+        ("flash_attention_fwd (fp32 body)", "flash_attention_fwd (fp32)", FLASH_SRC,
+         FLASH_REPLACES, main_flash_fp32),
         ("paged_flash_decode", "paged_flash_decode", PAGED_SRC, PAGED_REPLACES, main_paged),
         ("paged_flash_decode (quantized branch)", "paged_flash_decode_quant", PAGED_SRC,
          QUANT_REPLACES, main_quant),

@@ -1,7 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a), fp32 inputs, on the CUDA
+// cores; plain C interface for ctypes.  bf16 inputs run on the tensor cores
+// in flash_fwd_tc.cu: each input type has exactly one kernel.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_fwd
-//   (Pallas body _fwd_kernel, with _block_visible / _mask_block).
+//   (Pallas body _fwd_kernel, with _block_visible / _mask_block) for fp32
+//   inputs (the training path and the fp32 dequantized pool views).
 //
 // What it computes: o = softmax(scale * q k^T + mask) v and the row
 // log-sum-exp, for q [B, Sq, H, D] and k, v [B, Skv, Hkv, D] (GQA: query
@@ -11,22 +14,20 @@
 // optional per-token segment ids.  The band lives in device memory, either one
 // [4] band for the whole batch or one per batch row ([B, 4]); the latter is
 // how a dense-cache decode step runs every slot at its own depth in one
-// launch.  Softmax arithmetic is fp32 whatever the input type; o is written
-// in the input type and lse [B, H, Sq] in fp32 (NEG_INF for an empty row,
-// whose o is exactly 0).
+// launch.  Softmax arithmetic is fp32; o is written in fp32 and lse
+// [B, H, Sq] in fp32 (NEG_INF for an empty row, whose o is exactly 0).
 //
 // What bounds it on an H100: at prefill lengths the work is 4*D flops per
 // visible (query, key) pair against 2*D*(Sq+Skv)*H bytes of q/k/v, far above
 // the card's ~295 flop/byte balance point -- it is bound by arithmetic.
-// This first version does that arithmetic in fp32 on the CUDA cores (67
-// TFLOP/s peak, no tensor cores), so it sits well above its bf16 tensor-core
-// bound; wgmma/TMA are later work.
+// It does that arithmetic in fp32 on the CUDA cores (67 TFLOP/s peak, no
+// TF32): the card-vs-CPU training gates rest on its exact fp32 products.
 //
 // Design:
 //   * one block per (q tile of BQ=64 rows, query head, batch row); 256
 //     threads as a 16 x 16 grid, thread (ty, tx) owns rows ty*4..ty*4+3;
 //   * the TPU kernel's sequential kv grid axis becomes a loop over KV tiles
-//     of BK=32 keys staged in shared memory (fp32), and the loop bounds are
+//     of BK=32 keys staged in shared memory, and the loop bounds are
 //     solved from the band, so tiles the band hides are never loaded (the TPU
 //     kernel skips them with pl.when);
 //   * scores: each thread a 4 x 2 micro-tile (keys tx and tx+16), q read as
@@ -39,7 +40,6 @@
 //     with Sq = 1.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -48,14 +48,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 32;   // keys per KV tile
 constexpr int NT = 256;  // threads per block (16 x 16)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __host__ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   // b > 0
@@ -71,12 +63,12 @@ constexpr int smem_floats() {
   return BQ * (D + 4) + BK * (D + 1) + BK * D + BQ * (BK + 1) + BK;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ band, int band_stride,
     const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-    T* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ o, float* __restrict__ lse,
     int Sq, int Skv, int H, int Hkv, float scale, int stride_q, int stride_kv) {
   constexpr int QS = D + 4;   // Qs row stride (float4-aligned, 2 rows per warp on distinct banks)
   constexpr int KS = D + 1;   // Ks row stride (conflict-free column reads)
@@ -115,7 +107,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int r = idx / D, d = idx % D;
     const int row = r0 + r;
     float x = 0.f;
-    if (row < Sq) x = to_f(q[(((size_t)b * Sq + row) * H + h) * D + d]) * scale;
+    if (row < Sq) x = q[(((size_t)b * Sq + row) * H + h) * D + d] * scale;
     Qs[r * QS + d] = x;
   }
 
@@ -147,8 +139,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float kx = 0.f, vx = 0.f;
       if (key <= jhi) {
         const size_t off = (((size_t)b * Skv + key) * Hkv + hk) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       Ks[j * KS + d] = kx;
       Vs[j * D + d] = vx;
@@ -232,49 +224,48 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     if (!row_ok[i]) continue;
     const int row = r0 + ty * 4 + i;
     const bool nonempty = l[i] > 0.f;
-    T* orow = o + (((size_t)b * Sq + row) * H + h) * D;
+    float* orow = o + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      orow[tx + 16 * c] = from_f<T>(nonempty ? acc[i][c] / l[i] : 0.f);
+      orow[tx + 16 * c] = nonempty ? acc[i][c] / l[i] : 0.f;
     if (tx == 0)
       lse[((size_t)b * H + h) * Sq + row] = nonempty ? m[i] + logf(l[i]) : kNegInf;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* band,
                    int band_stride, const void* seg_q, const void* seg_kv, void* o,
                    void* lse, int B, int Sq, int Skv, int H, int Hkv, float scale,
                    int stride_q, int stride_kv, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(band), band_stride, static_cast<const int*>(seg_q),
-      static_cast<const int*>(seg_kv), static_cast<T*>(o), static_cast<float*>(lse), Sq, Skv,
+      static_cast<const int*>(seg_kv), static_cast<float*>(o), static_cast<float*>(lse), Sq, Skv,
       H, Hkv, scale, stride_q, stride_kv);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const void* band,
                        int band_stride, const void* seg_q, const void* seg_kv, void* o,
                        void* lse, int B, int Sq, int Skv, int H, int Hkv, float scale,
                        int stride_q, int stride_kv, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
-                           Hkv, scale, stride_q, stride_kv, stream);
+      return launch<32>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
+                        Hkv, scale, stride_q, stride_kv, stream);
     case 64:
-      return launch<T, 64>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
-                           Hkv, scale, stride_q, stride_kv, stream);
+      return launch<64>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
+                        Hkv, scale, stride_q, stride_kv, stream);
     case 128:
-      return launch<T, 128>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
-                            Hkv, scale, stride_q, stride_kv, stream);
+      return launch<128>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H,
+                         Hkv, scale, stride_q, stride_kv, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -282,17 +273,11 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the launch.
+// fp32 only.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* band,
                          int band_stride, const void* seg_q, const void* seg_kv, void* o,
                          void* lse, int B, int Sq, int Skv, int H, int Hkv, int D, float scale,
-                         int stride_q, int stride_kv, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(D, q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq,
-                                  Skv, H, Hkv, scale, stride_q, stride_kv, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, band, band_stride, seg_q, seg_kv, o, lse,
-                                          B, Sq, Skv, H, Hkv, scale, stride_q, stride_kv, s);
-  return (int)cudaErrorInvalidValue;
+                         int stride_q, int stride_kv, void* stream) {
+  return (int)dispatch_d(D, q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv, H, Hkv,
+                         scale, stride_q, stride_kv, static_cast<cudaStream_t>(stream));
 }

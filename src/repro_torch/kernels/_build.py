@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ssd_scan")
+SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -99,9 +99,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_fwd":
         # q k v band band_stride seg_q seg_kv o lse B Sq Skv H Hkv D scale
-        # stride_q stride_kv dtype stream
-        lib.flash_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+        # stride_q stride_kv stream (fp32)
+        lib.flash_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
         lib.flash_fwd.restype = i
+    elif name == "flash_fwd_tc":
+        # the tile body (bf16): as flash_fwd
+        lib.flash_fwd_tile.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+        lib.flash_fwd_tile.restype = i
+        # the decode body (bf16): q k v band band_stride seg_q seg_kv o lse
+        # o_parts lse_parts splits B Sq Skv H Hkv D scale stride_q stride_kv
+        # stream
+        lib.flash_fwd_decode.argtypes = [
+            p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p
+        ]
+        lib.flash_fwd_decode.restype = i
     elif name == "flash_bwd":
         # q k v do lse delta band seg_q seg_kv dq B Sq Skv H Hkv D scale
         # stride_q stride_kv dtype stream

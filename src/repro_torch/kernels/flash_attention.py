@@ -2,15 +2,20 @@
 their plain versions.
 
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_fwd``
-and ``flash_attention_bwd``).  The kernels are ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (dQ and dK/dV; see the notes at their tops for the
-design).
+and ``flash_attention_bwd``).  The forward has three bodies, one route per
+input type and shape (``_fwd_plan``): bf16 runs on the tensor cores in
+``csrc/flash_fwd_tc.cu`` -- the tile body (wgmma) for prefill, chunks and
+windows, the decode body (mma.sync, split keys) for at most
+``DECODE_MAX_ROWS`` packed rows -- and fp32 on the CUDA cores in
+``csrc/flash_fwd.cu``.  The backward is ``csrc/flash_bwd.cu`` (dQ and dK/dV).
+See the notes at the sources' tops for the designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
 (``ref.attention_ref``, ``ref.attention_bwd_ref``) for CPU tensors; there is
-no other fallback.  ``flash_attention_fwd.launches`` counts forward launches,
-``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` the two backward
-kernels' launches.
+no other fallback.  ``flash_attention_fwd.launches`` counts forward launches
+and ``.launches_tile``, ``.launches_decode``, ``.launches_fp32`` those of
+each body; ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count
+the two backward kernels' launches.
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 decode body takes up to 32 packed rows (Sq * H / Hkv): a decode
+# tick (Sq = 1) and a speculative verify (Sq = spec_k)
+DECODE_MAX_ROWS = 32
+# key splits fill the card when B * Hkv CTAs would leave most of its SMs idle
+NUM_SMS = 132  # H100 SXM
+MAX_SPLITS = 8
 
 BandArg = Union[Sequence[Union[int, torch.Tensor]], torch.Tensor]
 
@@ -89,7 +100,29 @@ def _seg_device(seg_q, seg_kv, Sq: int, Skv: int, device):
     seg_kv = seg_kv.to(device=device, dtype=torch.int32).contiguous()
     if seg_q.shape != (Sq,) or seg_kv.shape != (Skv,):
         raise ValueError("seg_q must be [Sq] and seg_kv [Skv]")
+    if seg_kv.data_ptr() % 16:  # the tile body reads seg_kv with TMA
+        seg_kv = seg_kv.clone()
     return seg_q, seg_kv
+
+
+def _fwd_plan(B: int, Sq: int, H: int, Hkv: int, D: int, dtype) -> Tuple[str, int]:
+    """(body, key splits) of the forward, from the shapes and type alone (the
+    host never reads the band): "fp32" for fp32 inputs; for bf16, "decode"
+    when the packed rows of one kv head (Sq * H / Hkv) fit the decode body,
+    with the keys split across CTAs when B * Hkv CTAs would leave most of the
+    SMs idle, else "tile"."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if dtype == torch.float32:
+        return "fp32", 1
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {dtype}")
+    if Sq * (H // Hkv) > DECODE_MAX_ROWS:
+        return "tile", 1
+    ctas = B * Hkv
+    if 2 * ctas > NUM_SMS:
+        return "decode", 1
+    return "decode", min(MAX_SPLITS, -(-2 * NUM_SMS // ctas))
 
 
 def flash_attention_fwd(
@@ -132,21 +165,42 @@ def flash_attention_fwd(
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B == 0 or Sq == 0:
         return o, lse.fill_(ref.NEG_INF)
-    lib = _build.load("flash_fwd")
-    err = lib.flash_fwd(
+    body, splits = _fwd_plan(B, Sq, H, Hkv, D, q.dtype)
+    ptrs = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), band_d.data_ptr(), band_stride,
         seg_q.data_ptr() if seg_q is not None else None,
         seg_kv.data_ptr() if seg_kv is not None else None,
         o.data_ptr(), lse.data_ptr(),
-        B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "flash_fwd")
+    dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if body == "fp32":
+        _build.check(_build.load("flash_fwd").flash_fwd(*ptrs, *dims, stream), "flash_fwd")
+        flash_attention_fwd.launches_fp32 += 1
+    elif body == "tile":
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError("the tile body reads k and v with TMA: they must be 16-byte aligned")
+        lib = _build.load("flash_fwd_tc")
+        _build.check(lib.flash_fwd_tile(*ptrs, *dims, stream), "flash_fwd_tile")
+        flash_attention_fwd.launches_tile += 1
+    else:
+        parts = (None, None)
+        if splits > 1:  # the splits' normalized partials, merged by their lse
+            o_parts = torch.empty((splits, B, Sq, H, D), dtype=torch.float32, device=q.device)
+            lse_parts = torch.empty((splits, B, H, Sq), dtype=torch.float32, device=q.device)
+            parts = (o_parts.data_ptr(), lse_parts.data_ptr())
+        lib = _build.load("flash_fwd_tc")
+        _build.check(lib.flash_fwd_decode(*ptrs, *parts, splits, *dims, stream),
+                     "flash_fwd_decode")
+        flash_attention_fwd.launches_decode += 1
     flash_attention_fwd.launches += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_tile = 0
+flash_attention_fwd.launches_decode = 0
+flash_attention_fwd.launches_fp32 = 0
 
 
 def flash_attention_bwd(

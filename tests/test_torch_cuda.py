@@ -39,22 +39,50 @@ def _randn(rng, *shape, dtype, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
 
+INF = ref.BAND_INF
 FLASH_CASES = {
-    # name: (B, Sq, Skv, H, Hkv, D, band, stride_q, stride_kv, segments)
-    "full": (2, 64, 96, 4, 2, 32, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
-    "causal_ragged": (1, 100, 100, 4, 1, 64, (0, 0, 0, ref.BAND_INF), 1, 1, False),
-    "striped": (1, 128, 128, 8, 2, 128, (1, 0, 0, ref.BAND_INF), 2, 2, False),
+    # name: (B, Sq, Skv, H, Hkv, D, band, stride_q, stride_kv, segments); the
+    # band is one 4-tuple, or a list of B of them (one per batch row, [B, 4])
+    "full": (2, 64, 96, 4, 2, 32, (0, 0, -INF, INF), 1, 1, False),
+    "causal_ragged": (1, 100, 100, 4, 1, 64, (0, 0, 0, INF), 1, 1, False),
+    "striped": (1, 128, 128, 8, 2, 128, (1, 0, 0, INF), 2, 2, False),
     "window": (1, 160, 160, 4, 4, 128, (0, 0, 0, 31), 1, 1, False),
-    "segments": (1, 96, 96, 4, 2, 64, (0, 0, 0, ref.BAND_INF), 1, 1, True),
-    "hidden_rows": (1, 64, 64, 2, 2, 32, (0, 40, 0, ref.BAND_INF), 1, 1, False),
-    "decode_row": (3, 1, 200, 8, 2, 128, (150, 0, 0, ref.BAND_INF), 1, 1, False),
+    "segments": (1, 96, 96, 4, 2, 64, (0, 0, 0, INF), 1, 1, True),
+    "hidden_rows": (1, 64, 64, 2, 2, 32, (0, 40, 0, INF), 1, 1, False),
+    "decode_row": (3, 1, 200, 8, 2, 128, (150, 0, 0, INF), 1, 1, False),
+    # hymba-1.5b's attention geometry (25 / 5 heads of 64) under a window
+    "hymba_window": (1, 300, 300, 25, 5, 64, (0, 0, 0, 127), 1, 1, False),
+    "granite_segments": (1, 1024, 1024, 32, 8, 128, (0, 0, 0, INF), 1, 1, True),
+    # a speculative verify (spec_k 4) and a prefill chunk (256) over granite
+    # heads, each batch row at its own depth
+    "verify": (8, 4, 2048, 32, 8, 128,
+               [(p, 0, 0, INF) for p in (0, 5, 100, 777, 1500, 2043, 2044, 3000)], 1, 1, False),
+    "chunk": (8, 256, 2048, 32, 8, 128,
+              [(p, 0, 0, INF) for p in (0, 256, 512, 1000, 1500, 1792, 100, 1900)], 1, 1, False),
+    # Sq = 1 decode ticks, one band per slot: a row past Skv (sees them all)
+    # and a fully hidden row (lo = 5 leaves no key at pos 3)
+    "decode_slots_granite": (8, 1, 300, 32, 8, 128,
+                             [(p, 0, 0, INF) for p in (0, 17, 64, 150, 299, 5000, 220)]
+                             + [(3, 0, 5, INF)], 1, 1, False),
+    "decode_slots_hymba": (8, 1, 300, 25, 5, 64,
+                           [(p, 0, 0, 63) for p in (0, 17, 64, 150, 299, 5000, 220)]
+                           + [(3, 0, 5, 63)], 1, 1, False),
 }
+
+
+def _band_arg(band, dev):
+    """The case's band as the wrapper takes it, and as the plain version does."""
+    if isinstance(band, list):
+        t = torch.tensor(band, dtype=torch.int32, device=dev)
+        return t, tuple(t[:, i] for i in range(4))
+    return band, band
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_fwd_matches_plain(dev, case, dtype):
     B, Sq, Skv, H, Hkv, D, band, sq, skv, seg = FLASH_CASES[case]
+    band, plain_band = _band_arg(band, dev)
     rng = np.random.default_rng(7)
     q = _randn(rng, B, Sq, H, D, dtype=dtype, dev=dev)
     k = _randn(rng, B, Skv, Hkv, D, dtype=dtype, dev=dev)
@@ -63,11 +91,14 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
     if seg:
         ids = np.sort(rng.integers(0, 4, Sq)).astype(np.int32)
         kw["seg_q"] = kw["seg_kv"] = torch.from_numpy(ids).to(dev)
-    before = fa.flash_attention_fwd.launches
+    body, _ = fa._fwd_plan(B, Sq, H, Hkv, D, dtype)
+    counters = ("launches", "launches_tile", "launches_decode", "launches_fp32")
+    before = {c: getattr(fa.flash_attention_fwd, c) for c in counters}
     o, lse = fa.flash_attention_fwd(q, k, v, band, **kw)
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == before + 1
-    o_ref, lse_ref = ref.attention_ref(q, k, v, band=band, **kw)
+    moved = {c: getattr(fa.flash_attention_fwd, c) - before[c] for c in counters}
+    assert moved == {c: int(c in ("launches", f"launches_{body}")) for c in counters}
+    o_ref, lse_ref = ref.attention_ref(q, k, v, band=plain_band, **kw)
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
     live = lse_ref > ref.NEG_INF / 2
@@ -75,8 +106,32 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
     # empty rows: exactly o = 0 and lse = NEG_INF
     assert torch.equal(lse[~live], lse_ref[~live])
     assert torch.all(o.transpose(1, 2)[~live] == 0)
-    if case == "hidden_rows":
+    if case in ("hidden_rows", "decode_slots_granite", "decode_slots_hymba"):
         assert (~live).any()
+
+
+@pytest.mark.parametrize("case", ["granite_segments", "hymba_window", "chunk",
+                                  "decode_slots_hymba", "verify"])
+def test_flash_fwd_tensor_core_repeat_is_bitwise(dev, case):
+    """The bf16 bodies sum in a fixed order (the decode body's key splits
+    merge without atomics): two launches give identical outputs."""
+    B, Sq, Skv, H, Hkv, D, band, sq, skv, seg = FLASH_CASES[case]
+    band, _ = _band_arg(band, dev)
+    rng = np.random.default_rng(11)
+    q, k, v = (_randn(rng, B, S, h, D, dtype=torch.bfloat16, dev=dev)
+               for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv)
+    if seg:
+        ids = np.sort(rng.integers(0, 4, Sq)).astype(np.int32)
+        kw["seg_q"] = kw["seg_kv"] = torch.from_numpy(ids).to(dev)
+    body, splits = fa._fwd_plan(B, Sq, H, Hkv, D, torch.bfloat16)
+    assert body == ("decode" if case.startswith(("decode", "verify")) else "tile")
+    if case == "decode_slots_hymba":
+        assert splits > 1
+    first = fa.flash_attention_fwd(q, k, v, band, **kw)
+    second = fa.flash_attention_fwd(q, k, v, band, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_fwd_per_row_band(dev):

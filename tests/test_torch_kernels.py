@@ -207,6 +207,52 @@ def test_flash_attention_bwd_argument_checks():
         tfa.flash_attention_bwd(q, q, q, None, lse, q, (0, 0, 0, INF), scale=1.0)
 
 
+# (B, Sq, H, Hkv, D, dtype) -> (body, key splits) at the main path's shapes
+FWD_PLANS = {
+    # granite-8b packed prefill (1,500 tokens) and a 256-token chunk per slot
+    "granite_packed_prefill": ((1, 1500, 32, 8, 128, torch.bfloat16), ("tile", 1)),
+    "granite_chunk": ((8, 256, 32, 8, 128, torch.bfloat16), ("tile", 1)),
+    # hymba-1.5b window prefill, and its decode tick: 8 slots x 5 kv heads =
+    # 40 CTAs would leave most of the 132 SMs idle, so the keys split
+    "hymba_prefill": ((1, 1536, 25, 5, 64, torch.bfloat16), ("tile", 1)),
+    "hymba_decode": ((8, 1, 25, 5, 64, torch.bfloat16), ("decode", 7)),
+    # granite verify (spec_k 4: 16 packed rows) and decode tick (64 CTAs)
+    "granite_verify": ((8, 4, 32, 8, 128, torch.bfloat16), ("decode", 5)),
+    "granite_decode": ((8, 1, 32, 8, 128, torch.bfloat16), ("decode", 5)),
+    # 32 packed rows are the decode body's most; 33 go to the tile body
+    "decode_rows_32": ((8, 8, 32, 8, 128, torch.bfloat16), ("decode", 5)),
+    "tile_rows_36": ((8, 9, 32, 8, 128, torch.bfloat16), ("tile", 1)),
+    # enough kv-head CTAs: no split
+    "decode_wide_batch": ((16, 1, 32, 8, 128, torch.bfloat16), ("decode", 1)),
+    # fp32 (training, dequantized pools) keeps the CUDA-core body, any shape
+    "train_fp32": ((1, 4096, 32, 8, 128, torch.float32), ("fp32", 1)),
+    "quant_verify_fp32": ((8, 4, 32, 8, 128, torch.float32), ("fp32", 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FWD_PLANS))
+def test_fwd_plan_routes_main_path_shapes(name):
+    shape, want = FWD_PLANS[name]
+    assert tfa._fwd_plan(*shape) == want
+    body, splits = want
+    if body == "decode":
+        B, Sq, H, Hkv = shape[:4]
+        assert Sq * (H // Hkv) <= tfa.DECODE_MAX_ROWS and 1 <= splits <= tfa.MAX_SPLITS
+
+
+@pytest.mark.parametrize("D", [16, 48, 96, 256])
+def test_fwd_plan_refuses_other_head_dims(D):
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dims"):
+            tfa._fwd_plan(1, 64, 8, 2, D, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_fwd_plan_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._fwd_plan(1, 64, 8, 2, 64, dtype)
+
+
 @pytest.mark.parametrize("segments", [False, True], ids=["band", "segments"])
 @pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 5)])
 def test_flash_attention_op_grads_match_jax(causal, window, segments):
