@@ -21,8 +21,11 @@ Phases, each printing one JSON line:
                  decode body, checked against the wrapper's plan) and its
                  device time (torch.profiler).  The env line carries ptxas's
                  registers and spills of the tensor-core kernels.
-                 The backward cases (dQ and dK/dV) also check that two launches
-                 give bitwise-identical gradients.
+                 The backward cases (dQ and dK/dV, both on the tensor cores;
+                 fp32 inputs through the split pre-pass) also check the body
+                 the wrapper planned and that two launches give
+                 bitwise-identical gradients; the env line's ptxas summary
+                 covers the backward library too.
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
                  weights served by the engine on the card (kernels) and on the
                  CPU (plain versions), dense and paged caches; the greedy streams
@@ -73,8 +76,12 @@ Phases, each printing one JSON line:
                  packed documents, through ``repro_torch.train.loop.fit``.  The
                  counters are set to 0 just before and read just after: the
                  forward kernel must have run 2 x 8 x 6 times (all on the fp32
-                 body), dQ and dK/dV 8 x 6 times each.  One more step runs under torch.profiler for
-                 the device time per kernel class.
+                 body), dQ and dK/dV 8 x 6 times each, every backward on the
+                 fp32 tensor-core body (and its pre-pass).  One more step runs
+                 under torch.profiler for the device time per kernel class.
+                 Then 2 causal steps with bf16 params: losses finite and near
+                 ln(vocab), the forward on the tile body and every backward on
+                 the bf16 body.
   7. the kernels line, the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
@@ -120,6 +127,10 @@ from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E4
 # published H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores, no TF32
+# the backward runs on the tensor cores for either input type: its bounds
+# take the bf16 peak (the fp32 inputs' extra term products are the kernel's
+# own cost, not the function's)
+BWD_PEAK = PEAK_FLOPS[torch.bfloat16]
 # max |delta| of o against the plain version, per kernel and input type.
 # bf16 outputs are rounded to bf16 (an ulp is 3.9e-3 at |o| in [0.5, 1)):
 # the limits sit a few times above the largest readings on an H100 (flash
@@ -143,6 +154,7 @@ DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"  # the fp32 body
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:153"
 BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
+BWD_BODIES = ("tc_fp32", "tc_bf16")
 BWD_DQ_REPLACES = "src/repro/kernels/flash_attention.py:411"
 BWD_DKV_REPLACES = "src/repro/kernels/flash_attention.py:461"
 PAGED_SRC = "src/repro_torch/csrc/paged_decode.cu"
@@ -267,9 +279,9 @@ def time_ms(fn, reps=20, warmup=3, flush=None):
     return float(np.median(times))
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -564,6 +576,12 @@ def _profiled(fn, reps):
     return prof
 
 
+def bwd_counts():
+    """Backward calls per body and the fp32 body's pre-pass launches."""
+    return {**{b: getattr(fa.flash_attention_bwd, f"launches_{b}") for b in BWD_BODIES},
+            "split": fa.split_terms.launches}
+
+
 def bwd_case(name, S, dtype, gen):
     """One flash-backward case (dQ and dK/dV kernels) at granite-8b's heads.
     The segment case gives row 0 a document id no key has: a fully masked
@@ -591,8 +609,11 @@ def bwd_case(name, S, dtype, gen):
     run = lambda: fa.flash_attention_bwd(  # noqa: E731
         q, k, v, None if given else o, lse, do, band, delta=delta, **kw)
     plain = lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, band=band, delta=delta, **kw)  # noqa: E731
+    before = bwd_counts()
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
+    ran = {b: n - before[b] for b, n in bwd_counts().items()}
+    body = [b for b in BWD_BODIES if ran[b]]
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     atol, rtol = BWD_TOLS[dtype]
     errs, ratio = {}, 0.0
@@ -626,25 +647,58 @@ def bwd_case(name, S, dtype, gen):
     dq_bytes = 3 * S * H * D * item + 2 * vis_keys * HKV * D * item + 2 * H * S * 4 + seg_bytes
     dkv_bytes = 2 * vis_rows * H * D * item + 4 * S * HKV * D * item + 2 * H * vis_rows * 4 \
         + seg_bytes
-    dq_bound, dq_by = bound(dq_bytes, 6 * D * H * pairs, dtype)
-    dkv_bound, dkv_by = bound(dkv_bytes, 8 * D * H * pairs, dtype)
-    split, _ = device_time(_profiled(run, 5), per=5)  # the two kernels' device ms apart
+    # bounds at the tensor cores' bf16 peak, the kernels' own units; the
+    # CUDA cores' fp32 peak (the earlier kernels' units) as a labelled extra
+    dq_bound, dq_by = bound(dq_bytes, 6 * D * H * pairs, dtype, BWD_PEAK)
+    dkv_bound, dkv_by = bound(dkv_bytes, 8 * D * H * pairs, dtype, BWD_PEAK)
+    split, _ = device_time(_profiled(run, 5), per=5)  # the kernels' device ms apart
     rec = dict(
         kernel="flash_attention_bwd", case=name, S=S, dtype=DTYPE_NAMES[dtype],
+        body=body[0] if len(body) == 1 else body, pre_pass_launches=ran["split"],
         delta="given" if given else "from_o", max_abs_err=errs, tol_atol=atol, tol_rtol=rtol,
         max_err_over_tol=ratio, bitwise_repeat=bitwise, masked_row_dq_zero=masked_row_zero,
         ms_dq=split.get("flash_bwd_dq", 0.0), ms_dkv=split.get("flash_bwd_dkv", 0.0),
+        ms_split=split.get("flash_bwd_split", 0.0),
         ms_pair=time_ms(run, reps=10), plain_ms_pair=time_ms(plain, reps=5),
         library_ms_pair=time_ms(lib, reps=10),
         bound_ms_dq=dq_bound, bound_by_dq=dq_by, bound_ms_dkv=dkv_bound, bound_by_dkv=dkv_by,
+        bound_ms_dq_fp32_cores=bound(dq_bytes, 6 * D * H * pairs, torch.float32)[0],
+        bound_ms_dkv_fp32_cores=bound(dkv_bytes, 8 * D * H * pairs, torch.float32)[0],
         visible_pairs_per_head=pairs,
     )
     del out, qt, kt, vt, mask
     torch.cuda.empty_cache()
+    want_body = fa._bwd_plan(1, S, S, H, HKV, D, dtype)
+    check(body == [want_body] and ran["split"] == (2 if want_body == "tc_fp32" else 0),
+          f"flash_attention_bwd ran {ran}, not the {want_body} body: {rec}")
     check(ratio <= 1.0 and bitwise and masked_row_zero,
           f"flash_attention_bwd disagrees with its plain version or repeats unequal: {rec}")
-    check(rec["ms_dq"] > 0 and rec["ms_dkv"] > 0,
+    check(rec["ms_dq"] > 0 and rec["ms_dkv"] > 0
+          and (rec["ms_split"] > 0) == (want_body == "tc_fp32"),
           f"the profiler saw no device time for the backward kernels: {split}")
+    return rec
+
+
+def split_case(S, gen):
+    """The fp32 backward's pre-pass at the training row's operands (granite
+    heads, S tokens) against its plain version: bitwise equal terms."""
+    xs = [randn(gen, 1, S, h, D, dtype=torch.float32) for h in (H, HKV, HKV, H)]
+    run = lambda: fa.split_terms(*xs)  # noqa: E731
+    plain = lambda: tuple(fa.split_terms_ref(x) for x in xs)  # noqa: E731
+    before = fa.split_terms.launches
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    launched = fa.split_terms.launches - before
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    n = sum(x.numel() for x in xs)
+    bound_ms, bound_by = bound(n * (4 + 2 * 2), 0, torch.float32)  # fp32 in, two bf16 out
+    device_ms, _ = device_time(_profiled(run, 5), per=5)
+    rec = dict(kernel="flash_bwd_split", S=S, dtype="fp32", max_abs_err=err, exact=exact,
+               launched=launched, ms=time_ms(run), device_ms=device_ms.get("flash_bwd_split", 0.0),
+               plain_ms=time_ms(plain), library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    del got, want, xs
+    check(launched == 1 and exact, f"flash_bwd_split disagrees with its plain version: {rec}")
     return rec
 
 
@@ -1137,6 +1191,8 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_dq"
     if "flash_bwd_dkv_kernel" in name:
         return "flash_bwd_dkv"
+    if "flash_bwd_split_kernel" in name:  # the fp32 body's pre-pass
+        return "flash_bwd_split"
     if "paged_decode_kernel" in name:
         return "paged_flash_decode"
     if "ssd_scan_kernel" in name:
@@ -1273,7 +1329,7 @@ def full_train(card):
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
-    bodies0 = fwd_body_counts()
+    bodies0, bwd0 = fwd_body_counts(), bwd_counts()
     runs, last = [], None
     for n, docs in ((steps, None), (steps_docs, 4)):
         last = None  # the previous run's params go before the next run starts
@@ -1286,6 +1342,7 @@ def full_train(card):
                 "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
                 "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
     bodies = fwd_body_delta(bodies0)
+    bwd_bodies = {b: n - bwd0[b] for b, n in bwd_counts().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = profile_train_step(cfg, ctx, last.pop("params"), seq)
     del last
@@ -1302,8 +1359,9 @@ def full_train(card):
         "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
         "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
         "launches": launches, "flash_attention_fwd_bodies": bodies,
+        "flash_attention_bwd_bodies": bwd_bodies,
         "ln_vocab": float(np.log(cfg.vocab_size)),
-        "profile": profile, "card": card,
+        "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq), "card": card,
     }
     emit(rec)
     check(len(losses) == total and all(np.isfinite(losses)), f"train: losses not finite: {losses}")
@@ -1315,8 +1373,47 @@ def full_train(card):
           f"train: launch counts off the remat schedule: {launches}")
     check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]},
           f"train: the fp32 forward must run the fp32 body: {bodies}")
+    n_bwd = cfg.num_layers * total
+    check(bwd_bodies == {"tc_fp32": n_bwd, "tc_bf16": 0, "split": n_bwd},
+          f"train: every fp32 backward must run the fp32 tensor-core body: {bwd_bodies}")
+    bf = rec["bf16"]
+    check(len(bf["losses"]) == 2 and all(np.isfinite(bf["losses"]))
+          and abs(bf["losses"][0] - np.log(cfg.vocab_size)) < 1.5,
+          f"train (bf16): losses not finite or not near ln(vocab): {bf}")
+    n_bf = cfg.num_layers * 2
+    check(bf["launches"] == {"flash_attention_fwd": 2 * n_bf, "flash_bwd_dq": n_bf,
+                             "flash_bwd_dkv": n_bf}
+          and bf["flash_attention_fwd_bodies"] == {"tile": 2 * n_bf, "decode": 0, "fp32": 0}
+          and bf["flash_attention_bwd_bodies"] == {"tc_fp32": 0, "tc_bf16": n_bf, "split": 0},
+          f"train (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
     return {**{k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
-            "flash_attention_fwd (fp32)": bodies["fp32"]}
+            "flash_attention_fwd (fp32)": bodies["fp32"], "flash_bwd_split": bwd_bodies["split"]}
+
+
+def full_train_bf16(cfg, ctx, seq):
+    """2 causal steps of the train phase's model with bf16 params (the JAX
+    package's ``param_dtype`` option); counters set to 0 just before."""
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
+    bodies0, bwd0 = fwd_body_counts(), bwd_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=1, seed=0,
+                                    param_dtype=torch.bfloat16))
+    fit_s = time.perf_counter() - t0
+    rec = {
+        "param_dtype": "bf16", "steps": 2, "losses": out["history"],
+        "step_s": out["step_seconds"], "fit_s": fit_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                     "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
+                     "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv},
+        "flash_attention_fwd_bodies": fwd_body_delta(bodies0),
+        "flash_attention_bwd_bodies": {b: n - bwd0[b] for b, n in bwd_counts().items()},
+    }
+    del out
+    torch.cuda.empty_cache()
+    return rec
 
 
 def profile_train_step(cfg, ctx, params, seq):
@@ -1355,13 +1452,14 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_summary(libs["flash_fwd_tc"])
+    ptxas = {**(ptxas_summary(libs["flash_fwd_tc"]) or {}),
+             **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {})}
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "build_s": build_s,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "ptxas": ptxas})
 
-    check(not any(k.get("serialized_wgmma") for k in (ptxas or {}).values()),
+    check(not any(k.get("serialized_wgmma") for k in ptxas.values()),
           f"ptxas serialized the wgmma products of a tensor-core kernel: {ptxas}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1399,7 +1497,9 @@ def main():
             for name in ("causal", "window", "striped", "segment"):
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
-    emit({"phase": "kernels", "card": card, "cases": flash + paged + quant + ssd_cases + bwd})
+    split = split_case(4096, gen)
+    emit({"phase": "kernels", "card": card,
+          "cases": flash + paged + quant + ssd_cases + bwd + [split]})
 
     cross_device()
     launches = full_serve(card)
@@ -1458,6 +1558,13 @@ def main():
             "bound_by": main_bwd[f"bound_by_{part}"],
             "library_ms": main_bwd["library_ms_pair"],
         })
+    # the fp32 body's pre-pass: part of #2 and #3 on the training path
+    kernels.append({
+        "name": "flash_bwd_split (fp32 pre-pass of #2, #3)", "route": "cuda", "source": BWD_SRC,
+        "replaces": f"{BWD_DQ_REPLACES}, {BWD_DKV_REPLACES}", "launches": launches["flash_bwd_split"],
+        "max_abs_err": split["max_abs_err"], "ms": split["device_ms"], "plain_ms": split["plain_ms"],
+        "bound_ms": split["bound_ms"], "bound_by": split["bound_by"], "library_ms": None,
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

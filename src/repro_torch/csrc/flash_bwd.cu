@@ -1,459 +1,642 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention backward on Hopper's tensor cores (sm_90a), fp32 and bf16
+// inputs; plain C interface for ctypes.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_bwd, both
 //   of its Pallas calls:
-//   * flash_bwd_dq  -- the dQ call (body _dq_kernel);
-//   * flash_bwd_dkv -- the dK/dV call (body _dkv_kernel).
+//   * flash_bwd_dq  -- the dQ call (body _dq_kernel, pallas_call :411);
+//   * flash_bwd_dkv -- the dK/dV call (body _dkv_kernel, pallas_call :461).
 //
 // What they compute, from the forward's saved lse and delta = rowsum(dO * O):
 //   S  = scale * q k^T,  P = exp(S - lse) on visible pairs (0 elsewhere),
 //   dP = dO v^T,         dS = P * (dP - delta) * scale,
 //   dQ = dS k,  dK = dS^T q,  dV = P^T dO,
 // with dK/dV summed over the GQA group (query heads hk*g .. hk*g+g-1 read kv
-// head hk, g = H / Hkv).  Visibility is flash_fwd.cu's: the int32 band
-// (q_off, kv_off, lo, hi) in device memory with static strides, composed with
-// optional segment ids.  One [4] band serves the whole batch (the JAX
-// backward takes no per-row band).  q, k, v, dO are [B, S, heads, D] in fp32
-// or bf16; lse and delta are fp32 [B, H, Sq] (delta is transposed to that
-// layout by the wrapper, as JAX does before its Pallas calls).  Arithmetic
-// is fp32; dq, dk, dv are written once, in the input type.
+// head hk, g = H / Hkv).  Visibility is the forward's: the int32 band (q_off,
+// kv_off, lo, hi) in device memory with static strides, composed with
+// optional segment ids; one [4] band serves the whole batch (the JAX
+// backward takes no per-row band).  lse and delta are fp32 [B, H, Sq] (delta
+// transposed to that layout by the wrapper, as JAX does before its Pallas
+// calls).  dq, dk, dv come out in the input type.
 //
 // What bounds them on an H100: per visible (query, key) pair and query head,
-// dQ does 6*D flops (S, dP, dQ) and dK/dV 8*D (S, dP, dV, dK), against
-// ~2*D bytes per token and head of inputs and outputs -- far above the card's
-// ~295 flop/byte balance point at training lengths, so both are bound by
-// arithmetic.  Like flash_fwd.cu, this first version does the arithmetic in
-// fp32 on the CUDA cores (67 TFLOP/s peak, no tensor cores); wgmma/TMA are
-// later work.
+// dQ does 6*D flops (S, dP, dQ) and dK/dV 8*D (S, dP, dV, dK), against ~2*D
+// bytes per token and head of inputs and outputs -- far above the card's
+// ~295 flop/byte balance point at training lengths: both are bound by the
+// tensor cores (989 TFLOP/s in bf16), so every product runs on wgmma.
 //
-// Design:
-//   * dQ: one block per (q tile of 64 rows, query head, batch row); the TPU
-//     kernel's sequential kv grid axis becomes a loop over KV tiles of 32
-//     keys, bounded by the band so hidden tiles are never loaded.  Each of
-//     the 256 threads (16 x 16) owns 4 rows: a 4 x 2 micro-tile of S and dP
-//     (keys tx, tx+16), dS staged through shared memory, then dQ accumulated
-//     in registers over dims tx + 16*c.
-//   * dK/dV: one block per (kv tile of 64 keys, kv head, batch row); the loop
-//     runs over the group's g query heads x the q tiles of 32 rows that the
-//     band lets see the tile.  Each thread owns 4 keys and accumulates both
-//     dK and dV in registers; P^T and dS^T are staged in shared memory.  No
-//     atomics and no split of a kv tile's sum across blocks: every output is
-//     written once by one block in a fixed order, so repeated launches give
-//     bitwise-identical gradients.
-//   * empty rows (lse = NEG_INF) and masked pairs are SELECTED to 0 before
-//     any multiply (exp(s - lse) would be inf there); the ragged edges are
-//     masked, so Sq and Skv need not divide the tiles.
-//   * tiles are staged as fp32 in dynamic shared memory (~110-120 KB at
-//     D = 128), above the 48 KB static limit: each launch first raises the
-//     kernel's limit with cudaFuncSetAttribute.
+// Numerics (the term counts are settled by tests/test_torch_bwd_split.py,
+// which emulates this arithmetic on the CPU against the JAX backward):
+//   * every product takes bf16 operands and accumulates in fp32; a bf16 x
+//     bf16 product is exact in fp32;
+//   * bf16 inputs: q, k, v, dO are one exact term each.  P and dS (fp32) are
+//     split into two bf16 terms, hi + lo (16 bits); one bf16 P or dS breaks
+//     the bf16 gate (the emulation: 10-16x its limit, 0.81-0.92 with two);
+//   * fp32 inputs (the training path): a pre-pass (flash_bwd_split_kernel,
+//     one launch per backward call) writes q, k, v and dO as two bf16 terms
+//     each, hi + lo, into scratch the wrapper allocates, and TMA loads the
+//     terms like any bf16 tile.  Each product runs hi.hi + hi.lo + lo.hi
+//     (T = 2 terms: the pairs i + j < 2); P and dS are split the same way.
+//     That carries ~16 of fp32's 24 bits: the emulation reads 0.10-0.26 of
+//     the fp32 gate, while a single-term P and dS read 15-25x it;
+//   * P = exp2(S * scale * log2(e) - lse * log2(e)), dS in fp32; outputs are
+//     rounded once;
+//   * the tensor cores truncate as they accumulate, so a long sum kept in one
+//     accumulator drifts: at S = 4096 causal, GQA group 4 (3072 products into
+//     each dK/dV accumulator) the fp32 body read 0.8 of its gate on an H100.
+//     With fp32 outputs the kernels fold their accumulators into the output
+//     every FOLD tiles (round to nearest) and restart them from 0: 0.23-0.26.
+//
+// Design (one warpgroup of 128 threads per CTA; the JAX grid's sequential
+// axis becomes a loop inside the CTA):
+//   * dQ: one CTA per (64 query rows, query head, batch row).  q and dO (all
+//     terms) are loaded once by TMA; k and v tiles of 64 keys stream through
+//     a 2-stage ring, loaded by TMA from one thread (full / empty
+//     mbarriers).  Per tile: S = Q K^T and dP = dO V^T (wgmma m64n64k16, both
+//     operands from shared memory), then dS in registers as the A operand of
+//     dQ += dS K, with K read MN-major (the transpose bit).
+//   * dK/dV: one CTA per (64 keys, kv head, batch row).  k and v are loaded
+//     once; the loop runs over the group's g query heads x the q tiles of 64
+//     rows that the band lets see these keys, with q, dO, lse, delta (and
+//     the rows' segment ids) streaming through the ring.  Keys are the rows:
+//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are already the A
+//     operands of dV += P^T dO and dK += dS^T Q (dO and Q read MN-major).
+//   * loop bounds are solved per CTA from the band in device memory, so
+//     hidden tiles are never loaded; a tile that the band shows whole takes
+//     the elementwise pass unmasked, any other one is masked element by
+//     element.  Every product is issued in straight-line code, the same
+//     every tile (a wgmma under a branch ptxas cannot prove uniform is
+//     serialized);
+//   * empty rows (lse = NEG_INF) and masked pairs are SELECTED to 0, never
+//     multiplied; ragged Sq / Skv are zero-filled by TMA and masked;
+//   * no atomics: every output element belongs to one CTA, whose sums run in
+//     a fixed order, so two launches give bitwise-equal results.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
-constexpr int NT = 256;   // threads per block (16 x 16)
-constexpr int DQ_BQ = 64;  // dQ: query rows per block
-constexpr int DQ_BK = 32;  // dQ: keys per KV tile
-constexpr int KV_BK = 64;  // dK/dV: keys per block
-constexpr int KV_BQ = 32;  // dK/dV: query rows per q tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// (x, y) as two bf16 pairs: hi = bf16(x, y), lo = bf16 of what hi leaves
+__device__ __forceinline__ void split2_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
 
-__host__ __device__ __forceinline__ long long floor_div(long long a, long long b) {
-  // b > 0
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-__host__ __device__ __forceinline__ long long ceil_div(long long a, long long b) {
-  return -floor_div(-a, b);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float b0, float b1, float b2, float b3) {
-  return a.x * b0 + a.y * b1 + a.z * b2 + a.w * b3;
+// visible iff lo <= q position - k position <= hi
+__device__ __forceinline__ bool band_visible(long long qpos, long long kpos, long long lo,
+                                             long long hi) {
+  const long long diff = qpos - kpos;
+  return diff >= lo && diff <= hi;
 }
 
-// ---------------------------------------------------------------------------
+// ===========================================================================
+// the shared engine
+// ===========================================================================
+
+constexpr int NT = 128;    // one warpgroup
+constexpr int ROWS = 64;   // rows of every tile: a CTA's own rows and a streamed tile's
+constexpr int STAGES = 2;  // ring of streamed tiles
+constexpr int TP = 2;      // bf16 terms of P and dS
+// fp32 outputs (see Numerics above): every FOLD tiles a CTA adds its
+// accumulators into its own rows of the output (round to nearest; no atomics:
+// one CTA owns the rows) and starts them from 0.
+constexpr int FOLD = 16;
+// A 1-D TMA box starts on a 16-byte boundary in global memory: a row vector
+// (lse, delta, segment ids) of a tile starting at element x is loaded as a
+// box of VBOX elements from x & ~3 and read from offset x & 3.
+constexpr int VBOX = ROWS + 4;
+constexpr int VSTRIDE = 384;  // bytes between a stage's row vectors (TMA writes 128-byte aligned)
+
+// T: bf16 terms per input value (1 for bf16 inputs, 2 for fp32 inputs)
+template <int D, int T>
+struct Cfg {
+  static constexpr int SWB = D >= 64 ? 128 : 64;       // swizzle span (bytes) = column block row
+  static constexpr int CB = SWB / 2;                   // dims per column block
+  static constexpr int NCB = D / CB;                   // column blocks
+  static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // descriptor swizzle mode
+  static constexpr int TILE = ROWS * D * 2;            // one term of one [64, D] tile
+  static constexpr int PAIR = 2 * T * TILE;            // two tensors' tiles, all terms
+  static constexpr int VEC = 2048;                     // a stage's row vectors (3 x VSTRIDE)
+  static constexpr int STAGE = PAIR + VEC;
+  // shared memory: the resident tiles (PAIR), the ring of STAGES stages, the
+  // barriers (u64 full, empty [stages], resident)
+  static constexpr int BAR_OFF = PAIR + STAGES * STAGE;
+  static constexpr int SMEM = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
+};
+
+template <int T> struct OutType { typedef float type; };  // fp32 inputs carry 2 terms
+template <> struct OutType<1> { typedef bf16 type; };
+
+// one pair of output values: fp32 stored or added to what is there; bf16
+// (written once) stored
+__device__ __forceinline__ void put2(float* p, float x, float y, bool add) {
+  float2 v = make_float2(x, y);
+  if (add) {
+    const float2 o = *reinterpret_cast<const float2*>(p);
+    v.x += o.x;
+    v.y += o.y;
+  }
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void put2(bf16* p, float x, float y, bool) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// This thread's elements of a 64 x D accumulator into rows [0, n_rows) of
+// out (row r at out + r * stride), then cleared.  Element e of column block
+// c sits at row warp * 16 + lane / 4 + 8 * ((e / 2) % 2), dim c * CB +
+// (e / 4) * 8 + 2 * (lane % 4) + e % 2.
+template <typename OutT, int NCB, int HALF>
+__device__ __forceinline__ void write_rows(float (&acc)[NCB][HALF], OutT* out, size_t stride,
+                                           int n_rows, bool add) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = warp * 16 + lane / 4 + 8 * h2;
+    if (r >= n_rows) continue;
+    OutT* row = out + r * stride + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c)
+#pragma unroll
+      for (int j = 0; j < HALF / 4; ++j)
+        put2(row + c * 2 * HALF + j * 8, acc[c][4 * j + 2 * h2], acc[c][4 * j + 2 * h2 + 1], add);
+  }
+#pragma unroll
+  for (int c = 0; c < NCB; ++c)
+#pragma unroll
+    for (int e = 0; e < HALF; ++e) acc[c][e] = 0.f;
+}
+
+// acc (64 x 64) = sum over the term pairs i + j < T of A_i B_j^T over D.  A
+// and B are [64, D] tiles of T terms at a0 and b0 (term t at + t * TILE),
+// stored as column blocks [64][SWB] swizzled as TMA writes them: both are
+// K-major.  The first product overwrites acc.
+template <int D, int T>
+__device__ __forceinline__ void ss_products(float (&acc)[32], uint32_t a0, uint32_t b0) {
+  using C = Cfg<D, T>;
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; i + j < T; ++j)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = ((kk * 16) / C::CB) * ROWS * C::SWB + ((kk * 16) % C::CB) * 2;
+        const uint64_t da = smem_desc(a0 + i * C::TILE + off, 16, 8 * C::SWB, C::LAYOUT);
+        const uint64_t db = smem_desc(b0 + j * C::TILE + off, 16, 8 * C::SWB, C::LAYOUT);
+        wgmma_ss_m64n64(acc, da, db, i + j + kk > 0);
+      }
+}
+
+// The A operand of the register products: TP bf16 terms of a 64 x 64 fp32
+// accumulator; k-step u (columns 16u .. 16u+15) is the accumulator's blocks
+// 2u and 2u+1 (the m16n8 accumulator and A-fragment layouts agree)
+struct Frag {
+  uint32_t r[TP][4][4];
+};
+__device__ __forceinline__ void make_frag(const float (&x)[32], Frag& f) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split2_bf16(x[8 * u + 2 * e], x[8 * u + 2 * e + 1], f.r[0][u][e], f.r[1][u][e]);
+}
+
+// acc (64 x D, one [64][CB] block per column block) += sum over the term
+// pairs i + j < max(TP, T) of F_i B_j: F from registers (k = the 64 columns
+// of the scores), B the [64, D] tile of T terms at b0, read MN-major (one
+// product per column block, whose N fits one swizzle atom; the leading
+// offset is then unused, so it takes the stride offset's value).
+template <int D, int T>
+__device__ __forceinline__ void rs_products(float (&acc)[Cfg<D, T>::NCB][Cfg<D, T>::CB / 2],
+                                            const Frag& f, uint32_t b0) {
+  using C = Cfg<D, T>;
+  constexpr int NMAX = TP > T ? TP : T;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int c = 0; c < C::NCB; ++c)
+#pragma unroll
+      for (int i = 0; i < TP; ++i)
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          if (i + j >= NMAX) continue;  // resolved at compile time
+          const uint64_t db = smem_desc(b0 + j * C::TILE + c * ROWS * C::SWB + u * 16 * C::SWB,
+                                        8 * C::SWB, 8 * C::SWB, C::LAYOUT);
+          if constexpr (C::CB == 64)
+            wgmma_rs_m64n64(acc[c], f.r[i][u], db);
+          else
+            wgmma_rs_m64n32(acc[c], f.r[i][u], db);
+        }
+}
+
+// a [64, D] tile of T terms: one box of one column block x 64 rows per term
+// and column block; coordinates (dim, head, row, batch row + term * B)
+template <int D, int T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int row, int b, int B) {
+  using C = Cfg<D, T>;
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int c = 0; c < C::NCB; ++c)
+      tma_load_4d(dst + t * C::TILE + c * ROWS * C::SWB, map, bar, c * C::CB, head, row, b + t * B);
+}
+
+// the ring's barriers: full[s] completes when stage s's bytes have landed,
+// empty[s] when all 128 threads are done with it
+struct Ring {
+  uint32_t full, empty, res;
+  __device__ __forceinline__ void init(uint32_t bars) {
+    full = bars;
+    empty = bars + STAGES * 8;
+    res = empty + STAGES * 8;
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < STAGES; ++st) {
+        mbar_init(full + st * 8, 1);
+        mbar_init(empty + st * 8, NT);
+      }
+      mbar_init(res, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // before thread 0 refills stage u % STAGES with tile u: that stage's
+  // previous tile (u - STAGES) is done with
+  __device__ __forceinline__ uint32_t claim(int u) {
+    const int st = u % STAGES;
+    if (u >= STAGES) mbar_wait(empty + st * 8, (u / STAGES - 1) & 1);
+    return full + st * 8;
+  }
+  __device__ __forceinline__ void wait_full(int t) {
+    mbar_wait(full + (t % STAGES) * 8, (t / STAGES) & 1);
+  }
+  __device__ __forceinline__ void release(int t) { mbar_arrive(empty + (t % STAGES) * 8); }
+};
+
+// ===========================================================================
 // dQ
-// ---------------------------------------------------------------------------
+// ===========================================================================
 
-template <int D>
-constexpr int dq_smem_floats() {
-  // Qs, dOs [BQ][D+4] + Ks, Vs [BK][D+1] + dSs [BQ][BK+1] + segk [BK]
-  return 2 * DQ_BQ * (D + 4) + 2 * DQ_BK * (D + 1) + DQ_BQ * (DQ_BK + 1) + DQ_BK;
-}
-
-template <typename T, int D>
+// tm_q, tm_do: q and dO as (D, H, Sq, B * T) tensor maps; tm_k, tm_v: k and v
+// as (D, Hkv, Skv, B * T); boxes of one column block x 64 rows.  tm_seg:
+// seg_kv (1-D, boxes of VBOX) when seg_q is given.
+template <int D, int T>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ band,
-    const int* __restrict__ seg_q, const int* __restrict__ seg_kv, T* __restrict__ dq,
-    int Sq, int Skv, int H, int Hkv, float scale, int stride_q, int stride_kv) {
-  constexpr int BQ = DQ_BQ, BK = DQ_BK;
-  constexpr int QS = D + 4;   // Qs/dOs row stride (float4-aligned)
-  constexpr int KS = D + 1;   // Ks/Vs row stride (conflict-free column reads)
-  constexpr int PS = BK + 1;  // dSs row stride
-  constexpr int DC = D / 16;  // output dims per thread
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_seg, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ band, const int* __restrict__ seg_q,
+    typename OutType<T>::type* __restrict__ dq, int B, int Sq, int Skv, int H, int Hkv,
+    float scale, int stride_q, int stride_kv) {
+  using C = Cfg<D, T>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t sQ = base, sDO = base + T * C::TILE;  // resident
+  const uint32_t sRing = base + C::PAIR;  // stage s: k terms, v terms, seg_kv [VBOX]
 
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * QS;
-  float* Ks = dOs + BQ * QS;
-  float* Vs = Ks + BK * KS;
-  float* dSs = Vs + BK * KS;
-  int* segk = reinterpret_cast<int*>(dSs + BQ * PS);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // heaviest tiles first (causal)
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const bool has_seg = seg_q != nullptr;
   const long long q_off = band[0], kv_off = band[1], lo = band[2], hi = band[3];
+  const float sl2 = scale * kLog2e;
 
-  // visible key interval of this block's rows, solved from the band
-  const int r_last = min(r0 + BQ, Sq) - 1;
+  // the visible key interval of this CTA's rows, solved from the band
+  const int r_last = min(r0 + ROWS, Sq) - 1;
   const long long qmin = q_off + (long long)stride_q * r0;
   const long long qmax = q_off + (long long)stride_q * r_last;
   long long jlo = ceil_div(qmin - hi - kv_off, stride_kv);
   long long jhi = floor_div(qmax - lo - kv_off, stride_kv);
   if (jlo < 0) jlo = 0;
   if (jhi > Skv - 1) jhi = Skv - 1;
+  const int n_tiles = jhi >= jlo ? (int)((jhi - jlo) / ROWS) + 1 : 0;
 
-  // q (pre-scaled) and dO tiles -> shared
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = r0 + r;
-    float qx = 0.f, ox = 0.f;
-    if (row < Sq) {
-      const size_t off = (((size_t)b * Sq + row) * H + h) * D + d;
-      qx = to_f(q[off]) * scale;
-      ox = to_f(dout[off]);
-    }
-    Qs[r * QS + d] = qx;
-    dOs[r * QS + d] = ox;
+  Ring ring;
+  ring.init(base + C::BAR_OFF);
+  auto load_kv = [&](int u) {  // thread 0
+    const uint32_t full = ring.claim(u);
+    const uint32_t dst = sRing + (u % STAGES) * C::STAGE;
+    mbar_expect_tx(full, C::PAIR + (has_seg ? VBOX * 4 : 0));
+    const int j0 = (int)(jlo + (long long)u * ROWS);
+    load_tile<D, T>(dst, &tm_k, full, hk, j0, b, B);
+    load_tile<D, T>(dst + T * C::TILE, &tm_v, full, hk, j0, b, B);
+    if (has_seg) tma_load_1d(dst + C::PAIR, &tm_seg, full, j0 & ~3);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(ring.res, C::PAIR);
+    load_tile<D, T>(sQ, &tm_q, ring.res, h, r0, b, B);
+    load_tile<D, T>(sDO, &tm_do, ring.res, h, r0, b, B);
+    for (int u = 0; u < STAGES && u < n_tiles; ++u) load_kv(u);
+  }
+  __syncwarp();
+
+  // this thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its warp)
+  long long qpos[2];
+  int segq[2];
+  bool row_ok[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int row = r0 + warp * 16 + lane / 4 + 8 * h2;
+    row_ok[h2] = row < Sq;
+    qpos[h2] = q_off + (long long)stride_q * row;
+    segq[h2] = (has_seg && row_ok[h2]) ? seg_q[row] : 0;
+    const size_t li = ((size_t)b * H + h) * Sq + (row_ok[h2] ? row : 0);
+    lse2[h2] = row_ok[h2] ? lse[li] * kLog2e : 0.f;
+    dlt[h2] = row_ok[h2] ? delta[li] : 0.f;
   }
 
-  long long qpos[4];
-  int segq[4];
-  bool row_ok[4];
-  float lse_r[4], delta_r[4];
+  float acc[C::NCB][C::CB / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-    row_ok[i] = row < Sq;
-    qpos[i] = q_off + (long long)stride_q * row;
-    segq[i] = (has_seg && row_ok[i]) ? seg_q[row] : 0;
-    const size_t li = ((size_t)b * H + h) * Sq + row;
-    lse_r[i] = row_ok[i] ? lse[li] : 0.f;
-    delta_r[i] = row_ok[i] ? delta[li] : 0.f;
+  for (int c = 0; c < C::NCB; ++c)
+#pragma unroll
+    for (int e = 0; e < C::CB / 2; ++e) acc[c][e] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(ring.res, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t sK = sRing + (t % STAGES) * C::STAGE, sV = sK + T * C::TILE;
+    const long long j0 = jlo + (long long)t * ROWS, j1 = j0 + ROWS - 1;
+    const int* segk = reinterpret_cast<const int*>(sbase + (sK - base) + C::PAIR) + (j0 & 3);
+    ring.wait_full(t);
+    float s[32], dp[32];
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+    ss_products<D, T>(s, sQ, sK);
+    ss_products<D, T>(dp, sDO, sV);
+    wgmma_commit();
+    // does the band show the whole tile to every row of the CTA?
+    const bool full = !has_seg && j1 <= jhi && qmin - (kv_off + (long long)stride_kv * j1) >= lo &&
+                      qmax - (kv_off + (long long)stride_kv * j0) <= hi;
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    // element e: row (e / 2) % 2 of this thread's pair, key column
+    // (e / 4) * 8 + 2 * (lane % 4) + e % 2
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h2 = (e / 2) % 2;
+      float p = fast_exp2(fmaf(s[e], sl2, -lse2[h2]));
+      if (!full) {
+        const int col = (e / 4) * 8 + 2 * (lane % 4) + e % 2;
+        const long long key = j0 + col;
+        const bool vis = row_ok[h2] && key <= jhi &&
+                         band_visible(qpos[h2], kv_off + (long long)stride_kv * key, lo, hi) &&
+                         (!has_seg || segq[h2] == segk[col]);
+        p = vis ? p : 0.f;  // select, never multiply: exp2 is inf on an empty row
+      }
+      dp[e] = p * (dp[e] - dlt[h2]) * scale;
+    }
+    Frag fds;
+    make_frag(dp, fds);
+#pragma unroll
+    for (int c = 0; c < C::NCB; ++c) fence_operands(acc[c]);
+    wgmma_fence();
+    rs_products<D, T>(acc, fds, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::NCB; ++c) fence_operands(acc[c]);
+    ring.release(t);
+    if (tid == 0 && t + STAGES < n_tiles) load_kv(t + STAGES);
+    __syncwarp();
+    if (T > 1 && ((t + 1) % FOLD == 0 || t + 1 == n_tiles))
+      write_rows(acc, dq + (((size_t)b * Sq + r0) * H + h) * D, (size_t)H * D, Sq - r0,
+                 t >= FOLD);
   }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  for (long long j0 = jlo; j0 <= jhi; j0 += BK) {
-    __syncthreads();  // previous tile's Ks/Vs/dSs consumed (and Qs/dOs written)
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int j = idx / D, d = idx % D;
-      const long long key = j0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key <= jhi) {
-        const size_t off = (((size_t)b * Skv + key) * Hkv + hk) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-      }
-      Ks[j * KS + d] = kx;
-      Vs[j * KS + d] = vx;
-    }
-    if (tid < BK) {
-      const long long key = j0 + tid;
-      segk[tid] = (has_seg && key <= jhi) ? seg_kv[key] : 0;
-    }
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * QS + d]);
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* kr = &Ks[(tx + 16 * c) * KS + d];
-        const float k0 = kr[0], k1 = kr[1], k2 = kr[2], k3 = kr[3];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][c] += dot4(qv[i], k0, k1, k2, k3);
-      }
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ov[i] = *reinterpret_cast<const float4*>(&dOs[(ty * 4 + i) * QS + d]);
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* vr = &Vs[(tx + 16 * c) * KS + d];
-        const float v0 = vr[0], v1 = vr[1], v2 = vr[2], v3 = vr[3];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dp[i][c] += dot4(ov[i], v0, v1, v2, v3);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int jj = tx + 16 * c;
-        const long long key = j0 + jj;
-        const long long diff = qpos[i] - (kv_off + (long long)stride_kv * key);
-        const bool vis = row_ok[i] && key <= jhi && diff >= lo && diff <= hi &&
-                         (!has_seg || segq[i] == segk[jj]);
-        // select, never multiply: exp(s - NEG_INF) is inf on an empty row
-        const float p = vis ? expf(s[i][c] - lse_r[i]) : 0.f;
-        dSs[(ty * 4 + i) * PS + jj] = vis ? p * (dp[i][c] - delta_r[i]) * scale : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kk = Ks[j * KS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += dsv[i] * kk;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!row_ok[i]) continue;
-    const int row = r0 + ty * 4 + i;
-    T* out = dq + (((size_t)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) out[tx + 16 * c] = from_f<T>(acc[i][c]);
-  }
+  if (T == 1 || n_tiles == 0)
+    write_rows(acc, dq + (((size_t)b * Sq + r0) * H + h) * D, (size_t)H * D, Sq - r0, false);
 }
 
-// ---------------------------------------------------------------------------
+// ===========================================================================
 // dK / dV
-// ---------------------------------------------------------------------------
+// ===========================================================================
 
-template <int D>
-constexpr int dkv_smem_floats() {
-  // Ks, Vs [BK][D+4] + Qs, dOs [BQ][D+1] + Pt, dSt [BK][BQ+1] + lse, delta, segq [BQ]
-  return 2 * KV_BK * (D + 4) + 2 * KV_BQ * (D + 1) + 2 * KV_BK * (KV_BQ + 1) + 3 * KV_BQ;
-}
-
-template <typename T, int D>
+// tm_q, tm_do, tm_k, tm_v as for dQ; tm_lse, tm_delta: lse and delta as 1-D
+// maps over [B * H * Sq] (boxes of VBOX); tm_seg: seg_q (1-D) when seg_q is
+// given.
+template <int D, int T>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ band,
-    const int* __restrict__ seg_q, const int* __restrict__ seg_kv, T* __restrict__ dk,
-    T* __restrict__ dv, int Sq, int Skv, int H, int Hkv, float scale, int stride_q,
-    int stride_kv) {
-  constexpr int BK = KV_BK, BQ = KV_BQ;
-  constexpr int KS = D + 4;   // Ks/Vs row stride (float4-aligned)
-  constexpr int QS = D + 1;   // Qs/dOs row stride (conflict-free column reads)
-  constexpr int PT = BQ + 1;  // Pt/dSt row stride
-  constexpr int DC = D / 16;  // output dims per thread
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_delta,
+    const __grid_constant__ CUtensorMap tm_seg, const int* __restrict__ band,
+    const int* __restrict__ seg_kv, typename OutType<T>::type* __restrict__ dk,
+    typename OutType<T>::type* __restrict__ dv, int B, int Sq, int Skv, int H, int Hkv,
+    float scale, int stride_q, int stride_kv) {
+  using C = Cfg<D, T>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + T * C::TILE;  // resident
+  // stage s: q terms, dO terms, then lse, delta, seg_q [VBOX] each
+  const uint32_t sRing = base + C::PAIR;
 
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * KS;
-  float* Qs = Vs + BK * KS;
-  float* dOs = Qs + BQ * QS;
-  float* Pt = dOs + BQ * QS;
-  float* dSt = Pt + BK * PT;
-  float* lse_s = dSt + BK * PT;
-  float* delta_s = lse_s + BQ;
-  int* segq_s = reinterpret_cast<int*>(delta_s + BQ);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * ROWS;  // causal: the first keys see the most rows
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
-  const bool has_seg = seg_q != nullptr;
+  const bool has_seg = seg_kv != nullptr;
   const long long q_off = band[0], kv_off = band[1], lo = band[2], hi = band[3];
+  const float sl2 = scale * kLog2e;
 
-  // visible query interval of this block's keys, solved from the band:
+  // the visible query interval of this CTA's keys, solved from the band:
   // lo <= (q_off + sq*i) - (kv_off + skv*j) <= hi
-  const int c_last = min(c0 + BK, Skv) - 1;
+  const int c_last = min(c0 + ROWS, Skv) - 1;
   const long long kmin = kv_off + (long long)stride_kv * c0;
   const long long kmax = kv_off + (long long)stride_kv * c_last;
   long long ilo = ceil_div(kmin + lo - q_off, stride_q);
   long long ihi = floor_div(kmax + hi - q_off, stride_q);
   if (ilo < 0) ilo = 0;
   if (ihi > Sq - 1) ihi = Sq - 1;
+  const int nq = ihi >= ilo ? (int)((ihi - ilo) / ROWS) + 1 : 0;
+  const int n_tiles = g * nq;  // tile u: head hk * g + u / nq, rows ilo + (u % nq) * 64
 
-  // k and v tiles -> shared (unscaled)
-  for (int idx = tid; idx < BK * D; idx += NT) {
-    const int j = idx / D, d = idx % D;
-    const int key = c0 + j;
-    float kx = 0.f, vx = 0.f;
-    if (key < Skv) {
-      const size_t off = (((size_t)b * Skv + key) * Hkv + hk) * D + d;
-      kx = to_f(k[off]);
-      vx = to_f(v[off]);
-    }
-    Ks[j * KS + d] = kx;
-    Vs[j * KS + d] = vx;
+  Ring ring;
+  ring.init(base + C::BAR_OFF);
+  auto load_q = [&](int u) {  // thread 0
+    const uint32_t full = ring.claim(u);
+    const uint32_t dst = sRing + (u % STAGES) * C::STAGE;
+    mbar_expect_tx(full, C::PAIR + (has_seg ? 3 : 2) * VBOX * 4);
+    const int h = hk * g + u / nq;
+    const int i0 = (int)(ilo + (long long)(u % nq) * ROWS);
+    load_tile<D, T>(dst, &tm_q, full, h, i0, b, B);
+    load_tile<D, T>(dst + T * C::TILE, &tm_do, full, h, i0, b, B);
+    const int li = (b * H + h) * Sq + i0;
+    tma_load_1d(dst + C::PAIR, &tm_lse, full, li & ~3);
+    tma_load_1d(dst + C::PAIR + VSTRIDE, &tm_delta, full, li & ~3);
+    if (has_seg) tma_load_1d(dst + C::PAIR + 2 * VSTRIDE, &tm_seg, full, i0 & ~3);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(ring.res, C::PAIR);
+    load_tile<D, T>(sK, &tm_k, ring.res, hk, c0, b, B);
+    load_tile<D, T>(sV, &tm_v, ring.res, hk, c0, b, B);
+    for (int u = 0; u < STAGES && u < n_tiles; ++u) load_q(u);
+  }
+  __syncwarp();
+
+  // this thread's two keys (accumulator rows lane/4 and lane/4 + 8 of its warp)
+  long long kpos[2];
+  int segk[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int key = c0 + warp * 16 + lane / 4 + 8 * h2;
+    key_ok[h2] = key < Skv;
+    kpos[h2] = kv_off + (long long)stride_kv * key;
+    segk[h2] = (has_seg && key_ok[h2]) ? seg_kv[key] : 0;
   }
 
-  long long kpos[4];
-  int segk[4];
-  bool key_ok[4];
+  float acc_k[C::NCB][C::CB / 2], acc_v[C::NCB][C::CB / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = c0 + ty * 4 + i;
-    key_ok[i] = key < Skv;
-    kpos[i] = kv_off + (long long)stride_kv * key;
-    segk[i] = (has_seg && key_ok[i]) ? seg_kv[key] : 0;
-  }
+  for (int c = 0; c < C::NCB; ++c)
+#pragma unroll
+    for (int e = 0; e < C::CB / 2; ++e) acc_k[c][e] = acc_v[c][e] = 0.f;
 
-  float acc_k[4][DC], acc_v[4][DC];
+  if (n_tiles > 0) mbar_wait(ring.res, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t sQ = sRing + (t % STAGES) * C::STAGE, sDO = sQ + T * C::TILE;
+    const long long i0 = ilo + (long long)(t % nq) * ROWS, i1 = i0 + ROWS - 1;
+    const int li = (b * H + hk * g + t / nq) * Sq + (int)i0;
+    const uint8_t* vec = sbase + (sQ - base) + C::PAIR;
+    const float* lse_s = reinterpret_cast<const float*>(vec) + (li & 3);
+    const float* delta_s = reinterpret_cast<const float*>(vec + VSTRIDE) + (li & 3);
+    const int* segq_s = reinterpret_cast<const int*>(vec + 2 * VSTRIDE) + (i0 & 3);
+    ring.wait_full(t);
+    float s[32], dp[32];
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+    ss_products<D, T>(s, sK, sQ);    // S^T = K Q^T
+    ss_products<D, T>(dp, sV, sDO);  // dP^T = V dO^T
+    wgmma_commit();
+    // does the band show the whole tile to every key of the CTA?
+    const bool full = !has_seg && i1 <= ihi &&
+                      (q_off + (long long)stride_q * i0) - kmax >= lo &&
+                      (q_off + (long long)stride_q * i1) - kmin <= hi;
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    // element e: key row (e / 2) % 2 of this thread's pair, query column
+    // (e / 4) * 8 + 2 * (lane % 4) + e % 2
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 32; e += 2) {
+      const int h2 = (e / 2) % 2;
+      const int col = (e / 4) * 8 + 2 * (lane % 4);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = hk * g + hh;
-    for (long long i0 = ilo; i0 <= ihi; i0 += BQ) {
-      __syncthreads();  // previous tile's Qs/dOs/Pt/dSt consumed (and Ks/Vs written)
-      for (int idx = tid; idx < BQ * D; idx += NT) {
-        const int r = idx / D, d = idx % D;
-        const long long row = i0 + r;
-        float qx = 0.f, ox = 0.f;
-        if (row <= ihi) {
-          const size_t off = (((size_t)b * Sq + row) * H + h) * D + d;
-          qx = to_f(q[off]);
-          ox = to_f(dout[off]);
+      for (int x = 0; x < 2; ++x) {
+        float p = fast_exp2(fmaf(s[e + x], sl2, -lse_s[col + x] * kLog2e));
+        if (!full) {
+          const long long row = i0 + col + x;
+          const bool vis = key_ok[h2] && row <= ihi &&
+                           band_visible(q_off + (long long)stride_q * row, kpos[h2], lo, hi) &&
+                           (!has_seg || segq_s[col + x] == segk[h2]);
+          p = vis ? p : 0.f;  // select, never multiply: exp2 is inf on an empty row
         }
-        Qs[r * QS + d] = qx;
-        dOs[r * QS + d] = ox;
-      }
-      if (tid < BQ) {
-        const long long row = i0 + tid;
-        const bool ok = row <= ihi;
-        const size_t li = ((size_t)b * H + h) * Sq + row;
-        lse_s[tid] = ok ? lse[li] : 0.f;
-        delta_s[tid] = ok ? delta[li] : 0.f;
-        segq_s[tid] = (has_seg && ok) ? seg_q[row] : 0;
-      }
-      __syncthreads();
-
-      // S^T and dP^T micro-tiles: keys ty*4+i, queries tx and tx+16
-      float s[4][2], dp[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        float4 kv4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          kv4[i] = *reinterpret_cast<const float4*>(&Ks[(ty * 4 + i) * KS + d]);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float* qr = &Qs[(tx + 16 * c) * QS + d];
-          const float q0 = qr[0], q1 = qr[1], q2 = qr[2], q3 = qr[3];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[i][c] += dot4(kv4[i], q0, q1, q2, q3);
-        }
-      }
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        float4 vv4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          vv4[i] = *reinterpret_cast<const float4*>(&Vs[(ty * 4 + i) * KS + d]);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float* orow = &dOs[(tx + 16 * c) * QS + d];
-          const float o0 = orow[0], o1 = orow[1], o2 = orow[2], o3 = orow[3];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dp[i][c] += dot4(vv4[i], o0, o1, o2, o3);
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int qq = tx + 16 * c;
-          const long long row = i0 + qq;
-          const long long diff = (q_off + (long long)stride_q * row) - kpos[i];
-          const bool vis = key_ok[i] && row <= ihi && diff >= lo && diff <= hi &&
-                           (!has_seg || segq_s[qq] == segk[i]);
-          // select, never multiply: exp(s - NEG_INF) is inf on an empty row
-          const float p = vis ? expf(s[i][c] * scale - lse_s[qq]) : 0.f;
-          Pt[(ty * 4 + i) * PT + qq] = p;
-          dSt[(ty * 4 + i) * PT + qq] = vis ? p * (dp[i][c] - delta_s[qq]) * scale : 0.f;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Pt[(ty * 4 + i) * PT + qq];
-          dsv[i] = dSt[(ty * 4 + i) * PT + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float o = dOs[qq * QS + tx + 16 * c];
-          const float qd = Qs[qq * QS + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][c] += pv[i] * o;
-            acc_k[i][c] += dsv[i] * qd;
-          }
-        }
+        s[e + x] = p;
+        dp[e + x] = p * (dp[e + x] - delta_s[col + x]) * scale;
       }
     }
-  }
-
+    Frag fp, fds;
+    make_frag(s, fp);
+    make_frag(dp, fds);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!key_ok[i]) continue;
-    const int key = c0 + ty * 4 + i;
-    const size_t off = (((size_t)b * Skv + key) * Hkv + hk) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[off + tx + 16 * c] = from_f<T>(acc_k[i][c]);
-      dv[off + tx + 16 * c] = from_f<T>(acc_v[i][c]);
+    for (int c = 0; c < C::NCB; ++c) {
+      fence_operands(acc_v[c]);
+      fence_operands(acc_k[c]);
     }
+    wgmma_fence();
+    rs_products<D, T>(acc_v, fp, sDO);  // dV += P^T dO
+    rs_products<D, T>(acc_k, fds, sQ);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::NCB; ++c) {
+      fence_operands(acc_v[c]);
+      fence_operands(acc_k[c]);
+    }
+    ring.release(t);
+    if (tid == 0 && t + STAGES < n_tiles) load_q(t + STAGES);
+    __syncwarp();
+    if (T > 1 && ((t + 1) % FOLD == 0 || t + 1 == n_tiles)) {
+      const size_t off = (((size_t)b * Skv + c0) * Hkv + hk) * D;
+      write_rows(acc_k, dk + off, (size_t)Hkv * D, Skv - c0, t >= FOLD);
+      write_rows(acc_v, dv + off, (size_t)Hkv * D, Skv - c0, t >= FOLD);
+    }
+  }
+  if (T == 1 || n_tiles == 0) {
+    const size_t off = (((size_t)b * Skv + c0) * Hkv + hk) * D;
+    write_rows(acc_k, dk + off, (size_t)Hkv * D, Skv - c0, false);
+    write_rows(acc_v, dv + off, (size_t)Hkv * D, Skv - c0, false);
   }
 }
 
-// ---------------------------------------------------------------------------
+// ===========================================================================
+// the fp32 pre-pass: q, k, v, dO as two bf16 terms each
+// ===========================================================================
+
+struct SplitArgs {
+  const float* src[4];
+  bf16* dst[4];  // [2, n]: hi, then lo
+  long long n[4];
+};
+
+__global__ void __launch_bounds__(256) flash_bwd_split_kernel(SplitArgs a) {
+  const int w = blockIdx.y;
+  const float* __restrict__ src = a.src[w];
+  bf16* __restrict__ dst = a.dst[w];
+  const long long n = a.n[w];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float x = src[i];
+    const bf16 h = __float2bfloat16_rn(x);
+    dst[i] = h;
+    dst[n + i] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+}
+
+// ===========================================================================
 // launchers
-// ---------------------------------------------------------------------------
+// ===========================================================================
+
+// a [B * T, S, heads, D] bf16 array as a 4-D map (D, heads, S, B * T), boxes
+// of one column block x 64 rows, swizzled as wgmma reads them
+template <int D>
+bool encode_rows(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int BT, int S,
+                 int heads) {
+  constexpr int CB = D >= 64 ? 64 : 32;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)BT};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CB, 1, (cuuint32_t)ROWS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a flat [n] array of 4-byte values (fp32 or int32) as a 1-D map, boxes of
+// VBOX
+bool encode_vec(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, long long n,
+                CUtensorMapDataType type) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};  // unused for one dimension
+  const cuuint32_t box[1] = {(cuuint32_t)VBOX};
+  const cuuint32_t unit[1] = {1};
+  return encode(map, type, 1, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *band, *seg_q, *seg_kv;
@@ -464,83 +647,133 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+// the four operand maps (q, k, v, dO) and seg_kv's or seg_q's
+template <int D, int T>
+cudaError_t encode_operands(const Args& a, CUtensorMap (&m)[4]) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const bool ok = encode_rows<D>(encode, &m[0], a.q, a.B * T, a.Sq, a.H) &&
+                  encode_rows<D>(encode, &m[1], a.k, a.B * T, a.Skv, a.Hkv) &&
+                  encode_rows<D>(encode, &m[2], a.v, a.B * T, a.Skv, a.Hkv) &&
+                  encode_rows<D>(encode, &m[3], a.dout, a.B * T, a.Sq, a.H);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int T>
 cudaError_t launch_dq(const Args& a) {
-  const size_t smem = sizeof(float) * dq_smem_floats<D>();
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap m[4], tm_seg;
+  memset(&tm_seg, 0, sizeof(tm_seg));
+  cudaError_t err = encode_operands<D, T>(a, m);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + DQ_BQ - 1) / DQ_BQ, a.H, a.B);
+  if (a.seg_kv != nullptr &&
+      !encode_vec(encode_tiled(), &tm_seg, a.seg_kv, a.Skv, CU_TENSOR_MAP_DATA_TYPE_INT32))
+    return cudaErrorInvalidValue;
+  const int smem = Cfg<D, T>::SMEM;
+  auto kern = flash_bwd_dq_kernel<D, T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, a.B);
   kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      m[0], m[1], m[2], m[3], tm_seg, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const int*>(a.band),
-      static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_kv),
-      static_cast<T*>(a.out0), a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.stride_q, a.stride_kv);
+      static_cast<const int*>(a.seg_q), static_cast<typename OutType<T>::type*>(a.out0), a.B,
+      a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.stride_q, a.stride_kv);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D, int T>
 cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap m[4], tm_lse, tm_delta, tm_seg;
+  memset(&tm_seg, 0, sizeof(tm_seg));
+  cudaError_t err = encode_operands<D, T>(a, m);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Skv + KV_BK - 1) / KV_BK, a.Hkv, a.B);
+  const EncodeTiledFn encode = encode_tiled();
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  if (!encode_vec(encode, &tm_lse, a.lse, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !encode_vec(encode, &tm_delta, a.delta, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      (a.seg_q != nullptr &&
+       !encode_vec(encode, &tm_seg, a.seg_q, a.Sq, CU_TENSOR_MAP_DATA_TYPE_INT32)))
+    return cudaErrorInvalidValue;
+  const int smem = Cfg<D, T>::SMEM;
+  auto kern = flash_bwd_dkv_kernel<D, T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Skv + ROWS - 1) / ROWS, a.Hkv, a.B);
   kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<const int*>(a.band),
-      static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_kv),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Sq, a.Skv, a.H, a.Hkv, a.scale,
+      m[0], m[1], m[2], m[3], tm_lse, tm_delta, tm_seg, static_cast<const int*>(a.band),
+      static_cast<const int*>(a.seg_kv), static_cast<typename OutType<T>::type*>(a.out0),
+      static_cast<typename OutType<T>::type*>(a.out1), a.B, a.Sq, a.Skv, a.H, a.Hkv, a.scale,
       a.stride_q, a.stride_kv);
   return cudaGetLastError();
 }
 
-template <bool DKV, typename T>
+template <bool DKV, int T>
 cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
-    case 32: return DKV ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return DKV ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return DKV ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+    case 32: return DKV ? launch_dkv<32, T>(a) : launch_dq<32, T>(a);
+    case 64: return DKV ? launch_dkv<64, T>(a) : launch_dq<64, T>(a);
+    case 128: return DKV ? launch_dkv<128, T>(a) : launch_dq<128, T>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool DKV>
-int dispatch(int dtype, int D, const Args& a) {
-  if (a.H % a.Hkv != 0 || a.stride_q < 1 || a.stride_kv < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch_d<DKV, float>(D, a);
-  if (dtype == 1) return (int)dispatch_d<DKV, __nv_bfloat16>(D, a);
+int dispatch(int terms, int D, const Args& a) {
+  if (a.H % a.Hkv != 0 || a.stride_q < 1 || a.stride_kv < 1 || a.B < 1 || a.Sq < 1 || a.Skv < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((a.seg_q == nullptr) != (a.seg_kv == nullptr)) return (int)cudaErrorInvalidValue;
+  if (terms == 1) return (int)dispatch_d<DKV, 1>(D, a);
+  if (terms == 2) return (int)dispatch_d<DKV, 2>(D, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, dout: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] (dtype 0 = float32, 1 = bfloat16);
-// lse, delta: float32 [B, H, Sq]; band: int32 [4] on the device; seg_q [Sq] and
-// seg_kv [Skv] int32 or both null.  dq: [B, Sq, H, D] in the input type.
-// Returns cudaGetLastError() after the launch.
+// q, dout: [terms, B, Sq, H, D] bf16; k, v: [terms, B, Skv, Hkv, D] bf16 --
+// the inputs themselves (terms = 1, bf16 inputs) or flash_bwd_split's hi and
+// lo terms (terms = 2, fp32 inputs), each 16-byte aligned; lse, delta: fp32
+// [B, H, Sq], 16-byte aligned; band: int32 [4] on the device; seg_q [Sq] and
+// seg_kv [Skv] int32 (16-byte aligned) or both null.  dq: [B, Sq, H, D],
+// bf16 for terms = 1 and fp32 for terms = 2.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* band,
                             const void* seg_q, const void* seg_kv, void* dq, int B, int Sq,
                             int Skv, int H, int Hkv, int D, float scale, int stride_q,
-                            int stride_kv, int dtype, void* stream) {
+                            int stride_kv, int terms, void* stream) {
   Args a{q, k, v, dout, lse, delta, band, seg_q, seg_kv, dq, nullptr,
          B, Sq, Skv, H, Hkv, scale, stride_q, stride_kv, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, D, a);
+  return dispatch<false>(terms, D, a);
 }
 
-// As flash_bwd_dq; dk, dv: [B, Skv, Hkv, D] in the input type, each summed over
-// the query heads of its GQA group.
+// As flash_bwd_dq; dk, dv: [B, Skv, Hkv, D] in dq's type, each summed over the
+// query heads of its GQA group.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* band,
                              const void* seg_q, const void* seg_kv, void* dk, void* dv, int B,
                              int Sq, int Skv, int H, int Hkv, int D, float scale, int stride_q,
-                             int stride_kv, int dtype, void* stream) {
+                             int stride_kv, int terms, void* stream) {
   Args a{q, k, v, dout, lse, delta, band, seg_q, seg_kv, dk, dv,
          B, Sq, Skv, H, Hkv, scale, stride_q, stride_kv, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, D, a);
+  return dispatch<true>(terms, D, a);
+}
+
+// The fp32 pre-pass: q, dout (n_q values each) and k, v (n_kv each), fp32,
+// into [2, n] bf16 terms (hi, then lo) at q_t, do_t, k_t, v_t.
+extern "C" int flash_bwd_split(const void* q, const void* k, const void* v, const void* dout,
+                               void* q_t, void* k_t, void* v_t, void* do_t, long long n_q,
+                               long long n_kv, void* stream) {
+  SplitArgs a;
+  const void* src[4] = {q, k, v, dout};
+  void* dst[4] = {q_t, k_t, v_t, do_t};
+  const long long n[4] = {n_q, n_kv, n_kv, n_q};
+  for (int i = 0; i < 4; ++i) {
+    a.src[i] = static_cast<const float*>(src[i]);
+    a.dst[i] = static_cast<bf16*>(dst[i]);
+    a.n[i] = n[i];
+  }
+  const long long blocks = (n_q + 255) / 256;
+  dim3 grid((unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 4);
+  flash_bwd_split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -65,34 +65,18 @@
 //     lse, and flash_fwd_combine_kernel merges them by lse (fixed order, no
 //     atomics: two launches are bitwise equal).
 
-#include <cuda.h>  // CUtensorMap (the encoder is fetched from the driver at run time)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <string.h>
 
-namespace {
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__host__ __device__ __forceinline__ long long floor_div(long long a, long long b) {
-  // b > 0
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-__host__ __device__ __forceinline__ long long ceil_div(long long a, long long b) {
-  return -floor_div(-a, b);
-}
-
 // ---------------------------------------------------------------------------
-// PTX helpers
+// PTX helpers (the rest are sm90.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte async copy; a zero source size fills the destination with zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
@@ -113,48 +97,10 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// mbarriers: init, arrive, the arrive of this thread's earlier cp.asyncs
-// (counted in the init count), and the wait for a phase of the given parity
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
+// the arrive of this thread's earlier cp.asyncs on an mbarrier (counted in
+// its init count)
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// TMA: a box of a tensor map into shared memory, completing on an mbarrier
-// (out-of-bounds elements read as zeros)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
 }
 // named barriers over n threads (barrier 0 is __syncthreads')
 __device__ __forceinline__ void named_sync(int id, int n) {
@@ -173,10 +119,6 @@ __device__ __forceinline__ int named_count(int id, int n, bool pred) {
   return c;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&t);
-}
 // (x, y) as three bf16 pairs whose sum carries fp32's 24 bits: hi =
 // bf16(x, y), mid = bf16 of what hi leaves, lo = bf16 of what both leave
 __device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
@@ -190,11 +132,6 @@ __device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint
   lo = pack_bf16(x - __low2float(m), y - __high2float(m));
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {  // -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -211,95 +148,6 @@ __device__ __forceinline__ bool band_visible(long long qpos, long long key, long
                                              int stride_kv, long long lo, long long hi) {
   const long long diff = qpos - (kv_off + (long long)stride_kv * key);
   return diff >= lo && diff <= hi;
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads/writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading / stride byte
-// offsets (16-byte units), swizzle mode (1 = 128-byte, 2 = 64-byte)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-// d = a b (scale_d = 0) or d += a b (scale_d = 1)
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // ---- mma.sync / ldmatrix ----------------------------------------------------
@@ -332,6 +180,12 @@ constexpr int TB_THREADS = 256;  // two warpgroups
 constexpr int TB_ROWS = 128;     // packed rows per CTA, 64 per warpgroup
 constexpr int TB_BK = 64;        // keys per K/V tile
 constexpr int TB_STAGES = 4;  // tile t + 2 loads while t - 1's V and t's K are read
+// A 1-D TMA box must start on a 16-byte boundary in global memory and land
+// 128-byte aligned in shared memory: a tile's key segment ids (from key j0)
+// are loaded as a box of TB_SEG_BOX ids from j0 & ~3 into a stage's
+// TB_SEG_INTS slots and read from offset j0 & 3.
+constexpr int TB_SEG_BOX = TB_BK + 4;
+constexpr int TB_SEG_INTS = 96;
 
 template <int D>
 struct TileCfg {
@@ -341,8 +195,8 @@ struct TileCfg {
   static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // descriptor swizzle mode
   static constexpr int Q_BYTES = TB_ROWS * D * 2;
   static constexpr int KV_BYTES = TB_BK * D * 2;
-  static constexpr int SEG_OFF = Q_BYTES + 2 * TB_STAGES * KV_BYTES;  // int [stages][TB_BK]
-  static constexpr int BAR_OFF = SEG_OFF + TB_STAGES * TB_BK * 4;  // u64 full, empty [stages], q
+  static constexpr int SEG_OFF = Q_BYTES + 2 * TB_STAGES * KV_BYTES;  // int [stages][TB_SEG_INTS]
+  static constexpr int BAR_OFF = SEG_OFF + TB_STAGES * TB_SEG_INTS * 4;  // u64 full, empty [stages], q
   static constexpr int SMEM = 1024 + BAR_OFF + (2 * TB_STAGES + 1) * 8;
 };
 
@@ -524,7 +378,8 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   const uint32_t bar_full = sQ + C::BAR_OFF, bar_empty = bar_full + TB_STAGES * 8;
   const uint32_t bar_q = bar_empty + TB_STAGES * 8;
   const uint32_t sSeg = sQ + C::SEG_OFF;
-  const int* segk = reinterpret_cast<const int*>(smem_raw + (sQ - raw) + C::SEG_OFF);
+  // stage st's ids from the tile's first key (every tile starts at jlo mod 4)
+  const int* segk = reinterpret_cast<const int*>(smem_raw + (sQ - raw) + C::SEG_OFF) + (jlo & 3);
   if (tid == 0) {
     for (int st = 0; st < TB_STAGES; ++st) {
       mbar_init(bar_full + st * 8, 1);
@@ -558,7 +413,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     const int st = u % TB_STAGES;
     if (u >= TB_STAGES) mbar_wait(bar_empty + st * 8, (u / TB_STAGES - 1) & 1);
     const uint32_t full = bar_full + st * 8;
-    mbar_expect_tx(full, 2 * C::KV_BYTES + (has_seg ? TB_BK * 4 : 0));
+    mbar_expect_tx(full, 2 * C::KV_BYTES + (has_seg ? TB_SEG_BOX * 4 : 0));
     const int j0 = (int)(jlo + (long long)u * TB_BK);
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c) {
@@ -566,7 +421,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       tma_load_4d(sK0 + off, &tm_k, full, c * C::CB, hk, j0, b);
       tma_load_4d(sV0 + off, &tm_v, full, c * C::CB, hk, j0, b);
     }
-    if (has_seg) tma_load_1d(sSeg + st * TB_BK * 4, &tm_seg, full, j0);
+    if (has_seg) tma_load_1d(sSeg + st * TB_SEG_INTS * 4, &tm_seg, full, j0 & ~3);
   };
   if (n_tiles > 0) load_tile(0);
   if (n_tiles > 1) load_tile(1);
@@ -596,7 +451,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     if (has_seg) {
       const long long kend = j1 < jhi ? j1 : jhi;
       const int wt = tid % 128;
-      const bool same = wt < TB_BK && j0 + wt <= kend && segk[st * TB_BK + wt] == rowseg;
+      const bool same = wt < TB_BK && j0 + wt <= kend && segk[st * TB_SEG_INTS + wt] == rowseg;
       const int n_same = named_count(3 + wg, 128, same);
       seg_all = rows_uniform && n_same == (int)(kend - j0 + 1);
     }
@@ -657,7 +512,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       wgmma_wait<1>();  // the scores; the P.V products may still run
       fence_operands(s);
       float alpha[2];
-      tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk + st * TB_BK,
+      tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk + st * TB_SEG_INTS,
                    jlo + (long long)t * TB_BK, jhi, kv_off, stride_kv, lo, hi, has_seg, lane);
       wgmma_wait<0>();
       mbar_arrive(bar_empty + sp * 8);  // tile t - 1 is done with
@@ -1027,30 +882,6 @@ __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
 // launchers
 // ===========================================================================
 
-// cuTensorMapEncodeTiled, fetched from the driver (no link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 template <int D>
 cudaError_t launch_tile(const void* q, const void* k, const void* v, const void* band,
                         int band_stride, const void* seg_q, const void* seg_kv, void* o, void* lse,
@@ -1080,7 +911,7 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, const void*
       return cudaErrorInvalidValue;
     if (seg_kv != nullptr) {
       const cuuint64_t seg_dims[1] = {(cuuint64_t)Skv};
-      const cuuint32_t seg_box[1] = {(cuuint32_t)TB_BK};
+      const cuuint32_t seg_box[1] = {(cuuint32_t)TB_SEG_BOX};
       if (encode(&tm_seg, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(seg_kv), seg_dims,
                  strides, seg_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,

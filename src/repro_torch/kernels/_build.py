@@ -3,9 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared library
 with a plain C interface, loaded with ``ctypes``.  A library is built at first
 use into ``build/repro_torch/`` at the root of the checkout, under a name
-keyed by a hash of its source and flags, so an edited kernel rebuilds and an
-unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing source
-at once and waits for all of them.
+keyed by a hash of its source, the shared headers and the flags, so an
+edited kernel rebuilds and an unchanged one is reused.  ``build()`` starts
+one ``nvcc`` per missing source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module of the port.
 """
@@ -47,7 +47,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, keyed by its source, the headers under ``csrc/``
+    (``sm90.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -115,7 +117,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_fwd_decode.restype = i
     elif name == "flash_bwd":
         # q k v do lse delta band seg_q seg_kv dq B Sq Skv H Hkv D scale
-        # stride_q stride_kv dtype stream
+        # stride_q stride_kv terms stream
         lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_bwd_dq.restype = i
         # as flash_bwd_dq with dk dv in place of dq
@@ -123,6 +125,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p
         ]
         lib.flash_bwd_dkv.restype = i
+        # the fp32 pre-pass: q k v do q_t k_t v_t do_t n_q n_kv stream
+        ll = ctypes.c_longlong
+        lib.flash_bwd_split.argtypes = [p, p, p, p, p, p, p, p, ll, ll, p]
+        lib.flash_bwd_split.restype = i
     elif name == "paged_decode":
         # q k_pool v_pool k_scale v_scale bt pos o_parts lse_parts B H Hkv D
         # page_size max_pages num_splits pages_per_split kv_off stride_kv hi

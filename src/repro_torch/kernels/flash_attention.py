@@ -7,7 +7,9 @@ input type and shape (``_fwd_plan``): bf16 runs on the tensor cores in
 ``csrc/flash_fwd_tc.cu`` -- the tile body (wgmma) for prefill, chunks and
 windows, the decode body (mma.sync, split keys) for at most
 ``DECODE_MAX_ROWS`` packed rows -- and fp32 on the CUDA cores in
-``csrc/flash_fwd.cu``.  The backward is ``csrc/flash_bwd.cu`` (dQ and dK/dV).
+``csrc/flash_fwd.cu``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
+dK/dV kernels on the tensor cores for both types (``_bwd_plan``), bf16 as
+one term per value and fp32 as two bf16 terms written by a split pre-pass.
 See the notes at the sources' tops for the designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
@@ -15,7 +17,9 @@ The wrappers launch the kernels for CUDA tensors and run the plain versions
 no other fallback.  ``flash_attention_fwd.launches`` counts forward launches
 and ``.launches_tile``, ``.launches_decode``, ``.launches_fp32`` those of
 each body; ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count
-the two backward kernels' launches.
+the two backward kernels' launches, ``.launches_tc_bf16`` and
+``.launches_tc_fp32`` the backward calls of each body;
+``split_terms.launches`` counts the fp32 body's pre-pass.
 """
 
 from __future__ import annotations
@@ -100,8 +104,12 @@ def _seg_device(seg_q, seg_kv, Sq: int, Skv: int, device):
     seg_kv = seg_kv.to(device=device, dtype=torch.int32).contiguous()
     if seg_q.shape != (Sq,) or seg_kv.shape != (Skv,):
         raise ValueError("seg_q must be [Sq] and seg_kv [Skv]")
-    if seg_kv.data_ptr() % 16:  # the tile body reads seg_kv with TMA
+    # the forward's tile body and the backward's dQ kernel read seg_kv with
+    # TMA, the backward's dK/dV kernel seg_q
+    if seg_kv.data_ptr() % 16:
         seg_kv = seg_kv.clone()
+    if seg_q.data_ptr() % 16:
+        seg_q = seg_q.clone()
     return seg_q, seg_kv
 
 
@@ -123,6 +131,29 @@ def _fwd_plan(B: int, Sq: int, H: int, Hkv: int, D: int, dtype) -> Tuple[str, in
     if 2 * ctas > NUM_SMS:
         return "decode", 1
     return "decode", min(MAX_SPLITS, -(-2 * NUM_SMS // ctas))
+
+
+# bf16 terms per input value of each backward body: bf16 inputs are exact
+# in one, fp32 inputs go in as hi + lo (tests/test_torch_bwd_split.py)
+BWD_TERMS = {"tc_bf16": 1, "tc_fp32": 2}
+# bf16 terms of P and dS in both bodies (csrc/flash_bwd.cu's TP)
+BWD_P_TERMS = 2
+
+
+def _bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, dtype) -> str:
+    """The backward's body, from the shapes and type alone (the host never
+    reads the band): "tc_bf16" for bf16 inputs, "tc_fp32" for fp32 inputs
+    (split into two bf16 terms by a pre-pass).  Both run the tensor-core dQ
+    and dK/dV kernels; raises for what they do not take."""
+    if H < 1 or Hkv < 1 or H % Hkv:
+        raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if dtype == torch.float32:
+        return "tc_fp32"
+    if dtype == torch.bfloat16:
+        return "tc_bf16"
+    raise TypeError(f"flash_attention_bwd kernel takes float32 or bfloat16, not {dtype}")
 
 
 def flash_attention_fwd(
@@ -203,6 +234,36 @@ flash_attention_fwd.launches_decode = 0
 flash_attention_fwd.launches_fp32 = 0
 
 
+def split_terms_ref(x: torch.Tensor) -> torch.Tensor:
+    """x (fp32) as [2, *x.shape] bf16 terms: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return torch.stack([hi, (x - hi.float()).to(torch.bfloat16)])
+
+
+def split_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor):
+    """The fp32 backward body's pre-pass: q, k, v, do (fp32, contiguous; do
+    shaped as q, v as k) as [2, *shape] bf16 terms each (hi, lo), which the
+    kernels load like bf16 tiles.  One launch of the split kernel for CUDA
+    tensors; the plain version for CPU tensors."""
+    xs = (q, k, v, do)
+    if q.device.type == "cpu":
+        return tuple(split_terms_ref(t) for t in xs)
+    if any(t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous() for t in xs):
+        raise ValueError("split_terms takes contiguous float32 tensors on one device")
+    if do.shape != q.shape or v.shape != k.shape:
+        raise ValueError("do must be shaped as q, and v as k")
+    out = tuple(torch.empty((2, *t.shape), dtype=torch.bfloat16, device=q.device) for t in xs)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(_build.load("flash_bwd").flash_bwd_split(
+        *(t.data_ptr() for t in xs), *(t.data_ptr() for t in out), q.numel(), k.numel(), stream),
+        "flash_bwd_split")
+    split_terms.launches += 1
+    return out
+
+
+split_terms.launches = 0
+
+
 def flash_attention_bwd(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
@@ -255,6 +316,7 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
     _check_kernel_inputs("flash_attention_bwd", q, k, v, stride_q, stride_kv)
+    body = _bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q ({tuple(q.shape)}, {q.dtype}, {q.device})")
     if not do.is_contiguous():
@@ -267,6 +329,14 @@ def flash_attention_bwd(
         raise ValueError(f"delta must be [B, Sq, H] = {(B, Sq, H)} on {q.device}")
     delta_t = delta.float().transpose(1, 2).contiguous()  # [B, H, Sq], the kernels' layout
     lse = lse.contiguous()
+    # the kernels read their operands with TMA: the bf16 inputs themselves,
+    # or the fp32 inputs' terms (fresh scratch); lse and delta either way
+    tma = {"lse": lse, "delta": delta_t}
+    if body == "tc_bf16":
+        tma.update(q=q, k=k, v=v, do=do)
+    for name, t in tma.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"the backward reads {name} with TMA: it must be 16-byte aligned")
     band_d, _ = _band_device(band, B, q.device)
     seg_q, seg_kv = _seg_device(seg_q, seg_kv, Sq, Skv, q.device)
     dq = torch.empty_like(q)
@@ -276,20 +346,28 @@ def flash_attention_bwd(
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = _build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # fp32: hi and lo bf16 terms of each operand, [2, *shape]
+    operands = split_terms(q, k, v, do) if body == "tc_fp32" else (q, k, v, do)
     seg_ptrs = (
         seg_q.data_ptr() if seg_q is not None else None,
         seg_kv.data_ptr() if seg_kv is not None else None,
     )
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-              delta_t.data_ptr(), band_d.data_ptr(), *seg_ptrs)
+    common = (*(t.data_ptr() for t in operands), lse.data_ptr(), delta_t.data_ptr(),
+              band_d.data_ptr(), *seg_ptrs)
     dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv),
-            _DTYPE_CODES[q.dtype], stream)
+            BWD_TERMS[body], stream)
     _build.check(lib.flash_bwd_dq(*common, dq.data_ptr(), *dims), "flash_bwd_dq")
     flash_attention_bwd.launches_dq += 1
     _build.check(lib.flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *dims), "flash_bwd_dkv")
     flash_attention_bwd.launches_dkv += 1
+    if body == "tc_fp32":
+        flash_attention_bwd.launches_tc_fp32 += 1
+    else:
+        flash_attention_bwd.launches_tc_bf16 += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches_dq = 0
 flash_attention_bwd.launches_dkv = 0
+flash_attention_bwd.launches_tc_bf16 = 0
+flash_attention_bwd.launches_tc_fp32 = 0

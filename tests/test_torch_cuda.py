@@ -67,6 +67,9 @@ FLASH_CASES = {
     "decode_slots_hymba": (8, 1, 300, 25, 5, 64,
                            [(p, 0, 0, 63) for p in (0, 17, 64, 150, 299, 5000, 220)]
                            + [(3, 0, 5, 63)], 1, 1, False),
+    # a window with segment ids whose tiles start off a multiple of 4 keys:
+    # the tile body's 1-D TMA box of ids must start 16-byte aligned
+    "segments_window": (1, 300, 300, 4, 2, 64, (3, 0, 0, 41), 1, 1, True),
 }
 
 
@@ -161,6 +164,16 @@ BWD_CASES = {
     "segments": (1, 96, 96, 4, 2, 64, (0, 0, 0, ref.BAND_INF), 1, 1, True),
     "hidden_rows": (1, 64, 70, 2, 2, 32, (0, 40, 0, ref.BAND_INF), 1, 1, False),
     "granite_gqa": (1, 200, 200, 32, 8, 128, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+    # D = 128 with Sq and Skv not multiples of the kernels' 64-row tiles
+    "ragged_d128": (1, 333, 271, 8, 2, 128, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
+    # hymba-1.5b's group of 5 (25 / 5 heads of 64) under its window
+    "hymba_group5": (1, 300, 300, 25, 5, 64, (0, 0, 0, 127), 1, 1, False),
+    # a cross-length band: 100 queries over 260 keys, kv_off = -160
+    "cross_length": (2, 100, 260, 8, 4, 64, (0, -160, 0, ref.BAND_INF), 1, 1, False),
+    # tiles whose row vectors (lse, delta, segment ids) start off a 16-byte
+    # boundary: the kernels' 1-D TMA boxes are aligned down
+    "offset_window": (1, 256, 256, 2, 2, 64, (5, 0, 0, 31), 1, 1, False),
+    "segments_window": (2, 301, 299, 6, 3, 32, (3, 0, 0, 40), 1, 1, True),
 }
 # (atol, rtol) of dq/dk/dv.  fp32: both sides sum in fp32 in other orders;
 # bf16: the outputs are rounded to bf16 (one ulp is at most 2**-7 of the value)
@@ -178,6 +191,9 @@ def _bwd_inputs(case, dtype, dev, seed=5):
     if seg:
         ids = torch.from_numpy(np.sort(rng.integers(0, 4, Sq)).astype(np.int32)).to(dev)
         kw["seg_q"] = kw["seg_kv"] = ids
+        if Skv != Sq:
+            kw["seg_kv"] = torch.from_numpy(
+                np.sort(rng.integers(0, 4, Skv)).astype(np.int32)).to(dev)
     o, lse = ref.attention_ref(q, k, v, band=band, **kw)
     return q, k, v, o, lse, do, band, kw
 
@@ -210,6 +226,69 @@ def test_flash_bwd_repeat_is_bitwise(dev):
     second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_flash_bwd_repeat_is_bitwise_bf16(dev):
+    """No atomics on the bf16 body either."""
+    q, k, v, o, lse, do, band, kw = _bwd_inputs("granite_gqa", torch.bfloat16, dev)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_bwd_body_counters(dev, dtype):
+    """The body counters show which body ran: the type picks it, and only
+    the fp32 body runs the split pre-pass."""
+    q, k, v, o, lse, do, band, kw = _bwd_inputs("hymba_group5", dtype, dev)
+    def counts():
+        return {"fp32": fa.flash_attention_bwd.launches_tc_fp32,
+                "bf16": fa.flash_attention_bwd.launches_tc_bf16, "split": fa.split_terms.launches}
+
+    before = counts()
+    fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    delta = {n: c - before[n] for n, c in counts().items()}
+    fp32 = dtype == torch.float32
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1:3]
+    assert fa._bwd_plan(B, Sq, Skv, H, Hkv, D, dtype) == ("tc_fp32" if fp32 else "tc_bf16")
+    assert delta == {"fp32": int(fp32), "bf16": int(not fp32), "split": int(fp32)}
+
+
+def test_split_terms_match_plain(dev):
+    """The fp32 pre-pass against its plain version: both round to nearest
+    even, so the terms are bitwise equal, and hi + lo carries x to 2**-16."""
+    rng = np.random.default_rng(11)
+    xs = [_randn(rng, 1, 333, h, 128, dtype=torch.float32, dev=dev) * 3 for h in (8, 2, 2, 8)]
+    got = fa.split_terms(*xs)
+    for g, x in zip(got, xs):
+        want = fa.split_terms_ref(x)
+        assert g.shape == (2, *x.shape) and torch.equal(g, want)
+        assert float((g.float().sum(0) - x).abs().max()) <= 2**-16 * float(x.abs().max())
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_flash_bwd_refuses_misaligned_operands(dev):
+    """TMA reads 16-byte aligned rows: a misaligned operand is refused, not
+    worked round (bf16: q, k, v, dO themselves; either type: lse)."""
+    q, k, v, o, lse, do, band, kw = _bwd_inputs("granite_gqa", torch.bfloat16, dev)
+    for i in range(4):
+        args = [q, k, v, do]
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_bwd(args[0], args[1], args[2], o, lse, args[3], band, **kw)
+    q, k, v, o, lse, do, band, kw = _bwd_inputs("granite_gqa", torch.float32, dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd(q, k, v, o, _misaligned(lse), do, band, **kw)
 
 
 def test_flash_attention_op_grads_on_card(dev):

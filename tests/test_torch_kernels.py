@@ -253,6 +253,49 @@ def test_fwd_plan_refuses_other_dtypes(dtype):
         tfa._fwd_plan(1, 64, 8, 2, 64, dtype)
 
 
+# (B, Sq, Skv, H, Hkv, D, dtype) -> the backward's body: the type alone picks
+# it, at every shape the kernels take
+BWD_PLANS = {
+    # granite-8b training (fp32 params) and its bf16 run, 4096 tokens
+    "granite_train_fp32": ((1, 4096, 4096, 32, 8, 128, torch.float32), "tc_fp32"),
+    "granite_train_bf16": ((1, 4096, 4096, 32, 8, 128, torch.bfloat16), "tc_bf16"),
+    # hymba-1.5b's 25 / 5 heads of 64, ragged
+    "hymba_fp32": ((2, 300, 300, 25, 5, 64, torch.float32), "tc_fp32"),
+    "hymba_bf16": ((2, 300, 300, 25, 5, 64, torch.bfloat16), "tc_bf16"),
+    # a cross-length chunk of keys, D = 32, MHA
+    "cross_d32_fp32": ((3, 100, 260, 4, 4, 32, torch.float32), "tc_fp32"),
+    "cross_d32_bf16": ((3, 100, 260, 4, 4, 32, torch.bfloat16), "tc_bf16"),
+    # a single query row: no decode body in the backward
+    "one_row_bf16": ((8, 1, 2048, 32, 8, 128, torch.bfloat16), "tc_bf16"),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_PLANS))
+def test_bwd_plan_routes_by_type(name):
+    shape, want = BWD_PLANS[name]
+    assert tfa._bwd_plan(*shape) == want
+    assert tfa.BWD_TERMS[want] == (2 if shape[-1] == torch.float32 else 1)
+
+
+@pytest.mark.parametrize("D", [16, 48, 96, 256])
+def test_bwd_plan_refuses_other_head_dims(D):
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dims"):
+            tfa._bwd_plan(1, 64, 64, 8, 2, D, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_bwd_plan_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._bwd_plan(1, 64, 64, 8, 2, 64, dtype)
+
+
+@pytest.mark.parametrize("heads", [(8, 3), (6, 4), (0, 2), (4, 0)])
+def test_bwd_plan_refuses_uneven_groups(heads):
+    with pytest.raises(ValueError, match="divisible"):
+        tfa._bwd_plan(1, 64, 64, *heads, 64, torch.float32)
+
+
 @pytest.mark.parametrize("segments", [False, True], ids=["band", "segments"])
 @pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 5)])
 def test_flash_attention_op_grads_match_jax(causal, window, segments):
