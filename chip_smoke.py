@@ -87,9 +87,13 @@ Phases, each printing one JSON line:
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
 holds the quantized decode (int8 / fp8 pools, fp32 / bf16 queries, windows
-None / 512) and the SSD chunked scan (mamba2-370m and hymba-1.5b heads, fp32,
-a short chunk, batch 4 and a reduced shape; a bitwise repeat) against their
-plain versions.
+None / 512), the paged decode's split combine kernel alone (the main row's
+partials, some splits empty, an all-empty row) and the SSD chunked scan
+(mamba2-370m and hymba-1.5b heads, fp32, a short chunk, batch 4 and a
+reduced shape; a bitwise repeat) against their plain versions.  The paged
+cases carry the kernels' device time (``dev_ms``: main kernel and combine,
+torch.profiler, L2 flushed) beside the call's event time (``ms``), and the
+env line's ptxas summary covers the paged library.
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -146,6 +150,12 @@ TOLS = {
 # are the same bf16 values on both sides and the arithmetic fp32, but the
 # outputs are rounded to bf16, so one ulp (2**-7 of the value at most) on top
 BWD_TOLS = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-4, 2**-7 + 2e-4)}
+# the split combine alone, |delta| <= atol + rtol * |want| against the plain
+# combine over random partials (|o| ~ 1): both merge in fp32 in other orders
+# (largest reading on an H100: 0.17 of the fp32 limit); bf16 adds o's own
+# rounding, one ulp (2**-7 of the value) where the two fp32 sums straddle a
+# rounding boundary
+COMBINE_TOLS = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2**-7)}
 # lse is fp32 for either input type (largest reading 1.9e-6); skipping one
 # 16-token page at depth ~1500 moves it by ~1e-2
 LSE_TOL = 1e-4
@@ -437,14 +447,69 @@ def paged_case(window, dtype, gen, flush):
     rec = dict(
         kernel="paged_flash_decode", case=f"window{window}" if window else "full",
         B=B, page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
+        splits=pk.default_num_splits(B, HKV, max_pages),
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact,
-        ms=time_ms(run, flush=flush), plain_ms=time_ms(plain, flush=flush), library_ms=None,
+        ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
+        plain_ms=time_ms(plain, flush=flush), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, visible_tokens=visible_tokens,
         visible_pages=visible_pages,
     )
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"paged_flash_decode disagrees with its plain version: {rec}")
+    return rec
+
+
+def paged_device_ms(run, flush, reps=5):
+    """The paged kernels' device time per call (torch.profiler, an L2 flush
+    before each call): main kernel and combine together, and the combine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            run()
+        torch.cuda.synchronize()
+    by_class, by_kernel = device_time(prof, per=reps)
+    return dict(dev_ms=by_class.get("paged_flash_decode", 0.0),
+                dev_ms_combine=sum(ms for k, ms in by_kernel.items()
+                                   if "paged_decode_combine_kernel" in k))
+
+
+def split_combine_case(dtype, gen):
+    """The paged decode's combine kernel alone at the main row's partials (8
+    slots, granite heads, the default split count), some splits empty and
+    one all-empty row, against combine_split_partials."""
+    B, S = 8, pk.default_num_splits(8, HKV, 128)
+    o_parts = randn(gen, B, S, H, D, dtype=torch.float32)
+    lse_parts = 4 * randn(gen, B, S, H, dtype=torch.float32)
+    empty = torch.rand(B, S, H, generator=gen, device="cuda") < 0.3
+    empty[7] = True
+    lse_parts[empty] = ref.NEG_INF
+    run = lambda: pk.split_combine(o_parts, lse_parts, dtype)  # noqa: E731
+    plain = lambda: pk.combine_split_partials(o_parts, lse_parts)  # noqa: E731
+    before = pk.split_combine.launches
+    (o, lse), (o_ref, lse_ref) = run(), plain()
+    torch.cuda.synchronize()
+    launched = pk.split_combine.launches - before
+    live = lse_ref > ref.NEG_INF / 2
+    diff = (o.float() - o_ref).abs()
+    err = float(diff.max())
+    atol, rtol = COMBINE_TOLS[dtype]
+    ratio = float((diff / (atol + rtol * o_ref.abs())).max())
+    err_lse = float((lse - lse_ref)[live].abs().max())
+    empty_exact = bool(torch.all(o[7] == 0)) and bool(torch.all(lse[~live] == ref.NEG_INF))
+    nbytes = 4 * (o_parts.numel() + lse_parts.numel() + lse.numel()) + o.numel() * o.element_size()
+    bound_ms, bound_by = bound(nbytes, 0, dtype)
+    device_ms, _ = device_time(_profiled(run, 5), per=5)
+    rec = dict(kernel="paged_decode_combine", B=B, splits=S, dtype=DTYPE_NAMES[dtype],
+               max_abs_err=err, max_err_over_tol=ratio, tol_atol=atol, tol_rtol=rtol,
+               max_abs_err_lse=err_lse, tol_lse=LSE_TOL,
+               empty_rows_exact=empty_exact, launched=launched, ms=time_ms(run),
+               dev_ms=device_ms.get("paged_flash_decode", 0.0), plain_ms=time_ms(plain),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    check(launched == 1 and ratio <= 1.0 and err_lse <= LSE_TOL and empty_exact,
+          f"the paged decode's combine kernel disagrees with combine_split_partials: {rec}")
     return rec
 
 
@@ -495,9 +560,11 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
     rec = dict(
         kernel="paged_flash_decode_quant", case=f"window{window}" if window else "full",
         kv_dtype=kv_dtype, B=B, page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
+        splits=pk.default_num_splits(B, HKV, max_pages),
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact, quant_launches=launched,
-        ms=time_ms(run, flush=flush), plain_ms=time_ms(plain, flush=flush), library_ms=None,
+        ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
+        plain_ms=time_ms(plain, flush=flush), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, visible_pages=visible_pages, bytes=nbytes,
     )
     check(launched == 1, f"the quantized decode did not go through its kernel: {rec}")
@@ -1193,7 +1260,7 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_dkv"
     if "flash_bwd_split_kernel" in name:  # the fp32 body's pre-pass
         return "flash_bwd_split"
-    if "paged_decode_kernel" in name:
+    if "paged_decode_" in name:  # the main kernels and the split combine
         return "paged_flash_decode"
     if "ssd_scan_kernel" in name:
         return "ssd_scan_fwd"
@@ -1453,7 +1520,8 @@ def main():
     libs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {**(ptxas_summary(libs["flash_fwd_tc"]) or {}),
-             **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {})}
+             **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {}),
+             **(ptxas_summary(libs["paged_decode"], prefix="paged_decode_") or {})}
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "build_s": build_s,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
@@ -1484,6 +1552,7 @@ def main():
             for window in (None, 512):
                 quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
     del scratch
+    combine = [split_combine_case(dtype, gen) for dtype in (torch.float32, torch.bfloat16)]
     ssd_cases = [
         ssd_case("mamba2", 1, 2048, 32, 64, 1, 128, 64, gen),
         ssd_case("mamba2", 1, 1536, 32, 64, 1, 128, 64, gen),
@@ -1499,7 +1568,7 @@ def main():
                     bwd.append(bwd_case(name, S, dtype, gen))
     split = split_case(4096, gen)
     emit({"phase": "kernels", "card": card,
-          "cases": flash + paged + quant + ssd_cases + bwd + [split]})
+          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split]})
 
     cross_device()
     launches = full_serve(card)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_fwd_tc.cu, flash_bwd.cu): integer division for band solving,
-// mbarriers, TMA loads, wgmma and its shared-memory descriptors, and the
+// (flash_fwd_tc.cu, flash_bwd.cu, paged_decode.cu): integer division for
+// band solving, mbarriers, TMA loads, cp.async, mma.sync and ldmatrix, the
+// three-term bf16 split, wgmma and its shared-memory descriptors, and the
 // tensor-map encoder fetched from the driver.  Included once per source;
-// kernels/_build.py hashes it with each source that includes it.
+// kernels/_build.py hashes every header here with each source.
 
 #pragma once
 
@@ -78,6 +79,66 @@ __device__ __forceinline__ float fast_exp2(float x) {  // -inf -> 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- cp.async, mma.sync, ldmatrix, warp reductions -------------------------
+
+// 16-byte async copy; a zero source size fills the destination with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (x, y) as three bf16 pairs whose sum carries fp32's 24 bits: hi =
+// bf16(x, y), mid = bf16 of what hi leaves, lo = bf16 of what both leave
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  x -= __low2float(h);
+  y -= __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(x - __low2float(m), y - __high2float(m));
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -47,8 +47,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The library's path, keyed by its source, the headers under ``csrc/``
-    (``sm90.cuh``) and the flags."""
+    """The library's path, keyed by its source, every header under ``csrc/``
+    (``*.cuh``) and the flags."""
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
@@ -130,13 +130,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_bwd_split.argtypes = [p, p, p, p, p, p, p, p, ll, ll, p]
         lib.flash_bwd_split.restype = i
     elif name == "paged_decode":
-        # q k_pool v_pool k_scale v_scale bt pos o_parts lse_parts B H Hkv D
-        # page_size max_pages num_splits pages_per_split kv_off stride_kv hi
-        # scale dtype pool_type stream
-        lib.paged_decode.argtypes = [
-            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p
-        ]
+        # q k_pool v_pool k_scale v_scale bt pos pos_stride pos_value o lse
+        # o_parts lse_parts B H Hkv D page_size max_pages splits kv_off
+        # stride_kv hi scale dtype pool_type stream
+        lib.paged_decode.argtypes = [p] * 7 + [i, i] + [p] * 4 + [i] * 10 + [f, i, i, p]
         lib.paged_decode.restype = i
+        # o_parts lse_parts o lse B S H D dtype stream
+        lib.paged_decode_combine.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.paged_decode_combine.restype = i
     elif name == "ssd_scan":
         # x dt A Bm Cm y state B S H P G N chunk, the (batch, seq, head)
         # strides of x, dt, Bm, Cm, stream

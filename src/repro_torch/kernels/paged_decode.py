@@ -1,13 +1,17 @@
-"""Paged split-K flash-decode: the CUDA kernel's wrapper and its plain version.
+"""Paged split-K flash-decode: the CUDA kernels' wrapper and their plain versions.
 
 Counterpart of ``repro/kernels/paged_decode.py``.  The kernel
 (``csrc/paged_decode.cu``) decodes one token per slot row straight off the
 page pool: it reads the block table (-1 = unallocated) and each row's
-position itself, walks only the logical pages that can be visible (allocated,
-at or before the row's depth, inside the sliding window) within its split,
-masks the partial last page by global position, and writes per-split fp32
-partials (o, lse).  ``combine_split_partials`` merges them; it stays plain
-PyTorch, as it is plain jnp outside the Pallas call in JAX.
+position itself, solves the row's visible local slots (at or before the
+row's depth, inside the sliding window), and up to ``num_splits`` blocks
+take equal shares of them (a shallow row takes one), masking unallocated
+pages and the partial last page by global position.  A second kernel,
+launched by the same C call, merges the fp32 partials of the rows several
+blocks shared by lse straight into o and lse; ``combine_split_partials`` is
+that merge's plain version (plain jnp outside the Pallas call in JAX).
+bf16 queries run on the tensor cores (``mma.sync``), fp32 queries on the
+CUDA cores.
 
 Geometry matches ``core/decode_attention.py``: local slot ``j`` holds global
 position ``kv_offset + stride_kv * j`` and lives at offset ``j % page_size``
@@ -17,15 +21,17 @@ block table), so the same kernel serves the dense decode path too.
 
 A quantized pool (int8 or fp8-e4m3 codes, ``k_scale``/``v_scale``
 ``[num_pages, page_size, Hkv]`` fp32 per-(token, kv-head) scales) runs the
-same kernel with another load path: codes are read 16 bytes per thread and
-the scales are folded into the score and the P.V weight (the quantized
-branch of the TPU kernel, ``repro/kernels/paged_decode.py:161-167``).
+same kernels with another load path: codes stay bytes in shared memory and
+are widened in registers, the k scale multiplies the score and the v scale
+is folded into P (the quantized branch of the TPU kernel,
+``repro/kernels/paged_decode.py:161-167``).
 
-The wrapper launches the kernel for CUDA tensors and runs the plain version
+The wrapper launches the kernels for CUDA tensors and runs the plain version
 (:func:`paged_decode_ref`: gather the row's pages, dequantize, then the band
-math) for CPU tensors.  ``paged_flash_decode.launches`` counts launches over
-an fp pool, ``paged_flash_decode.quant_launches`` launches over a quantized
-pool.
+math) for CPU tensors; after the launch it runs no PyTorch op.
+``paged_flash_decode.launches`` counts calls over an fp pool,
+``paged_flash_decode.quant_launches`` calls over a quantized pool (each
+call launches the main kernel, and the combine with more than one split).
 """
 
 from __future__ import annotations
@@ -41,12 +47,15 @@ __all__ = [
     "paged_flash_decode",
     "paged_decode_ref",
     "combine_split_partials",
+    "split_combine",
     "default_num_splits",
     "dense_chunk_for",
 ]
 
-# default logical pages each split-K partial covers
-DEFAULT_PAGES_PER_SPLIT = 4
+# the default split count aims at this many blocks per SM of an H100 over
+# B x Hkv (row, kv head) pairs: the deepest rows then spread over the card
+BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 # candidate chunk sizes (local positions) for viewing a DENSE cache row as an
 # implicit page run; the largest divisor of m wins
@@ -63,8 +72,13 @@ if hasattr(torch, "float8_e4m3fn"):
 PosArg = Union[int, torch.Tensor]
 
 
-def default_num_splits(max_pages: int) -> int:
-    return max(1, -(-max_pages // DEFAULT_PAGES_PER_SPLIT))
+def default_num_splits(batch: int, hkv: int, max_pages: int) -> int:
+    """Blocks per (row, kv head): enough for ``BLOCKS_PER_SM`` blocks per SM
+    over ``batch * hkv`` pairs, never more than ``max_pages``.  The depths are
+    device data, so the count is chosen from the shapes alone; the kernel
+    gives a row only as many of them as get 8 tiles of 16 slots each."""
+    want = -(-BLOCKS_PER_SM * H100_SMS // max(1, batch * hkv))
+    return max(1, min(want, max_pages))
 
 
 def dense_chunk_for(m: int) -> int:
@@ -135,6 +149,13 @@ def paged_decode_ref(
     return ref.masked_attention(q, k_loc, v_loc, mask[:, None, None, :], scale)
 
 
+def _device_int32(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` as contiguous int32 on ``device``: itself when it already is."""
+    if t.device != device or t.dtype != torch.int32:
+        t = t.to(device=device, dtype=torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def paged_flash_decode(
     q: torch.Tensor,  # [B, 1, H, D] the new token's queries
     k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D]
@@ -151,7 +172,9 @@ def paged_flash_decode(
     v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode partial straight off the page pool: (o [B,1,H,D] in q.dtype,
-    lse [B,H,1] fp32)."""
+    lse [B,H,1] fp32).  ``num_splits``: how many blocks share each (row, kv
+    head)'s visible pages on the card (default :func:`default_num_splits`;
+    at most ``max_pages``); the CPU path ignores it."""
     B, _, H, D = q.shape
     num_pages, page_size, hkv, _ = k_pool.shape
     max_pages = block_table.shape[1]
@@ -204,28 +227,39 @@ def paged_flash_decode(
         raise ValueError(f"GQA group {H // hkv} > {KERNEL_MAX_GROUP}")
     if stride_kv < 1:
         raise ValueError("stride_kv must be >= 1")
-    q2 = q.reshape(B, H, D).contiguous()
-    bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
-    if bt.shape != (B, max_pages):
-        raise ValueError(f"block_table must be [B={B}, max_pages], got {tuple(bt.shape)}")
-    pos_d = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(B).contiguous()
+    if block_table.shape != (B, max_pages):
+        raise ValueError(f"block_table must be [B={B}, max_pages], got {tuple(block_table.shape)}")
+    if not q.is_contiguous():
+        q = q.contiguous()
+    bt = _device_int32(block_table, q.device)
+    if isinstance(pos, torch.Tensor):
+        pos_d = _device_int32(pos, q.device)
+        if pos_d.numel() not in (1, B):
+            raise ValueError(f"pos must be a scalar or [B={B}], got {tuple(pos.shape)}")
+        pos_ptr, pos_stride, pos_value = pos_d.data_ptr(), int(pos_d.numel() == B and B > 1), 0
+    else:
+        pos_ptr, pos_stride, pos_value = None, 0, int(pos)
     if num_splits is None:
-        num_splits = default_num_splits(max_pages)
+        num_splits = default_num_splits(B, hkv, max_pages)
     num_splits = max(1, min(int(num_splits), max_pages))
-    pages_per_split = -(-max_pages // num_splits)
     hi = (window - 1) if window else BAND_INF
-    o_parts = torch.empty((B, num_splits, H, D), dtype=torch.float32, device=q.device)
-    lse_parts = torch.empty((B, num_splits, H), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
     if B == 0:
-        return q.new_empty((0, 1, H, D)), lse_parts.new_empty((0, H, 1))
+        return o, lse
+    o_parts = lse_parts = None
+    if num_splits > 1:
+        o_parts = torch.empty((B, num_splits, H, D), dtype=torch.float32, device=q.device)
+        lse_parts = torch.empty((B, num_splits, H), dtype=torch.float32, device=q.device)
     lib = _build.load("paged_decode")
     err = lib.paged_decode(
-        q2.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-        bt.data_ptr(), pos_d.data_ptr(), o_parts.data_ptr(), lse_parts.data_ptr(),
-        B, H, hkv, D, page_size, max_pages, num_splits, pages_per_split,
-        int(kv_offset), int(stride_kv), int(hi), float(scale),
-        _DTYPE_CODES[q.dtype], _POOL_CODES.get(k_pool.dtype, 0),
+        bt.data_ptr(), pos_ptr, pos_stride, pos_value, o.data_ptr(), lse.data_ptr(),
+        o_parts.data_ptr() if o_parts is not None else None,
+        lse_parts.data_ptr() if lse_parts is not None else None,
+        B, H, hkv, D, page_size, max_pages, num_splits, int(kv_offset), int(stride_kv), int(hi),
+        float(scale), _DTYPE_CODES[q.dtype], _POOL_CODES.get(k_pool.dtype, 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode")
@@ -233,9 +267,44 @@ def paged_flash_decode(
         paged_flash_decode.quant_launches += 1
     else:
         paged_flash_decode.launches += 1
-    o, lse = combine_split_partials(o_parts, lse_parts)
-    return o.to(q.dtype), lse
+    return o, lse
 
 
 paged_flash_decode.launches = 0
 paged_flash_decode.quant_launches = 0
+
+
+def split_combine(
+    o_parts: torch.Tensor,  # [B, S, H, D] fp32 per-split partial outputs
+    lse_parts: torch.Tensor,  # [B, S, H] fp32 per-split lse (NEG_INF = empty)
+    dtype: torch.dtype = torch.float32,  # o's type: float32 or bfloat16
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paged decode's combine kernel alone, on CUDA tensors: the merge
+    that ``paged_flash_decode`` launches after its main kernel, for holding
+    it against :func:`combine_split_partials`.  Returns (o [B,1,H,D] in
+    ``dtype``, lse [B,H,1] fp32); ``split_combine.launches`` counts calls."""
+    if o_parts.device.type != "cuda":
+        raise ValueError(f"split_combine runs on cuda tensors, not {o_parts.device}")
+    B, S, H, D = o_parts.shape
+    for name, t, shape in (("o_parts", o_parts, (B, S, H, D)), ("lse_parts", lse_parts, (B, S, H))):
+        if t.dtype != torch.float32 or t.device != o_parts.device or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float32 on {o_parts.device}")
+        if t.shape != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+    if dtype not in _DTYPE_CODES or S < 1 or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"split_combine writes float32 or bfloat16 from >= 1 split at head dims "
+                         f"{KERNEL_HEAD_DIMS}, not {dtype}, {S}, {D}")
+    o = torch.empty((B, 1, H, D), dtype=dtype, device=o_parts.device)
+    lse = torch.empty((B, H, 1), dtype=torch.float32, device=o_parts.device)
+    if B * H == 0:
+        return o, lse
+    err = _build.load("paged_decode").paged_decode_combine(
+        o_parts.data_ptr(), lse_parts.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, D,
+        _DTYPE_CODES[dtype], torch.cuda.current_stream(o_parts.device).cuda_stream,
+    )
+    _build.check(err, "paged_decode_combine")
+    split_combine.launches += 1
+    return o, lse
+
+
+split_combine.launches = 0

@@ -336,6 +336,16 @@ PAGED_CASES = {
     "big_pages": ((70, 200, 33), 48, 8, 8, 64, 1, 0, None, 2, False),
     "striped_window": ((30, 64, 11), 4, 16, 4, 128, 2, 1, 24, None, False),
     "holes": ((40, 45), 8, 8, 2, 64, 1, 0, None, None, True),
+    # one split: the main kernel writes o and lse itself
+    "one_split": ((37, 1, 250, 0), 16, 32, 8, 128, 1, 0, None, 1, False),
+    # more splits than visible pages (and 16-slot tiles): blocks without a share
+    "splits_over_pages": ((9, 2, 0), 4, 32, 8, 128, 1, 0, None, 4, False),
+    # rows of 38 and 19 tiles over 3 blocks each: shares of 12, 13, 13 and 6, 6, 7
+    "uneven_shares": ((600, 300), 16, 32, 8, 128, 1, 0, None, 3, False),
+    # hymba's group of 5, a window, holes and 8-slot pages, rows over 2 blocks
+    "window_holes_group5": ((300, 161, 5), 8, 10, 2, 64, 1, 0, 200, 5, True),
+    # the largest group (16 heads per kv head), a 25-tile row over 4 blocks
+    "group16": ((400, 33), 16, 32, 2, 64, 1, 0, None, 4, False),
 }
 
 
@@ -418,6 +428,54 @@ def test_paged_decode_quant_repeat_is_bitwise(dev, kv_dtype):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+QUANT_SHAPES = {
+    # name: (depths, page_size, H, Hkv, D, window, num_splits, holes)
+    "d32_pages4_window": ((70, 33, 0), 4, 8, 2, 32, 24, 3, True),
+    "d64_pages48_group16": ((300, 97), 48, 16, 1, 64, None, 3, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(QUANT_SHAPES))
+@pytest.mark.parametrize("kv_dtype", QUANT_DTYPES)
+def test_paged_decode_quant_shapes_match_plain(dev, kv_dtype, case, dtype):
+    """The quantized branch at head dims 32 and 64 (fewer 16-byte chunks per
+    row than granite's), 4- and 48-slot pages, a window, holes, and a group
+    of 16, against the plain version."""
+    from repro_torch.core import kv_quant
+
+    depths, ps, H_, Hkv, D_, window, splits, holes = QUANT_SHAPES[case]
+    rng = np.random.default_rng(18)
+    max_pages = -(-max(depths) // ps) + 1
+    k_pool, v_pool, bt = _pool(rng, depths, ps, max_pages, Hkv, D_, torch.float32, dev, holes)
+    (kq, ks), (vq, vs) = (kv_quant.quantize(t, kv_dtype) for t in (k_pool, v_pool))
+    q = _randn(rng, len(depths), 1, H_, D_, dtype=dtype, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs)
+    o, lse = pk.paged_flash_decode(q, kq, vq, bt, pos, 0, num_splits=splits, **kw)
+    o_ref, lse_ref = pk.paged_decode_ref(q, kq, vq, bt, pos, 0, **kw)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+    assert torch.equal(lse[~live], lse_ref[~live])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_paged_decode_scalar_pos(dev, dtype):
+    """One position for every row, as a Python int (passed by value) and as a
+    0-d device tensor, against the plain version."""
+    rng = np.random.default_rng(19)
+    k_pool, v_pool, bt = _pool(rng, (200, 200, 200), 16, 14, 8, 128, dtype, dev)
+    q = _randn(rng, 3, 1, 32, 128, dtype=dtype, dev=dev)
+    o_ref, lse_ref = pk.paged_decode_ref(q, k_pool, v_pool, bt, 150, 0, stride_kv=1)
+    atol, rtol = TOLS[dtype]
+    for pos in (150, torch.tensor(150, dtype=torch.int32, device=dev)):
+        o, lse = pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, 0, stride_kv=1)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL, rtol=0)
+
+
 def test_paged_decode_scale_checks(dev):
     """Scales need a quantized pool and a quantized pool needs scales, on the
     card as on the CPU; no fallback path exists."""
@@ -432,6 +490,97 @@ def test_paged_decode_scale_checks(dev):
     with pytest.raises(ValueError):
         pk.paged_flash_decode(q, kq, vq, bt, 19, 0, stride_kv=1,
                               k_scale=ks[:, :8].contiguous(), v_scale=vs[:, :8].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_paged_decode_repeat_is_bitwise(dev, dtype):
+    """Two launches over an fp pool (several splits, the combine kernel)
+    give bitwise-equal o and lse."""
+    rng = np.random.default_rng(15)
+    depths = (40, 300, 5, 0)
+    k_pool, v_pool, bt = _pool(rng, depths, 16, 20, 8, 128, dtype, dev)
+    q = _randn(rng, len(depths), 1, 32, 128, dtype=dtype, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    a = pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, 0, stride_kv=1, num_splits=6)
+    b = pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, 0, stride_kv=1, num_splits=6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_combine_matches_plain(dev, dtype):
+    """The combine kernel against combine_split_partials: some empty splits,
+    an all-empty row (exactly o = 0, lse = NEG_INF); an empty split's o is
+    never read (NaN there changes nothing)."""
+    rng = np.random.default_rng(16)
+    B, S, H_, D_ = 4, 5, 8, 128
+    o_parts = _randn(rng, B, S, H_, D_, dtype=torch.float32, dev=dev)
+    lse_parts = _randn(rng, B, S, H_, dtype=torch.float32, dev=dev) * 4
+    empty = torch.from_numpy(rng.random((B, S, H_)) < 0.3).to(dev)
+    empty[2] = True  # an all-empty row
+    lse_parts[empty] = ref.NEG_INF
+    o_parts[empty] = 1e3  # finite garbage, so the plain version stays finite
+    before = pk.split_combine.launches
+    o, lse = pk.split_combine(o_parts, lse_parts, dtype)
+    torch.cuda.synchronize()
+    assert pk.split_combine.launches == before + 1
+    o_ref, lse_ref = pk.combine_split_partials(o_parts, lse_parts)
+    assert o.dtype == dtype and o.shape == o_ref.shape and lse.shape == lse_ref.shape
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref, atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+    assert torch.all(o[2] == 0) and torch.all(lse[2] == ref.NEG_INF)
+    assert torch.equal(lse[~live], lse_ref[~live])
+    o_parts[empty] = float("nan")
+    o2, lse2 = pk.split_combine(o_parts, lse_parts, dtype)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp_pool", "int8_pool"])
+def test_paged_decode_runs_no_op_after_launch(dev, monkeypatch, quant):
+    """One CUDA call of paged_flash_decode (bf16, several splits): the
+    profiler sees no aten op from the launch on, and exactly two kernels
+    (the main one and the combine)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(17)
+    depths = (1, 17, 250, 777, 0)
+    if quant:
+        k_pool, v_pool, ks, vs, bt = _quant_pool(rng, depths, "int8", dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k_pool, v_pool, bt = _pool(rng, depths, 16, 50, 8, 128, torch.bfloat16, dev)
+        kw = {}
+    q = _randn(rng, len(depths), 1, 32, 128, dtype=torch.bfloat16, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    run = lambda: pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, 0, stride_kv=1,  # noqa: E731
+                                        num_splits=4, **kw)
+    run()  # builds and loads the library
+    torch.cuda.synchronize()
+    lib = _build.load("paged_decode")
+    launch = lib.paged_decode
+
+    def marked(*args):
+        with record_function("paged_decode_launch"):
+            return launch(*args)
+
+    monkeypatch.setattr(lib, "paged_decode", marked)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    mark = [e for e in events if e.name == "paged_decode_launch"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    assert len(mark) == 1
+    t0 = mark[0].time_range.start
+    after = [e.name for e in events if e.name.startswith("aten::") and e.time_range.start >= t0]
+    assert after == [], f"aten ops at or after the launch: {after}"
+    kernels = {ev.key: ev.count for ev in prof.key_averages()  # the mark shows on the card too
+               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key != mark[0].name}
+    ours = {k: n for k, n in kernels.items() if "paged_decode_" in k}
+    assert sum(ours.values()) == 2 and sum(kernels.values()) == 2, kernels
 
 
 def test_combine_all_empty_rows_exact(dev):

@@ -373,8 +373,14 @@ def test_combine_split_partials_matches_jax_and_empty_guard():
 def test_dense_chunk_and_splits_match_jax():
     for m in (1, 6, 16, 48, 96, 128, 2048):
         assert tpk.dense_chunk_for(m) == jpk.dense_chunk_for(m)
+    # JAX splits a row's capacity in runs of 4 pages; the card kernel splits
+    # each row's visible range in as many shares as fill the card over B x Hkv
+    # (row, kv head) pairs, never more than max_pages
     for mp in (1, 3, 4, 5, 128):
-        assert tpk.default_num_splits(mp) == jpk.default_num_splits(mp)
+        assert jpk.default_num_splits(mp) == -(-mp // 4)
+        assert tpk.default_num_splits(8, 8, mp) == min(mp, 5)  # 2 x 132 blocks over 64 pairs
+    assert tpk.default_num_splits(1, 8, 128) == 33
+    assert tpk.default_num_splits(64, 8, 128) == 1
 
 
 def _paged_case(rng, depths, page_size, hkv, d, holes=False):

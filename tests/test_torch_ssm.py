@@ -308,6 +308,30 @@ def test_engine_streams_match_jax(model):
     assert teng.kv_cache_stats()["cache_bytes"] == jeng.kv_cache_stats()["cache_bytes"]
 
 
+@pytest.mark.parametrize("length", [1, 2])
+def test_engine_short_prompt_matches_no_cache_greedy(model, length):
+    """A prompt shorter than the conv window (width - 1 = 3 rows): the
+    port's greedy stream equals greedy decoding over JAX's own no-cache
+    ``forward`` (the whole sequence each step).  The JAX engine keeps only
+    the prompt's rows of the window and misplaces them at the front, so it
+    departs from this oracle from the second token on and is no oracle here."""
+    jcfg, jp, tcfg, tp = model
+    new = 5
+    prompt = np.random.default_rng(5).integers(0, jcfg.vocab_size, (length,), dtype=np.int32)
+    toks = prompt.tolist()
+    for _ in range(new):
+        logits, _ = jtfm.forward(jp, jcfg, JCTX, {
+            "tokens": jnp.asarray([toks], jnp.int32),
+            "positions": jnp.arange(len(toks), dtype=jnp.int32),
+        })
+        toks.append(int(jnp.argmax(logits[0, -1])))
+    teng = TEngine(tcfg, tp, TCTX, serve=TServe(max_seq=64, num_slots=2))
+    rid = teng.submit(prompt, max_new_tokens=new)
+    done = teng.run()
+    assert done[rid].status == "ok"
+    assert done[rid].generated == toks[length:]
+
+
 @pytest.mark.parametrize("knob", [
     dict(paged=True, page_size=4), dict(prefill_chunk=8), dict(spec_k=4),
 ], ids=["paged", "prefill_chunk", "spec_k"])
