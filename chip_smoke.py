@@ -89,11 +89,14 @@ Each phase line carries the phase's wall ``seconds``.  The kernels phase also
 holds the quantized decode (int8 / fp8 pools, fp32 / bf16 queries, windows
 None / 512), the paged decode's split combine kernel alone (the main row's
 partials, some splits empty, an all-empty row) and the SSD chunked scan
-(mamba2-370m and hymba-1.5b heads, fp32, a short chunk, batch 4 and a
-reduced shape; a bitwise repeat) against their plain versions.  The paged
-cases carry the kernels' device time (``dev_ms``: main kernel and combine,
-torch.profiler, L2 flushed) beside the call's event time (``ms``), and the
-env line's ptxas summary covers the paged library.
+(mamba2-370m and hymba-1.5b heads, fp32, a short chunk, batch 4, a reduced
+shape and dt = 3 with A = -1, where a chunk's sum of dt*|A| passes 88;
+finite and a bitwise repeat) against their plain versions.  The paged and
+SSD cases carry the kernels' device time (``dev_ms``: all kernels of one
+call, torch.profiler, L2 flushed) beside the call's event time (``ms``, L2
+flushed); the SSD cases also the bound at the fp32 CUDA-core peak beside
+the tensor-core one.  The env line's ptxas summary covers the paged and
+SSD libraries.
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -135,6 +138,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores,
 # take the bf16 peak (the fp32 inputs' extra term products are the kernel's
 # own cost, not the function's)
 BWD_PEAK = PEAK_FLOPS[torch.bfloat16]
+# the SSD scan's products run on the tensor cores too (fp32 operands as bf16
+# terms): its bound takes the bf16 peak, and its record keeps the bound at
+# the fp32 CUDA-core peak beside it
+SSD_PEAK = PEAK_FLOPS[torch.bfloat16]
 # max |delta| of o against the plain version, per kernel and input type.
 # bf16 outputs are rounded to bf16 (an ulp is 3.9e-3 at |o| in [0.5, 1)):
 # the limits sit a few times above the largest readings on an H100 (flash
@@ -573,12 +580,16 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
     return rec
 
 
-def ssd_case(name, B, S, H, P, G, N, chunk, gen):
+def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None):
     """One SSD chunked-scan case, fp32 inputs as the model gives them (dt
-    through softplus, A = -exp(.)), against the plain chunked dual form."""
+    through softplus, A = -exp(.)), against the plain chunked dual form.
+    ``dt_value``: dt that value everywhere and A = -1 instead, so a chunk's
+    sum of dt*|A| passes ~88 (where exp(-acum) would overflow)."""
     x = randn(gen, B, S, H, P, dtype=torch.float32)
     dt = F.softplus(randn(gen, B, S, H, dtype=torch.float32))
     A = -torch.exp(0.5 * randn(gen, H, dtype=torch.float32))
+    if dt_value is not None:
+        dt, A = torch.full_like(dt, dt_value), -torch.ones_like(A)
     Bm = randn(gen, B, S, G, N, dtype=torch.float32)
     Cm = randn(gen, B, S, G, N, dtype=torch.float32)
     run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
@@ -603,13 +614,18 @@ def ssd_case(name, B, S, H, P, G, N, chunk, gen):
     # and head, whichever is less
     chunked = B * S * (c + 1) * (G * N + H * P) + 4 * B * H * S * P * N
     flops = min(chunked, 5 * B * H * S * P * N)
-    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32, SSD_PEAK)
+    bound_ms_fp32, bound_by_fp32 = bound(nbytes, flops, torch.float32)
+    by_class, _ = device_time(_profiled(lambda: (flush(), run()), 5), per=5)
     rec = dict(
         kernel="ssd_scan_fwd", case=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=c, dtype="fp32",
+        dt_value=dt_value,
         max_abs_err=max(err_y, err_state), max_abs_err_y=err_y, max_abs_err_state=err_state,
-        tol=tol, bitwise_repeat=bitwise, launched=launched,
-        ms=time_ms(run), plain_ms=time_ms(plain, reps=5), library_ms=None,
-        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+        tol=tol, finite=finite, bitwise_repeat=bitwise, launched=launched,
+        ms=time_ms(run, flush=flush), dev_ms=by_class.get("ssd_scan_fwd", 0.0),
+        plain_ms=time_ms(plain, reps=5), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, bound_ms_fp32_cores=bound_ms_fp32,
+        bound_by_fp32_cores=bound_by_fp32, flops=flops, bytes=nbytes,
     )
     del got, again, want
     check(launched == 2, f"ssd_scan_fwd did not go through its kernel: {rec}")
@@ -1262,7 +1278,7 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_split"
     if "paged_decode_" in name:  # the main kernels and the split combine
         return "paged_flash_decode"
-    if "ssd_scan_kernel" in name:
+    if "ssd_scan_" in name:  # the chunk (scores and states), pass and y kernels
         return "ssd_scan_fwd"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
@@ -1521,7 +1537,8 @@ def main():
     build_s = time.perf_counter() - t0
     ptxas = {**(ptxas_summary(libs["flash_fwd_tc"]) or {}),
              **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {}),
-             **(ptxas_summary(libs["paged_decode"], prefix="paged_decode_") or {})}
+             **(ptxas_summary(libs["paged_decode"], prefix="paged_decode_") or {}),
+             **(ptxas_summary(libs["ssd_scan"], prefix="ssd_scan_") or {})}
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "build_s": build_s,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
@@ -1553,14 +1570,17 @@ def main():
                 quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
     del scratch
     combine = [split_combine_case(dtype, gen) for dtype in (torch.float32, torch.bfloat16)]
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     ssd_cases = [
-        ssd_case("mamba2", 1, 2048, 32, 64, 1, 128, 64, gen),
-        ssd_case("mamba2", 1, 1536, 32, 64, 1, 128, 64, gen),
-        ssd_case("mamba2_short_chunk", 1, 48, 32, 64, 1, 128, 64, gen),
-        ssd_case("hymba", 1, 1024, 50, 64, 1, 16, 64, gen),
-        ssd_case("mamba2_batch4", 4, 512, 32, 64, 1, 128, 64, gen),
-        ssd_case("reduced", 1, 256, 16, 16, 1, 16, 8, gen),
+        ssd_case("mamba2", 1, 2048, 32, 64, 1, 128, 64, gen, flush),
+        ssd_case("mamba2", 1, 1536, 32, 64, 1, 128, 64, gen, flush),
+        ssd_case("mamba2_short_chunk", 1, 48, 32, 64, 1, 128, 64, gen, flush),
+        ssd_case("hymba", 1, 1024, 50, 64, 1, 16, 64, gen, flush),
+        ssd_case("mamba2_batch4", 4, 512, 32, 64, 1, 128, 64, gen, flush),
+        ssd_case("reduced", 1, 256, 16, 16, 1, 16, 8, gen, flush),
+        ssd_case("mamba2_large_dt", 1, 2048, 32, 64, 1, 128, 64, gen, flush, dt_value=3.0),
     ]
+    del scratch
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1024, 2048, 4096):
             for name in ("causal", "window", "striped", "segment"):

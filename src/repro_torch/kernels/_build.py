@@ -139,10 +139,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_decode_combine.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.paged_decode_combine.restype = i
     elif name == "ssd_scan":
-        # x dt A Bm Cm y state B S H P G N chunk, the (batch, seq, head)
-        # strides of x, dt, Bm, Cm, stream
+        # x dt A Bm Cm y state scores decay states B S H P G N chunk, the
+        # (batch, seq, head) strides of x, dt, Bm, Cm, stream
         ll = ctypes.c_longlong
-        lib.ssd_scan.argtypes = [p] * 7 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [p]
         lib.ssd_scan.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")

@@ -11,9 +11,11 @@ multiplies ``exp(...)`` by a 0/1 mask; once a chunk's sum of dt*|A| passes
 ~88, ``exp`` of a hidden pair is inf and inf * 0 is NaN.)
 
 The kernel is ``csrc/ssd_scan.cu`` (see the note at its top for the
-design).  ``ssd_scan_fwd`` launches it for CUDA tensors and runs
-``ssd_scan_plain`` for CPU tensors; there is no other fallback.
-``ssd_scan_fwd.launches`` counts kernel launches.
+design): four chunk-parallel passes on the tensor cores, three launches of
+one C call, into scratch this wrapper allocates.  ``ssd_scan_fwd`` launches them
+for CUDA tensors and runs ``ssd_scan_plain`` for CPU tensors; there is no
+other fallback.  ``ssd_scan_fwd.launches`` counts calls: one per call,
+however many kernels the call launches.
 """
 
 from __future__ import annotations
@@ -151,10 +153,18 @@ def ssd_scan_fwd(
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if Bsz == 0 or S == 0 or H == 0:
         return y, state.zero_()
+    # scratch: the group's scores per chunk (c rounded up to 16 a side),
+    # exp(acum_last) per chunk and head, and the chunk states (then the
+    # states entering each chunk)
+    nz, cp = S // c, -(-c // 16) * 16
+    scores = torch.empty((Bsz, nz, G, cp, cp), dtype=torch.float32, device=x.device)
+    decay = torch.empty((Bsz, nz, H), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bsz, nz, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.load("ssd_scan")
     err = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N, c,
+        y.data_ptr(), state.data_ptr(), scores.data_ptr(), decay.data_ptr(),
+        states.data_ptr(), Bsz, S, H, P, G, N, c,
         *_strides(x, "x"), *dt.stride(), *_strides(Bm, "Bm", True), *_strides(Cm, "Cm", True),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
