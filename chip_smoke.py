@@ -82,7 +82,36 @@ Phases, each printing one JSON line:
                  Then 2 causal steps with bf16 params: losses finite and near
                  ln(vocab), the forward on the tile body and every backward on
                  the bf16 body.
-  7. the kernels line, the card line, and the final line
+  7. mesh_op -- this slice's path, the paper's Mesh-Attention:
+                 ``dispatch.distributed_attention`` over a virtual ring of 4
+                 ranks (``parallel/ring.VirtualRing``: all ranks on the card,
+                 a hop a device copy) at paper-mha-7b's heads (32 x 128, MHA),
+                 S 16384, causal striped and window 1024, fp32 and bf16:
+                 mesh (a = 2), ring and mesh (a = 4), each in the serial,
+                 overlap and bidir modes (bitwise equal, forward and
+                 gradients), held against the local flash call on the
+                 unstriped sequence (o and the gradients of sum(sin(o)):
+                 MESH_OP_TOLS); kernel launches per call equal the
+                 schedules' blocks (forward: the ranks folded into one
+                 launch; backward: one dQ and one dK/dV launch per rank), hops
+                 per kind equal ``schedule.comm_requirements``, the Q and KV
+                 hops' bytes ``CommModel.chunk_bytes`` x count (the O, OdOQ,
+                 dQ and dKV bytes printed beside the model's figure); event
+                 times of mesh / ring / local flash and device time by class
+                 (the copies apart).
+  8. train_mesh_parity -- paper-mha-7b at full width, 2 layers, fp32, seq
+                 4096: one make_train_step at sp_size 4 on the virtual ring
+                 (mesh a = 2, and ring) against one at sp_size 1, on the card,
+                 from the same weights and batch (train_parity's limits).
+  9. train_mesh -- paper-mha-7b at full width cut to MESH_TRAIN_LAYERS layers,
+                 fp32 + AdamW, remat, seq 16384, batch 1, sp_size 4: 2 steps
+                 on mesh (a = 2), then 2 on ring, through fit; losses finite
+                 and near ln(vocab); launches of #1, #2, #3 per step asserted
+                 against the schedules x layers (x 2 for remat's forward);
+                 s per step, tokens/s, peak memory, hops and bytes per step,
+                 and a profiled mesh step by kernel class.
+  10. the kernels line (each kernel's launches now including the mesh_op and
+                 train_mesh runs), the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -96,7 +125,13 @@ SSD cases carry the kernels' device time (``dev_ms``: all kernels of one
 call, torch.profiler, L2 flushed) beside the call's event time (``ms``, L2
 flushed); the SSD cases also the bound at the fp32 CUDA-core peak beside
 the tensor-core one.  The env line's ptxas summary covers the paged and
-SSD libraries.
+SSD libraries.  The kernels phase also holds the mesh executor's blocks
+(``mesh_block``: paper heads, 4096 rows a chunk, stride 4, the bands of
+block (0, 1) of a = 2 for n = 4, causal and window 1024, fp32 and bf16): the
+forward with the 4 ranks folded into its batch (one band per row; ranks 0
+and 1 hold a q chunk below their kv chunk, so their row 0 sees no key and
+must give o = 0, lse = NEG_INF exactly), the backward on rank 0 with one
+band (dq of the blind rows exactly 0, dk / dv finite, a repeat bitwise).
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -118,15 +153,22 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import kv_quant  # noqa: E402
+from repro_torch.core import dispatch, kv_quant, mesh_attention  # noqa: E402
+from repro_torch.core import schedule as S  # noqa: E402
+from repro_torch.core.am import CommModel  # noqa: E402
+from repro_torch.core.masking import MaskSpec  # noqa: E402
+from repro_torch.core.mesh_attention import MeshAttentionConfig  # noqa: E402
+from repro_torch.core.tiling import stripe_permutation, unstripe_permutation  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # noqa: E402
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
+from repro_torch.parallel.ring import VirtualRing  # noqa: E402
 from repro_torch.serve.config import ServeConfig  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E402
@@ -634,16 +676,18 @@ def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None):
     return rec
 
 
-def device_time(prof, per=1):
+def device_time(prof, per=1, classify=None):
     """(device ms per kernel class, device ms per kernel name) of a
-    torch.profiler run, divided by ``per`` (ticks, steps or calls)."""
+    torch.profiler run, divided by ``per`` (ticks, steps or calls);
+    ``classify`` maps a kernel name to its class (``_kernel_class``)."""
+    classify = classify or _kernel_class
     by_class, by_kernel = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / per
-        cls = _kernel_class(ev.key)
+        cls = classify(ev.key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
         by_kernel[ev.key[:80]] = by_kernel.get(ev.key[:80], 0.0) + ms
     return by_class, by_kernel
@@ -1338,6 +1382,10 @@ def _tree_to(tree, device):
             for k, v in tree.items()}
 
 
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
 def train_parity():
     """One make_train_step on the card and on the CPU from the same weights."""
     cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
@@ -1524,6 +1572,478 @@ def profile_train_step(cfg, ctx, params, seq):
     }
 
 
+# --------------------------------------------------------------------------
+# phases 7-9: the paper's Mesh-Attention over a virtual ring of 4 ranks
+# --------------------------------------------------------------------------
+
+# paper-mha-7b's attention (configs/paper_mha_7b.py: 32 heads x 128, MHA)
+PAPER_HEADS = (32, 32, 128)
+MESH_N = 4
+MESH_S = 16384  # S / n = 4096 rows per rank's chunk
+MESH_WINDOW = 1024
+MESH_BACKENDS = (("mesh", 2), ("ring", 1), ("mesh", 4))
+# mesh_op against the local flash call on the unstriped sequence: o within
+# the limit, the q/k/v gradients of sum(sin(o)) within the limit times their
+# max |g|.  fp32: JAX's dist_check mesh_fwd / mesh_bwd limits.  bf16: every
+# block's o (and dq, dk, dv) leaves the kernel rounded to bf16 before the
+# fp32 merge (as in JAX), so a row carries up to b + 1 <= 5 roundings of
+# half an ulp (2**-9 of the value) where the local call has one: the limit is
+# 2**-6 of the output's max for o and of each gradient's max.
+MESH_OP_TOLS = {torch.float32: (2e-5, 5e-5), torch.bfloat16: (2**-6, 2**-6)}
+MESH_OP_O_RELATIVE = {torch.float32: False, torch.bfloat16: True}
+# the most layers that fit the card: 8 layers peaked at 42.0 GB, and each
+# more layer adds ~4.3 GB (fp32 params, grads, the clipped grads, m, v: 20 B
+# per weight, and its remat input), so 14 (~68 GB) leave room for the
+# allocator's fragmentation
+MESH_TRAIN_LAYERS = 14
+
+
+def _mesh_cfg_for(kind, a, transport=None):
+    spec = MaskSpec.causal(window=MESH_WINDOW if kind == "window" else None)
+    return MeshAttentionConfig(transport=transport, n=MESH_N, a=a, mask=spec)
+
+
+def _mesh_kernel_class(name: str) -> str:
+    cls = _kernel_class(name)
+    if cls != "other":
+        return cls
+    low = name.lower()
+    if "index" in low or "copy" in low or "memcpy" in low:
+        return "copy"  # the virtual ring's hops, the layout's splits and joins
+    return "other"  # the online-softmax merges and the dq / dkv sums
+
+
+def _mesh_device_time(prof, per=1):
+    return device_time(prof, per, classify=_mesh_kernel_class)[0]
+
+
+def mesh_block_case(kind, dtype, gen):
+    """One AM block (u, v) = (0, 1) of a = 2 on all 4 ranks at once, as the
+    executor's forward launches it: the ranks folded into the batch, one band
+    per rank ([4, 4]), stride 4, paper heads, 4096 rows per chunk.  Ranks 0
+    and 1 hold q chunk < kv chunk: their row 0 sees no key."""
+    nh, nkv, hd = PAPER_HEADS
+    R, m = MESH_N, MESH_S // MESH_N
+    cfg = _mesh_cfg_for(kind, 2)
+    blocks = [mesh_attention._band_for_block(cfg, i, 0, 1, m, m) for i in range(R)]
+    bands = [b for b, _, _ in blocks]
+    sq, skv = blocks[0][1], blocks[0][2]
+    q = randn(gen, R, m, nh, hd, dtype=dtype)
+    k = randn(gen, R, m, nkv, hd, dtype=dtype)
+    v = randn(gen, R, m, nkv, hd, dtype=dtype)
+    band_t = torch.tensor(bands, dtype=torch.int32, device="cuda")
+    kw = dict(scale=hd**-0.5, stride_q=sq, stride_kv=skv)
+    run = lambda: fa.flash_attention_fwd(q, k, v, band_t, **kw)  # noqa: E731
+
+    def plain():
+        outs = [ref.attention_ref(q[r:r + 1], k[r:r + 1], v[r:r + 1], band=bands[r], **kw)
+                for r in range(R)]
+        return torch.cat([o for o, _ in outs]), torch.cat([lse for _, lse in outs])
+
+    before = fwd_body_counts()
+    o, lse = run()
+    body = [b for b, n in fwd_body_delta(before).items() if n]
+    o_ref, lse_ref = plain()
+    torch.cuda.synchronize()
+    live = lse_ref > ref.NEG_INF / 2
+    err = float((o.float() - o_ref.float()).abs().max())
+    err_lse = float((lse - lse_ref)[live].abs().max())
+    empty_exact = bool(torch.equal(lse[~live], lse_ref[~live])) and bool(
+        torch.all(o.transpose(1, 2)[~live] == 0))
+    mask = torch.stack([ref.band_mask(m, m, bands[r], stride_q=sq, stride_kv=skv, device="cuda")
+                        for r in range(R)])
+    empty_rows = int((~mask.any(-1)).sum())
+    visible_pairs = int(mask.sum())
+    visible_keys = int(mask.any(dim=-2).sum())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask[:, None], scale=hd**-0.5)
+    item = q.element_size()
+    nbytes = (2 * q.numel() + 2 * visible_keys * nkv * hd) * item + lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_pairs, dtype)
+    tol = TOLS[("flash_attention_fwd", dtype)]
+    device_ms, _ = device_time(_profiled(run, 5), per=5)
+    rec = dict(
+        kernel="flash_attention_fwd", case=f"mesh_block_{kind}", S=MESH_S, rows=m, B=R,
+        heads=list(PAPER_HEADS), bands=bands, stride=sq, dtype=DTYPE_NAMES[dtype],
+        body=body[0] if len(body) == 1 else body, max_abs_err=err, max_abs_err_lse=err_lse,
+        tol=tol, tol_lse=LSE_TOL, empty_rows=empty_rows, empty_rows_exact=empty_exact,
+        ms=time_ms(run), device_ms=device_ms.get("flash_attention_fwd", 0.0),
+        plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib), bound_ms=bound_ms,
+        bound_by=bound_by, visible_pairs=visible_pairs,
+    )
+    del q, k, v, o, lse, o_ref, lse_ref, mask, qt, kt, vt
+    torch.cuda.empty_cache()
+    want_body = fa._fwd_plan(R, m, nh, nkv, hd, dtype)[0]
+    check(body == [want_body], f"mesh block forward ran {body}, not the {want_body} body: {rec}")
+    check(empty_rows > 0, f"the mesh block case must hold rows that see no key: {rec}")
+    check(err <= tol and err_lse <= LSE_TOL and empty_exact,
+          f"mesh block forward disagrees with its plain version: {rec}")
+    return rec
+
+
+def mesh_block_bwd_case(kind, dtype, gen):
+    """The backward of block (0, 1) of a = 2 on rank 0 (q chunk 0, kv chunk
+    2: row 0 sees no key), one band ([4]) as the executor launches it per
+    rank; dq of the rows that see nothing must be exactly 0, dk / dv finite,
+    and a second launch bitwise equal."""
+    nh, nkv, hd = PAPER_HEADS
+    m = MESH_S // MESH_N
+    band, sq, skv = mesh_attention._band_for_block(_mesh_cfg_for(kind, 2), 0, 0, 1, m, m)
+    band_t = torch.tensor(band, dtype=torch.int32, device="cuda")
+    q = randn(gen, 1, m, nh, hd, dtype=dtype)
+    k = randn(gen, 1, m, nkv, hd, dtype=dtype)
+    v = randn(gen, 1, m, nkv, hd, dtype=dtype)
+    do = randn(gen, 1, m, nh, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, stride_q=sq, stride_kv=skv)
+    o, lse = ref.attention_ref(q, k, v, band=band, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    run = lambda: fa.flash_attention_bwd(q, k, v, None, lse, do, band_t, delta=delta, **kw)  # noqa: E731
+    plain = lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, band=band, delta=delta, **kw)  # noqa: E731
+    before = bwd_counts()
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    ran = {b: n - before[b] for b, n in bwd_counts().items()}
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    mask = ref.band_mask(m, m, band, stride_q=sq, stride_kv=skv, device="cuda")
+    blind = ~mask.any(dim=1)
+    blind_dq_zero = bool(torch.all(got[0][0][blind] == 0))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    atol, rtol = BWD_TOLS[dtype]
+    errs, ratio = {}, 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        errs[gname] = float(diff.max())
+        ratio = max(ratio, float((diff / (atol + rtol * w.float().abs())).max()))
+    pairs = int(mask.sum())
+    vis_keys, vis_rows = int(mask.any(dim=0).sum()), int(mask.any(dim=1).sum())
+    item = q.element_size()
+    # as bwd_case: dQ reads q, dO and writes dq for every row, K/V of the
+    # visible keys, lse and delta; dK/dV the rows that see a key, all of k, v
+    dq_bytes = 3 * m * nh * hd * item + 2 * vis_keys * nkv * hd * item + 2 * nh * m * 4
+    dkv_bytes = 2 * vis_rows * nh * hd * item + 4 * m * nkv * hd * item + 2 * nh * vis_rows * 4
+    split, _ = device_time(_profiled(run, 5), per=5)
+    rec = dict(
+        kernel="flash_attention_bwd", case=f"mesh_block_{kind}", S=MESH_S, rows=m,
+        heads=list(PAPER_HEADS), band=list(band), stride=sq, dtype=DTYPE_NAMES[dtype],
+        ran=ran, max_abs_err=errs, tol_atol=atol, tol_rtol=rtol, max_err_over_tol=ratio,
+        bitwise_repeat=bitwise, blind_rows=int(blind.sum()), blind_rows_dq_zero=blind_dq_zero,
+        finite=finite, ms_dq=split.get("flash_bwd_dq", 0.0), ms_dkv=split.get("flash_bwd_dkv", 0.0),
+        ms_split=split.get("flash_bwd_split", 0.0), ms_pair=time_ms(run, reps=10),
+        plain_ms_pair=time_ms(plain, reps=5), visible_pairs_per_head=pairs,
+        bound_ms_dq=bound(dq_bytes, 6 * hd * nh * pairs, dtype, BWD_PEAK)[0],
+        bound_ms_dkv=bound(dkv_bytes, 8 * hd * nh * pairs, dtype, BWD_PEAK)[0],
+    )
+    del got, again, want, q, k, v, do, o, lse, delta, mask
+    torch.cuda.empty_cache()
+    check(ratio <= 1.0 and bitwise and finite and blind_dq_zero and int(blind.sum()) > 0,
+          f"mesh block backward disagrees with its plain version or repeats unequal: {rec}")
+    return rec
+
+
+def mesh_counts():
+    return {
+        "flash_attention_fwd": fa.flash_attention_fwd.launches,
+        "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
+        "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv,
+        "flash_bwd_split": fa.split_terms.launches,
+        **{f"fwd_{b}": n for b, n in fwd_body_counts().items()},
+    }
+
+
+def _schedules_of(backend, a, kind, seq):
+    fwd = S.ring_forward_schedule(MESH_N) if backend == "ring" else None
+    cfg = dataclasses.replace(_mesh_cfg_for(kind, a), fwd_schedule=fwd)
+    return cfg.schedules(seq)
+
+
+def _expected_hops(fwd, bwd):
+    hops = {}
+    for sched in (fwd, bwd):
+        for kind, c in S.comm_requirements(sched.a, sched.b, sched.direction, sched.skip).items():
+            if c:
+                hops[kind] = hops.get(kind, 0) + c
+    return hops
+
+
+def mesh_op_case(kind, dtype, gen):
+    """dispatch.distributed_attention over the virtual ring at S 16384, paper
+    heads: mesh (a = 2), ring, mesh (a = 4), each in the three comm_overlap
+    modes, forward and the gradients of sum(sin(o)), against the local flash
+    call on the unstriped sequence."""
+    nh, nkv, hd = PAPER_HEADS
+    window = MESH_WINDOW if kind == "window" else None
+    q = randn(gen, 1, MESH_S, nh, hd, dtype=dtype)
+    k = randn(gen, 1, MESH_S, nkv, hd, dtype=dtype)
+    v = randn(gen, 1, MESH_S, nkv, hd, dtype=dtype)
+    order = torch.from_numpy(stripe_permutation(MESH_S, MESH_N)).cuda()
+    inv = torch.from_numpy(unstripe_permutation(MESH_S, MESH_N)).cuda()
+
+    def local():
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = ops.flash_attention(*xs, causal=True, window=window)
+        return o, torch.autograd.grad(o.float().sin().sum(), xs)
+
+    o_ref, g_ref = local()
+    o_ref, g_ref = o_ref.detach(), [g.float() for g in g_ref]
+    o_max, g_max = float(o_ref.float().abs().max()), [float(g.abs().max()) for g in g_ref]
+    tol_o, tol_g = MESH_OP_TOLS[dtype]
+    lim_o = tol_o * o_max if MESH_OP_O_RELATIVE[dtype] else tol_o
+    comm = CommModel(seq=MESH_S, hidden=nh * hd, n=MESH_N, kv_hidden=nkv * hd,
+                     bytes_per_elem=q.element_size())
+    xs_striped = [t[:, order].contiguous() for t in (q, k, v)]
+    runs, main_counts = [], None
+    for backend, a in MESH_BACKENDS:
+        fwd_s, bwd_s = _schedules_of(backend, a, kind, MESH_S)
+        want_hops = _expected_hops(fwd_s, bwd_s)
+        first = None
+        for mode in S.COMM_OVERLAP_MODES:
+            ring = VirtualRing(MESH_N)
+            cfg = dispatch.AttentionPlanConfig(backend=backend, transport=ring, n=MESH_N, a=a,
+                                               causal=True, window=window, comm_overlap=mode)
+
+            def call():
+                xs = [t.detach().requires_grad_(True) for t in xs_striped]
+                o = dispatch.distributed_attention(*xs, cfg=cfg)
+                return o, torch.autograd.grad(o.float().sin().sum(), xs)
+
+            torch.cuda.synchronize()
+            c0 = mesh_counts()
+            o, g = call()
+            torch.cuda.synchronize()
+            counts = {key: n - c0[key] for key, n in mesh_counts().items()}
+            hops, nbytes = dict(ring.stats.hops), dict(ring.stats.bytes)
+            if first is None:
+                o_err = float((o[:, inv].float() - o_ref.float()).abs().max())
+                g_err = [float((gg[:, inv].float() - gr).abs().max()) for gg, gr in zip(g, g_ref)]
+                first = dict(o=o.detach(), g=[gg.detach() for gg in g])
+                rec = dict(backend=backend, a=a, b=MESH_N // a, o_err=o_err, o_limit=lim_o,
+                           g_err=g_err, g_limit=[tol_g * x for x in g_max],
+                           fwd_blocks=len(fwd_s.blocks()), bwd_blocks=len(bwd_s.blocks()),
+                           launches=counts, hops=hops, bytes=nbytes,
+                           model_bytes={kk: comm.chunk_bytes(ck) * hops.get(kk, 0)
+                                        for kk, ck in (("recv_q", "q"), ("recv_kv", "kv"),
+                                                       ("send_o", "o"), ("recv_odoq", "odoq"),
+                                                       ("send_dq", "dq"), ("send_dkv", "dkv"))
+                                        if hops.get(kk)},
+                           bitwise_modes={})
+                if backend == "mesh" and a == 2:
+                    main_counts = counts
+                check(o_err <= lim_o and all(e <= lim for e, lim in zip(g_err, rec["g_limit"])),
+                      f"mesh_op: {backend} a={a} disagrees with the local flash call: {rec}")
+                n_fwd, n_bwd = len(fwd_s.blocks()), len(bwd_s.blocks()) * MESH_N
+                check(counts["flash_attention_fwd"] == n_fwd and counts["flash_bwd_dq"] == n_bwd
+                      and counts["flash_bwd_dkv"] == n_bwd,
+                      f"mesh_op: launches off the schedules ({n_fwd} forward, {n_bwd} per "
+                      f"backward kernel): {rec}")
+                check(hops == want_hops, f"mesh_op: hops off comm_requirements {want_hops}: {rec}")
+                for kk, ck in (("recv_q", "q"), ("recv_kv", "kv")):
+                    check(nbytes.get(kk, 0) == hops.get(kk, 0) * comm.chunk_bytes(ck),
+                          f"mesh_op: {kk} bytes off CommModel.chunk_bytes: {rec}")
+            else:
+                same = bool(torch.equal(o, first["o"])) and all(
+                    torch.equal(x, y) for x, y in zip(g, first["g"]))
+                rec["bitwise_modes"][mode] = same
+                check(same and hops == rec["hops"] and nbytes == rec["bytes"],
+                      f"mesh_op: {backend} a={a} {mode} is not bitwise the serial mode: {rec}")
+            del o, g
+        ring = VirtualRing(MESH_N)
+        cfg = dispatch.AttentionPlanConfig(backend=backend, transport=ring, n=MESH_N, a=a,
+                                           causal=True, window=window)
+        fwd_only = lambda: dispatch.distributed_attention(*xs_striped, cfg=cfg)  # noqa: E731
+
+        def fwd_bwd():
+            xs = [t.detach().requires_grad_(True) for t in xs_striped]
+            o = dispatch.distributed_attention(*xs, cfg=cfg)
+            torch.autograd.grad(o.float().sin().sum(), xs)
+
+        rec["ms_fwd"] = time_ms(fwd_only, reps=5, warmup=1)
+        rec["ms_fwd_bwd"] = time_ms(fwd_bwd, reps=3, warmup=1)
+        rec["device_ms_fwd_bwd"] = _mesh_device_time(_profiled(fwd_bwd, 2), per=2)
+        runs.append(rec)
+        del first
+        torch.cuda.empty_cache()
+
+    def local_fwd():
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    out = dict(kind=kind, window=window, dtype=DTYPE_NAMES[dtype], S=MESH_S, n=MESH_N,
+               heads=list(PAPER_HEADS), o_max=o_max, g_max=g_max, runs=runs,
+               local_ms_fwd=time_ms(local_fwd, reps=5, warmup=1),
+               local_ms_fwd_bwd=time_ms(local, reps=3, warmup=1),
+               local_device_ms_fwd_bwd=_mesh_device_time(_profiled(local, 2), per=2))
+    del q, k, v, xs_striped, o_ref, g_ref
+    torch.cuda.empty_cache()
+    return out, main_counts
+
+
+def mesh_op(card):
+    """Phase mesh_op: the dispatch seam over the virtual ring (see
+    ``mesh_op_case``); the launches of mesh (a = 2) in overlap mode are the
+    main path's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    cases, launches = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("causal", "window"):
+            rec, counts = mesh_op_case(kind, dtype, gen)
+            cases.append(rec)
+            for key, n in counts.items():
+                launches[key] = launches.get(key, 0) + n
+    emit({"phase": "mesh_op", "card": card, "tols": {DTYPE_NAMES[d]: t
+                                                      for d, t in MESH_OP_TOLS.items()},
+          "cases": cases, "launches_main": launches})
+    return launches
+
+
+def train_mesh_parity():
+    """paper-mha-7b at full width, 2 layers, fp32, seq 4096: one train step at
+    sp_size 4 on the virtual ring (mesh a = 2, and ring) against one at
+    sp_size 1, all on the card, from the same weights and batch."""
+    cfg = dataclasses.replace(get_config("paper-mha-7b"), num_layers=2)
+    opt = AdamWConfig()
+    seq = 4096
+    params0 = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    ctxs = {
+        "sp1": ParallelCtx(device="cuda"),
+        "mesh": ParallelCtx(sp_size=MESH_N, attn_impl="mesh", mesh_a=2, device="cuda"),
+        "ring": ParallelCtx(sp_size=MESH_N, attn_impl="ring", device="cuda"),
+    }
+    out, ref_side = {}, None
+    for name, ctx in ctxs.items():
+        p = _clone_tree(params0)
+        state = init_opt_state(p)
+        batch = make_batch(cfg, seq, 1, seed=0, step=0, ctx=ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        side = dict(loss=loss, grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                    hops=dict(ctx.ring.stats.hops) if ctx.ring is not None else {})
+        if ref_side is None:
+            ref_side = dict(params=dict(tree_leaves(p)), m=dict(tree_leaves(state.m)), **side)
+        else:
+            leaves, p_now = {}, dict(tree_leaves(p))
+            for path, m_card in tree_leaves(state.m):
+                g = m_card / (1 - opt.b1)
+                g_ref = ref_side["m"][path] / (1 - opt.b1)
+                leaves[path] = dict(
+                    grad_max_abs_err=float((g - g_ref).abs().max()),
+                    grad_max_abs=float(g_ref.abs().max()),
+                    param_max_abs_err=float((p_now[path] - ref_side["params"][path])
+                                            .abs().max()),
+                )
+            side["leaves"] = leaves
+            del p_now
+        out[name] = side
+        del p, state, batch
+        torch.cuda.empty_cache()
+    rec = {"phase": "train_mesh_parity", "arch": "paper-mha-7b", "num_layers": 2,
+           "dtype": "fp32", "seq": seq, "batch": 1, "n": MESH_N, "tols": PARITY_TOLS,
+           "sides": {k: {kk: vv for kk, vv in v.items() if kk not in ("params", "m")}
+                     for k, v in out.items()}}
+    emit(rec)
+    del params0, ref_side
+    torch.cuda.empty_cache()
+    base = out["sp1"]
+    for name in ("mesh", "ring"):
+        side = out[name]
+        check(abs(side["loss"] - base["loss"]) <= PARITY_TOLS["loss"],
+              f"train_mesh_parity: {name} loss differs: {side['loss']} vs {base['loss']}")
+        check(abs(side["grad_norm"] - base["grad_norm"])
+              <= PARITY_TOLS["grad_norm_rel"] * base["grad_norm"],
+              f"train_mesh_parity: {name} grad norm differs")
+        for path, leaf in side["leaves"].items():
+            check(leaf["grad_max_abs_err"] <= PARITY_TOLS["grad_rel"] * leaf["grad_max_abs"],
+                  f"train_mesh_parity: {name} gradient of {path} differs: {leaf}")
+            check(leaf["param_max_abs_err"] <= PARITY_TOLS["param"],
+                  f"train_mesh_parity: {name} updated {path} differs: {leaf}")
+        check(side["hops"].get("recv_kv", 0) > 0, f"train_mesh_parity: {name} made no KV hop")
+
+
+def train_mesh(card):
+    """paper-mha-7b at full width cut to MESH_TRAIN_LAYERS layers, fp32 + AdamW,
+    remat, seq 16384, batch 1, sp_size 4 on the virtual ring: 2 steps on mesh
+    (a = 2), then 2 on ring, through fit; one more mesh step under the
+    profiler."""
+    cfg = dataclasses.replace(get_config("paper-mha-7b"), num_layers=MESH_TRAIN_LAYERS)
+    seq, steps = MESH_S, 2
+    runs, launches_main = [], {}
+    for impl, a in (("mesh", 2), ("ring", 1)):
+        ctx = ParallelCtx(sp_size=MESH_N, attn_impl=impl, mesh_a=a if impl == "mesh" else None,
+                          device="cuda")
+        fwd_s, bwd_s = _schedules_of(impl, a, "causal", seq)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = mesh_counts()
+        t0 = time.perf_counter()
+        out = fit(cfg, ctx, TrainConfig(steps=steps, seq=seq, batch=1, seed=0))
+        fit_s = time.perf_counter() - t0
+        counts = {key: n - c0[key] for key, n in mesh_counts().items()}
+        for key, n in counts.items():
+            launches_main[key] = launches_main.get(key, 0) + n
+        L = cfg.num_layers
+        want = {"flash_attention_fwd": 2 * L * len(fwd_s.blocks()) * steps,
+                "flash_bwd_dq": L * len(bwd_s.blocks()) * MESH_N * steps}
+        want["flash_bwd_dkv"] = want["flash_bwd_split"] = want["flash_bwd_dq"]
+        run = dict(attn=impl, a=a, losses=out["history"], step_s=out["step_seconds"],
+                   tokens_per_s=[seq / t for t in out["step_seconds"]], fit_s=fit_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches_per_step={k: n / steps for k, n in counts.items()},
+                   want_launches_per_step={k: n / steps for k, n in want.items()},
+                   hops_per_step={k: n / steps for k, n in ctx.ring.stats.hops.items()},
+                   bytes_per_step={k: n / steps for k, n in ctx.ring.stats.bytes.items()},
+                   params=tfm.param_count(out["params"]))
+        if impl == "mesh":
+            run["profile"] = _profile_mesh_step(cfg, ctx, out.pop("params"), seq)
+        runs.append((run, counts, want))
+        del out
+        torch.cuda.empty_cache()
+    rec = {"phase": "train_mesh", "arch": "paper-mha-7b", "num_layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "param_dtype": "fp32", "optimizer": "adamw", "remat": True,
+           "seq": seq, "batch": 1, "n": MESH_N, "ring": "VirtualRing",
+           "reduced": {"num_layers": f"{get_config('paper-mha-7b').num_layers} -> "
+                                     f"{cfg.num_layers} (fp32 params + AdamW at seq 16384)"},
+           "ln_vocab": float(np.log(cfg.vocab_size)), "runs": [r for r, _, _ in runs],
+           "card": card}
+    emit(rec)
+    for run, counts, want in runs:
+        losses = run["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and abs(losses[0] - np.log(cfg.vocab_size)) < 1.5,
+              f"train_mesh: {run['attn']} losses not finite or not near ln(vocab): {losses}")
+        check(all(counts[k] == n for k, n in want.items()),
+              f"train_mesh: {run['attn']} launches off the schedules x layers x remat: "
+              f"{counts} vs {want}")
+        check(counts["fwd_fp32"] == counts["flash_attention_fwd"],
+              f"train_mesh: the fp32 forward must run the fp32 body: {counts}")
+    return launches_main
+
+
+def _profile_mesh_step(cfg, ctx, params, seq):
+    """Device time per kernel class (the hops' and layout's copies apart) of
+    one more mesh train step under torch.profiler; after the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = init_opt_state(params)
+    step_fn = make_train_step(cfg, ctx, AdamWConfig(total_steps=2))
+    batch = make_batch(cfg, seq, 1, seed=0, step=2, ctx=ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, metrics = step_fn(params, state, {}, batch)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _mesh_device_time(prof)
+    busy = sum(device_ms.values())
+    del state, params
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_ms": busy,
+            "device_idle_share": (1 - busy / wall_ms) if device_ms else None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1587,8 +2107,15 @@ def main():
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
     split = split_case(4096, gen)
+    # the mesh executor's blocks: 4 ranks folded into the forward's batch,
+    # the backward per rank; row 0 of some ranks sees no key
+    mesh_blocks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("causal", "window"):
+            mesh_blocks.append(mesh_block_case(kind, dtype, gen))
+            mesh_blocks.append(mesh_block_bwd_case(kind, dtype, gen))
     emit({"phase": "kernels", "card": card,
-          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split]})
+          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split] + mesh_blocks})
 
     cross_device()
     launches = full_serve(card)
@@ -1598,6 +2125,16 @@ def main():
     launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
     train_parity()
     launches.update(full_train(card))
+    # this slice's path: the dispatch seam and paper-mha-7b training over a
+    # virtual ring of 4 ranks; their main runs' launches join the counts
+    mesh = [mesh_op(card)]
+    train_mesh_parity()
+    mesh.append(train_mesh(card))
+    for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
+                      ("flash_attention_fwd (fp32)", "fwd_fp32"),
+                      ("flash_bwd_dq", "flash_bwd_dq"), ("flash_bwd_dkv", "flash_bwd_dkv"),
+                      ("flash_bwd_split", "flash_bwd_split")):
+        launches[key] += sum(m[part] for m in mesh)
 
     main_flash = next(r for r in flash
                       if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "bf16")

@@ -5,7 +5,7 @@ The JAX module shards the cache over a sequence-parallel axis and combines
 per-shard partials with an lse-weighted psum.  This slice runs on one card:
 ``axis_name`` must be None and ``n`` 1, so there is one shard (index 0) and
 the combine is a cast.  The owner/stripe math is kept in the same shape so
-the mesh slice can widen it.
+sequence-sharded decode (the next slice of the port) can widen it.
 
 Two cache layouts share the band math:
 
@@ -72,7 +72,7 @@ def _single_shard(axis_name: Optional[str], n: int) -> int:
     """Shard index of this device: always 0 on one card."""
     if axis_name is not None or n != 1:
         raise NotImplementedError(
-            "the sequence-sharded cache (axis_name / n > 1) comes with the mesh slice"
+            "the sequence-sharded cache (axis_name / n > 1) comes with the next slice of the port"
         )
     return 0
 
@@ -131,7 +131,7 @@ def sharded_cache_update(
 def _psum_combine(o, lse, axis_name: Optional[str], q_dtype):
     """Combine of per-shard partials; one shard on one card, so a cast."""
     if axis_name is not None:
-        raise NotImplementedError("the cross-shard lse combine comes with the mesh slice")
+        raise NotImplementedError("the cross-shard lse combine comes with the next slice of the port")
     return o.to(q_dtype)
 
 

@@ -1,24 +1,38 @@
-"""The attention seam: "which attention" is a config (single-card copy of
+"""The attention seam: "which attention" is a config (copy of
 ``repro/core/dispatch.py``).
 
 Every attention call goes through ``distributed_attention`` (batched
-prefill / forward), ``decode_attention_step`` (one cached token) or
-``chunk_attention_step`` (a chunk of cached tokens: continuous prefill and
-speculative verify).  An ``AttentionPlanConfig`` names a backend from the
-registry.  On one card the
-``local-flash`` backend serves the batched path and the ``decode`` backend
-the cached path; ``mesh``, ``ring`` and ``ulysses`` are registered so a plan
-naming them fails loudly -- they need a sequence-sharded mesh (n > 1), which
-arrives with the mesh/ring executor slice.
+prefill / forward / training), ``decode_attention_step`` (one cached token)
+or ``chunk_attention_step`` (a chunk of cached tokens: continuous prefill
+and speculative verify).  An ``AttentionPlanConfig`` names a backend from
+the registry: ``mesh`` (the paper's a x b tile), ``ring`` (a = 1 with the
+ring schedule) and ``ulysses`` run the batched path over a sequence-parallel
+ring of n ranks (the plan's ``transport``, JAX's ``axis_name``: a
+``VirtualRing`` or a ``ProcessGroupRing`` of ``parallel/ring.py``);
+``local-flash`` serves n = 1 and ``decode`` the cached path, which stays on
+one rank (sequence-sharded decode and chunks are the next slice).
+
+When ``autotune=True`` the (a, b) tile and the greedy comm/compute schedules
+come from the Figure-6 flow (``autotune.plan_for`` / ``autotune.tune`` over
+the event simulator), with an in-process and on-disk **plan cache** keyed as
+in JAX: the key hashes are equal, so a plan written by one package is read
+by the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import hashlib
+import json
+import os
+import tempfile
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core import schedule as S
+from repro_torch.core.am import CommModel
 from repro_torch.core.decode_attention import (
     chunk_write_coords,
     paged_cache_chunk_decode,
@@ -32,6 +46,10 @@ from repro_torch.core.decode_attention import (
     sharded_cache_update,
 )
 from repro_torch.core.masking import MaskSpec
+from repro_torch.core.mesh_attention import MeshAttentionConfig, mesh_attention
+from repro_torch.core.simulator import HardwareModel
+from repro_torch.core.tiling import best_square_a, stripe_permutation
+from repro_torch.core.ulysses import ulysses_attention
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -47,6 +65,10 @@ __all__ = [
     "chunk_write_coords",
     "paged_write_coords",
     "plan_from_ctx",
+    "plan_schedules",
+    "plan_cache_dir",
+    "clear_plan_cache",
+    "HW_PROFILES",
 ]
 
 _DECODE_KERNELS = ("auto", "native", "gather")
@@ -54,24 +76,44 @@ _DECODE_KERNELS = ("auto", "native", "gather")
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlanConfig:
-    """Declarative selection of an attention backend.  ``backend="auto"``
-    resolves to ``local-flash`` for n <= 1."""
+    """Declarative selection + configuration of an attention call.
+
+    ``backend="auto"`` resolves to ``local-flash`` when the sequence is not
+    split (n <= 1) and to ``mesh`` otherwise.  ``a=None`` on the mesh
+    backend means: autotune via the simulator when ``autotune`` is set,
+    otherwise the sqrt-n heuristic (``best_square_a``).  ``transport`` is
+    the ring the n ranks run on (JAX's ``axis_name``); None takes the
+    ``ParallelCtx``'s."""
 
     backend: str = "auto"
+    transport: Optional[object] = None
     n: int = 1
+    a: Optional[int] = None
     causal: bool = False
     window: Optional[int] = None
-    layout: str = "striped"  # striped | contiguous (the decode cache geometry)
+    layout: str = "striped"  # striped (§3.7) | contiguous (SSM/hybrid, Ulysses)
     scale: Optional[float] = None
     block_q: int = 128
     block_kv: int = 128
+    bwd_wire: str = "qdod"
+    allow_concurrent_rings: bool = False
     mask: Optional[MaskSpec] = None  # first-class mask; supersedes causal/window
+    # ring-transport mode (schedule.COMM_OVERLAP_MODES): serial | overlap |
+    # bidir.  Bitwise-equal; changes the simulated step cost, so it is part
+    # of the plan-cache key.
+    comm_overlap: str = "overlap"
     paged: bool = False  # decode reads/writes a page pool through a block table
     # "auto" -> "native" (the split-K kernel reading the block table) for the
     # paged cache, the band kernel per row for the dense cache
     decode_kernel: str = "auto"
+    # --- Figure-6 autotuning (simulator-planned tile + schedules) ---
+    autotune: bool = False
+    with_backward: bool = True
+    hw_profile: str = "default"
+    plan_cache_dir: Optional[str] = None  # None -> $REPRO_PLAN_CACHE_DIR or ~/.cache
 
     def __post_init__(self):
+        S.validate_comm_overlap(self.comm_overlap)
         if self.mask is not None and (self.causal or self.window is not None):
             raise ValueError("pass either mask= or the legacy causal/window flags, not both")
         if self.decode_kernel not in _DECODE_KERNELS:
@@ -112,11 +154,14 @@ def plan_from_ctx(
     backend: Optional[str] = None,
     mask: Optional[MaskSpec] = None,
 ) -> AttentionPlanConfig:
-    """The attention plan a ``ParallelCtx`` implies.  ``mask`` supersedes the
-    legacy causal/window pair."""
+    """The attention plan a ``ParallelCtx`` implies (JAX's mapping: ``ring``
+    sets a = 1).  ``mask`` supersedes the legacy causal/window pair."""
+    impl = backend or ctx.attn_impl
     return AttentionPlanConfig(
-        backend=backend or "auto",
+        backend=impl,
+        transport=ctx.ring,
         n=ctx.sp_size,
+        a=1 if impl == "ring" else ctx.mesh_a,
         causal=causal if mask is None else False,
         window=window if mask is None else None,
         mask=mask,
@@ -124,7 +169,12 @@ def plan_from_ctx(
         scale=scale,
         block_q=ctx.block_q,
         block_kv=ctx.block_kv,
+        bwd_wire=ctx.bwd_wire,
+        allow_concurrent_rings=ctx.allow_concurrent_rings,
+        comm_overlap=ctx.comm_overlap,
         decode_kernel=ctx.decode_kernel,
+        autotune=ctx.attn_autotune,
+        plan_cache_dir=ctx.plan_cache_dir,
     )
 
 
@@ -136,10 +186,12 @@ def plan_from_ctx(
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """A registered attention implementation: ``apply`` is the batched
-    entry, ``step`` the incremental-decode entry (None when unsupported)."""
+    entry over the local ranks' chunks ([R, B, S/n, H, D], as
+    ``mesh_attention`` takes them), ``step`` the incremental-decode entry
+    (None when unsupported)."""
 
     name: str
-    apply: Optional[Callable] = None  # (q, k, v, cfg, seg=None) -> o
+    apply: Optional[Callable] = None  # (q, k, v, cfg, seg=None) -> o, local chunks
     step: Optional[Callable] = None  # decode step, see decode_attention_step
     description: str = ""
 
@@ -173,18 +225,214 @@ def resolve_backend_name(cfg: AttentionPlanConfig) -> str:
     return cfg.backend
 
 
-def _needs_mesh(name: str) -> Callable:
-    def apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
-        raise NotImplementedError(
-            f"the {name!r} backend needs a sequence-sharded mesh (n > 1); it comes with "
-            "the mesh/ring executor slice of the port"
-        )
+# --------------------------------------------------------------------------
+# simulator-planned schedules + on-disk plan cache
+# --------------------------------------------------------------------------
 
-    return apply
+# the JAX package's three profiles, unchanged: their constants enter the
+# plan-cache key, and describe no measurement of the port's card
+HW_PROFILES: Dict[str, HardwareModel] = {
+    "default": HardwareModel(),
+    "tpu_v5e": HardwareModel(),
+    "paper_a100": HardwareModel(
+        peak_flops=312e12, hbm_bw=2039e9, link_bw=25e9, attn_efficiency=0.45
+    ),
+}
+
+_MEM_CACHE: Dict[str, Tuple[int, S.Schedule, Optional[S.Schedule]]] = {}
+
+
+def plan_cache_dir(cfg: Optional[AttentionPlanConfig] = None) -> str:
+    if cfg is not None and cfg.plan_cache_dir:
+        return cfg.plan_cache_dir
+    env = os.environ.get("REPRO_PLAN_CACHE_DIR")
+    if env:
+        return env
+    return os.path.join(os.path.expanduser("~"), ".cache", "repro", "attention-plans")
+
+
+def clear_plan_cache(cfg: Optional[AttentionPlanConfig] = None) -> None:
+    _MEM_CACHE.clear()
+    d = plan_cache_dir(cfg)
+    if os.path.isdir(d):
+        for fn in os.listdir(d):
+            if fn.endswith(".json"):
+                os.unlink(os.path.join(d, fn))
+
+
+def _plan_key(cfg: AttentionPlanConfig, comm: CommModel, hw: HardwareModel) -> Tuple[str, dict]:
+    """Cache key over everything the simulated plan depends on; the same
+    fields and values as JAX's, so the hashes agree."""
+    desc = {
+        "v": 5,
+        "n": comm.n,
+        "a": cfg.a,
+        "seq": comm.seq,
+        "hidden": comm.hidden,
+        "kv_hidden": comm.kvh,
+        "bytes_per_elem": comm.bytes_per_elem,
+        "batch": comm.batch,
+        "mask": cfg.mask_spec().signature(),
+        "layout": cfg.layout,
+        "paged": cfg.paged,
+        "decode_kernel": _resolve_decode_kernel(cfg.decode_kernel, cfg.paged),
+        # JAX's plan config names the pool's precision; the port plans only
+        # the batched path, which reads no quantized pool
+        "kv_dtype": "fp",
+        "with_backward": cfg.with_backward,
+        "allow_concurrent_rings": cfg.allow_concurrent_rings,
+        "comm_overlap": cfg.comm_overlap,
+        "hw_profile": cfg.hw_profile,
+        "hw": dataclasses.asdict(hw),
+    }
+    blob = json.dumps(desc, sort_keys=True)
+    return hashlib.sha1(blob.encode()).hexdigest(), desc
+
+
+def plan_schedules(
+    cfg: AttentionPlanConfig, comm: CommModel
+) -> Tuple[int, S.Schedule, Optional[S.Schedule]]:
+    """Figure-6 planning through the cache: returns (a, fwd, bwd).
+
+    ``cfg.a`` fixed -> ``autotune.plan_for``; ``cfg.a`` None ->
+    ``autotune.tune`` argmin over every factorization of n.  Results are
+    memoized in-process and persisted as JSON under :func:`plan_cache_dir`
+    so later launches skip the simulator."""
+    hw = HW_PROFILES.get(cfg.hw_profile)
+    if hw is None:
+        raise ValueError(
+            f"unknown hw_profile {cfg.hw_profile!r}; known: {sorted(HW_PROFILES)}"
+        )
+    key, desc = _plan_key(cfg, comm, hw)
+    if key in _MEM_CACHE:
+        return _MEM_CACHE[key]
+
+    cache_dir = plan_cache_dir(cfg)
+    path = os.path.join(cache_dir, f"{key}.json")
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+            fwd = S.schedule_from_json(payload["fwd"])
+            bwd = S.schedule_from_json(payload["bwd"]) if payload.get("bwd") else None
+            out = (int(payload["a"]), fwd, bwd)
+            _MEM_CACHE[key] = out
+            return out
+        except (KeyError, TypeError, ValueError, json.JSONDecodeError):
+            pass  # corrupt entry: fall through and re-plan
+
+    kw = dict(
+        mask=cfg.mask_spec(),
+        layout=cfg.layout,
+        with_backward=cfg.with_backward,
+        allow_concurrent_rings=cfg.allow_concurrent_rings,
+        comm_overlap=cfg.comm_overlap,
+    )
+    if cfg.a is not None:
+        plan = autotune.plan_for(comm, cfg.a, hw, **kw)
+    else:
+        plan = autotune.tune(comm, hw, **kw)
+
+    payload = {
+        "key": desc,
+        "a": plan.a,
+        "b": plan.b,
+        "fwd": S.schedule_to_json(plan.fwd),
+        "bwd": S.schedule_to_json(plan.bwd) if plan.bwd else None,
+        "sim": {"total_s": plan.total, "comm_bytes": plan.comm_bytes},
+    }
+    os.makedirs(cache_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        json.dump(payload, f, indent=1)
+    os.replace(tmp, path)  # atomic: concurrent launchers race benignly
+
+    out = (plan.a, plan.fwd, plan.bwd)
+    _MEM_CACHE[key] = out
+    return out
+
+
+def _comm_model_for(cfg: AttentionPlanConfig, q, k) -> CommModel:
+    """CommModel from the call's global shapes (q: [B, S, H, D])."""
+    return CommModel(
+        seq=int(q.shape[1]),
+        hidden=int(q.shape[2] * q.shape[3]),
+        n=cfg.n,
+        kv_hidden=int(k.shape[2] * k.shape[3]),
+        bytes_per_elem=int(q.element_size()),
+        batch=int(q.shape[0]),
+    )
+
+
+# --------------------------------------------------------------------------
+# backend implementations (over the local ranks' chunks)
+# --------------------------------------------------------------------------
+
+
+def _mesh_cfg(
+    cfg: AttentionPlanConfig,
+    *,
+    a: int,
+    fwd: Optional[S.Schedule] = None,
+    bwd: Optional[S.Schedule] = None,
+) -> MeshAttentionConfig:
+    return MeshAttentionConfig(
+        transport=cfg.transport,
+        n=cfg.n,
+        a=a,
+        causal=cfg.causal if cfg.mask is None else False,
+        window=cfg.window if cfg.mask is None else None,
+        mask=cfg.mask,
+        layout=cfg.layout,
+        scale=cfg.scale,
+        fwd_schedule=fwd,
+        bwd_schedule=bwd,
+        bwd_wire=cfg.bwd_wire,
+        block_q=cfg.block_q,
+        block_kv=cfg.block_kv,
+        allow_concurrent_rings=cfg.allow_concurrent_rings,
+        comm_overlap=cfg.comm_overlap,
+    )
+
+
+def _mesh_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
+    if cfg.autotune and cfg.n > 1:
+        # q is the LOCAL chunk here, so the CommModel geometry would be
+        # wrong by a factor of n; distributed_attention plans from the
+        # global view
+        raise ValueError(
+            "autotuned mesh plans are resolved from the global view "
+            "(use distributed_attention, or bake schedules via plan_schedules)"
+        )
+    a = cfg.a if cfg.a is not None else best_square_a(cfg.n)
+    return mesh_attention(q, k, v, _mesh_cfg(cfg, a=a), seg=seg)
+
+
+def _ring_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
+    """Ring-Attention as the (a=1, b=n) special case -- one-block-per-step
+    ring schedule, identical kernels and ring machinery (paper §2.2)."""
+    fwd = S.ring_forward_schedule(cfg.n) if cfg.n > 1 else None
+    return mesh_attention(q, k, v, _mesh_cfg(cfg, a=1, fwd=fwd), seg=seg)
+
+
+def _ulysses_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
+    if cfg.layout != "contiguous":
+        raise ValueError("Ulysses requires the contiguous layout")
+    spec = cfg.mask_spec()
+    if spec.kind == "block_sparse":
+        raise ValueError("Ulysses does not support block-sparse masks")
+    if spec.needs_segments and seg is None:
+        raise ValueError(f"mask kind {spec.kind!r} needs a segment-id operand")
+    return ulysses_attention(
+        q, k, v, cfg.transport, cfg.n,
+        causal=spec.is_causal, window=spec.window, scale=cfg.scale, seg=seg,
+    )
 
 
 def _local_flash_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
     spec = cfg.mask_spec()
+    if spec.kind == "block_sparse":
+        raise ValueError("block-sparse masks route through the mesh backend")
     if spec.needs_segments and seg is None:
         raise ValueError(f"mask kind {spec.kind!r} needs a segment-id operand")
     return ops.flash_attention(
@@ -260,12 +508,18 @@ def _decode_apply(q, k, v, cfg: AttentionPlanConfig, seg=None):
     )
 
 
-for _name, _desc in (
-    ("mesh", "Mesh-Attention (a x b tile) -- mesh slice"),
-    ("ring", "Ring-Attention = mesh with a=1 -- mesh slice"),
-    ("ulysses", "DeepSpeed-Ulysses head-parallel -- mesh slice"),
-):
-    register_backend(Backend(_name, apply=_needs_mesh(_name), description=_desc))
+register_backend(Backend(
+    "mesh", apply=_mesh_apply,
+    description="Mesh-Attention (a x b tile; autotunable via the simulator)",
+))
+register_backend(Backend(
+    "ring", apply=_ring_apply,
+    description="Ring-Attention baseline = mesh with a=1 and the ring schedule",
+))
+register_backend(Backend(
+    "ulysses", apply=_ulysses_apply,
+    description="DeepSpeed-Ulysses head-parallel (capped at the KV-head count)",
+))
 register_backend(Backend(
     "local-flash", apply=_local_flash_apply,
     description="single-card flash attention (CUDA kernel; plain version on the CPU)",
@@ -282,15 +536,52 @@ register_backend(Backend(
 
 
 def distributed_attention(q, k, v, *, cfg: AttentionPlanConfig, ctx=None, segments=None):
-    """THE attention seam for batched attention.  q: [B, S, H, D]; k, v:
-    [B, S, Hkv, D].  ``segments``: int32 [S] segment ids for segment masks,
-    in the same order as q/k/v."""
+    """THE attention seam for batched attention.
+
+    q: [B, S, H, D]; k, v: [B, S, Hkv, D] -- the global view (on every
+    process, for a ``ProcessGroupRing``).  Causal striped-layout inputs must
+    already be in stripe order (§3.7; the data pipeline does it).  For
+    n > 1 the view is split into the ring's chunks (the transport's
+    ``split``), the backend runs over them, and the chunks are joined back.
+    ``segments``: int32 [S] segment ids for document/segment masks, in the
+    SAME order as q/k/v; for a static ``MaskSpec.document`` mask it is
+    synthesized (and striped) here when omitted."""
+    mask_spec = cfg.mask_spec()
+    if segments is None and mask_spec.kind == "document":
+        seg_np = mask_spec.segment_array(int(q.shape[1]))
+        if cfg.layout == "striped" and cfg.n > 1:
+            seg_np = seg_np[stripe_permutation(int(q.shape[1]), cfg.n)]
+        segments = torch.from_numpy(seg_np)
     if segments is not None:
         segments = torch.as_tensor(segments, device=q.device).to(torch.int32)
+
     name = resolve_backend_name(cfg)
-    if cfg.n > 1 or name != "local-flash":
-        return get_backend(name).apply(q, k, v, cfg, seg=segments)
-    return _local_flash_apply(q, k, v, cfg, seg=segments)
+    if name == "local-flash" or cfg.n <= 1:
+        return _local_flash_apply(q, k, v, cfg, seg=segments)
+    backend = get_backend(name)
+    if backend.apply is None:
+        raise ValueError(f"backend {name!r} does not support the batched-attention mode")
+    if cfg.transport is None:
+        ring = getattr(ctx, "ring", None)
+        if ring is None:
+            raise ValueError(
+                f"backend {name!r} with n={cfg.n} needs a ring: pass a plan with a "
+                "transport, or a ParallelCtx with sp_size > 1"
+            )
+        cfg = dataclasses.replace(cfg, transport=ring)
+    T = cfg.transport
+    if T.n != cfg.n:
+        raise ValueError(f"the plan has n={cfg.n} but its transport {T!r} has {T.n} ranks")
+
+    if name == "mesh" and cfg.autotune:
+        # plan from the global view (pure python), then run the baked schedules
+        a, fwd, bwd = plan_schedules(cfg, _comm_model_for(cfg, q, k))
+        macfg = _mesh_cfg(cfg, a=a, fwd=fwd, bwd=bwd)
+        local = lambda q, k, v, seg=None: mesh_attention(q, k, v, macfg, seg=seg)  # noqa: E731
+    else:
+        local = lambda q, k, v, seg=None: backend.apply(q, k, v, cfg, seg=seg)  # noqa: E731
+    seg = None if segments is None else T.split(segments, axis=0)
+    return T.join(local(T.split(q), T.split(k), T.split(v), seg=seg))
 
 
 def decode_attention_step(
@@ -319,7 +610,9 @@ def decode_attention_step(
     ``(o, k_cache, v_cache, k_scale, v_scale)`` as in JAX."""
     n = ctx.sp_size
     if n != 1:
-        raise NotImplementedError("sequence-sharded decode (n > 1) comes with the mesh slice")
+        raise NotImplementedError(
+            "sequence-sharded decode (sp_size > 1) comes with the next slice of the port"
+        )
     if decode_kernel is None:
         decode_kernel = ctx.decode_kernel
     if k_scale is not None and block_table is None:
@@ -383,7 +676,9 @@ def chunk_attention_step(
     through the flash forward; the split-K kernel stays single-token."""
     n = ctx.sp_size
     if n != 1:
-        raise NotImplementedError("sequence-sharded chunks (n > 1) come with the mesh slice")
+        raise NotImplementedError(
+            "sequence-sharded chunks (sp_size > 1) come with the next slice of the port"
+        )
     if k_scale is not None and block_table is None:
         raise ValueError("k_scale/v_scale (quantized pool) require block_table")
     paged = block_table is not None

@@ -1,5 +1,5 @@
 """Deterministic synthetic training batches (copy of
-``repro/data/pipeline.py`` for one card).
+``repro/data/pipeline.py``).
 
 Batch ``step`` of a run is a pure function of ``(seed, step)``, so a run
 restarted from a checkpoint replays the identical stream.  The tokens come
@@ -8,8 +8,10 @@ but not JAX's numbers (tests hand JAX's batches to the port where the tokens
 must agree).  ``doc_lengths`` is numpy in both packages and copied bit for
 bit, so ``segments``, ``positions`` and ``mask`` equal JAX's exactly.
 
-The stripe permutation of sequence-parallel layouts comes with the mesh
-slice: ``sp_size`` must be 1.
+With ``ctx.sp_size > 1`` and a striped-layout arch the batch comes in the
+striped order of ``core.tiling.stripe_permutation`` (paper §3.7): tokens,
+labels, positions, and with packed documents the segment ids and the loss
+mask, as JAX permutes them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.masking import positions_from_doc_lens, segment_ids_from_doc_lens
+from repro_torch.core.tiling import stripe_permutation
 from repro_torch.device import resolve_device
 from repro_torch.parallel.context import ParallelCtx
 
@@ -76,8 +79,6 @@ def make_batch(
     and the loss ``mask`` zeroes the label that would cross a document
     boundary.  Boundaries are shared across rows."""
     ctx = ctx or ParallelCtx()
-    if ctx.sp_size > 1:
-        raise NotImplementedError("striped sequence-parallel batches come with the mesh slice")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet")
     dev = resolve_device(ctx.device)
@@ -94,4 +95,8 @@ def make_batch(
         out["mask"] = np.broadcast_to(1.0 - boundary, (batch, seq)).copy()
     else:
         out["positions"] = np.arange(seq, dtype=np.int32)
+    n = ctx.sp_size
+    if n > 1 and cfg.causal_layout == "striped":
+        perm = stripe_permutation(seq, n)
+        out = {k: v[..., perm] for k, v in out.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}

@@ -2,29 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
         [--device cpu] [--reduced] [--steps 100] [--seq 128] [--batch 8] \
-        [--ckpt-dir DIR] [--docs N]
+        [--ckpt-dir DIR] [--docs N] [--fake-devices 8 --attn mesh --tile-a 2]
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
-plain PyTorch versions.  The port trains on one card: the flags that need a
-mesh (``--compress``, ``--multi-pod``, ``--fake-devices``, ``--tile-a``,
-``--attn ring|ulysses``) are accepted for parity and raise.  On one device
-JAX's default ``--attn mesh`` runs local flash attention, as the port does.
+plain PyTorch versions.  ``--fake-devices N`` is JAX's emulated device
+count: with N >= 8 JAX builds a (data 2, model 4) mesh, and the port builds
+its sequence axis -- a virtual ring of 4 ranks in this process, with
+``block_q = block_kv = 16`` -- and keeps the batch whole (data parallelism
+is not ported).  ``--attn`` (mesh | ring | ulysses) and ``--tile-a`` then
+configure that ring's attention; with N < 8 there is no ring and attention
+runs local flash, as in JAX.  ``--compress`` and ``--multi-pod`` need
+several processes and raise.
 """
 
 import argparse
 import sys
-
-
-def _not_ported(args) -> list:
-    return [
-        flag for flag, on in (
-            ("--compress", args.compress),
-            ("--multi-pod", args.multi_pod),
-            ("--fake-devices", args.fake_devices),
-            ("--tile-a", args.tile_a is not None),
-            (f"--attn {args.attn}", args.attn != "mesh"),
-        ) if on
-    ]
 
 
 def main(argv=None):
@@ -39,19 +31,19 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--docs", type=int, default=None,
                     help="pack N documents per row (segment-masked attention)")
-    # parity with the JAX CLI; they need a mesh
     ap.add_argument("--compress", action="store_true", help="int8+EF cross-pod grad compression")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--fake-devices", type=int, default=0)
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help=">= 8: a virtual sequence-parallel ring of 4 ranks")
     ap.add_argument("--tile-a", type=int, default=None)
     ap.add_argument("--attn", default="mesh", choices=["mesh", "ring", "ulysses"])
     args = ap.parse_args(argv)
 
-    flags = _not_ported(args)
+    flags = [flag for flag, on in (("--compress", args.compress),
+                                   ("--multi-pod", args.multi_pod)) if on]
     if flags:
         raise NotImplementedError(
-            f"{', '.join(flags)}: not ported yet; they need a mesh, which comes with the "
-            "mesh/ring executor slice of the port"
+            f"{', '.join(flags)}: not ported yet; they need multi-process training"
         )
 
     from repro_torch.configs import get_config
@@ -64,8 +56,14 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    ctx = ParallelCtx(device=dev)
-    print(f"device={dev} mesh=none")
+    if args.fake_devices >= 8:
+        ctx = ParallelCtx(sp_size=4, mesh_a=args.tile_a, attn_impl=args.attn,
+                          block_q=16, block_kv=16, device=dev)
+        ring = f"{ctx.ring!r} attn={args.attn} a={ctx.tile_a() if args.attn == 'mesh' else 1}"
+    else:
+        ctx = ParallelCtx(device=dev)
+        ring = "none"
+    print(f"device={dev} ring={ring}")
 
     tcfg = TrainConfig(steps=args.steps, seq=args.seq, batch=args.batch,
                        ckpt_dir=args.ckpt_dir, docs=args.docs)

@@ -1,5 +1,6 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060): the port of
-``repro/models/ssm.py`` on one card (``sp_size`` 1).
+``repro/models/ssm.py``; the scan runs over the whole sequence in one
+process (JAX's sequence-sharded scan is not ported).
 
 Prefill runs the chunked scan through ``kernels.ssd_scan.ssd_scan_fwd`` (the
 CUDA kernel on the card, the plain chunked dual form on the CPU), where JAX
@@ -111,7 +112,8 @@ def ssm_block(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ParallelCtx, *,
     """Pre-norm SSD block with residual: x [B, S, D] -> x + SSD(x) @ out_proj.
     ``return_state`` also returns {"state" [B,H,P,N] fp32, "conv"
     [B,width-1,conv_dim] in x's dtype} for decode to continue from.  ``ctx``
-    is one card's (``ParallelCtx`` refuses ``sp_size > 1``)."""
+    is unused: the block sees the whole (contiguous) sequence, also when
+    attention runs over a sequence-parallel ring."""
     del ctx
     h = rms_norm(x, p["ln"])
     y, hT, conv_tail = _ssm_core(h @ p["in_proj"], p, cfg)

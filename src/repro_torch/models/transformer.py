@@ -220,6 +220,10 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     [L, B, H, P, N] fp32}``; the attention-free family has no K/V."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
+    if ctx.sp_size > 1:
+        raise NotImplementedError(
+            "a sequence-sharded decode cache (sp_size > 1) comes with the next slice of the port"
+        )
     dev = resolve_device(ctx.device)
     store = kv_quant.storage_dtype(kv_dtype, dtype)
     if kv_dtype != "fp" and paged is None:

@@ -81,6 +81,11 @@ class ServeEngine:
         self.serve = serve
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
+        if self.ctx.sp_size > 1:
+            raise NotImplementedError(
+                "serving over a sequence-parallel ring (sp_size > 1) comes with the next slice "
+                "of the port (sequence-sharded decode and chunks)"
+            )
         if serve.decode_kernel != "auto":
             # "band" is the dense spelling of the non-native path
             kernel = "gather" if serve.decode_kernel == "band" else serve.decode_kernel

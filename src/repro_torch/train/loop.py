@@ -1,5 +1,5 @@
-"""Training loop on one card (copy of ``repro/train/loop.py`` without the
-mesh): the train step, checkpoint/restart, preemption, stragglers.
+"""Training loop (copy of ``repro/train/loop.py``): the train step,
+checkpoint/restart, preemption, stragglers.
 
 Fault-tolerance model, as in JAX:
   * every saved state goes through the atomic checkpointer; a restart
@@ -9,9 +9,13 @@ Fault-tolerance model, as in JAX:
   * the data pipeline is a pure function of (seed, step), so a restarted run
     consumes the identical stream.
 
-What needs a mesh comes with the mesh slice and raises here: cross-pod
-gradient compression (``TrainConfig.compression``), sequence-parallel
-batches (``sp_size > 1``) and the elastic re-meshing restart
+Sequence parallelism runs in one process: with ``ctx.sp_size > 1`` the
+batch comes striped and every attention call runs the mesh / ring / ulysses
+executor over the context's ring (a ``VirtualRing`` on one card), while the
+rest of the model sees the whole sequence.  What needs several processes
+raises or is absent: cross-pod gradient compression
+(``TrainConfig.compression``), the gradient all-reduce over sequence ranks
+of a multi-process ring, and the elastic re-meshing restart
 (``elastic_fit``).
 
 The step takes the gradients with ``torch.autograd.grad`` with respect to the
@@ -45,7 +49,7 @@ from repro_torch.train.monitor import StepMonitor, StragglerPolicy
 
 __all__ = ["TrainConfig", "make_train_step", "fit"]
 
-_MESH_SLICE = "it needs a mesh, which comes with the mesh/ring executor slice of the port"
+_MULTI_PROCESS = "it needs a multi-process mesh, which a later slice of the port brings"
 
 
 @dataclasses.dataclass
@@ -59,15 +63,13 @@ class TrainConfig:
     keep: int = 3
     log_every: int = 10
     param_dtype: torch.dtype = torch.float32
-    compression: Optional[object] = None  # cross-pod gradient compression: mesh slice
+    compression: Optional[object] = None  # cross-pod gradient compression: not ported
     docs: Optional[int] = None  # pack N documents per row (segment-mask attention)
 
 
-def _check_single_card(ctx: ParallelCtx, compression) -> None:
+def _check_one_process(compression) -> None:
     if compression is not None:
-        raise NotImplementedError(f"gradient compression is not ported: {_MESH_SLICE}")
-    if ctx.sp_size > 1:
-        raise NotImplementedError(f"sp_size > 1 is not ported: {_MESH_SLICE}")
+        raise NotImplementedError(f"gradient compression is not ported: {_MULTI_PROCESS}")
 
 
 def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt_cfg: AdamWConfig,
@@ -75,7 +77,7 @@ def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt_cfg: AdamWConfig,
     """Returns (params, opt_state, err, batch) -> (params, opt_state, err,
     metrics), as JAX's jitted step.  ``params`` and the moments are updated
     in place; ``err`` (the compression error state) passes through."""
-    _check_single_card(ctx, compression)
+    _check_one_process(compression)
 
     def step_fn(params, opt_state: OptState, err, batch):
         leaves = [leaf for _, leaf in tree_leaves(params)]
@@ -123,7 +125,7 @@ def fit(
     each step, as the straggler monitor sees it)}."""
     opt_cfg = opt_cfg or AdamWConfig(total_steps=tcfg.steps)
     hooks = hooks or {}
-    _check_single_card(ctx, tcfg.compression)
+    _check_one_process(tcfg.compression)
     preempt = _Preempt().install()
     monitor = StepMonitor(StragglerPolicy(action="checkpoint"))
 

@@ -7,7 +7,7 @@ persistent outlier is a *hardware* straggler.  The monitor keeps an EMA and
 EW-variance of step times and flags steps beyond ``k`` sigma; the policy
 decides between logging, requesting a checkpoint, or excluding the node and
 re-meshing through the elastic-restart path (in the JAX package's
-train/loop.py; the port's comes with the mesh slice).
+train/loop.py; the port's comes with multi-process training).
 """
 
 from __future__ import annotations

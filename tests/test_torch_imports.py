@@ -23,7 +23,10 @@ names = ["repro_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-missing = {{"repro_torch.core.kv_quant", "repro_torch.serve.speculative"}} - set(names)
+missing = {{
+    "repro_torch.core.kv_quant", "repro_torch.serve.speculative",
+    "repro_torch.core.mesh_attention", "repro_torch.core.schedule", "repro_torch.parallel.ring",
+}} - set(names)
 assert not missing, missing
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked

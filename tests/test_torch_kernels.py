@@ -24,6 +24,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import decode_attention as tda
 from repro_torch.core import dispatch as tdispatch
 from repro_torch.core.masking import MaskSpec
+from repro_torch.core.tiling import stripe_permutation
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode as tpk
@@ -511,14 +512,31 @@ def test_dispatch_resolution_and_unported_backends():
         tdispatch._resolve_decode_kernel("nope", paged=True)
     ctx = ParallelCtx(device="cpu")
     plan = tdispatch.plan_from_ctx(ctx, causal=True)
-    assert plan.resolved_backend() == "local-flash"
-    q = torch.randn(1, 8, 2, 8)
+    assert plan.resolved_backend() == "mesh"  # JAX's default attn_impl; n = 1 runs local flash
+    q = torch.from_numpy(_np(np.random.default_rng(0), 1, 16, 4, 8))
+    want, _ = tref.attention_ref(q, q, q, scale=8**-0.5, band=(0, 0, 0, INF))
+    np.testing.assert_allclose(tdispatch.distributed_attention(q, q, q, cfg=plan).numpy(),
+                               want.numpy(), atol=FWD_TOL)
+    # the ring backends run over a virtual ring of 4 ranks and give the local result
+    ctx4 = ParallelCtx(sp_size=4, device="cpu")
     for name in ("mesh", "ring", "ulysses"):
-        cfg = tdispatch.AttentionPlanConfig(backend=name, causal=True)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tdispatch.distributed_attention(q, q, q, cfg=cfg)
-    with pytest.raises(NotImplementedError):
-        ParallelCtx(sp_size=2)
+        layout = "contiguous" if name == "ulysses" else "striped"
+        cfg = tdispatch.plan_from_ctx(ctx4, causal=True, backend=name, layout=layout)
+        perm = stripe_permutation(16, 4) if layout == "striped" else np.arange(16)
+        qp = q[:, torch.from_numpy(perm)]
+        o = tdispatch.distributed_attention(qp, qp, qp, cfg=cfg, ctx=ctx4)
+        np.testing.assert_allclose(o.numpy(), want[:, torch.from_numpy(perm)].numpy(),
+                                   atol=FWD_TOL)
+    # serving over a ring is the next slice: the engine and the cache refuse it
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    mcfg = get_config("granite-8b").reduced()
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ServeEngine(mcfg, tfm.init_params(mcfg, device="cpu"), ParallelCtx(sp_size=2, device="cpu"))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tfm.init_cache(mcfg, 1, 16, ctx=ParallelCtx(sp_size=2, device="cpu"))
     seg_plan = tdispatch.plan_from_ctx(ctx, mask=MaskSpec.segment())
     with pytest.raises(ValueError, match="segment"):
         tdispatch.distributed_attention(q, q, q, cfg=seg_plan)

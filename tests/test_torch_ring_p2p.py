@@ -1,0 +1,96 @@
+"""The port's P2P transport: 4 gloo processes on the CPU, one rank each
+(``ProcessGroupRing``), run tests/torch_ring_worker.py's cases -- the mesh
+executor (a = 1, 2, 4; causal, window, document and full masks; striped and
+contiguous layouts; both backward wires; the three comm_overlap modes),
+Ring-Attention, Ulysses, and the dispatch seam with gradients (mesh at
+every factorization of n = 4, ring, ulysses) -- and must
+give the virtual ring's per-rank results within 1e-6 and the same hop,
+message and byte counts.  Each run has its own time limit, so a hang fails
+instead of eating the suite's."""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import torch_ring_worker as W
+from repro_torch.parallel.ring import VirtualRing
+
+P2P_TOL = 1e-6
+TIME_LIMIT_S = 120
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("p2p")
+    inputs = W.make_inputs()
+    np.savez(tmp / "inputs.npz", **inputs)
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, W.__file__, str(r), str(W.N), str(port), str(tmp / "inputs.npz"),
+             str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        )
+        for r in range(W.N)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=TIME_LIMIT_S)
+            logs.append(out)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"the gloo ranks did not finish within {TIME_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(W.N)]
+    virtual = W.run_cases(VirtualRing(W.N), inputs)
+    return ranks, virtual
+
+
+def test_p2p_per_rank_results_match_the_virtual_ring(results):
+    ranks, virtual = results
+    keys = [k for k in virtual if "_hops::" not in k and "_bytes::" not in k
+            and "_messages::" not in k and not k.startswith("dispatch_")]
+    assert keys and all(sorted(r) == sorted(virtual) for r in ranks)
+    for key in keys:
+        for r, got in enumerate(ranks):
+            assert got[key].shape[0] == 1, key
+            np.testing.assert_allclose(got[key][0], virtual[key][r], atol=P2P_TOL, rtol=0,
+                                       err_msg=f"{key} rank {r}")
+
+
+def test_p2p_counts_match_the_virtual_ring(results):
+    ranks, virtual = results
+    keys = [k for k in virtual if "_hops::" in k or "_bytes::" in k or "_messages::" in k]
+    assert any("::all_hops::send_dq" in k for k in keys)
+    for key in keys:
+        for got in ranks:
+            assert int(got[key]) == int(virtual[key]), key
+
+
+def test_p2p_dispatch_global_view_and_grads(results):
+    """Every process returns the whole output and the whole gradient of the
+    replicated global view, equal to the virtual ring's."""
+    ranks, virtual = results
+    for backend, a in W.DISPATCH_BACKENDS:
+        for key in ("o", "dq", "dk", "dv"):
+            name = f"dispatch_{backend}{a or ''}::{key}"
+            for got in ranks:
+                np.testing.assert_allclose(got[name], virtual[name], atol=P2P_TOL, rtol=0,
+                                           err_msg=name)

@@ -349,8 +349,15 @@ def test_launch_train_cpu_and_default_device(monkeypatch, capsys):
     assert "step 0: loss" in out and "done: step=3 final_loss=" in out
     with pytest.raises(NotImplementedError, match="--compress"):
         train.main(["--arch", "granite-8b", "--device", "cpu", "--reduced", "--compress"])
-    with pytest.raises(NotImplementedError, match="--attn ring"):
-        train.main(["--arch", "granite-8b", "--device", "cpu", "--reduced", "--attn", "ring"])
+    # --attn alone runs local flash (JAX builds no ring below 8 fake devices);
+    # with --fake-devices 8 it runs over a virtual ring of 4 ranks
+    small = ["--arch", "granite-8b", "--device", "cpu", "--reduced", "--steps", "1",
+             "--seq", "16", "--batch", "2"]
+    assert train.main(small + ["--attn", "ring"]) == 0
+    assert "ring=none" in capsys.readouterr().out
+    assert train.main(small + ["--fake-devices", "8", "--attn", "ring"]) == 0
+    out = capsys.readouterr().out
+    assert "ring=VirtualRing(n=4) attn=ring a=1" in out and "done: step=1" in out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--arch", "granite-8b", "--reduced", "--steps", "1"])

@@ -1,0 +1,133 @@
+"""Cases for the port's two ring transports, and the worker process that runs
+them on one rank of a gloo group.
+
+``run_cases(ring, inputs)`` runs the executor (mesh, ring and ulysses) and
+the dispatch seam over any transport: on a ``VirtualRing`` it returns every
+rank's results ([n, ...]); on a ``ProcessGroupRing`` this rank's ([1, ...]),
+plus the transport's hop / message / byte counts per case.  The test
+(tests/test_torch_ring_p2p.py) runs it both ways and compares.
+
+    python tests/torch_ring_worker.py RANK WORLD PORT INPUTS.npz OUT_DIR
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.core import dispatch  # noqa: E402
+from repro_torch.core.masking import MaskSpec  # noqa: E402
+from repro_torch.core.mesh_attention import (  # noqa: E402
+    MeshAttentionConfig,
+    mesh_attention,
+    mesh_attention_with_lse,
+)
+from repro_torch.core.ring_attention import ring_config  # noqa: E402
+from repro_torch.core.tiling import stripe_permutation  # noqa: E402
+from repro_torch.core.ulysses import ulysses_attention  # noqa: E402
+
+N = 4
+B, M, H, HKV, D = 2, 8, 4, 4, 8  # S = N * M = 32
+S = N * M
+DOC_LENS = (12, 20)
+
+# (name, a, mask, layout, bwd_wire, comm_overlap)
+EXEC_CASES = [
+    ("mesh2_causal", 2, MaskSpec.causal(), "striped", "qdod", "overlap"),
+    ("mesh2_causal_bidir", 2, MaskSpec.causal(), "striped", "odoq", "bidir"),
+    ("mesh4_window_serial", 4, MaskSpec.causal(window=9), "contiguous", "qdod", "serial"),
+    ("mesh1_doc", 1, MaskSpec.document(DOC_LENS), "striped", "odoq", "overlap"),
+    ("mesh2_full", 2, MaskSpec.full(), "contiguous", "qdod", "bidir"),
+]
+# (backend, a): every factorization of n = 4 on the mesh backend
+DISPATCH_BACKENDS = (("mesh", 1), ("mesh", 2), ("mesh", 4), ("ring", 1), ("ulysses", None))
+
+
+def make_inputs(seed: int = 7):
+    rng = np.random.default_rng(seed)
+    return {
+        "q": rng.standard_normal((B, S, H, D)).astype(np.float32),
+        "k": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
+        "v": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
+    }
+
+
+def _layout_order(layout: str) -> np.ndarray:
+    return stripe_permutation(S, N) if layout == "striped" else np.arange(S)
+
+
+def run_cases(ring, inputs):
+    """-> {key: np.ndarray}: per case o, lse, dq, dk, dv over the ring's
+    local ranks, the transport's counts, and the dispatch seam's global o
+    and gradients."""
+    out = {}
+    for name, a, mask, layout, wire, mode in EXEC_CASES:
+        order = torch.from_numpy(_layout_order(layout))
+        x = {k: ring.split(torch.from_numpy(v)[:, order]).detach() for k, v in inputs.items()}
+        seg = None
+        if mask.needs_segments:
+            seg = ring.split(torch.from_numpy(mask.segment_array(S))[order], axis=0)
+        cfg = MeshAttentionConfig(transport=ring, n=N, a=a, mask=mask, layout=layout,
+                                  bwd_wire=wire, comm_overlap=mode)
+        ring.stats.reset()
+        o, lse = mesh_attention_with_lse(x["q"], x["k"], x["v"], cfg, seg=seg)
+        fwd = {k: dict(v) for k, v in vars(ring.stats).items()}
+        q, k, v = (x[t].clone().requires_grad_(True) for t in ("q", "k", "v"))
+        ring.stats.reset()
+        o2 = mesh_attention(q, k, v, cfg, seg=seg)
+        grads = torch.autograd.grad(o2.sin().sum(), (q, k, v))
+        for key, t in zip(("o", "lse", "o_autograd", "dq", "dk", "dv"), (o, lse, o2, *grads)):
+            out[f"{name}::{key}"] = t.detach().numpy()
+        for stat, kinds in fwd.items():
+            for kind, count in kinds.items():
+                out[f"{name}::fwd_{stat}::{kind}"] = np.asarray(count)
+        for stat, kinds in vars(ring.stats).items():
+            for kind, count in kinds.items():
+                out[f"{name}::all_{stat}::{kind}"] = np.asarray(count)
+    # the ring schedule (a = 1) and Ulysses straight from their modules
+    x = {k: ring.split(torch.from_numpy(v)[:, torch.from_numpy(_layout_order("striped"))])
+         for k, v in inputs.items()}
+    out["ring_attention::o"] = mesh_attention(
+        x["q"], x["k"], x["v"], ring_config(ring, N, causal=True)).detach().numpy()
+    x = {k: ring.split(torch.from_numpy(v)) for k, v in inputs.items()}
+    out["ulysses::o"] = ulysses_attention(
+        x["q"], x["k"], x["v"], ring, N, causal=True).detach().numpy()
+    # the dispatch seam on the global view, with gradients
+    for backend, a in DISPATCH_BACKENDS:
+        layout = "contiguous" if backend == "ulysses" else "striped"
+        order = torch.from_numpy(_layout_order(layout))
+        q, k, v = (torch.from_numpy(inputs[t])[:, order].clone().requires_grad_(True)
+                   for t in ("q", "k", "v"))
+        cfg = dispatch.AttentionPlanConfig(backend=backend, transport=ring, n=N, causal=True,
+                                           layout=layout, a=a)
+        o = dispatch.distributed_attention(q, k, v, cfg=cfg)
+        grads = torch.autograd.grad(o.sin().sum(), (q, k, v))
+        for key, t in zip(("o", "dq", "dk", "dv"), (o, *grads)):
+            out[f"dispatch_{backend}{a or ''}::{key}"] = t.detach().numpy()
+    return out
+
+
+def main(argv):
+    import torch.distributed as dist
+
+    from repro_torch.parallel.ring import ProcessGroupRing
+
+    rank, world, port, inputs_path, out_dir = argv
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        inputs = dict(np.load(inputs_path))
+        out = run_cases(ProcessGroupRing(), inputs)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
