@@ -67,6 +67,31 @@ Phases, each printing one JSON line:
                  per prefill (384 and 256), and hymba's flash forward once
                  per layer per prefill (tile body) and per decode tick (decode
                  body).
+  4e. slice_ring -- serving over a ring of 4 (``ParallelCtx(sp_size=4)``, a
+                 virtual ring on the card): slice_quant's weights and trace
+                 (2 layers, fp32, chunk 64, budget 128, spec_k 4) at sp_size 4
+                 on the card against sp_size 1 on the CPU, over the dense
+                 cache and the fp / int8 / fp8 pools: streams identical (a
+                 quantized pool: a flip only on a near-tie, printed),
+                 first-token logits within SLICE_LOGIT_TOL, pages and scale
+                 entries drained; per layer one decode launch per decode tick
+                 (#4 / 4q, or #1 for the dense cache), one #1 launch per chunk
+                 and verify launch, one combine per step, all fp32 on the fp32
+                 body.
+  4f. serve_ring -- this slice's main path: the serve phase's model and
+                 trace at sp_size 4, bf16, the fp pool: one-shot prefill (the
+                 Mesh-Attention forward), then continuous prefill (chunk 256,
+                 budget 512) with spec_k 4.  Counters set to 0 before each
+                 run: per layer exactly one #4 launch per decode tick (the 4
+                 ranks folded, not 4 x 36), one #1 launch per chunk (tile
+                 body) and verify (decode body) launch, one lse combine per
+                 step, and prefill's #1 launches = layers x the mesh
+                 schedule's blocks x 4 (a segment-masked block launches per
+                 rank); every request ok with 32 tokens, pages drained, peak
+                 memory within RING_PEAK_SLACK_GB of serve's; the streams
+                 against serve's (a flip only on a near-tie, RING_NEAR_TIE);
+                 decode and prefill rates, TTFT, the combine's bytes, and a
+                 profiled decode tick (#4 and combine device ms, idle share).
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -110,8 +135,9 @@ Phases, each printing one JSON line:
                  against the schedules x layers (x 2 for remat's forward);
                  s per step, tokens/s, peak memory, hops and bytes per step,
                  and a profiled mesh step by kernel class.
-  10. the kernels line (each kernel's launches now including the mesh_op and
-                 train_mesh runs), the card line, and the final line
+  10. the kernels line (each kernel's launches now including the mesh_op,
+                 train_mesh and serve_ring runs; the ranks' combine a row of
+                 its own), the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -132,6 +158,11 @@ forward with the 4 ranks folded into its batch (one band per row; ranks 0
 and 1 hold a q chunk below their kv chunk, so their row 0 sees no key and
 must give o = 0, lse = NEG_INF exactly), the backward on rank 0 with one
 band (dq of the blind rows exactly 0, dk / dv finite, a repeat bitwise).
+And the serving ring's launches: #1 at the chunk (256) and verify (4)
+rows with 4 ranks x 8 slots folded (stride 4; the first rows of ranks 1-3
+blind), and #4 / 4q over a pool sharded 4 ways (bf16 queries, fp and int8
+pools, ``paged_case``'s depths: rows of ranks that see no key must give
+o = 0, lse = NEG_INF exactly) followed by the ranks' lse combine.
 
 Any failed check raises: the script then exits non-zero without the final
 line.  It exits non-zero at once when CUDA is not available.
@@ -364,12 +395,16 @@ def fwd_body_delta(before):
     return {b: n - before[b] for b, n in fwd_body_counts().items()}
 
 
-def flash_case(name, S, dtype, gen, heads=(H, HKV, D)):
+def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     """One flash-forward case; granite-8b's heads unless ``heads`` (H, Hkv,
     D) says otherwise.  ``verify`` and ``chunk`` are the serving path's
     speculative verify (spec_k 4) and prefill chunk (256) over S cached
     positions, each batch row at its own depth; ``decode`` is a dense-cache
-    tick, one band per slot (with hymba's heads, its window of 1024)."""
+    tick, one band per slot (with hymba's heads, its window of 1024).
+    ``ranks`` n > 1: the launch of sequence-sharded serving over a ring of
+    n, the ranks folded into the rows -- row b*n + i is rank i's S/n slots
+    of slot b, band (pos_b, i, 0, hi), stride n -- and slot 0's chunk starts
+    at 0, so the first rows of ranks 1 .. n-1 see no key."""
     INF = ref.BAND_INF
     nh, nkv, hd = heads
     B, Sq, Skv, sq, skv, seg = 1, S, S, 1, 1, None
@@ -386,7 +421,13 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D)):
         B, Sq = 8, {"decode": 1, "verify": 4, "chunk": 256}[name]
         pos = torch.from_numpy(
             np.random.default_rng(S).integers(0, S - Sq + 1, B).astype(np.int32)).cuda()
-        band = torch.stack([pos, 0 * pos, 0 * pos, 0 * pos + per_row_hi], dim=1)
+        off = 0 * pos
+        if ranks > 1:
+            pos[0] = 0
+            off = torch.arange(ranks, dtype=torch.int32, device="cuda").repeat(B)
+            pos = pos.repeat_interleave(ranks)
+            B, Skv, skv = B * ranks, S // ranks, ranks
+        band = torch.stack([pos, off, 0 * pos, 0 * pos + per_row_hi], dim=1)
     q = randn(gen, B, Sq, nh, hd, dtype=dtype)
     k = randn(gen, B, Skv, nkv, hd, dtype=dtype)
     v = randn(gen, B, Skv, nkv, hd, dtype=dtype)
@@ -432,7 +473,7 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D)):
     tol = TOLS[("flash_attention_fwd", dtype)]
     device_ms, _ = device_time(_profiled(run, 5), per=5)
     rec = dict(
-        kernel="flash_attention_fwd", case=name, S=S, B=B, Sq=Sq, heads=list(heads),
+        kernel="flash_attention_fwd", case=name, S=S, B=B, Sq=Sq, heads=list(heads), ranks=ranks,
         dtype=DTYPE_NAMES[dtype], body=body[0] if len(body) == 1 else body,
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact,
@@ -445,6 +486,7 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D)):
     check(body == [want_body], f"flash_attention_fwd ran {body}, not the {want_body} body: {rec}")
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"flash_attention_fwd disagrees with its plain version: {rec}")
+    check(ranks == 1 or not bool(live.all()), f"the folded ranks left no row blind: {rec}")
     return rec
 
 
@@ -619,6 +661,118 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
     check(launched == 1, f"the quantized decode did not go through its kernel: {rec}")
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
           f"quantized paged_flash_decode disagrees with its plain version: {rec}")
+    return rec
+
+
+# the serving ring: sp_size 4, the JAX CLI's --fake-devices 8 mesh axis
+RING_N = 4
+# one bf16 ulp, relative: at most 2**-7 of the value
+RING_ULP = 2.0**-7
+
+
+def ring_paged_case(kv_dtype, gen, flush):
+    """#4 (an fp pool) or 4q (an int8 pool), bf16 queries, as decode over a
+    ring of 4 launches it: 8 slots of max_seq 2048 (512 slots a rank), page
+    16, the ranks folded into ONE launch -- the pool [P, 4*16] viewed as
+    [P*4, 16], the block table bt*4 + i, row b*4 + i at depth pos_b - i --
+    with ``paged_case``'s depths (rows whose later ranks see no key, an
+    all-empty row).  Then the ranks' lse combine (the split combine kernel
+    over [B, 4] partials) against combine_split_partials."""
+    from repro_torch.core import decode_attention as da
+
+    n, B, ps, max_seq = RING_N, 8, 16, 2048
+    max_pages = max_seq // n // ps
+    num_pages = B * max_pages
+    depths = [1, 17, 250, 777, 1000, 1500, 2047, 0]
+    rng = np.random.default_rng(8)
+    perm = rng.permutation(num_pages)
+    bt = np.full((B, max_pages), -1, np.int32)
+    nxt = 0
+    for b, depth in enumerate(depths):
+        n_pages = -(-(-(-depth // n)) // ps)  # rank 0 holds ceil(depth / n) positions
+        bt[b, :n_pages] = perm[nxt : nxt + n_pages]
+        nxt += n_pages
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device="cuda")
+    if kv_dtype == "fp":
+        k_pool = randn(gen, num_pages, n * ps, HKV, D, dtype=torch.bfloat16)
+        v_pool = randn(gen, num_pages, n * ps, HKV, D, dtype=torch.bfloat16)
+        ks = vs = None
+    else:
+        k_pool, ks = kv_quant.quantize(randn(gen, num_pages, n * ps, HKV, D, dtype=torch.float32),
+                                       kv_dtype)
+        v_pool, vs = kv_quant.quantize(randn(gen, num_pages, n * ps, HKV, D, dtype=torch.float32),
+                                       kv_dtype)
+    fk, fv, fbt, fks, fvs = da._folded_pool(k_pool, v_pool, torch.from_numpy(bt).cuda(), ks, vs, n)
+    kv_off, stride = da._rank_offsets(n, max_pages * ps, "striped", "cuda")
+    q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
+    q_f = da._fold_rows(q, n)
+    pos_r = (da._fold_rows(pos.long(), n) - kv_off.repeat(B)).to(torch.int32)
+    kw = dict(stride_kv=stride, k_scale=fks, v_scale=fvs)
+    run = lambda: pk.paged_flash_decode(q_f, fk, fv, fbt, pos_r, 0, **kw)  # noqa: E731
+    plain = lambda: pk.paged_decode_ref(q_f, fk, fv, fbt, pos_r, 0, **kw)  # noqa: E731
+    before = pk.paged_flash_decode.launches + pk.paged_flash_decode.quant_launches
+    o, lse = run()
+    o_ref, lse_ref = plain()
+    torch.cuda.synchronize()
+    launched = pk.paged_flash_decode.launches + pk.paged_flash_decode.quant_launches - before
+    blind = pos_r < 0
+    live = ~blind[:, None, None] & (lse_ref > ref.NEG_INF / 2)
+    diff = (o.float() - o_ref.float()).abs()
+    err = float(diff.max())
+    err_lse = float((lse - lse_ref)[live].abs().max())
+    blind_exact = bool(torch.all(o[blind] == 0)) and bool(torch.all(lse[blind] == ref.NEG_INF))
+    # the function's work: each rank row's visible pages once (fp: K and V
+    # in bf16; quantized: 1-byte codes and fp32 scales), the folded q read
+    # and o written, lse, the folded block table and depths
+    slots = [max(-(-(d - i) // n), 0) for d in depths for i in range(n)]
+    pages = sum(-(-x // ps) for x in slots)
+    per_slot = HKV * (D * k_pool.element_size() + (4 if ks is not None else 0))
+    nbytes = 2 * pages * ps * per_slot + 2 * q_f.numel() * 2 + lse.numel() * 4 \
+        + fbt.numel() * 4 + pos_r.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * D * H * sum(depths), torch.bfloat16)
+    # the ranks' combine over these partials: [B, n, H, D] fp32 -> [B, H, D]
+    o_parts = o.float().view(B, n, H, D)
+    lse_parts = lse.view(B, n, H).contiguous()
+    comb = lambda: pk.split_combine(o_parts, lse_parts, torch.bfloat16)  # noqa: E731
+    comb_plain = lambda: pk.combine_split_partials(o_parts, lse_parts)  # noqa: E731
+    c_before = pk.split_combine.launches
+    (oc, lc), (oc_ref, lc_ref) = comb(), comb_plain()
+    torch.cuda.synchronize()
+    c_launched = pk.split_combine.launches - c_before
+    atol, rtol = COMBINE_TOLS[torch.bfloat16]
+    c_diff = (oc.float() - oc_ref).abs()
+    c_ratio = float((c_diff / (atol + rtol * oc_ref.abs())).max())
+    c_exact = bool(torch.all(oc[7] == 0)) and bool(torch.all(lc[7] == ref.NEG_INF))
+    c_bytes = 4 * (o_parts.numel() + lse_parts.numel() + lc.numel()) + oc.numel() * 2
+    c_bound_ms, c_bound_by = bound(c_bytes, 0, torch.bfloat16)
+    c_dev, _ = device_time(_profiled(comb, 5), per=5)
+    # #4's limit plus one bf16 ulp of the value: a rank row over a few keys
+    # has |o| near 1 (not the average of hundreds of keys), where the two
+    # sides' bf16 roundings of nearly equal fp32 sums can differ by an ulp
+    tol = TOLS[("paged_flash_decode", torch.bfloat16)]
+    ratio = float((diff / (tol + RING_ULP * o_ref.float().abs())).max())
+    rec = dict(
+        kernel="paged_flash_decode" + ("" if kv_dtype == "fp" else "_quant"), case="ring",
+        ranks=n, kv_dtype=kv_dtype, B=B, rows=B * n, page_size=ps, depths=depths,
+        dtype="bf16", splits=pk.default_num_splits(B * n, HKV, max_pages),
+        launched=launched, max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_rtol=RING_ULP,
+        max_err_over_tol=ratio, tol_lse=LSE_TOL,
+        blind_rows=int(blind.sum()), blind_rows_exact=blind_exact,
+        ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
+        plain_ms=time_ms(plain, flush=flush), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, visible_pages=pages,
+        combine=dict(kernel="paged_decode_combine", case="ring", max_abs_err=float(c_diff.max()),
+                     max_err_over_tol=c_ratio, empty_row_exact=c_exact, launched=c_launched,
+                     ms=time_ms(comb), dev_ms=c_dev.get("paged_flash_decode", 0.0),
+                     plain_ms=time_ms(comb_plain), library_ms=None, bound_ms=c_bound_ms,
+                     bound_by=c_bound_by),
+    )
+    check(launched == 1 and c_launched == 1, f"the ring decode did not launch its kernels: {rec}")
+    check(int(blind.sum()) > 0 and blind_exact,
+          f"a rank that sees no key must give exactly o = 0, lse = NEG_INF: {rec}")
+    check(ratio <= 1.0 and err_lse <= LSE_TOL,
+          f"the folded paged decode disagrees with its plain version: {rec}")
+    check(c_ratio <= 1.0 and c_exact, f"the ranks' combine disagrees with its plain version: {rec}")
     return rec
 
 
@@ -890,6 +1044,11 @@ def cross_device():
           "lengths": lengths, "new_tokens": 8, **out})
 
 
+# the serve trace: prompt lengths and arrival ticks, 32 greedy tokens each
+SERVE_LENGTHS = [96, 200, 333, 512, 640, 777, 1000, 1500]
+SERVE_ARRIVALS = [0, 0, 1, 2, 3, 5, 8, 13]
+
+
 def full_serve(card):
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
@@ -904,8 +1063,7 @@ def full_serve(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     skip = eng.tick_stats()["ticks"]
-    lengths = [96, 200, 333, 512, 640, 777, 1000, 1500]
-    arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
+    lengths, arrivals = SERVE_LENGTHS, SERVE_ARRIVALS
     fa.flash_attention_fwd.launches = 0
     pk.paged_flash_decode.launches = 0
     bodies0 = fwd_body_counts()
@@ -951,7 +1109,8 @@ def full_serve(card):
     # bf16 one-shot prefill: every flash launch on the tile body
     check(bodies == {"tile": launches["flash_attention_fwd"], "decode": 0, "fp32": 0},
           f"serve: bf16 prefill launches must all run the tile body: {bodies}")
-    return {**launches, "flash_attention_fwd (tile)": bodies["tile"]}
+    return {**launches, "flash_attention_fwd (tile)": bodies["tile"]}, rec, \
+        [r.generated for r in res]
 
 
 def _code_steps(a, b):
@@ -969,13 +1128,8 @@ def _first_flip(a, b):
     return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
 
 
-def cross_device_quant():
-    """Full width, 2 layers, fp32, int8 and fp8 pools with continuous
-    prefill and speculative verify: card (kernels) vs CPU (plain versions)."""
-    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
-    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-    params_cpu = _tree_to(params, "cpu")
-    V = cfg.vocab_size
+def _slice_quant_trace(V):
+    """slice_quant's (and slice_ring's) prompts and arrival ticks."""
     rng = np.random.default_rng(7)
     prefix = rng.integers(0, V, (64,), dtype=np.int32)
     prompts = [
@@ -984,13 +1138,27 @@ def cross_device_quant():
         np.concatenate([prefix, rng.integers(0, V, (40,), dtype=np.int32)]),  # shared prefix
         np.concatenate([prefix, rng.integers(0, V, (56,), dtype=np.int32)]),
     ]
-    arrivals = [0, 0, 1, 2]
-    out, card_first, problems = {}, {}, []
+    return prompts, [0, 0, 1, 2]
+
+
+def _slice_serve(kv_dtype, paged=True):
+    return ServeConfig(max_seq=256, num_slots=4, paged=paged, page_size=16 if paged else None,
+                       cache_dtype=torch.float32, prefill_chunk=64, tick_token_budget=128,
+                       spec_k=4, kv_dtype=kv_dtype)
+
+
+def cross_device_quant():
+    """Full width, 2 layers, fp32, int8 and fp8 pools with continuous
+    prefill and speculative verify: card (kernels) vs CPU (plain versions).
+    Returns the CPU runs per pool, which slice_ring holds the ring to."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params_cpu = _tree_to(params, "cpu")
+    prompts, arrivals = _slice_quant_trace(cfg.vocab_size)
+    out, card_first, problems, cpu_runs = {}, {}, [], {}
     for kv_dtype in ("fp",) + QUANT_DTYPES:
         tol = SLICE_LOGIT_TOL[kv_dtype]
-        serve = ServeConfig(max_seq=256, num_slots=4, paged=True, page_size=16,
-                            cache_dtype=torch.float32, prefill_chunk=64, tick_token_budget=128,
-                            spec_k=4, kv_dtype=kv_dtype)
+        serve = _slice_serve(kv_dtype)
         side, pools = {}, {}
         for dev, p in (("cuda", params), ("cpu", params_cpu)):
             fa.flash_attention_fwd.launches = 0
@@ -1018,6 +1186,7 @@ def cross_device_quant():
                           "dequant_fallbacks": kv["dequant_fallbacks"]},
             )
         card, cpu = side["cuda"], side["cpu"]
+        cpu_runs[kv_dtype] = cpu
         err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu["logits"]))
         card_first[kv_dtype] = [x[0] for x in card["logits"]]
         # printed, not gated: how far the card's and CPU's final pools are
@@ -1079,6 +1248,7 @@ def cross_device_quant():
           "page_size": 16, "prefill_chunk": 64, "tick_token_budget": 128, "spec_k": 4,
           **out})
     check(not problems, "; ".join(problems))
+    return cpu_runs
 
 
 def full_serve_quant(card):
@@ -1086,8 +1256,7 @@ def full_serve_quant(card):
     speculative verify, from an fp, an int8 and an fp8 pool."""
     cfg = get_config("granite-8b")
     params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    lengths = [96, 200, 333, 512, 640, 777, 1000, 1500]
-    arrivals = [0, 0, 1, 2, 3, 5, 8, 13]
+    lengths, arrivals = SERVE_LENGTHS, SERVE_ARRIVALS
     runs, streams, launches_out, problems = {}, {}, {}, []
     for kv_dtype in ("fp",) + QUANT_DTYPES:
         eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=ServeConfig(
@@ -1170,6 +1339,269 @@ def full_serve_quant(card):
           "arrival_ticks": arrivals, "new_tokens": 32, "runs": runs, "card": card})
     check(not problems, "; ".join(problems))
     return launches_out["int8"]
+
+
+# slice_ring and serve_ring: the engine at sp_size 4 (a virtual ring on the
+# card) against sp_size 1.  serve_ring's bf16 streams may differ from the
+# serve phase's only where the ring's run scores the two candidates within
+# RING_NEAR_TIE of each other (the ranks' partials are rounded to bf16 and
+# summed in another order than one rank's flash decode)
+RING_NEAR_TIE = 0.25
+# the ring's peak device memory may exceed the serve phase's by this much (a
+# per-tick copy of the pool would take ~2.4 GB)
+RING_PEAK_SLACK_GB = 1.0
+
+
+def _ring_counts():
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "paged_flash_decode": pk.paged_flash_decode.launches,
+            "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches,
+            "paged_decode_combine": pk.split_combine.launches,
+            **{f"fwd_{b}": n for b, n in fwd_body_counts().items()}}
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _ring_launch_problems(tag, L, launches, decode, chunk, verify, decode_kernel, prefill=0):
+    """The folded launches of a ring run of ``decode`` / ``chunk`` /
+    ``verify`` engine launches: per layer, one decode launch (#4, 4q, or #1
+    for the dense cache) per decode tick, one #1 launch per chunk and verify
+    launch (``prefill``: #1 launches of one-shot prefill besides), one
+    combine per decode, chunk and verify launch."""
+    steps = decode + chunk + verify
+    want = {"paged_decode_combine": L * steps,
+            "flash_attention_fwd": L * (chunk + verify) + prefill}
+    if decode_kernel == "flash_attention_fwd":
+        want["flash_attention_fwd"] += L * decode
+    else:
+        want[decode_kernel] = L * decode
+    got = {k: launches[k] for k in want}
+    return [] if got == want and decode > 0 else [
+        f"{tag}: launches {got}, want {want} (decode {decode}, chunk {chunk}, verify {verify})"]
+
+
+def _run_ring_slice(cfg, params, kv_dtype, paged, prompts, arrivals):
+    """One slice_ring run on the card at sp_size 4."""
+    ctx = ParallelCtx(sp_size=RING_N, device="cuda")
+    eng = ServeEngine(cfg, params, ctx, serve=_slice_serve(kv_dtype, paged))
+    eng.capture_logits = True
+    before = _ring_counts()
+    rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(prompts, arrivals)]
+    done = eng.run()
+    kv = eng.kv_cache_stats()
+    return eng, dict(
+        streams=[done[r].generated for r in rids], logits=[eng.debug_logits[r] for r in rids],
+        launches=_delta(before, _ring_counts()),
+        counters={"chunk_launches": eng.chunk_launches, "verify_launches": eng.verify_launches,
+                  "decode_launches": eng.decode_launches, "spec_accepted": eng.spec_accepted,
+                  "pages_in_use": kv.get("pages_in_use", 0),
+                  "scale_entries_in_use": kv.get("scale_entries_in_use", 0),
+                  "dequant_fallbacks": kv.get("dequant_fallbacks", 0),
+                  "combine_hops": ctx.ring.stats.hops.get("combine", 0)},
+    )
+
+
+def slice_ring(cpu_runs):
+    """granite-8b at full width, 2 layers, fp32, slice_quant's weights and
+    trace (continuous prefill, chunk 64, budget 128, spec_k 4): the engine at
+    sp_size 4 on the card against sp_size 1 on the CPU, over the dense cache
+    and the fp / int8 / fp8 paged pools (the CPU's paged runs are
+    slice_quant's)."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    prompts, arrivals = _slice_quant_trace(cfg.vocab_size)
+    out, problems, total = {}, [], {}
+    for cache in ("dense", "fp") + QUANT_DTYPES:
+        kv_dtype, paged = ("fp", False) if cache == "dense" else (cache, True)
+        tol = SLICE_LOGIT_TOL[kv_dtype]
+        cpu = cpu_runs.get(cache) if paged else None
+        if cpu is None:
+            params_cpu = _tree_to(params, "cpu")
+            eng = ServeEngine(cfg, params_cpu, ParallelCtx(device="cpu"),
+                              serve=_slice_serve(kv_dtype, paged))
+            eng.capture_logits = True
+            rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(prompts, arrivals)]
+            done = eng.run()
+            cpu = dict(streams=[done[r].generated for r in rids],
+                       logits=[eng.debug_logits[r] for r in rids])
+            del eng, params_cpu
+        eng, card = _run_ring_slice(cfg, params, kv_dtype, paged, prompts, arrivals)
+        for k, v in card["launches"].items():
+            total[k] = total.get(k, 0) + v
+        decode_kernel = ("flash_attention_fwd" if not paged else
+                         "paged_flash_decode" if kv_dtype == "fp" else "paged_flash_decode_quant")
+        c = card["counters"]
+        problems += _ring_launch_problems(f"slice_ring {cache}", cfg.num_layers,
+                                          card["launches"], c["decode_launches"],
+                                          c["chunk_launches"], c["verify_launches"],
+                                          decode_kernel)
+        del eng
+        err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu["logits"]))
+        flips = []
+        for i, (a, b) in enumerate(zip(card["streams"], cpu["streams"])):
+            if a != b:
+                j = _first_flip(a, b)
+                la, lb = card["logits"][i][j], cpu["logits"][i][j]
+                flips.append(dict(request=i, token=j, ring=a[j], one_rank=b[j],
+                                  ring_gap=float(la[a[j]] - la[b[j]]),
+                                  one_rank_gap=float(lb[b[j]] - lb[a[j]])))
+        out[cache] = dict(streams_identical=card["streams"] == cpu["streams"],
+                          near_tie_flips=flips, first_logits_max_abs_err=err, logit_tol=tol,
+                          cuda_launches=card["launches"], cuda=c)
+        if flips and kv_dtype == "fp":
+            problems.append(f"slice_ring {cache}: streams differ: {flips}")
+        for f in flips:
+            if max(f["ring_gap"], f["one_rank_gap"]) > 2 * tol:
+                problems.append(f"slice_ring {cache}: streams differ beyond a near-tie: {f}")
+        if err > tol:
+            problems.append(f"slice_ring {cache}: first-token logits differ by {err} > {tol}")
+        if not c["pages_in_use"] == c["scale_entries_in_use"] == c["dequant_fallbacks"] == 0:
+            problems.append(f"slice_ring {cache}: pages or scales left, or a fallback: {c}")
+        if card["launches"]["fwd_fp32"] != card["launches"]["flash_attention_fwd"]:
+            problems.append(f"slice_ring {cache}: an fp32 flash launch off the fp32 body")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_ring", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
+          "sp_size": RING_N, "lengths": [len(x) for x in prompts], "arrivals": arrivals,
+          "new_tokens": 8, "page_size": 16, "prefill_chunk": 64, "tick_token_budget": 128,
+          "spec_k": 4, **out})
+    check(not problems, "; ".join(problems))
+    return total
+
+
+def _ring_kernel_class(name: str) -> str:
+    if "paged_decode_combine" in name:  # #4's split merge and the ranks' combine
+        return "combine"
+    return _mesh_kernel_class(name)
+
+
+def _mesh_prefill_launches(bucket: int) -> int:
+    """#1 launches of one layer of one-shot prefill over the ring: the
+    engine prefills every admission group (one prompt too) as a packed row
+    under a segment mask, as JAX's does, and the Mesh-Attention forward
+    launches a segment-masked block once per rank (a launch takes one
+    segment-id array), so: the blocks of the mesh schedule (a = 2 at n = 4)
+    x the ranks."""
+    cfg = MeshAttentionConfig(transport=None, n=RING_N, a=2, mask=MaskSpec.segment())
+    return len(cfg.schedules(bucket)[0].blocks()) * RING_N
+
+
+def serve_ring(card, serve_rec, serve_streams):
+    """This slice's main path: the serve phase's model (granite-8b at full
+    width and depth, bf16) and trace at ParallelCtx(sp_size=4), a virtual
+    ring of 4 ranks on the card: one-shot prefill (the Mesh-Attention
+    forward), then continuous prefill (chunk 256, budget 512) with spec_k
+    4, both over the fp pool."""
+    cfg = get_config("granite-8b")
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    L = cfg.num_layers
+    runs, problems, total = {}, [], {}
+    for name, extra in (("one_shot", {}),
+                        ("chunk_spec", dict(prefill_chunk=256, tick_token_budget=512, spec_k=4))):
+        ctx = ParallelCtx(sp_size=RING_N, device="cuda")
+        eng = ServeEngine(cfg, params, ctx, serve=ServeConfig(
+            max_seq=2048, num_slots=8, paged=True, page_size=16, cache_dtype=torch.bfloat16,
+            **extra))
+        # warm-up (cuBLAS handles, allocator), outside the measured run
+        eng.generate(np.arange(32, dtype=np.int32)[None], max_new_tokens=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        skip = eng.tick_stats()["ticks"]
+        counts0 = (eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+                   eng.prefill_launches)
+        eng.capture_logits = True
+        ctx.ring.stats.reset()
+        before = _ring_counts()
+        t0 = time.perf_counter()
+        res = serve_trace(eng, SERVE_LENGTHS, [a + skip for a in SERVE_ARRIVALS], 32,
+                          cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _delta(before, _ring_counts())
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        decode_l, chunk_l, verify_l, prefill_l = (
+            a - b for a, b in zip((eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+                                   eng.prefill_launches), counts0))
+        stats = eng.tick_stats()
+        kv = eng.kv_cache_stats()
+        pf_tok, pf_s = sum(stats["prefill_tokens"][skip:]), sum(stats["prefill_s"][skip:])
+        dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+        dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+        dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+        streams = [r.generated for r in res]
+        flips = []
+        for i, (a, b) in enumerate(zip(streams, serve_streams)):
+            if a != b:
+                j = _first_flip(a, b)
+                row = eng.debug_logits[res[i].rid][j]
+                top2 = np.sort(row)[-2:]
+                flips.append(dict(request=i, token=j, ring=a[j], one_rank=b[j],
+                                  top2_gap=float(top2[1] - top2[0]),
+                                  ring_gap_to_one_rank=float(row[a[j]] - row[b[j]])))
+        combine_bytes = ctx.ring.stats.bytes.get("combine", 0)
+        steps = decode_l + chunk_l + verify_l
+        bhd = 8 * cfg.num_heads * cfg.hd  # O(B.H.D): one rank's o per layer and decode tick
+        rec = {
+            "statuses": [r.status for r in res], "ticks": stats["ticks"] - skip, "wall_s": wall,
+            "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+            "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+            "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+            "ttft_ticks": [r.ttft_ticks for r in res],
+            "prefill_launches": prefill_l, "chunk_launches": chunk_l,
+            "verify_launches": verify_l, "decode_launches": decode_l,
+            "pages_in_use": kv["pages_in_use"], "peak_pages": kv["peak_in_use"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "serve_peak_mem_gb": serve_rec["peak_mem_gb"],
+            "launches": launches, "streams_equal_serve": streams == serve_streams,
+            "flips_vs_serve": flips,
+            "combine_bytes_per_step": combine_bytes / steps if steps else None,
+            "combine_bytes_model_per_step": L * bhd * (2 + 4 / cfg.hd),
+            "hops": dict(ctx.ring.stats.hops),
+        }
+        if name == "one_shot":
+            rec["decode_profile"] = profile_decode(eng, cfg, classify=_ring_kernel_class)
+        runs[name] = rec
+        # gates
+        if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+            problems.append(f"serve_ring {name}: not every request finished ok: {rec['statuses']}")
+        if kv["pages_in_use"]:
+            problems.append(f"serve_ring {name}: {kv['pages_in_use']} pages left after the drain")
+        blocks = (sum(_mesh_prefill_launches(eng.scheduler.bucket_for(n))
+                      for n in SERVE_LENGTHS) if name == "one_shot" else 0)
+        problems += _ring_launch_problems(f"serve_ring {name}", L, launches, decode_l, chunk_l,
+                                          verify_l, "paged_flash_decode", prefill=L * blocks)
+        if launches["paged_flash_decode_quant"] or launches["fwd_fp32"]:
+            problems.append(f"serve_ring {name}: a quantized decode or an fp32 flash launch")
+        if name == "one_shot":
+            want = {"fwd_tile": L * blocks, "fwd_decode": 0, "prefill_launches": len(res)}
+            got = {"fwd_tile": launches["fwd_tile"], "fwd_decode": launches["fwd_decode"],
+                   "prefill_launches": prefill_l}
+        else:
+            want = {"fwd_tile": L * chunk_l, "fwd_decode": L * verify_l, "prefill_launches": 0}
+            got = {"fwd_tile": launches["fwd_tile"], "fwd_decode": launches["fwd_decode"],
+                   "prefill_launches": prefill_l}
+        if got != want:
+            problems.append(f"serve_ring {name}: flash launches by body {got}, want {want}")
+        if rec["peak_mem_gb"] > serve_rec["peak_mem_gb"] + RING_PEAK_SLACK_GB:
+            problems.append(f"serve_ring {name}: peak {rec['peak_mem_gb']:.2f} GB > the serve "
+                            f"phase's {serve_rec['peak_mem_gb']:.2f} + {RING_PEAK_SLACK_GB}")
+        for f in flips:
+            if f["ring_gap_to_one_rank"] > RING_NEAR_TIE:
+                problems.append(f"serve_ring {name}: a flip beyond a near-tie: {f}")
+        del eng, ctx
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_ring", "arch": "granite-8b", "num_layers": L, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "dtype": "bf16", "sp_size": RING_N, "paged": True, "page_size": 16, "max_seq": 2048,
+          "num_slots": 8, "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS,
+          "new_tokens": 32, "near_tie": RING_NEAR_TIE, "runs": runs, "card": card})
+    check(not problems, "; ".join(problems))
+    return total
 
 
 def _ssm_state_bytes(eng):
@@ -1329,11 +1761,12 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_decode(eng, cfg, ticks=4):
-    """Where a decode tick's time goes: device time per kernel class over a
-    few ticks of 8 slots at depth ~128 (torch.profiler), against the host
-    wall clock of those ticks.  Runs after the measured trace (its launches
-    are not counted) and drains the engine again."""
+def profile_decode(eng, cfg, ticks=4, classify=None):
+    """Where a decode tick's time goes: device time per kernel class
+    (``classify``, default ``_kernel_class``) over a few ticks of 8 slots at
+    depth ~128 (torch.profiler), against the host wall clock of those
+    ticks.  Runs after the measured trace (its launches are not counted) and
+    drains the engine again."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
@@ -1350,7 +1783,7 @@ def profile_decode(eng, cfg, ticks=4):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
-    device_ms, by_kernel = device_time(prof, per=ticks)
+    device_ms, by_kernel = device_time(prof, per=ticks, classify=classify)
     busy = sum(device_ms.values())
     per_tick_wall = wall_ms / ticks
     return {
@@ -2078,6 +2511,9 @@ def main():
         for S in (1024, 1536):
             flash.append(flash_case("window", S, dtype, gen, heads=HYMBA_HEADS))
         flash.append(flash_case("decode", 2048, dtype, gen, heads=HYMBA_HEADS))
+    # the ring's chunk and verify launches: 4 ranks x 8 slots folded, stride 4
+    ring_flash = [flash_case(name, 2048, torch.bfloat16, gen, ranks=RING_N)
+                  for name in ("chunk", "verify")]
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     flush = lambda: scratch.add_(1)  # noqa: E731
     for dtype in (torch.float32, torch.bfloat16):
@@ -2088,6 +2524,9 @@ def main():
         for dtype in (torch.float32, torch.bfloat16):
             for window in (None, 512):
                 quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
+    # sequence-sharded decode over a ring of 4: the ranks folded into one
+    # launch, beside the n = 1 rows above
+    ring_paged = [ring_paged_case(kv_dtype, gen, flush) for kv_dtype in ("fp", "int8")]
     del scratch
     combine = [split_combine_case(dtype, gen) for dtype in (torch.float32, torch.bfloat16)]
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -2115,18 +2554,30 @@ def main():
             mesh_blocks.append(mesh_block_case(kind, dtype, gen))
             mesh_blocks.append(mesh_block_bwd_case(kind, dtype, gen))
     emit({"phase": "kernels", "card": card,
-          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split] + mesh_blocks})
+          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split] + mesh_blocks
+          + ring_flash + ring_paged})
 
     cross_device()
-    launches = full_serve(card)
-    cross_device_quant()
+    launches, serve_rec, serve_streams = full_serve(card)
+    cpu_runs = cross_device_quant()
     launches["paged_flash_decode_quant"] = full_serve_quant(card)["paged_flash_decode_quant"]
+    # serving over a ring of 4 ranks on the card
+    ring_slice = slice_ring(cpu_runs)
+    ring = serve_ring(card, serve_rec, serve_streams)
     cross_device_ssm()
     launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
+    # serve_ring's launches join the serving rows
+    for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
+                      ("flash_attention_fwd (decode)", "fwd_decode"),
+                      ("paged_flash_decode", "paged_flash_decode")):
+        launches[key] += ring[part]
     train_parity()
     launches.update(full_train(card))
-    # this slice's path: the dispatch seam and paper-mha-7b training over a
-    # virtual ring of 4 ranks; their main runs' launches join the counts
+    # slice_ring's fp32 chunks and verifies, and its quantized decode ticks
+    launches["flash_attention_fwd (fp32)"] += ring_slice["fwd_fp32"]
+    launches["paged_flash_decode_quant"] += ring_slice["paged_flash_decode_quant"]
+    # the Mesh-Attention path: the dispatch seam and paper-mha-7b training
+    # over a virtual ring of 4 ranks; their main runs' launches join the counts
     mesh = [mesh_op(card)]
     train_mesh_parity()
     mesh.append(train_mesh(card))
@@ -2148,6 +2599,9 @@ def main():
     main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
                       and r["kv_dtype"] == "int8")
     main_ssd = next(r for r in ssd_cases if r["case"] == "mamba2" and r["S"] == 2048)
+    # the ranks' combine on the ring's decode path: the split combine kernel
+    # over the folded fp pool's partials
+    ring_combine = next(r for r in ring_paged if r["kv_dtype"] == "fp")["combine"]
     # the training path runs the backward in fp32 at 4096 causal tokens
     main_bwd = next(r for r in bwd
                     if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
@@ -2184,6 +2638,14 @@ def main():
             "bound_by": main_bwd[f"bound_by_{part}"],
             "library_ms": main_bwd["library_ms_pair"],
         })
+    kernels.append({
+        "name": "paged_decode_combine (the ring's lse combine)", "route": "cuda",
+        "source": PAGED_SRC, "replaces": PAGED_REPLACES,
+        "launches": ring["paged_decode_combine"], "max_abs_err": ring_combine["max_abs_err"],
+        "ms": ring_combine["ms"], "plain_ms": ring_combine["plain_ms"],
+        "bound_ms": ring_combine["bound_ms"], "bound_by": ring_combine["bound_by"],
+        "library_ms": None,
+    })
     # the fp32 body's pre-pass: part of #2 and #3 on the training path
     kernels.append({
         "name": "flash_bwd_split (fp32 pre-pass of #2, #3)", "route": "cuda", "source": BWD_SRC,

@@ -1,45 +1,67 @@
-"""Flash-decode over the KV cache (single-card copy of
+"""Flash-decode over a sequence-sharded KV cache (copy of
 ``repro/core/decode_attention.py``).
 
-The JAX module shards the cache over a sequence-parallel axis and combines
-per-shard partials with an lse-weighted psum.  This slice runs on one card:
-``axis_name`` must be None and ``n`` 1, so there is one shard (index 0) and
-the combine is a cast.  The owner/stripe math is kept in the same shape so
-sequence-sharded decode (the next slice of the port) can widen it.
+The paper's locality idea applied to inference: the cache of a ring of n
+ranks is sharded over the sequence -- by *absolute position modulo n*
+("striped", the §3.7 layout) or contiguously -- and each decode step runs
 
-Two cache layouts share the band math:
+  1. the new token's q on every rank (it is tiny),
+  2. a partial flash-decode on every rank over its own slice,
+  3. JAX's lse-weighted psum of the partials (``_psum_combine``): per-token
+     traffic O(B·C·H·D) whatever the context length.
 
-  * **dense** (``sharded_cache_*``) -- each batch row owns a ``[m]`` slice.
-  * **paged** (``paged_cache_*``) -- rows share one physical page pool
-    ``[num_pages, page_size, Hkv, D]`` addressed through an int32 block table
-    ``[B, max_pages]`` (-1 = unallocated; ``serve/kv_pool.py`` allocates).
+The cache keeps JAX's global-logical layout.  Dense: ``[B, n*m, Hkv, D]``,
+rank i owns columns ``[i*m, (i+1)*m)`` and its local slot j holds position
+``i + n*j`` (striped) or ``i*m + j``.  Paged: the pool ``[num_pages,
+n*page_size, Hkv, D]`` (rank i owns columns ``[i*ps, (i+1)*ps)`` of every
+page) addressed through an int32 block table ``[B, max_pages]`` (-1 =
+unallocated; ``serve/kv_pool.py`` allocates).  Every rank of the ring runs in
+this process (the ``VirtualRing``; ``ring`` is JAX's ``axis_name``), so the
+ranks fold into ONE launch, as the mesh executor's forward folds them: the
+rank views are reshapes of the cache's own storage -- dense ``[B*n, m]``
+(row ``b*n + i`` is rank i's slice of slot b), paged ``[P*n, ps]`` (page p
+of rank i is ``p*n + i``, the block table becomes ``bt*n + i``) -- and q is
+repeated per rank.  The partials' combine is ``paged_decode.split_combine``
+(the decode kernel's own split merge) over the rank axis, behind the
+transport's ``gather_ranks`` (counted as comm kind ``combine``).  With n = 1
+there is no fold and no combine: a cast.
 
 Both decode entries take a ``kernel`` selector: ``"band"`` / ``"gather"``
-run the flash-forward kernel with one band per row (paged: after gathering
-the row's pages into a dense view), ``"native"`` runs the split-K paged
+run the flash-forward kernel with one band per (row, rank) -- ``(pos, kv_off
+= i, 0, hi)`` with ``stride_kv = n`` striped (paged: after gathering the
+rows' pages into a dense view) -- and ``"native"`` runs the split-K paged
 kernel, which reads the block table itself; the dense cache reaches it
-through an identity block table.
+through an identity block table.  The kernel takes one ``kv_offset``, so
+rank i's rows carry the shifted depth ``pos - kv_off_i`` with offset 0: the
+kernel's bounds ``floor((pos - kv_off) / stride)`` and its window start
+``max(pos - hi, 0)`` see the same slots, since every position on rank i is
+at least ``kv_off_i``.  A rank that sees no key (``pos < kv_off_i``) gets a
+negative depth and comes out exactly o = 0, lse = NEG_INF.
 
 A quantized paged pool (int8 / fp8 codes, ``core/kv_quant.py``) carries
-``k_scale``/``v_scale`` tables ``[num_pages, page_size, Hkv]`` that share the
-pool's page indexing: every update quantizes its new tokens per (token,
-head) and writes codes and scales through the same coordinates; the native
-decode kernel reads both, the gather path dequantizes.
+``k_scale``/``v_scale`` tables ``[num_pages, n*page_size, Hkv]`` that share
+the pool's page indexing (and fold the same way): every update quantizes its
+new tokens per (token, head) and writes codes and scales through the same
+coordinates; the native decode kernel reads both, the gather path
+dequantizes.
 
 Continuous prefill and speculative verify append a C-token chunk per row
 (``*_chunk_update``) and attend prefix-causally (``*_chunk_decode``): row i of
 a chunk sits at global position ``starts[b] + i``, so the band ``(starts[b],
 kv_off, 0, hi)`` with ``stride_q=1`` is exactly the decode band of each row.
-All rows go through ONE flash-forward launch with a ``[B, 4]`` band tensor
-(JAX maps one call over the rows).  Pad rows (``i >= lens[b]``) compute
-garbage but never write; softmax is per row, so they cannot reach real rows.
+All rows and ranks go through ONE flash-forward launch with a ``[B*n, 4]``
+band tensor (JAX maps one call over the rows).  Pad rows (``i >= lens[b]``)
+compute garbage but never write; softmax is per row, so they cannot reach
+real rows.
 
 Unlike JAX, the updates write the cache IN PLACE (slice / index assignment)
-and return the same tensors.  JAX drops out-of-range scatter rows
-(``mode="drop"``); here rows that must not be written are filtered out with a
-boolean mask before the write -- a clamped write could land on a live page.
-The window-prune ``lax.cond`` of the JAX module only ever skips a shard of a
-mesh, so it has no counterpart on one card.
+at the global coordinates of each position's owner rank, and return the same
+tensors.  JAX drops out-of-range scatter rows (``mode="drop"``); here rows
+that must not be written are filtered out with a boolean mask before the
+write -- a clamped write could land on a live page.  JAX's window prune (a
+``lax.cond`` that skips a rank whose whole slice a sliding window hides, and
+returns the empty result) is left out: it is bitwise-neutral, and the
+kernels' per-row bounds already make such a rank's rows empty.
 """
 
 from __future__ import annotations
@@ -68,13 +90,20 @@ __all__ = [
 ]
 
 
-def _single_shard(axis_name: Optional[str], n: int) -> int:
-    """Shard index of this device: always 0 on one card."""
-    if axis_name is not None or n != 1:
+def _check_ring(ring, n: int) -> None:
+    """The ring holds all n ranks in this process (the virtual ring); None
+    is the one-rank case."""
+    if ring is None:
+        if n != 1:
+            raise ValueError(f"a sequence-sharded cache over n={n} ranks needs the ring")
+        return
+    if ring.n != n:
+        raise ValueError(f"the ring has {ring.n} ranks but n={n}")
+    if tuple(ring.ranks) != tuple(range(n)):
         raise NotImplementedError(
-            "the sequence-sharded cache (axis_name / n > 1) comes with the next slice of the port"
+            "sequence-sharded serving runs every rank in one process (VirtualRing); one rank "
+            "per process waits for multi-process sequence parallelism (ROADMAP A.4)"
         )
-    return 0
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -82,80 +111,143 @@ def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).to(torch.int64).expand(batch)
 
 
-def _owner_slot(pos, i, n: int, m: int, layout: str):
-    """(is_owner, slot) for writing global position ``pos``; m = local slots."""
+def _owner_slot(pos, n: int, m: int, layout: str):
+    """(owner rank, local slot) of global position ``pos``; m = local slots.
+    JAX's ``_owner_slot`` asks each rank i whether it is the owner."""
     if layout == "striped":
-        return (pos % n) == i, pos // n
-    return (pos // m) == i, pos % m
+        return pos % n, pos // n
+    return pos // m, pos % m
 
 
-def _shard_geometry(i, n: int, m: int, layout: str) -> Tuple[int, int]:
-    """(kv_offset, stride) of local slot s -> global position for the band."""
+def _rank_offsets(n: int, m: int, layout: str, device) -> Tuple[torch.Tensor, int]:
+    """(kv_offset of each rank [n], stride): local slot s of rank i holds
+    global position ``kv_offset[i] + stride * s``."""
+    i = torch.arange(n, device=device)
     if layout == "striped":
         return i, n
     return i * m, 1
 
 
+def _fold_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, ...] -> [B*n, ...]: row b*n + i is rank i's copy of row b."""
+    return x if n == 1 else x.repeat_interleave(n, dim=0)
+
+
+def _rank_view(cache: torch.Tensor, n: int) -> torch.Tensor:
+    """[X, n*c, ...] -> [X*n, c, ...]: rank i's columns of row x become row
+    x*n + i.  A view of the cache's own storage (dense: the slot rows; paged:
+    the pages and their scale tables)."""
+    X, cols = cache.shape[0], cache.shape[1]
+    return cache.reshape(X * n, cols // n, *cache.shape[2:])
+
+
+def _rank_block_table(bt: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, max_pages] -> [B*n, max_pages]: rank i's pages of row b, in the
+    folded pool (page p of rank i is p*n + i); -1 stays unallocated."""
+    if n == 1:
+        return bt
+    i = torch.arange(n, dtype=bt.dtype, device=bt.device)[None, :, None]
+    folded = torch.where(bt[:, None] >= 0, bt[:, None] * n + i, torch.full_like(bt[:, None], -1))
+    return folded.reshape(bt.shape[0] * n, bt.shape[1])
+
+
 def sharded_cache_update(
-    k_cache: torch.Tensor,  # [B, m, Hkv, D] (updated in place)
+    k_cache: torch.Tensor,  # [B, n*m, Hkv, D] (updated in place)
     v_cache: torch.Tensor,
     k_new: torch.Tensor,  # [B, 1, Hkv, D]
     v_new: torch.Tensor,
     pos,  # scalar or [B]: global position(s) being written
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    i = _single_shard(axis_name, n)
-    B, m = k_cache.shape[0], k_cache.shape[1]
+    """Append at the owner rank's slot of each row's position."""
+    _check_ring(ring, n)
+    B, m = k_cache.shape[0], k_cache.shape[1] // n
     pos_v = _pos_vector(pos, B, k_cache.device)
-    is_owner, slot = _owner_slot(pos_v, i, n, m, layout)
+    owner, slot = _owner_slot(pos_v, n, m, layout)
     if torch.as_tensor(pos).dim() == 0:
         # one position for every row: JAX's dynamic_update_slice clamps a
         # slot past capacity onto the last one, and the owner writes there
-        write = is_owner
+        write = owner < n
     else:
         # per-row positions: rows past capacity (retired slots still
         # ticking) must not write, as JAX masks them off; each row only ever
         # touches its own slice, so the masked-off rows put back the value
         # they read and no other row's data can be hit
-        write = is_owner & (pos_v < n * m)
-    slot = slot.clamp(0, m - 1)
+        write = pos_v < n * m
+    col = owner.clamp(0, n - 1) * m + slot.clamp(0, m - 1)
     b = torch.arange(B, device=k_cache.device)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cur = cache[b, slot]  # [B, Hkv, D]
-        cache[b, slot] = torch.where(write[:, None, None], new[:, 0].to(cache.dtype), cur)
+        cur = cache[b, col]  # [B, Hkv, D]
+        cache[b, col] = torch.where(write[:, None, None], new[:, 0].to(cache.dtype), cur)
     return k_cache, v_cache
 
 
-def _psum_combine(o, lse, axis_name: Optional[str], q_dtype):
-    """Combine of per-shard partials; one shard on one card, so a cast."""
-    if axis_name is not None:
-        raise NotImplementedError("the cross-shard lse combine comes with the next slice of the port")
-    return o.to(q_dtype)
+def _psum_combine(o, lse, ring, n: int, q_dtype):
+    """JAX's lse-weighted psum of the ranks' partials (softmax over disjoint
+    keys): o [B*n, C, H, D], lse [B*n, H, C] -> [B, C, H, D].  Each rank's
+    partial is rounded to q's dtype first, as it leaves JAX's kernel; the
+    ranks' partials meet through the transport, and ``split_combine`` (the
+    decode kernel's split merge: m = max lse, w = exp(lse - m), sum(w o) /
+    sum(w), an empty rank weighs 0) merges them in one launch."""
+    if n == 1:
+        return o.to(q_dtype)
+    B, (C, H, D) = o.shape[0] // n, o.shape[1:]
+    o_r, lse_r = ring.gather_ranks(
+        [o.to(q_dtype).view(B, n, C, H, D).movedim(1, 0), lse.view(B, n, H, C).movedim(1, 0)],
+        kind="combine",
+    )
+    o_parts = torch.empty((B, C, n, H, D), dtype=torch.float32, device=o.device)
+    o_parts.copy_(o_r.permute(1, 2, 0, 3, 4))  # one copy: [B, C, rank, H, D] in fp32
+    lse_parts = lse_r.permute(1, 3, 0, 2).contiguous()
+    out, _ = pk.split_combine(o_parts.view(B * C, n, H, D), lse_parts.view(B * C, n, H), q_dtype)
+    return out.view(B, C, H, D)
 
 
-def _banded_partial(q, k_loc, v_loc, pos, kv_off: int, stride_kv: int, hi: int, scale):
-    """Per-shard partial through the flash kernel: band (pos, kv_off, 0, hi)
-    with stride_q=1, one band per row for a vector ``pos`` (one launch covers
-    every row; JAX maps the call over rows).  A [B, C] chunk's row i sits at
-    ``pos[b] + i``, so the same band serves decode (C=1) and chunks.  A
-    dequantized (fp32) view meets q upcast to fp32: the kernel takes one
-    input type; the caller casts o back to q's dtype."""
-    pos_t = torch.as_tensor(pos, device=q.device).to(torch.int32)
-    band = torch.stack([pos_t, torch.full_like(pos_t, kv_off), torch.zeros_like(pos_t),
-                        torch.full_like(pos_t, hi)], dim=-1)
+def _banded_partial(q, k_loc, v_loc, pos, kv_off: torch.Tensor, stride_kv: int, hi: int, scale):
+    """The ranks' partials through ONE flash-kernel launch: q [B, C, H, D]
+    repeated per rank against the folded slices k_loc [B*n, m, Hkv, D], one
+    band per (row, rank) ``(pos[b], kv_off[i], 0, hi)`` with stride_q=1 (a
+    chunk's row c sits at ``pos[b] + c``, so the same band serves decode
+    and chunks).  A dequantized (fp32) view meets q upcast to fp32: the
+    kernel takes one input type; the combine rounds o back to q's dtype."""
+    n = kv_off.shape[0]
+    B = q.shape[0]
+    pos_r = _fold_rows(_pos_vector(pos, B, q.device), n)
+    band = torch.stack([pos_r, kv_off.repeat(B), torch.zeros_like(pos_r),
+                        torch.full_like(pos_r, hi)], dim=-1).to(torch.int32)
     if k_loc.dtype != q.dtype:
         q = q.float()
-    return ops.block_attention(q, k_loc, v_loc, band, scale=scale, stride_q=1, stride_kv=stride_kv)
+    return ops.block_attention(_fold_rows(q, n), k_loc, v_loc, band, scale=scale, stride_q=1,
+                               stride_kv=stride_kv)
+
+
+def _native_partial(q, k_pool, v_pool, bt, pos, kv_off: torch.Tensor, stride_kv: int, window,
+                    scale, k_scale=None, v_scale=None):
+    """The ranks' partials through ONE split-K launch over the folded pool:
+    rank i's rows carry the depth ``pos - kv_off[i]`` at offset 0 (the same
+    visible slots; negative: a rank that sees no key)."""
+    n = kv_off.shape[0]
+    if n == 1:  # one rank: offset 0 in either layout
+        return pk.paged_flash_decode(
+            q, k_pool, v_pool, bt, pos, 0, stride_kv=stride_kv, window=window,
+            scale=scale, k_scale=k_scale, v_scale=v_scale,
+        )
+    B = q.shape[0]
+    pos_r = (_fold_rows(_pos_vector(pos, B, q.device), n) - kv_off.repeat(B)).to(torch.int32)
+    return pk.paged_flash_decode(
+        _fold_rows(q, n), k_pool, v_pool, bt, pos_r, 0, stride_kv=stride_kv, window=window,
+        scale=scale, k_scale=k_scale, v_scale=v_scale,
+    )
 
 
 def sharded_cache_decode(
     q: torch.Tensor,  # [B, 1, H, D] new token's query
-    k_cache: torch.Tensor,  # [B, m, Hkv, D]
+    k_cache: torch.Tensor,  # [B, n*m, Hkv, D]
     v_cache: torch.Tensor,
     pos,  # scalar or [B]: attends to <= pos
-    axis_name: Optional[str],
+    ring,
     n: int,
     *,
     layout: str = "striped",
@@ -163,28 +255,28 @@ def sharded_cache_decode(
     scale: Optional[float] = None,
     kernel: str = "band",  # band | native (split-K over implicit page runs)
 ) -> torch.Tensor:
-    """One decode step over the dense cache.  ``kernel="native"`` views each
-    row's slice as ONE implicit page run (a reshape view + identity block
-    table) and runs the split-K paged kernel."""
-    i = _single_shard(axis_name, n)
-    B, m, hkv, d = k_cache.shape
-    kv_off, stride_kv = _shard_geometry(i, n, m, layout)
+    """One decode step over the dense cache: the ranks' partials, then the
+    combine.  ``kernel="native"`` views each rank's slice of a row as ONE
+    implicit page run (a reshape view + identity block table) and runs the
+    split-K paged kernel."""
+    _check_ring(ring, n)
+    B, cap, hkv, d = k_cache.shape
+    m = cap // n
+    kv_off, stride_kv = _rank_offsets(n, m, layout, q.device)
     if kernel == "native":
         chunk = pk.dense_chunk_for(m)
         chunks = m // chunk
-        k_pool = k_cache.reshape(B * chunks, chunk, hkv, d)
-        v_pool = v_cache.reshape(B * chunks, chunk, hkv, v_cache.shape[-1])
-        bt = torch.arange(B * chunks, dtype=torch.int32, device=q.device).reshape(B, chunks)
-        o, _ = pk.paged_flash_decode(
-            q, k_pool, v_pool, bt, pos, kv_off,
-            stride_kv=stride_kv, window=window, scale=scale,
-        )
+        k_pool = k_cache.reshape(B * n * chunks, chunk, hkv, d)
+        v_pool = v_cache.reshape(B * n * chunks, chunk, hkv, v_cache.shape[-1])
+        bt = torch.arange(B * n * chunks, dtype=torch.int32, device=q.device).reshape(B * n, chunks)
+        o, lse = _native_partial(q, k_pool, v_pool, bt, pos, kv_off, stride_kv, window, scale)
     elif kernel == "band":
         hi = (window - 1) if window else BAND_INF
-        o, _ = _banded_partial(q, k_cache, v_cache, pos, kv_off, stride_kv, hi, scale)
+        o, lse = _banded_partial(q, _rank_view(k_cache, n), _rank_view(v_cache, n), pos, kv_off,
+                                 stride_kv, hi, scale)
     else:
         raise ValueError(f"unknown decode kernel {kernel!r}; expected band | native")
-    return _psum_combine(o, None, axis_name, q.dtype)
+    return _psum_combine(o, lse, ring, n, q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -192,63 +284,65 @@ def sharded_cache_decode(
 # --------------------------------------------------------------------------
 
 
-def _page_coords(pos, i, n: int, page_size: int, max_pages: int, layout: str):
-    """Owner shard -> (write?, logical page, offset) for global position
-    ``pos``: the dense local slot j splits into (j // page_size, j % page_size)."""
+def _page_coords(pos, n: int, page_size: int, max_pages: int, layout: str):
+    """Owner rank -> (write?, logical page, pool column) for global position
+    ``pos``: the owner's local slot j splits into (j // page_size, j %
+    page_size), and its column of the page is ``owner*page_size + j %
+    page_size``."""
     m = max_pages * page_size  # virtual local capacity
-    is_owner, j = _owner_slot(pos, i, n, m, layout)
-    return is_owner & (pos < n * m), j // page_size, j % page_size
+    owner, j = _owner_slot(pos, n, m, layout)
+    return pos < n * m, j // page_size, owner.clamp(0, n - 1) * page_size + j % page_size
 
 
 def paged_write_coords(
     block_table: torch.Tensor,  # [B, max_pages] int32; -1 = unallocated
     pos,  # scalar or [B]
     page_size: int,
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where each row's decode append lands: ``(rows, pages, offsets)`` of
+    """Where each row's decode append lands: ``(rows, pages, columns)`` of
     the rows that write.  Rows past virtual capacity or pointing at
     unallocated pages are filtered out (JAX drops them with an out-of-range
     page index).  The filter reads a data-dependent count back to the host,
     so ``decode_step`` computes the coordinates once per tick and every
     layer's update reuses them."""
-    i = _single_shard(axis_name, n)
+    _check_ring(ring, n)
     max_pages = block_table.shape[1]
     B = block_table.shape[0]
     pos_v = _pos_vector(pos, B, block_table.device)
-    write, lp, off = _page_coords(pos_v, i, n, page_size, max_pages, layout)
+    write, lp, col = _page_coords(pos_v, n, page_size, max_pages, layout)
     b = torch.arange(B, device=block_table.device)
     phys = block_table[b, lp.clamp(0, max_pages - 1)].to(torch.int64)
     rows = torch.nonzero(write & (phys >= 0)).squeeze(1)
-    return rows, phys[rows], off[rows]
+    return rows, phys[rows], col[rows]
 
 
 def paged_cache_update(
-    k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D] (updated in place)
+    k_pool: torch.Tensor,  # [num_pages, n*page_size, Hkv, D] (updated in place)
     v_pool: torch.Tensor,
     k_new: torch.Tensor,  # [B, 1, Hkv, D]
     v_new: torch.Tensor,
     block_table: torch.Tensor,  # [B, max_pages] int32; -1 = unallocated
     pos,  # scalar or [B]
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
     coords: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-    k_scale: Optional[torch.Tensor] = None,  # [num_pages, page_size, Hkv] f32
+    k_scale: Optional[torch.Tensor] = None,  # [num_pages, n*page_size, Hkv] f32
     v_scale: Optional[torch.Tensor] = None,
 ):
-    """Append through the block table: owner shard -> (page, offset).
+    """Append through the block table: owner rank -> (page, column).
     ``coords`` are ``paged_write_coords`` of this ``block_table`` and
     ``pos``, computed here when not given.  With scale tables the new token
     is quantized and its scales written through the same coordinates; the
     return is then ``(k_pool, v_pool, k_scale, v_scale)``."""
     if coords is None:
-        coords = paged_write_coords(block_table, pos, k_pool.shape[1], axis_name, n, layout)
-    rows, pages, offs = coords
+        coords = paged_write_coords(block_table, pos, k_pool.shape[1] // n, ring, n, layout)
+    rows, pages, cols = coords
     for pool, scales, new in ((k_pool, k_scale, k_new), (v_pool, v_scale, v_new)):
-        kv_quant.store(pool, scales, (pages, offs), new[rows, 0])
+        kv_quant.store(pool, scales, (pages, cols), new[rows, 0])
     if k_scale is not None:
         return k_pool, v_pool, k_scale, v_scale
     return k_pool, v_pool
@@ -256,11 +350,12 @@ def paged_cache_update(
 
 def paged_cache_gather(k_pool, v_pool, block_table, k_scale=None, v_scale=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Materialize each row's dense local view from its pages: [B, m, Hkv, D]
-    with m = max_pages * page_size, in the same local-position order as the
-    dense cache slice.  Unallocated pages clamp to page 0 -- whatever is there
-    sits behind the band.  A quantized pool gathers its scales through the
-    same index and dequantizes to fp32.  The plain path, used by tests,
+    """Materialize each row's dense view from its pages: [B, m, Hkv, D] with
+    m = max_pages * page_size, in the same local-position order as the dense
+    cache slice.  Unallocated pages clamp to page 0 -- whatever is there sits
+    behind the band.  A quantized pool gathers its scales through the same
+    index and dequantizes to fp32.  Over a folded pool and block table it
+    gives every rank's view of every row.  The plain path, used by tests,
     ``kernel="gather"`` and the chunk attention."""
     num_pages = k_pool.shape[0]
     idx = block_table.clamp(0, num_pages - 1).to(torch.int64)  # [B, max_pages]
@@ -273,44 +368,49 @@ def paged_cache_gather(k_pool, v_pool, block_table, k_scale=None, v_scale=None
     return out[0], out[1]
 
 
+def _folded_pool(k_pool, v_pool, block_table, k_scale, v_scale, n: int):
+    """The ranks' view of the pool: pages [P*n, ps, ...], the block table
+    [B*n, max_pages] and the scale tables folded alike."""
+    bt = _rank_block_table(block_table.to(device=k_pool.device, dtype=torch.int32), n)
+    scales = [None if s is None else _rank_view(s, n) for s in (k_scale, v_scale)]
+    return _rank_view(k_pool, n), _rank_view(v_pool, n), bt, scales[0], scales[1]
+
+
 def paged_cache_decode(
     q: torch.Tensor,  # [B, 1, H, D]
-    k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D]
+    k_pool: torch.Tensor,  # [num_pages, n*page_size, Hkv, D]
     v_pool: torch.Tensor,
     block_table: torch.Tensor,  # [B, max_pages] int32
     pos,  # scalar or [B]
-    axis_name: Optional[str],
+    ring,
     n: int,
     *,
     layout: str = "striped",
     window: Optional[int] = None,
     scale: Optional[float] = None,
     kernel: str = "gather",  # gather | native (block table read in-kernel)
-    k_scale: Optional[torch.Tensor] = None,  # [num_pages, page_size, Hkv] f32
+    k_scale: Optional[torch.Tensor] = None,  # [num_pages, n*page_size, Hkv] f32
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Paged decode.  ``kernel="gather"`` materializes each row's dense view
-    and runs the banded partial of the dense path; ``"native"`` hands the
-    pool and the block table straight to the split-K kernel -- no gathered
-    intermediate, reads follow allocated depth.  A quantized pool hands its
-    scale tables along: the kernel folds them in, the gather dequantizes."""
-    i = _single_shard(axis_name, n)
-    page_size, max_pages = k_pool.shape[1], block_table.shape[1]
-    m = max_pages * page_size
-    kv_off, stride_kv = _shard_geometry(i, n, m, layout)
+    """Paged decode.  ``kernel="gather"`` materializes each rank's dense
+    view of each row and runs the banded partial of the dense path;
+    ``"native"`` hands the folded pool and block table straight to the
+    split-K kernel -- no gathered intermediate, reads follow allocated
+    depth.  A quantized pool hands its scale tables along: the kernel folds
+    them in, the gather dequantizes.  Then the ranks' combine."""
+    _check_ring(ring, n)
+    kp, vp, bt, ks, vs = _folded_pool(k_pool, v_pool, block_table, k_scale, v_scale, n)
+    m = bt.shape[1] * kp.shape[1]
+    kv_off, stride_kv = _rank_offsets(n, m, layout, q.device)
     if kernel == "native":
-        o, _ = pk.paged_flash_decode(
-            q, k_pool, v_pool, block_table, pos, kv_off,
-            stride_kv=stride_kv, window=window, scale=scale,
-            k_scale=k_scale, v_scale=v_scale,
-        )
+        o, lse = _native_partial(q, kp, vp, bt, pos, kv_off, stride_kv, window, scale, ks, vs)
     elif kernel == "gather":
         hi = (window - 1) if window else BAND_INF
-        k_loc, v_loc = paged_cache_gather(k_pool, v_pool, block_table, k_scale, v_scale)
-        o, _ = _banded_partial(q, k_loc, v_loc, pos, kv_off, stride_kv, hi, scale)
+        k_loc, v_loc = paged_cache_gather(kp, vp, bt, ks, vs)
+        o, lse = _banded_partial(q, k_loc, v_loc, pos, kv_off, stride_kv, hi, scale)
     else:
         raise ValueError(f"unknown decode kernel {kernel!r}; expected gather | native")
-    return _psum_combine(o, None, axis_name, q.dtype)
+    return _psum_combine(o, lse, ring, n, q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -327,22 +427,23 @@ def chunk_write_coords(
     lens,  # [B]
     write_starts,  # [B]
     C: int,
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
     *,
-    m: Optional[int] = None,  # dense cache: local slots per row
+    m: Optional[int] = None,  # dense cache: columns per row (n * local slots)
     block_table: Optional[torch.Tensor] = None,  # paged: [B, max_pages]
     page_size: Optional[int] = None,
 ) -> ChunkCoords:
     """Where a [B, C] chunk's tokens land: ``(rows, cols, dst0, dst1)`` of
     the tokens that write -- column ``c`` of row ``b`` writes cache
-    ``[dst0, dst1]`` (dense: row and slot; paged: page and offset).
-    Positions below ``write_starts``, at/after ``starts + lens``, past
-    capacity or on unallocated pages are filtered out (JAX drops them).  The
-    filter reads a count back to the host, so the model computes the
-    coordinates once per launch and every layer reuses them."""
-    i = _single_shard(axis_name, n)
+    ``[dst0, dst1]`` (dense: row and column; paged: page and column), at
+    each position's owner rank.  Positions below ``write_starts``, at/after
+    ``starts + lens``, past capacity or on unallocated pages are filtered
+    out (JAX drops them).  The filter reads a count back to the host, so the
+    model computes the coordinates once per launch and every layer reuses
+    them."""
+    _check_ring(ring, n)
     dev = block_table.device if block_table is not None else torch.as_tensor(starts).device
     c = torch.arange(C, device=dev)
     pos = torch.as_tensor(starts, device=dev).to(torch.int64)[:, None] + c[None, :]
@@ -350,27 +451,28 @@ def chunk_write_coords(
     wst = torch.as_tensor(write_starts, device=dev).to(torch.int64)
     live = (c[None] < lens[:, None]) & (pos >= wst[:, None])
     if block_table is None:
-        is_owner, slot = _owner_slot(pos, i, n, m, layout)
-        write = live & is_owner & (pos < n * m)
+        m_loc = m // n
+        owner, slot = _owner_slot(pos, n, m_loc, layout)
+        write = live & (pos < m)
         b_idx, c_idx = torch.nonzero(write, as_tuple=True)
-        return b_idx, c_idx, b_idx, slot[b_idx, c_idx]
+        return b_idx, c_idx, b_idx, owner[b_idx, c_idx] * m_loc + slot[b_idx, c_idx]
     max_pages = block_table.shape[1]
-    write, lp, off = _page_coords(pos, i, n, page_size, max_pages, layout)
+    write, lp, col = _page_coords(pos, n, page_size, max_pages, layout)
     bt = block_table.to(torch.int64)
     phys = torch.gather(bt, 1, lp.clamp(0, max_pages - 1))
     b_idx, c_idx = torch.nonzero(live & write & (phys >= 0), as_tuple=True)
-    return b_idx, c_idx, phys[b_idx, c_idx], off[b_idx, c_idx]
+    return b_idx, c_idx, phys[b_idx, c_idx], col[b_idx, c_idx]
 
 
 def sharded_cache_chunk_update(
-    k_cache: torch.Tensor,  # [B, m, Hkv, D] (updated in place)
+    k_cache: torch.Tensor,  # [B, n*m, Hkv, D] (updated in place)
     v_cache: torch.Tensor,
     k_new: torch.Tensor,  # [B, C, Hkv, D]
     v_new: torch.Tensor,
     starts,  # [B]: global position of each row's chunk base
     lens,  # [B]: valid tokens per row (0 = inactive row)
     write_starts,  # [B]: skip writes below this position
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
     coords: Optional[ChunkCoords] = None,
@@ -380,20 +482,20 @@ def sharded_cache_chunk_update(
     positions of one row map to distinct slots, so no write collides.
     ``coords``: this chunk's ``chunk_write_coords``, computed when not given."""
     if coords is None:
-        coords = chunk_write_coords(starts, lens, write_starts, k_new.shape[1], axis_name, n,
+        coords = chunk_write_coords(starts, lens, write_starts, k_new.shape[1], ring, n,
                                     layout, m=k_cache.shape[1])
-    b_idx, c_idx, rows, slots = coords
+    b_idx, c_idx, rows, cols = coords
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache[rows, slots] = new[b_idx, c_idx].to(cache.dtype)
+        cache[rows, cols] = new[b_idx, c_idx].to(cache.dtype)
     return k_cache, v_cache
 
 
 def sharded_cache_chunk_decode(
     q: torch.Tensor,  # [B, C, H, D] chunk queries
-    k_cache: torch.Tensor,  # [B, m, Hkv, D] (chunk already written)
+    k_cache: torch.Tensor,  # [B, n*m, Hkv, D] (chunk already written)
     v_cache: torch.Tensor,
     starts,  # [B]
-    axis_name: Optional[str],
+    ring,
     n: int,
     *,
     layout: str = "striped",
@@ -401,16 +503,18 @@ def sharded_cache_chunk_decode(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Prefix-causal chunk attention: row i of the chunk attends to global
-    positions <= starts + i (within the window), all rows in one launch."""
-    i = _single_shard(axis_name, n)
-    kv_off, stride_kv = _shard_geometry(i, n, k_cache.shape[1], layout)
+    positions <= starts + i (within the window), all rows and ranks in one
+    launch, then the ranks' combine."""
+    _check_ring(ring, n)
+    kv_off, stride_kv = _rank_offsets(n, k_cache.shape[1] // n, layout, q.device)
     hi = (window - 1) if window else BAND_INF
-    o, _ = _banded_partial(q, k_cache, v_cache, starts, kv_off, stride_kv, hi, scale)
-    return _psum_combine(o, None, axis_name, q.dtype)
+    o, lse = _banded_partial(q, _rank_view(k_cache, n), _rank_view(v_cache, n), starts, kv_off,
+                             stride_kv, hi, scale)
+    return _psum_combine(o, lse, ring, n, q.dtype)
 
 
 def paged_cache_chunk_update(
-    k_pool: torch.Tensor,  # [num_pages, page_size, Hkv, D] (updated in place)
+    k_pool: torch.Tensor,  # [num_pages, n*page_size, Hkv, D] (updated in place)
     v_pool: torch.Tensor,
     k_new: torch.Tensor,  # [B, C, Hkv, D]
     v_new: torch.Tensor,
@@ -418,10 +522,10 @@ def paged_cache_chunk_update(
     starts,  # [B]
     lens,  # [B] (0 = inactive row)
     write_starts,  # [B]: skip writes below this position
-    axis_name: Optional[str],
+    ring,
     n: int,
     layout: str = "striped",
-    k_scale: Optional[torch.Tensor] = None,  # [num_pages, page_size, Hkv] f32
+    k_scale: Optional[torch.Tensor] = None,  # [num_pages, n*page_size, Hkv] f32
     v_scale: Optional[torch.Tensor] = None,
     coords: Optional[ChunkCoords] = None,
 ):
@@ -433,12 +537,12 @@ def paged_cache_chunk_update(
     this chunk's ``chunk_write_coords``, computed when not given."""
     if coords is None:
         coords = chunk_write_coords(
-            starts, lens, write_starts, k_new.shape[1], axis_name, n, layout,
-            block_table=block_table.to(k_pool.device), page_size=k_pool.shape[1],
+            starts, lens, write_starts, k_new.shape[1], ring, n, layout,
+            block_table=block_table.to(k_pool.device), page_size=k_pool.shape[1] // n,
         )
-    b_idx, c_idx, pages, offs = coords
+    b_idx, c_idx, pages, cols = coords
     for pool, scales, new in ((k_pool, k_scale, k_new), (v_pool, v_scale, v_new)):
-        kv_quant.store(pool, scales, (pages, offs), new[b_idx, c_idx])
+        kv_quant.store(pool, scales, (pages, cols), new[b_idx, c_idx])
     if k_scale is not None:
         return k_pool, v_pool, k_scale, v_scale
     return k_pool, v_pool
@@ -450,7 +554,7 @@ def paged_cache_chunk_decode(
     v_pool: torch.Tensor,
     block_table: torch.Tensor,  # [B, max_pages] int32
     starts,  # [B]
-    axis_name: Optional[str],
+    ring,
     n: int,
     *,
     layout: str = "striped",
@@ -459,14 +563,14 @@ def paged_cache_chunk_decode(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Paged chunk attention: gather the rows' pages into the dense view
+    """Paged chunk attention: gather every rank's view of the rows' pages
     (dequantized to fp32 for a quantized pool) and run the banded chunk
-    partial, as JAX does (the split-K decode kernel stays single-token).
-    The gathered view lives only for this call."""
-    i = _single_shard(axis_name, n)
-    page_size, max_pages = k_pool.shape[1], block_table.shape[1]
-    kv_off, stride_kv = _shard_geometry(i, n, max_pages * page_size, layout)
+    partial, as JAX does (the split-K decode kernel stays single-token),
+    then the ranks' combine.  The gathered view lives only for this call."""
+    _check_ring(ring, n)
+    kp, vp, bt, ks, vs = _folded_pool(k_pool, v_pool, block_table, k_scale, v_scale, n)
+    kv_off, stride_kv = _rank_offsets(n, bt.shape[1] * kp.shape[1], layout, q.device)
     hi = (window - 1) if window else BAND_INF
-    k_loc, v_loc = paged_cache_gather(k_pool, v_pool, block_table, k_scale, v_scale)
-    o, _ = _banded_partial(q, k_loc, v_loc, starts, kv_off, stride_kv, hi, scale)
-    return _psum_combine(o, None, axis_name, q.dtype)
+    k_loc, v_loc = paged_cache_gather(kp, vp, bt, ks, vs)
+    o, lse = _banded_partial(q, k_loc, v_loc, starts, kv_off, stride_kv, hi, scale)
+    return _psum_combine(o, lse, ring, n, q.dtype)

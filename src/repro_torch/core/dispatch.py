@@ -9,8 +9,9 @@ the registry: ``mesh`` (the paper's a x b tile), ``ring`` (a = 1 with the
 ring schedule) and ``ulysses`` run the batched path over a sequence-parallel
 ring of n ranks (the plan's ``transport``, JAX's ``axis_name``: a
 ``VirtualRing`` or a ``ProcessGroupRing`` of ``parallel/ring.py``);
-``local-flash`` serves n = 1 and ``decode`` the cached path, which stays on
-one rank (sequence-sharded decode and chunks are the next slice).
+``local-flash`` serves n = 1 and ``decode`` the cached path: decode and
+chunks over the sequence-sharded cache, every rank of a ``VirtualRing``
+folded into one kernel launch, then the lse combine across the ranks.
 
 When ``autotune=True`` the (a, b) tile and the greedy comm/compute schedules
 come from the Figure-6 flow (``autotune.plan_for`` / ``autotune.tune`` over
@@ -445,27 +446,29 @@ def _decode_step_local(
     q, k_new, v_new, k_cache, v_cache, pos, cfg: AttentionPlanConfig, bt=None, write_coords=None,
     ks=None, vs=None,
 ):
-    """One decode tick over the local cache: update in place, then decode.
-    With ``cfg.paged`` the caches are the page pool, ``bt`` the block table
-    and ``write_coords`` (optional) the append's ``paged_write_coords``;
-    ``ks``/``vs`` are a quantized pool's scale tables (updated in place)."""
+    """One decode tick over the sequence-sharded cache: update in place,
+    then decode.  With ``cfg.paged`` the caches are the page pool, ``bt`` the
+    block table and ``write_coords`` (optional) the append's
+    ``paged_write_coords``; ``ks``/``vs`` are a quantized pool's scale tables
+    (updated in place)."""
+    ring = cfg.transport
     if cfg.paged:
         paged_cache_update(
-            k_cache, v_cache, k_new, v_new, bt, pos, None, cfg.n, layout=cfg.layout,
+            k_cache, v_cache, k_new, v_new, bt, pos, ring, cfg.n, layout=cfg.layout,
             coords=write_coords, k_scale=ks, v_scale=vs,
         )
         o = paged_cache_decode(
-            q, k_cache, v_cache, bt, pos, None, cfg.n,
+            q, k_cache, v_cache, bt, pos, ring, cfg.n,
             layout=cfg.layout, window=cfg.window, scale=cfg.scale,
             kernel=_resolve_decode_kernel(cfg.decode_kernel, paged=True),
             k_scale=ks, v_scale=vs,
         )
         return o, k_cache, v_cache
     k_cache, v_cache = sharded_cache_update(
-        k_cache, v_cache, k_new, v_new, pos, None, cfg.n, layout=cfg.layout
+        k_cache, v_cache, k_new, v_new, pos, ring, cfg.n, layout=cfg.layout
     )
     o = sharded_cache_decode(
-        q, k_cache, v_cache, pos, None, cfg.n,
+        q, k_cache, v_cache, pos, ring, cfg.n,
         layout=cfg.layout, window=cfg.window, scale=cfg.scale,
         kernel=_resolve_decode_kernel(cfg.decode_kernel, paged=False),
     )
@@ -476,26 +479,27 @@ def _chunk_step_local(
     q, k_new, v_new, k_cache, v_cache, starts, lens, wstarts, cfg: AttentionPlanConfig,
     bt=None, ks=None, vs=None, write_coords=None,
 ):
-    """One chunk over the local cache: scatter the chunk's K/V by absolute
-    position (in place; quantized with ``ks``/``vs``; at ``write_coords``
-    when given), then prefix-causal chunk attention over everything
-    resident."""
+    """One chunk over the sequence-sharded cache: scatter the chunk's K/V by
+    absolute position (in place; quantized with ``ks``/``vs``; at
+    ``write_coords`` when given), then prefix-causal chunk attention over
+    everything resident."""
+    ring = cfg.transport
     if cfg.paged:
         paged_cache_chunk_update(
-            k_cache, v_cache, k_new, v_new, bt, starts, lens, wstarts, None, cfg.n,
+            k_cache, v_cache, k_new, v_new, bt, starts, lens, wstarts, ring, cfg.n,
             layout=cfg.layout, k_scale=ks, v_scale=vs, coords=write_coords,
         )
         o = paged_cache_chunk_decode(
-            q, k_cache, v_cache, bt, starts, None, cfg.n,
+            q, k_cache, v_cache, bt, starts, ring, cfg.n,
             layout=cfg.layout, window=cfg.window, scale=cfg.scale, k_scale=ks, v_scale=vs,
         )
         return o, k_cache, v_cache
     sharded_cache_chunk_update(
-        k_cache, v_cache, k_new, v_new, starts, lens, wstarts, None, cfg.n, layout=cfg.layout,
+        k_cache, v_cache, k_new, v_new, starts, lens, wstarts, ring, cfg.n, layout=cfg.layout,
         coords=write_coords,
     )
     o = sharded_cache_chunk_decode(
-        q, k_cache, v_cache, starts, None, cfg.n,
+        q, k_cache, v_cache, starts, ring, cfg.n,
         layout=cfg.layout, window=cfg.window, scale=cfg.scale,
     )
     return o, k_cache, v_cache
@@ -588,7 +592,7 @@ def decode_attention_step(
     q,  # [B, 1, H, D]
     k_new,  # [B, 1, Hkv, D]
     v_new,
-    k_cache,  # [B, cap, Hkv, D] -- or, paged: the pool [num_pages, page_size, Hkv, D]
+    k_cache,  # [B, cap, Hkv, D] -- or, paged: the pool [num_pages, n*page_size, Hkv, D]
     v_cache,
     pos,  # scalar or [B] per-slot positions
     ctx,
@@ -599,20 +603,20 @@ def decode_attention_step(
     block_table=None,  # int32 [B, max_pages]: switches to the paged cache
     decode_kernel: Optional[str] = None,  # None -> ctx.decode_kernel
     write_coords=None,  # paged: paged_write_coords(block_table, pos, ...), shared by layers
-    k_scale=None,  # [num_pages, page_size, Hkv] f32: quantized pool (paged only)
+    k_scale=None,  # [num_pages, n*page_size, Hkv] f32: quantized pool (paged only)
     v_scale=None,
 ):
     """One token of cache-based decode through the 'decode' backend.
     Returns (o, k_cache, v_cache); the caches are updated in place.  Vector
     ``pos`` serves mixed-depth slots in one step (continuous batching).
+    With ``ctx.sp_size`` n > 1 the cache is sharded over the ring's n ranks
+    (JAX's global-logical layout: rank i owns the i-th n-th of the dense
+    cap axis, or of each page's columns), every rank's partial comes out of
+    one launch, and the partials meet in the lse combine.
     ``k_scale``/``v_scale`` mark a quantized pool: writes quantize, reads
     dequantize (in the kernel on the native path), and the return extends to
     ``(o, k_cache, v_cache, k_scale, v_scale)`` as in JAX."""
     n = ctx.sp_size
-    if n != 1:
-        raise NotImplementedError(
-            "sequence-sharded decode (sp_size > 1) comes with the next slice of the port"
-        )
     if decode_kernel is None:
         decode_kernel = ctx.decode_kernel
     if k_scale is not None and block_table is None:
@@ -625,7 +629,7 @@ def decode_attention_step(
         )
         return out + (k_scale, v_scale) if k_scale is not None else out
     cfg = AttentionPlanConfig(
-        backend="decode", n=n, window=window, layout=layout, scale=scale,
+        backend="decode", transport=ctx.ring, n=n, window=window, layout=layout, scale=scale,
         decode_kernel=decode_kernel,
     )
     return get_backend("decode").step(q, k_new, v_new, k_cache, v_cache, pos, cfg)
@@ -636,11 +640,11 @@ def _decode_attention_step_paged(
     *, window, layout, scale, decode_kernel="auto", write_coords=None, k_scale=None,
     v_scale=None,
 ):
-    """Paged decode step on one card: the pool update and the split-K (or
-    gather) decode over the whole pool."""
+    """Paged decode step: the pool update and the split-K (or gather) decode
+    over the whole pool, every rank's columns of it at once."""
     cfg = AttentionPlanConfig(
-        backend="decode", n=ctx.sp_size, window=window, layout=layout, scale=scale,
-        paged=True, decode_kernel=decode_kernel,
+        backend="decode", transport=ctx.ring, n=ctx.sp_size, window=window, layout=layout,
+        scale=scale, paged=True, decode_kernel=decode_kernel,
     )
     bt = torch.as_tensor(block_table, device=q.device).to(torch.int32)
     return get_backend("decode").step(
@@ -673,17 +677,15 @@ def chunk_attention_step(
     to every resident position.  Returns (o, k_cache, v_cache), updated in
     place, plus the scale tables for a quantized pool, like
     ``decode_attention_step``.  Chunks always run the gather/band path
-    through the flash forward; the split-K kernel stays single-token."""
+    through the flash forward (one launch for every row and rank); the
+    split-K kernel stays single-token."""
     n = ctx.sp_size
-    if n != 1:
-        raise NotImplementedError(
-            "sequence-sharded chunks (sp_size > 1) come with the next slice of the port"
-        )
     if k_scale is not None and block_table is None:
         raise ValueError("k_scale/v_scale (quantized pool) require block_table")
     paged = block_table is not None
     cfg = AttentionPlanConfig(
-        backend="decode", n=n, window=window, layout=layout, scale=scale, paged=paged,
+        backend="decode", transport=ctx.ring, n=n, window=window, layout=layout, scale=scale,
+        paged=paged,
     )
     bt = torch.as_tensor(block_table, device=q.device).to(torch.int32) if paged else None
     out = _chunk_step_local(

@@ -1,7 +1,5 @@
 """First-class attention masks: one hashable spec for every layer of the stack
-(copy of ``repro/core/masking.py``, which imports no JAX; the serving-side
-``prefix_chunk_visibility`` stays behind until sequence-sharded chunks are
-ported).
+(copy of ``repro/core/masking.py``, which imports no JAX).
 
 A spec is a static description of the mask, hashable, and every layer asks
 it the question it cares about:
@@ -52,6 +50,7 @@ __all__ = [
     "BAND_INF",
     "segment_ids_from_doc_lens",
     "positions_from_doc_lens",
+    "prefix_chunk_visibility",
 ]
 
 # classification of one attention block under a mask
@@ -377,3 +376,31 @@ class MaskSpec:
         nb = len(self.bitmap)
         return sum(sum(1 for x in row if x) for row in self.bitmap) / float(nb * nb)
 
+
+def prefix_chunk_visibility(
+    q_lo: int, q_hi: int, k_lo: int, k_hi: int, window: Optional[int] = None
+) -> str:
+    """Classify a continuous-prefill chunk block: queries at absolute
+    positions ``[q_lo, q_hi]`` (one prompt chunk) against resident KV
+    positions ``[k_lo, k_hi]`` under prefix-causal visibility -- pair (p_q,
+    p_k) visible iff ``p_k <= p_q`` and, with a sliding window, ``p_k >
+    p_q - window``.
+
+    The host-side mirror of the banded chunk kernel
+    (``core.decode_attention.sharded_cache_chunk_decode``): EMPTY blocks are
+    those whose rows the kernel's bounds leave without a key (JAX's window
+    prune skips them), FULL blocks need no mask at all, PARTIAL blocks hit
+    the band.  All bounds inclusive."""
+    if q_hi < q_lo or k_hi < k_lo:
+        raise ValueError("empty position range")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k_lo > q_hi:  # every key is in the chunk's future
+        return EMPTY
+    if window is not None and k_hi <= q_lo - window:  # every key fell off
+        return EMPTY
+    newest_ok = k_hi <= q_lo  # oldest query already sees the newest key
+    oldest_ok = window is None or k_lo > q_hi - window  # newest query keeps the oldest key
+    if newest_ok and oldest_ok:
+        return FULL
+    return PARTIAL

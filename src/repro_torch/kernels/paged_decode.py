@@ -279,12 +279,17 @@ def split_combine(
     lse_parts: torch.Tensor,  # [B, S, H] fp32 per-split lse (NEG_INF = empty)
     dtype: torch.dtype = torch.float32,  # o's type: float32 or bfloat16
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The paged decode's combine kernel alone, on CUDA tensors: the merge
-    that ``paged_flash_decode`` launches after its main kernel, for holding
-    it against :func:`combine_split_partials`.  Returns (o [B,1,H,D] in
-    ``dtype``, lse [B,H,1] fp32); ``split_combine.launches`` counts calls."""
+    """The paged decode's combine kernel alone: the merge that
+    ``paged_flash_decode`` launches after its main kernel, and the
+    sequence-sharded decode's merge of its ranks' partials
+    (``core/decode_attention.py``).  Returns (o [B,1,H,D] in ``dtype``, lse
+    [B,H,1] fp32); CPU tensors run :func:`combine_split_partials`, and
+    ``split_combine.launches`` counts the kernel's launches."""
+    if o_parts.device.type == "cpu":
+        o, lse = combine_split_partials(o_parts.float(), lse_parts.float())
+        return o.to(dtype), lse
     if o_parts.device.type != "cuda":
-        raise ValueError(f"split_combine runs on cuda tensors, not {o_parts.device}")
+        raise ValueError(f"split_combine runs on cuda or cpu tensors, not {o_parts.device}")
     B, S, H, D = o_parts.shape
     for name, t, shape in (("o_parts", o_parts, (B, S, H, D)), ("lse_parts", lse_parts, (B, S, H))):
         if t.dtype != torch.float32 or t.device != o_parts.device or not t.is_contiguous():

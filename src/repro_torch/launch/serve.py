@@ -19,10 +19,14 @@ replays the trace with ``spec_k=0`` and exits 1 unless every stream matches.
 ``--arch mamba2-370m`` / ``hymba-1.5b`` serve SSM and hybrid models with
 exact-length prefill (each prompt at most the SSD chunk or a multiple of
 it); ``--paged``, ``--prefill-chunk`` and ``--spec-k`` raise the engine's
-``ValueError`` for them.  ``--device`` defaults to ``cuda`` (the CUDA
-kernels); ``cpu`` runs their plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
-machinery is not ported yet (multi-device, oversubscription, chaos) are
-accepted for parity and raise when set.
+``ValueError`` for them.  ``--fake-devices N`` (N >= 8) serves over a
+sequence-parallel ring of 4 ranks (``ParallelCtx(sp_size=4)``, a
+``VirtualRing``: every rank on the one device), as JAX's CLI builds a
+(N/4, 4) mesh with a sequence axis of 4; the port builds the sequence axis
+only.  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
+their plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
+machinery is not ported yet (oversubscription, chaos) are accepted for
+parity and raise when set.
 """
 
 import argparse
@@ -44,7 +48,6 @@ def _parse_trace(spec: str):
 def _not_ported(args) -> list:
     return [
         flag for flag, on in (
-            ("--fake-devices", args.fake_devices),
             ("--oversubscribe", args.oversubscribe != 1.0),
             ("--chaos-seed", args.chaos_seed is not None),
             ("--check-deterministic", args.check_deterministic),
@@ -96,8 +99,9 @@ def main(argv=None):
     ap.add_argument("--check-spec-identical", action="store_true",
                     help="replay the --stream trace with spec_k=0; exit 1 unless every "
                          "token stream matches")
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help=">= 8: serve over a sequence-parallel ring of 4 ranks on the device")
     # parity with the JAX CLI; not ported yet
-    ap.add_argument("--fake-devices", type=int, default=0)
     ap.add_argument("--oversubscribe", type=float, default=1.0)
     ap.add_argument("--chaos-seed", type=int, default=None)
     ap.add_argument("--chaos-ticks", type=int, default=24)
@@ -123,7 +127,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    ctx = ParallelCtx(device=args.device, decode_kernel=args.decode_kernel)
+    if args.fake_devices >= 8:
+        ctx = ParallelCtx(sp_size=4, block_q=16, block_kv=16, device=args.device,
+                          decode_kernel=args.decode_kernel)
+    else:
+        ctx = ParallelCtx(device=args.device, decode_kernel=args.decode_kernel)
     params = tfm.init_params(cfg, seed=0, dtype=dtype, device=args.device)
 
     def make_serve(spec_k):
@@ -172,6 +180,7 @@ def main(argv=None):
         kv = eng.kv_cache_stats()
         summary = {
             "device": str(eng.device),
+            "ring": repr(ctx.ring),
             "requests": len(trace),
             "ticks": ticks,
             "prefill_launches": eng.prefill_launches,

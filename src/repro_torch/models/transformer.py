@@ -211,18 +211,22 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     """Decode cache with a per-slot position vector ``pos: [B]`` on
     ``ctx.device``.  Dense: K/V ``[L, B, cap, Hkv, D]``.  ``paged`` (a
     ``serve.kv_pool.PagedLayout``) switches K/V to a physical page pool
-    ``[L, num_pages, page_size, Hkv, D]`` plus an int32 block table
+    ``[L, num_pages, n*page_size, Hkv, D]`` plus an int32 block table
     ``"bt": [B, max_pages]`` (-1 = unallocated).  ``kv_dtype`` "int8" /
     "fp8" (paged only) stores the pool quantized, with per-(token, kv-head)
-    fp32 scales ``"k_scale"/"v_scale": [L, num_pages, page_size, Hkv]``
-    indexed like the pool.  SSM and hybrid archs add the per-slot dense
+    fp32 scales ``"k_scale"/"v_scale": [L, num_pages, n*page_size, Hkv]``
+    indexed like the pool.  With ``ctx.sp_size`` n > 1 the layout is JAX's
+    global-logical one: rank i of the ring owns the i-th n-th of the dense
+    cap axis and of each page's columns.  SSM and hybrid archs add the
+    per-slot dense
     ``"ssm": {"conv": [L, B, width-1, conv_dim] in ``dtype``, "state":
     [L, B, H, P, N] fp32}``; the attention-free family has no K/V."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
-    if ctx.sp_size > 1:
+    if ctx.sp_size > 1 and cfg.ssm is not None:
         raise NotImplementedError(
-            "a sequence-sharded decode cache (sp_size > 1) comes with the next slice of the port"
+            f"{cfg.name}: serving an SSM or hybrid arch over a sequence-parallel ring needs "
+            "the sharded SSD scan (conv halo exchange, state combine): ROADMAP A.4"
         )
     dev = resolve_device(ctx.device)
     store = kv_quant.storage_dtype(kv_dtype, dtype)
@@ -311,7 +315,7 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
     B, S = x.shape[0], x.shape[1]
     h = rms_norm(x, lp["attn"]["ln"])
     q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, pos)
-    # the decode cache is always striped (one shard on one card)
+    # the decode cache is always striped over the ring's ranks
     o = attn.decode_attention_step(
         q, k_new, v_new, cache_l["k"], cache_l["v"], pos, ctx,
         window=cfg.window, layout="striped", scale=scale, block_table=bt,
@@ -342,7 +346,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
     coords = None
     if bt is not None:
         page_size = cache["k"].shape[2] // ctx.sp_size
-        coords = dispatch.paged_write_coords(bt, pos, page_size, None, ctx.sp_size, layout="striped")
+        coords = dispatch.paged_write_coords(bt, pos, page_size, ctx.ring, ctx.sp_size,
+                                             layout="striped")
     x = _embed(params, tokens)
     for i, lp in enumerate(_layer_slices(params)):
         x = _decode_block(x, lp, _layer_cache(cache, i), cfg, ctx, pos, bt=bt,
@@ -351,6 +356,20 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
     nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
     cache["pos"] = pos + 1
     return nxt, cache, logits
+
+
+def _cache_scatter_indices(cfg: ModelConfig, S: int, cap: int, n: int):
+    """Prefill K/V index j -> the dense cache's column (JAX's
+    ``_cache_scatter_indices``): position p lives at column (p % n) * (cap/n)
+    + p // n (rank p % n, slot p // n).  For striped-train archs index j
+    already is position (j // (S/n)) + n * (j % (S/n)) (the engine stripes
+    the prompt), which lands in contiguous runs of each rank's slice.  One
+    rank: index j is column j, a slice."""
+    if n <= 1:
+        return slice(None, S)
+    j = torch.arange(S)
+    p = (j // (S // n)) + n * (j % (S // n)) if cfg.causal_layout == "striped" else j
+    return (p % n) * (cap // n) + p // n
 
 
 def _paged_prefill_coords(positions, bt_rows, n: int, page_size: int, write_mask):
@@ -428,8 +447,13 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
         toks, pages, cols = _paged_prefill_coords(
             positions, cache["bt"][slot], n, page_size, write_mask
         )
-    elif has_attn and S > cache["k"].shape[2]:
-        raise ValueError(f"prompt of {S} tokens exceeds the cache capacity {cache['k'].shape[2]}")
+    elif has_attn:
+        cap = cache["k"].shape[2]
+        if S > cap:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache capacity {cap}")
+        cols = _cache_scatter_indices(cfg, S, cap, ctx.sp_size)
+        if isinstance(cols, torch.Tensor):
+            cols = cols.to(x.device)
 
     for i, lp in enumerate(_layer_slices(params)):
         if has_attn:
@@ -438,9 +462,7 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
             if paged:
                 _write_kv(cache, i, (pages, cols), kk[0, toks], vv[0, toks])
             else:
-                # one shard: prefill index j is cache index j (JAX's
-                # _cache_scatter_indices for n == 1)
-                _write_kv(cache, i, (slice(None), slice(None, S)), kk, vv)
+                _write_kv(cache, i, (slice(None), cols), kk, vv)
         # the SSD block keeps its final conv window and state in the cache
         ssm_cache = _layer_cache(cache, i) if cfg.ssm is not None else None
         x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache)
@@ -504,11 +526,13 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
             positions, cache["bt"][slots[seg_c]], n, page_size, write_mask
         )
     else:
-        # document d's position p lands in slot row slots[d] at cache index p
-        # (one shard); pads are filtered out
+        # document d's position p lands in slot row slots[d] at the striped
+        # cache column (p % n) * (cap/n) + p // n; pads are filtered out
+        cap = cache["k"].shape[2]
         toks = torch.nonzero(~pad).squeeze(1)
         rows = slots[seg_c[toks]]
-        cols = positions[toks].to(torch.int64)
+        p = positions[toks].to(torch.int64)
+        cols = (p % n) * (cap // n) + p // n
 
     for i, lp in enumerate(_layer_slices(params)):
         h = rms_norm(x, lp["attn"]["ln"])
@@ -552,7 +576,7 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
     # table: computed once (one host read-back) for every layer
     n = ctx.sp_size
     coords = dispatch.chunk_write_coords(
-        starts, lens, write_starts, C, None, n, "striped", m=cache["k"].shape[2],
+        starts, lens, write_starts, C, ctx.ring, n, "striped", m=cache["k"].shape[2],
         block_table=bt, page_size=cache["k"].shape[2] // n,
     )
     x = _embed(params, tokens)
@@ -560,8 +584,8 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
         cache_l = _layer_cache(cache, i)
         h = rms_norm(x, lp["attn"]["ln"])
         q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, positions)
-        # the decode cache is always striped: chunk rows scatter by absolute
-        # position exactly like single-token appends
+        # the decode cache is always striped over the ring: chunk rows
+        # scatter by absolute position exactly like single-token appends
         o = attn.chunk_attention_step(
             q, k_new, v_new, cache_l["k"], cache_l["v"], starts, lens, write_starts, ctx,
             window=cfg.window, layout="striped", scale=scale, block_table=bt,

@@ -9,8 +9,11 @@ puts one rank on each process.  The attention knobs are JAX's: which
 backend (``attn_impl``), the tile height (``mesh_a``), the backward wire,
 the ring-transport mode and the autotuner with its plan cache.  ``device``
 is where the engine puts its cache and where ``init_cache`` allocates; it
-defaults to the card (see ``repro_torch.device``).  Serving (the engine and
-the decode / chunk steps) still runs one rank: it refuses ``sp_size > 1``.
+defaults to the card (see ``repro_torch.device``).  Training and serving
+both run over the ring: the engine shards its KV cache over the ranks and
+folds them into one launch per decode, chunk or verify step
+(``core/decode_attention.py``); serving needs every rank in the process (a
+``VirtualRing``), and SSM and hybrid archs still serve on one rank only.
 """
 
 from __future__ import annotations

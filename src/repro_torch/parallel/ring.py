@@ -5,7 +5,8 @@ inside JAX's ``shard_map``.
 Every tensor the executors hand to a transport carries a leading *local
 rank* axis ``[R, ...]``: the ranks of the ring this process holds.  Two
 implementations share that interface (``n``, ``ranks``, ``hop``,
-``all_to_all``, ``all_gather``, ``split``, ``join``):
+``all_to_all``, ``all_gather``, ``split``, ``join``; the virtual ring also
+``gather_ranks``, the exchange of the sequence-sharded decode's combine):
 
   * ``VirtualRing(n)``: all n ranks in one process, on one device (R = n).
     A hop is an index permutation along the rank axis, ``out[dst] = x[src]``
@@ -30,7 +31,8 @@ its blocks and wait at the step's end.  ``mode`` is the executor's
 
 All three move the same values, so the executors' results are bitwise equal
 across modes.  Each hop is counted per comm kind (``recv_q``, ``recv_kv``,
-``send_o``, ``recv_odoq``, ``send_dq``, ``send_dkv``): ``stats.hops`` (logical
+``send_o``, ``recv_odoq``, ``send_dq``, ``send_dkv``; ``combine`` for the
+decode's lse combine): ``stats.hops`` (logical
 hops), ``stats.messages`` (transfers: two per leaf in bidir) and
 ``stats.bytes`` (bytes one rank sends, the unit of ``core/am.CommModel``).
 """
@@ -182,6 +184,15 @@ class VirtualRing:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x [n, m] -> [n, n*m]: every rank gets all ranks' rows in order."""
         return x.reshape(1, -1).expand(self.n, -1).contiguous()
+
+    def gather_ranks(self, leaves: Sequence[torch.Tensor], *, kind: str) -> List[torch.Tensor]:
+        """Every rank's leaves [n, ...], as each rank holds them after an
+        all-gather (the exchange of the sequence-sharded decode's lse
+        combine).  This process already holds every rank, so the leaves come
+        back as they are, without a copy; the stats count one hop of
+        ``kind`` with the bytes one rank sends."""
+        self.stats.add(kind, len(leaves), _payload_bytes(leaves, self.n))
+        return list(leaves)
 
     def split(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
         """The global view [..., S (at ``axis``), ...] as the n ranks' chunks

@@ -29,6 +29,15 @@ correction, so no buckets and no packing) straight into its slot's rows, the
 per-slot conv window and SSD state included; the paged pool, continuous
 prefill and speculative verify raise ``ValueError`` for them.
 
+With ``ctx.sp_size`` n > 1 the engine serves over a sequence-parallel ring
+(a ``VirtualRing``: every rank on one device), as JAX's does over its mesh
+axis: the cache is sharded over the ranks (``core/decode_attention.py``),
+one-shot prefill runs the prompt in the §3.7 stripe order through the
+Mesh-Attention forward (``dispatch.distributed_attention``), and decode,
+chunks and verify launch once for every rank and combine the ranks' partials
+by lse.  Buckets and ``max_seq`` are multiples of n; SSM and hybrid archs at
+n > 1 raise (ROADMAP A.4).
+
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
 in place.  Not ported yet: oversubscription with preempt-and-recompute and
 the chaos injector -- ``ServeConfig`` and the constructor raise for them.
@@ -36,6 +45,7 @@ the chaos injector -- ``ServeConfig`` and the constructor raise for them.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -44,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
+from repro_torch.core.tiling import stripe_permutation
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel.context import ParallelCtx
@@ -81,18 +92,18 @@ class ServeEngine:
         self.serve = serve
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
-        if self.ctx.sp_size > 1:
+        n = self.ctx.sp_size
+        if n > 1 and cfg.ssm is not None:
             raise NotImplementedError(
-                "serving over a sequence-parallel ring (sp_size > 1) comes with the next slice "
-                "of the port (sequence-sharded decode and chunks)"
+                f"{cfg.name}: serving an SSM or hybrid arch over a sequence-parallel ring needs "
+                "the sharded SSD scan (conv halo exchange, state combine): ROADMAP A.4"
             )
+        if serve.max_seq % n:
+            raise ValueError(f"max_seq={serve.max_seq} must be divisible by sp_size={n}")
         if serve.decode_kernel != "auto":
             # "band" is the dense spelling of the non-native path
             kernel = "gather" if serve.decode_kernel == "band" else serve.decode_kernel
-            self.ctx = ParallelCtx(
-                sp_size=self.ctx.sp_size, block_q=self.ctx.block_q,
-                block_kv=self.ctx.block_kv, decode_kernel=kernel, device=self.ctx.device,
-            )
+            self.ctx = dataclasses.replace(self.ctx, decode_kernel=kernel)
         self.device = resolve_device(self.ctx.device)
         embed = params["embed"]
         if embed.device.type != self.device.type:
@@ -109,7 +120,6 @@ class ServeEngine:
         self.num_slots = serve.num_slots
         self.eos_id = serve.eos_id
         self.pack_plan = serve.pack_plan
-        n = self.ctx.sp_size
         # continuous prefill (None = one-shot bucketed prefill)
         self.prefill_chunk = serve.prefill_chunk
         if self.prefill_chunk is not None and cfg.ssm is not None:
@@ -151,6 +161,8 @@ class ServeEngine:
             if serve.prefill_buckets
             else default_buckets(serve.max_seq, n)
         )
+        if any(b % n for b in buckets):
+            raise ValueError(f"buckets {buckets} must be multiples of sp_size={n}")
         # SSD's recurrent state has no pad-correction: prefill exactly
         exact = cfg.ssm is not None
         self.scheduler = Scheduler(
@@ -211,6 +223,15 @@ class ServeEngine:
 
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array)).to(self.device)
+
+    def _stripe(self, bucket: int) -> np.ndarray:
+        """The §3.7 order of a bucket row (the data pipeline's permutation):
+        index j carries true position perm[j].  Identity on one rank and for
+        contiguous-layout archs."""
+        n = self.ctx.sp_size
+        if n > 1 and self.cfg.causal_layout == "striped":
+            return np.asarray(stripe_permutation(bucket, n))
+        return np.arange(bucket)
 
     def _sync_block_table(self):
         """Upload the allocator's block table when it moved since last sync."""
@@ -359,9 +380,10 @@ class ServeEngine:
         self.prefill_launch_tokens += bucket
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :plen] = req.prompt
+        perm = self._stripe(bucket)
         batch = {
-            "tokens": self._to_device(toks),
-            "positions": torch.arange(bucket, dtype=torch.int32, device=self.device),
+            "tokens": self._to_device(toks[:, perm]),
+            "positions": self._to_device(perm.astype(np.int32)),
             "length": torch.tensor([plen]),
         }
         if self.paged:
@@ -411,10 +433,11 @@ class ServeEngine:
         seg = np.sum(j[:, None] >= starts[None, :], axis=1) - 1
         seg = np.where(j >= cum[-1], k, seg)
         positions = j - starts[np.clip(seg, 0, k - 1)]
+        perm = self._stripe(bucket)
         batch = {
-            "tokens": self._to_device(toks),
-            "positions": self._to_device(positions.astype(np.int32)),
-            "segments": self._to_device(seg.astype(np.int32)),
+            "tokens": self._to_device(toks[:, perm]),
+            "positions": self._to_device(positions[perm].astype(np.int32)),
+            "segments": self._to_device(seg[perm].astype(np.int32)),
             "doc_lens": self._to_device(np.asarray(lens, np.int64)),
             "slots": self._to_device(np.asarray([slot for slot, _ in group], np.int64)),
         }

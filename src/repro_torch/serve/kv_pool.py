@@ -13,8 +13,9 @@ the slot rows over a fixed **physical page pool**:
 
   * device side -- per layer, ``[num_pages, n*page_size, Hkv, D]``.  One
     *logical* page covers ``n * page_size`` consecutive global positions
-    (``n`` is 1 on one card), which keeps the striped owner math of
-    ``core/decode_attention.py`` intact: owner shard -> (page, offset).
+    (``n``: the ranks of the sequence-parallel ring; rank i owns columns
+    ``[i*page_size, (i+1)*page_size)``), which keeps the striped owner math
+    of ``core/decode_attention.py`` intact: owner rank -> (page, column).
   * host side -- this module: an int32 block table ``[num_slots, max_pages]``
     mapping each slot's logical page to a physical page, a refcount per page,
     a free list, and a **prefix registry** (hash of the first ``c`` page-chunks

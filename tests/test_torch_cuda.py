@@ -567,9 +567,18 @@ def test_paged_decode_runs_no_op_after_launch(dev, monkeypatch, quant):
             return launch(*args)
 
     monkeypatch.setattr(lib, "paged_decode", marked)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+
+    def window():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return prof
+
+    # a warm-up window first: the process's first profiling session can
+    # close before the tracer has delivered the card's events
+    window()
+    torch.cuda.synchronize()
+    prof = window()
     events = prof.events()
     mark = [e for e in events if e.name == "paged_decode_launch"
             and e.device_type == torch.autograd.DeviceType.CPU]
@@ -606,6 +615,155 @@ def test_dense_decode_native_and_band_match_plain(dev, window):
     for kernel in ("band", "native"):
         got = da.sharded_cache_decode(q, kc, vc, pos, None, 1, window=window, kernel=kernel)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def _ring_pool(rng, n, depths, kv_dtype, dtype, dev, page_size=16, hkv=8, d=128):
+    """A pool [P, n*page_size, Hkv, D] sharded over n ranks (rank i owns
+    columns [i*ps, (i+1)*ps)), the block table of rows of the given depths,
+    and the scale tables of an int8 / fp8 pool (None for an fp one)."""
+    from repro_torch.core import kv_quant
+
+    max_pages = -(-max(depths) // (n * page_size)) + 1
+    k_pool, v_pool, bt = _pool(rng, [-(-x // n) for x in depths], page_size, max_pages, hkv,
+                               d, torch.float32, dev)
+    wide = [torch.cat([_randn(rng, *k_pool.shape, dtype=torch.float32, dev=dev) * 3
+                       for _ in range(n - 1)] + [k_pool], dim=1),
+            torch.cat([_randn(rng, *v_pool.shape, dtype=torch.float32, dev=dev)
+                       for _ in range(n - 1)] + [v_pool], dim=1)]
+    if kv_dtype == "fp":
+        return wide[0].to(dtype), wide[1].to(dtype), None, None, bt
+    (kq, ks), (vq, vs) = (kv_quant.quantize(t, kv_dtype) for t in wide)
+    return kq, vq, ks, vs, bt
+
+
+# 8 slots at depths up to 2047, and rows whose later ranks see no key yet
+RING_DEPTHS = (1, 2, 3, 100, 777, 1500, 2000, 2048)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kv_dtype", ["fp"] + QUANT_DTYPES)
+def test_paged_decode_folded_ranks_match_plain(dev, kv_dtype, dtype):
+    """Sequence-sharded decode over a ring of 4 at granite heads: the 4
+    ranks folded into ONE paged decode launch (shifted depths, a negative
+    one for a rank that sees no key), the ranks' rows against the plain
+    version, the blind rows exactly o = 0, lse = NEG_INF, and the combined
+    output against the CPU's."""
+    from repro_torch.core import decode_attention as da
+    from repro_torch.parallel.ring import VirtualRing
+
+    n = 4
+    rng = np.random.default_rng(21)
+    kp, vp, ks, vs, bt = _ring_pool(rng, n, RING_DEPTHS, kv_dtype, dtype, dev)
+    B = len(RING_DEPTHS)
+    q = _randn(rng, B, 1, 32, 128, dtype=dtype, dev=dev)
+    pos = torch.tensor([x - 1 for x in RING_DEPTHS], dtype=torch.int32, device=dev)
+    fk, fv, fbt, fks, fvs = da._folded_pool(kp, vp, bt, ks, vs, n)
+    kv_off, stride = da._rank_offsets(n, fbt.shape[1] * fk.shape[1], "striped", dev)
+    launches = (pk.paged_flash_decode.launches, pk.paged_flash_decode.quant_launches)
+    o, lse = da._native_partial(q, fk, fv, fbt, pos, kv_off, stride, None, None, fks, fvs)
+    torch.cuda.synchronize()
+    counted = (pk.paged_flash_decode.launches - launches[0]
+               + pk.paged_flash_decode.quant_launches - launches[1])
+    assert counted == 1 and o.shape[0] == B * n
+    pos_r = (pos.long().repeat_interleave(n) - kv_off.repeat(B)).to(torch.int32)
+    o_ref, lse_ref = pk.paged_decode_ref(da._fold_rows(q, n), fk, fv, fbt, pos_r, 0,
+                                         stride_kv=stride, k_scale=fks, v_scale=fvs)
+    blind = pos_r < 0
+    assert blind.sum() == 6  # depths 1, 2, 3: ranks 1-3, 2-3 and 3 see no key
+    assert torch.all(o[blind] == 0) and torch.all(lse[blind] == ref.NEG_INF)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[~blind], lse_ref[~blind], atol=LSE_TOL, rtol=0)
+    ring = VirtualRing(n)
+    sc = dict(k_scale=ks, v_scale=vs)
+    got = da.paged_cache_decode(q, kp, vp, bt, pos, ring, n, kernel="native", **sc)
+    want = da.paged_cache_decode(q.cpu(), kp.cpu(), vp.cpu(), bt.cpu(), pos.cpu(), VirtualRing(n),
+                                 n, kernel="native",
+                                 **{k: None if t is None else t.cpu() for k, t in sc.items()})
+    # the combined rows carry each side's rounding of its partials to q's
+    # type: up to one ulp (rtol) of the largest partial
+    c_atol = atol + rtol * float(o_ref.float().abs().max())
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=c_atol, rtol=rtol)
+    assert ring.stats.hops == {"combine": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [1, 4, 256], ids=["decode", "verify", "chunk"])
+def test_flash_fwd_folded_ranks_match_plain(dev, C, dtype):
+    """The flash forward over the dense cache's rank view at a ring of 4:
+    one launch with a band per (slot, rank) -- (start, rank, 0, hi), stride
+    4 -- at granite heads, 8 slots of 2048; chunks that start at 0 leave the
+    later ranks' first rows blind (exactly o = 0, lse = NEG_INF)."""
+    from repro_torch.core import decode_attention as da
+
+    n, B, cap = 4, 8, 2048
+    rng = np.random.default_rng(22)
+    kc = _randn(rng, B, cap, 8, 128, dtype=dtype, dev=dev)
+    vc = _randn(rng, B, cap, 8, 128, dtype=dtype, dev=dev)
+    q = _randn(rng, B, C, 32, 128, dtype=dtype, dev=dev)
+    starts = torch.tensor([0, 1, 2, 256, 777, 1000, 1500, cap - C], dtype=torch.int32,
+                          device=dev)
+    kv_off, stride = da._rank_offsets(n, cap // n, "striped", dev)
+    before = fa.flash_attention_fwd.launches
+    o, lse = da._banded_partial(q, da._rank_view(kc, n), da._rank_view(vc, n), starts, kv_off,
+                                stride, INF, None)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1 and o.shape[0] == B * n
+    o_ref, lse_ref = da._banded_partial(q.cpu(), da._rank_view(kc.cpu(), n),
+                                        da._rank_view(vc.cpu(), n), starts.cpu(), kv_off.cpu(),
+                                        stride, INF, None)
+    # row c of a chunk sees rank i iff start + c >= i
+    blind = ((starts.cpu().long().repeat_interleave(n)[:, None] + torch.arange(C))
+             < kv_off.cpu().repeat(B)[:, None])  # [B*n, C]
+    assert blind.any()
+    o_b, lse_b = o.cpu().float(), lse.cpu().transpose(1, 2)  # [B*n, C, H]
+    assert torch.all(o_b[blind] == 0) and torch.all(lse_b[blind] == ref.NEG_INF)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o_b, o_ref.float(), atol=atol, rtol=rtol)
+    live = lse_ref > ref.NEG_INF / 2
+    torch.testing.assert_close(lse.cpu()[live], lse_ref[live], atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged_chunk_spec", "int8_chunk_spec"])
+def test_ring_engine_on_card_matches_cpu(dev, mode):
+    """Reduced granite-8b, fp32, at sp_size 4 (a virtual ring on one card):
+    the card (kernels) and the CPU (plain versions) serve the same streams,
+    each decode tick launches the decode kernel once per layer for all
+    ranks, and pages drain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("granite-8b").reduced()
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    on_card = {k: val.to(dev) for k, val in params.items() if k != "layers"}
+    on_card["layers"] = {
+        g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in params["layers"].items()
+    }
+    kw = {"dense": dict(paged=False),
+          "paged_chunk_spec": dict(paged=True, page_size=4, prefill_chunk=8,
+                                   tick_token_budget=16, spec_k=4),
+          "int8_chunk_spec": dict(paged=True, page_size=4, prefill_chunk=8,
+                                  tick_token_budget=16, spec_k=4, kv_dtype="int8")}[mode]
+    serve = ServeConfig(max_seq=64, num_slots=3, **kw)
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(np.array([7, 11, 13, 7], np.int32), 6),
+               rng.integers(0, cfg.vocab_size, (21,), dtype=np.int32),
+               rng.integers(0, cfg.vocab_size, (9,), dtype=np.int32)]
+    streams = {}
+    for name, p, device in (("card", on_card, "cuda"), ("cpu", params, "cpu")):
+        before = pk.paged_flash_decode.launches + pk.paged_flash_decode.quant_launches
+        eng = ServeEngine(cfg, p, ParallelCtx(sp_size=4, device=device), serve=serve)
+        rids = [eng.submit(x, 10, arrival_tick=t) for t, x in enumerate(prompts)]
+        done = eng.run()
+        streams[name] = [done[r].generated for r in rids]
+        launched = pk.paged_flash_decode.launches + pk.paged_flash_decode.quant_launches - before
+        if device == "cuda" and kw["paged"]:
+            assert launched == cfg.num_layers * eng.decode_launches > 0
+            assert eng.kv_cache_stats()["pages_in_use"] == 0
+    assert streams["card"] == streams["cpu"]
 
 
 @pytest.mark.parametrize("kv_dtype", QUANT_DTYPES)

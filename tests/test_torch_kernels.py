@@ -527,16 +527,20 @@ def test_dispatch_resolution_and_unported_backends():
         o = tdispatch.distributed_attention(qp, qp, qp, cfg=cfg, ctx=ctx4)
         np.testing.assert_allclose(o.numpy(), want[:, torch.from_numpy(perm)].numpy(),
                                    atol=FWD_TOL)
-    # serving over a ring is the next slice: the engine and the cache refuse it
+    # serving over a ring: the engine and the cache construct at sp_size 2,
+    # and the engine serves the tokens it serves on one rank
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import ServeEngine
 
     mcfg = get_config("granite-8b").reduced()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServeEngine(mcfg, tfm.init_params(mcfg, device="cpu"), ParallelCtx(sp_size=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tfm.init_cache(mcfg, 1, 16, ctx=ParallelCtx(sp_size=2, device="cpu"))
+    mparams = tfm.init_params(mcfg, device="cpu")
+    ring2 = ParallelCtx(sp_size=2, device="cpu")
+    prompts = np.random.default_rng(1).integers(0, mcfg.vocab_size, (2, 9), dtype=np.int32)
+    assert np.array_equal(ServeEngine(mcfg, mparams, ring2).generate(prompts, 4),
+                          ServeEngine(mcfg, mparams, ctx).generate(prompts, 4))
+    cache = tfm.init_cache(mcfg, 1, 16, ctx=ring2)
+    assert cache["k"].shape == (mcfg.num_layers, 1, 16, mcfg.num_kv_heads, mcfg.hd)
     seg_plan = tdispatch.plan_from_ctx(ctx, mask=MaskSpec.segment())
     with pytest.raises(ValueError, match="segment"):
         tdispatch.distributed_attention(q, q, q, cfg=seg_plan)
