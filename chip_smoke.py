@@ -189,6 +189,7 @@ from repro_torch.core import schedule as S  # noqa: E402
 from repro_torch.core.am import CommModel  # noqa: E402
 from repro_torch.core.masking import MaskSpec  # noqa: E402
 from repro_torch.core.mesh_attention import MeshAttentionConfig  # noqa: E402
+from repro_torch.core.mesh_attention_collective import mesh_attention_collective  # noqa: E402
 from repro_torch.core.tiling import stripe_permutation, unstripe_permutation  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -202,6 +203,7 @@ from repro_torch.parallel.context import ParallelCtx  # noqa: E402
 from repro_torch.parallel.ring import VirtualRing  # noqa: E402
 from repro_torch.serve.config import ServeConfig  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.testing.chaos import ChaosConfig, ChaosInjector  # noqa: E402
 from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
@@ -1338,7 +1340,7 @@ def full_serve_quant(card):
           "prefill_chunk": 256, "tick_token_budget": 512, "spec_k": 4, "lengths": lengths,
           "arrival_ticks": arrivals, "new_tokens": 32, "runs": runs, "card": card})
     check(not problems, "; ".join(problems))
-    return launches_out["int8"]
+    return launches_out["int8"], runs, streams
 
 
 # slice_ring and serve_ring: the engine at sp_size 4 (a virtual ring on the
@@ -1352,7 +1354,7 @@ RING_NEAR_TIE = 0.25
 RING_PEAK_SLACK_GB = 1.0
 
 
-def _ring_counts():
+def _kernel_counts():
     return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
             "paged_flash_decode": pk.paged_flash_decode.launches,
             "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches,
@@ -1387,13 +1389,13 @@ def _run_ring_slice(cfg, params, kv_dtype, paged, prompts, arrivals):
     ctx = ParallelCtx(sp_size=RING_N, device="cuda")
     eng = ServeEngine(cfg, params, ctx, serve=_slice_serve(kv_dtype, paged))
     eng.capture_logits = True
-    before = _ring_counts()
+    before = _kernel_counts()
     rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(prompts, arrivals)]
     done = eng.run()
     kv = eng.kv_cache_stats()
     return eng, dict(
         streams=[done[r].generated for r in rids], logits=[eng.debug_logits[r] for r in rids],
-        launches=_delta(before, _ring_counts()),
+        launches=_delta(before, _kernel_counts()),
         counters={"chunk_launches": eng.chunk_launches, "verify_launches": eng.verify_launches,
                   "decode_launches": eng.decode_launches, "spec_accepted": eng.spec_accepted,
                   "pages_in_use": kv.get("pages_in_use", 0),
@@ -1513,13 +1515,13 @@ def serve_ring(card, serve_rec, serve_streams):
                    eng.prefill_launches)
         eng.capture_logits = True
         ctx.ring.stats.reset()
-        before = _ring_counts()
+        before = _kernel_counts()
         t0 = time.perf_counter()
         res = serve_trace(eng, SERVE_LENGTHS, [a + skip for a in SERVE_ARRIVALS], 32,
                           cfg.vocab_size, seed=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _delta(before, _ring_counts())
+        launches = _delta(before, _kernel_counts())
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         decode_l, chunk_l, verify_l, prefill_l = (
@@ -1602,6 +1604,238 @@ def serve_ring(card, serve_rec, serve_streams):
           "new_tokens": 32, "near_tie": RING_NEAR_TIE, "runs": runs, "card": card})
     check(not problems, "; ".join(problems))
     return total
+
+
+# --------------------------------------------------------------------------
+# phases 4g and 4h: serving under memory pressure
+# --------------------------------------------------------------------------
+
+# slice_pressure: JAX's tests/test_robustness.py pool (page 4, 13 pages, chunk
+# 8, oversubscribe 2.0, the sweep every tick) at full width, 2 layers, fp32
+PRESSURE_SLICE = dict(max_seq=64, num_slots=3, paged=True, page_size=4, num_pages=13,
+                      prefill_chunk=8, oversubscribe=2.0, health_every=1,
+                      cache_dtype=torch.float32)
+PRESSURE_SLICE_CHAOS = dict(seed=6, ticks=16, squeezes=2, squeeze_hold=3, nan_ticks=1,
+                            drop_ticks=1)
+# serve_pressure: the serve trace's lifetime need is 334 pages of 16 tokens
+# (its prompts alone 318).  Admission books lifetimes against 2x the pool but
+# needs a prompt's pages (and one more) free at once, so only a pool that
+# the admitted prompts fill to within their decode growth preempts: the
+# schedule (token-independent: no EOS) preempts at 114-120 pages and at
+# none of 100-112 or 124-240 (CPU runs of the same engine on the reduced
+# config).  118 preempts once, with or without the chaos seed below
+PRESSURE_PAGES = 118
+# seed 4 over 64 ticks: a dropped grant (t33), two squeezes, a NaN tick (t55)
+PRESSURE_SERVE_CHAOS = dict(seed=4, ticks=64)
+
+
+def _pressure_trace(V, chaos):
+    """slice_pressure's prompts and token budget: JAX's token-identity case
+    (3 x 16 tokens, 12 new) or its chaos case (4 x 16, 10 new)."""
+    if chaos:
+        rng = np.random.default_rng(13)
+        return [rng.integers(0, V, (16,), dtype=np.int32) for _ in range(4)], 10
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, V, (16,), dtype=np.int32) for _ in range(3)], 12
+
+
+def slice_pressure():
+    """granite-8b at full width, 2 layers, fp32: the same weights served on
+    the card (kernels) and on the CPU (plain versions) under oversubscription
+    (13 pages of 4, preempt-and-recompute), from an fp and an int8 pool,
+    plain and with JAX's chaos seed (squeezes, a NaN tick, a dropped grant)."""
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params_cpu = _tree_to(params, "cpu")
+    out, problems = {}, []
+    for kv_dtype in ("fp", "int8"):
+        for run in ("pressure", "chaos"):
+            prompts, new = _pressure_trace(cfg.vocab_size, run == "chaos")
+            side = {}
+            for dev, p in (("cuda", params), ("cpu", params_cpu)):
+                inj = (ChaosInjector(ChaosConfig(**PRESSURE_SLICE_CHAOS)) if run == "chaos"
+                       else None)
+                eng = ServeEngine(cfg, p, ParallelCtx(device=dev), chaos=inj,
+                                  serve=ServeConfig(**PRESSURE_SLICE, kv_dtype=kv_dtype))
+                before = _kernel_counts()
+                rids = [eng.submit(x, new) for x in prompts]
+                done = eng.run()
+                kv = eng.kv_cache_stats()
+                eng.health()
+                side[dev] = dict(
+                    outcome=[(done[r].status, done[r].generated, done[r].preemptions,
+                              done[r].recompute_tokens) for r in rids],
+                    events=list(inj.events) if inj else [],
+                    preemptions=eng.preemptions, recompute_tokens=eng.recompute_tokens,
+                    dropped_grants=eng.chaos_dropped_grants, left=(
+                        kv["pages_in_use"], kv["scale_entries_in_use"], kv["seized_pages"]),
+                    launches=_delta(before, _kernel_counts()),
+                    decode_launches=eng.decode_launches, chunk_launches=eng.chunk_launches,
+                )
+                del eng
+            card, cpu = side["cuda"], side["cpu"]
+            tag = f"slice_pressure {kv_dtype} {run}"
+            statuses = [o[0] for o in card["outcome"]]
+            out[f"{kv_dtype}_{run}"] = dict(
+                identical=card["outcome"] == cpu["outcome"] and card["events"] == cpu["events"],
+                statuses=statuses, preemptions=card["preemptions"],
+                recompute_tokens=card["recompute_tokens"], events=card["events"],
+                dropped_grants=card["dropped_grants"], cuda_launches=card["launches"],
+                cpu_launches=sum(cpu["launches"].values()),
+            )
+            if card["outcome"] != cpu["outcome"] or card["events"] != cpu["events"]:
+                problems.append(f"{tag}: card and CPU differ: {card['outcome']} {card['events']}"
+                                f" vs {cpu['outcome']} {cpu['events']}")
+            if card["preemptions"] < 1:
+                problems.append(f"{tag}: no preemption")
+            if card["left"] != (0, 0, 0) or cpu["left"] != (0, 0, 0):
+                problems.append(f"{tag}: pages, scales or seized pages left: {card['left']}")
+            if run == "chaos" and statuses.count("numeric_error") != 1:
+                problems.append(f"{tag}: the NaN tick must retire one request: {statuses}")
+            if run == "pressure" and statuses != ["ok"] * len(statuses):
+                problems.append(f"{tag}: not every request finished ok: {statuses}")
+            decode_kernel = "paged_flash_decode" if kv_dtype == "fp" else "paged_flash_decode_quant"
+            L = cfg.num_layers
+            if not (card["launches"][decode_kernel] == L * card["decode_launches"] > 0
+                    and card["launches"]["fwd_fp32"] == L * card["chunk_launches"] > 0):
+                problems.append(f"{tag}: launches {card['launches']} off the decode "
+                                f"({card['decode_launches']}) and chunk "
+                                f"({card['chunk_launches']}) launches")
+            if out[f"{kv_dtype}_{run}"]["cpu_launches"]:
+                problems.append(f"{tag}: kernels launched on the CPU side")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_pressure", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
+          **{k: (str(v) if k == "cache_dtype" else v) for k, v in PRESSURE_SLICE.items()},
+          "chaos": PRESSURE_SLICE_CHAOS, **out})
+    check(not problems, "; ".join(problems))
+
+
+def _poisoned_slot(events):
+    hits = [e for e in events if ":nan:slot" in e]
+    return int(hits[0].rsplit("slot", 1)[1]) if len(hits) == 1 else None
+
+
+def serve_pressure(card, quant_runs, quant_streams):
+    """granite-8b at full width and depth, bf16, the serve trace over a pool of
+    PRESSURE_PAGES pages with oversubscribe 2.0 (chunk 256, budget 512): the
+    fp pool, the int8 pool, and the fp pool with a chaos seed, twice.  Held to
+    serve_quant's roomy fp and int8 runs of the same call (a flip only where
+    the pressure run scores its top two within RING_NEAR_TIE)."""
+    cfg = get_config("granite-8b")
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    L = cfg.num_layers
+    runs, problems, outcomes, main = {}, [], {}, {}
+    for name, kv_dtype, chaos in (("fp", "fp", False), ("int8", "int8", False),
+                                  ("chaos_1", "fp", True), ("chaos_2", "fp", True)):
+        inj = ChaosInjector(ChaosConfig(**PRESSURE_SERVE_CHAOS)) if chaos else None
+        eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), chaos=inj, serve=ServeConfig(
+            max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=PRESSURE_PAGES,
+            cache_dtype=torch.bfloat16, prefill_chunk=256, tick_token_budget=512,
+            oversubscribe=2.0, health_every=1, kv_dtype=kv_dtype,
+        ))
+        eng.capture_logits = True  # the flip rule reads the run's logits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _kernel_counts()
+        t0 = time.perf_counter()
+        res = serve_trace(eng, SERVE_LENGTHS, SERVE_ARRIVALS, 32, cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _delta(before, _kernel_counts())
+        health = eng.health()
+        stats = eng.tick_stats()
+        kv = eng.kv_cache_stats()
+        pf_tok, pf_s = sum(stats["prefill_tokens"]), sum(stats["prefill_s"])
+        dec_ticks = [i for i in range(stats["ticks"]) if stats["decode_s"][i] > 0]
+        dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+        dec_tok = sum(stats["decode_tokens"]) - len(res)
+        roomy = quant_streams["int8" if kv_dtype == "int8" else "fp"]
+        flips = []
+        for i, (r, want) in enumerate(zip(res, roomy)):
+            if r.status == "ok" and r.generated != want:
+                j = _first_flip(r.generated, want)
+                row = eng.debug_logits[r.rid][j]
+                top2 = np.sort(row)[-2:]
+                flips.append(dict(request=i, token=j, pressure=r.generated[j], roomy=want[j],
+                                  top2_gap=float(top2[1] - top2[0]),
+                                  gap_to_roomy=float(row[r.generated[j]] - row[want[j]])))
+        rec = {
+            "kv_dtype": kv_dtype, "chaos": PRESSURE_SERVE_CHAOS if chaos else None,
+            "statuses": [r.status for r in res], "ticks": stats["ticks"], "wall_s": wall,
+            "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+            "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+            "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+            "preemptions": eng.preemptions, "recompute_tokens": eng.recompute_tokens,
+            "per_request_preemptions": [r.preemptions for r in res],
+            "chunk_launches": eng.chunk_launches, "decode_launches": eng.decode_launches,
+            "chaos_events": list(inj.events) if inj else [],
+            "chaos_dropped_grants": eng.chaos_dropped_grants,
+            "numeric_errors": eng.numeric_errors, "health_sweeps": eng.health_sweeps,
+            "ttft_ticks": [r.ttft_ticks for r in res],
+            "pool_bytes": kv["cache_bytes"] + kv["scale_table_bytes"],
+            "peak_pages": kv["peak_in_use"], "pages_in_use": kv["pages_in_use"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "flips_vs_roomy": flips,
+        }
+        runs[name] = rec
+        outcomes[name] = [(r.status, r.generated, r.preemptions, r.recompute_tokens)
+                          for r in res]
+        tag = f"serve_pressure {name}"
+        if not (rec["preemptions"] >= 1 and rec["recompute_tokens"] > 0):
+            problems.append(f"{tag}: no preemption under {PRESSURE_PAGES} pages")
+        if not (kv["pages_in_use"] == kv["scale_entries_in_use"] == kv["seized_pages"] == 0
+                and health["ok"]):
+            problems.append(f"{tag}: pages left or the sweep failed: {kv['pages_in_use']}")
+        oks = [r for r in res if r.status == "ok"]
+        if not all(len(r.generated) == 32 for r in oks):
+            problems.append(f"{tag}: an ok request short of 32 tokens")
+        if chaos:
+            slot = _poisoned_slot(rec["chaos_events"])
+            bad = [r for r in res if r.status != "ok"]
+            if not (slot is not None and len(bad) == 1 and bad[0].status == "numeric_error"
+                    and bad[0].slot == slot):
+                problems.append(f"{tag}: exactly the poisoned slot ({slot}) must end "
+                                f"numeric_error: {rec['statuses']}, {rec['chaos_events']}")
+        elif len(oks) != len(res):
+            problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
+        for f in flips:
+            if f["gap_to_roomy"] > RING_NEAR_TIE:
+                problems.append(f"{tag}: a flip beyond a near-tie: {f}")
+        # per layer one #1 launch per chunk launch (tile body; fp32 body over
+        # the int8 pool's view) and one #4 / 4q launch per decode launch
+        chunk_body, decode_kernel, other = (
+            ("fwd_tile", "paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
+            else ("fwd_fp32", "paged_flash_decode_quant", "paged_flash_decode"))
+        want = {chunk_body: L * rec["chunk_launches"],
+                "flash_attention_fwd": L * rec["chunk_launches"],
+                decode_kernel: L * rec["decode_launches"], other: 0}
+        if {k: launches[k] for k in want} != want or not rec["decode_launches"]:
+            problems.append(f"{tag}: launches {launches}, want {want}")
+        if name in ("fp", "int8"):
+            for k, v in launches.items():
+                main[k] = main.get(k, 0) + v
+        del eng
+        torch.cuda.empty_cache()
+    if outcomes["chaos_1"] != outcomes["chaos_2"] or \
+            runs["chaos_1"]["chaos_events"] != runs["chaos_2"]["chaos_events"]:
+        problems.append("serve_pressure: the two chaos runs differ")
+    roomy_fp = quant_runs["fp"]
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_pressure", "arch": "granite-8b", "num_layers": L, "dtype": "bf16",
+          "paged": True, "page_size": 16, "num_pages": PRESSURE_PAGES, "lifetime_pages": sum(
+              -(-(n + 32) // 16) for n in SERVE_LENGTHS), "oversubscribe": 2.0,
+          "max_seq": 2048, "num_slots": 8, "prefill_chunk": 256, "tick_token_budget": 512,
+          "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
+          "near_tie": RING_NEAR_TIE, "chaos_runs_identical": outcomes["chaos_1"] == outcomes[
+              "chaos_2"], "runs": runs,
+          "serve_quant_fp": {k: roomy_fp[k] for k in (
+              "prefill_tok_per_s", "decode_tok_per_s", "ms_per_decode_tick", "pool_bytes",
+              "peak_mem_gb", "ticks")},
+          "card": card})
+    check(not problems, "; ".join(problems))
+    return main
 
 
 def _ssm_state_bytes(eng):
@@ -2329,6 +2563,138 @@ def mesh_op(card):
     return launches
 
 
+# Algorithm 1's collective form on a 2 x 2 grid of the same 4 ranks
+COLLECTIVE_GRID = (2, 2)
+
+
+def collective_case(kind, dtype, gen):
+    """mesh_attention_collective over a virtual ring of 4 (a = b = 2) at S
+    16384, paper heads, in the three comm_overlap modes, forward and the
+    gradients of sum(sin(o)), against the local flash call and the executor
+    (dispatch, mesh a = 2: mesh_op's main call)."""
+    nh, nkv, hd = PAPER_HEADS
+    a, b = COLLECTIVE_GRID
+    window = MESH_WINDOW if kind == "window" else None
+    mask = MaskSpec.causal(window=window)
+    q = randn(gen, 1, MESH_S, nh, hd, dtype=dtype)
+    k = randn(gen, 1, MESH_S, nkv, hd, dtype=dtype)
+    v = randn(gen, 1, MESH_S, nkv, hd, dtype=dtype)
+    order = torch.from_numpy(stripe_permutation(MESH_S, MESH_N)).cuda()
+    inv = torch.from_numpy(unstripe_permutation(MESH_S, MESH_N)).cuda()
+    xs_striped = [t[:, order].contiguous() for t in (q, k, v)]
+
+    def local():
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = ops.flash_attention(*xs, causal=True, window=window)
+        return o, torch.autograd.grad(o.float().sin().sum(), xs)
+
+    mesh_cfg = dispatch.AttentionPlanConfig(backend="mesh", transport=VirtualRing(MESH_N),
+                                            n=MESH_N, a=a, causal=True, window=window)
+
+    def mesh():
+        xs = [t.detach().requires_grad_(True) for t in xs_striped]
+        o = dispatch.distributed_attention(*xs, cfg=mesh_cfg)
+        return o, torch.autograd.grad(o.float().sin().sum(), xs)
+
+    o_ref, g_ref = local()
+    o_ref, g_ref = o_ref.detach().float(), [g.float() for g in g_ref]
+    o_mesh, g_mesh = mesh()
+    o_mesh, g_mesh = o_mesh[:, inv].detach().float(), [g[:, inv].float() for g in g_mesh]
+    o_max, g_max = float(o_ref.abs().max()), [float(g.abs().max()) for g in g_ref]
+    tol_o, tol_g = MESH_OP_TOLS[dtype]
+    lim_o = tol_o * o_max if MESH_OP_O_RELATIVE[dtype] else tol_o
+    lim_g = [tol_g * x for x in g_max]
+    elem = q.element_size()
+    m = MESH_S // MESH_N
+    want_bytes = {"gather_q": (a - 1) * m * nh * hd * elem,
+                  "gather_kv": (b - 1) * 2 * m * nkv * hd * elem,
+                  "gather_lse": (a - 1) * a * nh * m * 4,
+                  "scatter_o": (a - 1) * m * nh * hd * 4}
+    rec = dict(kind=kind, window=window, dtype=DTYPE_NAMES[dtype], S=MESH_S, n=MESH_N, a=a, b=b,
+               heads=list(PAPER_HEADS), o_limit=lim_o, g_limit=lim_g, bitwise_modes={},
+               want_bytes=want_bytes)
+    first, main_counts = None, None
+    for mode in S.COMM_OVERLAP_MODES:
+        ring = VirtualRing(MESH_N)
+        torch.cuda.synchronize()
+        c0 = mesh_counts()
+        xs = [t.detach().requires_grad_(True) for t in xs_striped]
+        o = ring.join(mesh_attention_collective(*(ring.split(t) for t in xs), ring, a, b,
+                                                mask=mask, comm_overlap=mode))
+        g = torch.autograd.grad(o.float().sin().sum(), xs)
+        torch.cuda.synchronize()
+        counts = {key: n - c0[key] for key, n in mesh_counts().items()}
+        if first is None:
+            first = dict(o=o.detach(), g=[x.detach() for x in g])
+            ou, gu = o.detach()[:, inv].float(), [x[:, inv].float() for x in g]
+            rec.update(
+                o_err_local=float((ou - o_ref).abs().max()),
+                g_err_local=[float((x - y).abs().max()) for x, y in zip(gu, g_ref)],
+                o_err_mesh=float((ou - o_mesh).abs().max()),
+                g_err_mesh=[float((x - y).abs().max()) for x, y in zip(gu, g_mesh)],
+                launches=counts, hops=dict(ring.stats.hops), bytes=dict(ring.stats.bytes),
+                messages=dict(ring.stats.messages))
+            main_counts = counts
+            check(rec["o_err_local"] <= lim_o and rec["o_err_mesh"] <= lim_o
+                  and all(e <= lim for e, lim in zip(rec["g_err_local"], lim_g))
+                  and all(e <= lim for e, lim in zip(rec["g_err_mesh"], lim_g)),
+                  f"collective: disagrees with local flash or mesh a = 2: {rec}")
+            check(rec["bytes"] == want_bytes and rec["hops"] == {kk: 1 for kk in want_bytes},
+                  f"collective: bytes per kind off (group size - 1) x the chunk: {rec}")
+            blocks = a * b
+            check(counts["flash_attention_fwd"] == blocks
+                  and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == blocks * MESH_N,
+                  f"collective: #1 must launch once per (u, w) block ({blocks}), #2 / #3 once "
+                  f"per block and rank: {counts}")
+        else:
+            same = bool(torch.equal(o, first["o"])) and all(
+                torch.equal(x, y) for x, y in zip(g, first["g"]))
+            rec["bitwise_modes"][mode] = same
+            check(same and dict(ring.stats.bytes) == rec["bytes"],
+                  f"collective: {mode} is not bitwise the serial mode: {rec}")
+        del o, g
+    ring = VirtualRing(MESH_N)
+
+    def coll_fwd():
+        with torch.no_grad():
+            mesh_attention_collective(*(ring.split(t) for t in xs_striped), ring, a, b, mask=mask)
+
+    def coll_fwd_bwd():
+        xs = [t.detach().requires_grad_(True) for t in xs_striped]
+        o = mesh_attention_collective(*(ring.split(t) for t in xs), ring, a, b, mask=mask)
+        torch.autograd.grad(o.float().sin().sum(), xs)
+
+    def mesh_fwd():
+        with torch.no_grad():
+            dispatch.distributed_attention(*xs_striped, cfg=mesh_cfg)
+
+    rec["ms_fwd"] = time_ms(coll_fwd, reps=5, warmup=1)
+    rec["ms_fwd_bwd"] = time_ms(coll_fwd_bwd, reps=3, warmup=1)
+    rec["mesh_ms_fwd"] = time_ms(mesh_fwd, reps=5, warmup=1)
+    rec["mesh_ms_fwd_bwd"] = time_ms(mesh, reps=3, warmup=1)
+    del q, k, v, xs_striped, o_ref, g_ref, o_mesh, g_mesh, first
+    torch.cuda.empty_cache()
+    return rec, main_counts
+
+
+def collective(card):
+    """Phase collective: Algorithm 1's collective form (see
+    ``collective_case``); the serial mode's launches are the main path's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cases, launches = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("causal", "window"):
+            rec, counts = collective_case(kind, dtype, gen)
+            cases.append(rec)
+            for key, n in counts.items():
+                launches[key] = launches.get(key, 0) + n
+    emit({"phase": "collective", "card": card, "tols": {DTYPE_NAMES[d]: t
+                                                         for d, t in MESH_OP_TOLS.items()},
+          "cases": cases, "launches_main": launches})
+    return launches
+
+
 def train_mesh_parity():
     """paper-mha-7b at full width, 2 layers, fp32, seq 4096: one train step at
     sp_size 4 on the virtual ring (mesh a = 2, and ring) against one at
@@ -2560,10 +2926,15 @@ def main():
     cross_device()
     launches, serve_rec, serve_streams = full_serve(card)
     cpu_runs = cross_device_quant()
-    launches["paged_flash_decode_quant"] = full_serve_quant(card)["paged_flash_decode_quant"]
+    quant_launches, quant_runs, quant_streams = full_serve_quant(card)
+    launches["paged_flash_decode_quant"] = quant_launches["paged_flash_decode_quant"]
     # serving over a ring of 4 ranks on the card
     ring_slice = slice_ring(cpu_runs)
     ring = serve_ring(card, serve_rec, serve_streams)
+    # serving under memory pressure: preempt-and-recompute and the chaos
+    # injector, card vs CPU at 2 layers, then granite-8b in full
+    slice_pressure()
+    pressure = serve_pressure(card, quant_runs, quant_streams)
     cross_device_ssm()
     launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
     # serve_ring's launches join the serving rows
@@ -2576,9 +2947,15 @@ def main():
     # slice_ring's fp32 chunks and verifies, and its quantized decode ticks
     launches["flash_attention_fwd (fp32)"] += ring_slice["fwd_fp32"]
     launches["paged_flash_decode_quant"] += ring_slice["paged_flash_decode_quant"]
+    # serve_pressure's fp and int8 runs (the chaos runs are gates, not counted)
+    for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
+                      ("flash_attention_fwd (fp32)", "fwd_fp32"),
+                      ("paged_flash_decode", "paged_flash_decode"),
+                      ("paged_flash_decode_quant", "paged_flash_decode_quant")):
+        launches[key] += pressure[part]
     # the Mesh-Attention path: the dispatch seam and paper-mha-7b training
     # over a virtual ring of 4 ranks; their main runs' launches join the counts
-    mesh = [mesh_op(card)]
+    mesh = [mesh_op(card), collective(card)]
     train_mesh_parity()
     mesh.append(train_mesh(card))
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),

@@ -15,7 +15,9 @@
 // [4] band for the whole batch or one per batch row ([B, 4]); the latter is
 // how a dense-cache decode step runs every slot at its own depth in one
 // launch.  Softmax arithmetic is fp32; o is written in fp32 and lse
-// [B, H, Sq] in fp32 (NEG_INF for an empty row, whose o is exactly 0).
+// [B, H, Sq] in fp32 (NEG_INF for an empty row, whose o is exactly 0).  A
+// NaN score (a poisoned key) makes its row's o and lse NaN, as in JAX's
+// kernels: the serving engine's NaN guard depends on it.
 //
 // What bounds it on an H100: at prefill lengths the work is 4*D flops per
 // visible (query, key) pair against 2*D*(Sq+Skv)*H bytes of q/k/v, far above
@@ -223,7 +225,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int i = 0; i < 4; ++i) {
     if (!row_ok[i]) continue;
     const int row = r0 + ty * 4 + i;
-    const bool nonempty = l[i] > 0.f;
+    const bool nonempty = !(l[i] <= 0.f);  // a NaN sum (a NaN score) passes
     float* orow = o + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)

@@ -63,7 +63,9 @@
 //   * the warps' (m, l, acc) merge in shared memory in a fixed order; with
 //     more than one split each CTA writes a normalized fp32 partial and its
 //     lse, and flash_fwd_combine_kernel merges them by lse (fixed order, no
-//     atomics: two launches are bitwise equal).
+//     atomics: two launches are bitwise equal).  In both bodies and the
+//     combine a NaN score makes its row's o and lse NaN, as in JAX's kernels
+//     (the running maxima drop NaN, exp keeps it, the epilogues pass it).
 
 #include <string.h>
 
@@ -486,7 +488,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     const int r = row_r[h2];
     if (r >= R) continue;
     const int i = r / G, h = hk * G + r % G;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const float inv = !(l <= 0.f) ? 1.f / l : 0.f;  // a NaN sum passes
     bf16* orow = o + (((size_t)b * Sq + i) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c)
@@ -497,7 +499,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
             oacc[c][4 * j + 2 * h2] * inv, oacc[c][4 * j + 2 * h2 + 1] * inv);
       }
     if (lane % 4 == 0)
-      lse[((size_t)b * H + h) * Sq + i] = l > 0.f ? m2[h2] * kLn2 + logf(l) : kNegInf;
+      lse[((size_t)b * H + h) * Sq + i] = !(l <= 0.f) ? m2[h2] * kLn2 + logf(l) : kNegInf;
   }
 }
 
@@ -771,7 +773,7 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
 #pragma unroll
     for (int w = 0; w < DB_WARPS; ++w) acc += accbuf[(w * C::ROWS + row) * D + d];
     const float L = fin_l[row];
-    const float val = L > 0.f ? acc / L : 0.f;
+    const float val = !(L <= 0.f) ? acc / L : 0.f;  // a NaN sum passes
     const int i = row / G, h = hk * G + row % G;
     const size_t orow = ((size_t)b * Sq + i) * H + h;
     if (splits == 1)
@@ -781,7 +783,7 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
   }
   for (int row = tid; row < R; row += DB_THREADS) {
     const float L = fin_l[row];
-    const float val = L > 0.f ? fin_m[row] * kLn2 + logf(L) : kNegInf;
+    const float val = !(L <= 0.f) ? fin_m[row] * kLn2 + logf(L) : kNegInf;
     const int i = row / G, h = hk * G + row % G;
     const size_t li = ((size_t)b * H + h) * Sq + i;
     if (splits == 1)
@@ -805,7 +807,7 @@ __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
   const size_t li = ((size_t)b * H + h) * Sq + i;
   const size_t lstride = (size_t)B * H * Sq;
   float M = kNegInf;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, lse_parts[s * lstride + li]);
+  for (int s = 0; s < splits; ++s) M = max_nan(M, lse_parts[s * lstride + li]);
   if (M <= kNegInf) {
     for (int d = lane; d < D; d += 32) o[row * D + d] = __float2bfloat16(0.f);
     if (lane == 0) lse[li] = kNegInf;

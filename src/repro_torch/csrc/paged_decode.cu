@@ -68,7 +68,9 @@
 //     paged_decode_combine_kernel, launched by the same C call, merges
 //     those rows by lse in a fixed order straight into o and lse (the
 //     splits spread over a warp's lanes).  No atomics: two launches are
-//     bitwise equal.
+//     bitwise equal.  A NaN score (a poisoned key or scale) makes its row's
+//     o and lse NaN through every body and the combine, as in JAX's
+//     kernels: the serving engine's NaN guard depends on it.
 
 #include <cuda_fp8.h>
 
@@ -342,7 +344,7 @@ __device__ void write_out(const Args& a, const float* accbuf, const float* ml, i
 #pragma unroll
     for (int w = 0; w < NW; ++w) acc += accbuf[(w * MAX_GROUP + g) * D + d];
     const float L = fin_l[g];
-    const float val = L > 0.f ? acc / L : 0.f;
+    const float val = !(L <= 0.f) ? acc / L : 0.f;  // a NaN sum passes
     const int h = hk * G + g;
     if (direct)
       static_cast<OutT*>(a.o)[((size_t)b * a.H + h) * D + d] = OutT(val);
@@ -351,7 +353,7 @@ __device__ void write_out(const Args& a, const float* accbuf, const float* ml, i
   }
   for (int g = threadIdx.x; g < G; g += NT) {
     const float L = fin_l[g];
-    const float val = L > 0.f ? fin_m[g] * kLn2 + logf(L) : kNegInf;
+    const float val = !(L <= 0.f) ? fin_m[g] * kLn2 + logf(L) : kNegInf;
     const int h = hk * G + g;
     if (direct)
       a.lse[(size_t)b * a.H + h] = val;
@@ -740,9 +742,10 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
   OutT* orow = static_cast<OutT*>(o) + row * D;
   // the row max and the weights' sum, the splits spread over the lanes
   float M = kNegInf;
-  for (int s = lane; s < S; s += 32) M = fmaxf(M, lp[(size_t)s * H]);
+  // NaN-keeping maxima and weights: a split with a NaN score poisons the row
+  for (int s = lane; s < S; s += 32) M = max_nan(M, lp[(size_t)s * H]);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  for (int off = 16; off > 0; off >>= 1) M = max_nan(M, __shfl_xor_sync(0xffffffffu, M, off));
   if (M <= kNegInf / 2) {
     for (int d = lane; d < D; d += 32) orow[d] = OutT(0.f);
     if (lane == 0) lse[row] = kNegInf;
@@ -751,7 +754,7 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
   float W = 0.f;
   for (int s = lane; s < S; s += 32) {
     const float ls = lp[(size_t)s * H];
-    if (ls > kNegInf / 2) W += expf(ls - M);
+    if (!(ls <= kNegInf / 2)) W += expf(ls - M);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) W += __shfl_xor_sync(0xffffffffu, W, off);
@@ -761,7 +764,7 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
   const int DC = D / 32;
   for (int s0 = 0; s0 < S; s0 += 32) {
     const float ls = s0 + lane < S ? lp[(size_t)(s0 + lane) * H] : kNegInf;
-    const float w = ls > kNegInf / 2 ? expf(ls - M) : 0.f;
+    const float w = !(ls <= kNegInf / 2) ? expf(ls - M) : 0.f;
     const int n = S - s0 < 32 ? S - s0 : 32;
 #pragma unroll 4
     for (int i = 0; i < n; ++i) {
@@ -771,7 +774,7 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
       for (int c = 0; c < 4; ++c)
         if (c < DC) {
           const float x = src[32 * c];
-          acc[c] = wi > 0.f ? fmaf(wi, x, acc[c]) : acc[c];
+          acc[c] = !(wi <= 0.f) ? fmaf(wi, x, acc[c]) : acc[c];
         }
     }
   }

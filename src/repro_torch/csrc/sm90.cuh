@@ -112,6 +112,12 @@ __device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+// max that keeps a NaN operand (fmaxf drops it), as jnp.maximum does: where
+// merged maxima feed an epilogue, a NaN score must reach o and lse
+__device__ __forceinline__ float max_nan(float x, float y) {
+  return x != x ? x : (y != y ? y : fmaxf(x, y));
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

@@ -24,9 +24,20 @@ sequence-parallel ring of 4 ranks (``ParallelCtx(sp_size=4)``, a
 ``VirtualRing``: every rank on the one device), as JAX's CLI builds a
 (N/4, 4) mesh with a sequence axis of 4; the port builds the sequence axis
 only.  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
-their plain PyTorch versions.  Weights are random, from seed 0.  Flags whose
-machinery is not ported yet (oversubscription, chaos) are accepted for
-parity and raise when set.
+their plain PyTorch versions.  Weights are random, from seed 0.
+
+Robustness knobs, as in JAX's CLI: ``--oversubscribe 1.5`` admits against
+1.5x the physical page pool (preempt-and-recompute under pressure; needs
+``--paged`` and ``--prefill-chunk``), ``--deadline-ticks`` / ``--cancel
+idx:tick`` exercise the lifecycle paths, ``--chaos-seed N`` replays a seeded
+fault trace (pool squeezes, NaN ticks, dropped grants; ``--chaos-ticks`` its
+horizon), and ``--check-deterministic`` reruns everything with a fresh engine
+and injector and exits 1 unless statuses, streams and chaos events reproduce
+exactly.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --stream \
+        --paged --page-size 4 --num-pages 13 --prefill-chunk 8 --oversubscribe 2.0 \
+        --chaos-seed 3 --health-every 1 --check-deterministic
 """
 
 import argparse
@@ -43,16 +54,6 @@ def _parse_trace(spec: str):
             ln, tick = part, 0
         items.append((int(ln), int(tick)))
     return items
-
-
-def _not_ported(args) -> list:
-    return [
-        flag for flag, on in (
-            ("--oversubscribe", args.oversubscribe != 1.0),
-            ("--chaos-seed", args.chaos_seed is not None),
-            ("--check-deterministic", args.check_deterministic),
-        ) if on
-    ]
 
 
 def main(argv=None):
@@ -101,18 +102,19 @@ def main(argv=None):
                          "token stream matches")
     ap.add_argument("--fake-devices", type=int, default=0,
                     help=">= 8: serve over a sequence-parallel ring of 4 ranks on the device")
-    # parity with the JAX CLI; not ported yet
-    ap.add_argument("--oversubscribe", type=float, default=1.0)
-    ap.add_argument("--chaos-seed", type=int, default=None)
-    ap.add_argument("--chaos-ticks", type=int, default=24)
-    ap.add_argument("--check-deterministic", action="store_true")
+    ap.add_argument("--oversubscribe", type=float, default=1.0,
+                    help="admit against this multiple of the physical page pool; > 1.0 "
+                         "preempts and recomputes under pressure (requires --paged and "
+                         "--prefill-chunk)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="inject a seeded deterministic fault trace (pool squeezes, NaN "
+                         "ticks, dropped grants) from testing/chaos.py")
+    ap.add_argument("--chaos-ticks", type=int, default=24,
+                    help="horizon the chaos event schedule is drawn over")
+    ap.add_argument("--check-deterministic", action="store_true",
+                    help="replay the whole --stream run (fresh engine and injector); exit 1 "
+                         "unless statuses, token streams and chaos events all match")
     args = ap.parse_args(argv)
-
-    missing = _not_ported(args)
-    if missing:
-        raise NotImplementedError(
-            f"not ported to the PyTorch engine yet: {', '.join(missing)}"
-        )
 
     import numpy as np
     import torch
@@ -141,9 +143,17 @@ def main(argv=None):
             prefill_chunk=args.prefill_chunk, tick_token_budget=args.tick_token_budget,
             spec_k=spec_k, spec_draft=args.spec_draft,
             spec_max_misses=args.spec_max_misses or None, health_every=args.health_every,
+            oversubscribe=args.oversubscribe,
         )
 
-    eng = ServeEngine(cfg, params, ctx=ctx, serve=make_serve(args.spec_k))
+    def make_chaos():
+        if args.chaos_seed is None:
+            return None
+        from repro_torch.testing.chaos import ChaosConfig, ChaosInjector
+        return ChaosInjector(ChaosConfig(seed=args.chaos_seed, ticks=args.chaos_ticks))
+
+    chaos = make_chaos()
+    eng = ServeEngine(cfg, params, ctx=ctx, serve=make_serve(args.spec_k), chaos=chaos)
     rng = np.random.default_rng(0)
 
     if args.stream:
@@ -198,7 +208,42 @@ def main(argv=None):
             }
         if args.paged:
             summary["kv_cache"] = kv
+        if (args.oversubscribe > 1.0 or args.chaos_seed is not None
+                or args.deadline_ticks is not None or args.cancel):
+            statuses = {}
+            for rid in rids:
+                st = eng._finished[rid].status
+                statuses[st] = statuses.get(st, 0) + 1
+            summary["robustness"] = {
+                "oversubscribe": args.oversubscribe,
+                "statuses": statuses,
+                **{key: kv[key] for key in (
+                    "preemptions", "recompute_tokens", "cancelled", "deadline_expired",
+                    "numeric_errors", "rejected_requests", "health_sweeps",
+                    "chaos_dropped_grants",
+                )},
+                "chaos_events": chaos.events if chaos is not None else [],
+            }
         print(json.dumps(summary))
+        if args.check_deterministic:
+            # a fresh engine and a fresh injector replaying the same (seed,
+            # trace, faults) must reproduce every outcome
+            chaos2 = make_chaos()
+            ref = ServeEngine(cfg, params, ctx=ctx, serve=make_serve(args.spec_k), chaos=chaos2)
+            ref_rids, _ = replay(ref, quiet=True)
+            for rid, ref_rid in zip(rids, ref_rids):
+                a, b = eng._finished[rid], ref._finished[ref_rid]
+                if a.status != b.status or a.generated != b.generated:
+                    print(f"check-deterministic: rid={rid} run1 ({a.status}, {a.generated}) "
+                          f"!= run2 ({b.status}, {b.generated})", file=sys.stderr)
+                    return 1
+            if chaos is not None and chaos.events != chaos2.events:
+                print(f"check-deterministic: chaos traces diverged:\n  run1 {chaos.events}\n"
+                      f"  run2 {chaos2.events}", file=sys.stderr)
+                return 1
+            print(f"check-deterministic: {len(rids)} outcomes and "
+                  f"{len(chaos.events) if chaos is not None else 0} chaos events "
+                  "reproduced exactly")
         if args.check_spec_identical:
             if not eng._spec_on:
                 print("check-spec-identical needs --spec-k >= 2", file=sys.stderr)

@@ -35,6 +35,25 @@ across modes.  Each hop is counted per comm kind (``recv_q``, ``recv_kv``,
 decode's lse combine): ``stats.hops`` (logical
 hops), ``stats.messages`` (transfers: two per leaf in bidir) and
 ``stats.bytes`` (bytes one rank sends, the unit of ``core/am.CommModel``).
+
+**Group collectives** over an ``(a, b)`` grid of the n = a*b ranks (rank
+c = x*b + y; ``Grid``) serve Algorithm 1's collective form
+(``core/mesh_attention_collective.py``), JAX's ``lax.all_gather`` /
+``lax.psum_scatter`` over the ``aq`` / ``akv`` axes of a 2-D mesh:
+``group_all_gather(x, grid, axis)`` gives each rank its group's tensors in
+member order, ``group_reduce_scatter(x, grid, axis)`` gives each rank the
+sum, in member order, of its group's slots for it.  The ``aq`` group of rank
+(x, y) is {u*b + y : u < a} (its index there is x), the ``akv`` group
+{x*b + w : w < b} (index y).  Both are ``torch.autograd.Function``s, each
+the other's gradient, with sums in a fixed order, so every transport and
+mode gives the same bits.  They complete before they return in every mode;
+``bidir`` splits each leaf of a gather into two half-payload transfers along
+its last axis (the reduce-scatter, a reduction, is never split).  A group
+collective counts one hop of its kind, one message per leaf (two in bidir),
+and the bytes one rank sends: (group size - 1) x its chunk.  The virtual
+ring copies inside one device; ``ProcessGroupRing`` runs them over
+``dist.new_group`` subgroups (all-gather, and ``all_to_all_single`` for the
+reduce-scatter), gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -47,7 +66,7 @@ import torch.distributed as dist
 
 from repro_torch.core.schedule import validate_comm_overlap
 
-__all__ = ["RingStats", "VirtualRing", "ProcessGroupRing"]
+__all__ = ["Grid", "RingStats", "VirtualRing", "ProcessGroupRing"]
 
 Perm = Sequence[Tuple[int, int]]
 
@@ -96,6 +115,126 @@ def _payload_bytes(leaves, ranks: int) -> int:
     return sum(x.numel() * x.element_size() for x in leaves if x is not None) // ranks
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The (a, b) factorization of a ring's n = a*b ranks: rank c sits at
+    (x, y) = divmod(c, b).  Axis ``"aq"`` varies x (groups of a ranks: a
+    column), axis ``"akv"`` varies y (groups of b ranks: a row)."""
+
+    a: int
+    b: int
+
+    def __post_init__(self):
+        if self.a < 1 or self.b < 1:
+            raise ValueError(f"a grid needs a, b >= 1, got ({self.a}, {self.b})")
+
+    @property
+    def n(self) -> int:
+        return self.a * self.b
+
+    def size(self, axis: str) -> int:
+        if axis == "aq":
+            return self.a
+        if axis == "akv":
+            return self.b
+        raise ValueError(f"unknown group axis {axis!r}; expected aq | akv")
+
+    def members(self, axis: str, rank: int) -> List[int]:
+        """The ranks of ``rank``'s group along ``axis``, in member order."""
+        x, y = divmod(rank, self.b)
+        if axis == "aq":
+            return [u * self.b + y for u in range(self.a)]
+        self.size(axis)
+        return [x * self.b + w for w in range(self.b)]
+
+    def index(self, axis: str, rank: int) -> int:
+        """``rank``'s place in its group along ``axis``."""
+        x, y = divmod(rank, self.b)
+        self.size(axis)
+        return x if axis == "aq" else y
+
+    def groups(self, axis: str) -> List[List[int]]:
+        """Every group along ``axis``, each in member order."""
+        lead = range(self.b) if axis == "aq" else range(0, self.n, self.b)
+        return [self.members(axis, r) for r in lead]
+
+
+def _seq_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """parts[0] + parts[1] + ... in this order (the same bits on every
+    transport)."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+class _GroupGather(torch.autograd.Function):
+    """x [R, ...] -> [R, G, ...]; the gradient is the group reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, ring, grid, axis, split):
+        ctx.ring, ctx.grid, ctx.axis = ring, grid, axis
+        if not split or x.dim() < 2 or x.shape[-1] < 2:
+            return ring._group_gather(x.contiguous(), grid, axis)
+        h = x.shape[-1] // 2
+        return torch.cat([ring._group_gather(x[..., :h].contiguous(), grid, axis),
+                          ring._group_gather(x[..., h:].contiguous(), grid, axis)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ring._group_scatter(g.contiguous(), ctx.grid, ctx.axis), None, None, None, None
+
+
+class _GroupScatter(torch.autograd.Function):
+    """x [R, G, ...] -> [R, ...]; the gradient is the group all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, ring, grid, axis):
+        ctx.ring, ctx.grid, ctx.axis = ring, grid, axis
+        return ring._group_scatter(x.contiguous(), grid, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ring._group_gather(g.contiguous(), ctx.grid, ctx.axis), None, None, None
+
+
+class _GroupCollectives:
+    """The public group collectives of both transports: stats and autograd
+    here, the transfers in each transport's ``_group_gather`` /
+    ``_group_scatter``."""
+
+    def _check_grid(self, grid: "Grid") -> None:
+        if grid.n != self.n:
+            raise ValueError(f"a {grid.a}x{grid.b} grid needs {grid.n} ranks, the ring has {self.n}")
+
+    def group_all_gather(self, leaves: Sequence[Optional[torch.Tensor]], grid: "Grid", axis: str,
+                         *, kind: str, mode: str = "overlap") -> List[Optional[torch.Tensor]]:
+        """Each leaf [R, ...] -> [R, G, ...]: local rank r's group members'
+        tensors along ``axis``, in member order (JAX's ``lax.all_gather``
+        over that mesh axis).  ``bidir`` moves each leaf as two halves."""
+        validate_comm_overlap(mode)
+        self._check_grid(grid)
+        live = [x for x in leaves if x is not None]
+        split = mode == "bidir"
+        per = sum(len(_halves(x)) if split else 1 for x in live)
+        G = grid.size(axis)
+        self.stats.add(kind, per, (G - 1) * _payload_bytes(live, len(self.ranks)))
+        return [None if x is None else _GroupGather.apply(x, self, grid, axis, split)
+                for x in leaves]
+
+    def group_reduce_scatter(self, x: torch.Tensor, grid: "Grid", axis: str, *,
+                             kind: str) -> torch.Tensor:
+        """x [R, G, ...] (one slot per group member) -> [R, ...]: the sum,
+        in member order, of the group's slots for local rank r (JAX's
+        untiled ``lax.psum_scatter`` over that mesh axis)."""
+        self._check_grid(grid)
+        G = grid.size(axis)
+        if x.shape[1] != G:
+            raise ValueError(f"a reduce-scatter over {axis} takes {G} slots, got {x.shape[1]}")
+        self.stats.add(kind, 1, (G - 1) * _payload_bytes([x], len(self.ranks) * G))
+        return _GroupScatter.apply(x, self, grid, axis)
+
+
 def _check_perm(perm: Perm, n: int) -> Dict[int, int]:
     """dst -> src of a full permutation of the n ranks."""
     src_of = {d: s for s, d in perm}
@@ -104,7 +243,7 @@ def _check_perm(perm: Perm, n: int) -> Dict[int, int]:
     return src_of
 
 
-class VirtualRing:
+class VirtualRing(_GroupCollectives):
     """All n ranks of the ring in one process, on one device."""
 
     def __init__(self, n: int):
@@ -185,6 +324,28 @@ class VirtualRing:
         """x [n, m] -> [n, n*m]: every rank gets all ranks' rows in order."""
         return x.reshape(1, -1).expand(self.n, -1).contiguous()
 
+    def _group_index(self, grid: Grid, axis: str, device) -> torch.Tensor:
+        """[n, G] int64: rank c's group members along ``axis``."""
+        key = ("group", grid, axis, device)
+        if key not in self._index:
+            self._index[key] = torch.tensor(
+                [grid.members(axis, c) for c in range(self.n)], dtype=torch.int64, device=device
+            )
+        return self._index[key]
+
+    def _group_gather(self, x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
+        idx = self._group_index(grid, axis, x.device)
+        return x.index_select(0, idx.flatten()).view(self.n, idx.shape[1], *x.shape[1:])
+
+    def _group_scatter(self, x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
+        # rank r gets x[c, index(r)] from each member c of its group, summed
+        # in member order: the j-th term for every rank is one gather
+        idx = self._group_index(grid, axis, x.device)  # [n, G]
+        mine = torch.tensor([grid.index(axis, r) for r in range(self.n)], device=x.device)
+        flat = x.reshape(self.n * x.shape[1], *x.shape[2:])
+        return _seq_sum([flat.index_select(0, idx[:, j] * x.shape[1] + mine)
+                         for j in range(idx.shape[1])])
+
     def gather_ranks(self, leaves: Sequence[torch.Tensor], *, kind: str) -> List[torch.Tensor]:
         """Every rank's leaves [n, ...], as each rank holds them after an
         all-gather (the exchange of the sequence-sharded decode's lse
@@ -260,7 +421,7 @@ class _GatherChunks(torch.autograd.Function):
         return g.narrow(axis, ring.rank * m, m).unsqueeze(0).contiguous(), None, None
 
 
-class ProcessGroupRing:
+class ProcessGroupRing(_GroupCollectives):
     """One rank of the ring per process, over ``torch.distributed`` (gloo on
     the CPU, NCCL across cards).  ``group`` None is the default group."""
 
@@ -272,9 +433,33 @@ class ProcessGroupRing:
         self.rank = dist.get_rank(group)
         self.ranks: Tuple[int, ...] = (self.rank,)
         self.stats = RingStats()
+        self._subgroups: Dict[Tuple[Grid, str], object] = {}
 
     def __repr__(self) -> str:
         return f"ProcessGroupRing(n={self.n}, rank={self.rank})"
+
+    def _subgroup(self, grid: Grid, axis: str):
+        """This rank's ``dist`` subgroup along ``axis``.  ``new_group`` is
+        collective: every process creates every group, in the same order."""
+        key = (grid, axis)
+        if key not in self._subgroups:
+            mine = None
+            for members in grid.groups(axis):
+                pg = dist.new_group([self._peer(r) for r in members])
+                if self.rank in members:
+                    mine = pg
+            self._subgroups[key] = mine
+        return self._subgroups[key]
+
+    def _group_gather(self, x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
+        parts = [torch.empty_like(x[0]) for _ in range(grid.size(axis))]
+        dist.all_gather(parts, x[0].contiguous(), group=self._subgroup(grid, axis))
+        return torch.stack(parts).unsqueeze(0)
+
+    def _group_scatter(self, x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
+        got = torch.empty_like(x[0])  # got[j]: member j's slot for this rank
+        dist.all_to_all_single(got, x[0].contiguous(), group=self._subgroup(grid, axis))
+        return _seq_sum(list(got.unbind(0))).unsqueeze(0)
 
     def _peer(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(self.group, r)

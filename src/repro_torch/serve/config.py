@@ -14,9 +14,10 @@
   verify ticks a slot stops drafting for ``16 * spec_max_misses`` ticks.
 * ``kv_dtype`` ("int8" / "fp8", paged only): the pool stores codes plus
   per-(token, kv-head) fp32 scales, dequantized inside the decode kernel.
-
-Oversubscription (``oversubscribe > 1.0``, preempt-and-recompute) is not
-ported yet and raises ``NotImplementedError``.
+* ``oversubscribe`` (> 1.0: paged with ``prefill_chunk``): admission books
+  lifetimes against this multiple of the physical pool; when the pool runs
+  dry the engine preempts a victim, which later recomputes its context
+  through continuous prefill.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ class ServeConfig:
     spec_draft: str = "ngram"  # ngram (prompt lookup) | off
     spec_max_misses: Optional[int] = 4  # consecutive missed verify ticks
     # before a slot's drafting suspends for a cooldown (None = never)
-    oversubscribe: float = 1.0  # (> 1.0 not ported)
+    oversubscribe: float = 1.0  # admission capacity multiple (paged); > 1.0
+    # trades lifetime reservation for preempt-and-recompute under pressure
     nan_guard: bool = True  # retire (not propagate) non-finite-logit slots
     health_every: int = 0  # invariant sweep every N ticks (0 = on demand)
 
@@ -120,10 +122,16 @@ class ServeConfig:
             raise ValueError(f"spec_max_misses must be >= 1 or None, got {self.spec_max_misses}")
         if self.oversubscribe < 1.0:
             raise ValueError(f"oversubscribe must be >= 1.0, got {self.oversubscribe}")
+        if self.oversubscribe > 1.0:
+            if not self.paged:
+                raise ValueError(
+                    "oversubscribe > 1.0 requires paged=True (preemption frees pages, "
+                    "not slot rows)"
+                )
+            if self.prefill_chunk is None:
+                raise ValueError(
+                    "oversubscribe > 1.0 requires prefill_chunk: preempted requests "
+                    "recompute through continuous prefill"
+                )
         if self.health_every < 0:
             raise ValueError(f"health_every must be >= 0, got {self.health_every}")
-        if self.oversubscribe > 1.0:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: oversubscribe > 1.0 "
-                "(preempt-and-recompute)"
-            )

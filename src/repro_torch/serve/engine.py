@@ -23,6 +23,14 @@ with scale tables -- allocated ONCE at construction on the device of
   * **retire**: EOS / max-token checks free the slot, and the per-slot NaN
     guard retires only a slot whose logits are not finite.
 
+Under **oversubscription** (``oversubscribe > 1``, paged, continuous
+prefill) admission books lifetimes against a virtual capacity, so the pool
+may run dry mid-flight: the engine then preempts a victim (``select_victim``)
+-- its pages free, its row parks, and it re-queues to recompute its context
+(prompt + generated) through chunks -- and retries.  A ``chaos`` injector
+(``testing/chaos.py``) squeezes the pool, poisons a slot's cache with NaN
+and drops chunk grants through the same code paths, replayably.
+
 SSM and hybrid archs (``cfg.ssm``) serve in **exact** mode, as in JAX: each
 prompt is prefilled alone at its own length (the recurrent state has no pad
 correction, so no buckets and no packing) straight into its slot's rows, the
@@ -39,8 +47,7 @@ by lse.  Buckets and ``max_seq`` are multiples of n; SSM and hybrid archs at
 n > 1 raise (ROADMAP A.4).
 
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
-in place.  Not ported yet: oversubscription with preempt-and-recompute and
-the chaos injector -- ``ServeConfig`` and the constructor raise for them.
+in place.
 """
 
 from __future__ import annotations
@@ -59,11 +66,37 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel.context import ParallelCtx
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.kv_pool import PageAllocator, PagedLayout
+from repro_torch.serve.kv_pool import PageAllocator, PagedLayout, PoolExhausted
 from repro_torch.serve.scheduler import Request, RequestResult, Scheduler, default_buckets
 from repro_torch.serve.speculative import propose_ngram
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "select_victim"]
+
+
+def select_victim(slots, allocator, protect=()):
+    """Preemption policy: the slot to evict when the page pool runs dry
+    mid-flight.  Victims rank (1) slots whose pages nobody else maps first --
+    evicting a prefix DONOR strands nothing (refcounts keep shared pages for
+    the sharers) but frees fewer pages, so donors go last; (2) youngest
+    admission first (latest ``admit_tick``, then highest rid): the oldest
+    request always makes progress, which bounds recompute work and
+    guarantees drain.  ``protect`` slots (the one being grown) are exempt.
+    Returns the slot index, or None when nothing is evictable."""
+    cands = []
+    for slot, req in enumerate(slots):
+        if req is None or slot in protect:
+            continue
+        if allocator.slot_pages(slot) == 0:
+            continue  # nothing to reclaim
+        cands.append((
+            allocator.slot_shares_pages(slot),  # donors last
+            -(req.admit_tick if req.admit_tick is not None else -1),
+            -req.rid,
+            slot,
+        ))
+    if not cands:
+        return None
+    return min(cands)[3]
 
 # mid-prefill slots park their cache position past any capacity: the shared
 # decode step still ticks their row, but every write guard (pos < n*m) drops
@@ -85,8 +118,6 @@ class ServeEngine:
         serve: Optional[ServeConfig] = None,
         chaos=None,
     ):
-        if chaos is not None:
-            raise NotImplementedError("the chaos fault injector is not ported yet")
         tfm.check_supported(cfg)
         serve = serve or ServeConfig()
         self.serve = serve
@@ -152,7 +183,9 @@ class ServeEngine:
                 serve.max_seq, n, serve.num_slots,
                 page_size=serve.page_size, num_pages=serve.num_pages,
             )
-            self.allocator = PageAllocator(layout, quantized=self._quantized)
+            self.allocator = PageAllocator(
+                layout, quantized=self._quantized, oversubscribe=serve.oversubscribe,
+            )
         self._native_decode = (
             dispatch._resolve_decode_kernel(self.ctx.decode_kernel, paged=serve.paged) == "native"
         )
@@ -213,6 +246,10 @@ class ServeEngine:
         self.debug_logits: Dict[int, List[np.ndarray]] = {}
         self.nan_guard = serve.nan_guard
         self.health_every = serve.health_every
+        self.chaos = chaos  # testing/chaos.py injector (None in production)
+        self.preemptions = 0  # mid-flight evictions (pool pressure)
+        self.recompute_tokens = 0  # tokens re-ingested for preempted requests
+        self.chaos_dropped_grants = 0
         self.cancelled = 0
         self.deadline_expired = 0
         self.numeric_errors = 0
@@ -287,7 +324,9 @@ class ServeEngine:
                 self._cache[key][:, slot] = 0
 
     def _finish_queued(self, req: Request) -> RequestResult:
-        """Terminal path for a request that never held a slot."""
+        """Terminal path for a request that holds no slot (cancelled,
+        expired or rejected while queued); a preempted request may still
+        carry generated tokens, which ride along on the result."""
         req.finish_tick = self._tick
         result = RequestResult.from_request(req)
         self._finished[req.rid] = result
@@ -306,6 +345,80 @@ class ServeEngine:
             return None
         self.cancelled += 1
         return self._finish(req.slot, status="cancelled")
+
+    # -- robustness: preemption, fault injection --------------------------
+
+    def _do_preempt(self, slot: int) -> List[int]:
+        """Evict ``slot`` back to the queue under pool pressure: free its
+        pages (refcounts keep prefix sharers' pages alive), reset its ingest
+        cursor so admission recomputes prompt + generated through continuous
+        prefill, and park its row.  Returns the physical pages whose refcount
+        hit zero (the caller drops pending copy-on-write copies into them)."""
+        freed = self.allocator.free_slot(slot)
+        req = self.scheduler.preempt(slot)
+        req.preemptions += 1
+        req.recompute_tokens += req.context_len
+        self.preemptions += 1
+        self.recompute_tokens += req.context_len
+        self._shared_len[slot] = 0
+        # the row's block-table entries are FREE already; parking also drops
+        # the position-guarded writes, as for a mid-prefill row
+        self._cache["pos"][slot] = _PARKED
+        return freed
+
+    def _preempt_for(self, protect) -> Optional[List[int]]:
+        """Pick and evict one victim; None when nothing is evictable (the
+        caller re-raises the pool exhaustion)."""
+        if self.prefill_chunk is None:
+            return None  # recompute rides continuous prefill only
+        victim = select_victim(self.scheduler.slots, self.allocator, protect)
+        if victim is None:
+            return None
+        return self._do_preempt(victim)
+
+    def _ensure_append_robust(self, slot: int, pos: int, copies) -> None:
+        """``ensure_append`` with preempt-and-retry: on pool exhaustion evict
+        victims until the append fits (or nothing is left to evict).  Pending
+        copy-on-write copies whose destination a preemption freed are
+        dropped: the requester is gone, and the page may be reissued within
+        this same phase."""
+        while True:
+            try:
+                cp = self.allocator.ensure_append(slot, pos)
+                if cp is not None:
+                    copies.append(cp)
+                return
+            except PoolExhausted:
+                freed = self._preempt_for(protect={slot})
+                if freed is None:
+                    raise
+                drop = set(freed)
+                copies[:] = [(s, d) for (s, d) in copies if d not in drop]
+
+    def _ensure_span_robust(self, slot: int, start: int, count: int, copies) -> None:
+        """``ensure_span`` with preempt-and-retry (speculative verify)."""
+        chunk = self.allocator.layout.chunk
+        if count <= 0:
+            return
+        for lp in range(start // chunk, (start + count - 1) // chunk + 1):
+            if lp >= self.allocator.layout.max_pages:
+                break
+            self._ensure_append_robust(slot, max(start, lp * chunk), copies)
+
+    def poison_slot_cache(self, slot: int) -> None:
+        """Fault injection (testing/chaos.py): overwrite ``slot``'s first
+        resident K position with NaN in every layer, so its next attention
+        pass gives non-finite logits and the NaN guard must retire it.  A
+        quantized pool poisons the fp32 scale table (int8 codes hold no
+        NaN)."""
+        key = "k_scale" if "k_scale" in self._cache else "k"
+        if self.allocator is not None:
+            if self.allocator.slot_pages(slot) == 0:
+                return
+            pid = int(self.allocator.block_table[slot, 0])
+            self._cache[key][:, pid, 0] = float("nan")  # [L, num_pages, n*ps, ...]
+        else:
+            self._cache[key][:, slot, 0] = float("nan")  # [L, B, cap, ...]
 
     def health(self) -> Dict[str, object]:
         """Invariant sweep (allocator refcounts / free list + slot
@@ -350,8 +463,23 @@ class ServeEngine:
 
     def _alloc_pages(self, slot: int, req: Request) -> int:
         """Paged admission: claim (or prefix-share) the slot's pages; returns
-        the shared-prefix length the prefill scatter must skip."""
-        return self.allocator.alloc_slot(slot, req.prompt, req.max_new_tokens).shared_len
+        the shared-prefix length the prefill scatter must skip.  A resumed
+        (preempted) request allocates for its CONTEXT -- prompt + generated
+        -- and only its remaining token budget."""
+        return self.allocator.alloc_slot(slot, req.context, req.remaining_new_tokens).shared_len
+
+    def _alloc_pages_robust(self, slot: int, req: Request) -> int:
+        """Admission alloc with preempt-and-retry: under oversubscription the
+        admission check only guaranteed the prompt pages + margin, so a burst
+        of same-tick admissions (or a chaos squeeze) can still find the free
+        list short.  ``alloc_slot`` unwinds atomically on failure, so each
+        retry starts clean."""
+        while True:
+            try:
+                return self._alloc_pages(slot, req)
+            except PoolExhausted:
+                if self._preempt_for(protect={slot}) is None:
+                    raise
 
     def _resident_shared_len(self, slot: int, shared: int) -> int:
         """Shared-prefix tokens whose CONTENT is already resident.  Continuous
@@ -478,7 +606,8 @@ class ServeEngine:
         finishing = []
         total = 0
         for slot, req, start, take in plan:
-            tokens[slot, :take] = req.prompt[start : start + take]
+            # the context: prompt + generated (a resumed request recomputes)
+            tokens[slot, :take] = req.context[start : start + take]
             starts[slot] = start
             lens[slot] = take
             wstarts[slot] = self._shared_len[slot]  # skip the resident shared prefix
@@ -537,14 +666,19 @@ class ServeEngine:
         generated this tick."""
         if self.paged:
             # make every decodable slot's write position appendable:
-            # allocate tail pages on page boundaries, CoW shared tails
+            # allocate tail pages on page boundaries, CoW shared tails.  Under
+            # oversubscription (or a chaos squeeze) the pool may run dry:
+            # preempt victims and retry; a preempted slot leaves this tick
             copies = []
             for slot in decodable:
-                cp = self.allocator.ensure_append(slot, int(self._depth[slot]))
-                if cp is not None:
-                    copies.append(cp)
+                if self.scheduler.slots[slot] is None:
+                    continue  # preempted by an earlier slot's append
+                self._ensure_append_robust(slot, int(self._depth[slot]), copies)
+            decodable = [s for s in decodable if self.scheduler.slots[s] is not None]
             self._apply_copies(copies)
             self._sync_block_table()
+            if not decodable:
+                return 0
         if self._quantized and not self._native_decode:
             self.dequant_fallbacks += 1  # gather-path dequant served this tick
         self.decode_launches += 1
@@ -631,10 +765,19 @@ class ServeEngine:
         if self.paged:
             copies = []
             for slot in decodable:
-                copies += self.allocator.ensure_span(slot, int(self._depth[slot]), int(lens[slot]))
+                if self.scheduler.slots[slot] is None:
+                    continue  # preempted by an earlier slot's span
+                self._ensure_span_robust(slot, int(self._depth[slot]), int(lens[slot]), copies)
+            live = [s for s in decodable if self.scheduler.slots[s] is not None]
+            for s in set(decodable) - set(live):
+                lens[s] = 0  # a preempted row writes and commits nothing
+            decodable = live
             self._apply_copies(copies)
             self._sync_block_table()
-        for slot, d in granted.items():
+            if not decodable:
+                return 0
+        for slot in decodable:
+            d = granted.get(slot, [])
             self.scheduler.slots[slot].spec_proposed += len(d)
             self.spec_proposed += len(d)
         self.verify_launches += 1
@@ -706,17 +849,30 @@ class ServeEngine:
         launch the budgeted chunk plan.  Returns (prompt tokens ingested,
         first tokens sampled)."""
         for slot, req in assigned:
-            shared = self._alloc_pages(slot, req) if self.paged else 0
+            shared = 0
+            if self.paged:
+                try:
+                    shared = self._alloc_pages_robust(slot, req)
+                except PoolExhausted:
+                    # nothing evictable (a fresh squeeze, a lone giant): hand
+                    # the slot back and retry on a later tick
+                    self.scheduler.preempt(slot)
+                    continue
             if shared:
                 shared = self._resident_shared_len(slot, shared)
             self._shared_len[slot] = shared
-            # fully shared chunks never launch, but the LAST prompt token
+            # fully shared chunks never launch, but the LAST context token
             # always runs forward: its logits give the first token
             req.prefill_pos = min(shared, req.ingest_len - 1)
         if assigned:
             idx = torch.as_tensor([slot for slot, _ in assigned], device=self.device)
             self._cache["pos"][idx] = _PARKED
         plan = self.scheduler.plan_chunks(len(self._decodable()))
+        if plan and self.chaos is not None and self.chaos.drop_grants(self._tick):
+            # injected scheduler fault: this tick's chunk grants vanish and
+            # progress resumes next tick (a dropped plan only delays)
+            self.chaos_dropped_grants += len(plan)
+            plan = []
         if not plan:
             return 0, 0
         return self._run_chunks(plan, finished)
@@ -750,6 +906,8 @@ class ServeEngine:
         (one-shot or chunked), then one decode (or verify) launch over every
         decodable slot.  Returns requests finished this tick."""
         finished: List[RequestResult] = []
+        if self.chaos is not None:
+            self.chaos.on_tick(self)  # fault injection (testing only)
         for req in self.scheduler.take_expired(self._tick):
             self.deadline_expired += 1
             finished.append(self._finish_queued(req))
@@ -818,11 +976,14 @@ class ServeEngine:
             "verify_launches": float(self.verify_launches),
             "chunk_launches": float(self.chunk_launches),
             "decode_launches": float(self.decode_launches),
+            "preemptions": float(self.preemptions),
+            "recompute_tokens": float(self.recompute_tokens),
             "cancelled": float(self.cancelled),
             "deadline_expired": float(self.deadline_expired),
             "numeric_errors": float(self.numeric_errors),
             "rejected_requests": float(self.rejected_requests),
             "health_sweeps": float(self.health_sweeps),
+            "chaos_dropped_grants": float(self.chaos_dropped_grants),
         }
         if cfg.family == "ssm":
             return {"cache_bytes": 0.0, **lifecycle}

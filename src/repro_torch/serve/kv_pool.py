@@ -3,8 +3,10 @@
 The port's own copy of ``repro/serve/kv_pool.py`` (numpy only): conservative
 admission, prefix sharing, tail-page allocation and copy-on-write on append,
 speculative spans and rollback, the quantized pool's scale-entry count, and
-retirement.  Oversubscription (``seize``/``restore``, virtual capacity) and
-the chaos hooks of the JAX module come with the slice that ports them.
+retirement, oversubscribed admission against a virtual capacity
+(``PoolExhausted`` when the free list runs dry; the engine answers it by
+preempting a victim) and the chaos injector's ``seize_pages`` /
+``restore_pages``.
 
 The dense engine stores each slot's KV as a full ``[cap]`` row, so memory is
 ``num_slots x max_seq`` no matter how deep any request actually is, and two
@@ -42,7 +44,17 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["PagedLayout", "PageAllocator"]
+__all__ = ["PagedLayout", "PageAllocator", "PoolExhausted"]
+
+
+class PoolExhausted(RuntimeError):
+    """The free list cannot satisfy a page request RIGHT NOW.
+
+    Under conservative admission (``oversubscribe == 1.0``) this is an
+    allocator bug or an un-reserved caller; under oversubscription it is an
+    expected runtime event the engine answers by preempting a victim slot
+    and retrying.  Subclasses ``RuntimeError`` so callers that catch
+    ``RuntimeError`` keep working."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,15 +132,29 @@ class PageAllocator:
 
     All methods mutate host state only; device mutations are communicated as
     return values (block-table rows, copy pairs) for the engine to apply.
-    Admission is conservative: a request is admitted only when its whole
-    lifetime (prompt + token budget) fits the unreserved pool, so the pool
-    can never run dry mid-decode.
+    With ``oversubscribe == 1.0`` admission is conservative: a request is
+    admitted only when its whole lifetime (prompt + token budget) fits the
+    unreserved pool, so the pool can never run dry mid-decode.  Above 1.0
+    lifetimes book against ``virtual_pages`` and only the prompt (plus
+    ``ADMIT_MARGIN``) must fit physically.
     """
 
     FREE = -1
+    # extra physically-free pages required beyond the prompt at admission
+    # under oversubscription: the first append after prefill has somewhere
+    # to land without an immediate preemption
+    ADMIT_MARGIN = 1
 
-    def __init__(self, layout: PagedLayout, quantized: bool = False):
+    def __init__(
+        self, layout: PagedLayout, quantized: bool = False, oversubscribe: float = 1.0,
+    ):
+        if oversubscribe < 1.0:
+            raise ValueError(f"oversubscribe must be >= 1.0, got {oversubscribe}")
         self.layout = layout
+        # admission capacity: lifetime reservations may overbook the physical
+        # pool by this factor (1.0 = no admitted request can ever exhaust it)
+        self.oversubscribe = float(oversubscribe)
+        self.virtual_pages = int(layout.num_pages * self.oversubscribe)
         # a quantized pool carries a scale tile per physical page (side table
         # indexed by the same block table); its liveness is counted apart
         # from the free list, so "scales drain with pages" is a real check
@@ -151,6 +177,9 @@ class PageAllocator:
         self.spec_rolled_back = 0  # pages freed by speculative rollback
         self.double_free_noops = 0  # idempotent free/rollback of a retired slot
         self.peak_in_use = 0
+        # chaos harness: pages seized OUT of the free list (fault injection);
+        # they count as in-use but carry no refs and no scale entries
+        self._seized: List[int] = []
         # bumped on every block-table mutation: the engine re-uploads the
         # device table only when this moved since the last sync
         self.version = 0
@@ -167,11 +196,21 @@ class PageAllocator:
 
     @property
     def pages_referenced(self) -> int:
-        """Pages with at least one live block-table reference."""
+        """Pages with at least one live block-table reference (excludes
+        chaos-seized pages, which are in use but own no data)."""
         return int(np.count_nonzero(self.ref > 0))
 
     def slot_pages(self, slot: int) -> int:
         return self._slot_pages.get(slot, 0)
+
+    def slot_shares_pages(self, slot: int) -> bool:
+        """True when any of ``slot``'s pages is mapped by another live slot
+        (prefix donor / sharer): preemption takes these as last-resort
+        victims."""
+        held = self._slot_pages.get(slot, 0)
+        if not held:
+            return False
+        return any(self.ref[int(p)] > 1 for p in self.block_table[slot, :held])
 
     # -- admission ----------------------------------------------------------
 
@@ -180,19 +219,34 @@ class PageAllocator:
         a shared page may need a private copy at any time)."""
         return self.layout.pages_for(prompt_len + max_new_tokens)
 
-    def can_admit(self, prompt_len: int, max_new_tokens: int, pending: int = 0) -> bool:
-        """Every admitted request can reach its token budget without the
-        pool running dry.  ``pending`` carries pages already promised to
-        requests admitted earlier in the same tick (their ``alloc_slot``
-        hasn't run yet)."""
+    def can_admit(
+        self, prompt_len: int, max_new_tokens: int, pending: int = 0,
+        pending_prompt: int = 0,
+    ) -> bool:
+        """Page-accounted admission.  At ``oversubscribe == 1.0`` every
+        admitted request can reach its token budget without the pool running
+        dry.  Above 1.0 lifetime reservations book against the virtual
+        capacity and only the prompt pages (plus a one-page margin) must fit
+        physically right now; running dry mid-decode is then an expected
+        event the engine resolves by preempt-and-recompute.  ``pending`` /
+        ``pending_prompt`` carry pages already promised to requests admitted
+        earlier in the same tick (their ``alloc_slot`` hasn't run yet)."""
         need = self.reserve_for(prompt_len, max_new_tokens)
-        return self.pages_reserved + pending + need <= self.layout.num_pages
+        if self.pages_reserved + pending + need > self.virtual_pages:
+            return False
+        if self.oversubscribe > 1.0:
+            now = self.pages_in_use + pending_prompt + self.layout.pages_for(prompt_len)
+            if now + self.ADMIT_MARGIN > self.layout.num_pages:
+                return False
+        return True
 
     def never_admittable(self, prompt_len: int, max_new_tokens: int) -> bool:
         """True when the request could not be admitted even into an EMPTY
         pool -- waiting can never help, so the scheduler rejects it instead
         of blocking the queue head forever."""
-        return self.reserve_for(prompt_len, max_new_tokens) > self.layout.num_pages
+        if self.reserve_for(prompt_len, max_new_tokens) > self.virtual_pages:
+            return True
+        return self.layout.pages_for(prompt_len) > self.layout.num_pages
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -206,9 +260,12 @@ class PageAllocator:
 
     def _take_page(self) -> int:
         if not self._free:
-            raise RuntimeError(
+            raise PoolExhausted(
                 f"page pool exhausted: {self.pages_in_use}/{self.layout.num_pages} "
-                f"pages in use, {self.pages_reserved} reserved"
+                f"pages in use ({self.pages_referenced} referenced, "
+                f"{len(self._seized)} seized), {self.pages_reserved} reserved "
+                f"against a virtual capacity of {self.virtual_pages} "
+                f"(oversubscribe={self.oversubscribe}), free list empty"
             )
         pid = self._free.pop()
         self.ref[pid] = 1
@@ -237,34 +294,50 @@ class PageAllocator:
             raise ValueError(f"slot {slot} still holds pages; free_slot first")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         need = self.reserve_for(len(prompt), max_new_tokens)
-        if self.pages_reserved + need > self.layout.num_pages:
+        if self.pages_reserved + need > self.virtual_pages:
             raise RuntimeError(
                 f"admission without capacity: need {need} pages but only "
-                f"{self.layout.num_pages - self.pages_reserved} are unreserved"
+                f"{self.virtual_pages - self.pages_reserved} of the virtual "
+                f"capacity {self.virtual_pages} is unreserved "
+                f"({self.pages_in_use}/{self.layout.num_pages} physical pages "
+                f"in use, oversubscribe={self.oversubscribe})"
             )
         self._ensure_rows(slot)
         chunk = self.layout.chunk
         n_pages = self.layout.pages_for(len(prompt))
         full = len(prompt) // chunk  # whole chunks eligible for sharing
         shared = 0
-        for c in range(full):
-            key = _prefix_key(prompt, (c + 1) * chunk)
-            hit = self._prefix.get(key)
-            if hit is None:
-                break
-            pid, stamp = hit
-            if self.ref[pid] <= 0 or self.gen[pid] != stamp:
-                del self._prefix[key]  # stale: owner retired since
-                break
-            self.block_table[slot, c] = pid
-            self.ref[pid] += 1
-            self.shared_hits += 1
-            shared = c + 1
-        for c in range(shared, n_pages):
-            pid = self._take_page()
-            self.block_table[slot, c] = pid
-            if c < full:  # register this slot's own full chunks
-                self._prefix[_prefix_key(prompt, (c + 1) * chunk)] = (pid, int(self.gen[pid]))
+        try:
+            for c in range(full):
+                key = _prefix_key(prompt, (c + 1) * chunk)
+                hit = self._prefix.get(key)
+                if hit is None:
+                    break
+                pid, stamp = hit
+                if self.ref[pid] <= 0 or self.gen[pid] != stamp:
+                    del self._prefix[key]  # stale: owner retired since
+                    break
+                self.block_table[slot, c] = pid
+                self.ref[pid] += 1
+                self.shared_hits += 1
+                shared = c + 1
+            for c in range(shared, n_pages):
+                pid = self._take_page()
+                self.block_table[slot, c] = pid
+                if c < full:  # register this slot's own full chunks
+                    self._prefix[_prefix_key(prompt, (c + 1) * chunk)] = (
+                        pid, int(self.gen[pid]),
+                    )
+        except PoolExhausted:
+            # atomic admission: a squeezed or oversubscribed pool may run dry
+            # mid-prompt -- unwind every page this call took or shared so the
+            # engine can preempt (or defer) and retry cleanly
+            done = int(np.count_nonzero(self.block_table[slot, :n_pages] >= 0))
+            for c in range(done - 1, -1, -1):
+                self._release_page(int(self.block_table[slot, c]))
+                self.block_table[slot, c] = self.FREE
+            self.version += 1
+            raise
         self._slot_pages[slot] = n_pages
         self._reserved[slot] = need
         self.version += 1
@@ -341,7 +414,8 @@ class PageAllocator:
         """Retire a slot: drop its references; pages survive while shared.
         Freeing an already-free slot is a no-op counted in
         ``double_free_noops``.  Returns the physical pages whose refcount hit
-        zero (the engine scrubs them after a numeric error)."""
+        zero (the engine scrubs them after a numeric error, and drops pending
+        copy-on-write copies into them after a preemption)."""
         if slot not in self._slot_pages:
             self.double_free_noops += 1
             self._reserved.pop(slot, None)
@@ -359,6 +433,28 @@ class PageAllocator:
             self.version += 1
         return freed
 
+    # -- fault injection (testing/chaos.py) ---------------------------------
+
+    def seize_pages(self, k: int) -> List[int]:
+        """Chaos hook: remove up to ``k`` pages from the free list, simulating
+        an external squeeze (fragmentation, a co-tenant, a shrunken pool).
+        Seized pages own no refs and no scale entries; ``restore_pages``
+        returns them.  Returns the seized page ids."""
+        taken: List[int] = []
+        for _ in range(max(int(k), 0)):
+            if not self._free:
+                break
+            taken.append(self._free.pop())
+        self._seized.extend(taken)
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+        return taken
+
+    def restore_pages(self, pids: List[int]) -> None:
+        """Chaos hook: return previously seized pages to the free list."""
+        for pid in pids:
+            self._seized.remove(pid)
+            self._free.append(pid)
+
     # -- invariants (engine.health()) ---------------------------------------
 
     def check_invariants(self) -> List[str]:
@@ -375,6 +471,11 @@ class PageAllocator:
                 problems.append(f"free list page {pid} out of range")
             elif self.ref[pid] != 0:
                 problems.append(f"free page {pid} has refcount {int(self.ref[pid])}")
+        for pid in self._seized:
+            if self.ref[pid] != 0:
+                problems.append(f"seized page {pid} has refcount {int(self.ref[pid])}")
+            if pid in free:
+                problems.append(f"page {pid} both seized and free")
         # refcount per page == live block-table references over held rows
         counted = np.zeros((lay.num_pages,), np.int64)
         for slot, held in self._slot_pages.items():
@@ -394,18 +495,20 @@ class PageAllocator:
                 f"page {int(pid)}: refcount {int(self.ref[pid])} != "
                 f"{int(counted[pid])} block-table references"
             )
-        if len(free) + self.pages_referenced != lay.num_pages:
+        if len(free) + self.pages_referenced + len(self._seized) != lay.num_pages:
             problems.append(
                 f"page conservation: {len(free)} free + {self.pages_referenced} referenced "
-                f"!= {lay.num_pages}"
+                f"+ {len(self._seized)} seized != {lay.num_pages}"
             )
         if self.quantized and self.scale_entries_in_use != self.pages_referenced:
             problems.append(
                 f"scale entries ({self.scale_entries_in_use}) out of lockstep "
                 f"with referenced pages ({self.pages_referenced})"
             )
-        if self.pages_reserved > lay.num_pages:
-            problems.append(f"reserved {self.pages_reserved} exceeds the pool {lay.num_pages}")
+        if self.pages_reserved > self.virtual_pages:
+            problems.append(
+                f"reserved {self.pages_reserved} exceeds virtual capacity {self.virtual_pages}"
+            )
         for slot in self._reserved:
             if slot not in self._slot_pages:
                 problems.append(f"slot {slot} reserved but holds no pages")
@@ -431,5 +534,7 @@ class PageAllocator:
             "quantized_pages": self.pages_in_use if self.quantized else 0,
             "scale_entries_in_use": self.scale_entries_in_use,
             "pages_reserved": self.pages_reserved,
+            "virtual_pages": self.virtual_pages,
+            "seized_pages": len(self._seized),
             "double_free_noops": self.double_free_noops,
         }

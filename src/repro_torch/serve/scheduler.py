@@ -2,9 +2,9 @@
 
 The port's own copy of ``repro/serve/scheduler.py`` (numpy only): admission,
 bucketed one-shot prefill, and the continuous-prefill and speculative
-planners (``plan_chunks`` / ``plan_spec``) under the tick token budget, and
-the exact (unpadded) prefill of SSM and hybrid archs.  Preemption comes with
-the slice that ports it.
+planners (``plan_chunks`` / ``plan_spec``) under the tick token budget, the
+exact (unpadded) prefill of SSM and hybrid archs, and preemption: an evicted
+request re-queues and re-ingests its context (prompt + generated).
 
 Pure-python bookkeeping: the engine owns the device tensors, this module owns
 WHO occupies WHICH slot WHEN.  Lifecycle of a request:
@@ -65,7 +65,12 @@ class Request:
     finish_tick: Optional[int] = None
     # terminal state: ok | cancelled | deadline | numeric_error | rejected
     status: str = "ok"
-    # continuous prefill: the ingest target (frozen at admission), how far
+    # oversubscription: times this request was preempted mid-decode, and
+    # tokens re-ingested through continuous prefill to restore its cache
+    preemptions: int = 0
+    recompute_tokens: int = 0
+    # continuous prefill: the ingest target (frozen at admission: unlike
+    # ``context_len`` it does not grow as decode appends tokens), how far
     # into it the cache is, and how many chunk launches it took (a one-shot
     # prefill counts as one chunk)
     ingest_len: int = 0
@@ -79,6 +84,24 @@ class Request:
     @property
     def done(self) -> bool:
         return self.finish_tick is not None
+
+    @property
+    def context(self) -> np.ndarray:
+        """What the cache must hold for this request to keep decoding:
+        prompt + everything generated so far.  A preempted request re-queues
+        and prefills its CONTEXT, so the resumed stream continues exactly
+        where the uninterrupted one would."""
+        if not self.generated:
+            return self.prompt
+        return np.concatenate([self.prompt, np.asarray(self.generated, np.int32)])
+
+    @property
+    def context_len(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    @property
+    def remaining_new_tokens(self) -> int:
+        return max(self.max_new_tokens - len(self.generated), 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +125,8 @@ class RequestResult:
     spec_proposed: int = 0  # draft tokens verified for this request
     spec_accepted: int = 0  # ... of which matched greedy decode
     status: str = "ok"  # ok | cancelled | deadline | numeric_error | rejected
+    preemptions: int = 0  # mid-decode evictions this request survived
+    recompute_tokens: int = 0  # tokens re-ingested after preemption
 
     @property
     def generated(self) -> List[int]:
@@ -137,6 +162,8 @@ class RequestResult:
             spec_proposed=req.spec_proposed,
             spec_accepted=req.spec_accepted,
             status=req.status,
+            preemptions=req.preemptions,
+            recompute_tokens=req.recompute_tokens,
         )
 
 
@@ -309,7 +336,7 @@ class Scheduler:
             if cand is None:
                 return None
             if self.allocator is not None and self.allocator.never_admittable(
-                len(cand.prompt), cand.max_new_tokens
+                cand.context_len, cand.remaining_new_tokens
             ):
                 self._queue.remove(cand)
                 cand.status = "rejected"
@@ -320,9 +347,12 @@ class Scheduler:
     def admit(self, tick: int) -> List[Tuple[int, Request]]:
         """Assign arrived queued requests to free slots -- highest priority
         first, FIFO within a level (default priority 0 keeps pure FIFO).
-        Returns [(slot, request)] for the engine to prefill."""
+        Returns [(slot, request)] for the engine to prefill.  A preempted
+        request re-enters through here with its context (prompt + generated)
+        as the ingest payload."""
         assigned = []
         pending_pages = 0  # pages promised to this tick's earlier admissions
+        pending_prompt = 0  # ... of which must be physically free NOW
         for slot in range(self.num_slots):
             if self.slots[slot] is not None:
                 continue
@@ -330,13 +360,18 @@ class Scheduler:
             if req is None:
                 break
             if self.allocator is not None:
-                plen = len(req.prompt)
-                if not self.allocator.can_admit(plen, req.max_new_tokens, pending=pending_pages):
+                clen, rem = req.context_len, req.remaining_new_tokens
+                if not self.allocator.can_admit(
+                    clen, rem, pending=pending_pages, pending_prompt=pending_prompt
+                ):
                     break  # pool exhausted: FIFO holds the head until pages free
-                pending_pages += self.allocator.reserve_for(plen, req.max_new_tokens)
+                pending_pages += self.allocator.reserve_for(clen, rem)
+                pending_prompt += self.allocator.layout.pages_for(clen)
             self._queue.remove(req)
             req.slot, req.admit_tick = slot, tick
-            req.ingest_len = len(req.prompt)
+            # freeze the ingest target NOW: decode appends grow context_len,
+            # but the chunk machinery must stop exactly here
+            req.ingest_len = req.context_len
             self.slots[slot] = req
             assigned.append((slot, req))
         return assigned
@@ -345,6 +380,20 @@ class Scheduler:
         """Drain requests admission rejected as never-fitting."""
         out, self.rejected = self.rejected, []
         return out
+
+    def preempt(self, slot: int) -> Request:
+        """Evict a mid-flight request back to the queue: its slot frees, its
+        prefill position resets so admission re-ingests the full context
+        (prompt + generated) through continuous prefill.  The caller (the
+        engine) frees the allocator pages and counts the preemption."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is already free")
+        self.slots[slot] = None
+        req.slot = None
+        req.prefill_pos = 0
+        self._queue.append(req)
+        return req
 
     def find(self, rid: int) -> Optional[Request]:
         """Look a live request up by rid (queued or active); None if it is

@@ -955,3 +955,71 @@ def test_ssm_engine_on_card_matches_cpu(dev, arch):
         launched = ssd.ssd_scan_fwd.launches - before
         assert launched == (cfg.num_layers * eng.prefill_launches if device == "cuda" else 0)
     assert streams["card"] == streams["cpu"]
+
+
+NAN_FLASH = {
+    # name: (dtype, B, Sq, Skv, band): the body _fwd_plan picks for it
+    "fp32": (torch.float32, 2, 64, 200, (0, 0, -INF, INF)),
+    "tile": (torch.bfloat16, 2, 256, 300, (0, 0, -INF, INF)),
+    "decode_split": (torch.bfloat16, 2, 1, 2048, (2047, 0, 0, INF)),
+    "decode_one_split": (torch.bfloat16, 80, 1, 300, (299, 0, 0, INF)),
+}
+
+
+@pytest.mark.parametrize("case", list(NAN_FLASH))
+def test_flash_fwd_nan_score_reaches_o_and_lse(dev, case):
+    """A NaN key (the serving engine's chaos poison) makes the rows that see
+    it NaN in o and lse, through every body and the decode body's split
+    combine, as JAX's kernels do -- the engine's NaN guard reads it there.
+    Rows of the other batch entries stay the plain version's."""
+    dtype, B, Sq, Skv, band = NAN_FLASH[case]
+    rng = np.random.default_rng(23)
+    q = _randn(rng, B, Sq, 32, 128, dtype=dtype, dev=dev)
+    k = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
+    v = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
+    k[0, 0] = float("nan")  # key 0 of batch row 0, every kv head
+    counters = ("launches_fp32", "launches_tile", "launches_decode")
+    before = [getattr(fa.flash_attention_fwd, c) for c in counters]
+    o, lse = fa.flash_attention_fwd(q, k, v, band, scale=128**-0.5)
+    torch.cuda.synchronize()
+    body = case.split("_")[0]
+    after = [getattr(fa.flash_attention_fwd, c) - b for c, b in zip(counters, before)]
+    assert after == [int(c == f"launches_{body}") for c in counters]
+    assert torch.isnan(o[0].float()).all() and torch.isnan(lse[0]).all()
+    o_ref, lse_ref = ref.attention_ref(q[1:], k[1:], v[1:], scale=128**-0.5, band=band)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o[1:].float(), o_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[1:], lse_ref, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["simt", "mma"])
+@pytest.mark.parametrize("kv_dtype", ["fp"] + QUANT_DTYPES)
+def test_paged_decode_nan_score_reaches_o_and_lse(dev, kv_dtype, dtype, splits):
+    """The poison of ``ServeEngine.poison_slot_cache`` -- NaN in position 0
+    of a slot's first page, in K (fp pool) or in the fp32 K scale
+    (quantized) -- makes that slot's o and lse NaN through the mma and simt
+    bodies and the split combine; the other slots keep the plain version's
+    output."""
+    rng = np.random.default_rng(24)
+    depths = (300, 200, 37)
+    if kv_dtype == "fp":
+        max_pages = -(-max(depths) // 16) + 1
+        kp, vp, bt = _pool(rng, depths, 16, max_pages, 8, 128, dtype, dev)
+        ks = vs = None
+        kp[int(bt[0, 0])][0] = float("nan")
+    else:
+        kp, vp, ks, vs, bt = _quant_pool(rng, depths, kv_dtype, dev)
+        ks[int(bt[0, 0])][0] = float("nan")
+    q = _randn(rng, len(depths), 1, 32, 128, dtype=dtype, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    o, lse = pk.paged_flash_decode(q, kp, vp, bt, pos, 0, stride_kv=1, num_splits=splits,
+                                   k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isnan(o[0].float()).all() and torch.isnan(lse[0]).all()
+    o_ref, lse_ref = pk.paged_decode_ref(q, kp, vp, bt, pos, 0, stride_kv=1, k_scale=ks,
+                                         v_scale=vs)
+    assert torch.isnan(o_ref[0].float()).all()  # the plain version agrees
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o[1:].float(), o_ref[1:].float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=LSE_TOL, rtol=0)

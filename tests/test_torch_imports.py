@@ -26,6 +26,7 @@ import chip_smoke
 missing = {{
     "repro_torch.core.kv_quant", "repro_torch.serve.speculative",
     "repro_torch.core.mesh_attention", "repro_torch.core.schedule", "repro_torch.parallel.ring",
+    "repro_torch.testing.chaos", "repro_torch.core.mesh_attention_collective",
 }} - set(names)
 assert not missing, missing
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -81,12 +82,37 @@ def test_entry_points_default_to_the_card(monkeypatch):
         resolve_device("meta")
 
 
-def test_launch_serve_cpu_tour_and_unported_flags(capsys):
+def test_launch_serve_cpu_tour_and_unported_flags(capsys, monkeypatch):
     from repro_torch.launch import serve
 
     assert serve.main(["--device", "cpu", "--reduced", "--stream", "--paged",
                        "--page-size", "4", "--trace", "8:0,12:1", "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert '"pages_in_use": 0.0' in out and "status=ok" in out
-    with pytest.raises(NotImplementedError, match="--oversubscribe"):
+    # the robustness flags run, and the schedule they drive -- admissions,
+    # preemptions, chaos events, statuses -- is JAX's CLI's to the letter
+    # (no EOS: it does not depend on the random weights, which differ)
+    flags = ["--reduced", "--stream", "--paged", "--page-size", "4", "--num-pages", "13",
+             "--prefill-chunk", "8", "--oversubscribe", "2.0", "--chaos-seed", "3",
+             "--health-every", "1", "--trace", "16:0,16:0,16:1,20:2", "--new-tokens", "12",
+             "--max-seq", "64"]
+    assert serve.main(["--device", "cpu", *flags]) == 0
+    got = _summary(capsys.readouterr().out)
+    from repro.launch import serve as jserve
+
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    assert jserve.main() == 0
+    want = _summary(capsys.readouterr().out)
+    assert got["robustness"] == want["robustness"]
+    assert got["robustness"]["preemptions"] > 0 and got["robustness"]["chaos_events"]
+    for key in ("pages_in_use", "peak_in_use", "fresh_allocs", "virtual_pages", "seized_pages"):
+        assert got["kv_cache"][key] == want["kv_cache"][key], key
+    # JAX's ServeConfig checks: oversubscription needs the paged pool
+    with pytest.raises(ValueError, match="paged"):
         serve.main(["--device", "cpu", "--reduced", "--oversubscribe", "1.5"])
+
+
+def _summary(out: str) -> dict:
+    import json
+
+    return json.loads(next(line for line in out.splitlines() if line.startswith("{")))

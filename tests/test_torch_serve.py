@@ -137,14 +137,22 @@ def _replay_two(eng, prompts, poison):
 
 
 def test_unported_knobs_raise_and_dtype_is_checked(weights):
-    """Only oversubscription and the chaos injector are still unported;
-    continuous prefill, speculation and the quantized pool construct, and
-    the combination checks are JAX's."""
+    """No serving knob is left unported: oversubscription and the chaos
+    injector construct, as continuous prefill, speculation and the quantized
+    pool do, and the combination checks are JAX's."""
+    from repro_torch.testing.chaos import ChaosConfig, ChaosInjector
+
     _, _, tcfg, tp = weights
-    with pytest.raises(NotImplementedError):
-        TServe(paged=True, prefill_chunk=8, oversubscribe=1.5)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tp, TCTX, chaos=object())
+    over = dict(paged=True, prefill_chunk=8, oversubscribe=1.5)
+    assert TServe(**over).oversubscribe == JServe(**over).oversubscribe == 1.5
+    eng = TEngine(tcfg, tp, TCTX, serve=TServe(**over), chaos=ChaosInjector(ChaosConfig(seed=1)))
+    assert eng.allocator.virtual_pages == int(1.5 * eng.allocator.layout.num_pages)
+    for kw in (dict(oversubscribe=1.5), dict(paged=True, oversubscribe=1.5),
+               dict(prefill_chunk=8, oversubscribe=1.5), dict(oversubscribe=0.5)):
+        with pytest.raises(ValueError):
+            TServe(**kw)  # as JAX's ServeConfig
+        with pytest.raises(ValueError):
+            JServe(**kw)
     for kw in (dict(prefill_chunk=8, tick_token_budget=16), dict(spec_k=4),
                dict(paged=True, kv_dtype="int8"), dict(paged=True, kv_dtype="fp8")):
         TServe(**kw)
