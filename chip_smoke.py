@@ -16,8 +16,11 @@ Phases, each printing one JSON line:
                  The flash forward also at granite's speculative verify (B 8,
                  Sq 4) and prefill chunk (B 8, Sq 256) shapes and at hymba-1.5b's
                  heads (25 / 5 of 64: window prefill at S 1024 and 1536, the
-                 Sq = 1 decode tick of 8 slots), each case with the body that
-                 ran (the fp32 CUDA-core body, or the bf16 tensor-core tile or
+                 Sq = 1 decode tick of 8 slots) and at qwen2-moe-a2.7b's (16 /
+                 16 of 128, GQA group 1: bf16 causal and packed prefill rows,
+                 fp32 chunk and verify over an int8 pool's dequantized view;
+                 the paged decode over a bf16 fp pool and an int8 pool), each
+                 case with the body that ran (the fp32 CUDA-core body, or the bf16 tensor-core tile or
                  decode body, checked against the wrapper's plan) and its
                  device time (torch.profiler).  The env line carries ptxas's
                  registers and spills of the tensor-core kernels.
@@ -92,6 +95,29 @@ Phases, each printing one JSON line:
                  against serve's (a flip only on a near-tie, RING_NEAR_TIE);
                  decode and prefill rates, TTFT, the combine's bytes, and a
                  profiled decode tick (#4 and combine device ms, idle share).
+  4i. slice_moe -- qwen2-moe-a2.7b and mixtral-8x7b at full width cut to 2
+                 layers, fp32, JAX's default capacity factor 1.25: the same
+                 weights served on the card and on the CPU, dense cache and
+                 paged pool, prompts of 64, 137 and 200 tokens at ticks 0, 0,
+                 1, 8 greedy tokens: streams identical, first-token logits
+                 within 1e-3, kernels on the card only, and capacity must
+                 drop entries on both sides (counted).
+  4j. serve_moe -- the MoE serving path at full width, bf16, the serve
+                 trace: qwen2-moe-a2.7b whole (a) one-shot over the fp pool,
+                 (b) chunk 256, budget 512, spec_k 4 over an int8 pool; (c)
+                 mixtral-8x7b with 8 of its 32 layers (93 GB whole) one-shot
+                 over the fp pool.  Counters set to 0 before each run: one
+                 #4 (or 4q) launch per layer per decode tick, #1 per layer
+                 per prefill, chunk and verify launch (tile body; fp32 body
+                 over the int8 pool).  Rates, pool bytes, peak memory and a
+                 profiled decode tick (expert products, router and shared
+                 products, dispatch / combine, attention, idle).  Then the
+                 dropless check: qwen2-moe whole in fp32 at capacity factor
+                 E / K = 15 (C >= S), two requests' first-token and teacher-forced decode
+                 logits against the no-cache forward on the card
+                 (DROPLESS_TOL), and the same forward with the router in
+                 bf16 and without the shared expert, each of which must
+                 miss the limit.
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -136,8 +162,8 @@ Phases, each printing one JSON line:
                  s per step, tokens/s, peak memory, hops and bytes per step,
                  and a profiled mesh step by kernel class.
   10. the kernels line (each kernel's launches now including the mesh_op,
-                 train_mesh and serve_ring runs; the ranks' combine a row of
-                 its own), the card line, and the final line
+                 train_mesh, serve_ring and serve_moe runs; the ranks'
+                 combine a row of its own), the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -197,6 +223,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # noqa: E402
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
@@ -279,6 +306,8 @@ QMAX = {"int8": 127.0, "fp8": 448.0}
 H, HKV, D = 32, 8, 128
 # hymba-1.5b's (H, Hkv, D)
 HYMBA_HEADS = (25, 5, 64)
+# qwen2-moe-a2.7b's: multi-head attention, GQA group 1
+QWEN_MOE_HEADS = (16, 16, 128)
 FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
 
 
@@ -402,7 +431,8 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     D) says otherwise.  ``verify`` and ``chunk`` are the serving path's
     speculative verify (spec_k 4) and prefill chunk (256) over S cached
     positions, each batch row at its own depth; ``decode`` is a dense-cache
-    tick, one band per slot (with hymba's heads, its window of 1024).
+    tick, one band per slot (with hymba's heads, its window of 1024; other
+    heads see the whole cache).
     ``ranks`` n > 1: the launch of sequence-sharded serving over a ring of
     n, the ranks folded into the rows -- row b*n + i is rank i's S/n slots
     of slot b, band (pos_b, i, 0, hi), stride n -- and slot 0's chunk starts
@@ -411,9 +441,10 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     nh, nkv, hd = heads
     B, Sq, Skv, sq, skv, seg = 1, S, S, 1, 1, None
     band = (0, 0, 0, INF)
-    per_row_hi = INF if nh == H else 1023
+    hymba = tuple(heads) == HYMBA_HEADS
+    per_row_hi = 1023 if hymba else INF
     if name == "window":
-        band = (0, 0, 0, 255 if nh == H else 1023)
+        band = (0, 0, 0, 1023 if hymba else 255)
     elif name == "striped":
         band, sq, skv = (1, 0, 0, INF), 2, 2
     elif name == "segment":
@@ -492,10 +523,12 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     return rec
 
 
-def paged_case(window, dtype, gen, flush):
+def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
     """One paged-decode case at the main path's pool: 8 slots, page 16,
     max_seq 2048; mixed depths, partial last pages, -1 past each row's depth,
-    one all-empty row."""
+    one all-empty row; granite-8b's heads unless ``heads`` (H, Hkv, D) says
+    otherwise."""
+    nh, nkv, hd = heads
     B, ps, max_seq = 8, 16, 2048
     max_pages = max_seq // ps
     num_pages = B * max_pages
@@ -510,9 +543,9 @@ def paged_case(window, dtype, gen, flush):
         nxt += n_pages
     bt_t = torch.from_numpy(bt).cuda()
     pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device="cuda")
-    k_pool = randn(gen, num_pages, ps, HKV, D, dtype=dtype)
-    v_pool = randn(gen, num_pages, ps, HKV, D, dtype=dtype)
-    q = randn(gen, B, 1, H, D, dtype=dtype)
+    k_pool = randn(gen, num_pages, ps, nkv, hd, dtype=dtype)
+    v_pool = randn(gen, num_pages, ps, nkv, hd, dtype=dtype)
+    q = randn(gen, B, 1, nh, hd, dtype=dtype)
     kw = dict(stride_kv=1, window=window)
     run = lambda: pk.paged_flash_decode(q, k_pool, v_pool, bt_t, pos, 0, **kw)  # noqa: E731
     plain = lambda: pk.paged_decode_ref(q, k_pool, v_pool, bt_t, pos, 0, **kw)  # noqa: E731
@@ -532,15 +565,15 @@ def paged_case(window, dtype, gen, flush):
         len({p // ps for p in range(lo_b, d)}) for d, lo_b in zip(depths, lo)
     )
     item = q.element_size()
-    nbytes = (2 * visible_pages * ps * HKV * D + 2 * q.numel()) * item + lse.numel() * 4 \
+    nbytes = (2 * visible_pages * ps * nkv * hd + 2 * q.numel()) * item + lse.numel() * 4 \
         + bt.nbytes + pos.numel() * 4
-    flops = 4 * D * H * visible_tokens
+    flops = 4 * hd * nh * visible_tokens
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     tol = TOLS[("paged_flash_decode", dtype)]
     rec = dict(
         kernel="paged_flash_decode", case=f"window{window}" if window else "full",
-        B=B, page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
-        splits=pk.default_num_splits(B, HKV, max_pages),
+        B=B, heads=list(heads), page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
+        splits=pk.default_num_splits(B, nkv, max_pages),
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact,
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
@@ -606,10 +639,12 @@ def split_combine_case(dtype, gen):
     return rec
 
 
-def quant_paged_case(kv_dtype, window, dtype, gen, flush):
+def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
     """The quantized decode (4q) at the main path's pool: 8 slots, page 16,
-    max_seq 2048, granite heads; codes and scales quantized on the card from
-    random K/V; the same depths as ``paged_case`` (an all-empty row last)."""
+    max_seq 2048, granite heads unless ``heads`` says otherwise; codes and
+    scales quantized on the card from random K/V; the same depths as
+    ``paged_case`` (an all-empty row last)."""
+    nh, nkv, hd = heads
     B, ps, max_seq = 8, 16, 2048
     max_pages = max_seq // ps
     num_pages = B * max_pages
@@ -624,9 +659,9 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
         nxt += n_pages
     bt_t = torch.from_numpy(bt).cuda()
     pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device="cuda")
-    kq, ks = kv_quant.quantize(randn(gen, num_pages, ps, HKV, D, dtype=torch.float32), kv_dtype)
-    vq, vs = kv_quant.quantize(randn(gen, num_pages, ps, HKV, D, dtype=torch.float32), kv_dtype)
-    q = randn(gen, B, 1, H, D, dtype=dtype)
+    kq, ks = kv_quant.quantize(randn(gen, num_pages, ps, nkv, hd, dtype=torch.float32), kv_dtype)
+    vq, vs = kv_quant.quantize(randn(gen, num_pages, ps, nkv, hd, dtype=torch.float32), kv_dtype)
+    q = randn(gen, B, 1, nh, hd, dtype=dtype)
     kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs)
     run = lambda: pk.paged_flash_decode(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
     plain = lambda: pk.paged_decode_ref(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
@@ -645,15 +680,15 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush):
     )
     # bytes this data needs: the visible pages' K and V codes (1 byte) and
     # their fp32 scales, q read and o written, lse, block table and pos
-    nbytes = 2 * visible_pages * ps * HKV * (D * kq.element_size() + 4) \
+    nbytes = 2 * visible_pages * ps * nkv * (hd * kq.element_size() + 4) \
         + 2 * q.numel() * q.element_size() + lse.numel() * 4 + bt.nbytes + pos.numel() * 4
     visible_tokens = sum(max(d - lo_b, 0) for d, lo_b in zip(depths, lo))
-    bound_ms, bound_by = bound(nbytes, 4 * D * H * visible_tokens, dtype)
+    bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_tokens, dtype)
     tol = TOLS[("paged_flash_decode", dtype)]
     rec = dict(
         kernel="paged_flash_decode_quant", case=f"window{window}" if window else "full",
-        kv_dtype=kv_dtype, B=B, page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
-        splits=pk.default_num_splits(B, HKV, max_pages),
+        kv_dtype=kv_dtype, B=B, heads=list(heads), page_size=ps, depths=depths,
+        dtype=DTYPE_NAMES[dtype], splits=pk.default_num_splits(B, nkv, max_pages),
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact, quant_launches=launched,
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
@@ -1995,12 +2030,10 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_decode(eng, cfg, ticks=4, classify=None):
-    """Where a decode tick's time goes: device time per kernel class
-    (``classify``, default ``_kernel_class``) over a few ticks of 8 slots at
-    depth ~128 (torch.profiler), against the host wall clock of those
-    ticks.  Runs after the measured trace (its launches are not counted) and
-    drains the engine again."""
+def _profiled_ticks(eng, cfg, ticks):
+    """A few decode ticks of 8 slots at depth ~128 under torch.profiler ->
+    (profile, host wall ms of those ticks).  Runs after the measured trace
+    (its launches are not counted) and drains the engine again."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
@@ -2017,7 +2050,17 @@ def profile_decode(eng, cfg, ticks=4, classify=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
+    return prof, wall_ms
+
+
+def _tick_summary(prof, wall_ms, ticks, classify=None):
+    """Device ms per tick by kernel class (``classify``, default
+    ``_kernel_class``; the class "range", a profiler range's own span, is
+    left out), the top kernels and the idle share of the host wall clock."""
+    classify = classify or _kernel_class
     device_ms, by_kernel = device_time(prof, per=ticks, classify=classify)
+    device_ms.pop("range", None)
+    by_kernel = {k: ms for k, ms in by_kernel.items() if classify(k) != "range"}
     busy = sum(device_ms.values())
     per_tick_wall = wall_ms / ticks
     return {
@@ -2027,6 +2070,372 @@ def profile_decode(eng, cfg, ticks=4, classify=None):
         # the profiler's own host cost inflates this window's wall clock
         "device_idle_share": (1 - busy / per_tick_wall) if device_ms else None,
     }
+
+
+def profile_decode(eng, cfg, ticks=4, classify=None):
+    """Where a decode tick's time goes (``_profiled_ticks``, ``_tick_summary``)."""
+    prof, wall_ms = _profiled_ticks(eng, cfg, ticks)
+    return _tick_summary(prof, wall_ms, ticks, classify)
+
+
+# --------------------------------------------------------------------------
+# phases 4i and 4j: the MoE decoders
+# --------------------------------------------------------------------------
+
+MOE_ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x7b")
+# mixtral-8x7b at full width is 46.7e9 parameters, 93 GB in bf16: serve_moe
+# keeps 8 of its 32 layers (~24 GB); qwen2-moe-a2.7b (14.3e9, 28.6 GB) whole
+MIXTRAL_SERVE_LAYERS = 8
+# the dropless check (serve_moe) runs at capacity factor E / K, so C >= S
+# on every row and nothing can drop.  JAX's tests pin 8.0, which is E / K x 2
+# for mixtral but half of qwen2-moe's 15: at 8.0 (C = ceil(0.53 S)) the
+# random weights route more tokens than that to one expert, and a 24-layer
+# forward over two prompts dropped 3,355 entries (first chip run).  It holds
+# the engine's first-token and teacher-forced decode logits against the
+# no-cache forward, both on the card, fp32.
+# The two sum fp32 products in other orders (#4 over the pool, #1 over the
+# whole row), ~1e-5 apart; a router computed in bf16 flips near-tie expert
+# choices and a missing shared expert moves every token, both by far more
+# than the limit (measured in the same run and gated).  bf16 cannot hold
+# this line: the paths' bf16 roundings of h flip near-tie experts just as a
+# bf16 router would.
+DROPLESS_TOL = 1e-3
+
+
+class _DropCounter:
+    """Counts the (token, k) entries that capacity drops, by wrapping the
+    MoE layer's dispatch (a host read-back per call: correctness runs only)."""
+
+    def __init__(self):
+        self.dropped = 0
+
+    def __enter__(self):
+        self._orig = moe_mod._dispatch_indices
+
+        def counting(idx, E, C):
+            slot, valid = self._orig(idx, E, C)
+            self.dropped += int((~valid).sum())
+            return slot, valid
+
+        moe_mod._dispatch_indices = counting
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_indices = self._orig
+
+
+def cross_device_moe():
+    """qwen2-moe-a2.7b and mixtral-8x7b at full width, 2 layers, fp32, the
+    JAX's default capacity factor 1.25: card (kernels) vs CPU (plain versions),
+    dense cache and paged pool; capacity must drop entries on both."""
+    lengths, arrivals = [64, 137, 200], [0, 0, 1]
+    out, problems = {}, []
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        params_cpu = _tree_to(params, "cpu")
+        out[arch] = {}
+        for paged in (False, True):
+            serve = ServeConfig(max_seq=256, num_slots=4, paged=paged,
+                                page_size=16 if paged else None, cache_dtype=torch.float32)
+            side = {}
+            for dev, p in (("cuda", params), ("cpu", params_cpu)):
+                fa.flash_attention_fwd.launches = pk.paged_flash_decode.launches = 0
+                eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
+                eng.capture_logits = True
+                with _DropCounter() as drops:
+                    res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
+                side[dev] = dict(
+                    streams=[r.generated for r in res],
+                    first=[eng.debug_logits[r.rid][0] for r in res],
+                    launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                              "paged_flash_decode": pk.paged_flash_decode.launches},
+                    statuses=[r.status for r in res], dropped=drops.dropped,
+                )
+            card, cpu = side["cuda"], side["cpu"]
+            err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
+            key = "paged" if paged else "dense"
+            out[arch][key] = dict(
+                streams_identical=card["streams"] == cpu["streams"],
+                first_logits_max_abs_err=err, cuda_launches=card["launches"],
+                cpu_launches=sum(cpu["launches"].values()),
+                dropped_entries={"cuda": card["dropped"], "cpu": cpu["dropped"]},
+            )
+            tag = f"slice_moe {arch} {key}"
+            if card["streams"] != cpu["streams"]:
+                problems.append(f"{tag}: card and CPU streams differ: {side}")
+            if err > 1e-3:
+                problems.append(f"{tag}: first-token logits differ by {err} > 1e-3")
+            if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+                problems.append(f"{tag}: not every request finished ok")
+            if not (card["launches"]["flash_attention_fwd"] > 0
+                    and (card["launches"]["paged_flash_decode"] > 0) == paged
+                    and out[arch][key]["cpu_launches"] == 0):
+                problems.append(f"{tag}: kernels must run on the card only: "
+                                f"{card['launches']}, CPU {out[arch][key]['cpu_launches']}")
+            if not (card["dropped"] > 0 and cpu["dropped"] > 0):
+                problems.append(f"{tag}: capacity dropped nothing: {out[arch][key]}")
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_moe", "num_layers": 2, "dtype": "fp32", "capacity_factor": 1.25,
+          "lengths": lengths, "arrivals": arrivals, "new_tokens": 8, **out})
+    check(not problems, "; ".join(problems))
+
+
+def _moe_kernel_class(name: str) -> str:
+    if name == "moe_block":  # the profiler range's own device-side span
+        return "range"
+    cls = _kernel_class(name)
+    return "attention" if cls in ("flash_attention_fwd", "paged_flash_decode") else cls
+
+
+def profile_moe_decode(eng, cfg, ticks=4):
+    """profile_decode's window with each MoE block under a profiler range,
+    and the device ms per tick of the block's kernels: the expert products
+    (under ``aten::bmm``: the capacity-dense einsums), the router and
+    shared-expert products (its other matmul kernels) and the dispatch /
+    combine (every other kernel of the block: sort, ranks, scatter, gather,
+    weights)."""
+    orig = moe_mod.moe_block
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("moe_block"):
+            return orig(*args, **kwargs)
+
+    moe_mod.moe_block = ranged
+    try:
+        prof, wall_ms = _profiled_ticks(eng, cfg, ticks)
+    finally:
+        moe_mod.moe_block = orig
+    split = {"expert_products": 0.0, "router_and_shared_products": 0.0,
+             "dispatch_combine": 0.0}
+
+    def walk(ev, in_bmm):
+        in_bmm = in_bmm or ev.name == "aten::bmm"
+        for k in getattr(ev, "kernels", None) or ():
+            part = ("expert_products" if in_bmm else "router_and_shared_products"
+                    if _kernel_class(k.name) == "matmul" else "dispatch_combine")
+            split[part] += k.duration / 1e3 / ticks
+        for child in ev.cpu_children:
+            walk(child, in_bmm)
+
+    for ev in prof.events():
+        if ev.name == "moe_block" and ev.device_type == torch.autograd.DeviceType.CPU:
+            walk(ev, False)
+    rec = _tick_summary(prof, wall_ms, ticks, _moe_kernel_class)
+    # kernels the profiler tied to the MoE blocks (None: none were tied)
+    rec["moe_block_ms_per_tick"] = split if sum(split.values()) > 0 else None
+    return rec
+
+
+def _serve_moe_run(cfg, params, serve, lengths, arrivals, profile):
+    """One measured MoE serving run (after a warm-up outside it): rates,
+    memory, launches per kernel and per engine launch, a profiled tick."""
+    eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=serve)
+    eng.generate(np.arange(32, dtype=np.int32)[None], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    skip = eng.tick_stats()["ticks"]
+    engine0 = (eng.prefill_launches, eng.decode_launches, eng.chunk_launches,
+               eng.verify_launches)
+    fa.flash_attention_fwd.launches = 0
+    pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
+    bodies0 = fwd_body_counts()
+    t0 = time.perf_counter()
+    res = serve_trace(eng, lengths, [a + skip for a in arrivals], 32, cfg.vocab_size, seed=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "paged_flash_decode": pk.paged_flash_decode.launches,
+                "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches}
+    bodies = fwd_body_delta(bodies0)
+    engine = dict(zip(("prefill", "decode", "chunk", "verify"),
+                      (b - a for a, b in zip(engine0, (
+                          eng.prefill_launches, eng.decode_launches, eng.chunk_launches,
+                          eng.verify_launches)))))
+    stats = eng.tick_stats()
+    kv = eng.kv_cache_stats()
+    pf_tok = sum(stats["prefill_tokens"][skip:])
+    pf_s = sum(stats["prefill_s"][skip:])
+    dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+    dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+    dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+    rec = {
+        "arch": cfg.name, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+        "moe": dataclasses.asdict(cfg.moe), "params": tfm.param_count(params),
+        "kv_dtype": serve.kv_dtype, "prefill_chunk": serve.prefill_chunk,
+        "spec_k": serve.spec_k, "statuses": [r.status for r in res],
+        "ticks": stats["ticks"] - skip, "wall_s": wall,
+        "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+        "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+        "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+        "ttft_ticks": [r.ttft_ticks for r in res],
+        "pool_bytes": kv["cache_bytes"] + kv["scale_table_bytes"],
+        "pages_in_use": kv["pages_in_use"], "peak_pages": kv["peak_in_use"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "engine_launches": engine, "launches": launches, "flash_attention_fwd_bodies": bodies,
+    }
+    problems = []
+    tag = f"serve_moe {cfg.name} {serve.kv_dtype}" + (" chunked" if serve.prefill_chunk else "")
+    L = cfg.num_layers
+    if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+        problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
+    if kv["pages_in_use"]:
+        problems.append(f"{tag}: {kv['pages_in_use']} pages in use after the drain")
+    # one decode kernel launch per layer and decode tick; #1 once per layer
+    # and prefill, chunk or verify launch
+    quant = serve.kv_dtype != "fp"
+    used, unused = (("paged_flash_decode_quant", "paged_flash_decode") if quant
+                    else ("paged_flash_decode", "paged_flash_decode_quant"))
+    if not (launches[used] == L * engine["decode"] > 0 and launches[unused] == 0):
+        problems.append(f"{tag}: decode launches {launches}, want {used} = {L} x "
+                        f"{engine['decode']}")
+    want_flash = L * (engine["prefill"] + engine["chunk"] + engine["verify"])
+    if launches["flash_attention_fwd"] != want_flash or want_flash == 0:
+        problems.append(f"{tag}: #1 launched {launches['flash_attention_fwd']} times, want "
+                        f"{want_flash} ({L} x {engine})")
+    # bf16 prefill on the tile body; a quantized pool's chunks and verifies
+    # on the fp32 body (its dequantized view is fp32)
+    want_bodies = ({"tile": 0, "decode": 0, "fp32": want_flash} if quant
+                   else {"tile": want_flash, "decode": 0, "fp32": 0})
+    if bodies != want_bodies:
+        problems.append(f"{tag}: flash bodies {bodies}, want {want_bodies}")
+    if profile:
+        rec["decode_profile"] = profile_moe_decode(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    return rec, problems, bodies
+
+
+def _moe_dropless():
+    """qwen2-moe-a2.7b whole, fp32, capacity factor E / K (no entry dropped,
+    counted): two requests through the engine (one-shot, fp pool) against
+    the no-cache forward over prompt + generated tokens, teacher-forced, on
+    the card; and the same forward with the router computed in bf16 and
+    without the shared expert, each of which the limit must catch."""
+    base = get_config("qwen2-moe-a2.7b")
+    cf = base.moe.num_experts / base.moe.top_k
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    ctx = ParallelCtx(device="cuda")
+    eng = ServeEngine(cfg, params, ctx, serve=ServeConfig(
+        max_seq=256, num_slots=2, paged=True, page_size=16, cache_dtype=torch.float32))
+    eng.capture_logits = True
+    lengths, new_tokens = [96, 137], 8
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n in lengths]
+    with _DropCounter() as drops:
+        rids = [eng.submit(p, new_tokens) for p in prompts]
+        done = eng.run()
+    engine_logits = [np.stack(eng.debug_logits[r]) for r in rids]
+    del eng
+    torch.cuda.empty_cache()
+
+    def no_cache(run_cfg):
+        rows, dev = [], params["embed"].device
+        for p, r in zip(prompts, rids):
+            seq = np.concatenate([p, np.asarray(done[r].generated[:-1], np.int32)])
+            batch = {"tokens": torch.from_numpy(seq)[None].to(dev),
+                     "positions": torch.arange(len(seq), dtype=torch.int32, device=dev)}
+            with torch.no_grad():
+                logits = tfm.forward(params, run_cfg, ctx, batch)
+            rows.append(logits[0, len(p) - 1:].float().cpu().numpy())
+        return rows
+
+    def err(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    with _DropCounter() as fwd_drops:
+        ref = no_cache(cfg)
+    orig = moe_mod._route
+
+    def route_in_bf16(h, router_w, cfg_, E_pad):
+        logits = (h.to(torch.bfloat16) @ router_w.to(torch.bfloat16)).float()
+        probs = torch.softmax(logits, dim=-1)
+        w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        w, idx = w[..., : cfg_.moe.top_k], idx[..., : cfg_.moe.top_k]
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return idx, w.to(h.dtype), torch.zeros((), device=h.device)
+
+    moe_mod._route = route_in_bf16
+    try:
+        bf16_router = no_cache(cfg)
+    finally:
+        moe_mod._route = orig
+    no_shared = no_cache(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                        num_shared=0)))
+    del params
+    torch.cuda.empty_cache()
+    rec = {
+        "arch": cfg.name, "num_layers": cfg.num_layers, "dtype": "fp32",
+        "capacity_factor": cf, "lengths": lengths, "new_tokens": new_tokens,
+        "statuses": [done[r].status for r in rids],
+        "dropped_entries": {"engine": drops.dropped, "forward": fwd_drops.dropped},
+        "max_abs_err": err(engine_logits, ref), "limit": DROPLESS_TOL,
+        "bf16_router_err": err(bf16_router, ref), "no_shared_expert_err": err(no_shared, ref),
+        "logit_scale": max(float(np.abs(x).max()) for x in ref),
+    }
+    problems = []
+    if not all(done[r].status == "ok" for r in rids) or any(
+            len(x) != new_tokens for x in engine_logits):
+        problems.append(f"dropless: engine run incomplete: {rec}")
+    if drops.dropped or fwd_drops.dropped:
+        problems.append(f"dropless: capacity {cf} dropped entries: {rec['dropped_entries']}")
+    if not rec["max_abs_err"] <= DROPLESS_TOL:
+        problems.append(f"dropless: engine vs no-cache forward {rec['max_abs_err']} > "
+                        f"{DROPLESS_TOL}")
+    if not (rec["bf16_router_err"] > DROPLESS_TOL and rec["no_shared_expert_err"] > DROPLESS_TOL):
+        problems.append(f"dropless: the limit misses a fault: {rec}")
+    return rec, problems
+
+
+def serve_moe(card):
+    """The MoE serving path at full width on the card, bf16, the serve
+    trace (8 slots, max_seq 2048, page 16, 32 greedy tokens): qwen2-moe
+    whole one-shot over the fp pool, then chunk 256 / budget 512 / spec_k 4
+    over an int8 pool; mixtral-8x7b (8 of 32 layers) one-shot over the fp
+    pool; then the dropless check."""
+    runs, problems, counted = {}, [], {}
+    qwen = get_config("qwen2-moe-a2.7b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(qwen, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, cache_dtype=torch.bfloat16)
+    for key, extra in (("qwen_oneshot_fp", {}),
+                       ("qwen_chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
+                                                     spec_k=4, kv_dtype="int8"))):
+        # the profiled tick: plain decode of the one-shot run
+        rec, probs, bodies = _serve_moe_run(qwen, params, ServeConfig(**base, **extra),
+                                            SERVE_LENGTHS, SERVE_ARRIVALS, profile=not extra)
+        rec["init_s"] = init_s
+        runs[key], counted[key] = rec, (rec["launches"], bodies)
+        problems += probs
+    del params
+    torch.cuda.empty_cache()
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_SERVE_LAYERS)
+    params = tfm.init_params(mixtral, seed=0, dtype=torch.bfloat16, device="cuda")
+    rec, probs, bodies = _serve_moe_run(mixtral, params, ServeConfig(**base), SERVE_LENGTHS,
+                                        SERVE_ARRIVALS, profile=True)
+    runs["mixtral_8_layers_oneshot_fp"], counted["mixtral"] = rec, (rec["launches"], bodies)
+    problems += probs
+    del params
+    torch.cuda.empty_cache()
+    dropless, probs = _moe_dropless()
+    problems += probs
+    emit({"phase": "serve_moe", "dtype": "bf16", "max_seq": 2048, "num_slots": 8,
+          "page_size": 16, "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS,
+          "new_tokens": 32, "runs": runs, "dropless": dropless, "card": card})
+    check(not problems, "; ".join(problems))
+    # the main runs' launches, for the kernels line
+    total = {"flash_attention_fwd (tile)": 0, "flash_attention_fwd (fp32)": 0,
+             "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
+    for launches, bodies in counted.values():
+        total["flash_attention_fwd (tile)"] += bodies["tile"]
+        total["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        total["paged_flash_decode"] += launches["paged_flash_decode"]
+        total["paged_flash_decode_quant"] += launches["paged_flash_decode_quant"]
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -2890,6 +3299,18 @@ def main():
         for dtype in (torch.float32, torch.bfloat16):
             for window in (None, 512):
                 quant.append(quant_paged_case(kv_dtype, window, dtype, gen, flush))
+    # qwen2-moe-a2.7b's attention (GQA group 1), as serve_moe launches it:
+    # bf16 causal and packed prefill rows on the tile body, the int8 pool's
+    # chunks and verifies on the fp32 body, #4 over the bf16 fp pool, 4q
+    # over the int8 pool
+    for S in (1024, 2048):
+        flash.append(flash_case("causal", S, torch.bfloat16, gen, heads=QWEN_MOE_HEADS))
+    flash.append(flash_case("segment", 2048, torch.bfloat16, gen, heads=QWEN_MOE_HEADS))
+    for name in ("chunk", "verify"):
+        flash.append(flash_case(name, 2048, torch.float32, gen, heads=QWEN_MOE_HEADS))
+    paged.append(paged_case(None, torch.bfloat16, gen, flush, heads=QWEN_MOE_HEADS))
+    quant.append(quant_paged_case("int8", None, torch.bfloat16, gen, flush,
+                                  heads=QWEN_MOE_HEADS))
     # sequence-sharded decode over a ring of 4: the ranks folded into one
     # launch, beside the n = 1 rows above
     ring_paged = [ring_paged_case(kv_dtype, gen, flush) for kv_dtype in ("fp", "int8")]
@@ -2937,6 +3358,9 @@ def main():
     pressure = serve_pressure(card, quant_runs, quant_streams)
     cross_device_ssm()
     launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
+    # the MoE decoders: card vs CPU at 2 layers, then served at full width
+    cross_device_moe()
+    moe_launches = serve_moe(card)
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
@@ -2944,6 +3368,9 @@ def main():
         launches[key] += ring[part]
     train_parity()
     launches.update(full_train(card))
+    # serve_moe's runs join the serving rows
+    for key, n in moe_launches.items():
+        launches[key] += n
     # slice_ring's fp32 chunks and verifies, and its quantized decode ticks
     launches["flash_attention_fwd (fp32)"] += ring_slice["fwd_fp32"]
     launches["paged_flash_decode_quant"] += ring_slice["paged_flash_decode_quant"]
@@ -2964,17 +3391,19 @@ def main():
                       ("flash_bwd_split", "flash_bwd_split")):
         launches[key] += sum(m[part] for m in mesh)
 
-    main_flash = next(r for r in flash
-                      if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "bf16")
+    granite = [H, HKV, D]
+    main_flash = next(r for r in flash if r["case"] == "causal" and r["S"] == 2048
+                      and r["dtype"] == "bf16" and r["heads"] == granite)
     # the decode body's main path: hymba's dense-cache ticks
     main_flash_decode = next(r for r in flash if r["case"] == "decode" and r["dtype"] == "bf16"
                              and r["heads"] == list(HYMBA_HEADS))
     # the fp32 body's main path: the training forward
-    main_flash_fp32 = next(r for r in flash
-                           if r["case"] == "causal" and r["S"] == 2048 and r["dtype"] == "fp32")
-    main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16")
+    main_flash_fp32 = next(r for r in flash if r["case"] == "causal" and r["S"] == 2048
+                           and r["dtype"] == "fp32" and r["heads"] == granite)
+    main_paged = next(r for r in paged if r["case"] == "full" and r["dtype"] == "bf16"
+                      and r["heads"] == granite)
     main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
-                      and r["kv_dtype"] == "int8")
+                      and r["kv_dtype"] == "int8" and r["heads"] == granite)
     main_ssd = next(r for r in ssd_cases if r["case"] == "mamba2" and r["S"] == 2048)
     # the ranks' combine on the ring's decode path: the split combine kernel
     # over the folded fp pool's partials

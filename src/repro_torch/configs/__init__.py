@@ -1,7 +1,9 @@
 """Architecture registry of the port: the dense decoders, the attention-free
-SSD stack and the hybrid attention + SSD model.  ``--arch <id>`` resolves
-here."""
+SSD stack, the hybrid attention + SSD model and the MoE decoders.
+``--arch <id>`` resolves here."""
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, register
 
-ARCHS = ["granite-8b", "paper-mha-7b", "mamba2-370m", "hymba-1.5b"]
+ARCHS = [
+    "granite-8b", "paper-mha-7b", "mamba2-370m", "hymba-1.5b", "qwen2-moe-a2.7b", "mixtral-8x7b",
+]

@@ -3,7 +3,7 @@
 One ``ModelConfig`` describes an architecture; ``reduced()`` gives the
 family-preserving small config the CPU tests use.  The sub-configs (MoE, SSM,
 MLA) are kept so a config reads the same in both packages, although the
-port serves the dense, SSM and hybrid families only (no MoE or MLA yet).
+port serves the dense, SSM, hybrid and MoE families only (no MLA yet).
 """
 
 from __future__ import annotations

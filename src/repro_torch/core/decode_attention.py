@@ -102,7 +102,7 @@ def _check_ring(ring, n: int) -> None:
     if tuple(ring.ranks) != tuple(range(n)):
         raise NotImplementedError(
             "sequence-sharded serving runs every rank in one process (VirtualRing); one rank "
-            "per process waits for multi-process sequence parallelism (ROADMAP A.4)"
+            "per process waits for multi-process sequence parallelism (ROADMAP A.9)"
         )
 
 

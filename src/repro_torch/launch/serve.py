@@ -26,6 +26,11 @@ sequence-parallel ring of 4 ranks (``ParallelCtx(sp_size=4)``, a
 only.  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
 their plain PyTorch versions.  Weights are random, from seed 0.
 
+``--arch qwen2-moe-a2.7b`` / ``mixtral-8x7b`` serve the MoE decoders in
+every mode of the dense family, on one rank (with ``--fake-devices`` the
+engine raises ``NotImplementedError``); on the card ``--arch
+qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.
+
 Robustness knobs, as in JAX's CLI: ``--oversubscribe 1.5`` admits against
 1.5x the physical page pool (preempt-and-recompute under pressure; needs
 ``--paged`` and ``--prefill-chunk``), ``--deadline-ticks`` / ``--cancel

@@ -1,7 +1,8 @@
 """Decoder stack: init / forward / loss / cache / prefill / decode for the
-dense, SSM and hybrid families of ``repro/models/transformer.py``.
+dense, MoE, SSM and hybrid families of ``repro/models/transformer.py``.
 
   dense   -- attention + gated MLP
+  moe     -- attention + MoE (``models/moe.py``; one rank: no expert parallelism)
   ssm     -- SSD blocks only (``models/ssm.py``; attention-free, no MLP)
   hybrid  -- parallel attention + SSD heads, mean-fused, then the MLP (hymba)
 
@@ -21,7 +22,9 @@ prefill, decode append, chunk, verify) quantizes at write time.  Writes that
 JAX drops with ``mode="drop"`` and sentinel indices are filtered with a
 boolean mask before writing here.  The SSM state and conv window stay
 per-slot dense (``cache["ssm"]``); the paged, packed, chunked and verify
-paths raise for SSM and hybrid archs, as in JAX.
+paths raise for SSM and hybrid archs, as in JAX.  Every MoE call takes
+the same [B, S, D] rows as its JAX counterpart (the bucket, the packed row,
+the chunk, the verify window), so each has JAX's capacity.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_quant
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, rms_norm, rope, vocab_cross_entropy
 from repro_torch.models.mlp import init_mlp_params, mlp_block
@@ -55,15 +59,16 @@ __all__ = [
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense, SSM and hybrid families: GQA/MHA attention,
-    SSD blocks, RMSNorm, gated MLP."""
+    """The port serves the dense, MoE, SSM and hybrid families: GQA/MHA
+    attention, routed (and shared) experts, SSD blocks, RMSNorm, gated MLP."""
     unsupported = [
         name for name, bad in (
-            ("family not dense / ssm / hybrid", cfg.family not in ("dense", "ssm", "hybrid")),
+            ("family not dense / moe / ssm / hybrid",
+             cfg.family not in ("dense", "moe", "ssm", "hybrid")),
             ("SSM config or hybrid flag off its family",
              (cfg.ssm is not None) != (cfg.family in ("ssm", "hybrid"))
              or cfg.hybrid != (cfg.family == "hybrid")),
-            ("MoE", cfg.moe is not None),
+            ("MoE config off its family", (cfg.moe is not None) != (cfg.family == "moe")),
             ("MLA", cfg.mla is not None),
             ("encoder", bool(cfg.encoder_layers)),
             ("frontend", cfg.frontend is not None),
@@ -74,7 +79,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port serves the "
-            "dense, ssm and hybrid decoder families"
+            "dense, moe, ssm and hybrid decoder families"
         )
 
 
@@ -98,7 +103,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
         layers["attn"] = attn.init_attention_params(gen, cfg, L, dtype, dev)
     if cfg.ssm is not None:
         layers["ssm"] = ssm_mod.init_ssm_params(gen, cfg, L, dtype, dev)
-    if cfg.family != "ssm" and cfg.d_ff > 0:
+    if cfg.moe is not None:
+        layers["moe"] = moe_mod.init_moe_params(gen, cfg, L, dtype, dev)
+    elif cfg.family != "ssm" and cfg.d_ff > 0:
         layers["mlp"] = init_mlp_params(gen, cfg, L, dtype, dev)
     p["layers"] = layers
     p["final_ln"] = torch.zeros((D,), dtype=dtype, device=dev)
@@ -156,47 +163,64 @@ def _ssm_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, ssm_cache=None):
     return y
 
 
+def _ffn_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
+    """The feed-forward half of a layer: the experts or the gated MLP ->
+    (x, aux); aux is the MoE load-balance term, else None."""
+    if cfg.moe is not None:
+        return moe_mod.moe_block(x, lp["moe"], cfg, ctx)
+    if cfg.d_ff > 0:
+        x = mlp_block(x, lp["mlp"], cfg)
+    return x, None
+
+
 def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segments=None,
                    ssm_cache=None):
+    """One layer -> (x, aux) (aux: the MoE layer's, else None)."""
     if cfg.family == "ssm":
-        return _ssm_block(x, lp, cfg, ctx, ssm_cache)
+        return _ssm_block(x, lp, cfg, ctx, ssm_cache), None
     if cfg.hybrid:
         a = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments) - x
         s = _ssm_block(x, lp, cfg, ctx, ssm_cache) - x
         x = x + 0.5 * (a + s)
     else:
         x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments)
-    if cfg.d_ff > 0:
-        x = mlp_block(x, lp["mlp"], cfg)
-    return x
+    return _ffn_block(x, lp, cfg, ctx)
+
+
+def _forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
+    """-> (logits, aux): aux is the fp32 sum over layers of the MoE
+    load-balance term (0 for the other families)."""
+    check_supported(cfg)
+    positions = batch["positions"]
+    segments = batch.get("segments")
+    x = _embed(params, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = ctx.remat and torch.is_grad_enabled()
+    for lp in _layer_slices(params):
+        if remat:
+            x, a = checkpoint(
+                _decoder_block, x, lp, cfg, ctx, positions, segments, use_reentrant=False
+            )
+        else:
+            x, a = _decoder_block(x, lp, cfg, ctx, positions, segments)
+        if a is not None:
+            aux = aux + a
+    return _logits(x, params, cfg), aux
 
 
 def forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict) -> torch.Tensor:
     """-> logits [B, S, V].  batch: tokens [B, S], positions [S], optional
     segments [S] (packed multi-document rows: causal within each document).
     Under autograd with ``ctx.remat`` each layer is checkpointed."""
-    check_supported(cfg)
-    positions = batch["positions"]
-    segments = batch.get("segments")
-    x = _embed(params, batch["tokens"])
-    remat = ctx.remat and torch.is_grad_enabled()
-    for lp in _layer_slices(params):
-        if remat:
-            x = checkpoint(
-                _decoder_block, x, lp, cfg, ctx, positions, segments, use_reentrant=False
-            )
-        else:
-            x = _decoder_block(x, lp, cfg, ctx, positions, segments)
-    return _logits(x, params, cfg)
+    return _forward(params, cfg, ctx, batch)[0]
 
 
 def loss_fn(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
-    """-> (loss, metrics {"loss", "ce", "aux"}).  batch as ``forward`` plus
-    labels [B, S] and an optional loss mask [B, S]; ``aux`` (the MoE load
-    balance term in JAX) is 0 for the dense family."""
-    logits = forward(params, cfg, ctx, batch)
+    """-> (loss, metrics {"loss", "ce", "aux"}), loss = ce + 0.01 aux as in
+    JAX.  batch as ``forward`` plus labels [B, S] and an optional loss mask
+    [B, S]."""
+    logits, aux = _forward(params, cfg, ctx, batch)
     ce = vocab_cross_entropy(logits, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + 0.01 * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -327,9 +351,7 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
         s, new = ssm_mod.ssm_decode_step(x, lp["ssm"], cache_l["ssm"], cfg)
         _write_ssm(cache_l, new)
         y = x + 0.5 * ((y - x) + (s - x))
-    if cfg.d_ff > 0:
-        y = mlp_block(y, lp["mlp"], cfg)
-    return y
+    return _ffn_block(y, lp, cfg, ctx)[0]
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
@@ -465,7 +487,7 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
                 _write_kv(cache, i, (slice(None), cols), kk, vv)
         # the SSD block keeps its final conv window and state in the cache
         ssm_cache = _layer_cache(cache, i) if cfg.ssm is not None else None
-        x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache)
+        x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache)[0]
 
     if "length" in batch:
         length = torch.as_tensor(batch["length"], device=x.device).to(torch.int64).reshape(B)
@@ -538,7 +560,7 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
         h = rms_norm(x, lp["attn"]["ln"])
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
         _write_kv(cache, i, (rows, cols), kk[0, toks], vv[0, toks])
-        x = _decoder_block(x, lp, cfg, ctx, positions, segments=segments)
+        x = _decoder_block(x, lp, cfg, ctx, positions, segments=segments)[0]
 
     # document d's last real token sits where segments == d AND positions ==
     # doc_lens[d] - 1
@@ -593,7 +615,7 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
             write_coords=coords,
         )[0]
         x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
-        x = mlp_block(x, lp["mlp"], cfg)
+        x = _ffn_block(x, lp, cfg, ctx)[0]
     return x
 
 

@@ -44,7 +44,13 @@ one-shot prefill runs the prompt in the §3.7 stripe order through the
 Mesh-Attention forward (``dispatch.distributed_attention``), and decode,
 chunks and verify launch once for every rank and combine the ranks' partials
 by lse.  Buckets and ``max_seq`` are multiples of n; SSM and hybrid archs at
-n > 1 raise (ROADMAP A.4).
+n > 1 raise (ROADMAP A.4), and so do MoE archs (A.7).
+
+MoE archs serve every mode of the dense family on one rank.  Expert
+capacity couples the tokens of a row (``models/moe.py``), so the engine
+pads, packs, chunks and verifies exactly as JAX's does: each entry point
+then drops the same tokens as its JAX twin, and one-shot and chunked runs
+of one trace may part ways, as in JAX.
 
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
 in place.
@@ -128,6 +134,11 @@ class ServeEngine:
             raise NotImplementedError(
                 f"{cfg.name}: serving an SSM or hybrid arch over a sequence-parallel ring needs "
                 "the sharded SSD scan (conv halo exchange, state combine): ROADMAP A.4"
+            )
+        if n > 1 and cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: serving a MoE arch over a sequence-parallel ring needs expert "
+                "parallelism (the dispatch all-to-all over the ranks): ROADMAP A.7"
             )
         if serve.max_seq % n:
             raise ValueError(f"max_seq={serve.max_seq} must be divisible by sp_size={n}")

@@ -19,6 +19,7 @@ from repro.models import transformer as jtfm
 from repro.parallel.context import ParallelCtx as JCtx
 from repro.serve.kv_pool import PagedLayout as JLayout
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs.base import MLAConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
@@ -219,11 +220,20 @@ def test_params_from_jax_keeps_bf16_and_layout(model):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(tget_config("granite-8b").reduced(), window=None, family="moe")
-    with pytest.raises(NotImplementedError, match="dense"):
-        ttfm.init_params(cfg, device="cpu")
+    """The MoE family is ported (its archs resolve); MLA and the encoder
+    are not, and still raise."""
+    assert tget_config("mixtral-8x7b").family == "moe"
+    assert tget_config("qwen2-moe-a2.7b").moe.num_shared == 4
+    base = tget_config("granite-8b").reduced()
+    for cfg, what in (
+        (dataclasses.replace(base, mla=MLAConfig(32, 16, 16, 16, 32)), "MLA"),
+        (dataclasses.replace(base, encoder_layers=2), "encoder"),
+        (dataclasses.replace(base, family="moe"), "MoE config off its family"),
+    ):
+        with pytest.raises(NotImplementedError, match=what):
+            ttfm.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
-        tget_config("mixtral-8x7b")
+        tget_config("minicpm3-4b")
 
 
 @pytest.mark.parametrize("shared_coords", [False, True], ids=["per_call", "per_tick"])
