@@ -19,7 +19,11 @@ Phases, each printing one JSON line:
                  Sq = 1 decode tick of 8 slots) and at qwen2-moe-a2.7b's (16 /
                  16 of 128, GQA group 1: bf16 causal and packed prefill rows,
                  fp32 chunk and verify over an int8 pool's dequantized view;
-                 the paged decode over a bf16 fp pool and an int8 pool), each
+                 the paged decode over a bf16 fp pool and an int8 pool) and at
+                 qwen2.5-32b's (40 / 8 of 128, GQA group 5: bf16 causal and
+                 packed prefill rows, the decode body at 8 slots, fp32 chunk
+                 and verify, the paged decode over a bf16 fp pool and an
+                 int8 pool), each
                  case with the body that ran (the fp32 CUDA-core body, or the bf16 tensor-core tile or
                  decode body, checked against the wrapper's plan) and its
                  device time (torch.profiler).  The env line carries ptxas's
@@ -118,6 +122,44 @@ Phases, each printing one JSON line:
                  (DROPLESS_TOL), and the same forward with the router in
                  bf16 and without the shared expert, each of which must
                  miss the limit.
+  4k. slice_ssm_ring -- mamba2-370m and hymba-1.5b at full width cut to 2
+                 layers, fp32: the engine at sp_size 4 on the card (the
+                 sequence-sharded SSD scan of ``models/ssm.py``; hymba's
+                 attention through the Mesh-Attention forward and the folded
+                 decode) against sp_size 1 on the CPU, prompts of 8, 48, 256
+                 and 512 tokens (8: 2 rows a rank, fewer than the conv
+                 halo's 3), 8 new tokens: streams identical, first-token
+                 logits within 1e-3, every request ok, no kernel on the CPU
+                 side; #5 once per layer per prefill at batch 4 (the ranks
+                 folded), hymba's #1 once per mesh block per layer and
+                 prefill and once per layer per decode tick, one combine per
+                 layer per decode tick; the ssd_halo / ssd_state / ssd_tail
+                 hops and bytes equal ``_ssd_comm_model``'s formula.
+  4l. serve_ssm_ring -- this slice's main path: mamba2-370m and hymba-1.5b
+                 at full width and depth, bf16, 8 slots, max_seq 2048, 32
+                 greedy tokens, prompts of 48 ... 1536 tokens (each a
+                 multiple of 4 whose quarter is <= 64 or a multiple of 64)
+                 at ticks 0 ... 13, over a ring of 4, then at sp_size 1 in
+                 the same call.  Counters set to 0 before each run: 4k's
+                 launch and exchange gates (hymba's prefill blocks on the
+                 tile body, its decode rows on the decode body); every
+                 request ok with 32 tokens; the ring's streams against one
+                 rank's under the near-tie rule (RING_NEAR_TIE).  Rates, ms
+                 per decode tick and TTFT of both runs, bytes per kind,
+                 peak memory, a profiled 1,536-token prefill (#5 beside the
+                 halo, the state gather and prefix, the correction, and the
+                 copies) at both widths and a profiled decode tick.
+  4m. slice_qwen -- qwen2.5-32b at full width cut to 2 layers, fp32, QKV
+                 biases drawn nonzero: card vs CPU, dense cache and paged
+                 pool: streams identical, first-token logits within 1e-3.
+  4n. serve_qwen -- qwen2.5-32b whole (64 layers, 32.8e9 parameters, 65.5
+                 GB) in bf16 on the serve trace, 8 slots, max_seq 2048, 512
+                 pages of 16: (a) one-shot over the fp pool, (b) chunk 256,
+                 budget 512, spec_k 4 over an int8 pool.  serve_moe's gates
+                 (one #4 / 4q per layer per decode tick, #1 per layer per
+                 prefill, chunk and verify launch, on the tile or fp32
+                 body); pool bytes, peak memory under the card's, a
+                 profiled decode tick beside the weights' bytes bound.
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -162,8 +204,8 @@ Phases, each printing one JSON line:
                  s per step, tokens/s, peak memory, hops and bytes per step,
                  and a profiled mesh step by kernel class.
   10. the kernels line (each kernel's launches now including the mesh_op,
-                 train_mesh, serve_ring and serve_moe runs; the ranks'
-                 combine a row of its own), the card line, and the final line
+                 train_mesh, serve_ring, serve_moe, serve_ssm_ring and
+                 serve_qwen runs; the ranks' combine a row of its own), the card line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -172,7 +214,9 @@ None / 512), the paged decode's split combine kernel alone (the main row's
 partials, some splits empty, an all-empty row) and the SSD chunked scan
 (mamba2-370m and hymba-1.5b heads, fp32, a short chunk, batch 4, a reduced
 shape and dt = 3 with A = -1, where a chunk's sum of dt*|A| passes 88;
-finite and a bitwise repeat) against their plain versions.  The paged and
+the sharded scan's folded launches: 4 ranks x 384 rows at both archs'
+heads, and local lengths 12 and 2 at mamba2's; finite and a bitwise
+repeat) against their plain versions.  The paged and
 SSD cases carry the kernels' device time (``dev_ms``: all kernels of one
 call, torch.profiler, L2 flushed) beside the call's event time (``ms``, L2
 flushed); the SSD cases also the bound at the fp32 CUDA-core peak beside
@@ -184,9 +228,11 @@ forward with the 4 ranks folded into its batch (one band per row; ranks 0
 and 1 hold a q chunk below their kv chunk, so their row 0 sees no key and
 must give o = 0, lse = NEG_INF exactly), the backward on rank 0 with one
 band (dq of the blind rows exactly 0, dk / dv finite, a repeat bitwise).
-And the serving ring's launches: #1 at the chunk (256) and verify (4)
-rows with 4 ranks x 8 slots folded (stride 4; the first rows of ranks 1-3
-blind), and #4 / 4q over a pool sharded 4 ways (bf16 queries, fp and int8
+And hymba-1.5b's mesh prefill block over a ring of 4 (contiguous, window
+1024, 384 rows a rank, 25 / 5 heads of 64: ranks 0 and 1 blind).  And the
+serving ring's launches: #1 at the chunk (256) and verify (4) rows with 4
+ranks x 8 slots folded (stride 4; the first rows of ranks 1-3 blind), the
+decode rows at hymba's heads (window 1024), and #4 / 4q over a pool sharded 4 ways (bf16 queries, fp and int8
 pools, ``paged_case``'s depths: rows of ranks that see no key must give
 o = 0, lse = NEG_INF exactly) followed by the ranks' lse combine.
 
@@ -224,6 +270,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # noqa: E402
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
@@ -308,6 +355,8 @@ H, HKV, D = 32, 8, 128
 HYMBA_HEADS = (25, 5, 64)
 # qwen2-moe-a2.7b's: multi-head attention, GQA group 1
 QWEN_MOE_HEADS = (16, 16, 128)
+# qwen2.5-32b's: GQA group 5 at head dim 128
+QWEN_HEADS = (40, 8, 128)
 FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
 
 
@@ -1035,16 +1084,18 @@ def serve_trace(eng, lengths, arrivals, new_tokens, vocab, seed):
     return [done[r] for r in rids]
 
 
-def cross_device():
-    """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions)."""
-    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+def cross_device(arch="granite-8b", phase="slice"):
+    """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions).
+    QKV biases (qwen2.5-32b) are drawn nonzero: init leaves them 0."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-    params_cpu = {
-        "embed": params["embed"].cpu(), "final_ln": params["final_ln"].cpu(),
-        "lm_head": params["lm_head"].cpu(),
-        "layers": {g: {n: t.cpu() for n, t in leaves.items()}
-                   for g, leaves in params["layers"].items()},
-    }
+    if cfg.qkv_bias:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        for name in ("bq", "bk", "bv"):
+            bias = params["layers"]["attn"][name]
+            bias.copy_(0.5 * torch.randn(bias.shape, generator=gen, device="cuda"))
+    params_cpu = _tree_to(params, "cpu")
     lengths, arrivals = [64, 137, 200], [0, 0, 1]
     out = {}
     for paged in (False, True):
@@ -1069,15 +1120,16 @@ def cross_device():
                            "paged_flash_decode": launches["cuda"][1]},
             cpu_launches=sum(launches["cpu"]),
         )
-        check(streams["cuda"] == streams["cpu"], f"{key}: card and CPU streams differ: {streams}")
-        check(err <= 1e-3, f"{key}: first-token logits differ by {err} > 1e-3")
+        tag = f"{phase} {key}"
+        check(streams["cuda"] == streams["cpu"], f"{tag}: card and CPU streams differ: {streams}")
+        check(err <= 1e-3, f"{tag}: first-token logits differ by {err} > 1e-3")
         check(launches["cuda"][0] > 0 and launches["cpu"] == (0, 0),
-              f"{key}: kernels must run on the card only: {launches}")
+              f"{tag}: kernels must run on the card only: {launches}")
         if paged:
-            check(launches["cuda"][1] > 0, "paged engine never launched the paged decode kernel")
+            check(launches["cuda"][1] > 0, f"{tag}: the paged engine never launched #4")
     del params, params_cpu
     torch.cuda.empty_cache()
-    emit({"phase": "slice", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
+    emit({"phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
           "lengths": lengths, "new_tokens": 8, **out})
 
 
@@ -2012,6 +2064,344 @@ def full_serve_ssm(card):
     return launches_total, decode_body_launches
 
 
+# --------------------------------------------------------------------------
+# phases 4k and 4l: the SSM and hybrid archs over a ring of 4
+# --------------------------------------------------------------------------
+
+
+class _ScanBatches:
+    """Records the batch of every SSD scan call of the model (the ranks
+    folded into it over a ring), by wrapping ``models/ssm.py``'s
+    ``ssd_scan_fwd``."""
+
+    def __enter__(self):
+        self.batches, self._orig = [], ssm_mod.ssd_scan_fwd
+
+        def recording(x, *args, **kw):
+            self.batches.append(int(x.shape[0]))
+            return self._orig(x, *args, **kw)
+
+        ssm_mod.ssd_scan_fwd = recording
+        return self
+
+    def __exit__(self, *exc):
+        ssm_mod.ssd_scan_fwd = self._orig
+
+
+def _ssd_comm_model(cfg, lengths, itemsize, n=RING_N):
+    """The sharded scan's exchanges for one prefill of each prompt (batch 1)
+    through every layer: per layer ceil((w-1) / m) halo hops of min(k m,
+    w-1) rows of conv_dim inputs (m = S/n rows a rank), one gather of the
+    fp32 state (H P N) and total decay (H), one gather of the w-1 row conv
+    tail; bytes one rank sends."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    H, P, N, G = (d_inner // cfg.ssm.head_dim, cfg.ssm.head_dim, cfg.ssm.state_dim,
+                  cfg.ssm.n_groups)
+    conv_dim, need, L = d_inner + 2 * G * N, cfg.ssm.conv_width - 1, cfg.num_layers
+    hops = {"ssd_halo": 0, "ssd_state": L * len(lengths), "ssd_tail": L * len(lengths)}
+    nbytes = {"ssd_halo": 0, "ssd_state": L * len(lengths) * H * (P * N + 1) * 4,
+              "ssd_tail": L * len(lengths) * need * conv_dim * itemsize}
+    for S in lengths:
+        m = S // n
+        rounds = -(-need // m)
+        hops["ssd_halo"] += L * rounds
+        nbytes["ssd_halo"] += L * sum(min(k * m, need) for k in range(1, rounds + 1)) \
+            * conv_dim * itemsize
+    return hops, nbytes
+
+
+def _hybrid_prefill_blocks(cfg, S, n=RING_N):
+    """#1 launches of one layer of a hybrid prefill over the ring: the
+    blocks of the mesh schedule (a = 2 at n = 4) for the contiguous,
+    windowed mask, every block one launch with the ranks folded."""
+    mcfg = MeshAttentionConfig(transport=None, n=n, a=2, mask=MaskSpec.causal(window=cfg.window),
+                               layout=cfg.causal_layout)
+    return len(mcfg.schedules(S)[0].blocks())
+
+
+def _ssm_ring_problems(tag, cfg, launches, batches, hops, nbytes, lengths, prefills, decodes,
+                       itemsize, dtype):
+    """The gates shared by slice_ssm_ring and serve_ssm_ring: #5 once per
+    layer per prefill with the 4 ranks folded into its batch; hymba's #1 on
+    the prefill blocks and once per layer per decode tick (the decode body
+    for bf16), one combine per layer per decode tick; the exchanges'
+    hops and bytes against ``_ssd_comm_model``."""
+    L, problems = cfg.num_layers, []
+    if launches["ssd_scan_fwd"] != L * prefills or batches != [RING_N] * (L * prefills):
+        problems.append(f"{tag}: #5 launched {launches['ssd_scan_fwd']} times at batches "
+                        f"{sorted(set(batches))}, want {L} x {prefills} at batch {RING_N}")
+    want_hops, want_bytes = _ssd_comm_model(cfg, lengths, itemsize)
+    got_hops = {k: hops.get(k, 0) for k in want_hops}
+    got_bytes = {k: nbytes.get(k, 0) for k in want_bytes}
+    if (got_hops, got_bytes) != (want_hops, want_bytes):
+        problems.append(f"{tag}: exchanges {got_hops} / {got_bytes} bytes, want {want_hops} / "
+                        f"{want_bytes}")
+    if cfg.hybrid:
+        blocks = L * sum(_hybrid_prefill_blocks(cfg, S) for S in lengths)
+        if dtype == torch.bfloat16:
+            want = {"fwd_tile": blocks, "fwd_decode": L * decodes, "fwd_fp32": 0}
+        else:
+            want = {"fwd_tile": 0, "fwd_decode": 0, "fwd_fp32": blocks + L * decodes}
+        want.update(flash_attention_fwd=blocks + L * decodes, paged_decode_combine=L * decodes)
+        if hops.get("combine", 0) != L * decodes:
+            problems.append(f"{tag}: {hops.get('combine', 0)} combines, want {L} x {decodes}")
+    else:
+        want = {"flash_attention_fwd": 0, "paged_decode_combine": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        problems.append(f"{tag}: #1 / combine launches {got}, want {want}")
+    return problems
+
+
+def _ssm_ring_run(cfg, params, ctx, serve, lengths, arrivals, new_tokens, seed):
+    """One engine run of a trace -> (engine, results, kernel launch deltas,
+    the scan batches, the ring's hops and bytes)."""
+    eng = ServeEngine(cfg, params, ctx, serve=serve)
+    eng.capture_logits = True
+    if ctx.ring is not None:
+        ctx.ring.stats.reset()
+    before = {**_kernel_counts(), "ssd_scan_fwd": ssd.ssd_scan_fwd.launches}
+    with _ScanBatches() as scans:
+        res = serve_trace(eng, lengths, arrivals, new_tokens, cfg.vocab_size, seed=seed)
+    launches = _delta(before, {**_kernel_counts(), "ssd_scan_fwd": ssd.ssd_scan_fwd.launches})
+    stats = ctx.ring.stats if ctx.ring is not None else None
+    return eng, res, launches, scans.batches, \
+        dict(stats.hops) if stats else {}, dict(stats.bytes) if stats else {}
+
+
+def slice_ssm_ring():
+    """mamba2-370m and hymba-1.5b at full width, 2 layers, fp32: the engine
+    at sp_size 4 on the card (the sharded scan, #5 with the ranks folded;
+    hymba's attention through the Mesh-Attention forward and the folded
+    decode) against sp_size 1 on the CPU (plain versions).  The 8-token
+    prompt leaves each rank 2 rows, fewer than the conv halo's 3."""
+    lengths, arrivals = [8, 48, 256, 512], [0, 0, 1, 2]
+    out, problems = {}, []
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        serve = ServeConfig(max_seq=1024, num_slots=4, cache_dtype=torch.float32)
+        side = {}
+        for dev, p, ctx in (
+            ("cuda", params, ParallelCtx(sp_size=RING_N, device="cuda")),
+            ("cpu", _tree_to(params, "cpu"), ParallelCtx(device="cpu")),
+        ):
+            eng, res, launches, batches, hops, nbytes = _ssm_ring_run(
+                cfg, p, ctx, serve, lengths, arrivals, 8, seed=4)
+            side[dev] = dict(
+                streams=[r.generated for r in res],
+                first=[eng.debug_logits[r.rid][0] for r in res],
+                statuses=[r.status for r in res], launches=launches, batches=batches,
+                hops=hops, bytes=nbytes, prefills=eng.prefill_launches,
+                decodes=eng.decode_launches,
+            )
+            del eng
+        card, cpu = side["cuda"], side["cpu"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
+        kernel_keys = ("ssd_scan_fwd", "flash_attention_fwd", "paged_decode_combine",
+                       "paged_flash_decode", "paged_flash_decode_quant")
+        cpu_launches = sum(cpu["launches"][k] for k in kernel_keys)
+        out[arch] = dict(
+            streams_identical=card["streams"] == cpu["streams"], first_logits_max_abs_err=err,
+            cuda_launches={k: card["launches"][k] for k in kernel_keys + (
+                "fwd_tile", "fwd_decode", "fwd_fp32")},
+            cpu_launches=cpu_launches, scan_batches=sorted(set(card["batches"])),
+            hops=card["hops"], bytes=card["bytes"], prefill_launches=card["prefills"],
+            decode_launches=card["decodes"],
+        )
+        tag = f"slice_ssm_ring {arch}"
+        if card["streams"] != cpu["streams"]:
+            problems.append(f"{tag}: sp_size 4 on the card and 1 on the CPU differ: {side}")
+        if err > 1e-3:
+            problems.append(f"{tag}: first-token logits differ by {err} > 1e-3")
+        if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+            problems.append(f"{tag}: not every request finished ok")
+        if cpu_launches:
+            problems.append(f"{tag}: a kernel ran on the CPU side: {cpu['launches']}")
+        problems += _ssm_ring_problems(tag, cfg, card["launches"], card["batches"],
+                                       card["hops"], card["bytes"], lengths, card["prefills"],
+                                       card["decodes"], 4, torch.float32)
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_ssm_ring", "num_layers": 2, "dtype": "fp32", "sp_size": RING_N,
+          "lengths": lengths, "arrivals": arrivals, "new_tokens": 8, **out})
+    check(not problems, "; ".join(problems))
+
+
+# serve_ssm_ring's trace: every length a multiple of 4 whose quarter is at
+# most 64 or a multiple of 64 (the exact mode's rule at sp_size 4)
+SSM_RING_LENGTHS = [48, 64, 128, 256, 512, 768, 1024, 1536]
+SSM_RING_ARRIVALS = [0, 0, 1, 2, 3, 5, 8, 13]
+# the sharded scan's parts around #5, each under a profiler range in the
+# profiled prefill: the halo hops, the state gather and prefix, the
+# correction (#5 itself is a C call the profiler does not tie to a range:
+# its device time is its kernel class's)
+SSM_RANGES = {"_halo": "halo", "_incoming_states": "state_gather_prefix",
+              "_apply_initial_state": "correction"}
+
+
+def _ranged_device_ms(module, names, run):
+    """Run ``run`` under torch.profiler with each function ``names`` of
+    ``module`` under a profiler range -> (the profile, device ms per range
+    name: the kernels launched below each range's calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    origs = {name: getattr(module, name) for name in names}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(names[name]):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in origs.items():
+        setattr(module, name, ranged(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in origs.items():
+            setattr(module, name, fn)
+    split = {label: 0.0 for label in names.values()}
+
+    def walk(ev, label):
+        for k in getattr(ev, "kernels", None) or ():
+            split[label] += k.duration / 1e3
+        for child in ev.cpu_children:
+            walk(child, label)
+
+    for ev in prof.events():
+        if ev.name in split and ev.device_type == torch.autograd.DeviceType.CPU:
+            walk(ev, ev.name)
+    return prof, split
+
+
+def profile_ssm_prefill(eng, cfg, length=1536):
+    """One prefill of a ``length``-token prompt into the drained engine under
+    torch.profiler: device ms of #5 beside the halo, the state gather and
+    prefix, and the correction (their ranges; 0 at sp_size 1), and of the
+    whole step by kernel class (copies apart) and by kernel."""
+    rng = np.random.default_rng(8)
+    eng.submit(rng.integers(0, cfg.vocab_size, (length,), dtype=np.int32), 1,
+               arrival_tick=eng.tick_stats()["ticks"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof, split = _ranged_device_ms(ssm_mod, SSM_RANGES, eng.step)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def classify(name):  # a range's own device-side span is no kernel
+        return "range" if name in split else _ring_kernel_class(name)
+
+    by_class, by_kernel = device_time(prof, classify=classify)
+    by_class.pop("range", None)
+    by_kernel = {k: ms for k, ms in by_kernel.items() if k not in split}
+    split["scan"] = by_class.get("ssd_scan_fwd", 0.0)
+    eng.run()
+    return {"prompt": length, "wall_ms_profiled": wall_ms, "device_ms_by_part": split,
+            "device_ms_by_class": by_class,
+            "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def serve_ssm_ring(card):
+    """This slice's main path: mamba2-370m and hymba-1.5b at full width and
+    depth, bf16, 8 slots, max_seq 2048, 32 greedy tokens, over a ring of 4
+    (the sharded scan; hymba's attention through the Mesh-Attention forward
+    and the folded decode), then the same trace at sp_size 1 in the same
+    call."""
+    runs, problems, counted = {}, [], {"ssd_scan_fwd": 0, "fwd_tile": 0, "fwd_decode": 0,
+                                        "paged_decode_combine": 0}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        L = cfg.num_layers
+        params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        runs[arch] = {}
+        streams = {}
+        for sp in (RING_N, 1):
+            ctx = ParallelCtx(sp_size=sp, device="cuda")
+            serve = ServeConfig(max_seq=2048, num_slots=8, cache_dtype=torch.bfloat16)
+            # warm-up (cuBLAS handles, allocator), outside the measured run
+            warm = ServeEngine(cfg, params, ctx, serve=serve)
+            warm.generate(np.arange(64, dtype=np.int32)[None], max_new_tokens=2)
+            del warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng, res, launches, batches, hops, nbytes = _ssm_ring_run(
+                cfg, params, ctx, serve, SSM_RING_LENGTHS, SSM_RING_ARRIVALS, 32, seed=2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = eng.tick_stats()
+            pf_tok, pf_s = sum(stats["prefill_tokens"]), sum(stats["prefill_s"])
+            dec_ticks = [i for i in range(stats["ticks"]) if stats["decode_s"][i] > 0]
+            dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+            dec_tok = sum(stats["decode_tokens"]) - len(res)
+            streams[sp] = ([r.generated for r in res],
+                           [eng.debug_logits[r.rid] for r in res])
+            rec = {
+                "sp_size": sp, "statuses": [r.status for r in res], "ticks": stats["ticks"],
+                "wall_s": wall, "prefill_tokens": pf_tok, "prefill_s": pf_s,
+                "prefill_tok_per_s": pf_tok / pf_s, "decode_tokens": dec_tok,
+                "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+                "decode_ticks": len(dec_ticks),
+                "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+                "ttft_ticks": [r.ttft_ticks for r in res],
+                "ssm_state_bytes": _ssm_state_bytes(eng),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "prefill_launches": eng.prefill_launches, "decode_launches": eng.decode_launches,
+                "launches": {k: launches[k] for k in (
+                    "ssd_scan_fwd", "flash_attention_fwd", "fwd_tile", "fwd_decode", "fwd_fp32",
+                    "paged_decode_combine", "paged_flash_decode")},
+                "scan_batches": sorted(set(batches)), "hops": hops, "bytes": nbytes,
+                "bytes_per_prefill": {k: v / len(res) for k, v in nbytes.items()},
+            }
+            tag = f"serve_ssm_ring {arch} sp_size {sp}"
+            if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+                problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
+            if sp > 1:
+                problems += _ssm_ring_problems(
+                    tag, cfg, launches, batches, hops, nbytes, SSM_RING_LENGTHS,
+                    eng.prefill_launches, eng.decode_launches, 2, torch.bfloat16)
+                for k in counted:
+                    counted[k] += launches[k]
+                rec["decode_profile"] = profile_decode(eng, cfg, classify=_ring_kernel_class)
+            elif launches["ssd_scan_fwd"] != L * len(SSM_RING_LENGTHS) or set(batches) != {1}:
+                problems.append(f"{tag}: #5 launches {launches['ssd_scan_fwd']} at batches "
+                                f"{set(batches)}")
+            rec["prefill_profile"] = profile_ssm_prefill(eng, cfg)
+            runs[arch][f"sp{sp}"] = rec
+            del eng, ctx
+            torch.cuda.empty_cache()
+        # the ring's bf16 stream against one rank's: a flip only on a near-tie
+        flips = []
+        for i, (a, b) in enumerate(zip(streams[RING_N][0], streams[1][0])):
+            if a != b:
+                j = _first_flip(a, b)
+                row = streams[RING_N][1][i][j]
+                top2 = np.sort(row)[-2:]
+                flips.append(dict(request=i, token=j, ring=a[j], one_rank=b[j],
+                                  top2_gap=float(top2[1] - top2[0]),
+                                  ring_gap_to_one_rank=float(row[a[j]] - row[b[j]])))
+        runs[arch]["streams_equal"] = streams[RING_N][0] == streams[1][0]
+        runs[arch]["flips"] = flips
+        for f in flips:
+            if f["ring_gap_to_one_rank"] > RING_NEAR_TIE:
+                problems.append(f"serve_ssm_ring {arch}: a flip beyond a near-tie: {f}")
+        r4, r1 = runs[arch][f"sp{RING_N}"], runs[arch]["sp1"]
+        runs[arch]["tick_ratio_sp4_to_sp1"] = r4["ms_per_decode_tick"] / r1["ms_per_decode_tick"]
+        runs[arch]["prefill_rate_ratio_sp4_to_sp1"] = (r4["prefill_tok_per_s"]
+                                                       / r1["prefill_tok_per_s"])
+        runs[arch].update(arch=arch, num_layers=L, d_model=cfg.d_model,
+                          ssm=dataclasses.asdict(cfg.ssm), params=tfm.param_count(params))
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_ssm_ring", "dtype": "bf16", "max_seq": 2048, "num_slots": 8,
+          "lengths": SSM_RING_LENGTHS, "arrival_ticks": SSM_RING_ARRIVALS, "new_tokens": 32,
+          "near_tie": RING_NEAR_TIE, "runs": runs, "card": card})
+    check(not problems, "; ".join(problems))
+    return counted
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd_" in name:  # the fp32, tile, decode and combine kernels
         return "flash_attention_fwd"
@@ -2228,9 +2618,10 @@ def profile_moe_decode(eng, cfg, ticks=4):
     return rec
 
 
-def _serve_moe_run(cfg, params, serve, lengths, arrivals, profile):
-    """One measured MoE serving run (after a warm-up outside it): rates,
-    memory, launches per kernel and per engine launch, a profiled tick."""
+def _serve_full_run(cfg, params, serve, lengths, arrivals, profile, phase="serve_moe"):
+    """One measured serving run at full width (after a warm-up outside it):
+    rates, memory, launches per kernel and per engine launch, and
+    ``profile(eng, cfg)`` (a profiled tick) unless it is None."""
     eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=serve)
     eng.generate(np.arange(32, dtype=np.int32)[None], max_new_tokens=2)
     torch.cuda.synchronize()
@@ -2262,7 +2653,8 @@ def _serve_moe_run(cfg, params, serve, lengths, arrivals, profile):
     dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
     rec = {
         "arch": cfg.name, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
-        "moe": dataclasses.asdict(cfg.moe), "params": tfm.param_count(params),
+        "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+        "params": tfm.param_count(params),
         "kv_dtype": serve.kv_dtype, "prefill_chunk": serve.prefill_chunk,
         "spec_k": serve.spec_k, "statuses": [r.status for r in res],
         "ticks": stats["ticks"] - skip, "wall_s": wall,
@@ -2276,7 +2668,7 @@ def _serve_moe_run(cfg, params, serve, lengths, arrivals, profile):
         "engine_launches": engine, "launches": launches, "flash_attention_fwd_bodies": bodies,
     }
     problems = []
-    tag = f"serve_moe {cfg.name} {serve.kv_dtype}" + (" chunked" if serve.prefill_chunk else "")
+    tag = f"{phase} {cfg.name} {serve.kv_dtype}" + (" chunked" if serve.prefill_chunk else "")
     L = cfg.num_layers
     if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
         problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
@@ -2300,8 +2692,8 @@ def _serve_moe_run(cfg, params, serve, lengths, arrivals, profile):
                    else {"tile": want_flash, "decode": 0, "fp32": 0})
     if bodies != want_bodies:
         problems.append(f"{tag}: flash bodies {bodies}, want {want_bodies}")
-    if profile:
-        rec["decode_profile"] = profile_moe_decode(eng, cfg)
+    if profile is not None:
+        rec["decode_profile"] = profile(eng, cfg)
     del eng
     torch.cuda.empty_cache()
     return rec, problems, bodies
@@ -2406,8 +2798,9 @@ def serve_moe(card):
                        ("qwen_chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
                                                      spec_k=4, kv_dtype="int8"))):
         # the profiled tick: plain decode of the one-shot run
-        rec, probs, bodies = _serve_moe_run(qwen, params, ServeConfig(**base, **extra),
-                                            SERVE_LENGTHS, SERVE_ARRIVALS, profile=not extra)
+        rec, probs, bodies = _serve_full_run(qwen, params, ServeConfig(**base, **extra),
+                                             SERVE_LENGTHS, SERVE_ARRIVALS,
+                                             profile=None if extra else profile_moe_decode)
         rec["init_s"] = init_s
         runs[key], counted[key] = rec, (rec["launches"], bodies)
         problems += probs
@@ -2415,8 +2808,8 @@ def serve_moe(card):
     torch.cuda.empty_cache()
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_SERVE_LAYERS)
     params = tfm.init_params(mixtral, seed=0, dtype=torch.bfloat16, device="cuda")
-    rec, probs, bodies = _serve_moe_run(mixtral, params, ServeConfig(**base), SERVE_LENGTHS,
-                                        SERVE_ARRIVALS, profile=True)
+    rec, probs, bodies = _serve_full_run(mixtral, params, ServeConfig(**base), SERVE_LENGTHS,
+                                         SERVE_ARRIVALS, profile=profile_moe_decode)
     runs["mixtral_8_layers_oneshot_fp"], counted["mixtral"] = rec, (rec["launches"], bodies)
     problems += probs
     del params
@@ -2436,6 +2829,65 @@ def serve_moe(card):
         total["paged_flash_decode"] += launches["paged_flash_decode"]
         total["paged_flash_decode_quant"] += launches["paged_flash_decode_quant"]
     return total
+
+
+# --------------------------------------------------------------------------
+# phases 4m and 4n: qwen2.5-32b (QKV bias, GQA group 5 at head dim 128)
+# --------------------------------------------------------------------------
+
+QWEN_ARCH = "qwen2.5-32b"
+# serve_qwen's pool: 512 pages of 16 (8,192 tokens) hold the serve trace's
+# 5,314 tokens with room; at 64 layers x 8 kv heads x 128 x 2 (K, V) x 2 B
+# a token that is 2.1 GB in bf16 (int8: half, plus the scales), beside the
+# 65.5 GB of weights
+QWEN_PAGES = 512
+
+
+def serve_qwen(card):
+    """qwen2.5-32b whole (64 layers, 32.8e9 parameters) in bf16 on the card,
+    the serve trace, 8 slots, max_seq 2048, a pool of QWEN_PAGES pages of
+    16: (a) one-shot over the fp pool, (b) chunk 256, budget 512, spec_k 4
+    over an int8 pool.  A profiled decode tick of (a), beside the bytes
+    bound its weights alone set."""
+    cfg = get_config(QWEN_ARCH)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tfm.param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=QWEN_PAGES,
+                cache_dtype=torch.bfloat16)
+    runs, problems, counted = {}, [], {"flash_attention_fwd (tile)": 0,
+                                       "flash_attention_fwd (fp32)": 0,
+                                       "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
+    for key, extra in (("oneshot_fp", {}),
+                       ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
+                                                spec_k=4, kv_dtype="int8"))):
+        rec, probs, bodies = _serve_full_run(cfg, params, ServeConfig(**base, **extra),
+                                             SERVE_LENGTHS, SERVE_ARRIVALS,
+                                             profile=None if extra else profile_decode,
+                                             phase="serve_qwen")
+        rec.update(init_s=init_s, weight_bytes=weight_bytes,
+                   weights_bound_ms_per_tick=1e3 * weight_bytes / HBM_BYTES_PER_S)
+        if rec["peak_mem_gb"] * 1e9 > torch.cuda.get_device_properties(0).total_memory:
+            problems.append(f"serve_qwen {key}: peak {rec['peak_mem_gb']} GB above the card's")
+        runs[key] = rec
+        problems += probs
+        counted["flash_attention_fwd (tile)"] += bodies["tile"]
+        counted["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        for k in ("paged_flash_decode", "paged_flash_decode_quant"):
+            counted[k] += rec["launches"][k]
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_qwen", "arch": QWEN_ARCH, "num_layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params, "dtype": "bf16",
+          "max_seq": 2048, "num_slots": 8, "page_size": 16, "num_pages": QWEN_PAGES,
+          "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
+          "runs": runs, "card": card})
+    check(not problems, "; ".join(problems))
+    return counted
 
 
 # --------------------------------------------------------------------------
@@ -2674,9 +3126,9 @@ MESH_OP_O_RELATIVE = {torch.float32: False, torch.bfloat16: True}
 MESH_TRAIN_LAYERS = 14
 
 
-def _mesh_cfg_for(kind, a, transport=None):
-    spec = MaskSpec.causal(window=MESH_WINDOW if kind == "window" else None)
-    return MeshAttentionConfig(transport=transport, n=MESH_N, a=a, mask=spec)
+def _mesh_cfg_for(kind, a, transport=None, window=None, layout="striped"):
+    spec = MaskSpec.causal(window=(window or MESH_WINDOW) if kind == "window" else None)
+    return MeshAttentionConfig(transport=transport, n=MESH_N, a=a, mask=spec, layout=layout)
 
 
 def _mesh_kernel_class(name: str) -> str:
@@ -2693,14 +3145,16 @@ def _mesh_device_time(prof, per=1):
     return device_time(prof, per, classify=_mesh_kernel_class)[0]
 
 
-def mesh_block_case(kind, dtype, gen):
+def mesh_block_case(kind, dtype, gen, heads=PAPER_HEADS, S=MESH_S, layout="striped",
+                    window=None):
     """One AM block (u, v) = (0, 1) of a = 2 on all 4 ranks at once, as the
     executor's forward launches it: the ranks folded into the batch, one band
-    per rank ([4, 4]), stride 4, paper heads, 4096 rows per chunk.  Ranks 0
-    and 1 hold q chunk < kv chunk: their row 0 sees no key."""
-    nh, nkv, hd = PAPER_HEADS
-    R, m = MESH_N, MESH_S // MESH_N
-    cfg = _mesh_cfg_for(kind, 2)
+    per rank ([4, 4]), paper heads, 4096 rows per chunk, striped (stride 4)
+    unless the arguments say otherwise.  Ranks 0 and 1 hold q chunk < kv
+    chunk: their row 0 (contiguous: every row) sees no key."""
+    nh, nkv, hd = heads
+    R, m = MESH_N, S // MESH_N
+    cfg = _mesh_cfg_for(kind, 2, window=window, layout=layout)
     blocks = [mesh_attention._band_for_block(cfg, i, 0, 1, m, m) for i in range(R)]
     bands = [b for b, _, _ in blocks]
     sq, skv = blocks[0][1], blocks[0][2]
@@ -2733,15 +3187,15 @@ def mesh_block_case(kind, dtype, gen):
     visible_keys = int(mask.any(dim=-2).sum())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask[:, None], scale=hd**-0.5)
+        qt, kt, vt, attn_mask=mask[:, None], scale=hd**-0.5, enable_gqa=nkv != nh)
     item = q.element_size()
     nbytes = (2 * q.numel() + 2 * visible_keys * nkv * hd) * item + lse.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_pairs, dtype)
     tol = TOLS[("flash_attention_fwd", dtype)]
     device_ms, _ = device_time(_profiled(run, 5), per=5)
     rec = dict(
-        kernel="flash_attention_fwd", case=f"mesh_block_{kind}", S=MESH_S, rows=m, B=R,
-        heads=list(PAPER_HEADS), bands=bands, stride=sq, dtype=DTYPE_NAMES[dtype],
+        kernel="flash_attention_fwd", case=f"mesh_block_{kind}", S=S, rows=m, B=R,
+        heads=list(heads), layout=layout, bands=bands, stride=sq, dtype=DTYPE_NAMES[dtype],
         body=body[0] if len(body) == 1 else body, max_abs_err=err, max_abs_err_lse=err_lse,
         tol=tol, tol_lse=LSE_TOL, empty_rows=empty_rows, empty_rows_exact=empty_exact,
         ms=time_ms(run), device_ms=device_ms.get("flash_attention_fwd", 0.0),
@@ -3311,6 +3765,22 @@ def main():
     paged.append(paged_case(None, torch.bfloat16, gen, flush, heads=QWEN_MOE_HEADS))
     quant.append(quant_paged_case("int8", None, torch.bfloat16, gen, flush,
                                   heads=QWEN_MOE_HEADS))
+    # qwen2.5-32b's attention (GQA group 5 at head dim 128), as serve_qwen
+    # launches it: bf16 causal and packed prefill rows on the tile body, the
+    # decode body at 8 slots, the int8 pool's chunks and verifies on the fp32
+    # body, #4 over the bf16 fp pool, 4q over the int8 pool
+    for S in (1024, 2048):
+        flash.append(flash_case("causal", S, torch.bfloat16, gen, heads=QWEN_HEADS))
+    for name in ("segment", "decode"):
+        flash.append(flash_case(name, 2048, torch.bfloat16, gen, heads=QWEN_HEADS))
+    for name in ("chunk", "verify"):
+        flash.append(flash_case(name, 2048, torch.float32, gen, heads=QWEN_HEADS))
+    paged.append(paged_case(None, torch.bfloat16, gen, flush, heads=QWEN_HEADS))
+    quant.append(quant_paged_case("int8", None, torch.bfloat16, gen, flush, heads=QWEN_HEADS))
+    # hymba-1.5b over a ring of 4 (serve_ssm_ring): the folded decode rows of
+    # its dense cache (window 1024, 4 ranks x 8 slots, stride 4)
+    ring_flash.append(flash_case("decode", 2048, torch.bfloat16, gen, heads=HYMBA_HEADS,
+                                 ranks=RING_N))
     # sequence-sharded decode over a ring of 4: the ranks folded into one
     # launch, beside the n = 1 rows above
     ring_paged = [ring_paged_case(kv_dtype, gen, flush) for kv_dtype in ("fp", "int8")]
@@ -3325,6 +3795,14 @@ def main():
         ssd_case("mamba2_batch4", 4, 512, 32, 64, 1, 128, 64, gen, flush),
         ssd_case("reduced", 1, 256, 16, 16, 1, 16, 8, gen, flush),
         ssd_case("mamba2_large_dt", 1, 2048, 32, 64, 1, 128, 64, gen, flush, dt_value=3.0),
+        # the sequence-sharded scan over a ring of 4 (serve_ssm_ring): the
+        # ranks folded into the batch of one launch, at a 1,536-token
+        # prompt's 384 rows a rank, and at local lengths 12 and 2 (a chunk
+        # of the local length)
+        ssd_case("mamba2_ring4", 4, 384, 32, 64, 1, 128, 64, gen, flush),
+        ssd_case("hymba_ring4", 4, 384, 50, 64, 1, 16, 64, gen, flush),
+        ssd_case("mamba2_ring4_local12", 4, 12, 32, 64, 1, 128, 12, gen, flush),
+        ssd_case("mamba2_ring4_local2", 4, 2, 32, 64, 1, 128, 2, gen, flush),
     ]
     del scratch
     for dtype in (torch.float32, torch.bfloat16):
@@ -3340,6 +3818,10 @@ def main():
         for kind in ("causal", "window"):
             mesh_blocks.append(mesh_block_case(kind, dtype, gen))
             mesh_blocks.append(mesh_block_bwd_case(kind, dtype, gen))
+    # hymba-1.5b's mesh prefill over a ring of 4 (serve_ssm_ring): the
+    # contiguous, window-1024 blocks of a 1,536-token prompt
+    mesh_blocks.append(mesh_block_case("window", torch.bfloat16, gen, heads=HYMBA_HEADS,
+                                       S=1536, layout="contiguous", window=1024))
     emit({"phase": "kernels", "card": card,
           "cases": flash + paged + quant + combine + ssd_cases + bwd + [split] + mesh_blocks
           + ring_flash + ring_paged})
@@ -3358,9 +3840,15 @@ def main():
     pressure = serve_pressure(card, quant_runs, quant_streams)
     cross_device_ssm()
     launches["ssd_scan_fwd"], launches["flash_attention_fwd (decode)"] = full_serve_ssm(card)
+    # the SSM and hybrid archs over a ring of 4: the sequence-sharded scan
+    slice_ssm_ring()
+    ssm_ring = serve_ssm_ring(card)
     # the MoE decoders: card vs CPU at 2 layers, then served at full width
     cross_device_moe()
     moe_launches = serve_moe(card)
+    # qwen2.5-32b: card vs CPU at 2 layers, then served whole
+    cross_device(QWEN_ARCH, phase="slice_qwen")
+    qwen_launches = serve_qwen(card)
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
@@ -3368,9 +3856,14 @@ def main():
         launches[key] += ring[part]
     train_parity()
     launches.update(full_train(card))
-    # serve_moe's runs join the serving rows
-    for key, n in moe_launches.items():
+    # serve_moe's and serve_qwen's runs join the serving rows
+    for key, n in list(moe_launches.items()) + list(qwen_launches.items()):
         launches[key] += n
+    # serve_ssm_ring's ring runs: #5 folded, hymba's prefill blocks and
+    # folded decode rows, the ranks' combine
+    launches["ssd_scan_fwd"] += ssm_ring["ssd_scan_fwd"]
+    launches["flash_attention_fwd (tile)"] += ssm_ring["fwd_tile"]
+    launches["flash_attention_fwd (decode)"] += ssm_ring["fwd_decode"]
     # slice_ring's fp32 chunks and verifies, and its quantized decode ticks
     launches["flash_attention_fwd (fp32)"] += ring_slice["fwd_fp32"]
     launches["paged_flash_decode_quant"] += ring_slice["paged_flash_decode_quant"]
@@ -3447,7 +3940,8 @@ def main():
     kernels.append({
         "name": "paged_decode_combine (the ring's lse combine)", "route": "cuda",
         "source": PAGED_SRC, "replaces": PAGED_REPLACES,
-        "launches": ring["paged_decode_combine"], "max_abs_err": ring_combine["max_abs_err"],
+        "launches": ring["paged_decode_combine"] + ssm_ring["paged_decode_combine"],
+        "max_abs_err": ring_combine["max_abs_err"],
         "ms": ring_combine["ms"], "plain_ms": ring_combine["plain_ms"],
         "bound_ms": ring_combine["bound_ms"], "bound_by": ring_combine["bound_by"],
         "library_ms": None,

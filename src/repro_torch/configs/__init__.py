@@ -5,5 +5,6 @@ SSD stack, the hybrid attention + SSD model and the MoE decoders.
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, register
 
 ARCHS = [
-    "granite-8b", "paper-mha-7b", "mamba2-370m", "hymba-1.5b", "qwen2-moe-a2.7b", "mixtral-8x7b",
+    "granite-8b", "paper-mha-7b", "qwen2.5-32b", "mamba2-370m", "hymba-1.5b", "qwen2-moe-a2.7b",
+    "mixtral-8x7b",
 ]

@@ -17,13 +17,18 @@ continuous batching over the slot-pool engine (the CLI of
 ``--spec-k`` verifies prompt-lookup drafts, and ``--check-spec-identical``
 replays the trace with ``spec_k=0`` and exits 1 unless every stream matches.
 ``--arch mamba2-370m`` / ``hymba-1.5b`` serve SSM and hybrid models with
-exact-length prefill (each prompt at most the SSD chunk or a multiple of
-it); ``--paged``, ``--prefill-chunk`` and ``--spec-k`` raise the engine's
+exact-length prefill (each prompt, or with ``--fake-devices`` each rank's
+quarter of it, at most the SSD chunk or a multiple of it);
+``--paged``, ``--prefill-chunk`` and ``--spec-k`` raise the engine's
 ``ValueError`` for them.  ``--fake-devices N`` (N >= 8) serves over a
 sequence-parallel ring of 4 ranks (``ParallelCtx(sp_size=4)``, a
 ``VirtualRing``: every rank on the one device), as JAX's CLI builds a
 (N/4, 4) mesh with a sequence axis of 4; the port builds the sequence axis
-only.  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
+only.  The SSM archs then run the sequence-sharded SSD scan (prompt
+lengths multiples of 4):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+        --arch mamba2-370m --fake-devices 8 --stream  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
 their plain PyTorch versions.  Weights are random, from seed 0.
 
 ``--arch qwen2-moe-a2.7b`` / ``mixtral-8x7b`` serve the MoE decoders in

@@ -1,12 +1,34 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060): the port of
-``repro/models/ssm.py``; the scan runs over the whole sequence in one
-process (JAX's sequence-sharded scan is not ported).
+``repro/models/ssm.py``, on one rank or sequence-sharded over a ring.
 
 Prefill runs the chunked scan through ``kernels.ssd_scan.ssd_scan_fwd`` (the
 CUDA kernel on the card, the plain chunked dual form on the CPU), where JAX
-runs its jnp ``_ssd_chunked``.  The causal depthwise conv sees a zero halo
-(the sequence-sharded halo exchange and state combine come with the mesh
-slice).  Decode is the O(1) state recurrence in plain PyTorch, as in JAX.
+runs its jnp ``_ssd_chunked``.  Decode is the O(1) state recurrence in plain
+PyTorch, as in JAX, with the states replicated over the ring.
+
+Sequence parallelism (``ctx.sp_size`` n > 1), JAX's ``_ssm_core(...,
+axis_name, n)``: the sequence is sharded contiguously over the n ranks of
+``ctx.ring`` and the recurrence crosses ranks through its state:
+
+  1. the causal depthwise conv takes a halo of the ``width - 1`` conv inputs
+     before the rank's chunk from its left neighbour (comm kind
+     ``ssd_halo``; rank 0 gets zeros, the causal pad).  A rank whose chunk
+     is shorter than ``width - 1`` passes on what it received with its own
+     rows, one more hop each time, until the halo is whole;
+  2. ONE scan launch per layer runs every local rank's chunk from h0 = 0,
+     the ranks folded into the batch ``[R*B, S/n, H, P]``;
+  3. every rank's final state S_i and total decay T_i are gathered
+     (``ssd_state``), and each rank's true incoming state is the closed-form
+     prefix h0_i = sum_{j<i} (prod_{j<k<i} T_k) S_j, summed in JAX's order;
+  4. the outputs are corrected in fp32: y_t += C_t . (exp(cumsum(dt*A))_t h0_i);
+  5. the final state (the prefix over all n ranks) and the conv tail (the
+     last ``width - 1`` conv inputs of the whole prompt, gathered from the
+     last rank: ``ssd_tail``) are the same on every rank.
+
+The code speaks only to the transport (``split``, ``hop``,
+``gather_ranks``, ``join``), so one function runs R = n ranks on a
+``VirtualRing`` and R = 1 on a ``ProcessGroupRing``.  At n = 1 the block
+is the one-rank code: no split and no exchange.
 
 Layouts are JAX's: the fused input projection splits into (z, x, B, C, dt);
 x is [B, S, H, P] and B, C are [B, S, G, N], handed to the scan as views
@@ -74,36 +96,111 @@ def _conv1d_causal(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor, halo: to
     return out + b[None, None, :]
 
 
-def _ssm_core(zxbcdt: torch.Tensor, p: dict, cfg: ModelConfig):
-    """From the fused projection to the gated SSD output (before out_proj).
+def _halo(conv_in: torch.Tensor, ring, width: int) -> torch.Tensor:
+    """conv_in [R, B, m, C], each local rank's chunk -> the ``width - 1``
+    conv inputs before each chunk [R, B, width-1, C] (zeros before position
+    0), over hops from the left neighbour: a rank with m < width - 1 rows
+    forwards what it received with its own, so the halo never takes zeros
+    in place of real rows."""
+    need = width - 1
+    perm = [(i, i + 1) for i in range(ring.n - 1)]
+    got = None
+    while got is None or got.shape[2] < need:
+        ext = conv_in if got is None else torch.cat([got, conv_in], dim=2)
+        got = ring.hop([ext[:, :, -need:]], perm, kind="ssd_halo", mode="serial").wait()[0]
+    return got
+
+
+def _prefix_states(S: torch.Tensor, T: torch.Tensor) -> list:
+    """Every rank's final state S [n, B, H, P, N] from h0 = 0 and total decay
+    T [n, B, H] -> [h0_0, ..., h0_n]: h0_i = sum_{j<i} (prod_{j<k<i} T_k)
+    S_j, the terms in JAX's order (j ascending, each product over k
+    ascending); h0_n is the state after the whole sequence."""
+    n = S.shape[0]
+    out = [torch.zeros_like(S[0])]
+    for i in range(1, n + 1):
+        acc = None
+        for j in range(i):
+            decay = None
+            for k in range(j + 1, i):
+                decay = T[k] if decay is None else decay * T[k]
+            term = S[j] if decay is None else decay[:, :, None, None] * S[j]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
+
+def _incoming_states(ring, hT: torch.Tensor, total: torch.Tensor, R: int):
+    """The local ranks' final states hT [R*B, H, P, N] from h0 = 0 and total
+    decays [R*B, H] -> (each local rank's incoming state [R*B, H, P, N], the
+    state after the whole sequence [B, H, P, N]), over one gather of every
+    rank's pair."""
+    allS, allT = ring.gather_ranks([hT.unflatten(0, (R, -1)), total.unflatten(0, (R, -1))],
+                                   kind="ssd_state")
+    h0s = _prefix_states(allS, allT)
+    return torch.stack([h0s[r] for r in ring.ranks]).flatten(0, 1), h0s[ring.n]
+
+
+def _apply_initial_state(y: torch.Tensor, Cg: torch.Tensor, acum: torch.Tensor,
+                         h0: torch.Tensor) -> torch.Tensor:
+    """y [B,S,H,P] of a scan from h0 = 0 -> the scan's y from ``h0`` [B,H,P,N]:
+    y_t + exp(acum_t) C_t . h0, in fp32; C is [B,S,G,N] (head h reads group
+    h // (H/G)) and acum [B,S,H] the decay exponent from the sequence start."""
+    H, G = h0.shape[1], Cg.shape[2]
+    corr = torch.einsum("btgn,bghpn->btghp", Cg, h0.unflatten(1, (G, H // G)))
+    return y + torch.exp(acum)[..., None] * corr.reshape(y.shape)
+
+
+def _ssm_core(zxbcdt: torch.Tensor, p: dict, cfg: ModelConfig, ring=None):
+    """From the fused projection (the global view [B, S, F]) to the gated
+    SSD output (before out_proj).  ``ring``: the sequence-parallel transport
+    (None: one rank).
 
     Returns (y [B,S,d_inner], final state [B,H,P,N] fp32, conv tail
     [B,width-1,conv_dim]): the state and conv window a decode continues
-    from."""
+    from, the same on every rank."""
     s = cfg.ssm
     d_inner, H, G, N, Pd = ssm_dims(cfg)
-    Bb, S, _ = zxbcdt.shape
+    width = s.conv_width
+    Bb = zxbcdt.shape[0]
+    n = 1 if ring is None else ring.n
+    if n > 1:
+        # [R, B, S/n, F]: the local ranks' contiguous chunks, folded into
+        # the batch from here on
+        zr = ring.split(zxbcdt, axis=1)
+        R = zr.shape[0]
+        zxbcdt = zr.flatten(0, 1)
+    S = zxbcdt.shape[1]
     z, xc, Bc, Cc, dt = _split_proj(zxbcdt, cfg)
     conv_in = torch.cat([xc, Bc, Cc], dim=-1)
-    width = s.conv_width
-    halo = torch.zeros((Bb, width - 1, conv_in.shape[-1]), dtype=conv_in.dtype,
-                       device=conv_in.device)
+    if n > 1:
+        halo = _halo(conv_in.unflatten(0, (R, Bb)), ring, width).flatten(0, 1)
+    else:
+        halo = torch.zeros((Bb, width - 1, conv_in.shape[-1]), dtype=conv_in.dtype,
+                           device=conv_in.device)
+    # the last width-1 conv inputs (a halo in front of a short chunk)
+    conv_tail = torch.cat([halo, conv_in], dim=1)[:, -(width - 1):]
     conv_out = F.silu(_conv1d_causal(conv_in, p["conv_w"], p["conv_b"], halo))
     xc, Bc, Cc = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
 
     f32 = torch.float32
-    xh = xc.reshape(Bb, S, H, Pd).to(f32)
+    xh = xc.reshape(-1, S, H, Pd).to(f32)
     dtf = F.softplus(dt.to(f32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"].to(f32))
-    y, hT = ssd_scan_fwd(
-        xh, dtf, A, Bc.reshape(Bb, S, G, N).to(f32), Cc.reshape(Bb, S, G, N).to(f32),
-        chunk=min(s.chunk, S),
-    )
-    # the last width-1 conv inputs (zero halo in front of a short prompt)
-    conv_tail = torch.cat([halo, conv_in], dim=1)[:, -(width - 1):]
+    Cg = Cc.reshape(-1, S, G, N).to(f32)
+    y, hT = ssd_scan_fwd(xh, dtf, A, Bc.reshape(-1, S, G, N).to(f32), Cg,
+                         chunk=min(s.chunk, S))
+    if n > 1:
+        acum = torch.cumsum(dtf * A, dim=1)  # [R*B, S/n, H]: decay from the chunk start
+        h0, hT = _incoming_states(ring, hT, torch.exp(acum[:, -1]), R)
+        y = _apply_initial_state(y, Cg, acum, h0)
+        tails = ring.gather_ranks([conv_tail.unflatten(0, (R, Bb))], kind="ssd_tail")[0]
+        conv_tail = tails[n - 1]
     y = y + p["D_skip"][None, None, :, None].to(f32) * xh
-    y = y.reshape(Bb, S, d_inner).to(z.dtype)
+    y = y.reshape(-1, S, d_inner).to(z.dtype)
     y = rms_norm(y * F.silu(z), p["out_ln"])
+    if n > 1:
+        y = ring.join(y.unflatten(0, (R, Bb)), axis=1)
     return y, hT, conv_tail
 
 
@@ -111,12 +208,12 @@ def ssm_block(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ParallelCtx, *,
               return_state: bool = False):
     """Pre-norm SSD block with residual: x [B, S, D] -> x + SSD(x) @ out_proj.
     ``return_state`` also returns {"state" [B,H,P,N] fp32, "conv"
-    [B,width-1,conv_dim] in x's dtype} for decode to continue from.  ``ctx``
-    is unused: the block sees the whole (contiguous) sequence, also when
-    attention runs over a sequence-parallel ring."""
-    del ctx
+    [B,width-1,conv_dim] in x's dtype} for decode to continue from.  With
+    ``ctx.sp_size`` > 1 the scan is sharded over ``ctx.ring`` (x and the
+    output stay the global view)."""
     h = rms_norm(x, p["ln"])
-    y, hT, conv_tail = _ssm_core(h @ p["in_proj"], p, cfg)
+    ring = ctx.ring if ctx.sp_size > 1 else None
+    y, hT, conv_tail = _ssm_core(h @ p["in_proj"], p, cfg, ring)
     out = x + y @ p["out_proj"]
     if return_state:
         return out, {"state": hT, "conv": conv_tail.to(x.dtype)}

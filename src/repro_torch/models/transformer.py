@@ -244,14 +244,11 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     cap axis and of each page's columns.  SSM and hybrid archs add the
     per-slot dense
     ``"ssm": {"conv": [L, B, width-1, conv_dim] in ``dtype``, "state":
-    [L, B, H, P, N] fp32}``; the attention-free family has no K/V."""
+    [L, B, H, P, N] fp32}``, one global copy per slot at any n (the states
+    are replicated over the ring, as in JAX); the attention-free family has
+    no K/V."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
-    if ctx.sp_size > 1 and cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: serving an SSM or hybrid arch over a sequence-parallel ring needs "
-            "the sharded SSD scan (conv halo exchange, state combine): ROADMAP A.4"
-        )
     dev = resolve_device(ctx.device)
     store = kv_quant.storage_dtype(kv_dtype, dtype)
     if kv_dtype != "fp" and paged is None:
@@ -445,7 +442,9 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
 
     SSM and hybrid archs keep each layer's final conv window and state in
     ``cache["ssm"]`` (dense cache only): the prompt must be unpadded, since
-    the recurrence has no pad correction (the engine's exact mode).
+    the recurrence has no pad correction (the engine's exact mode).  Over a
+    ring (``ctx.sp_size`` > 1) the SSD blocks run the sequence-sharded scan
+    (``models/ssm.py``) and keep its global state and conv tail.
 
     Returns (logits [B, 1, V], cache)."""
     check_supported(cfg)

@@ -12,8 +12,9 @@ is where the engine puts its cache and where ``init_cache`` allocates; it
 defaults to the card (see ``repro_torch.device``).  Training and serving
 both run over the ring: the engine shards its KV cache over the ranks and
 folds them into one launch per decode, chunk or verify step
-(``core/decode_attention.py``); serving needs every rank in the process (a
-``VirtualRing``), and SSM and hybrid archs still serve on one rank only.
+(``core/decode_attention.py``), and SSM and hybrid archs shard their SSD
+scan over the same ring (``models/ssm.py``); serving needs every rank in
+the process (a ``VirtualRing``).
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@ inside JAX's ``shard_map``.
 Every tensor the executors hand to a transport carries a leading *local
 rank* axis ``[R, ...]``: the ranks of the ring this process holds.  Two
 implementations share that interface (``n``, ``ranks``, ``hop``,
-``all_to_all``, ``all_gather``, ``split``, ``join``; the virtual ring also
-``gather_ranks``, the exchange of the sequence-sharded decode's combine):
+``all_to_all``, ``all_gather``, ``gather_ranks``, ``split``, ``join``):
 
   * ``VirtualRing(n)``: all n ranks in one process, on one device (R = n).
     A hop is an index permutation along the rank axis, ``out[dst] = x[src]``
@@ -30,11 +29,24 @@ its blocks and wait at the step's end.  ``mode`` is the executor's
            last axis.
 
 All three move the same values, so the executors' results are bitwise equal
-across modes.  Each hop is counted per comm kind (``recv_q``, ``recv_kv``,
-``send_o``, ``recv_odoq``, ``send_dq``, ``send_dkv``; ``combine`` for the
-decode's lse combine): ``stats.hops`` (logical
-hops), ``stats.messages`` (transfers: two per leaf in bidir) and
-``stats.bytes`` (bytes one rank sends, the unit of ``core/am.CommModel``).
+across modes.  A perm need not cover every rank: a rank that is no
+destination receives zeros, as ``lax.ppermute`` gives (the open perm
+``[(i, i + 1) for i < n - 1]``: rank 0 gets zeros).
+
+``gather_ranks(leaves, kind=...)`` gives every process all n ranks' leaves
+``[n, ...]`` in rank order (an all-gather; the virtual ring already holds
+them and returns them without a copy): the exchange of the sequence-sharded
+decode's lse combine and of the sharded SSD scan's states.
+
+Each exchange is counted per comm kind (``recv_q``, ``recv_kv``,
+``send_o``, ``recv_odoq``, ``send_dq``, ``send_dkv`` of the executors;
+``combine`` for the decode's lse combine; ``ssd_halo``, ``ssd_state`` and
+``ssd_tail`` for the sequence-sharded SSD scan of ``models/ssm.py``: the
+conv halo hops from the left neighbour, the gather of every rank's final
+state and total decay, and the gather of the conv tails): ``stats.hops``
+(logical hops or gathers), ``stats.messages`` (transfers: one per leaf, two
+in bidir) and ``stats.bytes`` (bytes one rank sends, the unit of
+``core/am.CommModel``).
 
 **Group collectives** over an ``(a, b)`` grid of the n = a*b ranks (rank
 c = x*b + y; ``Grid``) serve Algorithm 1's collective form
@@ -236,10 +248,15 @@ class _GroupCollectives:
 
 
 def _check_perm(perm: Perm, n: int) -> Dict[int, int]:
-    """dst -> src of a full permutation of the n ranks."""
+    """dst -> src of a hop's perm: pairs of the n ranks, each rank at most
+    once a source and once a destination.  A rank that is no destination
+    receives zeros (``lax.ppermute``'s rule): the open perm ``[(i, i + 1)
+    for i < n - 1]`` gives rank 0 zeros."""
     src_of = {d: s for s, d in perm}
-    if sorted(src_of) != list(range(n)) or sorted(src_of.values()) != list(range(n)):
-        raise ValueError(f"a ring hop needs a permutation of all {n} ranks, got {list(perm)}")
+    ranks = set(range(n))
+    if (len(src_of) != len(perm) or len(set(src_of.values())) != len(perm)
+            or not set(src_of) <= ranks or not set(src_of.values()) <= ranks):
+        raise ValueError(f"a hop's perm pairs distinct ranks of the {n}, got {list(perm)}")
     return src_of
 
 
@@ -258,12 +275,17 @@ class VirtualRing(_GroupCollectives):
     def __repr__(self) -> str:
         return f"VirtualRing(n={self.n})"
 
-    def _src_index(self, perm: Perm, device) -> torch.Tensor:
+    def _src_index(self, perm: Perm, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the source of each destination, the destinations) of a perm; the
+        destinations are None when every rank is one."""
         key = (tuple(perm), device)
         if key not in self._index:
             src_of = _check_perm(perm, self.n)
-            self._index[key] = torch.tensor(
-                [src_of[d] for d in range(self.n)], dtype=torch.int64, device=device
+            dst = sorted(src_of)
+            self._index[key] = (
+                torch.tensor([src_of[d] for d in dst], dtype=torch.int64, device=device),
+                None if len(dst) == self.n else torch.tensor(dst, dtype=torch.int64,
+                                                              device=device),
             )
         return self._index[key]
 
@@ -274,13 +296,19 @@ class VirtualRing(_GroupCollectives):
         if not live:
             raise ValueError("a hop needs at least one tensor")
         device = live[0].device
-        idx = self._src_index(perm, device)
+        idx, dst = self._src_index(perm, device)
         parts = (lambda x: _halves(x)) if mode == "bidir" else (lambda x: [x])
+
+        def select(p):
+            if dst is None:
+                return p.index_select(0, idx)
+            # an open perm: ranks that are no destination get zeros
+            return torch.zeros_like(p).index_copy(0, dst, p.index_select(0, idx))
 
         def move(x):
             if x is None:
                 return None
-            pieces = [p.index_select(0, idx) for p in parts(x)]
+            pieces = [select(p) for p in parts(x)]
             return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
 
         self.stats.add(kind, sum(len(parts(x)) for x in live), _payload_bytes(live, self.n))
@@ -348,8 +376,7 @@ class VirtualRing(_GroupCollectives):
 
     def gather_ranks(self, leaves: Sequence[torch.Tensor], *, kind: str) -> List[torch.Tensor]:
         """Every rank's leaves [n, ...], as each rank holds them after an
-        all-gather (the exchange of the sequence-sharded decode's lse
-        combine).  This process already holds every rank, so the leaves come
+        all-gather.  This process already holds every rank, so the leaves come
         back as they are, without a copy; the stats count one hop of
         ``kind`` with the bytes one rank sends."""
         self.stats.add(kind, len(leaves), _payload_bytes(leaves, self.n))
@@ -469,24 +496,32 @@ class ProcessGroupRing(_GroupCollectives):
         validate_comm_overlap(mode)
         src_of = _check_perm(perm, self.n)
         dst_of = {s: d for d, s in src_of.items()}
-        dst, src = self._peer(dst_of[self.rank]), self._peer(src_of[self.rank])
+        # an open perm: a rank with no destination sends nothing, a rank
+        # with no source receives zeros
+        dst = self._peer(dst_of[self.rank]) if self.rank in dst_of else None
+        src = self._peer(src_of[self.rank]) if self.rank in src_of else None
         live = [x for x in leaves if x is not None]
-        ops, recv = [], []
+        ops, recv, transfers = [], [], 0
         for x in leaves:
             if x is None:
                 recv.append(None)
                 continue
             parts = _halves(x) if mode == "bidir" else [x]
+            transfers += len(parts)
             got = []
             for p in parts:
                 p = p.contiguous()
+                if dst is not None:
+                    ops.append(dist.P2POp(dist.isend, p, dst, self.group))
+                if src is None:
+                    got.append(torch.zeros_like(p))
+                    continue
                 r = torch.empty_like(p)
-                ops.append(dist.P2POp(dist.isend, p, dst, self.group))
                 ops.append(dist.P2POp(dist.irecv, r, src, self.group))
                 got.append(r)
             recv.append(got)
-        self.stats.add(kind, len(ops) // 2, _payload_bytes(live, 1))
-        reqs = dist.batch_isend_irecv(ops)
+        self.stats.add(kind, transfers, _payload_bytes(live, 1))
+        reqs = dist.batch_isend_irecv(ops) if ops else []
         out: List[Optional[torch.Tensor]] = [None] * len(recv)
 
         def join():
@@ -523,6 +558,18 @@ class ProcessGroupRing(_GroupCollectives):
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x [1, m] -> [1, n*m]: every rank's rows in rank order."""
         return self._gather(x[0].contiguous(), 0).unsqueeze(0)
+
+    def gather_ranks(self, leaves: Sequence[torch.Tensor], *, kind: str) -> List[torch.Tensor]:
+        """Every rank's leaves: this rank's [1, ...] -> [n, ...] in rank
+        order, the same on every process (``dist.all_gather``; not
+        differentiable).  Counted as ``VirtualRing.gather_ranks`` counts."""
+        self.stats.add(kind, len(leaves), _payload_bytes(leaves, 1))
+        out = []
+        for x in leaves:
+            parts = [torch.empty_like(x[0]) for _ in range(self.n)]
+            dist.all_gather(parts, x[0].contiguous(), group=self.group)
+            out.append(torch.stack(parts))
+        return out
 
     def split(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
         """This rank's chunk [1, ..., S/n, ...] of the global view (the same

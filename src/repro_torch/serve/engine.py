@@ -34,8 +34,10 @@ and drops chunk grants through the same code paths, replayably.
 SSM and hybrid archs (``cfg.ssm``) serve in **exact** mode, as in JAX: each
 prompt is prefilled alone at its own length (the recurrent state has no pad
 correction, so no buckets and no packing) straight into its slot's rows, the
-per-slot conv window and SSD state included; the paged pool, continuous
-prefill and speculative verify raise ``ValueError`` for them.
+per-slot conv window and SSD state included; the length must be a multiple
+of the ring's n, and its n-th at most the SSD chunk or a multiple of it.
+The paged pool, continuous prefill and speculative verify raise
+``ValueError`` for them.
 
 With ``ctx.sp_size`` n > 1 the engine serves over a sequence-parallel ring
 (a ``VirtualRing``: every rank on one device), as JAX's does over its mesh
@@ -43,8 +45,13 @@ axis: the cache is sharded over the ranks (``core/decode_attention.py``),
 one-shot prefill runs the prompt in the §3.7 stripe order through the
 Mesh-Attention forward (``dispatch.distributed_attention``), and decode,
 chunks and verify launch once for every rank and combine the ranks' partials
-by lse.  Buckets and ``max_seq`` are multiples of n; SSM and hybrid archs at
-n > 1 raise (ROADMAP A.4), and so do MoE archs (A.7).
+by lse.  Buckets and ``max_seq`` are multiples of n.  SSM and hybrid archs
+prefill through the sequence-sharded SSD scan (``models/ssm.py``: one scan
+launch per layer for every rank, the conv halo and the states exchanged
+over the ring) and decode on replicated states; hymba's attention half
+prefills through the Mesh-Attention forward on the contiguous layout and
+decodes over the sharded dense cache.  MoE archs at n > 1 raise (ROADMAP
+A.7).
 
 MoE archs serve every mode of the dense family on one rank.  Expert
 capacity couples the tokens of a row (``models/moe.py``), so the engine
@@ -130,11 +137,6 @@ class ServeEngine:
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
         n = self.ctx.sp_size
-        if n > 1 and cfg.ssm is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: serving an SSM or hybrid arch over a sequence-parallel ring needs "
-                "the sharded SSD scan (conv halo exchange, state combine): ROADMAP A.4"
-            )
         if n > 1 and cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: serving a MoE arch over a sequence-parallel ring needs expert "
@@ -205,12 +207,12 @@ class ServeEngine:
             if serve.prefill_buckets
             else default_buckets(serve.max_seq, n)
         )
-        if any(b % n for b in buckets):
-            raise ValueError(f"buckets {buckets} must be multiples of sp_size={n}")
         # SSD's recurrent state has no pad-correction: prefill exactly
         exact = cfg.ssm is not None
+        if any(b % n for b in buckets) and not exact:
+            raise ValueError(f"buckets {buckets} must be multiples of sp_size={n}")
         self.scheduler = Scheduler(
-            self.num_slots, buckets, self.max_seq, exact=exact,
+            self.num_slots, buckets, self.max_seq, exact=exact, multiple=n,
             chunk=cfg.ssm.chunk if exact else None, allocator=self.allocator,
             prefill_chunk=serve.prefill_chunk, tick_token_budget=serve.tick_token_budget,
         )

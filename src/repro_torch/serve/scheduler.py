@@ -177,6 +177,7 @@ class Scheduler:
         max_seq: int,
         *,
         exact: bool = False,
+        multiple: int = 1,
         chunk: Optional[int] = None,
         allocator=None,
         prefill_chunk: Optional[int] = None,
@@ -185,6 +186,7 @@ class Scheduler:
         if num_slots < 1:
             raise ValueError("need at least one slot")
         self.num_slots = num_slots
+        self.multiple = max(1, multiple)  # sequence-parallel divisibility
         self.chunk = chunk  # SSD scan chunk (exact mode only)
         # continuous prefill: prompts stream into their slot prefill_chunk
         # tokens per launch; tick_token_budget caps decode + chunk tokens per
@@ -239,12 +241,19 @@ class Scheduler:
         if length < 1 or length > self.max_seq:
             raise ValueError(f"prompt length {length} outside (0, {self.max_seq}]")
         if self.exact:
-            # no padding: the SSD chunked scan takes the prompt as it is (one
-            # card, so no sequence-parallel divisibility as in JAX)
-            if self.chunk is not None and length > self.chunk and length % self.chunk:
+            # no padding available, so the prompt itself must satisfy the
+            # sequence-parallel divisibility (hybrid archs still shard
+            # attention prefill over the ring)
+            if length % self.multiple:
                 raise ValueError(
-                    f"the SSD chunked scan needs the prompt length ({length}) to be "
-                    f"<= or a multiple of the chunk ({self.chunk})"
+                    f"exact prefill (SSM/hybrid archs) needs the prompt length to be "
+                    f"a multiple of the sequence-parallel size {self.multiple}; got {length}"
+                )
+            local = length // self.multiple
+            if self.chunk is not None and local > self.chunk and local % self.chunk:
+                raise ValueError(
+                    f"the SSD chunked scan needs the per-device prompt length "
+                    f"({local}) to be <= or a multiple of the chunk ({self.chunk})"
                 )
             return length
         for b in self.buckets:

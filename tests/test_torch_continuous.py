@@ -28,6 +28,7 @@ from repro_torch.serve.config import ServeConfig as TServe
 from repro_torch.serve.engine import ServeEngine as TEngine
 from repro_torch.serve.scheduler import Scheduler as TScheduler
 from repro_torch.serve.speculative import propose_ngram as tpropose
+from test_torch_model import converted_weights
 from test_torch_quant import dequant_close
 
 ARCH = "granite-8b"
@@ -44,6 +45,12 @@ def model():
     jp = jtfm.init_params(cfg, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return cfg, jp, tget_config(ARCH).reduced(), tp
+
+
+@pytest.fixture(scope="module")
+def qwen_model():
+    """qwen2.5-32b reduced, with nonzero QKV biases."""
+    return converted_weights("qwen2.5-32b")
 
 
 def _jx(batch):
@@ -199,8 +206,12 @@ def _counters(eng):
     return (eng.chunk_launches, eng.verify_launches, eng.spec_proposed, eng.spec_accepted)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_engine_streams_match_jax(model, mode):
+# qwen2.5-32b (QKV bias): chunked prefill + speculative verify over int8
+QWEN_MODES = {"qwen2.5-32b_int8_paged_chunk_spec": MODES["int8_paged_chunk_spec"]}
+
+
+@pytest.mark.parametrize("mode", list(MODES) + list(QWEN_MODES))
+def test_engine_streams_match_jax(request, mode):
     """The port's engine against JAX's on one trace (prefix sharing,
     continuous prefill, speculative verify, quantized pools): generated
     tokens, their ticks and the chunk / verify / draft counters equal, and
@@ -209,8 +220,8 @@ def test_engine_streams_match_jax(model, mode):
     step; a differing token is then allowed only as JAX's dist_check
     quant_kv allows it -- both engines score the two candidates within 2x
     the logit bound -- and the streams are compared no further."""
-    jcfg, jp, tcfg, tp = model
-    kw = dict(max_seq=48, num_slots=3, **MODES[mode])
+    jcfg, jp, tcfg, tp = request.getfixturevalue("qwen_model" if mode in QWEN_MODES else "model")
+    kw = dict(max_seq=48, num_slots=3, **{**MODES, **QWEN_MODES}[mode])
     prompts = _prompts(jcfg.vocab_size)
     jeng = JEngine(jcfg, jp, JCtx(), serve=JServe(**kw))
     teng = TEngine(tcfg, tp, TCTX, serve=TServe(**kw))

@@ -925,10 +925,16 @@ def test_ssd_scan_refuses_other_shapes(dev):
         ssd.ssd_scan_fwd(args[0].requires_grad_(True), *args[1:], chunk=64)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
-def test_ssm_engine_on_card_matches_cpu(dev, arch):
+@pytest.mark.parametrize("arch,sp", [
+    pytest.param(arch, sp, id=arch + ("-ring4" if sp > 1 else ""))
+    for sp in (1, 4) for arch in ("mamba2-370m", "hymba-1.5b")
+])
+def test_ssm_engine_on_card_matches_cpu(dev, arch, sp):
     """Reduced SSM / hybrid models, fp32: the engine on the card (SSD kernel,
-    flash forward for hymba) and on the CPU serve identical streams."""
+    flash forward for hymba) and on the CPU serve identical streams.  The
+    ring4 cases serve on the card over a ring of 4 (the sequence-sharded
+    scan, one #5 launch per layer for all ranks; a 4-token prompt leaves
+    each rank one row) against the CPU on one rank."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.parallel.context import ParallelCtx
@@ -942,12 +948,12 @@ def test_ssm_engine_on_card_matches_cpu(dev, arch):
         g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in params["layers"].items()
     }
     rng = np.random.default_rng(0)
-    trace = [(8, 0), (24, 0), (5, 1), (32, 3)]
+    trace = [(8, 0), (24, 0), (5 if sp == 1 else 4, 1), (32, 3)]
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n, _ in trace]
     streams = {}
     for name, p, device in (("card", on_card, "cuda"), ("cpu", params, "cpu")):
-        eng = ServeEngine(cfg, p, ParallelCtx(device=device),
-                          serve=ServeConfig(max_seq=64, num_slots=3))
+        ctx = ParallelCtx(sp_size=sp if device == "cuda" else 1, device=device)
+        eng = ServeEngine(cfg, p, ctx, serve=ServeConfig(max_seq=64, num_slots=3))
         before = ssd.ssd_scan_fwd.launches
         rids = [eng.submit(x, 6, arrival_tick=t) for x, (_, t) in zip(prompts, trace)]
         done = eng.run()

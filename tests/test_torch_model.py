@@ -1,5 +1,7 @@
 """The port's dense decoder against the JAX package on reduced configs, fp32,
-CPU, with the same weights (JAX init converted by ``params_from_jax``).
+CPU, with the same weights (JAX init converted by ``params_from_jax``):
+granite-8b, paper-mha-7b and qwen2.5-32b (QKV biases, drawn nonzero;
+rope_theta 1e6).
 
 Logits are held to atol 1e-4: fp32 sums run in another order in XLA and in
 PyTorch on the CPU.  Cache contents the two write must agree to 1e-5.
@@ -31,14 +33,27 @@ JCTX = JCtx()
 TCTX = TCtx(device="cpu")
 
 
-@pytest.fixture(scope="module", params=["granite-8b", "paper-mha-7b"])
-def model(request):
-    jcfg = jget_config(request.param).reduced()
-    tcfg = tget_config(request.param).reduced()
+def converted_weights(arch: str):
+    """(jcfg, JAX params, tcfg, the port's params) of the reduced ``arch``.
+    QKV biases (qwen2.5-32b), zeros at init in both packages, are drawn
+    nonzero here so the bias branch counts."""
+    jcfg = jget_config(arch).reduced()
+    tcfg = tget_config(arch).reduced()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     jparams = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
+    if jcfg.qkv_bias:
+        rng = np.random.default_rng(7)
+        attn = dict(jparams["layers"]["attn"])
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(0.5 * rng.standard_normal(attn[name].shape), jnp.float32)
+        jparams = dict(jparams, layers=dict(jparams["layers"], attn=attn))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module", params=["granite-8b", "paper-mha-7b", "qwen2.5-32b"])
+def model(request):
+    return converted_weights(request.param)
 
 
 def _close(t, j, tol=LOGIT_TOL):
@@ -207,12 +222,25 @@ def test_init_params_mirrors_jax_pytree(model):
     std = jcfg.d_model**-0.5
     assert abs(float(w.std()) / std - 0.88) < 0.05 and float(w.abs().max()) <= 2 * std + 1e-6
     assert torch.count_nonzero(mine["final_ln"]) == 0
+    # QKV biases start at zero, as JAX's do
+    for name in ("bq", "bk", "bv"):
+        assert (name in mine["layers"]["attn"]) == tcfg.qkv_bias
+        if tcfg.qkv_bias:
+            assert torch.count_nonzero(mine["layers"]["attn"][name]) == 0
     again = ttfm.init_params(tcfg, seed=0, device="cpu")
     assert torch.equal(again["embed"], mine["embed"])
 
 
 def test_params_from_jax_keeps_bf16_and_layout(model):
-    jcfg, jp, _, _ = model
+    jcfg, jp, _, tp = model
+    # every leaf carries over as it is, the QKV biases included
+    jleaves = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(jleaves) == len(jax.tree_util.tree_leaves(tp))
+    for path, leaf in jleaves:
+        got = tp
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(leaf))
     wq = np.asarray(jp["layers"]["attn"]["wq"].astype(jnp.bfloat16))
     got = params_from_jax({"wq": wq}, device="cpu")["wq"]
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == wq.shape

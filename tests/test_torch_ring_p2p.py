@@ -2,10 +2,11 @@
 (``ProcessGroupRing``), run tests/torch_ring_worker.py's cases -- the mesh
 executor (a = 1, 2, 4; causal, window, document and full masks; striped and
 contiguous layouts; both backward wires; the three comm_overlap modes),
-Ring-Attention, Ulysses, and the dispatch seam with gradients (mesh at
-every factorization of n = 4, ring, ulysses) -- and must
-give the virtual ring's per-rank results within 1e-6 and the same hop,
-message and byte counts.  Each run has its own time limit, so a hang fails
+Ring-Attention, Ulysses, the dispatch seam with gradients (mesh at
+every factorization of n = 4, ring, ulysses), and the sequence-sharded SSD
+block (mamba2-370m and hymba-1.5b reduced; ranks shorter than the conv
+halo too) -- and must give the virtual ring's per-rank results within 1e-6
+(the SSD block's bit for bit) and the same hop, message and byte counts.  Each run has its own time limit, so a hang fails
 instead of eating the suite's."""
 
 import os
@@ -73,6 +74,17 @@ def test_p2p_per_rank_results_match_the_virtual_ring(results):
             assert got[key].shape[0] == 1, key
             np.testing.assert_allclose(got[key][0], virtual[key][r], atol=P2P_TOL, rtol=0,
                                        err_msg=f"{key} rank {r}")
+
+
+def test_p2p_sharded_ssd_block_is_bitwise_the_virtual_rings(results):
+    ranks, virtual = results
+    keys = [k for k in virtual if k.startswith("ssm_") and "_hops::" not in k
+            and "_bytes::" not in k and "_messages::" not in k]
+    assert len(keys) == 3 * len(W.SSM_CASES)
+    for key in keys:
+        for r, got in enumerate(ranks):
+            np.testing.assert_array_equal(got[key][0], virtual[key][r], err_msg=f"{key} rank {r}")
+    assert any("::fwd_hops::ssd_halo" in k for k in virtual)
 
 
 def test_p2p_counts_match_the_virtual_ring(results):

@@ -5,7 +5,8 @@ against the JAX package's own sharded functions, run rank by rank under
 ``jax.vmap(..., axis_name="sp")`` on the CPU over the stacked rank slices;
 ``prefix_chunk_visibility`` against JAX's; and the port's ``ServeEngine`` at
 ``ParallelCtx(sp_size=4)`` against JAX's single-device engine on converted
-weights (reduced granite-8b).
+weights (reduced granite-8b; the SSM and hybrid archs over the ring:
+tests/test_torch_ssm_ring.py).
 
 Inputs come from ``numpy.random.default_rng`` with the seed each case
 states.  Caches compare as they stand: the port keeps JAX's global-logical
@@ -534,12 +535,26 @@ def test_launch_serve_fake_devices_runs_the_ring(capsys):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
 def test_ssm_and_hybrid_over_a_ring_still_raise(arch):
+    """The SSM and hybrid archs, refused over a ring until the sequence-
+    sharded SSD scan was ported, now build their cache and serve at sp_size
+    4 (their parity with JAX: tests/test_torch_ssm_ring.py).  MoE archs
+    still raise (ROADMAP A.7)."""
     cfg = tget_config(arch).reduced()
     params = ttfm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        TEngine(cfg, params, TCTX4)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ttfm.init_cache(cfg, 1, 16, dtype=torch.float32, ctx=TCTX4)
+    cache = ttfm.init_cache(cfg, 2, 16, dtype=torch.float32, ctx=TCTX4)
+    assert cache["ssm"]["state"].shape[:2] == (cfg.num_layers, 2)
+    assert ("k" in cache) == cfg.hybrid
+    eng = TEngine(cfg, params, TCTX4, serve=TServe(max_seq=32, num_slots=2))
+    rng = np.random.default_rng(0)
+    rids = [eng.submit(rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), 3, arrival_tick=t)
+            for n, t in ((8, 0), (16, 1))]
+    done = eng.run()
+    assert all(done[r].status == "ok" and len(done[r].generated) == 3 for r in rids)
+    with pytest.raises(ValueError, match="multiple of the sequence-parallel size 4"):
+        eng.submit(np.zeros(6, np.int32), 2)
+    moe = tget_config("qwen2-moe-a2.7b").reduced()
+    with pytest.raises(NotImplementedError, match="A.7"):
+        TEngine(moe, ttfm.init_params(moe, device="cpu"), TCTX4)
 
 
 def test_ring_engine_checks_divisibility(weights):

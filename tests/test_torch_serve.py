@@ -1,7 +1,8 @@
 """The port's ServeEngine (on the CPU, plain versions of the kernels) against
 the JAX ServeEngine on the same converted weights: greedy token streams must
 be identical, over the dense and the paged cache, with packed and unpacked
-prefill, and the paged pool must drain to zero pages.  Plus the engine
+prefill, and the paged pool must drain to zero pages (reduced granite-8b;
+qwen2.5-32b over the paged pool).  Plus the engine
 surface the port keeps (cancel, deadlines, NaN guard, stats, config checks).
 """
 
@@ -21,6 +22,7 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.parallel.context import ParallelCtx as TCtx
 from repro_torch.serve.config import ServeConfig as TServe
 from repro_torch.serve.engine import ServeEngine as TEngine
+from test_torch_model import converted_weights
 
 ARCH = "granite-8b"
 TCTX = TCtx(device="cpu")
@@ -35,6 +37,12 @@ def weights():
     jp = jtfm.init_params(cfg, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return cfg, jp, tget_config(ARCH).reduced(), tp
+
+
+@pytest.fixture(scope="module")
+def qwen_weights():
+    """qwen2.5-32b reduced, with nonzero QKV biases."""
+    return converted_weights("qwen2.5-32b")
 
 
 def _prompts(vocab):
@@ -56,10 +64,15 @@ SERVES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(SERVES))
-def test_engine_streams_match_jax(weights, mode):
-    jcfg, jp, tcfg, tp = weights
-    kw = dict(max_seq=64, num_slots=3, **SERVES[mode])
+# qwen2.5-32b (QKV bias, GQA group 2 reduced) one-shot over the paged pool
+QWEN_SERVES = {"qwen2.5-32b_paged_packed": SERVES["paged_packed"]}
+
+
+@pytest.mark.parametrize("mode", list(SERVES) + list(QWEN_SERVES))
+def test_engine_streams_match_jax(request, mode):
+    jcfg, jp, tcfg, tp = request.getfixturevalue(
+        "qwen_weights" if mode in QWEN_SERVES else "weights")
+    kw = dict(max_seq=64, num_slots=3, **{**SERVES, **QWEN_SERVES}[mode])
     prompts = _prompts(jcfg.vocab_size)
     jeng = JEngine(jcfg, jp, JCtx(), serve=JServe(**kw))
     teng = TEngine(tcfg, tp, TCTX, serve=TServe(**kw))

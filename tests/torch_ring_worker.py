@@ -1,10 +1,11 @@
 """Cases for the port's two ring transports, and the worker process that runs
 them on one rank of a gloo group.
 
-``run_cases(ring, inputs)`` runs the executor (mesh, ring and ulysses) and
-the dispatch seam over any transport: on a ``VirtualRing`` it returns every
-rank's results ([n, ...]); on a ``ProcessGroupRing`` this rank's ([1, ...]),
-plus the transport's hop / message / byte counts per case.  The test
+``run_cases(ring, inputs)`` runs the executor (mesh, ring and ulysses), the
+dispatch seam and the sequence-sharded SSD block over any transport: on a
+``VirtualRing`` it returns every rank's results ([n, ...]); on a
+``ProcessGroupRing`` this rank's ([1, ...]), plus the transport's hop /
+message / byte counts per case.  The test
 (tests/test_torch_ring_p2p.py) runs it both ways and compares.
 
     python tests/torch_ring_worker.py RANK WORLD PORT INPUTS.npz OUT_DIR
@@ -29,6 +30,9 @@ from repro_torch.core.mesh_attention import (  # noqa: E402
 from repro_torch.core.ring_attention import ring_config  # noqa: E402
 from repro_torch.core.tiling import stripe_permutation  # noqa: E402
 from repro_torch.core.ulysses import ulysses_attention  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.parallel.context import ParallelCtx  # noqa: E402
 
 N = 4
 B, M, H, HKV, D = 2, 8, 4, 4, 8  # S = N * M = 32
@@ -45,15 +49,56 @@ EXEC_CASES = [
 ]
 # (backend, a): every factorization of n = 4 on the mesh backend
 DISPATCH_BACKENDS = (("mesh", 1), ("mesh", 2), ("mesh", 4), ("ring", 1), ("ulysses", None))
+# the sequence-sharded SSD block (reduced configs): (arch, S); S 8 leaves each
+# rank 2 rows, fewer than the conv halo's 3
+SSM_CASES = (("mamba2-370m", S), ("mamba2-370m", 8), ("hymba-1.5b", S))
 
 
 def make_inputs(seed: int = 7):
     rng = np.random.default_rng(seed)
-    return {
+    out = {
         "q": rng.standard_normal((B, S, H, D)).astype(np.float32),
         "k": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
         "v": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
     }
+    for arch, length in SSM_CASES:
+        cfg = get_config(arch).reduced()
+        out[f"ssm_{arch}_{length}::x"] = rng.standard_normal(
+            (B, length, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _ssm_layer(cfg, seed: int = 5):
+    """One layer's SSD params, the same in every process; nonzero A_log,
+    dt_bias and D_skip."""
+    gen = torch.Generator().manual_seed(seed)
+    p = {k: v[0] for k, v in ssm_mod.init_ssm_params(gen, cfg, 1, torch.float32, "cpu").items()}
+    rng = np.random.default_rng(seed)
+    for name in ("A_log", "dt_bias", "D_skip"):
+        p[name] = torch.from_numpy(rng.uniform(-0.5, 0.5, p[name].shape).astype(np.float32))
+    return p
+
+
+def run_ssm_cases(ring, inputs):
+    """The sharded SSD block (``models/ssm.ssm_block`` at sp_size n): each
+    local rank's chunk of y, the global state and conv tail once per local
+    rank, and the counts per comm kind."""
+    out = {}
+    for arch, length in SSM_CASES:
+        name = f"ssm_{arch}_{length}"
+        cfg = get_config(arch).reduced()
+        ring.stats.reset()
+        y, st = ssm_mod.ssm_block(torch.from_numpy(inputs[f"{name}::x"]), _ssm_layer(cfg), cfg,
+                                  ParallelCtx(sp_size=N, ring=ring, device="cpu"),
+                                  return_state=True)
+        R = len(ring.ranks)
+        out[f"{name}::y"] = ring.split(y).detach().numpy()
+        for key in ("state", "conv"):
+            out[f"{name}::{key}"] = st[key].detach().expand(R, *st[key].shape).numpy()
+        for stat, kinds in vars(ring.stats).items():
+            for kind, count in kinds.items():
+                out[f"{name}::fwd_{stat}::{kind}"] = np.asarray(count)
+    return out
 
 
 def _layout_order(layout: str) -> np.ndarray:
@@ -65,9 +110,10 @@ def run_cases(ring, inputs):
     local ranks, the transport's counts, and the dispatch seam's global o
     and gradients."""
     out = {}
+    qkv = {k: inputs[k] for k in ("q", "k", "v")}
     for name, a, mask, layout, wire, mode in EXEC_CASES:
         order = torch.from_numpy(_layout_order(layout))
-        x = {k: ring.split(torch.from_numpy(v)[:, order]).detach() for k, v in inputs.items()}
+        x = {k: ring.split(torch.from_numpy(v)[:, order]).detach() for k, v in qkv.items()}
         seg = None
         if mask.needs_segments:
             seg = ring.split(torch.from_numpy(mask.segment_array(S))[order], axis=0)
@@ -90,10 +136,10 @@ def run_cases(ring, inputs):
                 out[f"{name}::all_{stat}::{kind}"] = np.asarray(count)
     # the ring schedule (a = 1) and Ulysses straight from their modules
     x = {k: ring.split(torch.from_numpy(v)[:, torch.from_numpy(_layout_order("striped"))])
-         for k, v in inputs.items()}
+         for k, v in qkv.items()}
     out["ring_attention::o"] = mesh_attention(
         x["q"], x["k"], x["v"], ring_config(ring, N, causal=True)).detach().numpy()
-    x = {k: ring.split(torch.from_numpy(v)) for k, v in inputs.items()}
+    x = {k: ring.split(torch.from_numpy(v)) for k, v in qkv.items()}
     out["ulysses::o"] = ulysses_attention(
         x["q"], x["k"], x["v"], ring, N, causal=True).detach().numpy()
     # the dispatch seam on the global view, with gradients
@@ -108,6 +154,7 @@ def run_cases(ring, inputs):
         grads = torch.autograd.grad(o.sin().sum(), (q, k, v))
         for key, t in zip(("o", "dq", "dk", "dv"), (o, *grads)):
             out[f"dispatch_{backend}{a or ''}::{key}"] = t.detach().numpy()
+    out.update(run_ssm_cases(ring, inputs))
     return out
 
 
