@@ -175,6 +175,31 @@ Phases, each printing one JSON line:
                  Then 2 causal steps with bf16 params: losses finite and near
                  ln(vocab), the forward on the tile body and every backward on
                  the bf16 body.
+  6a. train_ssm_parity -- mamba2-370m and hymba-1.5b at full width cut to 2
+                 layers, fp32, seq 512: one make_train_step on the card (#5,
+                 #5b; hymba's #1 fp32 body, #2, #3) and one on the CPU from
+                 the same weights and batch, under train_parity's limits;
+                 per layer #5 twice (remat) and #5b once, on the card only.
+  6b. train_moe_parity -- qwen2-moe-a2.7b the same way at seq 256 (#1-#3).
+  6c. train_ssm_ring_parity -- mamba2-370m and hymba-1.5b at full width, 2
+                 layers, fp32, seq 4096: a train step at sp_size 4 on the
+                 virtual ring (the sharded scan; hymba's attention through
+                 the mesh executor, a = 2, contiguous) against sp_size 1,
+                 both on the card, under train_parity's limits; #5 once per
+                 layer and forward pass with the 4 ranks folded into its
+                 batch, #5b once per layer, the ssd_halo / ssd_state /
+                 ssd_tail exchanges twice ``_ssd_comm_model``'s (remat's two
+                 forwards).
+  6d. train_ssm -- this slice's main path: mamba2-370m whole (48 layers,
+                 seq 4096, batch 4, 4 steps) and hymba-1.5b whole (32
+                 layers, seq 4096, batch 2, 3 steps), fp32 params + AdamW,
+                 remat, through ``fit``.  Counters set to 0 before each run:
+                 #5 = 2 x L x steps, #5b = L x steps (hymba's #1 on the fp32
+                 body, #2 and #3 on the fp32 tensor-core body, on the remat
+                 schedule); losses and grad norms finite, the first loss
+                 near ln(vocab), peak memory under the card's; s per step,
+                 tok/s, and one more step under torch.profiler by kernel
+                 class.
   7. mesh_op -- this slice's path, the paper's Mesh-Attention:
                  ``dispatch.distributed_attention`` over a virtual ring of 4
                  ranks (``parallel/ring.VirtualRing``: all ranks on the card,
@@ -204,8 +229,10 @@ Phases, each printing one JSON line:
                  s per step, tokens/s, peak memory, hops and bytes per step,
                  and a profiled mesh step by kernel class.
   10. the kernels line (each kernel's launches now including the mesh_op,
-                 train_mesh, serve_ring, serve_moe, serve_ssm_ring and
-                 serve_qwen runs; the ranks' combine a row of its own), the card line, and the final line
+                 train_mesh, serve_ring, serve_moe, serve_ssm_ring,
+                 serve_qwen and train_ssm runs; the ranks' combine a row of
+                 its own; #5b's row from train_ssm), the card line, and the
+                 final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -216,7 +243,11 @@ partials, some splits empty, an all-empty row) and the SSD chunked scan
 shape and dt = 3 with A = -1, where a chunk's sum of dt*|A| passes 88;
 the sharded scan's folded launches: 4 ranks x 384 rows at both archs'
 heads, and local lengths 12 and 2 at mamba2's; finite and a bitwise
-repeat) against their plain versions.  The paged and
+repeat) and its backward #5b (train_ssm's rows, mamba2 B 4 x 4096 and hymba
+B 2 x 4096, the serving rows, a one-chunk case, 4 folded ranks x 384 rows
+with a nonzero gradient of the final state, and dt = 3: each gradient
+within 1e-4 of its largest |value|, a repeat bitwise) against their plain
+versions.  The paged and
 SSD cases carry the kernels' device time (``dev_ms``: all kernels of one
 call, torch.profiler, L2 flushed) beside the call's event time (``ms``, L2
 flushed); the SSD cases also the bound at the fp32 CUDA-core peak beside
@@ -329,6 +360,11 @@ QUANT_REPLACES = "src/repro/kernels/paged_decode.py:205 (quantized branch :161-1
 QUANT_DTYPES = ("int8", "fp8")
 SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:90"
+# #5b, the scan's gradient: no Pallas kernel computes it (JAX differentiates
+# its jnp chunked scan), so the row names the forward it differentiates
+SSD_BWD_SRC = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+SSD_BWD_REPLACES = ("src/repro/kernels/ssd_scan.py:90 (its gradient: JAX takes jax.grad of "
+                    "src/repro/models/ssm.py:73 _ssd_chunked)")
 # the SSD scan against its plain version: both sum fp32 in other orders, so
 # y and the final state are held to 1e-4 of the output's scale
 SSD_REL_TOL = 1e-4
@@ -862,11 +898,13 @@ def ring_paged_case(kv_dtype, gen, flush):
     return rec
 
 
-def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None):
+def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None, autograd=False):
     """One SSD chunked-scan case, fp32 inputs as the model gives them (dt
     through softplus, A = -exp(.)), against the plain chunked dual form.
     ``dt_value``: dt that value everywhere and A = -1 instead, so a chunk's
-    sum of dt*|A| passes ~88 (where exp(-acum) would overflow)."""
+    sum of dt*|A| passes ~88 (where exp(-acum) would overflow).
+    ``autograd``: inputs that require grad, so the call takes the training
+    forward's split (``ssd.AUTOGRAD_TERMS``)."""
     x = randn(gen, B, S, H, P, dtype=torch.float32)
     dt = F.softplus(randn(gen, B, S, H, dtype=torch.float32))
     A = -torch.exp(0.5 * randn(gen, H, dtype=torch.float32))
@@ -874,12 +912,14 @@ def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None):
         dt, A = torch.full_like(dt, dt_value), -torch.ones_like(A)
     Bm = randn(gen, B, S, G, N, dtype=torch.float32)
     Cm = randn(gen, B, S, G, N, dtype=torch.float32)
-    run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
-    plain = lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
-    before = ssd.ssd_scan_fwd.launches
+    leaves = [t.requires_grad_(autograd) for t in (x, dt, A, Bm, Cm)]
+    run = lambda: tuple(t.detach() for t in ssd.ssd_scan_fwd(*leaves, chunk=chunk))  # noqa: E731
+    plain = torch.no_grad()(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk))
+    before = ssd.ssd_scan_fwd.launches, ssd.ssd_scan_fwd.launches_autograd
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
-    launched = ssd.ssd_scan_fwd.launches - before
+    launched = ssd.ssd_scan_fwd.launches - before[0]
+    launched_autograd = ssd.ssd_scan_fwd.launches_autograd - before[1]
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     tol = SSD_REL_TOL * max(1.0, float(want[0].abs().max()))
     err_y = float((got[0] - want[0]).abs().max())
@@ -901,18 +941,77 @@ def ssd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None):
     by_class, _ = device_time(_profiled(lambda: (flush(), run()), 5), per=5)
     rec = dict(
         kernel="ssd_scan_fwd", case=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=c, dtype="fp32",
-        dt_value=dt_value,
+        dt_value=dt_value, terms=ssd.AUTOGRAD_TERMS if autograd else ssd.TERMS,
         max_abs_err=max(err_y, err_state), max_abs_err_y=err_y, max_abs_err_state=err_state,
-        tol=tol, finite=finite, bitwise_repeat=bitwise, launched=launched,
+        tol=tol, max_err_over_tol=max(err_y, err_state) / tol, finite=finite,
+        bitwise_repeat=bitwise, launched=launched, launched_autograd=launched_autograd,
         ms=time_ms(run, flush=flush), dev_ms=by_class.get("ssd_scan_fwd", 0.0),
         plain_ms=time_ms(plain, reps=5), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, bound_ms_fp32_cores=bound_ms_fp32,
         bound_by_fp32_cores=bound_by_fp32, flops=flops, bytes=nbytes,
     )
     del got, again, want
-    check(launched == 2, f"ssd_scan_fwd did not go through its kernel: {rec}")
+    check(launched == 2 and launched_autograd == 2 * autograd,
+          f"ssd_scan_fwd did not go through its kernel with its split: {rec}")
     check(finite and err_y <= tol and err_state <= tol and bitwise,
           f"ssd_scan_fwd disagrees with its plain version or repeats unequal: {rec}")
+    return rec
+
+
+def ssd_bwd_case(name, B, S, H, P, G, N, chunk, gen, flush, dt_value=None, dstate=False):
+    """One case of the SSD scan's backward (#5b) against its plain version,
+    inputs as ``ssd_case`` makes them plus dy and, with ``dstate``, a
+    nonzero gradient of the final state: each gradient within SSD_REL_TOL
+    of its largest |value| (fp32 sums in another order), a repeat bitwise
+    equal."""
+    x = randn(gen, B, S, H, P, dtype=torch.float32)
+    dt = F.softplus(randn(gen, B, S, H, dtype=torch.float32))
+    A = -torch.exp(0.5 * randn(gen, H, dtype=torch.float32))
+    if dt_value is not None:
+        dt, A = torch.full_like(dt, dt_value), -torch.ones_like(A)
+    Bm = randn(gen, B, S, G, N, dtype=torch.float32)
+    Cm = randn(gen, B, S, G, N, dtype=torch.float32)
+    dy = randn(gen, B, S, H, P, dtype=torch.float32)
+    ds = randn(gen, B, H, P, N, dtype=torch.float32) if dstate else None
+    run = lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, ds, chunk=chunk)  # noqa: E731
+    plain = lambda: ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, ds, chunk)  # noqa: E731
+    before = ssd.ssd_scan_bwd.launches
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    launched = ssd.ssd_scan_bwd.launches - before
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(names, got, want)}
+    tols = {k: SSD_REL_TOL * max(1.0, float(w.abs().max())) for k, w in zip(names, want)}
+    c = min(chunk, S)
+    # read once: x, dy, B, C, dt, A (and dstate); written once: dx, dB, dC,
+    # ddt, dA
+    nbytes = 4 * (3 * x.numel() + 2 * (Bm.numel() + Cm.numel()) + 2 * dt.numel() + 2 * H
+                  + (ds.numel() if dstate else 0))
+    # the products of the chunked backward: per token the causal half of its
+    # chunk, (c+1)/2 pairs, for the group's C.B^T (N) and each head's dy.x^T
+    # (P), the intra-chunk dx (P), dB and dC (N each); and per token and head
+    # the five state-sized products (the chunk state, the dy.C^T term, g B,
+    # x^T g, dy h_in: P*N each)
+    flops = 2 * B * S * ((c + 1) / 2 * (G * N + H * (2 * P + 2 * N)) + 5 * H * P * N)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32, SSD_PEAK)
+    bound_ms_fp32, bound_by_fp32 = bound(nbytes, flops, torch.float32)
+    by_class, _ = device_time(_profiled(lambda: (flush(), run()), 5), per=5)
+    rec = dict(
+        kernel="ssd_scan_bwd", case=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=c, dtype="fp32",
+        dt_value=dt_value, dstate=dstate,
+        max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, tol_by_grad=tols,
+        finite=finite, bitwise_repeat=bitwise, launched=launched,
+        ms=time_ms(run, flush=flush), dev_ms=by_class.get("ssd_scan_bwd", 0.0),
+        plain_ms=time_ms(plain, reps=5), library_ms=None, library="none",
+        bound_ms=bound_ms, bound_by=bound_by, bound_ms_fp32_cores=bound_ms_fp32,
+        bound_by_fp32_cores=bound_by_fp32, flops=flops, bytes=nbytes,
+    )
+    del got, again, want
+    check(launched == 2, f"ssd_scan_bwd did not go through its kernel: {rec}")
+    check(finite and bitwise and all(errs[k] <= tols[k] for k in names),
+          f"ssd_scan_bwd disagrees with its plain version or repeats unequal: {rec}")
     return rec
 
 
@@ -2413,6 +2512,8 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_split"
     if "paged_decode_" in name:  # the main kernels and the split combine
         return "paged_flash_decode"
+    if "ssd_bwd_" in name:  # #5b: the states, pass, chunk and reduce kernels
+        return "ssd_scan_bwd"
     if "ssd_scan_" in name:  # the chunk (scores and states), pass and y kernels
         return "ssd_scan_fwd"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "matmul")):
@@ -2914,9 +3015,29 @@ def _clone_tree(tree):
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
-def train_parity():
-    """One make_train_step on the card and on the CPU from the same weights."""
-    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+_PARITY_KERNELS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssd_scan_fwd",
+                   "ssd_scan_bwd")
+
+
+def _train_kernel_counts():
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv, ssd.ssd_scan_fwd.launches,
+            ssd.ssd_scan_bwd.launches)
+
+
+def _train_launches(cfg, steps=1):
+    """What a remat train step launches per layer: #1 twice and #2, #3 once
+    where the layer has attention; #5 twice and #5b once where it has an
+    SSD block."""
+    L = cfg.num_layers * steps
+    attn, scan = cfg.family != "ssm", cfg.ssm is not None
+    return dict(zip(_PARITY_KERNELS, (2 * L * attn, L * attn, L * attn, 2 * L * scan, L * scan)))
+
+
+def train_parity(arch="granite-8b", seq=512, phase="train_parity"):
+    """One make_train_step on the card and on the CPU from the same weights:
+    ``arch`` at full width cut to 2 layers, fp32, batch 1."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     opt = AdamWConfig()
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     sides = {"cuda": params, "cpu": _tree_to(params, "cpu")}
@@ -2924,16 +3045,14 @@ def train_parity():
     for dev, p in sides.items():
         ctx = ParallelCtx(device=dev)
         state = init_opt_state(p)
-        batch = make_batch(cfg, 512, 1, seed=0, step=0, ctx=ctx)
-        before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
-                  fa.flash_attention_bwd.launches_dkv)
+        batch = make_batch(cfg, seq, 1, seed=0, step=0, ctx=ctx)
+        before = _train_kernel_counts()
         t0 = time.perf_counter()
         p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
         loss = float(metrics["loss"])
         wall = time.perf_counter() - t0
-        after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
-                 fa.flash_attention_bwd.launches_dkv)
-        launches[dev] = [a - b for a, b in zip(after, before)]
+        launches[dev] = dict(zip(_PARITY_KERNELS,
+                                 (a - b for a, b in zip(_train_kernel_counts(), before))))
         out[dev] = dict(loss=loss, grad_norm=float(metrics["grad_norm"]), wall_s=wall,
                         params=p, m=state.m)
     card, cpu = out["cuda"], out["cpu"]
@@ -2953,28 +3072,28 @@ def train_parity():
                                      - p_cpu[path].detach()).abs().max()),
         )
     rec = {
-        "phase": "train_parity", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
-        "seq": 512, "batch": 1, "loss": {"cuda": card["loss"], "cpu": cpu["loss"]},
+        "phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
+        "seq": seq, "batch": 1, "loss": {"cuda": card["loss"], "cpu": cpu["loss"]},
         "grad_norm": {"cuda": card["grad_norm"], "cpu": cpu["grad_norm"]},
         "wall_s": {"cuda": card["wall_s"], "cpu": cpu["wall_s"]},
-        "launches": {dev: dict(zip(("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"), n))
-                     for dev, n in launches.items()},
-        "leaves": leaves, "tols": PARITY_TOLS,
+        "launches": launches, "leaves": leaves, "tols": PARITY_TOLS,
     }
     emit(rec)
-    del sides, out, card, cpu, params
+    del sides, out, card, cpu, params, m_cpu, p_cpu, p_card
     torch.cuda.empty_cache()
     check(abs(rec["loss"]["cuda"] - rec["loss"]["cpu"]) <= PARITY_TOLS["loss"],
-          "train_parity: loss differs")
+          f"{phase} ({arch}): loss differs")
     check(abs(rec["grad_norm"]["cuda"] - rec["grad_norm"]["cpu"])
-          <= PARITY_TOLS["grad_norm_rel"] * rec["grad_norm"]["cpu"], "train_parity: grad norm differs")
+          <= PARITY_TOLS["grad_norm_rel"] * rec["grad_norm"]["cpu"],
+          f"{phase} ({arch}): grad norm differs")
     for path, leaf in leaves.items():
         check(leaf["grad_max_abs_err"] <= PARITY_TOLS["grad_rel"] * leaf["grad_max_abs"],
-              f"train_parity: gradient of {path} differs: {leaf}")
+              f"{phase} ({arch}): gradient of {path} differs: {leaf}")
         check(leaf["param_max_abs_err"] <= PARITY_TOLS["param"],
-              f"train_parity: updated {path} differs: {leaf}")
-    check(launches["cuda"] == [2 * 2, 2, 2] and launches["cpu"] == [0, 0, 0],
-          f"train_parity: kernels must run on the card only, with remat: {launches}")
+              f"{phase} ({arch}): updated {path} differs: {leaf}")
+    check(launches["cuda"] == _train_launches(cfg)
+          and launches["cpu"] == dict.fromkeys(_PARITY_KERNELS, 0),
+          f"{phase} ({arch}): kernels must run on the card only, with remat: {launches}")
 
 
 def full_train(card):
@@ -3075,14 +3194,15 @@ def full_train_bf16(cfg, ctx, seq):
     return rec
 
 
-def profile_train_step(cfg, ctx, params, seq):
-    """Device time per kernel class of one more train step (4 packed
-    documents) under torch.profiler; after the counted run."""
+def profile_train_step(cfg, ctx, params, seq, batch=1, docs=4):
+    """Device time per kernel class of one more train step (``docs`` packed
+    documents a row; None: causal rows) under torch.profiler; after the
+    counted run."""
     from torch.profiler import ProfilerActivity, profile
 
     state = init_opt_state(params)
     step_fn = make_train_step(cfg, ctx, AdamWConfig(total_steps=2))
-    batch = make_batch(cfg, seq, 1, seed=0, step=2, ctx=ctx, docs=4)
+    batch = make_batch(cfg, seq, batch, seed=0, step=2, ctx=ctx, docs=docs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3098,6 +3218,180 @@ def profile_train_step(cfg, ctx, params, seq):
         # the profiler's own host cost inflates this window's wall clock
         "device_idle_share": (1 - busy / wall_ms) if device_ms else None,
     }
+
+
+# --------------------------------------------------------------------------
+# phases 6a-6d: SSM and hybrid training (#5 forward, #5b backward), MoE's
+# card gate
+# --------------------------------------------------------------------------
+
+SSM_TRAIN = {  # arch: (steps, seq, batch) of train_ssm, each arch whole
+    "mamba2-370m": (4, 4096, 4),
+    "hymba-1.5b": (3, 4096, 2),
+}
+SSM_RING_SEQ = 4096
+
+
+def train_ssm_ring_parity():
+    """mamba2-370m and hymba-1.5b at full width, 2 layers, fp32, seq 4096,
+    batch 1: one train step at sp_size 4 on the virtual ring (the sharded
+    scan; hymba's attention through the mesh executor, a = 2, contiguous)
+    against one at sp_size 1, both on the card, from the same weights and
+    batch (train_parity's limits).  #5 once per layer and forward pass (x 2
+    for remat) with the 4 ranks folded into its batch, #5b once per layer;
+    the ssd_halo / ssd_state / ssd_tail exchanges twice _ssd_comm_model's
+    (the forward runs twice)."""
+    opt = AdamWConfig()
+    recs, problems = [], []
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params0 = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        out = {}
+        for name, ctx in (("sp1", ParallelCtx(device="cuda")),
+                          ("sp4", ParallelCtx(sp_size=RING_N, attn_impl="mesh", mesh_a=2,
+                                              device="cuda"))):
+            p = _clone_tree(params0)
+            state = init_opt_state(p)
+            batch = make_batch(cfg, SSM_RING_SEQ, 1, seed=0, step=0, ctx=ctx)
+            before = _train_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _ScanBatches() as scans:
+                p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
+                loss = float(metrics["loss"])
+            wall = time.perf_counter() - t0
+            side = dict(loss=loss, grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                        launches=dict(zip(_PARITY_KERNELS, (a - b for a, b in zip(
+                            _train_kernel_counts(), before)))),
+                        scan_batches=scans.batches,
+                        hops=dict(ctx.ring.stats.hops) if ctx.ring is not None else {},
+                        bytes=dict(ctx.ring.stats.bytes) if ctx.ring is not None else {},
+                        params=dict(tree_leaves(p)), m=dict(tree_leaves(state.m)))
+            out[name] = side
+            del p, state, batch
+            torch.cuda.empty_cache()
+        base, ring = out["sp1"], out["sp4"]
+        leaves = {}
+        for path, m4 in ring["m"].items():
+            g, g_ref = m4 / (1 - opt.b1), base["m"][path] / (1 - opt.b1)
+            leaves[path] = dict(
+                grad_max_abs_err=float((g - g_ref).abs().max()),
+                grad_max_abs=float(g_ref.abs().max()),
+                param_max_abs_err=float((ring["params"][path] - base["params"][path])
+                                        .detach().abs().max()),
+            )
+        L = cfg.num_layers
+        want_hops, want_bytes = _ssd_comm_model(cfg, [SSM_RING_SEQ], itemsize=4)
+        want_hops = {k: 2 * v for k, v in want_hops.items()}
+        want_bytes = {k: 2 * v for k, v in want_bytes.items()}
+        rec = {"phase": "train_ssm_ring_parity", "arch": arch, "num_layers": L, "dtype": "fp32",
+               "seq": SSM_RING_SEQ, "batch": 1, "n": RING_N, "tols": PARITY_TOLS,
+               "want_exchanges": {"hops": want_hops, "bytes": want_bytes},
+               "sides": {k: {kk: vv for kk, vv in v.items() if kk not in ("params", "m")}
+                         for k, v in out.items()}, "leaves": leaves}
+        recs.append(rec)
+        emit(rec)
+        tag = f"train_ssm_ring_parity ({arch})"
+        if abs(ring["loss"] - base["loss"]) > PARITY_TOLS["loss"]:
+            problems.append(f"{tag}: loss {ring['loss']} vs {base['loss']}")
+        if abs(ring["grad_norm"] - base["grad_norm"]) > PARITY_TOLS["grad_norm_rel"] * \
+                base["grad_norm"]:
+            problems.append(f"{tag}: grad norm {ring['grad_norm']} vs {base['grad_norm']}")
+        for path, leaf in leaves.items():
+            if leaf["grad_max_abs_err"] > PARITY_TOLS["grad_rel"] * leaf["grad_max_abs"] or \
+                    leaf["param_max_abs_err"] > PARITY_TOLS["param"]:
+                problems.append(f"{tag}: {path} differs: {leaf}")
+        for name, side in out.items():
+            want = _train_launches(cfg)
+            got = {k: side["launches"][k] for k in ("ssd_scan_fwd", "ssd_scan_bwd")}
+            batches = [RING_N if name == "sp4" else 1] * (2 * L)
+            if got != {k: want[k] for k in got} or side["scan_batches"] != batches:
+                problems.append(f"{tag}: {name} launched {got} at batches "
+                                f"{side['scan_batches']}, want {want} at {batches}")
+        got_hops = {k: ring["hops"].get(k, 0) for k in want_hops}
+        got_bytes = {k: ring["bytes"].get(k, 0) for k in want_bytes}
+        if (got_hops, got_bytes) != (want_hops, want_bytes):
+            problems.append(f"{tag}: exchanges {got_hops} / {got_bytes}, want {want_hops} / "
+                            f"{want_bytes}")
+        if cfg.hybrid and not (ring["launches"]["flash_attention_fwd"] > 0
+                               and ring["launches"]["flash_bwd_dq"] > 0):
+            problems.append(f"{tag}: the attention did not run its kernels: {ring['launches']}")
+        del params0, out, base, ring
+        torch.cuda.empty_cache()
+    check(not problems, "; ".join(problems))
+    return recs
+
+
+def train_ssm(card):
+    """This slice's main path: mamba2-370m and hymba-1.5b whole at full
+    width, fp32 params + AdamW, remat, through ``fit`` (SSM_TRAIN: steps,
+    seq, batch).  Counters set to 0 just before each run and read just
+    after: #5 = 2 x L x steps, #5b = L x steps (and hymba's #1 fp32 body, #2,
+    #3 on the remat schedule); losses and grad norms finite, peak memory
+    under the card's; one more step under torch.profiler."""
+    runs, launches_main = [], dict.fromkeys(_PARITY_KERNELS, 0)
+    launches_main["flash_attention_fwd (fp32)"] = launches_main["flash_bwd_split"] = 0
+    for arch, (steps, seq, batch) in SSM_TRAIN.items():
+        cfg = get_config(arch)
+        ctx = ParallelCtx(device="cuda")
+        grad_norms = []
+        hooks = {"on_step": lambda st, m: grad_norms.append(float(m["grad_norm"]))}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
+        ssd.ssd_scan_fwd.launches = ssd.ssd_scan_bwd.launches = 0
+        ssd.ssd_scan_fwd.launches_autograd = 0
+        bodies0, bwd0 = fwd_body_counts(), bwd_counts()
+        t0 = time.perf_counter()
+        out = fit(cfg, ctx, TrainConfig(steps=steps, seq=seq, batch=batch, seed=0), hooks=hooks)
+        fit_s = time.perf_counter() - t0
+        launches = dict(zip(_PARITY_KERNELS, _train_kernel_counts()))
+        scan_autograd = ssd.ssd_scan_fwd.launches_autograd
+        bodies = fwd_body_delta(bodies0)
+        bwd_bodies = {b: n - bwd0[b] for b, n in bwd_counts().items()}
+        for k, n in launches.items():
+            launches_main[k] += n
+        launches_main["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        launches_main["flash_bwd_split"] += bwd_bodies["split"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_params = tfm.param_count(out["params"])
+        profile = profile_train_step(cfg, ctx, out.pop("params"), seq, batch=batch, docs=None)
+        run = {"arch": arch, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+               "params": n_params, "param_dtype": "fp32", "optimizer": "adamw", "remat": True,
+               "seq": seq, "batch": batch, "steps": steps, "losses": out["history"],
+               "grad_norms": grad_norms, "step_s": out["step_seconds"], "fit_s": fit_s,
+               "tokens_per_s": [seq * batch / t for t in out["step_seconds"]],
+               "peak_mem_gb": peak_gb, "launches": launches,
+               "ssd_scan_fwd_autograd": scan_autograd,
+               "want_launches": _train_launches(cfg, steps),
+               "flash_attention_fwd_bodies": bodies, "flash_attention_bwd_bodies": bwd_bodies,
+               "ln_vocab": float(np.log(cfg.vocab_size)), "profile": profile}
+        runs.append(run)
+        del out
+        torch.cuda.empty_cache()
+    emit({"phase": "train_ssm", "card": card, "runs": runs})
+    for run in runs:
+        tag = f"train_ssm ({run['arch']})"
+        check(len(run["losses"]) == run["steps"] and all(np.isfinite(run["losses"]))
+              and all(np.isfinite(run["grad_norms"]))
+              and abs(run["losses"][0] - run["ln_vocab"]) < 1.5,
+              f"{tag}: losses / grad norms not finite or not near ln(vocab): {run['losses']}, "
+              f"{run['grad_norms']}")
+        check(run["launches"] == run["want_launches"]
+              and run["ssd_scan_fwd_autograd"] == run["launches"]["ssd_scan_fwd"],
+              f"{tag}: launches off the remat schedule or the training split: "
+              f"{run['launches']} ({run['ssd_scan_fwd_autograd']} with the training split) vs "
+              f"{run['want_launches']}")
+        n_attn = run["launches"]["flash_bwd_dq"]
+        check(run["flash_attention_fwd_bodies"]["fp32"] == run["launches"]["flash_attention_fwd"]
+              and run["flash_attention_bwd_bodies"] == {"tc_fp32": n_attn, "tc_bf16": 0,
+                                                        "split": n_attn},
+              f"{tag}: the fp32 attention must run the fp32 bodies: {run}")
+        check(run["peak_mem_gb"] < torch.cuda.get_device_properties(0).total_memory / 1e9,
+              f"{tag}: peak memory {run['peak_mem_gb']} GB")
+    return launches_main
 
 
 # --------------------------------------------------------------------------
@@ -3720,7 +4014,8 @@ def main():
     ptxas = {**(ptxas_summary(libs["flash_fwd_tc"]) or {}),
              **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {}),
              **(ptxas_summary(libs["paged_decode"], prefix="paged_decode_") or {}),
-             **(ptxas_summary(libs["ssd_scan"], prefix="ssd_scan_") or {})}
+             **(ptxas_summary(libs["ssd_scan"], prefix="ssd_scan_") or {}),
+             **(ptxas_summary(libs["ssd_scan_bwd"], prefix="ssd_bwd_") or {})}
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "build_s": build_s,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
@@ -3803,6 +4098,21 @@ def main():
         ssd_case("hymba_ring4", 4, 384, 50, 64, 1, 16, 64, gen, flush),
         ssd_case("mamba2_ring4_local12", 4, 12, 32, 64, 1, 128, 12, gen, flush),
         ssd_case("mamba2_ring4_local2", 4, 2, 32, 64, 1, 128, 2, gen, flush),
+        # the training forward's split (under autograd) at train_ssm's rows
+        ssd_case("mamba2_train", 4, 4096, 32, 64, 1, 128, 64, gen, flush, autograd=True),
+        ssd_case("hymba_train", 2, 4096, 50, 64, 1, 16, 64, gen, flush, autograd=True),
+    ]
+    # #5b, the scan's backward: train_ssm's rows (mamba2 B 4 x 4096, hymba
+    # B 2 x 4096), the serving rows, a one-chunk case, the sharded scan's
+    # folded ranks with a nonzero gradient of the final state, and dt = 3
+    ssd_bwd_cases = [
+        ssd_bwd_case("mamba2_train", 4, 4096, 32, 64, 1, 128, 64, gen, flush),
+        ssd_bwd_case("hymba_train", 2, 4096, 50, 64, 1, 16, 64, gen, flush),
+        ssd_bwd_case("mamba2", 1, 2048, 32, 64, 1, 128, 64, gen, flush),
+        ssd_bwd_case("hymba", 1, 1024, 50, 64, 1, 16, 64, gen, flush),
+        ssd_bwd_case("mamba2_short_chunk", 1, 48, 32, 64, 1, 128, 64, gen, flush),
+        ssd_bwd_case("mamba2_ring4", 4, 384, 32, 64, 1, 128, 64, gen, flush, dstate=True),
+        ssd_bwd_case("mamba2_large_dt", 1, 2048, 32, 64, 1, 128, 64, gen, flush, dt_value=3.0),
     ]
     del scratch
     for dtype in (torch.float32, torch.bfloat16):
@@ -3823,7 +4133,8 @@ def main():
     mesh_blocks.append(mesh_block_case("window", torch.bfloat16, gen, heads=HYMBA_HEADS,
                                        S=1536, layout="contiguous", window=1024))
     emit({"phase": "kernels", "card": card,
-          "cases": flash + paged + quant + combine + ssd_cases + bwd + [split] + mesh_blocks
+          "cases": flash + paged + quant + combine + ssd_cases + ssd_bwd_cases + bwd + [split]
+          + mesh_blocks
           + ring_flash + ring_paged})
 
     cross_device()
@@ -3856,6 +4167,18 @@ def main():
         launches[key] += ring[part]
     train_parity()
     launches.update(full_train(card))
+    # SSM and hybrid training (#5 forward, #5b backward) card vs CPU, over a
+    # ring of 4 vs one rank, then whole; the MoE family's train step card vs
+    # CPU
+    for arch in SSM_ARCHS:
+        train_parity(arch, seq=512, phase="train_ssm_parity")
+    train_parity("qwen2-moe-a2.7b", seq=256, phase="train_moe_parity")
+    train_ssm_ring_parity()
+    ssm_train = train_ssm(card)
+    launches["ssd_scan_fwd (training)"] = ssm_train["ssd_scan_fwd"]
+    launches["ssd_scan_bwd"] = ssm_train["ssd_scan_bwd"]
+    for key in ("flash_attention_fwd (fp32)", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_split"):
+        launches[key] += ssm_train[key]
     # serve_moe's and serve_qwen's runs join the serving rows
     for key, n in list(moe_launches.items()) + list(qwen_launches.items()):
         launches[key] += n
@@ -3898,6 +4221,10 @@ def main():
     main_quant = next(r for r in quant if r["case"] == "full" and r["dtype"] == "bf16"
                       and r["kv_dtype"] == "int8" and r["heads"] == granite)
     main_ssd = next(r for r in ssd_cases if r["case"] == "mamba2" and r["S"] == 2048)
+    # the training forward's main path: train_ssm's mamba2-370m rows
+    main_ssd_train = next(r for r in ssd_cases if r["case"] == "mamba2_train")
+    # #5b's main path: train_ssm's mamba2-370m rows
+    main_ssd_bwd = next(r for r in ssd_bwd_cases if r["case"] == "mamba2_train")
     # the ranks' combine on the ring's decode path: the split combine kernel
     # over the folded fp pool's partials
     ring_combine = next(r for r in ring_paged if r["kv_dtype"] == "fp")["combine"]
@@ -3916,6 +4243,9 @@ def main():
         ("paged_flash_decode (quantized branch)", "paged_flash_decode_quant", PAGED_SRC,
          QUANT_REPLACES, main_quant),
         ("ssd_scan_fwd", "ssd_scan_fwd", SSD_SRC, SSD_REPLACES, main_ssd),
+        ("ssd_scan_fwd (training split)", "ssd_scan_fwd (training)", SSD_SRC, SSD_REPLACES,
+         main_ssd_train),
+        ("ssd_scan_bwd", "ssd_scan_bwd", SSD_BWD_SRC, SSD_BWD_REPLACES, main_ssd_bwd),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

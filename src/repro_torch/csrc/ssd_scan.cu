@@ -26,7 +26,8 @@
 // P 64, N 128) 2.4 GFLOP take 2.5 us, the 36.96 MB of x, y, B, C, dt and the
 // state 11.0 us -- bound by bytes.  What the design adds on top: the
 // per-chunk states go through device memory (see scratch below), and the
-// products run in split precision, three bf16 products for each fp32 one.
+// products run in split precision, three bf16 products for each fp32 one
+// (six under autograd, see Numerics).
 //
 // Design: four passes in three kernels, launched in order by one ssd_scan()
 // call on the caller's stream, each parallel over chunks (the only thing a
@@ -65,13 +66,18 @@
 //   * every product is mma.sync m16n8k16 (bf16 operands, fp32 accumulators),
 //     fragments through ldmatrix from shared memory or built in registers;
 //   * every fp32 operand -- x, x * exp(acum_last - acum_s) dt_s, B, C, M and
-//     h_in -- goes in as TERMS bf16 terms, hi + lo, split once (staged into
-//     shared memory, or in registers for C and M), and a product runs the
-//     term pairs i + j < TERMS: hi.hi + hi.lo + lo.hi.  The emulation reads
-//     0.06-0.15 of the gate (1e-4 of the output's scale) with two terms;
-//     one term of any operand reads 2.3-40x it;
-//   * sums are fp32; at most (N + c) / 16 * 3 = 36 products go into one
-//     accumulator, so the tensor cores' truncating adds stay ~1e-6 of it;
+//     h_in -- goes in as T bf16 terms, split once (staged into shared
+//     memory, or in registers for C and M), and a product runs the term
+//     pairs i + j < T.  The caller picks T: serving takes 2 (hi.hi + hi.lo +
+//     lo.hi), the training forward under autograd 3 (six products).  The
+//     emulation reads 0.06-0.15 of the gate (1e-4 of the output's scale)
+//     with two terms, where one term of any operand reads 2.3-40x it; three
+//     read 0.001-0.011, the plain fp32 chunked form's own distance to the
+//     sequential oracle.  Two terms put a train step's card-vs-CPU
+//     gradients near the limit of chip_smoke's train parity (PERF.md);
+//   * sums are fp32; at most (N + c) / 16 * 3 = 36 products (72 with three
+//     terms) go into one accumulator, so the tensor cores' truncating adds
+//     stay ~1e-6 of it;
 //   * the decay is masked by SELECTION: exp(acum_t - acum_s) is taken only
 //     for s <= t, a hidden pair is 0 without an exponential, and the decay
 //     is never factored as exp(acum_t) exp(-acum_s) (exp(-acum_s) overflows
@@ -92,27 +98,28 @@ namespace {
 constexpr int NT = 128;        // threads per block: four warps
 constexpr int CMAX = 64;       // longest chunk
 constexpr int PMAX = 64;       // widest head
-constexpr int TERMS = 2;       // bf16 terms of every fp32 operand
 constexpr int XS = PMAX + 8;   // row stride (bf16) of a staged x tile
 constexpr int PASS_BATCH = 8;  // chunks whose states the pass loads at once
 
-template <int NP>  // N padded to a multiple of 16
+// T: bf16 terms of every fp32 operand (the caller's `terms`, 2 or 3)
+template <int NP, int T>  // N padded to a multiple of 16
 struct Cfg {
   static constexpr int RS = NP + 8;        // row stride (bf16) of a staged B, C or h tile
   static constexpr int NTILE = CMAX * RS;  // one term of a [64, NP] tile
   static constexpr int XTILE = CMAX * XS;  // one term of a [64, PMAX] tile
   // (a): 16 rows of C and B; (b): x * w and B, then acum and w; (d): x and
   // h_in, then acum and dt
-  static constexpr int SCORES_SMEM = TERMS * (16 * RS + NTILE) * 2;
-  static constexpr int CHUNK_SMEM = TERMS * (XTILE + NTILE) * 2 + 2 * CMAX * 4;
+  static constexpr int SCORES_SMEM = T * (16 * RS + NTILE) * 2;
+  static constexpr int CHUNK_SMEM = T * (XTILE + NTILE) * 2 + 2 * CMAX * 4;
   static_assert(SCORES_SMEM <= CHUNK_SMEM, "(a) fits in (b)'s shared memory");
 };
 
-// (x, y) as TERMS bf16 pairs: the first rounds (x, y), each next one what
+// (x, y) as T bf16 pairs: the first rounds (x, y), each next one what
 // the earlier ones leave (a rounding's residual is exact in fp32)
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&t)[TERMS]) {
+template <int T>
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&t)[T]) {
 #pragma unroll
-  for (int k = 0; k < TERMS; ++k) {
+  for (int k = 0; k < T; ++k) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
     t[k] = *reinterpret_cast<const uint32_t*>(&h);
     x -= __low2float(h);
@@ -120,14 +127,15 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t (&t)[TERMS
   }
 }
 
-// four fp32 values as TERMS planes of four bf16 at element offset off (a
+// four fp32 values as T planes of four bf16 at element offset off (a
 // multiple of 4) of each plane
+template <int T>
 __device__ __forceinline__ void put4(bf16* planes, int plane, int off, float4 v) {
-  uint32_t a[TERMS], b[TERMS];
-  split_pair(v.x, v.y, a);
-  split_pair(v.z, v.w, b);
+  uint32_t a[T], b[T];
+  split_pair<T>(v.x, v.y, a);
+  split_pair<T>(v.z, v.w, b);
 #pragma unroll
-  for (int k = 0; k < TERMS; ++k)
+  for (int k = 0; k < T; ++k)
     *reinterpret_cast<uint2*>(planes + k * plane + off) = make_uint2(a[k], b[k]);
 }
 
@@ -140,21 +148,22 @@ __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
 }
 
-// d += sum over the term pairs i + j < TERMS of a_i b_j
-__device__ __forceinline__ void mma_terms(float (&d)[4], const uint32_t (&a)[TERMS][4],
-                                          uint32_t b0[TERMS], uint32_t b1[TERMS]) {
+// d += sum over the term pairs i + j < T of a_i b_j
+template <int T>
+__device__ __forceinline__ void mma_terms(float (&d)[4], const uint32_t (&a)[T][4],
+                                          uint32_t b0[T], uint32_t b1[T]) {
 #pragma unroll
-  for (int i = 0; i < TERMS; ++i)
+  for (int i = 0; i < T; ++i)
 #pragma unroll
-    for (int j = 0; j < TERMS; ++j)
-      if (i + j < TERMS) mma_bf16(d, a[i], b0[j], b1[j]);
+    for (int j = 0; j < T; ++j)
+      if (i + j < T) mma_bf16(d, a[i], b0[j], b1[j]);
 }
 
 // A tile of fp32 rows, 4 Q wide, is staged in two steps so that all of a
 // thread's loads are in flight at once: load_tile reads the thread's share
 // into registers (element k: row (tid + k NT) / Q, columns from
 // 4 ((tid + k NT) % Q); zeros from row `valid` on), store_tile writes it
-// split into TERMS planes (rows below `rows`, each scaled by rowscale[row]
+// split into T planes (rows below `rows`, each scaled by rowscale[row]
 // when given).
 template <int ITER, typename F>
 __device__ __forceinline__ void load_tile(float4 (&v)[ITER], int Q, int valid, F at) {
@@ -165,7 +174,7 @@ __device__ __forceinline__ void load_tile(float4 (&v)[ITER], int Q, int valid, F
   }
 }
 
-template <int ITER>
+template <int T, int ITER>
 __device__ __forceinline__ void store_tile(const float4 (&v)[ITER], int Q, int rows,
                                            bf16* planes, int plane, int stride,
                                            const float* rowscale = nullptr) {
@@ -173,7 +182,7 @@ __device__ __forceinline__ void store_tile(const float4 (&v)[ITER], int Q, int r
   for (int k = 0; k < ITER; ++k) {
     const int i = threadIdx.x + k * NT, r = i / Q;
     if (r < rows)
-      put4(planes, plane, r * stride + 4 * (i % Q),
+      put4<T>(planes, plane, r * stride + 4 * (i % Q),
            rowscale ? scale4(v[k], rowscale[r]) : v[k]);
   }
 }
@@ -224,10 +233,10 @@ struct Args {
 // One block per (chunk, group x 16-row tile rt, batch row), y = H + 4 g +
 // rt of the chunk kernel's grid: warp w computes the 16 x 16 tile (rt, w)
 // for w <= rt.
-template <int NP>
+template <int NP, int T>
 __device__ __forceinline__ void scores_block(const Args& a, bf16* Cs) {
-  bf16* Bs = Cs + TERMS * 16 * Cfg<NP>::RS;  // Cs: C rows 16 rt .. 16 rt + 15
-  constexpr int RS = Cfg<NP>::RS, Q = NP / 4, IT = CMAX * Q / NT;
+  bf16* Bs = Cs + T * 16 * Cfg<NP, T>::RS;  // Cs: C rows 16 rt .. 16 rt + 15
+  constexpr int RS = Cfg<NP, T>::RS, Q = NP / 4, IT = CMAX * Q / NT;
   const int z = blockIdx.x, b = blockIdx.z;
   const int g = (blockIdx.y - a.H) / 4, rt = (blockIdx.y - a.H) % 4;
   if (16 * rt >= a.chunk) return;
@@ -241,8 +250,8 @@ __device__ __forceinline__ void scores_block(const Args& a, bf16* Cs) {
               [&](int r, int q) { return ld_bc(cb + r * a.scs, q, a.N); });
     load_tile(bv, Q, min(a.chunk, rows),
               [&](int r, int q) { return ld_bc(bb + r * a.sbs, q, a.N); });
-    store_tile(cv, Q, 16, Cs, 16 * RS, RS);
-    store_tile(bv, Q, rows, Bs, Cfg<NP>::NTILE, RS);
+    store_tile<T>(cv, Q, 16, Cs, 16 * RS, RS);
+    store_tile<T>(bv, Q, rows, Bs, Cfg<NP, T>::NTILE, RS);
   }
   __syncthreads();
 
@@ -252,22 +261,22 @@ __device__ __forceinline__ void scores_block(const Args& a, bf16* Cs) {
   const uint32_t cbase = smem_u32(Cs), bbase = smem_u32(Bs);
 #pragma unroll
   for (int ks = 0; ks < NP / 16; ++ks) {
-    uint32_t af[TERMS][4], bf[TERMS][4];
+    uint32_t af[T][4], bf[T][4];
 #pragma unroll
-    for (int k = 0; k < TERMS; ++k) {
+    for (int k = 0; k < T; ++k) {
       ldsm_x4(cbase + 2 * (k * 16 * RS + ((lane & 7) + ((lane >> 3) & 1) * 8) * RS
                            + 16 * ks + ((lane >> 4) & 1) * 8), af[k]);
-      ldsm_x4(bbase + 2 * (k * Cfg<NP>::NTILE
+      ldsm_x4(bbase + 2 * (k * Cfg<NP, T>::NTILE
                            + (16 * warp + (lane & 7) + ((lane >> 4) & 1) * 8) * RS
                            + 16 * ks + ((lane >> 3) & 1) * 8), bf[k]);
     }
-    uint32_t b0[TERMS], b1[TERMS], b2[TERMS], b3[TERMS];
+    uint32_t b0[T], b1[T], b2[T], b3[T];
 #pragma unroll
-    for (int k = 0; k < TERMS; ++k) {
+    for (int k = 0; k < T; ++k) {
       b0[k] = bf[k][0]; b1[k] = bf[k][1]; b2[k] = bf[k][2]; b3[k] = bf[k][3];
     }
-    mma_terms(acc[0], af, b0, b1);
-    mma_terms(acc[1], af, b2, b3);
+    mma_terms<T>(acc[0], af, b0, b1);
+    mma_terms<T>(acc[1], af, b2, b3);
   }
   float* out = a.scores + (((long long)b * a.nz + z) * a.G + g) * a.cp * a.cp;
   const int t = 16 * rt + lane / 4;
@@ -282,12 +291,12 @@ __device__ __forceinline__ void scores_block(const Args& a, bf16* Cs) {
 
 // ---- (b) the chunk's own end state, and exp(acum_last) --------------------
 // One block per (chunk, head, batch row), y = h of the chunk kernel's grid.
-template <int NP>
+template <int NP, int T>
 __device__ __forceinline__ void states_block(const Args& a, bf16* Xs) {  // Xs: x * w, [s][p]
-  bf16* Bs = Xs + TERMS * Cfg<NP>::XTILE;  // B, [s][n]
-  float* acum = reinterpret_cast<float*>(Bs + TERMS * Cfg<NP>::NTILE);
+  bf16* Bs = Xs + T * Cfg<NP, T>::XTILE;  // B, [s][n]
+  float* acum = reinterpret_cast<float*>(Bs + T * Cfg<NP, T>::NTILE);
   float* wts = acum + CMAX;  // dt_s, then w_s = exp(acum_last - acum_s) dt_s
-  constexpr int RS = Cfg<NP>::RS;
+  constexpr int RS = Cfg<NP, T>::RS;
   const int z = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (a.H / a.G);
   const int c = a.chunk, P = a.P;
@@ -309,8 +318,8 @@ __device__ __forceinline__ void states_block(const Args& a, bf16* Xs) {  // Xs: 
     if (lane == 0) a.decay[((long long)b * a.nz + z) * a.H + h] = expf(last);
   }
   __syncthreads();
-  store_tile(xv, P / 4, a.cp, Xs, Cfg<NP>::XTILE, XS, wts);
-  store_tile(bv, Q, a.cp, Bs, Cfg<NP>::NTILE, RS);
+  store_tile<T>(xv, P / 4, a.cp, Xs, Cfg<NP, T>::XTILE, XS, wts);
+  store_tile<T>(bv, Q, a.cp, Bs, Cfg<NP, T>::NTILE, RS);
   __syncthreads();
 
   // state[p][n] = sum_s (x w)[s][p] B[s][n]: A = (x w)^T, B = B, both read
@@ -325,33 +334,33 @@ __device__ __forceinline__ void states_block(const Args& a, bf16* Xs) {  // Xs: 
   float acc[4][UP][2][4] = {};
   const uint32_t xbase = smem_u32(Xs), bbase = smem_u32(Bs);
   for (int ks = 0; ks < a.cp / 16; ++ks) {
-    uint32_t bf[UP][TERMS][4];
+    uint32_t bf[UP][T][4];
 #pragma unroll
     for (int u = 0; u < UP; ++u)
 #pragma unroll
-      for (int k = 0; k < TERMS; ++k)
-        ldsm_x4_trans(bbase + 2 * (k * Cfg<NP>::NTILE
+      for (int k = 0; k < T; ++k)
+        ldsm_x4_trans(bbase + 2 * (k * Cfg<NP, T>::NTILE
                                    + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * RS
                                    + 16 * (wp + WP * u) + ((lane >> 4) & 1) * 8), bf[u][k]);
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int mt = wm + WM * v;
       if (mt >= MT) break;
-      uint32_t af[TERMS][4];
+      uint32_t af[T][4];
 #pragma unroll
-      for (int k = 0; k < TERMS; ++k)
-        ldsm_x4_trans(xbase + 2 * (k * Cfg<NP>::XTILE
+      for (int k = 0; k < T; ++k)
+        ldsm_x4_trans(xbase + 2 * (k * Cfg<NP, T>::XTILE
                                    + (16 * ks + (lane & 7) + ((lane >> 4) & 1) * 8) * XS
                                    + 16 * mt + ((lane >> 3) & 1) * 8), af[k]);
 #pragma unroll
       for (int u = 0; u < UP; ++u) {
-        uint32_t b0[TERMS], b1[TERMS], b2[TERMS], b3[TERMS];
+        uint32_t b0[T], b1[T], b2[T], b3[T];
 #pragma unroll
-        for (int k = 0; k < TERMS; ++k) {
+        for (int k = 0; k < T; ++k) {
           b0[k] = bf[u][k][0]; b1[k] = bf[u][k][1]; b2[k] = bf[u][k][2]; b3[k] = bf[u][k][3];
         }
-        mma_terms(acc[v][u][0], af, b0, b1);
-        mma_terms(acc[v][u][1], af, b2, b3);
+        mma_terms<T>(acc[v][u][0], af, b0, b1);
+        mma_terms<T>(acc[v][u][1], af, b2, b3);
       }
     }
   }
@@ -376,13 +385,13 @@ __device__ __forceinline__ void states_block(const Args& a, bf16* Xs) {  // Xs: 
 }
 
 // (a) and (b) in one launch: blocks y < H take (b), the rest (a)
-template <int NP>
+template <int NP, int T>
 __global__ void __launch_bounds__(NT) ssd_scan_chunk_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   if (blockIdx.y < a.H)
-    states_block<NP>(a, reinterpret_cast<bf16*>(smem4));
+    states_block<NP, T>(a, reinterpret_cast<bf16*>(smem4));
   else
-    scores_block<NP>(a, reinterpret_cast<bf16*>(smem4));
+    scores_block<NP, T>(a, reinterpret_cast<bf16*>(smem4));
 }
 
 // ---- (c) the state pass across chunks --------------------------------------
@@ -420,14 +429,14 @@ __global__ void __launch_bounds__(256) ssd_scan_pass_kernel(const Args a) {
 }
 
 // ---- (d) y = exp(acum_t) C h_in^T + M x ------------------------------------
-template <int NP>
+template <int NP, int T>
 __global__ void __launch_bounds__(NT) ssd_scan_y_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   bf16* Xs = reinterpret_cast<bf16*>(smem4);  // x, [s][p]
-  bf16* Hs = Xs + TERMS * Cfg<NP>::XTILE;      // h_in, [p][n]
-  float* acum = reinterpret_cast<float*>(Hs + TERMS * Cfg<NP>::NTILE);
+  bf16* Hs = Xs + T * Cfg<NP, T>::XTILE;      // h_in, [p][n]
+  float* acum = reinterpret_cast<float*>(Hs + T * Cfg<NP, T>::NTILE);
   float* dts = acum + CMAX;
-  constexpr int RS = Cfg<NP>::RS;
+  constexpr int RS = Cfg<NP, T>::RS;
   const int z = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (a.H / a.G);
   const int c = a.chunk, P = a.P, N = a.N;
@@ -444,8 +453,8 @@ __global__ void __launch_bounds__(NT) ssd_scan_y_kernel(const Args a) {
     if (warp == 0)
       chunk_prefix(load_dt(a.dt + b * a.sdb + s0 * a.sds + h * a.sdh, a.sds, c), a.A[h], c,
                    acum, dts);
-    store_tile(xv, P / 4, a.cp, Xs, Cfg<NP>::XTILE, XS);
-    if (z > 0) store_tile(hv, Q, P, Hs, Cfg<NP>::NTILE, RS);
+    store_tile<T>(xv, P / 4, a.cp, Xs, Cfg<NP, T>::XTILE, XS);
+    if (z > 0) store_tile<T>(hv, Q, P, Hs, Cfg<NP, T>::NTILE, RS);
   }
   // this thread's rows t0, t1 of the chunk; its pairs of fragment columns
   // start at q2 and q2 + 8.  Its C values (the A operand of the inter-chunk
@@ -487,32 +496,32 @@ __global__ void __launch_bounds__(NT) ssd_scan_y_kernel(const Args a) {
     // shared memory
 #pragma unroll
     for (int ks = 0; ks < NP / 16; ++ks) {
-      uint32_t af[TERMS][4];
+      uint32_t af[T][4];
       {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          uint32_t tt[TERMS];
-          split_pair(cf[ks][e].x, cf[ks][e].y, tt);
+          uint32_t tt[T];
+          split_pair<T>(cf[ks][e].x, cf[ks][e].y, tt);
 #pragma unroll
-          for (int k = 0; k < TERMS; ++k) af[k][e] = tt[k];
+          for (int k = 0; k < T; ++k) af[k][e] = tt[k];
         }
       }
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         if (jp >= npair) break;
-        uint32_t bf[TERMS][4];
+        uint32_t bf[T][4];
 #pragma unroll
-        for (int k = 0; k < TERMS; ++k)
-          ldsm_x4(hbase + 2 * (k * Cfg<NP>::NTILE
+        for (int k = 0; k < T; ++k)
+          ldsm_x4(hbase + 2 * (k * Cfg<NP, T>::NTILE
                                + (16 * jp + (lane & 7) + ((lane >> 4) & 1) * 8) * RS
                                + 16 * ks + ((lane >> 3) & 1) * 8), bf[k]);
-        uint32_t b0[TERMS], b1[TERMS], b2[TERMS], b3[TERMS];
+        uint32_t b0[T], b1[T], b2[T], b3[T];
 #pragma unroll
-        for (int k = 0; k < TERMS; ++k) {
+        for (int k = 0; k < T; ++k) {
           b0[k] = bf[k][0]; b1[k] = bf[k][1]; b2[k] = bf[k][2]; b3[k] = bf[k][3];
         }
-        mma_terms(acc[jp][0], af, b0, b1);
-        mma_terms(acc[jp][1], af, b2, b3);
+        mma_terms<T>(acc[jp][0], af, b0, b1);
+        mma_terms<T>(acc[jp][1], af, b2, b3);
       }
     }
     const float e0 = t0 < c ? expf(acum[t0]) : 0.f;
@@ -533,7 +542,7 @@ __global__ void __launch_bounds__(NT) ssd_scan_y_kernel(const Args a) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     if (ks > warp) break;
-    uint32_t af[TERMS][4];
+    uint32_t af[T][4];
     {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -543,28 +552,28 @@ __global__ void __launch_bounds__(NT) ssd_scan_y_kernel(const Args a) {
           m0 = sf[ks][e].x * expf(acum[t] - acum[s]) * dts[s];
           if (s + 1 <= t) m1 = sf[ks][e].y * expf(acum[t] - acum[s + 1]) * dts[s + 1];
         }
-        uint32_t tt[TERMS];
-        split_pair(m0, m1, tt);
+        uint32_t tt[T];
+        split_pair<T>(m0, m1, tt);
 #pragma unroll
-        for (int k = 0; k < TERMS; ++k) af[k][e] = tt[k];
+        for (int k = 0; k < T; ++k) af[k][e] = tt[k];
       }
     }
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       if (jp >= npair) break;
-      uint32_t bf[TERMS][4];
+      uint32_t bf[T][4];
 #pragma unroll
-      for (int k = 0; k < TERMS; ++k)
-        ldsm_x4_trans(xbase + 2 * (k * Cfg<NP>::XTILE
+      for (int k = 0; k < T; ++k)
+        ldsm_x4_trans(xbase + 2 * (k * Cfg<NP, T>::XTILE
                                    + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * XS
                                    + 16 * jp + ((lane >> 4) & 1) * 8), bf[k]);
-      uint32_t b0[TERMS], b1[TERMS], b2[TERMS], b3[TERMS];
+      uint32_t b0[T], b1[T], b2[T], b3[T];
 #pragma unroll
-      for (int k = 0; k < TERMS; ++k) {
+      for (int k = 0; k < T; ++k) {
         b0[k] = bf[k][0]; b1[k] = bf[k][1]; b2[k] = bf[k][2]; b3[k] = bf[k][3];
       }
-      mma_terms(acc[jp][0], af, b0, b1);
-      mma_terms(acc[jp][1], af, b2, b3);
+      mma_terms<T>(acc[jp][0], af, b0, b1);
+      mma_terms<T>(acc[jp][1], af, b2, b3);
     }
   }
 
@@ -597,16 +606,28 @@ cudaError_t launch_smem(K kern, dim3 grid, int threads, int smem, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <int NP>
+template <int NP, int T>
 cudaError_t launch_all(const Args& a, cudaStream_t stream) {
-  cudaError_t err = launch_smem(ssd_scan_chunk_kernel<NP>, dim3(a.nz, a.H + 4 * a.G, a.B), NT,
-                                Cfg<NP>::CHUNK_SMEM, stream, a);
+  cudaError_t err = launch_smem(ssd_scan_chunk_kernel<NP, T>, dim3(a.nz, a.H + 4 * a.G, a.B), NT,
+                                Cfg<NP, T>::CHUNK_SMEM, stream, a);
   if (err != cudaSuccess) return err;
   const long long n4 = (long long)a.B * a.H * a.P * a.N / 4;
   err = launch_smem(ssd_scan_pass_kernel, dim3((unsigned)((n4 + 255) / 256)), 256, 0, stream, a);
   if (err != cudaSuccess) return err;
-  return launch_smem(ssd_scan_y_kernel<NP>, dim3(a.nz, a.H, a.B), NT, Cfg<NP>::CHUNK_SMEM,
+  return launch_smem(ssd_scan_y_kernel<NP, T>, dim3(a.nz, a.H, a.B), NT, Cfg<NP, T>::CHUNK_SMEM,
                      stream, a);
+}
+
+template <int T>
+cudaError_t dispatch_n(const Args& a, cudaStream_t s) {
+  switch (a.N) {
+    case 8:
+    case 16: return launch_all<16, T>(a, s);
+    case 32: return launch_all<32, T>(a, s);
+    case 64: return launch_all<64, T>(a, s);
+    case 128: return launch_all<128, T>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -617,17 +638,18 @@ cudaError_t launch_all(const Args& a, cudaStream_t stream) {
 // contiguous fp32, state [B, H, P, N] fp32 contiguous.  Scratch, contiguous
 // fp32: scores [B, S/chunk, G, cp, cp] (cp = chunk rounded up to 16), decay
 // [B, S/chunk, H], states [B, S/chunk, H, P, N].  P in {16, 32, 64}, N in
-// {8, 16, 32, 64, 128}, 1 <= chunk <= 64 dividing S.  Launches three kernels
-// on the stream; returns the first launch error (cudaGetLastError()).
+// {8, 16, 32, 64, 128}, 1 <= chunk <= 64 dividing S.  terms: bf16 terms of
+// every fp32 operand, 2 or 3.  Launches three kernels on the stream; returns
+// the first launch error (cudaGetLastError()).
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                         const void* Cm, void* y, void* state, void* scores, void* decay,
                         void* states, int B, int S, int H, int P, int G, int N, int chunk,
                         long long sxb, long long sxs, long long sxh, long long sdb,
                         long long sds, long long sdh, long long sbb, long long sbs,
                         long long sbg, long long scb, long long scs, long long scg,
-                        void* stream) {
+                        int terms, void* stream) {
   if (P % 16 || P < 16 || P > PMAX || chunk < 1 || chunk > CMAX || S % chunk || G < 1 ||
-      H % G)
+      H % G || terms < 2 || terms > 3)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const float*>(x);
@@ -651,12 +673,5 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void
   a.sbb = sbb; a.sbs = sbs; a.sbg = sbg;
   a.scb = scb; a.scs = scs; a.scg = scg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 8:
-    case 16: return (int)launch_all<16>(a, s);
-    case 32: return (int)launch_all<32>(a, s);
-    case 64: return (int)launch_all<64>(a, s);
-    case 128: return (int)launch_all<128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(terms == 2 ? dispatch_n<2>(a, s) : dispatch_n<3>(a, s));
 }

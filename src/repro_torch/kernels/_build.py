@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan")
+SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -140,10 +141,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_decode_combine.restype = i
     elif name == "ssd_scan":
         # x dt A Bm Cm y state scores decay states B S H P G N chunk, the
-        # (batch, seq, head) strides of x, dt, Bm, Cm, stream
+        # (batch, seq, head) strides of x, dt, Bm, Cm, terms, stream
         ll = ctypes.c_longlong
-        lib.ssd_scan.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [i, p]
         lib.ssd_scan.restype = i
+    elif name == "ssd_scan_bwd":
+        # x dt A Bm Cm dy dstate dx ddt dA dBm dCm states grads decay dBp dCp
+        # dAp B S H P G N chunk, the (batch, seq, head) strides of x, dt, Bm,
+        # Cm, stream
+        ll = ctypes.c_longlong
+        lib.ssd_scan_bwd.argtypes = [p] * 18 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan_bwd.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

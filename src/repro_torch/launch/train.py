@@ -4,6 +4,10 @@
         [--device cpu] [--reduced] [--steps 100] [--seq 128] [--batch 8] \
         [--ckpt-dir DIR] [--docs N] [--fake-devices 8 --attn mesh --tile-a 2]
 
+Every arch of ``configs`` trains: the dense and MoE decoders, and the SSM and
+hybrid ones (mamba2-370m, hymba-1.5b: the SSD scan's forward #5 and
+backward #5b on the card).
+
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
 plain PyTorch versions.  ``--fake-devices N`` is JAX's emulated device
 count: with N >= 8 JAX builds a (data 2, model 4) mesh, and the port builds
@@ -11,7 +15,8 @@ its sequence axis -- a virtual ring of 4 ranks in this process, with
 ``block_q = block_kv = 16`` -- and keeps the batch whole (data parallelism
 is not ported).  ``--attn`` (mesh | ring | ulysses) and ``--tile-a`` then
 configure that ring's attention; with N < 8 there is no ring and attention
-runs local flash, as in JAX.  ``--compress`` and ``--multi-pod`` need
+runs local flash, as in JAX.  The SSM and hybrid archs shard their sequence
+contiguously over the ring (the sharded SSD scan), the others striped.  ``--compress`` and ``--multi-pod`` need
 several processes and raise.
 """
 

@@ -3,8 +3,11 @@
 
 Prefill runs the chunked scan through ``kernels.ssd_scan.ssd_scan_fwd`` (the
 CUDA kernel on the card, the plain chunked dual form on the CPU), where JAX
-runs its jnp ``_ssd_chunked``.  Decode is the O(1) state recurrence in plain
-PyTorch, as in JAX, with the states replicated over the ring.
+runs its jnp ``_ssd_chunked``.  Training differentiates the same call: under
+autograd it goes through ``_SSDScan``, whose backward is kernel #5b
+(``ssd_scan_bwd``), where JAX takes ``jax.grad`` of its jnp scan.  Decode is
+the O(1) state recurrence in plain PyTorch, as in JAX, with the states
+replicated over the ring.
 
 Sequence parallelism (``ctx.sp_size`` n > 1), JAX's ``_ssm_core(...,
 axis_name, n)``: the sequence is sharded contiguously over the n ranks of
@@ -28,7 +31,13 @@ axis_name, n)``: the sequence is sharded contiguously over the n ranks of
 The code speaks only to the transport (``split``, ``hop``,
 ``gather_ranks``, ``join``), so one function runs R = n ranks on a
 ``VirtualRing`` and R = 1 on a ``ProcessGroupRing``.  At n = 1 the block
-is the one-rank code: no split and no exchange.
+is the one-rank code: no split and no exchange.  On a ``VirtualRing`` the
+block is differentiable end to end: the hops are index copies (the
+``serial`` mode) and the gather a view, so gradients flow back through the
+halo and the prefix, and the scan's final states, which feed the prefix,
+hand #5b a nonzero gradient of the final state.  Over a
+``ProcessGroupRing`` no gradient crosses processes (training with one rank
+per process is not ported).
 
 Layouts are JAX's: the fused input projection splits into (z, x, B, C, dt);
 x is [B, S, H, P] and B, C are [B, S, G, N], handed to the scan as views

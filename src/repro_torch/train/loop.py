@@ -10,9 +10,10 @@ Fault-tolerance model, as in JAX:
     consumes the identical stream.
 
 Sequence parallelism runs in one process: with ``ctx.sp_size > 1`` the
-batch comes striped and every attention call runs the mesh / ring / ulysses
-executor over the context's ring (a ``VirtualRing`` on one card), while the
-rest of the model sees the whole sequence.  What needs several processes
+batch comes striped (contiguous for the SSM and hybrid archs, whose SSD
+scan is sharded over the ring) and every attention call runs the mesh /
+ring / ulysses executor over the context's ring (a ``VirtualRing`` on one
+card), while the rest of the model sees the whole sequence.  What needs several processes
 raises or is absent: cross-pod gradient compression
 (``TrainConfig.compression``), the gradient all-reduce over sequence ranks
 of a multi-process ring, and the elastic re-meshing restart

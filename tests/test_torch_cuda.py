@@ -875,15 +875,22 @@ def _ssd_check(got, want):
         assert float((g.float() - w.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("autograd", [False, True], ids=["serving", "autograd"])
 @pytest.mark.parametrize("case", list(SSD_CASES))
-def test_ssd_scan_matches_plain(dev, case):
+def test_ssd_scan_matches_plain(dev, case, autograd):
+    """Outside autograd the kernel's serving split, under it the training
+    forward's (AUTOGRAD_TERMS), each against the plain version."""
     B, S, H, P, G, N, chunk = SSD_CASES[case]
     args = _ssd_inputs(B, S, H, P, G, N, dev)
-    before = ssd.ssd_scan_fwd.launches
-    got = ssd.ssd_scan_fwd(*args, chunk=chunk)
+    if autograd:
+        args = [t.requires_grad_(True) for t in args]
+    before = ssd.ssd_scan_fwd.launches, ssd.ssd_scan_fwd.launches_autograd
+    got = [t.detach() for t in ssd.ssd_scan_fwd(*args, chunk=chunk)]
     torch.cuda.synchronize()
-    assert ssd.ssd_scan_fwd.launches == before + 1
-    _ssd_check(got, ssd.ssd_scan_plain(*args, chunk=chunk))
+    assert (ssd.ssd_scan_fwd.launches, ssd.ssd_scan_fwd.launches_autograd) == \
+        (before[0] + 1, before[1] + autograd)
+    with torch.no_grad():
+        _ssd_check(got, ssd.ssd_scan_plain(*args, chunk=chunk))
     assert got[0].dtype == torch.float32 and got[1].shape == (B, H, P, N)
 
 
@@ -921,8 +928,45 @@ def test_ssd_scan_refuses_other_shapes(dev):
     args = _ssd_inputs(1, 256, 2, 64, 1, 16, dev)
     with pytest.raises(ValueError):
         ssd.ssd_scan_fwd(*args, chunk=128)  # chunks of at most 64
-    with pytest.raises(NotImplementedError):
-        ssd.ssd_scan_fwd(args[0].requires_grad_(True), *args[1:], chunk=64)
+    # the kernel takes autograd inputs: its backward is #5b
+    x = args[0].clone().requires_grad_(True)
+    before = ssd.ssd_scan_bwd.launches
+    ssd.ssd_scan_fwd(x, *args[1:], chunk=64)[0].sum().backward()
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == before + 1 and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("case,dstate", [
+    pytest.param(case, dstate, id=case + ("-dstate" if dstate else ""))
+    for case, dstate in (("mamba2_2048", False), ("mamba2_short", False), ("hymba_1024", False),
+                         ("batch4_512", True), ("reduced", True), ("groups", True))
+])
+def test_ssd_scan_bwd_matches_plain(dev, case, dstate):
+    """#5b against ssd_scan_bwd_plain: each gradient within 1e-4 of its
+    largest |value| (fp32 sums in another order), a repeat bitwise equal;
+    and autograd through ssd_scan_fwd launches it once."""
+    B, S, H, P, G, N, chunk = SSD_CASES[case]
+    args = _ssd_inputs(B, S, H, P, G, N, dev, seed=5)
+    rng = np.random.default_rng(6)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32)).to(dev)
+    ds = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(np.float32)).to(dev) \
+        if dstate else None
+    before = ssd.ssd_scan_bwd.launches
+    got = ssd.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    again = ssd.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == before + 2
+    want = ssd.ssd_scan_bwd_plain(*args, dy, ds, chunk)
+    for g, a, w in zip(got, again, want):
+        assert torch.isfinite(g).all() and torch.equal(g, a)
+        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y, st = ssd.ssd_scan_fwd(*leaves, chunk=chunk)
+    ((y * dy).sum() + (0 if ds is None else (st * ds).sum())).backward()
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_bwd.launches == before + 3
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
 
 
 @pytest.mark.parametrize("arch,sp", [

@@ -8,8 +8,9 @@ sum_s (x_s w_s) B_s^T with w_s = exp(acum_last - acum_s) dt_s, (c) the
 state pass across chunks in fp32, (d) y = exp(acum_t) C h_in^T + M x with the
 decay-weighted scores M = scores * exp(acum_t - acum_s) * dt_s formed in
 fp32 for s <= t (0 by selection elsewhere).  Every fp32 operand -- x, x w,
-B, C, M and h_in -- goes in as ``TERMS`` bf16 terms (hi + lo), and each
-product runs the term pairs i + j < max(terms of its two operands).
+B, C, M and h_in -- goes in as ``TERMS`` bf16 terms (hi + lo) outside
+autograd, ``AUTOGRAD_TERMS`` under it, and each product runs the term pairs
+i + j < max(terms of its two operands).
 
 This file repeats that arithmetic in PyTorch -- the four passes in the
 kernel's order, each operand rounded into its bf16 terms with
@@ -20,7 +21,9 @@ the same numpy inputs: the Pallas ``ssd_scan_fwd`` in interpret mode (at
 moderate dt: it returns NaN once a chunk's sum of dt*|A| passes ~88),
 ``repro.models.ssm.ssd_scan`` and the sequential oracle
 ``repro.kernels.ref.ssd_ref``.  It also shows that one term fewer of any
-operand breaks that gate, so the kernel's term count is needed.
+operand breaks that gate, so the kernel's term count is needed, and that
+the training forward's third term brings the split to the plain fp32
+chunked form's own distance from the sequential oracle.
 
 The emulation sums in round-to-nearest fp32 in its own order (and the
 prefix sum of dt*A sequentially, where the kernel scans a warp's lanes);
@@ -41,10 +44,13 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan_fwd as jssd_kernel
 from repro.models import ssm as jssm
+from repro_torch.kernels import ssd_scan as tssd
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# bf16 terms of every fp32 operand, as csrc/ssd_scan.cu compiles them
-TERMS = 2
+# bf16 terms of every fp32 operand, as kernels/ssd_scan.py passes them to
+# csrc/ssd_scan.cu: outside autograd (serving) and under it (training)
+TERMS = tssd.TERMS
+AUTOGRAD_TERMS = tssd.AUTOGRAD_TERMS
 OPERANDS = ("x", "bc", "m", "h")  # x (and x w), B and C, M, h_in
 
 
@@ -59,11 +65,15 @@ SSD_REL_TOL = _smoke_ssd_tol()
 
 
 def test_term_counts_match_the_kernel_source():
-    """The count emulated here is the one csrc/ssd_scan.cu compiles, and the
-    kernel's products run the same term pairs."""
+    """The counts emulated here are the ones csrc/ssd_scan.cu compiles, and
+    the kernel's products run the same term pairs."""
     src = open(os.path.join(ROOT, "src/repro_torch/csrc/ssd_scan.cu")).read()
-    assert int(re.search(r"constexpr int TERMS = (\d+);", src).group(1)) == TERMS
-    assert "if (i + j < TERMS) mma_bf16(d, a[i], b0[j], b1[j]);" in src
+    compiled = re.search(r"return \(int\)\(terms == (\d) \? dispatch_n<(\d)>\(a, s\) : "
+                         r"dispatch_n<(\d)>\(a, s\)\);", src)
+    assert compiled and int(compiled.group(1)) == int(compiled.group(2))
+    assert {int(compiled.group(2)), int(compiled.group(3))} == {TERMS, AUTOGRAD_TERMS}
+    assert (TERMS, AUTOGRAD_TERMS) == (2, 3)
+    assert "if (i + j < T) mma_bf16(d, a[i], b0[j], b1[j]);" in src
     assert SSD_REL_TOL == 1e-4
 
 
@@ -230,3 +240,21 @@ def test_one_term_fewer_breaks_the_gate(operand):
     ratios = _ratios(arrays, chunk, "sequential", {"kernel": KERNEL, "cheaper": cheaper})
     assert ratios["kernel"] <= 1.0, ratios
     assert ratios["cheaper"] > 2.0, ratios
+
+
+# the training forward's split against the serving one and against the plain
+# fp32 chunked form, each to the sequential oracle.  Readings of this
+# emulation: three terms 0.0013-0.011 of the gate, the plain form
+# 0.0012-0.011, two terms 0.05-0.10
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_autograd_terms_reach_the_plain_form(shape):
+    B, S, H, P, G, N, chunk = SHAPES[shape]
+    arrays = _inputs(S + 7 * H, B, S, H, P, G, N)
+    training = {op: AUTOGRAD_TERMS for op in OPERANDS}
+    ratios = _ratios(arrays, chunk, "sequential", {"kernel": KERNEL, "training": training})
+    want_y, want_st = _reference("sequential", arrays, chunk)
+    y, st = tssd.ssd_scan_plain(*[torch.from_numpy(a) for a in arrays], chunk=chunk)
+    tol = SSD_REL_TOL * max(1.0, float(want_y.abs().max()))
+    plain = max(float((y - want_y).abs().max()), float((st - want_st).abs().max())) / tol
+    assert ratios["training"] <= min(0.02, 2 * plain), (ratios, plain)
+    assert ratios["kernel"] >= 5 * ratios["training"], (ratios, plain)

@@ -9,7 +9,10 @@ H 32, P 64, N 128, chunk 64) and hymba-1.5b's (B 1, S 1024, H 50, P 64, N 16),
 fp32 inputs as the model gives them (seeded random data).  For each it
 prints one JSON line: the device ms per call of the SSD kernels under
 torch.profiler with the L2 cache flushed before each call (in all and by
-kernel), and the call's ms by CUDA events, also L2 flushed.  Then it serves
+kernel), and the call's ms by CUDA events, also L2 flushed.  The same for
+the scan's backward ``ssd_scan_bwd`` (#5b) at those rows and at the train
+rows (mamba2 B 4 x 4096, hymba B 2 x 4096), with a random dy; a tree
+without the backward prints one line that says so.  Then it serves
 mamba2-370m at full width and depth (bf16, seeded random weights, dense
 cache, max_seq 2048, 8 slots) and profiles ``--prefill-reps`` prefill launches
 of ``--prefill`` tokens, one request at a time: device ms per kernel class
@@ -31,6 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def kernel_class(name: str) -> str:
+    if "ssd_bwd_" in name:  # the backward's four kernels
+        return "ssd_scan_bwd"
     if "ssd_scan" in name:  # this tree's four kernels; the parent's one
         return "ssd_scan_fwd"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "matmul")):
@@ -76,7 +81,7 @@ def main():
             ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / per
             cls = kernel_class(ev.key)
             by_class[cls] = by_class.get(cls, 0.0) + ms
-            if cls == "ssd_scan_fwd":
+            if cls.startswith("ssd_scan"):
                 by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + ms
         return by_class, by_kernel
 
@@ -84,11 +89,24 @@ def main():
     gen.manual_seed(0)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows = {"mamba2": (1, 2048, 32, 64, 1, 128, 64), "hymba": (1, 1024, 50, 64, 1, 16, 64)}
-    for row, (B, S, H, P, G, N, chunk) in rows.items():
+    train_rows = {"mamba2_train": (4, 4096, 32, 64, 1, 128, 64),
+                  "hymba_train": (2, 4096, 50, 64, 1, 16, 64)}
+    has_bwd = hasattr(ssd, "ssd_scan_bwd")
+    if not has_bwd:
+        print(json.dumps({"src": src, "card": card, "ssd_scan_bwd": "absent in this tree"}),
+              flush=True)
+    cases = [("ssd_scan_fwd", row, shape) for row, shape in rows.items()]
+    if has_bwd:
+        cases += [("ssd_scan_bwd", row, shape) for row, shape in {**rows, **train_rows}.items()]
+    for kernel, row, (B, S, H, P, G, N, chunk) in cases:
         rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
         x, Bm, Cm = rn(B, S, H, P), rn(B, S, G, N), rn(B, S, G, N)
         dt, A = F.softplus(rn(B, S, H)), -torch.exp(0.5 * rn(H))
-        run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
+        if kernel == "ssd_scan_fwd":
+            run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
+        else:
+            dy = rn(B, S, H, P)
+            run = lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)  # noqa: E731
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -108,8 +126,8 @@ def main():
             times.append(start.elapsed_time(end))
         by_class, by_kernel = device_ms(prof, args.reps)
         print(json.dumps({
-            "src": src, "card": card, "row": row, "B": B, "S": S, "H": H, "P": P, "G": G,
-            "N": N, "chunk": chunk, "ssd_device_ms": by_class.get("ssd_scan_fwd", 0.0),
+            "src": src, "card": card, "kernel": kernel, "row": row, "B": B, "S": S, "H": H,
+            "P": P, "G": G, "N": N, "chunk": chunk, "ssd_device_ms": by_class.get(kernel, 0.0),
             "ssd_device_ms_by_kernel": by_kernel, "events_ms": float(np.median(times)),
         }), flush=True)
     del scratch
