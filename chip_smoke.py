@@ -24,10 +24,15 @@ Phases, each printing one JSON line:
                  packed prefill rows, the decode body at 8 slots, fp32 chunk
                  and verify, the paged decode over a bf16 fp pool and an
                  int8 pool), each
-                 case with the body that ran (the fp32 CUDA-core body, or the bf16 tensor-core tile or
-                 decode body, checked against the wrapper's plan) and its
-                 device time (torch.profiler).  The env line carries ptxas's
-                 registers and spills of the tensor-core kernels.
+                 case with the body that ran (the tensor-core tile or decode
+                 body, in its bf16 or its fp32 instantiation, checked against
+                 the wrapper's plan) and its device time (torch.profiler);
+                 the fp32 cases' bound at the tensor cores' bf16 peak (the
+                 body's own units) with the fp32 CUDA-core bound beside it.
+                 The fp32 forward's pre-pass (its operands as two bf16
+                 terms) against its plain version: bitwise equal terms.  The
+                 env line carries ptxas's registers and spills of the
+                 tensor-core kernels.
                  The backward cases (dQ and dK/dV, both on the tensor cores;
                  fp32 inputs through the split pre-pass) also check the body
                  the wrapper planned and that two launches give
@@ -112,8 +117,8 @@ Phases, each printing one JSON line:
                  mixtral-8x7b with 8 of its 32 layers (93 GB whole) one-shot
                  over the fp pool.  Counters set to 0 before each run: one
                  #4 (or 4q) launch per layer per decode tick, #1 per layer
-                 per prefill, chunk and verify launch (tile body; fp32 body
-                 over the int8 pool).  Rates, pool bytes, peak memory and a
+                 per prefill, chunk and verify launch (tile body; the fp32
+                 bodies over the int8 pool).  Rates, pool bytes, peak memory and a
                  profiled decode tick (expert products, router and shared
                  products, dispatch / combine, attention, idle).  Then the
                  dropless check: qwen2-moe whole in fp32 at capacity factor
@@ -169,7 +174,7 @@ Phases, each printing one JSON line:
                  packed documents, through ``repro_torch.train.loop.fit``.  The
                  counters are set to 0 just before and read just after: the
                  forward kernel must have run 2 x 8 x 6 times (all on the fp32
-                 body), dQ and dK/dV 8 x 6 times each, every backward on the
+                 tile body), dQ and dK/dV 8 x 6 times each, every backward on the
                  fp32 tensor-core body (and its pre-pass).  One more step runs
                  under torch.profiler for the device time per kernel class.
                  Then 2 causal steps with bf16 params: losses finite and near
@@ -231,8 +236,10 @@ Phases, each printing one JSON line:
   10. the kernels line (each kernel's launches now including the mesh_op,
                  train_mesh, serve_ring, serve_moe, serve_ssm_ring,
                  serve_qwen and train_ssm runs; the ranks' combine a row of
-                 its own; #5b's row from train_ssm), the card line, and the
-                 final line
+                 its own; #5b's row from train_ssm; the fp32 forward's
+                 pre-pass a row of its own, counted over the same main-path
+                 runs as the fp32 forward's row, once per launch), the card
+                 line, and the final line
      ``{"ok": true, "device": {...}}``.
 
 Each phase line carries the phase's wall ``seconds``.  The kernels phase also
@@ -314,6 +321,10 @@ from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E4
 # published H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores, no TF32
+# the forward runs on the tensor cores for either input type (fp32 inputs as
+# two bf16 terms): its bounds take the bf16 peak, and its fp32 records keep
+# the bound at the fp32 CUDA-core peak beside it
+FWD_PEAK = PEAK_FLOPS[torch.bfloat16]
 # the backward runs on the tensor cores for either input type: its bounds
 # take the bf16 peak (the fp32 inputs' extra term products are the kernel's
 # own cost, not the function's)
@@ -348,7 +359,6 @@ COMBINE_TOLS = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2**-7)}
 LSE_TOL = 1e-4
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
-FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"  # the fp32 body
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:153"
 BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
 BWD_BODIES = ("tc_fp32", "tc_bf16")
@@ -500,15 +510,19 @@ def randn(gen, *shape, dtype):
 # --------------------------------------------------------------------------
 
 
+# the forward's launches by input type and body: "tile" and "decode" count
+# the bf16 bodies, "fp32" both fp32 ones (the gates' keys)
 FWD_BODIES = ("tile", "decode", "fp32")
+# the bodies ``_fwd_plan`` names: each body in each input type
+FWD_PLAN_BODIES = ("tile", "decode", "tile_fp32", "decode_fp32")
 
 
-def fwd_body_counts():
-    return {b: getattr(fa.flash_attention_fwd, f"launches_{b}") for b in FWD_BODIES}
+def fwd_body_counts(bodies=FWD_BODIES):
+    return {b: getattr(fa.flash_attention_fwd, f"launches_{b}") for b in bodies}
 
 
 def fwd_body_delta(before):
-    return {b: n - before[b] for b, n in fwd_body_counts().items()}
+    return {b: n - before[b] for b, n in fwd_body_counts(tuple(before)).items()}
 
 
 def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
@@ -553,7 +567,7 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     plain_band = band if not isinstance(band, torch.Tensor) else tuple(band[:, i] for i in range(4))
     run = lambda: fa.flash_attention_fwd(q, k, v, band, **kw)  # noqa: E731
     plain = lambda: ref.attention_ref(q, k, v, band=plain_band, **kw)  # noqa: E731
-    before = fwd_body_counts()
+    before = fwd_body_counts(FWD_PLAN_BODIES)
     o, lse = run()
     body = [b for b, n in fwd_body_delta(before).items() if n]
     o_ref, lse_ref = plain()
@@ -587,7 +601,7 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     nbytes = (2 * q.numel() + 2 * visible_keys * nkv * hd) * item + lse.numel() * 4 \
         + (2 * seg.numel() * 4 if seg is not None else 0)
     flops = 4 * hd * nh * visible_pairs
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, dtype, FWD_PEAK)
     tol = TOLS[("flash_attention_fwd", dtype)]
     device_ms, _ = device_time(_profiled(run, 5), per=5)
     rec = dict(
@@ -600,6 +614,8 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
         bound_ms=bound_ms, bound_by=bound_by, visible_pairs=visible_pairs,
         visible_keys=visible_keys,
     )
+    if dtype == torch.float32:
+        rec["bound_ms_fp32_cores"], rec["bound_by_fp32_cores"] = bound(nbytes, flops, dtype)
     want_body = fa._fwd_plan(B, Sq, nh, nkv, hd, dtype)[0]
     check(body == [want_body], f"flash_attention_fwd ran {body}, not the {want_body} body: {rec}")
     check(err <= tol and err_lse <= LSE_TOL and empty_exact,
@@ -1168,6 +1184,30 @@ def split_case(S, gen):
     return rec
 
 
+def fwd_split_case(S, gen):
+    """The fp32 forward's pre-pass at the training row's operands (granite
+    heads, S tokens) against its plain version: bitwise equal terms."""
+    xs = [randn(gen, 1, S, h, D, dtype=torch.float32) for h in (H, HKV, HKV)]
+    run = lambda: fa.fwd_split_terms(*xs)  # noqa: E731
+    plain = lambda: tuple(fa.split_terms_ref(x) for x in xs)  # noqa: E731
+    before = fa.fwd_split_terms.launches
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    launched = fa.fwd_split_terms.launches - before
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    n = sum(x.numel() for x in xs)
+    bound_ms, bound_by = bound(n * (4 + 2 * 2), 0, torch.float32)  # fp32 in, two bf16 out
+    device_ms, _ = device_time(_profiled(run, 5), per=5)
+    rec = dict(kernel="flash_fwd_split", S=S, dtype="fp32", max_abs_err=err, exact=exact,
+               launched=launched, ms=time_ms(run),
+               device_ms=device_ms.get("flash_attention_fwd", 0.0), plain_ms=time_ms(plain),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    del got, want, xs
+    check(launched == 1 and exact, f"flash_fwd_split disagrees with its plain version: {rec}")
+    return rec
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the engine
 # --------------------------------------------------------------------------
@@ -1453,7 +1493,7 @@ def full_serve_quant(card):
         ))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_fwd.launches = fa.fwd_split_terms.launches = 0
         pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
         bodies0 = fwd_body_counts()
         t0 = time.perf_counter()
@@ -1461,6 +1501,7 @@ def full_serve_quant(card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                    "fwd_split": fa.fwd_split_terms.launches,
                     "paged_flash_decode": pk.paged_flash_decode.launches,
                     "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches}
         bodies = fwd_body_delta(bodies0)
@@ -1513,6 +1554,9 @@ def full_serve_quant(card):
         if any(bodies[b] != n for b, n in want.items()) \
                 or sum(bodies.values()) != launches["flash_attention_fwd"]:
             problems.append(f"serve_quant {kv_dtype}: flash bodies {bodies}, want {want}")
+        if launches["fwd_split"] != bodies["fp32"]:
+            problems.append(f"serve_quant {kv_dtype}: the fp32 pre-pass not once per fp32 "
+                            f"forward: {launches}, {bodies}")
         used, unused = (("paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
                         else ("paged_flash_decode_quant", "paged_flash_decode"))
         if not (launches[unused] == 0
@@ -1545,6 +1589,7 @@ def _kernel_counts():
             "paged_flash_decode": pk.paged_flash_decode.launches,
             "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches,
             "paged_decode_combine": pk.split_combine.launches,
+            "fwd_split": fa.fwd_split_terms.launches,
             **{f"fwd_{b}": n for b, n in fwd_body_counts().items()}}
 
 
@@ -1648,7 +1693,9 @@ def slice_ring(cpu_runs):
         if not c["pages_in_use"] == c["scale_entries_in_use"] == c["dequant_fallbacks"] == 0:
             problems.append(f"slice_ring {cache}: pages or scales left, or a fallback: {c}")
         if card["launches"]["fwd_fp32"] != card["launches"]["flash_attention_fwd"]:
-            problems.append(f"slice_ring {cache}: an fp32 flash launch off the fp32 body")
+            problems.append(f"slice_ring {cache}: an fp32 flash launch off the fp32 bodies")
+        if card["launches"]["fwd_split"] != card["launches"]["fwd_fp32"]:
+            problems.append(f"slice_ring {cache}: the fp32 pre-pass not once per fp32 forward")
     del params
     torch.cuda.empty_cache()
     emit({"phase": "slice_ring", "arch": "granite-8b", "num_layers": 2, "dtype": "fp32",
@@ -1988,7 +2035,7 @@ def serve_pressure(card, quant_runs, quant_streams):
         for f in flips:
             if f["gap_to_roomy"] > RING_NEAR_TIE:
                 problems.append(f"{tag}: a flip beyond a near-tie: {f}")
-        # per layer one #1 launch per chunk launch (tile body; fp32 body over
+        # per layer one #1 launch per chunk launch (tile body; fp32 bodies over
         # the int8 pool's view) and one #4 / 4q launch per decode launch
         chunk_body, decode_kernel, other = (
             ("fwd_tile", "paged_flash_decode", "paged_flash_decode_quant") if kv_dtype == "fp"
@@ -1998,6 +2045,8 @@ def serve_pressure(card, quant_runs, quant_streams):
                 decode_kernel: L * rec["decode_launches"], other: 0}
         if {k: launches[k] for k in want} != want or not rec["decode_launches"]:
             problems.append(f"{tag}: launches {launches}, want {want}")
+        if launches["fwd_split"] != launches["fwd_fp32"]:
+            problems.append(f"{tag}: the fp32 pre-pass not once per fp32 forward: {launches}")
         if name in ("fp", "int8"):
             for k, v in launches.items():
                 main[k] = main.get(k, 0) + v
@@ -2730,7 +2779,7 @@ def _serve_full_run(cfg, params, serve, lengths, arrivals, profile, phase="serve
     skip = eng.tick_stats()["ticks"]
     engine0 = (eng.prefill_launches, eng.decode_launches, eng.chunk_launches,
                eng.verify_launches)
-    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.launches = fa.fwd_split_terms.launches = 0
     pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
     bodies0 = fwd_body_counts()
     t0 = time.perf_counter()
@@ -2738,6 +2787,7 @@ def _serve_full_run(cfg, params, serve, lengths, arrivals, profile, phase="serve
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "fwd_split": fa.fwd_split_terms.launches,
                 "paged_flash_decode": pk.paged_flash_decode.launches,
                 "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches}
     bodies = fwd_body_delta(bodies0)
@@ -2788,11 +2838,13 @@ def _serve_full_run(cfg, params, serve, lengths, arrivals, profile, phase="serve
         problems.append(f"{tag}: #1 launched {launches['flash_attention_fwd']} times, want "
                         f"{want_flash} ({L} x {engine})")
     # bf16 prefill on the tile body; a quantized pool's chunks and verifies
-    # on the fp32 body (its dequantized view is fp32)
+    # on the fp32 bodies (its dequantized view is fp32)
     want_bodies = ({"tile": 0, "decode": 0, "fp32": want_flash} if quant
                    else {"tile": want_flash, "decode": 0, "fp32": 0})
     if bodies != want_bodies:
         problems.append(f"{tag}: flash bodies {bodies}, want {want_bodies}")
+    if launches["fwd_split"] != bodies["fp32"]:
+        problems.append(f"{tag}: the fp32 pre-pass not once per fp32 forward: {launches}")
     if profile is not None:
         rec["decode_profile"] = profile(eng, cfg)
     del eng
@@ -2923,10 +2975,11 @@ def serve_moe(card):
     check(not problems, "; ".join(problems))
     # the main runs' launches, for the kernels line
     total = {"flash_attention_fwd (tile)": 0, "flash_attention_fwd (fp32)": 0,
-             "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
+             "flash_fwd_split": 0, "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
     for launches, bodies in counted.values():
         total["flash_attention_fwd (tile)"] += bodies["tile"]
         total["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        total["flash_fwd_split"] += launches["fwd_split"]
         total["paged_flash_decode"] += launches["paged_flash_decode"]
         total["paged_flash_decode_quant"] += launches["paged_flash_decode_quant"]
     return total
@@ -2960,7 +3013,7 @@ def serve_qwen(card):
     base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=QWEN_PAGES,
                 cache_dtype=torch.bfloat16)
     runs, problems, counted = {}, [], {"flash_attention_fwd (tile)": 0,
-                                       "flash_attention_fwd (fp32)": 0,
+                                       "flash_attention_fwd (fp32)": 0, "flash_fwd_split": 0,
                                        "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
     for key, extra in (("oneshot_fp", {}),
                        ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
@@ -2977,6 +3030,7 @@ def serve_qwen(card):
         problems += probs
         counted["flash_attention_fwd (tile)"] += bodies["tile"]
         counted["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        counted["flash_fwd_split"] += rec["launches"]["fwd_split"]
         for k in ("paged_flash_decode", "paged_flash_decode_quant"):
             counted[k] += rec["launches"][k]
     del params
@@ -3105,9 +3159,10 @@ def full_train(card):
     hooks = {"on_step": lambda s, m: grad_norms.append(float(m["grad_norm"]))}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.launches = fa.fwd_split_terms.launches = 0
     fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
     bodies0, bwd0 = fwd_body_counts(), bwd_counts()
+    tile_fp32 = fa.flash_attention_fwd.launches_tile_fp32
     runs, last = [], None
     for n, docs in ((steps, None), (steps_docs, 4)):
         last = None  # the previous run's params go before the next run starts
@@ -3120,6 +3175,8 @@ def full_train(card):
                 "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
                 "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
     bodies = fwd_body_delta(bodies0)
+    tile_fp32 = fa.flash_attention_fwd.launches_tile_fp32 - tile_fp32
+    fwd_split = fa.fwd_split_terms.launches
     bwd_bodies = {b: n - bwd0[b] for b, n in bwd_counts().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = profile_train_step(cfg, ctx, last.pop("params"), seq)
@@ -3137,7 +3194,7 @@ def full_train(card):
         "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
         "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
         "launches": launches, "flash_attention_fwd_bodies": bodies,
-        "flash_attention_bwd_bodies": bwd_bodies,
+        "flash_fwd_split_launches": fwd_split, "flash_attention_bwd_bodies": bwd_bodies,
         "ln_vocab": float(np.log(cfg.vocab_size)),
         "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq), "card": card,
     }
@@ -3149,8 +3206,10 @@ def full_train(card):
                        "flash_bwd_dq": cfg.num_layers * total,
                        "flash_bwd_dkv": cfg.num_layers * total},
           f"train: launch counts off the remat schedule: {launches}")
-    check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]},
-          f"train: the fp32 forward must run the fp32 body: {bodies}")
+    check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]}
+          and tile_fp32 == bodies["fp32"] == fwd_split,
+          f"train: the fp32 forward must run the fp32 tile body after one pre-pass each: "
+          f"{bodies}, tile {tile_fp32}, pre-pass {fwd_split}")
     n_bwd = cfg.num_layers * total
     check(bwd_bodies == {"tc_fp32": n_bwd, "tc_bf16": 0, "split": n_bwd},
           f"train: every fp32 backward must run the fp32 tensor-core body: {bwd_bodies}")
@@ -3165,7 +3224,8 @@ def full_train(card):
           and bf["flash_attention_bwd_bodies"] == {"tc_fp32": 0, "tc_bf16": n_bf, "split": 0},
           f"train (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
     return {**{k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
-            "flash_attention_fwd (fp32)": bodies["fp32"], "flash_bwd_split": bwd_bodies["split"]}
+            "flash_attention_fwd (fp32)": bodies["fp32"], "flash_fwd_split": fwd_split,
+            "flash_bwd_split": bwd_bodies["split"]}
 
 
 def full_train_bf16(cfg, ctx, seq):
@@ -3331,6 +3391,7 @@ def train_ssm(card):
     under the card's; one more step under torch.profiler."""
     runs, launches_main = [], dict.fromkeys(_PARITY_KERNELS, 0)
     launches_main["flash_attention_fwd (fp32)"] = launches_main["flash_bwd_split"] = 0
+    launches_main["flash_fwd_split"] = 0
     for arch, (steps, seq, batch) in SSM_TRAIN.items():
         cfg = get_config(arch)
         ctx = ParallelCtx(device="cuda")
@@ -3339,7 +3400,7 @@ def train_ssm(card):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_fwd.launches = fa.fwd_split_terms.launches = 0
         fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
         ssd.ssd_scan_fwd.launches = ssd.ssd_scan_bwd.launches = 0
         ssd.ssd_scan_fwd.launches_autograd = 0
@@ -3353,7 +3414,9 @@ def train_ssm(card):
         bwd_bodies = {b: n - bwd0[b] for b, n in bwd_counts().items()}
         for k, n in launches.items():
             launches_main[k] += n
+        fwd_split = fa.fwd_split_terms.launches
         launches_main["flash_attention_fwd (fp32)"] += bodies["fp32"]
+        launches_main["flash_fwd_split"] += fwd_split
         launches_main["flash_bwd_split"] += bwd_bodies["split"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n_params = tfm.param_count(out["params"])
@@ -3366,7 +3429,8 @@ def train_ssm(card):
                "peak_mem_gb": peak_gb, "launches": launches,
                "ssd_scan_fwd_autograd": scan_autograd,
                "want_launches": _train_launches(cfg, steps),
-               "flash_attention_fwd_bodies": bodies, "flash_attention_bwd_bodies": bwd_bodies,
+               "flash_attention_fwd_bodies": bodies, "flash_fwd_split_launches": fwd_split,
+               "flash_attention_bwd_bodies": bwd_bodies,
                "ln_vocab": float(np.log(cfg.vocab_size)), "profile": profile}
         runs.append(run)
         del out
@@ -3386,6 +3450,7 @@ def train_ssm(card):
               f"{run['want_launches']}")
         n_attn = run["launches"]["flash_bwd_dq"]
         check(run["flash_attention_fwd_bodies"]["fp32"] == run["launches"]["flash_attention_fwd"]
+              == run["flash_fwd_split_launches"]
               and run["flash_attention_bwd_bodies"] == {"tc_fp32": n_attn, "tc_bf16": 0,
                                                         "split": n_attn},
               f"{tag}: the fp32 attention must run the fp32 bodies: {run}")
@@ -3464,7 +3529,7 @@ def mesh_block_case(kind, dtype, gen, heads=PAPER_HEADS, S=MESH_S, layout="strip
                 for r in range(R)]
         return torch.cat([o for o, _ in outs]), torch.cat([lse for _, lse in outs])
 
-    before = fwd_body_counts()
+    before = fwd_body_counts(FWD_PLAN_BODIES)
     o, lse = run()
     body = [b for b, n in fwd_body_delta(before).items() if n]
     o_ref, lse_ref = plain()
@@ -3484,7 +3549,7 @@ def mesh_block_case(kind, dtype, gen, heads=PAPER_HEADS, S=MESH_S, layout="strip
         qt, kt, vt, attn_mask=mask[:, None], scale=hd**-0.5, enable_gqa=nkv != nh)
     item = q.element_size()
     nbytes = (2 * q.numel() + 2 * visible_keys * nkv * hd) * item + lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_pairs, dtype)
+    bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_pairs, dtype, FWD_PEAK)
     tol = TOLS[("flash_attention_fwd", dtype)]
     device_ms, _ = device_time(_profiled(run, 5), per=5)
     rec = dict(
@@ -3496,6 +3561,9 @@ def mesh_block_case(kind, dtype, gen, heads=PAPER_HEADS, S=MESH_S, layout="strip
         plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib), bound_ms=bound_ms,
         bound_by=bound_by, visible_pairs=visible_pairs,
     )
+    if dtype == torch.float32:
+        rec["bound_ms_fp32_cores"], rec["bound_by_fp32_cores"] = bound(
+            nbytes, 4 * hd * nh * visible_pairs, dtype)
     del q, k, v, o, lse, o_ref, lse_ref, mask, qt, kt, vt
     torch.cuda.empty_cache()
     want_body = fa._fwd_plan(R, m, nh, nkv, hd, dtype)[0]
@@ -3571,6 +3639,7 @@ def mesh_counts():
         "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
         "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv,
         "flash_bwd_split": fa.split_terms.launches,
+        "fwd_split": fa.fwd_split_terms.launches,
         **{f"fwd_{b}": n for b, n in fwd_body_counts().items()},
     }
 
@@ -3657,9 +3726,10 @@ def mesh_op_case(kind, dtype, gen):
                       f"mesh_op: {backend} a={a} disagrees with the local flash call: {rec}")
                 n_fwd, n_bwd = len(fwd_s.blocks()), len(bwd_s.blocks()) * MESH_N
                 check(counts["flash_attention_fwd"] == n_fwd and counts["flash_bwd_dq"] == n_bwd
-                      and counts["flash_bwd_dkv"] == n_bwd,
+                      and counts["flash_bwd_dkv"] == n_bwd
+                      and counts["fwd_split"] == counts["fwd_fp32"],
                       f"mesh_op: launches off the schedules ({n_fwd} forward, {n_bwd} per "
-                      f"backward kernel): {rec}")
+                      f"backward kernel), or the fp32 pre-pass not once per fp32 forward: {rec}")
                 check(hops == want_hops, f"mesh_op: hops off comm_requirements {want_hops}: {rec}")
                 for kk, ck in (("recv_q", "q"), ("recv_kv", "kv")):
                     check(nbytes.get(kk, 0) == hops.get(kk, 0) * comm.chunk_bytes(ck),
@@ -3800,9 +3870,10 @@ def collective_case(kind, dtype, gen):
                   f"collective: bytes per kind off (group size - 1) x the chunk: {rec}")
             blocks = a * b
             check(counts["flash_attention_fwd"] == blocks
-                  and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == blocks * MESH_N,
+                  and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == blocks * MESH_N
+                  and counts["fwd_split"] == counts["fwd_fp32"],
                   f"collective: #1 must launch once per (u, w) block ({blocks}), #2 / #3 once "
-                  f"per block and rank: {counts}")
+                  f"per block and rank, the fp32 pre-pass once per fp32 #1: {counts}")
         else:
             same = bool(torch.equal(o, first["o"])) and all(
                 torch.equal(x, y) for x, y in zip(g, first["g"]))
@@ -3974,8 +4045,9 @@ def train_mesh(card):
         check(all(counts[k] == n for k, n in want.items()),
               f"train_mesh: {run['attn']} launches off the schedules x layers x remat: "
               f"{counts} vs {want}")
-        check(counts["fwd_fp32"] == counts["flash_attention_fwd"],
-              f"train_mesh: the fp32 forward must run the fp32 body: {counts}")
+        check(counts["fwd_fp32"] == counts["flash_attention_fwd"] == counts["fwd_split"],
+              f"train_mesh: the fp32 forward must run the fp32 bodies after one pre-pass "
+              f"each: {counts}")
     return launches_main
 
 
@@ -4121,6 +4193,7 @@ def main():
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
     split = split_case(4096, gen)
+    fwd_split = fwd_split_case(4096, gen)  # the train phase's forward
     # the mesh executor's blocks: 4 ranks folded into the forward's batch,
     # the backward per rank; row 0 of some ranks sees no key
     mesh_blocks = []
@@ -4134,9 +4207,8 @@ def main():
                                        S=1536, layout="contiguous", window=1024))
     emit({"phase": "kernels", "card": card,
           "cases": flash + paged + quant + combine + ssd_cases + ssd_bwd_cases + bwd + [split]
-          + mesh_blocks
+          + [fwd_split] + mesh_blocks
           + ring_flash + ring_paged})
-
     cross_device()
     launches, serve_rec, serve_streams = full_serve(card)
     cpu_runs = cross_device_quant()
@@ -4177,7 +4249,8 @@ def main():
     ssm_train = train_ssm(card)
     launches["ssd_scan_fwd (training)"] = ssm_train["ssd_scan_fwd"]
     launches["ssd_scan_bwd"] = ssm_train["ssd_scan_bwd"]
-    for key in ("flash_attention_fwd (fp32)", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_split"):
+    for key in ("flash_attention_fwd (fp32)", "flash_fwd_split", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_bwd_split"):
         launches[key] += ssm_train[key]
     # serve_moe's and serve_qwen's runs join the serving rows
     for key, n in list(moe_launches.items()) + list(qwen_launches.items()):
@@ -4189,10 +4262,11 @@ def main():
     launches["flash_attention_fwd (decode)"] += ssm_ring["fwd_decode"]
     # slice_ring's fp32 chunks and verifies, and its quantized decode ticks
     launches["flash_attention_fwd (fp32)"] += ring_slice["fwd_fp32"]
+    launches["flash_fwd_split"] += ring_slice["fwd_split"]
     launches["paged_flash_decode_quant"] += ring_slice["paged_flash_decode_quant"]
     # serve_pressure's fp and int8 runs (the chaos runs are gates, not counted)
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
-                      ("flash_attention_fwd (fp32)", "fwd_fp32"),
+                      ("flash_attention_fwd (fp32)", "fwd_fp32"), ("flash_fwd_split", "fwd_split"),
                       ("paged_flash_decode", "paged_flash_decode"),
                       ("paged_flash_decode_quant", "paged_flash_decode_quant")):
         launches[key] += pressure[part]
@@ -4202,7 +4276,7 @@ def main():
     train_mesh_parity()
     mesh.append(train_mesh(card))
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
-                      ("flash_attention_fwd (fp32)", "fwd_fp32"),
+                      ("flash_attention_fwd (fp32)", "fwd_fp32"), ("flash_fwd_split", "fwd_split"),
                       ("flash_bwd_dq", "flash_bwd_dq"), ("flash_bwd_dkv", "flash_bwd_dkv"),
                       ("flash_bwd_split", "flash_bwd_split")):
         launches[key] += sum(m[part] for m in mesh)
@@ -4237,8 +4311,8 @@ def main():
          main_flash),
         ("flash_attention_fwd (decode body)", "flash_attention_fwd (decode)", FLASH_TC_SRC,
          FLASH_REPLACES, main_flash_decode),
-        ("flash_attention_fwd (fp32 body)", "flash_attention_fwd (fp32)", FLASH_SRC,
-         FLASH_REPLACES, main_flash_fp32),
+        ("flash_attention_fwd (fp32: tile and decode bodies, two bf16 terms)",
+         "flash_attention_fwd (fp32)", FLASH_TC_SRC, FLASH_REPLACES, main_flash_fp32),
         ("paged_flash_decode", "paged_flash_decode", PAGED_SRC, PAGED_REPLACES, main_paged),
         ("paged_flash_decode (quantized branch)", "paged_flash_decode_quant", PAGED_SRC,
          QUANT_REPLACES, main_quant),
@@ -4282,6 +4356,18 @@ def main():
         "replaces": f"{BWD_DQ_REPLACES}, {BWD_DKV_REPLACES}", "launches": launches["flash_bwd_split"],
         "max_abs_err": split["max_abs_err"], "ms": split["device_ms"], "plain_ms": split["plain_ms"],
         "bound_ms": split["bound_ms"], "bound_by": split["bound_by"], "library_ms": None,
+    })
+    # the fp32 forward's pre-pass: part of #1 on the fp32 paths, summed over
+    # the same main-path runs as the fp32 forward's row, one launch each
+    check(launches["flash_fwd_split"] == launches["flash_attention_fwd (fp32)"],
+          f"the fp32 forward's pre-pass ran {launches['flash_fwd_split']} times on the main "
+          f"paths, not once per fp32 forward launch ({launches['flash_attention_fwd (fp32)']})")
+    kernels.append({
+        "name": "flash_fwd_split (fp32 pre-pass of #1)", "route": "cuda", "source": FLASH_TC_SRC,
+        "replaces": FLASH_REPLACES, "launches": launches["flash_fwd_split"],
+        "max_abs_err": fwd_split["max_abs_err"], "ms": fwd_split["device_ms"],
+        "plain_ms": fwd_split["plain_ms"], "bound_ms": fwd_split["bound_ms"],
+        "bound_by": fwd_split["bound_by"], "library_ms": None,
     })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -583,24 +583,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 // the fp32 pre-pass: q, k, v, dO as two bf16 terms each
 // ===========================================================================
 
-struct SplitArgs {
-  const float* src[4];
-  bf16* dst[4];  // [2, n]: hi, then lo
-  long long n[4];
-};
-
 __global__ void __launch_bounds__(256) flash_bwd_split_kernel(SplitArgs a) {
-  const int w = blockIdx.y;
-  const float* __restrict__ src = a.src[w];
-  bf16* __restrict__ dst = a.dst[w];
-  const long long n = a.n[w];
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float x = src[i];
-    const bf16 h = __float2bfloat16_rn(x);
-    dst[i] = h;
-    dst[n + i] = __float2bfloat16_rn(x - __bfloat162float(h));
-  }
+  split_terms_body(a);
 }
 
 // ===========================================================================
@@ -758,22 +742,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   return dispatch<true>(terms, D, a);
 }
 
-// The fp32 pre-pass: q, dout (n_q values each) and k, v (n_kv each), fp32,
-// into [2, n] bf16 terms (hi, then lo) at q_t, do_t, k_t, v_t.
-extern "C" int flash_bwd_split(const void* q, const void* k, const void* v, const void* dout,
-                               void* q_t, void* k_t, void* v_t, void* do_t, long long n_q,
-                               long long n_kv, void* stream) {
-  SplitArgs a;
-  const void* src[4] = {q, k, v, dout};
-  void* dst[4] = {q_t, k_t, v_t, do_t};
-  const long long n[4] = {n_q, n_kv, n_kv, n_q};
-  for (int i = 0; i < 4; ++i) {
-    a.src[i] = static_cast<const float*>(src[i]);
-    a.dst[i] = static_cast<bf16*>(dst[i]);
-    a.n[i] = n[i];
-  }
-  const long long blocks = (n_q + 255) / 256;
-  dim3 grid((unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 4);
-  flash_bwd_split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+// The fp32 pre-pass (sm90.cuh's split_terms_body): count <= 4 fp32 arrays
+// src[i] of n[i] values (q, k, v, dout) into [2, n[i]] bf16 terms (hi, then
+// lo) at dst[i].
+extern "C" int flash_bwd_split(const void* const* src, void* const* dst, const long long* n,
+                               int count, void* stream) {
+  return (int)launch_split(flash_bwd_split_kernel, src, dst, n, count,
+                           static_cast<cudaStream_t>(stream));
 }

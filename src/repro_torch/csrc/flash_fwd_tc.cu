@@ -1,45 +1,69 @@
-// Flash-attention forward on Hopper's tensor cores (sm_90a), bf16 inputs;
-// plain C interface for ctypes.
+// Flash-attention forward on Hopper's tensor cores (sm_90a), bf16 and fp32
+// inputs; plain C interface for ctypes.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_fwd
-//   (Pallas body _fwd_kernel, with _block_visible / _mask_block) for bf16
-//   inputs.  fp32 inputs keep the CUDA-core kernel in flash_fwd.cu.
+//   (Pallas body _fwd_kernel, with _block_visible / _mask_block) for both
+//   input types.
 //
-// What it computes: as flash_fwd.cu -- o = softmax(scale * q k^T + mask) v
-// and the fp32 row log-sum-exp, for q [B, Sq, H, D] and k, v [B, Skv, Hkv,
-// D] (GQA: query head h reads kv head h / (H / Hkv)); the mask is the int32
-// band (q_off, kv_off, lo, hi) with strides, one [4] band or one per batch
-// row ([B, 4]) in device memory, composed with optional per-token segment
-// ids.  An empty row has o = 0 and lse = NEG_INF exactly.
+// What it computes: o = softmax(scale * q k^T + mask) v and the fp32 row
+// log-sum-exp, for q [B, Sq, H, D] and k, v [B, Skv, Hkv, D] (GQA: query
+// head h reads kv head h / (H / Hkv)); the mask is the int32 band (q_off,
+// kv_off, lo, hi) -- (i, j) visible iff lo <= (q_off + stride_q*i) -
+// (kv_off + stride_kv*j) <= hi -- with static strides, one [4] band or one
+// per batch row ([B, 4]) in device memory, composed with optional per-token
+// segment ids.  An empty row has o = 0 and lse = NEG_INF exactly.  o comes
+// out in the input type.
 //
-// Numerics: scores and softmax are fp32 (bf16 x bf16 products are exact in
-// fp32; the scale is applied to the fp32 scores).  P enters P.V as three
-// bf16 terms, hi + mid + lo, which carry fp32's 24 bits, so o differs from
-// the plain version's fp32 P.V only by the order of the sums.  A single
-// bf16 P (|error| up to 2^-8 p) moves o by up to 2^-8 max|v| and flips o's
-// own bf16 rounding often enough to break a 1e-2 limit where |o| >= 2 (one
-// ulp there is 2^-6); two terms (2^-16 p) still flipped one element of the
-// S=2048 segment case on the card.
+// Numerics: every product takes bf16 operands and sums in fp32 (a bf16 x
+// bf16 product is exact in fp32); the scale is applied to the fp32 scores and
+// the softmax is fp32.  T, the bf16 terms per input value, is a template
+// argument of both bodies:
+//   * bf16 inputs (T = 1) are one exact term each;
+//   * fp32 inputs (T = 2) go in as hi + lo terms (hi = bf16(x), lo = bf16(x -
+//     hi): ~16 of fp32's 24 bits), written by a pre-pass
+//     (flash_fwd_split_kernel, one launch per forward call) into scratch the
+//     wrapper allocates; the bodies load the terms like bf16 tiles.  S = Q K^T
+//     runs the term pairs i + j < T (hi.hi + hi.lo + lo.hi).
+//     tests/test_torch_fwd_split.py settled T against the JAX forward: T = 2
+//     reads 0.13-0.20 of the fp32 gate (1e-4 on o and lse) at unit-normal
+//     inputs and 0.59-0.74 where |o| reaches 12; T = 1 reads 75-440x it.
+//   * P enters P.V as three bf16 terms, hi + mid + lo, which carry fp32's 24
+//     bits; P.V runs the pairs i + j < max(3, T) of P's and V's terms.  A
+//     single bf16 P (|error| up to 2^-8 p) moves o by up to 2^-8 max|v| and
+//     flips o's own bf16 rounding often enough to break a 1e-2 limit where
+//     |o| >= 2 (one ulp there is 2^-6); two terms (2^-16 p) still flipped one
+//     element of the S=2048 segment case on the card.
+//   * the tensor cores truncate as they accumulate.  With fp32 outputs the
+//     tile body adds its o accumulators into o (rescaled to the running max,
+//     round to nearest) every FOLD tiles and restarts them from 0, so no
+//     accumulator sums more than FOLD tiles of a long row (16,384 keys on the
+//     mesh path); the backward does the same (flash_bwd.cu's FOLD).
 //
 // Two bodies, chosen by the wrapper from the shapes alone:
 //
-// (a) flash_fwd_tile_kernel -- prefill, packed prefill, chunks, windows.
-//   What bounds it: 4*D flops per visible (query, key) pair against
-//   2*D*(Sq*H + 2*Skv*Hkv) bytes -- far above the card's ~295 flop/byte
-//   balance at prefill lengths, so the tensor cores (and, beside them, the
-//   softmax's exponentials).
+// (a) flash_fwd_tile_kernel -- prefill, packed prefill, chunks, windows,
+//   training.  What bounds it: 4*D flops per visible (query, key) pair
+//   against 2*D*(Sq*H + 2*Skv*Hkv) bytes -- far above the card's ~295
+//   flop/byte balance at prefill lengths, so the tensor cores (and, beside
+//   them, the softmax's exponentials); fp32 inputs issue 3 + 5 products
+//   where bf16 issues 1 + 3.
 //   * one CTA per (tile of 128 packed rows, kv head, batch row); a packed
 //     row is a (query row, head of the GQA group) pair, r = i*G + g, so the
 //     G heads of one kv head share each K/V tile load (G x fewer K/V bytes)
 //     and a row's position, band and segment id are those of its query row;
 //   * two warpgroups of 64 packed rows; S = Q K^T and O += P V on wgmma
-//     (m64n64k16, bf16 operands, fp32 accumulators): Q (loaded once) and the
-//     K tile from shared memory, P from registers, V from shared memory
-//     (MN-major);
-//   * K/V tiles of 64 keys in a 4-stage ring, loaded by TMA (one thread;
-//     128-byte-swizzled boxes of 64 dims, 64-byte for D = 32, as wgmma reads
-//     them) two tiles ahead; mbarriers say when a tile has landed (full) and
-//     when both warpgroups are done with it (empty);
+//     (m64n64k16, bf16 operands, fp32 accumulators): Q (loaded once, all
+//     terms) and the K tile from shared memory, P from registers, V from
+//     shared memory (MN-major);
+//   * K and V tiles of 64 keys (all terms) in two rings of STAGES stages
+//     each (4; 2 for fp32 at D = 128, where Q's two terms take 64 KB of the
+//     227 KB), loaded by TMA (one thread of warpgroup 1, the later of the
+//     two; 128-byte-swizzled boxes of 64 dims, 64-byte for D = 32, as wgmma
+//     reads them).  Tile t's K is free once both warpgroups have its scores'
+//     softmax, its V once both have its P.V products: K tile t + STAGES and
+//     V tile t + STAGES - 1 load then, a whole tile ahead with 2 stages;
+//     mbarriers say when a tile has landed (full) and when both warpgroups
+//     are done with it (empty);
 //   * no CTA-wide barrier in the loop: the warpgroups take turns issuing
 //     their products (named barriers), so one's softmax runs while the
 //     other's products do; within a warpgroup, tile j's scores are issued
@@ -58,14 +82,16 @@
 //   the visible keys once per kv head (4*D flops per 4*D bytes).
 //   * one CTA per (key split, kv head, batch row); 4 warps walk disjoint
 //     16-key tiles of the split's share of the interval, each with its own
-//     2-stage cp.async ring and no block barrier, and products on
-//     mma.sync.m16n8k16 (bf16, fp32 accumulators) over the G*Sq packed rows;
+//     2-stage cp.async ring (all terms) and no block barrier, and products
+//     on mma.sync.m16n8k16 (bf16, fp32 accumulators) over the G*Sq packed
+//     rows;
 //   * the warps' (m, l, acc) merge in shared memory in a fixed order; with
 //     more than one split each CTA writes a normalized fp32 partial and its
 //     lse, and flash_fwd_combine_kernel merges them by lse (fixed order, no
 //     atomics: two launches are bitwise equal).  In both bodies and the
 //     combine a NaN score makes its row's o and lse NaN, as in JAX's kernels
-//     (the running maxima drop NaN, exp keeps it, the epilogues pass it).
+//     (the running maxima drop NaN, exp keeps it, the epilogues pass it; a
+//     NaN input splits into NaN terms).
 
 #include <string.h>
 
@@ -125,7 +151,10 @@ __device__ __forceinline__ bool band_visible(long long qpos, long long key, long
 constexpr int TB_THREADS = 256;  // two warpgroups
 constexpr int TB_ROWS = 128;     // packed rows per CTA, 64 per warpgroup
 constexpr int TB_BK = 64;        // keys per K/V tile
-constexpr int TB_STAGES = 4;  // tile t + 2 loads while t - 1's V and t's K are read
+constexpr int TB_STAGES = 4;  // stages of each K / V ring where they fit
+// fp32 outputs: every FOLD tiles the o accumulators are added into o and
+// restarted from 0 (see Numerics above)
+constexpr int FOLD = 16;
 // A 1-D TMA box must start on a 16-byte boundary in global memory and land
 // 128-byte aligned in shared memory: a tile's key segment ids (from key j0)
 // are loaded as a box of TB_SEG_BOX ids from j0 & ~3 into a stage's
@@ -133,18 +162,38 @@ constexpr int TB_STAGES = 4;  // tile t + 2 loads while t - 1's V and t's K are 
 constexpr int TB_SEG_BOX = TB_BK + 4;
 constexpr int TB_SEG_INTS = 96;
 
-template <int D>
+// T: bf16 terms per input value (1 for bf16 inputs, 2 for fp32 inputs)
+template <int D, int T>
 struct TileCfg {
   static constexpr int SWB = D >= 64 ? 128 : 64;       // swizzle span (bytes) = column block row
   static constexpr int CB = SWB / 2;                   // dims per column block
   static constexpr int NCB = D / CB;                   // column blocks
   static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // descriptor swizzle mode
-  static constexpr int Q_BYTES = TB_ROWS * D * 2;
-  static constexpr int KV_BYTES = TB_BK * D * 2;
-  static constexpr int SEG_OFF = Q_BYTES + 2 * TB_STAGES * KV_BYTES;  // int [stages][TB_SEG_INTS]
-  static constexpr int BAR_OFF = SEG_OFF + TB_STAGES * TB_SEG_INTS * 4;  // u64 full, empty [stages], q
-  static constexpr int SMEM = 1024 + BAR_OFF + (2 * TB_STAGES + 1) * 8;
+  static constexpr int Q_TERM = TB_ROWS * D * 2;       // one term of Q
+  static constexpr int KV_TERM = TB_BK * D * 2;        // one term of a K or V tile
+  static constexpr int Q_BYTES = T * Q_TERM;
+  static constexpr int KV_BYTES = T * KV_TERM;         // a K or V tile, all terms
+  // stages of each ring: 4, or 2 where 4 do not fit (fp32 at D = 128: Q 64 KB
+  // + 2 x 2 x 32 KB)
+  static constexpr int STAGES = D * T >= 256 ? 2 : TB_STAGES;
+  static constexpr int V_OFF = Q_BYTES + STAGES * KV_BYTES;       // K ring at Q_BYTES
+  static constexpr int SEG_OFF = V_OFF + STAGES * KV_BYTES;       // int [stages][TB_SEG_INTS]
+  static constexpr int BAR_OFF = SEG_OFF + STAGES * TB_SEG_INTS * 4;
+  // u64 full_k, empty_k, full_v, empty_v [stages], q
+  static constexpr int SMEM = 1024 + BAR_OFF + (4 * STAGES + 1) * 8;
 };
+
+template <int T> struct OutType { typedef float type; };  // fp32 inputs carry 2 terms
+template <> struct OutType<1> { typedef bf16 type; };
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 
 // byte offset of 16-byte chunk c8 of row r in a [rows, D] tile stored as
 // column blocks [rows][SWB bytes], swizzled as wgmma reads them and TMA
@@ -152,7 +201,7 @@ struct TileCfg {
 // 1024-byte (SWB = 128) or 512-byte (SWB = 64) atom
 template <int D>
 __device__ __forceinline__ uint32_t tile_off(int r, int c8, int rows) {
-  using C = TileCfg<D>;
+  using C = TileCfg<D, 1>;
   const uint32_t off =
       (c8 / (C::CB / 8)) * rows * C::SWB + r * C::SWB + (c8 % (C::CB / 8)) * 16;
   return off ^ (((off >> 7) & (C::SWB / 16 - 1)) << 4);
@@ -174,45 +223,56 @@ __device__ __forceinline__ void make_pfrag(const float (&p)[32], PFrag& f) {
                   f.r[2][u][x]);
 }
 
-// O += P V for one 64-key tile.  V's tile is MN-major (dims contiguous); one
-// product per column block, whose N fits one swizzle atom (the leading
-// offset is then unused, so it takes the stride offset's value).  Issues and
-// commits; the caller waits.
-template <int D>
-__device__ __forceinline__ void pv_products(float (&oacc)[TileCfg<D>::NCB][TileCfg<D>::CB / 2],
-                                            const PFrag& p, uint32_t sV) {
-  using C = TileCfg<D>;
+// O += P V for one 64-key tile: the pairs i + j < max(3, T) of P's terms
+// and the T terms of the V tile at sV (term j at + j * KV_TERM).  V's tile is
+// MN-major (dims contiguous); one product per column block, whose N fits
+// one swizzle atom (the leading offset is then unused, so it takes the
+// stride offset's value).  Issues and commits; the caller waits.
+template <int D, int T>
+__device__ __forceinline__ void pv_products(
+    float (&oacc)[TileCfg<D, T>::NCB][TileCfg<D, T>::CB / 2], const PFrag& p, uint32_t sV) {
+  using C = TileCfg<D, T>;
+  constexpr int NP = T > 3 ? T : 3;
 #pragma unroll
   for (int u = 0; u < TB_BK / 16; ++u) {
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c) {
-      const uint64_t dv = smem_desc(sV + c * TB_BK * C::SWB + u * 16 * C::SWB, 8 * C::SWB,
-                                    8 * C::SWB, C::LAYOUT);
 #pragma unroll
-      for (int term = 0; term < 3; ++term) {
-        if constexpr (C::CB == 64)
-          wgmma_rs_m64n64(oacc[c], p.r[term][u], dv);
-        else
-          wgmma_rs_m64n32(oacc[c], p.r[term][u], dv);
-      }
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          if (term + j >= NP) continue;  // resolved at compile time
+          const uint64_t dv = smem_desc(sV + j * C::KV_TERM + c * TB_BK * C::SWB + u * 16 * C::SWB,
+                                        8 * C::SWB, 8 * C::SWB, C::LAYOUT);
+          if constexpr (C::CB == 64)
+            wgmma_rs_m64n64(oacc[c], p.r[term][u], dv);
+          else
+            wgmma_rs_m64n32(oacc[c], p.r[term][u], dv);
+        }
     }
   }
   wgmma_commit();
 }
 
-// S = Q K^T for one warpgroup's 64 rows and a 64-key tile.  Issues and
-// commits; the caller waits.
-template <int D>
+// S = Q K^T for one warpgroup's 64 rows and a 64-key tile: the term pairs
+// i + j < T of Q (term i at sQw + i * Q_TERM) and K (term j at sK + j *
+// KV_TERM).  Issues and commits; the caller waits.
+template <int D, int T>
 __device__ __forceinline__ void qk_products(float (&s)[32], uint32_t sQw, uint32_t sK) {
-  using C = TileCfg<D>;
+  using C = TileCfg<D, T>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t cb = (kk * 16) / C::CB, within = ((kk * 16) % C::CB) * 2;
-    const uint64_t da =
-        smem_desc(sQw + cb * TB_ROWS * C::SWB + within, 16, 8 * C::SWB, C::LAYOUT);
-    const uint64_t db = smem_desc(sK + cb * TB_BK * C::SWB + within, 16, 8 * C::SWB, C::LAYOUT);
-    wgmma_ss_m64n64(s, da, db, kk > 0);  // the first k-step overwrites s
-  }
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; i + j < T; ++j)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t cb = (kk * 16) / C::CB, within = ((kk * 16) % C::CB) * 2;
+        const uint64_t da = smem_desc(sQw + i * C::Q_TERM + cb * TB_ROWS * C::SWB + within, 16,
+                                      8 * C::SWB, C::LAYOUT);
+        const uint64_t db = smem_desc(sK + j * C::KV_TERM + cb * TB_BK * C::SWB + within, 16,
+                                      8 * C::SWB, C::LAYOUT);
+        wgmma_ss_m64n64(s, da, db, i + j + kk > 0);  // the first product overwrites s
+      }
   wgmma_commit();
 }
 
@@ -262,31 +322,35 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m2)[2], flo
   for (int h2 = 0; h2 < 2; ++h2) lsum[h2] = lsum[h2] * alpha[h2] + psum[h2];
 }
 
-// tm_k, tm_v: k and v as 4-D tensor maps (D, Hkv, Skv, B) with a box of one
-// column block x 64 keys; tm_seg: seg_kv (1-D, a box of 64) when seg_q is
-// given
-template <int D>
+// tm_k, tm_v: k and v (all terms: [T * B, Skv, Hkv, D]) as 4-D tensor maps
+// (D, Hkv, Skv, B * T) with a box of one column block x 64 keys; tm_seg:
+// seg_kv (1-D, a box of 64) when seg_q is given.  q: [T * B, Sq, H, D].
+template <int D, int T>
 __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_seg, const bf16* __restrict__ q,
     const int* __restrict__ band, int band_stride, const int* __restrict__ seg_q,
-    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
-    float scale_log2, int stride_q, int stride_kv) {
-  using C = TileCfg<D>;
+    typename OutType<T>::type* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
+    int Hkv, float scale_log2, int stride_q, int stride_kv) {
+  using C = TileCfg<D, T>;
   constexpr int ON = C::CB;  // N of one P.V product: one column block of V
+  constexpr int S = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + 1023) & ~1023u;
   const uint32_t sK0 = sQ + C::Q_BYTES;
-  const uint32_t sV0 = sK0 + TB_STAGES * C::KV_BYTES;
+  const uint32_t sV0 = sQ + C::V_OFF;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int G = H / Hkv;
   const int R = Sq * G;  // packed rows of this (batch row, kv head)
   const int r0 = (gridDim.x - 1 - blockIdx.x) * TB_ROWS;  // heaviest tiles first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const bool has_seg = seg_q != nullptr;
+  // the thread that loads the K / V tiles: warpgroup 1's first, the later of
+  // the two to be done with a tile
+  const bool loader = tid == 128;
 
   const int* bd = band + (size_t)b * band_stride;
   const long long q_off = bd[0], kv_off = bd[1], lo = bd[2], hi = bd[3];
@@ -315,21 +379,26 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     rm.seg[h2] = has_seg ? seg_q[i] : 0;
   }
 
-  // Shared-memory ring: tile u lives in stage u % TB_STAGES.  Thread 0
-  // loads a tile with TMA; full[s] completes when its bytes have landed, and
-  // empty[s] when every thread is done with it (its P.V products complete).
-  // The two warpgroups run on these barriers, not on CTA-wide ones, so they
-  // drift apart: they take turns issuing their products (named barriers 1
-  // and 2), and one warpgroup's softmax runs while the other's products do.
-  const uint32_t bar_full = sQ + C::BAR_OFF, bar_empty = bar_full + TB_STAGES * 8;
-  const uint32_t bar_q = bar_empty + TB_STAGES * 8;
+  // Shared-memory rings: K tile u lives in stage u % S of the K ring (with
+  // its keys' segment ids), V tile u in stage u % S of the V ring.  The
+  // loader loads a tile with TMA; full_*[s] completes when its bytes have
+  // landed, empty_*[s] when every thread is done with it: K tile t after the
+  // softmax of its scores, V tile t after its P.V products.  The two
+  // warpgroups run on these barriers, not on CTA-wide ones, so they drift
+  // apart: they take turns issuing their products (named barriers 1 and 2),
+  // and one warpgroup's softmax runs while the other's products do.
+  const uint32_t full_k = sQ + C::BAR_OFF, empty_k = full_k + S * 8;
+  const uint32_t full_v = empty_k + S * 8, empty_v = full_v + S * 8;
+  const uint32_t bar_q = empty_v + S * 8;
   const uint32_t sSeg = sQ + C::SEG_OFF;
   // stage st's ids from the tile's first key (every tile starts at jlo mod 4)
   const int* segk = reinterpret_cast<const int*>(smem_raw + (sQ - raw) + C::SEG_OFF) + (jlo & 3);
   if (tid == 0) {
-    for (int st = 0; st < TB_STAGES; ++st) {
-      mbar_init(bar_full + st * 8, 1);
-      mbar_init(bar_empty + st * 8, TB_THREADS);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full_k + st * 8, 1);
+      mbar_init(empty_k + st * 8, TB_THREADS);
+      mbar_init(full_v + st * 8, 1);
+      mbar_init(empty_v + st * 8, TB_THREADS);
     }
     mbar_init(bar_q, TB_THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -337,40 +406,52 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   __syncthreads();
 
   // Q, once, by every thread's cp.asyncs (a packed row's heads are
-  // contiguous, its query rows H * D apart)
-  {
+  // contiguous, its query rows H * D apart; term i at + i * B * Sq * H * D)
+#pragma unroll
+  for (int term = 0; term < T; ++term) {
     constexpr int CH = D / 8;
-    const size_t qb = (size_t)b * Sq * H * D;
+    const size_t qb = ((size_t)term * B + b) * Sq * H * D;
     for (int idx = tid; idx < TB_ROWS * CH; idx += TB_THREADS) {
       const int r = idx / CH, c8 = idx % CH;
       const int pr = r0 + r;
       const bool valid = pr < R;
       const size_t off =
           valid ? qb + ((size_t)(pr / G) * H + hk * G + pr % G) * D + c8 * 8 : 0;
-      cp_async16(sQ + tile_off<D>(r, c8, TB_ROWS), q + off, valid);
+      cp_async16(sQ + term * C::Q_TERM + tile_off<D>(r, c8, TB_ROWS), q + off, valid);
     }
-    cp_async_mbar_arrive(bar_q);
   }
-  // tile u (thread 0): wait until its stage's previous tile (u - TB_STAGES)
-  // is free, then one box per column block of K and of V, and the keys'
+  cp_async_mbar_arrive(bar_q);
+  // K or V tile u (the loader): wait until its stage's previous tile (u - S)
+  // is free, then one box per term and column block, and with K the keys'
   // segment ids
-  auto load_tile = [&](int u) {
-    if (tid != 0) return;
-    const int st = u % TB_STAGES;
-    if (u >= TB_STAGES) mbar_wait(bar_empty + st * 8, (u / TB_STAGES - 1) & 1);
-    const uint32_t full = bar_full + st * 8;
-    mbar_expect_tx(full, 2 * C::KV_BYTES + (has_seg ? TB_SEG_BOX * 4 : 0));
+  auto load_tile = [&](const CUtensorMap* map, uint32_t ring, uint32_t full0, uint32_t empty0,
+                       int u, bool seg) {
+    const int st = u % S;
+    if (u >= S) mbar_wait(empty0 + st * 8, (u / S - 1) & 1);
+    const uint32_t full = full0 + st * 8;
+    mbar_expect_tx(full, C::KV_BYTES + (seg ? TB_SEG_BOX * 4 : 0));
     const int j0 = (int)(jlo + (long long)u * TB_BK);
 #pragma unroll
-    for (int c = 0; c < C::NCB; ++c) {
-      const uint32_t off = st * C::KV_BYTES + c * TB_BK * C::SWB;
-      tma_load_4d(sK0 + off, &tm_k, full, c * C::CB, hk, j0, b);
-      tma_load_4d(sV0 + off, &tm_v, full, c * C::CB, hk, j0, b);
-    }
-    if (has_seg) tma_load_1d(sSeg + st * TB_SEG_INTS * 4, &tm_seg, full, j0 & ~3);
+    for (int term = 0; term < T; ++term)
+#pragma unroll
+      for (int c = 0; c < C::NCB; ++c)
+        tma_load_4d(ring + st * C::KV_BYTES + term * C::KV_TERM + c * TB_BK * C::SWB, map, full,
+                    c * C::CB, hk, j0, b + term * B);
+    if (seg) tma_load_1d(sSeg + st * TB_SEG_INTS * 4, &tm_seg, full, j0 & ~3);
   };
-  if (n_tiles > 0) load_tile(0);
-  if (n_tiles > 1) load_tile(1);
+  auto load_k = [&](int u) { load_tile(&tm_k, sK0, full_k, empty_k, u, has_seg); };
+  auto load_v = [&](int u) { load_tile(&tm_v, sV0, full_v, empty_v, u, false); };
+  // after tile t's softmax and tile t-1's P.V: K tile t + S and V tile
+  // t + S - 1 take the stages those two free
+  auto load_next = [&](int t) {
+    if (!loader) return;
+    if (t + S < n_tiles) load_k(t + S);
+    if (t + S - 1 < n_tiles) load_v(t + S - 1);
+  };
+  if (loader) {
+    for (int u = 0; u < S && u < n_tiles; ++u) load_k(u);
+    for (int u = 0; u < S - 1 && u < n_tiles; ++u) load_v(u);
+  }
 
   // do all of this warpgroup's rows share one segment id?
   int rowseg = 0;
@@ -383,16 +464,16 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     rows_uniform = named_count(3 + wg, 128, wt < n_i && seg_q[wi_first + wt] != rowseg) == 0;
   }
 
-  // Tile t has landed.  Returns whether the band and the segments show all
-  // of it to this warpgroup's rows.
+  // K tile t has landed.  Returns whether the band and the segments show
+  // all of it to this warpgroup's rows.
   auto begin_tile = [&](int t) -> bool {
-    const int st = t % TB_STAGES;
+    const int st = t % S;
     const long long j0 = jlo + (long long)t * TB_BK, j1 = j0 + TB_BK - 1;
     if (t == 0) {
       mbar_wait(bar_q, 0);
       fence_proxy_async();  // Q's cp.async data, as wgmma reads it
     }
-    mbar_wait(bar_full + st * 8, (t / TB_STAGES) & 1);
+    mbar_wait(full_k + st * 8, (t / S) & 1);
     bool seg_all = true;
     if (has_seg) {
       const long long kend = j1 < jhi ? j1 : jhi;
@@ -405,6 +486,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     const long long kp1 = kv_off + (long long)stride_kv * j1;
     return seg_all && j1 <= jhi && wqmin - kp1 >= lo && wqmax - kp0 <= hi;
   };
+  auto wait_v = [&](int t) { mbar_wait(full_v + (t % S) * 8, (t / S) & 1); };
   // turns: this warpgroup issues its products after the other one issued
   // its own (warpgroup 0 first); the last turn of warpgroup 1 hands none on
   auto turn_begin = [&]() { named_sync(1 + wg, 2 * 128); };
@@ -420,6 +502,30 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   float m2[2] = {kNegInf, kNegInf};  // running max of the log2-scaled scores
   float lsum[2] = {0.f, 0.f};        // this thread's share of the row sums
   const uint32_t sQw = sQ + wg * 64 * C::SWB;
+  using OutT = typename OutType<T>::type;
+  // fp32 outputs: the accumulators folded into o so far, scaled to mf
+  float mf[2] = {kNegInf, kNegInf};
+  bool folded = false;
+  // this thread's elements of o: row r's dims c * CB + j * 8 + 2 * (lane % 4)
+  auto orow_of = [&](int h2) -> OutT* {
+    const int r = row_r[h2];
+    return o + (((size_t)b * Sq + r / G) * H + hk * G + r % G) * D + 2 * (lane % 4);
+  };
+  // o (the folded part rescaled to m2) + oacc, times inv, for row h2
+  auto out_pair = [&](int h2, int c, int j, float inv, float& x, float& y) {
+    x = oacc[c][4 * j + 2 * h2];
+    y = oacc[c][4 * j + 2 * h2 + 1];
+    if constexpr (T > 1) {
+      if (folded) {
+        const float f = fast_exp2(mf[h2] - m2[h2]);
+        const float2 w = *reinterpret_cast<const float2*>(orow_of(h2) + c * C::CB + j * 8);
+        x = fmaf(w.x, f, x);
+        y = fmaf(w.y, f, y);
+      }
+    }
+    x *= inv;
+    y *= inv;
+  };
 
   // The products are issued in straight-line code, the same every tile: a
   // data-dependent branch around them makes the compiler serialize every
@@ -434,26 +540,28 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       fence_operands(s);
       turn_begin();
       wgmma_fence();
-      qk_products<D>(s, sQw, sK0);
+      qk_products<D, T>(s, sQw, sK0);
       turn_end(false);
       wgmma_wait<0>();
       fence_operands(s);
       float alpha[2];
       tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk, jlo, jhi, kv_off, stride_kv,
                    lo, hi, has_seg, lane);
+      mbar_arrive(empty_k);  // K tile 0 is done with
       make_pfrag(s, pf);
-      if (n_tiles > 2) load_tile(2);
+      load_next(0);
     }
     for (int t = 1; t < n_tiles; ++t) {
-      const int st = t % TB_STAGES, sp = (t - 1) % TB_STAGES;
+      const int st = t % S, sp = (t - 1) % S;
       const bool full = begin_tile(t);
+      wait_v(t - 1);
       fence_operands(s);
 #pragma unroll
       for (int c = 0; c < C::NCB; ++c) fence_operands(oacc[c]);
       turn_begin();
       wgmma_fence();
-      qk_products<D>(s, sQw, sK0 + st * C::KV_BYTES);
-      pv_products<D>(oacc, pf, sV0 + sp * C::KV_BYTES);
+      qk_products<D, T>(s, sQw, sK0 + st * C::KV_BYTES);
+      pv_products<D, T>(oacc, pf, sV0 + sp * C::KV_BYTES);
       turn_end(false);
       wgmma_wait<1>();  // the scores; the P.V products may still run
       fence_operands(s);
@@ -461,21 +569,47 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk + st * TB_SEG_INTS,
                    jlo + (long long)t * TB_BK, jhi, kv_off, stride_kv, lo, hi, has_seg, lane);
       wgmma_wait<0>();
-      mbar_arrive(bar_empty + sp * 8);  // tile t - 1 is done with
+      mbar_arrive(empty_k + st * 8);  // K tile t and V tile t - 1 are done with
+      mbar_arrive(empty_v + sp * 8);
 #pragma unroll
       for (int c = 0; c < C::NCB; ++c) {
         fence_operands(oacc[c]);
 #pragma unroll
         for (int e = 0; e < ON / 2; ++e) oacc[c][e] *= alpha[(e / 2) % 2];
       }
+      if constexpr (T > 1) {
+        // tiles t - FOLD .. t - 1 into o (this thread's own elements), at m2
+        if (t % FOLD == 0) {
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            if (row_r[h2] >= R) continue;
+#pragma unroll
+            for (int c = 0; c < C::NCB; ++c)
+#pragma unroll
+              for (int j = 0; j < ON / 8; ++j) {
+                float x, y;
+                out_pair(h2, c, j, 1.f, x, y);
+                store2(orow_of(h2) + c * C::CB + j * 8, x, y);
+              }
+          }
+#pragma unroll
+          for (int c = 0; c < C::NCB; ++c)
+#pragma unroll
+            for (int e = 0; e < ON / 2; ++e) oacc[c][e] = 0.f;
+          mf[0] = m2[0];
+          mf[1] = m2[1];
+          folded = true;
+        }
+      }
       make_pfrag(s, pf);
-      if (t + 2 < n_tiles) load_tile(t + 2);
+      load_next(t);
     }
+    wait_v(n_tiles - 1);
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c) fence_operands(oacc[c]);
     turn_begin();
     wgmma_fence();
-    pv_products<D>(oacc, pf, sV0 + ((n_tiles - 1) % TB_STAGES) * C::KV_BYTES);
+    pv_products<D, T>(oacc, pf, sV0 + ((n_tiles - 1) % S) * C::KV_BYTES);
     turn_end(true);
     wgmma_wait<0>();
 #pragma unroll
@@ -489,14 +623,13 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     if (r >= R) continue;
     const int i = r / G, h = hk * G + r % G;
     const float inv = !(l <= 0.f) ? 1.f / l : 0.f;  // a NaN sum passes
-    bf16* orow = o + (((size_t)b * Sq + i) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c)
 #pragma unroll
       for (int j = 0; j < ON / 8; ++j) {
-        const int d = c * C::CB + j * 8 + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            oacc[c][4 * j + 2 * h2] * inv, oacc[c][4 * j + 2 * h2 + 1] * inv);
+        float x, y;
+        out_pair(h2, c, j, inv, x, y);
+        store2(orow_of(h2) + c * C::CB + j * 8, x, y);
       }
     if (lane % 4 == 0)
       lse[((size_t)b * H + h) * Sq + i] = !(l <= 0.f) ? m2[h2] * kLn2 + logf(l) : kNegInf;
@@ -511,13 +644,15 @@ constexpr int DB_THREADS = 128;  // 4 warps
 constexpr int DB_WARPS = 4;
 constexpr int DB_KT = 16;  // keys per warp tile
 
-template <int D, int MT>
+template <int D, int MT, int T>
 struct DecCfg {
   static constexpr int ROWS = MT * 16;               // packed rows held (>= Sq * G)
   static constexpr int RSB = (D + 8) * 2;            // smem row stride, bytes (ldmatrix conflict-free)
-  static constexpr int Q_BYTES = ROWS * RSB;
-  static constexpr int TILE_BYTES = DB_KT * RSB;     // one K or V tile
-  static constexpr int WARP_BYTES = 2 * 2 * TILE_BYTES;  // 2 stages of K and V
+  static constexpr int Q_TERM = ROWS * RSB;          // one term of Q
+  static constexpr int Q_BYTES = T * Q_TERM;
+  static constexpr int TILE_BYTES = DB_KT * RSB;     // one term of a K or V tile
+  static constexpr int KV_BYTES = T * TILE_BYTES;    // a K or V tile, all terms
+  static constexpr int WARP_BYTES = 2 * 2 * KV_BYTES;  // 2 stages of K and V
   static constexpr int STAGING = DB_WARPS * WARP_BYTES;
   static constexpr int ACC_BYTES = DB_WARPS * ROWS * D * 4;  // the merge's partial sums
   static constexpr int SCRATCH = STAGING > ACC_BYTES ? STAGING : ACC_BYTES;
@@ -527,37 +662,44 @@ struct DecCfg {
   static constexpr int SMEM = FIN_OFF + (2 + DB_WARPS) * ROWS * 4;
 };
 
-template <int D, int MT>
+// a K and a V tile of 16 keys, all terms (term t of k at k + t * term_stride)
+template <int D, int MT, int T>
 __device__ __forceinline__ void dec_load_kv(uint32_t sK, uint32_t sV, int* segk,
                                             const bf16* __restrict__ k,
                                             const bf16* __restrict__ v,
                                             const int* __restrict__ seg_kv, long long j0, int b,
-                                            int hk, int Skv, int Hkv, int lane) {
-  using C = DecCfg<D, MT>;
+                                            int hk, int Skv, int Hkv, size_t term_stride,
+                                            int lane) {
+  using C = DecCfg<D, MT, T>;
   constexpr int CH = D / 8;
-  for (int idx = lane; idx < DB_KT * CH; idx += 32) {
-    const int r = idx / CH, c8 = idx % CH;
-    const long long key = j0 + r;
-    const bool valid = key < Skv;
-    const size_t off = valid ? (((size_t)b * Skv + key) * Hkv + hk) * D + c8 * 8 : 0;
-    const uint32_t dst = r * C::RSB + c8 * 16;
-    cp_async16(sK + dst, k + off, valid);
-    cp_async16(sV + dst, v + off, valid);
-  }
+#pragma unroll
+  for (int term = 0; term < T; ++term)
+    for (int idx = lane; idx < DB_KT * CH; idx += 32) {
+      const int r = idx / CH, c8 = idx % CH;
+      const long long key = j0 + r;
+      const bool valid = key < Skv;
+      const size_t off =
+          valid ? term * term_stride + (((size_t)b * Skv + key) * Hkv + hk) * D + c8 * 8 : 0;
+      const uint32_t dst = term * C::TILE_BYTES + r * C::RSB + c8 * 16;
+      cp_async16(sK + dst, k + off, valid);
+      cp_async16(sV + dst, v + off, valid);
+    }
   if (seg_kv != nullptr && lane < DB_KT) {
     const long long key = j0 + lane;
     segk[lane] = key < Skv ? seg_kv[key] : 0;
   }
 }
 
-template <int D, int MT>
+// q [T * B, Sq, H, D], k and v [T * B, Skv, Hkv, D]: all terms
+template <int D, int MT, int T>
 __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ band, int band_stride, const int* __restrict__ seg_q,
-    const int* __restrict__ seg_kv, bf16* __restrict__ o, float* __restrict__ lse,
-    float* __restrict__ o_parts, float* __restrict__ lse_parts, int Sq, int Skv, int H,
-    int Hkv, float scale_log2, int stride_q, int stride_kv) {
-  using C = DecCfg<D, MT>;
+    const int* __restrict__ seg_kv, typename OutType<T>::type* __restrict__ o,
+    float* __restrict__ lse, float* __restrict__ o_parts, float* __restrict__ lse_parts, int Sq,
+    int Skv, int H, int Hkv, float scale_log2, int stride_q, int stride_kv) {
+  using C = DecCfg<D, MT, T>;
+  constexpr int NP = T > 3 ? T : 3;  // P.V: the pairs i + j < NP of P's and V's terms
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t sQ = smem_u32(smem);
   const uint32_t sScratch = sQ + C::Q_BYTES;
@@ -588,14 +730,18 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
   const int t_end = (int)(n_tiles * (split + 1) / splits);
 
   // Q: packed row r = i * G + g -> q[b, i, hk * G + g]; rows >= R are zero
+  const size_t kv_terms = (size_t)B * Skv * Hkv * D;  // between two terms of k or v
   {
     constexpr int CH = D / 8;
-    const size_t qb = (size_t)b * Sq * H * D;
-    for (int idx = tid; idx < C::ROWS * CH; idx += DB_THREADS) {
-      const int r = idx / CH, c8 = idx % CH;
-      const bool valid = r < R;
-      const size_t off = valid ? qb + ((size_t)(r / G) * H + hk * G + r % G) * D + c8 * 8 : 0;
-      cp_async16(sQ + r * C::RSB + c8 * 16, q + off, valid);
+#pragma unroll
+    for (int term = 0; term < T; ++term) {
+      const size_t qb = ((size_t)term * B + b) * Sq * H * D;
+      for (int idx = tid; idx < C::ROWS * CH; idx += DB_THREADS) {
+        const int r = idx / CH, c8 = idx % CH;
+        const bool valid = r < R;
+        const size_t off = valid ? qb + ((size_t)(r / G) * H + hk * G + r % G) * D + c8 * 8 : 0;
+        cp_async16(sQ + term * C::Q_TERM + r * C::RSB + c8 * 16, q + off, valid);
+      }
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -631,19 +777,20 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
   int* segk_warp = segk_all + warp * 2 * DB_KT;
   int t = t_begin + warp;
   if (t < t_end)
-    dec_load_kv<D, MT>(sWarp, sWarp + C::TILE_BYTES, segk_warp, k, v, seg_kv,
-                       jlo + (long long)t * DB_KT, b, hk, Skv, Hkv, lane);
+    dec_load_kv<D, MT, T>(sWarp, sWarp + C::KV_BYTES, segk_warp, k, v, seg_kv,
+                          jlo + (long long)t * DB_KT, b, hk, Skv, Hkv, kv_terms, lane);
   cp_async_commit();
   for (int st = 0; t < t_end; t += DB_WARPS, st ^= 1) {
     if (t + DB_WARPS < t_end) {
-      const uint32_t sn = sWarp + (st ^ 1) * 2 * C::TILE_BYTES;
-      dec_load_kv<D, MT>(sn, sn + C::TILE_BYTES, segk_warp + (st ^ 1) * DB_KT, k, v, seg_kv,
-                         jlo + (long long)(t + DB_WARPS) * DB_KT, b, hk, Skv, Hkv, lane);
+      const uint32_t sn = sWarp + (st ^ 1) * 2 * C::KV_BYTES;
+      dec_load_kv<D, MT, T>(sn, sn + C::KV_BYTES, segk_warp + (st ^ 1) * DB_KT, k, v, seg_kv,
+                            jlo + (long long)(t + DB_WARPS) * DB_KT, b, hk, Skv, Hkv, kv_terms,
+                            lane);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
-    const uint32_t sK = sWarp + st * 2 * C::TILE_BYTES, sV = sK + C::TILE_BYTES;
+    const uint32_t sK = sWarp + st * 2 * C::KV_BYTES, sV = sK + C::KV_BYTES;
     const int* segk = segk_warp + st * DB_KT;
     const long long j0 = jlo + (long long)t * DB_KT;
     const long long j1 = j0 + DB_KT - 1;
@@ -652,19 +799,27 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
     const bool full = !has_seg && j1 <= jhi && qmin - kp1 >= lo && qmax - kp0 <= hi;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      // S = Q K^T for 16 rows x 16 keys: n8 blocks 0 and 1
+      // S = Q K^T for 16 rows x 16 keys (n8 blocks 0 and 1): the term
+      // pairs i + j < T
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4], bk[4];
-        ldsm_x4(sQ + (mt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * C::RSB +
-                    (kk * 16 + (lane / 16) * 8) * 2,
-                a);
-        ldsm_x4(sK + ((lane / 16) * 8 + lane % 8) * C::RSB + (kk * 16 + ((lane / 8) % 2) * 8) * 2,
-                bk);
-        mma_bf16(s[0], a, bk[0], bk[1]);
-        mma_bf16(s[1], a, bk[2], bk[3]);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          uint32_t a[4];
+          ldsm_x4(sQ + i * C::Q_TERM + (mt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * C::RSB +
+                      (kk * 16 + (lane / 16) * 8) * 2,
+                  a);
+#pragma unroll
+          for (int j = 0; i + j < T; ++j) {
+            uint32_t bk[4];
+            ldsm_x4(sK + j * C::TILE_BYTES + ((lane / 16) * 8 + lane % 8) * C::RSB +
+                        (kk * 16 + ((lane / 8) % 2) * 8) * 2,
+                    bk);
+            mma_bf16(s[0], a, bk[0], bk[1]);
+            mma_bf16(s[1], a, bk[2], bk[3]);
+          }
+        }
       // element (nb, e): row half e / 2, key column nb * 8 + 2 * (lane % 4) + e % 2
       float rmax[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -712,17 +867,20 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
       split3_bf16(s[1][0], s[1][1], pf[0][2], pf[1][2], pf[2][2]);
       split3_bf16(s[1][2], s[1][3], pf[0][3], pf[1][3], pf[2][3]);
 #pragma unroll
-      for (int p2 = 0; p2 < D / 16; ++p2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(sV + (((lane / 8) % 2) * 8 + lane % 8) * C::RSB +
-                          (p2 * 16 + (lane / 16) * 8) * 2,
-                      bv);
+      for (int p2 = 0; p2 < D / 16; ++p2)
 #pragma unroll
-        for (int term = 0; term < 3; ++term) {
-          mma_bf16(oacc[mt][2 * p2], pf[term], bv[0], bv[1]);
-          mma_bf16(oacc[mt][2 * p2 + 1], pf[term], bv[2], bv[3]);
+        for (int j = 0; j < T; ++j) {
+          uint32_t bv[4];
+          ldsm_x4_trans(sV + j * C::TILE_BYTES + (((lane / 8) % 2) * 8 + lane % 8) * C::RSB +
+                            (p2 * 16 + (lane / 16) * 8) * 2,
+                        bv);
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            if (term + j >= NP) continue;  // resolved at compile time
+            mma_bf16(oacc[mt][2 * p2], pf[term], bv[0], bv[1]);
+            mma_bf16(oacc[mt][2 * p2 + 1], pf[term], bv[2], bv[3]);
+          }
         }
-      }
     }
     __syncwarp();  // stage st is free for this warp's next-but-one tile
   }
@@ -777,7 +935,7 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
     const int i = row / G, h = hk * G + row % G;
     const size_t orow = ((size_t)b * Sq + i) * H + h;
     if (splits == 1)
-      o[orow * D + d] = __float2bfloat16(val);
+      store1(o + orow * D + d, val);
     else
       o_parts[((size_t)split * B * Sq * H + orow) * D + d] = val;
   }
@@ -794,9 +952,11 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
 }
 
 // Merge the splits' partials by their lse: one warp per (b, i, h) row
+template <int T>
 __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
     const float* __restrict__ o_parts, const float* __restrict__ lse_parts,
-    bf16* __restrict__ o, float* __restrict__ lse, int splits, int B, int Sq, int H, int D) {
+    typename OutType<T>::type* __restrict__ o, float* __restrict__ lse, int splits, int B, int Sq,
+    int H, int D) {
   const int lane = threadIdx.x % 32;
   const long long rows = (long long)B * Sq * H;
   const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 32;  // (b * Sq + i) * H + h
@@ -809,7 +969,7 @@ __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
   float M = kNegInf;
   for (int s = 0; s < splits; ++s) M = max_nan(M, lse_parts[s * lstride + li]);
   if (M <= kNegInf) {
-    for (int d = lane; d < D; d += 32) o[row * D + d] = __float2bfloat16(0.f);
+    for (int d = lane; d < D; d += 32) store1(o + row * D + d, 0.f);
     if (lane == 0) lse[li] = kNegInf;
     return;
   }
@@ -819,7 +979,7 @@ __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
     float acc = 0.f;
     for (int s = 0; s < splits; ++s)
       acc += expf(lse_parts[s * lstride + li] - M) * o_parts[((size_t)s * rows + row) * D + d];
-    o[row * D + d] = __float2bfloat16(acc / W);
+    store1(o + row * D + d, acc / W);
   }
   if (lane == 0) lse[li] = M + logf(W);
 }
@@ -828,129 +988,149 @@ __global__ void __launch_bounds__(128) flash_fwd_combine_kernel(
 // launchers
 // ===========================================================================
 
-template <int D>
-cudaError_t launch_tile(const void* q, const void* k, const void* v, const void* band,
-                        int band_stride, const void* seg_q, const void* seg_kv, void* o, void* lse,
-                        int B, int Sq, int Skv, int H, int Hkv, float scale_log2, int stride_q,
-                        int stride_kv, cudaStream_t stream) {
-  using C = TileCfg<D>;
+// The bodies' arguments, as the C entry points take them
+struct Args {
+  const void *q, *k, *v, *band;
+  int band_stride;
+  const void *seg_q, *seg_kv;
+  void *o, *lse, *o_parts, *lse_parts;
+  int splits, B, Sq, Skv, H, Hkv;
+  float scale_log2;
+  int stride_q, stride_kv;
+  cudaStream_t stream;
+};
+
+template <int D, int T>
+cudaError_t launch_tile(const Args& a) {
+  using C = TileCfg<D, T>;
   CUtensorMap tm_k, tm_v, tm_seg;
   memset(&tm_k, 0, sizeof(tm_k));
   memset(&tm_v, 0, sizeof(tm_v));
   memset(&tm_seg, 0, sizeof(tm_seg));
-  if (Skv > 0) {  // with no keys the kernel loads nothing
+  if (a.Skv > 0) {  // with no keys the kernel loads nothing
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Skv, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
-                                   (cuuint64_t)Skv * Hkv * D * 2};
+    // all terms: [T * B, Skv, Hkv, D]
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.Hkv, (cuuint64_t)a.Skv,
+                                (cuuint64_t)a.B * T};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)a.Hkv * D * 2,
+                                   (cuuint64_t)a.Skv * a.Hkv * D * 2};
     const cuuint32_t box[4] = {(cuuint32_t)C::CB, 1, (cuuint32_t)TB_BK, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     const CUtensorMapSwizzle swizzle =
         D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-    if (encode(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(k), dims, strides,
+    if (encode(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(a.k), dims, strides,
                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-        encode(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v), dims, strides,
+        encode(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(a.v), dims, strides,
                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
-    if (seg_kv != nullptr) {
-      const cuuint64_t seg_dims[1] = {(cuuint64_t)Skv};
+    if (a.seg_kv != nullptr) {
+      const cuuint64_t seg_dims[1] = {(cuuint64_t)a.Skv};
       const cuuint32_t seg_box[1] = {(cuuint32_t)TB_SEG_BOX};
-      if (encode(&tm_seg, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(seg_kv), seg_dims,
-                 strides, seg_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      if (encode(&tm_seg, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(a.seg_kv),
+                 seg_dims, strides, seg_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
         return cudaErrorInvalidValue;
     }
   }
   const int smem = C::SMEM;
-  auto kern = flash_fwd_tile_kernel<D>;
+  auto kern = flash_fwd_tile_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int R = Sq * (H / Hkv);
-  dim3 grid((R + TB_ROWS - 1) / TB_ROWS, Hkv, B);
-  kern<<<grid, TB_THREADS, smem, stream>>>(
-      tm_k, tm_v, tm_seg, static_cast<const bf16*>(q), static_cast<const int*>(band), band_stride,
-      static_cast<const int*>(seg_q), static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv,
-      H, Hkv, scale_log2, stride_q, stride_kv);
+  const int R = a.Sq * (a.H / a.Hkv);
+  dim3 grid((R + TB_ROWS - 1) / TB_ROWS, a.Hkv, a.B);
+  kern<<<grid, TB_THREADS, smem, a.stream>>>(
+      tm_k, tm_v, tm_seg, static_cast<const bf16*>(a.q), static_cast<const int*>(a.band),
+      a.band_stride, static_cast<const int*>(a.seg_q),
+      static_cast<typename OutType<T>::type*>(a.o), static_cast<float*>(a.lse), a.Sq, a.Skv, a.H,
+      a.Hkv, a.scale_log2, a.stride_q, a.stride_kv);
   return cudaGetLastError();
 }
 
-template <int D, int MT>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* band,
-                          int band_stride, const void* seg_q, const void* seg_kv, void* o,
-                          void* lse, void* o_parts, void* lse_parts, int splits, int B, int Sq,
-                          int Skv, int H, int Hkv, float scale_log2, int stride_q, int stride_kv,
-                          cudaStream_t stream) {
-  const int smem = DecCfg<D, MT>::SMEM;
-  auto kern = flash_fwd_decode_kernel<D, MT>;
+template <int D, int MT, int T>
+cudaError_t launch_decode(const Args& a) {
+  const int smem = DecCfg<D, MT, T>::SMEM;
+  auto kern = flash_fwd_decode_kernel<D, MT, T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(splits, Hkv, B);
-  kern<<<grid, DB_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(band), band_stride, static_cast<const int*>(seg_q),
-      static_cast<const int*>(seg_kv), static_cast<bf16*>(o), static_cast<float*>(lse),
-      static_cast<float*>(o_parts), static_cast<float*>(lse_parts), Sq, Skv, H, Hkv, scale_log2,
-      stride_q, stride_kv);
+  using OutT = typename OutType<T>::type;
+  dim3 grid(a.splits, a.Hkv, a.B);
+  kern<<<grid, DB_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const int*>(a.band), a.band_stride, static_cast<const int*>(a.seg_q),
+      static_cast<const int*>(a.seg_kv), static_cast<OutT*>(a.o), static_cast<float*>(a.lse),
+      static_cast<float*>(a.o_parts), static_cast<float*>(a.lse_parts), a.Sq, a.Skv, a.H, a.Hkv,
+      a.scale_log2, a.stride_q, a.stride_kv);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long rows = (long long)B * Sq * H;
-  flash_fwd_combine_kernel<<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
-      static_cast<const float*>(o_parts), static_cast<const float*>(lse_parts),
-      static_cast<bf16*>(o), static_cast<float*>(lse), splits, B, Sq, H, D);
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  flash_fwd_combine_kernel<T><<<(unsigned)((rows + 3) / 4), 128, 0, a.stream>>>(
+      static_cast<const float*>(a.o_parts), static_cast<const float*>(a.lse_parts),
+      static_cast<OutT*>(a.o), static_cast<float*>(a.lse), a.splits, a.B, a.Sq, a.H, D);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch_decode(const void* q, const void* k, const void* v, const void* band,
-                            int band_stride, const void* seg_q, const void* seg_kv, void* o,
-                            void* lse, void* o_parts, void* lse_parts, int splits, int B, int Sq,
-                            int Skv, int H, int Hkv, float scale_log2, int stride_q,
-                            int stride_kv, cudaStream_t stream) {
-  const int R = Sq * (H / Hkv);
-  if (R <= 16)
-    return launch_decode<D, 1>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, o_parts,
-                               lse_parts, splits, B, Sq, Skv, H, Hkv, scale_log2, stride_q,
-                               stride_kv, stream);
-  if (R <= 32)
-    return launch_decode<D, 2>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, o_parts,
-                               lse_parts, splits, B, Sq, Skv, H, Hkv, scale_log2, stride_q,
-                               stride_kv, stream);
+template <int T>
+cudaError_t dispatch_tile(int D, const Args& a) {
+  switch (D) {
+    case 32: return launch_tile<32, T>(a);
+    case 64: return launch_tile<64, T>(a);
+    case 128: return launch_tile<128, T>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D, int T>
+cudaError_t decode_rows(const Args& a) {
+  const int R = a.Sq * (a.H / a.Hkv);
+  if (R <= 16) return launch_decode<D, 1, T>(a);
+  if (R <= 32) return launch_decode<D, 2, T>(a);
   return cudaErrorInvalidValue;
+}
+
+template <int T>
+cudaError_t dispatch_decode(int D, const Args& a) {
+  switch (D) {
+    case 32: return decode_rows<32, T>(a);
+    case 64: return decode_rows<64, T>(a);
+    case 128: return decode_rows<128, T>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ===========================================================================
+// the fp32 pre-pass: q, k, v as two bf16 terms each
+// ===========================================================================
+
+__global__ void __launch_bounds__(256) flash_fwd_split_kernel(SplitArgs a) {
+  split_terms_body(a);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
 
 }  // namespace
 
-// Both entry points take bf16 q [B, Sq, H, D], k and v [B, Skv, Hkv, D],
-// the int32 band ([4] with band_stride 0, or [B, 4] with 4), optional int32
-// segment ids (seg_q [Sq], seg_kv [Skv], or both null), and write o [B, Sq,
-// H, D] (bf16) and lse [B, H, Sq] (fp32).  They return cudaGetLastError()
+// Both bodies take q [terms, B, Sq, H, D], k and v [terms, B, Skv, Hkv, D]
+// as bf16 (the inputs themselves for terms = 1, bf16 inputs; flash_fwd_split's
+// terms for terms = 2, fp32 inputs), the int32 band ([4] with band_stride
+// 0, or [B, 4] with 4), optional int32 segment ids (seg_q [Sq], seg_kv [Skv],
+// or both null), and write o [B, Sq, H, D] (bf16 for terms = 1, fp32 for
+// terms = 2) and lse [B, H, Sq] (fp32).  They return cudaGetLastError()
 // after the launches.
 
 extern "C" int flash_fwd_tile(const void* q, const void* k, const void* v, const void* band,
                               int band_stride, const void* seg_q, const void* seg_kv, void* o,
                               void* lse, int B, int Sq, int Skv, int H, int Hkv, int D,
-                              float scale, int stride_q, int stride_kv, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float sl2 = scale * kLog2e;
-  switch (D) {
-    case 32:
-      return (int)launch_tile<32>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv,
-                                  H, Hkv, sl2, stride_q, stride_kv, s);
-    case 64:
-      return (int)launch_tile<64>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv,
-                                  H, Hkv, sl2, stride_q, stride_kv, s);
-    case 128:
-      return (int)launch_tile<128>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, B, Sq, Skv,
-                                   H, Hkv, sl2, stride_q, stride_kv, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                              float scale, int stride_q, int stride_kv, int terms, void* stream) {
+  const Args a{q, k, v, band, band_stride, seg_q, seg_kv, o, lse, nullptr, nullptr, 1, B, Sq,
+               Skv, H, Hkv, scale * kLog2e, stride_q, stride_kv,
+               static_cast<cudaStream_t>(stream)};
+  if (terms == 1) return (int)dispatch_tile<1>(D, a);
+  if (terms == 2) return (int)dispatch_tile<2>(D, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Sq * (H / Hkv) <= 32.  With splits > 1, o_parts (fp32 [splits, B, Sq, H,
@@ -959,25 +1139,22 @@ extern "C" int flash_fwd_decode(const void* q, const void* k, const void* v, con
                                 int band_stride, const void* seg_q, const void* seg_kv, void* o,
                                 void* lse, void* o_parts, void* lse_parts, int splits, int B,
                                 int Sq, int Skv, int H, int Hkv, int D, float scale, int stride_q,
-                                int stride_kv, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float sl2 = scale * kLog2e;
+                                int stride_kv, int terms, void* stream) {
   if (splits < 1 || (splits > 1 && (o_parts == nullptr || lse_parts == nullptr)))
     return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32:
-      return (int)dispatch_decode<32>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, o_parts,
-                                      lse_parts, splits, B, Sq, Skv, H, Hkv, sl2, stride_q,
-                                      stride_kv, s);
-    case 64:
-      return (int)dispatch_decode<64>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse, o_parts,
-                                      lse_parts, splits, B, Sq, Skv, H, Hkv, sl2, stride_q,
-                                      stride_kv, s);
-    case 128:
-      return (int)dispatch_decode<128>(q, k, v, band, band_stride, seg_q, seg_kv, o, lse,
-                                       o_parts, lse_parts, splits, B, Sq, Skv, H, Hkv, sl2,
-                                       stride_q, stride_kv, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, band, band_stride, seg_q, seg_kv, o, lse, o_parts, lse_parts, splits, B,
+               Sq, Skv, H, Hkv, scale * kLog2e, stride_q, stride_kv,
+               static_cast<cudaStream_t>(stream)};
+  if (terms == 1) return (int)dispatch_decode<1>(D, a);
+  if (terms == 2) return (int)dispatch_decode<2>(D, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 bodies' pre-pass (sm90.cuh's split_terms_body): count <= 4 fp32
+// arrays src[i] of n[i] values (q, k, v) into [2, n[i]] bf16 terms (hi, then
+// lo) at dst[i].
+extern "C" int flash_fwd_split(const void* const* src, void* const* dst, const long long* n,
+                               int count, void* stream) {
+  return (int)launch_split(flash_fwd_split_kernel, src, dst, n, count,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (flash_fwd_tc.cu, flash_bwd.cu, paged_decode.cu): integer division for
 // band solving, mbarriers, TMA loads, cp.async, mma.sync and ldmatrix, the
-// three-term bf16 split, wgmma and its shared-memory descriptors, and the
-// tensor-map encoder fetched from the driver.  Included once per source;
+// three-term bf16 split, wgmma and its shared-memory descriptors, the
+// tensor-map encoder looked up in libcuda at run time, and the fp32 split
+// pre-pass of the flash forward and backward.  Included once per source;
 // kernels/_build.py hashes every header here with each source.
 
 #pragma once
@@ -259,6 +260,55 @@ EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// the fp32 split pre-pass of the flash forward and backward: up to
+// SPLIT_MAX fp32 arrays, one per blockIdx.y, into [2, n] bf16 terms each (hi
+// = bf16(x), then lo = bf16(x - hi)), which their tensor-core bodies load
+// like bf16 tiles.  Each source wraps the body in a __global__ of its own
+// name (flash_fwd_split_kernel, flash_bwd_split_kernel), so a profile tells
+// the forward's launches from the backward's.
+constexpr int SPLIT_MAX = 4;
+
+struct SplitArgs {
+  const float* src[SPLIT_MAX];
+  bf16* dst[SPLIT_MAX];  // [2, n]: hi, then lo
+  long long n[SPLIT_MAX];
+};
+
+__device__ __forceinline__ void split_terms_body(const SplitArgs& a) {
+  const int w = blockIdx.y;
+  const float* __restrict__ src = a.src[w];
+  bf16* __restrict__ dst = a.dst[w];
+  const long long n = a.n[w];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float x = src[i];
+    const bf16 h = __float2bfloat16_rn(x);
+    dst[i] = h;
+    dst[n + i] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+}
+
+// launches `kernel` (a source's wrapper of split_terms_body) over `count`
+// arrays src[i] of n[i] values into dst[i]; returns cudaGetLastError()
+inline cudaError_t launch_split(void (*kernel)(SplitArgs), const void* const* src,
+                                void* const* dst, const long long* n, int count,
+                                cudaStream_t stream) {
+  if (count < 1 || count > SPLIT_MAX) return cudaErrorInvalidValue;
+  SplitArgs a{};
+  long long most = 1;
+  for (int i = 0; i < count; ++i) {
+    a.src[i] = static_cast<const float*>(src[i]);
+    a.dst[i] = static_cast<bf16*>(dst[i]);
+    a.n[i] = n[i];
+    most = n[i] > most ? n[i] : most;
+  }
+  const long long blocks = (most + 255) / 256;
+  const dim3 grid((unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), count);
+  void* args[] = {&a};
+  cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid, dim3(256), args, 0, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace

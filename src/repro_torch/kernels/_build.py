@@ -23,8 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan",
-           "ssd_scan_bwd")
+SOURCES = ("flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,22 +99,22 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "flash_fwd":
-        # q k v band band_stride seg_q seg_kv o lse B Sq Skv H Hkv D scale
-        # stride_q stride_kv stream (fp32)
-        lib.flash_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
-        lib.flash_fwd.restype = i
-    elif name == "flash_fwd_tc":
-        # the tile body (bf16): as flash_fwd
-        lib.flash_fwd_tile.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    ll = ctypes.c_longlong
+    if name == "flash_fwd_tc":
+        # the tile body: q k v band band_stride seg_q seg_kv o lse B Sq Skv H
+        # Hkv D scale stride_q stride_kv terms stream
+        lib.flash_fwd_tile.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd_tile.restype = i
-        # the decode body (bf16): q k v band band_stride seg_q seg_kv o lse
-        # o_parts lse_parts splits B Sq Skv H Hkv D scale stride_q stride_kv
+        # the decode body: q k v band band_stride seg_q seg_kv o lse o_parts
+        # lse_parts splits B Sq Skv H Hkv D scale stride_q stride_kv terms
         # stream
         lib.flash_fwd_decode.argtypes = [
-            p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p
+            p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p
         ]
         lib.flash_fwd_decode.restype = i
+        # the fp32 pre-pass: src[] dst[] n[] count stream
+        lib.flash_fwd_split.argtypes = [p, p, p, i, p]
+        lib.flash_fwd_split.restype = i
     elif name == "flash_bwd":
         # q k v do lse delta band seg_q seg_kv dq B Sq Skv H Hkv D scale
         # stride_q stride_kv terms stream
@@ -126,9 +125,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p
         ]
         lib.flash_bwd_dkv.restype = i
-        # the fp32 pre-pass: q k v do q_t k_t v_t do_t n_q n_kv stream
-        ll = ctypes.c_longlong
-        lib.flash_bwd_split.argtypes = [p, p, p, p, p, p, p, p, ll, ll, p]
+        # the fp32 pre-pass: src[] dst[] n[] count stream
+        lib.flash_bwd_split.argtypes = [p, p, p, i, p]
         lib.flash_bwd_split.restype = i
     elif name == "paged_decode":
         # q k_pool v_pool k_scale v_scale bt pos pos_stride pos_value o lse
@@ -142,14 +140,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "ssd_scan":
         # x dt A Bm Cm y state scores decay states B S H P G N chunk, the
         # (batch, seq, head) strides of x, dt, Bm, Cm, terms, stream
-        ll = ctypes.c_longlong
         lib.ssd_scan.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [i, p]
         lib.ssd_scan.restype = i
     elif name == "ssd_scan_bwd":
         # x dt A Bm Cm dy dstate dx ddt dA dBm dCm states grads decay dBp dCp
         # dAp B S H P G N chunk, the (batch, seq, head) strides of x, dt, Bm,
         # Cm, stream
-        ll = ctypes.c_longlong
         lib.ssd_scan_bwd.argtypes = [p] * 18 + [i] * 7 + [ll] * 12 + [p]
         lib.ssd_scan_bwd.restype = i
     else:

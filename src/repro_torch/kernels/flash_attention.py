@@ -2,28 +2,31 @@
 their plain versions.
 
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_fwd``
-and ``flash_attention_bwd``).  The forward has three bodies, one route per
-input type and shape (``_fwd_plan``): bf16 runs on the tensor cores in
-``csrc/flash_fwd_tc.cu`` -- the tile body (wgmma) for prefill, chunks and
-windows, the decode body (mma.sync, split keys) for at most
-``DECODE_MAX_ROWS`` packed rows -- and fp32 on the CUDA cores in
-``csrc/flash_fwd.cu``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
-dK/dV kernels on the tensor cores for both types (``_bwd_plan``), bf16 as
-one term per value and fp32 as two bf16 terms written by a split pre-pass.
-See the notes at the sources' tops for the designs.
+and ``flash_attention_bwd``).  Both run every product on the tensor cores,
+bf16 inputs as one term per value and fp32 inputs as two bf16 terms (hi +
+lo) written by a split pre-pass.  The forward is ``csrc/flash_fwd_tc.cu``,
+with two bodies picked by shape (``_fwd_plan``): the tile body (wgmma) for
+prefill, chunks, windows and training, the decode body (mma.sync, split
+keys) for at most ``DECODE_MAX_ROWS`` packed rows; each has a bf16 and an
+fp32 instantiation.  The backward is ``csrc/flash_bwd.cu``: the dQ and
+dK/dV kernels (``_bwd_plan``).  See the notes at the sources' tops for the
+designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
 (``ref.attention_ref``, ``ref.attention_bwd_ref``) for CPU tensors; there is
 no other fallback.  ``flash_attention_fwd.launches`` counts forward launches
-and ``.launches_tile``, ``.launches_decode``, ``.launches_fp32`` those of
-each body; ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count
+and ``.launches_<body>`` those of each body of ``_fwd_plan`` (``tile``,
+``decode``: bf16; ``tile_fp32``, ``decode_fp32``), ``.launches_fp32`` the
+fp32 ones of both; ``fwd_split_terms.launches`` counts the fp32 forward's
+pre-pass.  ``flash_attention_bwd.launches_dq`` and ``.launches_dkv`` count
 the two backward kernels' launches, ``.launches_tc_bf16`` and
 ``.launches_tc_fp32`` the backward calls of each body;
-``split_terms.launches`` counts the fp32 body's pre-pass.
+``split_terms.launches`` counts the fp32 backward's pre-pass.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -34,12 +37,18 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the bf16 decode body takes up to 32 packed rows (Sq * H / Hkv): a decode
-# tick (Sq = 1) and a speculative verify (Sq = spec_k)
+# the decode body takes up to 32 packed rows (Sq * H / Hkv): a decode tick
+# (Sq = 1) and a speculative verify (Sq = spec_k), in either type
 DECODE_MAX_ROWS = 32
 # key splits fill the card when B * Hkv CTAs would leave most of its SMs idle
 NUM_SMS = 132  # H100 SXM
 MAX_SPLITS = 8
+
+# bf16 terms per input value of each forward body: bf16 inputs are exact in
+# one, fp32 inputs go in as hi + lo (tests/test_torch_fwd_split.py)
+FWD_TERMS = {"tile": 1, "decode": 1, "tile_fp32": 2, "decode_fp32": 2}
+# bf16 terms of P in both bodies (csrc/flash_fwd_tc.cu's PFrag)
+FWD_P_TERMS = 3
 
 BandArg = Union[Sequence[Union[int, torch.Tensor]], torch.Tensor]
 
@@ -115,22 +124,21 @@ def _seg_device(seg_q, seg_kv, Sq: int, Skv: int, device):
 
 def _fwd_plan(B: int, Sq: int, H: int, Hkv: int, D: int, dtype) -> Tuple[str, int]:
     """(body, key splits) of the forward, from the shapes and type alone (the
-    host never reads the band): "fp32" for fp32 inputs; for bf16, "decode"
-    when the packed rows of one kv head (Sq * H / Hkv) fit the decode body,
-    with the keys split across CTAs when B * Hkv CTAs would leave most of the
-    SMs idle, else "tile"."""
+    host never reads the band): "decode" when the packed rows of one kv head
+    (Sq * H / Hkv) fit the decode body, with the keys split across CTAs when
+    B * Hkv CTAs would leave most of the SMs idle, else "tile"; with a
+    "_fp32" suffix for fp32 inputs (their two-term instantiations)."""
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
-    if dtype == torch.float32:
-        return "fp32", 1
-    if dtype != torch.bfloat16:
+    if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {dtype}")
+    suffix = "_fp32" if dtype == torch.float32 else ""
     if Sq * (H // Hkv) > DECODE_MAX_ROWS:
-        return "tile", 1
+        return "tile" + suffix, 1
     ctas = B * Hkv
     if 2 * ctas > NUM_SMS:
-        return "decode", 1
-    return "decode", min(MAX_SPLITS, -(-2 * NUM_SMS // ctas))
+        return "decode" + suffix, 1
+    return "decode" + suffix, min(MAX_SPLITS, -(-2 * NUM_SMS // ctas))
 
 
 # bf16 terms per input value of each backward body: bf16 inputs are exact
@@ -197,33 +205,35 @@ def flash_attention_fwd(
     if B == 0 or Sq == 0:
         return o, lse.fill_(ref.NEG_INF)
     body, splits = _fwd_plan(B, Sq, H, Hkv, D, q.dtype)
+    terms = FWD_TERMS[body]
+    # fp32: the bf16 terms of each operand, [terms, *shape] (fresh, so
+    # 16-byte aligned as TMA needs)
+    operands = fwd_split_terms(q, k, v) if terms > 1 else (q, k, v)
+    if body == "tile" and (k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("the tile body reads k and v with TMA: they must be 16-byte aligned")
     ptrs = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), band_d.data_ptr(), band_stride,
+        *(t.data_ptr() for t in operands), band_d.data_ptr(), band_stride,
         seg_q.data_ptr() if seg_q is not None else None,
         seg_kv.data_ptr() if seg_kv is not None else None,
         o.data_ptr(), lse.data_ptr(),
     )
-    dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv))
+    dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv), terms)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if body == "fp32":
-        _build.check(_build.load("flash_fwd").flash_fwd(*ptrs, *dims, stream), "flash_fwd")
-        flash_attention_fwd.launches_fp32 += 1
-    elif body == "tile":
-        if k.data_ptr() % 16 or v.data_ptr() % 16:
-            raise ValueError("the tile body reads k and v with TMA: they must be 16-byte aligned")
-        lib = _build.load("flash_fwd_tc")
+    lib = _build.load("flash_fwd_tc")
+    if body.startswith("tile"):
         _build.check(lib.flash_fwd_tile(*ptrs, *dims, stream), "flash_fwd_tile")
-        flash_attention_fwd.launches_tile += 1
     else:
         parts = (None, None)
         if splits > 1:  # the splits' normalized partials, merged by their lse
             o_parts = torch.empty((splits, B, Sq, H, D), dtype=torch.float32, device=q.device)
             lse_parts = torch.empty((splits, B, H, Sq), dtype=torch.float32, device=q.device)
             parts = (o_parts.data_ptr(), lse_parts.data_ptr())
-        lib = _build.load("flash_fwd_tc")
         _build.check(lib.flash_fwd_decode(*ptrs, *parts, splits, *dims, stream),
                      "flash_fwd_decode")
-        flash_attention_fwd.launches_decode += 1
+    setattr(flash_attention_fwd, f"launches_{body}",
+            getattr(flash_attention_fwd, f"launches_{body}") + 1)
+    if terms > 1:
+        flash_attention_fwd.launches_fp32 += 1
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -231,6 +241,8 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_tile = 0
 flash_attention_fwd.launches_decode = 0
+flash_attention_fwd.launches_tile_fp32 = 0
+flash_attention_fwd.launches_decode_fp32 = 0
 flash_attention_fwd.launches_fp32 = 0
 
 
@@ -240,25 +252,44 @@ def split_terms_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, (x - hi.float()).to(torch.bfloat16)])
 
 
-def split_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor):
-    """The fp32 backward body's pre-pass: q, k, v, do (fp32, contiguous; do
-    shaped as q, v as k) as [2, *shape] bf16 terms each (hi, lo), which the
-    kernels load like bf16 tiles.  One launch of the split kernel for CUDA
-    tensors; the plain version for CPU tensors."""
-    xs = (q, k, v, do)
-    if q.device.type == "cpu":
+def _split(source: str, entry: str, xs: Tuple[torch.Tensor, ...], counter):
+    """The fp32 bodies' pre-pass: each of xs (fp32, contiguous, on one
+    device) as [2, *shape] bf16 terms (hi, lo), which the tensor-core bodies
+    load like bf16 tiles.  One launch of ``entry`` in ``csrc/<source>.cu``
+    for CUDA tensors, counted on ``counter.launches``; the plain version for
+    CPU tensors."""
+    if xs[0].device.type == "cpu":
         return tuple(split_terms_ref(t) for t in xs)
-    if any(t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous() for t in xs):
-        raise ValueError("split_terms takes contiguous float32 tensors on one device")
+    if any(t.dtype != torch.float32 or t.device != xs[0].device or not t.is_contiguous()
+           for t in xs):
+        raise ValueError(f"{counter.__name__} takes contiguous float32 tensors on one device")
+    out = tuple(torch.empty((2, *t.shape), dtype=torch.bfloat16, device=t.device) for t in xs)
+    n = len(xs)
+    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
+    _build.check(getattr(_build.load(source), entry)(
+        (ctypes.c_void_p * n)(*(t.data_ptr() for t in xs)),
+        (ctypes.c_void_p * n)(*(t.data_ptr() for t in out)),
+        (ctypes.c_longlong * n)(*(t.numel() for t in xs)), n, stream), entry)
+    counter.launches += 1
+    return out
+
+
+def fwd_split_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The fp32 forward's pre-pass (``_split``): q, k, v (v shaped as k)."""
+    if v.shape != k.shape:
+        raise ValueError("v must be shaped as k")
+    return _split("flash_fwd_tc", "flash_fwd_split", (q, k, v), fwd_split_terms)
+
+
+fwd_split_terms.launches = 0
+
+
+def split_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor):
+    """The fp32 backward body's pre-pass (``_split``): q, k, v, do (do
+    shaped as q, v as k)."""
     if do.shape != q.shape or v.shape != k.shape:
         raise ValueError("do must be shaped as q, and v as k")
-    out = tuple(torch.empty((2, *t.shape), dtype=torch.bfloat16, device=q.device) for t in xs)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(_build.load("flash_bwd").flash_bwd_split(
-        *(t.data_ptr() for t in xs), *(t.data_ptr() for t in out), q.numel(), k.numel(), stream),
-        "flash_bwd_split")
-    split_terms.launches += 1
-    return out
+    return _split("flash_bwd", "flash_bwd_split", (q, k, v, do), split_terms)
 
 
 split_terms.launches = 0

@@ -73,6 +73,10 @@ FLASH_CASES = {
 }
 
 
+FWD_COUNTERS = ("launches", "launches_tile", "launches_decode", "launches_tile_fp32",
+                "launches_decode_fp32", "launches_fp32")
+
+
 def _band_arg(band, dev):
     """The case's band as the wrapper takes it, and as the plain version does."""
     if isinstance(band, list):
@@ -95,12 +99,18 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
         ids = np.sort(rng.integers(0, 4, Sq)).astype(np.int32)
         kw["seg_q"] = kw["seg_kv"] = torch.from_numpy(ids).to(dev)
     body, _ = fa._fwd_plan(B, Sq, H, Hkv, D, dtype)
-    counters = ("launches", "launches_tile", "launches_decode", "launches_fp32")
-    before = {c: getattr(fa.flash_attention_fwd, c) for c in counters}
+    fp32 = dtype == torch.float32
+    assert body.endswith("_fp32") == fp32
+    before = {c: getattr(fa.flash_attention_fwd, c) for c in FWD_COUNTERS}
+    split_before = fa.fwd_split_terms.launches
     o, lse = fa.flash_attention_fwd(q, k, v, band, **kw)
     torch.cuda.synchronize()
-    moved = {c: getattr(fa.flash_attention_fwd, c) - before[c] for c in counters}
-    assert moved == {c: int(c in ("launches", f"launches_{body}")) for c in counters}
+    moved = {c: getattr(fa.flash_attention_fwd, c) - before[c] for c in FWD_COUNTERS}
+    want = ["launches", f"launches_{body}"] + (["launches_fp32"] if fp32 else [])
+    assert moved == {c: int(c in want) for c in FWD_COUNTERS}
+    # fp32: one pre-pass launch writes the operands' two bf16 terms
+    assert fa.fwd_split_terms.launches - split_before == int(fp32)
+    assert o.dtype == dtype
     o_ref, lse_ref = ref.attention_ref(q, k, v, band=plain_band, **kw)
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
@@ -113,22 +123,33 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
         assert (~live).any()
 
 
-@pytest.mark.parametrize("case", ["granite_segments", "hymba_window", "chunk",
-                                  "decode_slots_hymba", "verify"])
-def test_flash_fwd_tensor_core_repeat_is_bitwise(dev, case):
-    """The bf16 bodies sum in a fixed order (the decode body's key splits
-    merge without atomics): two launches give identical outputs."""
+# (case, dtype): every body of both types -- the tile body (granite
+# segments, hymba's window, chunks), the decode body with one split (verify)
+# and with several (hymba's decode slots)
+REPEAT_CASES = [(c, torch.bfloat16) for c in ("granite_segments", "hymba_window", "chunk",
+                                              "decode_slots_hymba", "verify")] + [
+    (c, torch.float32) for c in ("granite_segments", "chunk", "decode_slots_hymba", "verify")]
+
+
+@pytest.mark.parametrize("case,dtype", REPEAT_CASES,
+                         ids=[f"{c}-{'fp32' if d == torch.float32 else 'bf16'}"
+                              for c, d in REPEAT_CASES])
+def test_flash_fwd_tensor_core_repeat_is_bitwise(dev, case, dtype):
+    """The bodies sum in a fixed order (the decode body's key splits merge
+    without atomics, the fp32 tile body folds its accumulators into its own
+    rows of o): two launches give identical outputs."""
     B, Sq, Skv, H, Hkv, D, band, sq, skv, seg = FLASH_CASES[case]
     band, _ = _band_arg(band, dev)
     rng = np.random.default_rng(11)
-    q, k, v = (_randn(rng, B, S, h, D, dtype=torch.bfloat16, dev=dev)
+    q, k, v = (_randn(rng, B, S, h, D, dtype=dtype, dev=dev)
                for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
     kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv)
     if seg:
         ids = np.sort(rng.integers(0, 4, Sq)).astype(np.int32)
         kw["seg_q"] = kw["seg_kv"] = torch.from_numpy(ids).to(dev)
-    body, splits = fa._fwd_plan(B, Sq, H, Hkv, D, torch.bfloat16)
-    assert body == ("decode" if case.startswith(("decode", "verify")) else "tile")
+    body, splits = fa._fwd_plan(B, Sq, H, Hkv, D, dtype)
+    want = "decode" if case.startswith(("decode", "verify")) else "tile"
+    assert body == want + ("_fp32" if dtype == torch.float32 else "")
     if case == "decode_slots_hymba":
         assert splits > 1
     first = fa.flash_attention_fwd(q, k, v, band, **kw)
@@ -153,6 +174,29 @@ def test_flash_fwd_per_row_band(dev):
     )
     torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["causal", "full"])
+def test_flash_fwd_fp32_long_rows(dev, kind):
+    """fp32 rows over 16,384 keys at the paper's heads (32 / 32 of 128), as
+    the mesh path's local flash runs them: the tile body's o accumulators
+    span 256 key tiles, and the tensor cores truncate as they accumulate
+    (the body folds them into o every FOLD tiles).  The plain version takes
+    a few slices of rows, the last ones seeing every key."""
+    S, H, D = 16384, 32, 128
+    rng = np.random.default_rng(31)
+    q, k, v = (_randn(rng, 1, S, H, D, dtype=torch.float32, dev=dev) for _ in range(3))
+    band = (0, 0, 0 if kind == "causal" else -INF, INF)
+    assert fa._fwd_plan(1, S, H, H, D, torch.float32) == ("tile_fp32", 1)
+    o, lse = fa.flash_attention_fwd(q, k, v, band, scale=D**-0.5)
+    torch.cuda.synchronize()
+    atol, _ = TOLS[torch.float32]
+    for r0 in (0, 4096, S - 256):
+        rows = slice(r0, r0 + 256)
+        o_ref, lse_ref = ref.attention_ref(q[:, rows], k, v, scale=D**-0.5,
+                                           band=(r0, 0, *band[2:]))
+        torch.testing.assert_close(o[:, rows], o_ref, atol=atol, rtol=0)
+        torch.testing.assert_close(lse[:, :, rows], lse_ref, atol=LSE_TOL, rtol=0)
 
 
 BWD_CASES = {
@@ -266,6 +310,19 @@ def test_split_terms_match_plain(dev):
         want = fa.split_terms_ref(x)
         assert g.shape == (2, *x.shape) and torch.equal(g, want)
         assert float((g.float().sum(0) - x).abs().max()) <= 2**-16 * float(x.abs().max())
+
+
+def test_fwd_split_terms_match_plain(dev):
+    """The fp32 forward's pre-pass (the backward's split body under the
+    forward's kernel name) against its plain version: bitwise equal terms,
+    one launch for q, k and v."""
+    rng = np.random.default_rng(12)
+    xs = [_randn(rng, 1, 333, h, 128, dtype=torch.float32, dev=dev) * 3 for h in (8, 2, 2)]
+    before = fa.fwd_split_terms.launches
+    got = fa.fwd_split_terms(*xs)
+    assert fa.fwd_split_terms.launches - before == 1
+    for g, x in zip(got, xs):
+        assert g.shape == (2, *x.shape) and torch.equal(g, fa.split_terms_ref(x))
 
 
 def _misaligned(t):
@@ -1008,11 +1065,12 @@ def test_ssm_engine_on_card_matches_cpu(dev, arch, sp):
 
 
 NAN_FLASH = {
-    # name: (dtype, B, Sq, Skv, band): the body _fwd_plan picks for it
-    "fp32": (torch.float32, 2, 64, 200, (0, 0, -INF, INF)),
-    "tile": (torch.bfloat16, 2, 256, 300, (0, 0, -INF, INF)),
-    "decode_split": (torch.bfloat16, 2, 1, 2048, (2047, 0, 0, INF)),
-    "decode_one_split": (torch.bfloat16, 80, 1, 300, (299, 0, 0, INF)),
+    # name: (dtype, B, Sq, Skv, band, the body _fwd_plan picks for it)
+    "fp32": (torch.float32, 2, 64, 200, (0, 0, -INF, INF), "tile_fp32"),
+    "tile": (torch.bfloat16, 2, 256, 300, (0, 0, -INF, INF), "tile"),
+    "decode_split": (torch.bfloat16, 2, 1, 2048, (2047, 0, 0, INF), "decode"),
+    "decode_one_split": (torch.bfloat16, 80, 1, 300, (299, 0, 0, INF), "decode"),
+    "decode_split_fp32": (torch.float32, 2, 1, 2048, (2047, 0, 0, INF), "decode_fp32"),
 }
 
 
@@ -1022,19 +1080,20 @@ def test_flash_fwd_nan_score_reaches_o_and_lse(dev, case):
     it NaN in o and lse, through every body and the decode body's split
     combine, as JAX's kernels do -- the engine's NaN guard reads it there.
     Rows of the other batch entries stay the plain version's."""
-    dtype, B, Sq, Skv, band = NAN_FLASH[case]
+    dtype, B, Sq, Skv, band, body = NAN_FLASH[case]
     rng = np.random.default_rng(23)
     q = _randn(rng, B, Sq, 32, 128, dtype=dtype, dev=dev)
     k = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
     v = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
     k[0, 0] = float("nan")  # key 0 of batch row 0, every kv head
-    counters = ("launches_fp32", "launches_tile", "launches_decode")
+    counters = FWD_COUNTERS[1:]
     before = [getattr(fa.flash_attention_fwd, c) for c in counters]
     o, lse = fa.flash_attention_fwd(q, k, v, band, scale=128**-0.5)
     torch.cuda.synchronize()
-    body = case.split("_")[0]
     after = [getattr(fa.flash_attention_fwd, c) - b for c, b in zip(counters, before)]
-    assert after == [int(c == f"launches_{body}") for c in counters]
+    fp32 = dtype == torch.float32
+    assert after == [int(c == f"launches_{body}" or (fp32 and c == "launches_fp32"))
+                     for c in counters]
     assert torch.isnan(o[0].float()).all() and torch.isnan(lse[0]).all()
     o_ref, lse_ref = ref.attention_ref(q[1:], k[1:], v[1:], scale=128**-0.5, band=band)
     atol, rtol = TOLS[dtype]

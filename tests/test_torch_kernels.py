@@ -225,9 +225,13 @@ FWD_PLANS = {
     "tile_rows_36": ((8, 9, 32, 8, 128, torch.bfloat16), ("tile", 1)),
     # enough kv-head CTAs: no split
     "decode_wide_batch": ((16, 1, 32, 8, 128, torch.bfloat16), ("decode", 1)),
-    # fp32 (training, dequantized pools) keeps the CUDA-core body, any shape
-    "train_fp32": ((1, 4096, 32, 8, 128, torch.float32), ("fp32", 1)),
-    "quant_verify_fp32": ((8, 4, 32, 8, 128, torch.float32), ("fp32", 1)),
+    # fp32 (training, dequantized pools) takes the same bodies by the same
+    # shapes, in their two-term instantiations
+    "train_fp32": ((1, 4096, 32, 8, 128, torch.float32), ("tile_fp32", 1)),
+    "quant_verify_fp32": ((8, 4, 32, 8, 128, torch.float32), ("decode_fp32", 5)),
+    "decode_rows_32_fp32": ((8, 8, 32, 8, 128, torch.float32), ("decode_fp32", 5)),
+    "tile_rows_36_fp32": ((8, 9, 32, 8, 128, torch.float32), ("tile_fp32", 1)),
+    "decode_wide_batch_fp32": ((16, 1, 32, 8, 128, torch.float32), ("decode_fp32", 1)),
 }
 
 
@@ -236,7 +240,8 @@ def test_fwd_plan_routes_main_path_shapes(name):
     shape, want = FWD_PLANS[name]
     assert tfa._fwd_plan(*shape) == want
     body, splits = want
-    if body == "decode":
+    assert tfa.FWD_TERMS[body] == (2 if shape[-1] == torch.float32 else 1)
+    if body.startswith("decode"):
         B, Sq, H, Hkv = shape[:4]
         assert Sq * (H // Hkv) <= tfa.DECODE_MAX_ROWS and 1 <= splits <= tfa.MAX_SPLITS
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of the bf16 flash forward's two bodies at small packed-row
-counts: where the decode body should take over from the tile body.
+"""Device time of the flash forward's two bodies at small packed-row counts,
+bf16 and fp32: where the decode body should take over from the tile body.
 
     python3 tools/fwd_body_sweep.py
 
@@ -9,8 +9,10 @@ batch rows over 2,048 cached keys, each row at its own depth (seeded), and
 Sq from 1 up to past ``DECODE_MAX_ROWS`` packed rows (Sq x H / Hkv), it
 launches the tile body and the decode body (at the key splits the wrapper's
 ``_fwd_plan`` would pick for that shape, and with one split) straight
-through their C entry points and prints one JSON line per shape with each
-one's device ms (torch.profiler, mean of 10 launches).  Needs a CUDA device.
+through their C entry points and prints one JSON line per shape and type
+with each one's device ms (torch.profiler, mean of 10 launches).  fp32 inputs
+go in as the pre-pass's two bf16 terms, split once before the timing (the
+pre-pass is the same for both bodies).  Needs a CUDA device.
 """
 
 import json
@@ -52,26 +54,31 @@ def main():
     gen.manual_seed(0)
     B, Skv = 8, 2048
     stream = torch.cuda.current_stream().cuda_stream
-    for H, Hkv, D in ((32, 8, 128), (25, 5, 64)):
+    for (H, Hkv, D), dtype in ((h, t) for h in ((32, 8, 128), (25, 5, 64))
+                               for t in (torch.bfloat16, torch.float32)):
         G = H // Hkv
         for Sq in range(1, fa.DECODE_MAX_ROWS // G + 3):
-            q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").bfloat16()
-            k = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").bfloat16()
-            v = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").bfloat16()
+            q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dtype)
+            plan = fa._fwd_plan(B, Sq, H, Hkv, D, dtype)
+            terms = fa.FWD_TERMS[plan[0]]
+            operands = fa.fwd_split_terms(q, k, v) if terms > 1 else (q, k, v)
             pos = np.random.default_rng(Sq).integers(0, Skv - Sq + 1, B).astype(np.int32)
             band = torch.tensor([[p, 0, 0, ref.BAND_INF] for p in pos], dtype=torch.int32,
                                 device="cuda")
             o = torch.empty_like(q)
             lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
-            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), band.data_ptr(), 4, None, None,
+            ptrs = (*(t.data_ptr() for t in operands), band.data_ptr(), 4, None, None,
                     o.data_ptr(), lse.data_ptr())
-            dims = (B, Sq, Skv, H, Hkv, D, float(D**-0.5), 1, 1)
+            dims = (B, Sq, Skv, H, Hkv, D, float(D**-0.5), 1, 1, terms)
             rec = {"H": H, "Hkv": Hkv, "D": D, "B": B, "Skv": Skv, "Sq": Sq, "packed_rows": Sq * G,
-                   "plan": list(fa._fwd_plan(B, Sq, H, Hkv, D, torch.bfloat16)), "card": card}
+                   "dtype": "fp32" if dtype == torch.float32 else "bf16", "plan": list(plan),
+                   "card": card}
             rec["tile_ms"] = device_ms(lambda: _build.check(
                 lib.flash_fwd_tile(*ptrs, *dims, stream), "flash_fwd_tile"))
             if Sq * G <= fa.DECODE_MAX_ROWS:
-                plan_splits = fa._fwd_plan(B, Sq, H, Hkv, D, torch.bfloat16)[1]
+                plan_splits = plan[1]
                 for splits in sorted({1, plan_splits}):
                     o_parts = torch.empty((splits, B, Sq, H, D), device="cuda")
                     lse_parts = torch.empty((splits, B, H, Sq), device="cuda")
