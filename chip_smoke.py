@@ -2561,7 +2561,7 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_split"
     if "paged_decode_" in name:  # the main kernels and the split combine
         return "paged_flash_decode"
-    if "ssd_bwd_" in name:  # #5b: the states, pass, chunk and reduce kernels
+    if "ssd_bwd_" in name:  # #5b: the state, chunk and reduce kernels
         return "ssd_scan_bwd"
     if "ssd_scan_" in name:  # the chunk (scores and states), pass and y kernels
         return "ssd_scan_fwd"

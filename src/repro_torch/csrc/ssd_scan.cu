@@ -91,7 +91,7 @@
 // to a multiple of 16 rows with zeros), G dividing H; batch / sequence /
 // head strides on every input, the last dim dense.
 
-#include "sm90.cuh"  // ldmatrix, mma.sync
+#include "ssd_common.cuh"  // the bf16 split, mma_terms, the chunk prefix; ldmatrix, mma.sync
 
 namespace {
 
@@ -114,31 +114,6 @@ struct Cfg {
   static_assert(SCORES_SMEM <= CHUNK_SMEM, "(a) fits in (b)'s shared memory");
 };
 
-// (x, y) as T bf16 pairs: the first rounds (x, y), each next one what
-// the earlier ones leave (a rounding's residual is exact in fp32)
-template <int T>
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&t)[T]) {
-#pragma unroll
-  for (int k = 0; k < T; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    t[k] = *reinterpret_cast<const uint32_t*>(&h);
-    x -= __low2float(h);
-    y -= __high2float(h);
-  }
-}
-
-// four fp32 values as T planes of four bf16 at element offset off (a
-// multiple of 4) of each plane
-template <int T>
-__device__ __forceinline__ void put4(bf16* planes, int plane, int off, float4 v) {
-  uint32_t a[T], b[T];
-  split_pair<T>(v.x, v.y, a);
-  split_pair<T>(v.z, v.w, b);
-#pragma unroll
-  for (int k = 0; k < T; ++k)
-    *reinterpret_cast<uint2*>(planes + k * plane + off) = make_uint2(a[k], b[k]);
-}
-
 __device__ __forceinline__ float4 ld4(const float* p, bool vec) {
   if (vec) return *reinterpret_cast<const float4*>(p);
   return make_float4(p[0], p[1], p[2], p[3]);
@@ -146,17 +121,6 @@ __device__ __forceinline__ float4 ld4(const float* p, bool vec) {
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// d += sum over the term pairs i + j < T of a_i b_j
-template <int T>
-__device__ __forceinline__ void mma_terms(float (&d)[4], const uint32_t (&a)[T][4],
-                                          uint32_t b0[T], uint32_t b1[T]) {
-#pragma unroll
-  for (int i = 0; i < T; ++i)
-#pragma unroll
-    for (int j = 0; j < T; ++j)
-      if (i + j < T) mma_bf16(d, a[i], b0[j], b1[j]);
 }
 
 // A tile of fp32 rows, 4 Q wide, is staged in two steps so that all of a
@@ -197,29 +161,6 @@ __device__ __forceinline__ float4 ld_bc(const float* row, int q, int N) {
 __device__ __forceinline__ float2 load_dt(const float* dtb, long long sds, int c) {
   const int t0 = 2 * threadIdx.x, t1 = t0 + 1;
   return make_float2(t0 < c ? dtb[t0 * sds] : 0.f, t1 < c ? dtb[t1 * sds] : 0.f);
-}
-
-// warp 0, from its share d of dt: acum[t] (inclusive prefix sum of dt*A) and
-// dts[t] for t < c, 0 for c <= t < 64
-__device__ __forceinline__ void chunk_prefix(float2 d, float a_h, int c, float* acum,
-                                             float* dts) {
-  const int lane = threadIdx.x;
-  const int t0 = 2 * lane, t1 = 2 * lane + 1;
-  const float d0 = d.x, d1 = d.y;
-  const float v0 = d0 * a_h;
-  const float v1 = v0 + d1 * a_h;
-  float incl = v1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += u;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-  dts[t0] = d0;
-  dts[t1] = d1;
-  acum[t0] = t0 < c ? excl + v0 : 0.f;
-  acum[t1] = t1 < c ? incl : 0.f;
 }
 
 struct Args {

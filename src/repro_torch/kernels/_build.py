@@ -143,10 +143,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [i, p]
         lib.ssd_scan.restype = i
     elif name == "ssd_scan_bwd":
-        # x dt A Bm Cm dy dstate dx ddt dA dBm dCm states grads decay dBp dCp
-        # dAp B S H P G N chunk, the (batch, seq, head) strides of x, dt, Bm,
-        # Cm, stream
-        lib.ssd_scan_bwd.argtypes = [p] * 18 + [i] * 7 + [ll] * 12 + [p]
+        # x dt A Bm Cm dy dstate dx ddt dA dBm dCm hin gst dBp dCp dAp B S H
+        # P G N chunk hps, the (batch, seq, head) strides of x, dt, Bm, Cm,
+        # stream
+        lib.ssd_scan_bwd.argtypes = [p] * 17 + [i] * 8 + [ll] * 12 + [p]
         lib.ssd_scan_bwd.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")

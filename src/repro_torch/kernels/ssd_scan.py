@@ -23,12 +23,15 @@ form's accuracy, so that a train step's gradients on the card stay as
 close to the CPU's as the other kernels keep them.
 
 The gradient (#5b, no TPU counterpart: JAX differentiates its jnp scan) is
-``csrc/ssd_scan_bwd.cu``, the chunked form run backwards: recompute each
-chunk's incoming state, a reverse pass over chunks for the state's
-gradient, then each chunk's gradients of x, dt, B and C, and the group and
-dA sums in a fixed order.  ``ssd_scan_bwd`` launches it for CUDA tensors
-and runs ``ssd_scan_bwd_plain`` (the same passes in fp32 PyTorch) for CPU
-tensors; ``ssd_scan_bwd.launches`` counts its calls.  Under autograd
+``csrc/ssd_scan_bwd.cu``, the chunked form run backwards on the tensor
+cores, every fp32 operand as ``BWD_TERMS`` bf16 terms: one kernel walks the
+chunks forwards and backwards for each chunk's incoming state and the
+gradient of its outgoing one, a second takes each chunk's gradients of x,
+dt, B and C with a group's heads in turn (so dB and dC are summed over the
+group without per-head copies), and a third sums the head slices and dA
+in a fixed order.  ``ssd_scan_bwd`` launches it for CUDA tensors and runs
+``ssd_scan_bwd_plain`` (the same passes in fp32 PyTorch) for CPU tensors;
+``ssd_scan_bwd.launches`` counts its calls.  Under autograd
 ``ssd_scan_fwd`` goes through ``_SSDScan``, whose forward is the forward
 above and whose backward is ``ssd_scan_bwd``.
 """
@@ -50,6 +53,10 @@ MAX_CHUNK = 64
 # autograd (serving), and under it (the training forward and its recompute)
 TERMS = 2
 AUTOGRAD_TERMS = 3
+# bf16 terms of every fp32 operand of the backward kernel's (#5b) products,
+# settled by tests/test_torch_ssd_bwd_split.py; csrc/ssd_scan_bwd.cu compiles
+# the same count
+BWD_TERMS = 3
 
 
 def _chunk_of(S: int, chunk: int) -> int:
@@ -124,9 +131,22 @@ def _strides(t: torch.Tensor, name: str, rows16: bool = False):
     rows as float4)."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name} must be contiguous in its last dim")
-    if rows16 and (t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3])):
+    if rows16 and not _rows16(t):
         raise ValueError(f"{name} rows must start 16-byte aligned (data pointer and strides)")
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """Every row of t (its last dim) starts 16-byte aligned."""
+    return t.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+
+
+def _bwd_heads_per_block(Bsz: int, nz: int, G: int, rep: int) -> int:
+    """Heads of a group that one block of #5b's chunk kernel walks: the
+    fewest slices of a group's heads that give the launch (chunks x groups x
+    slices x batch rows) two blocks per SM of an H100 (132 SMs)."""
+    slices = min(rep, max(1, -(-264 // (Bsz * nz * G))))
+    return -(-rep // slices)
 
 
 def _check_kernel_inputs(name, tensors, P, N, c) -> None:
@@ -361,6 +381,9 @@ def ssd_scan_bwd(
     named = [("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("dy", dy)]
     _check_kernel_inputs("ssd_scan_bwd", named + ([] if dstate is None else [("dstate", dstate)]),
                          P, N, c)
+    # the kernel loads the rows of x, B and C with 16-byte copies: a view
+    # whose rows are not 16-byte aligned goes in as a contiguous copy
+    x, Bm, Cm = (t if _rows16(t) else t.contiguous() for t in (x, Bm, Cm))
     A, dy = A.contiguous(), dy.contiguous()
     dstate = None if dstate is None else dstate.contiguous()
     f32, dev = torch.float32, x.device
@@ -371,23 +394,23 @@ def ssd_scan_bwd(
     dCm = torch.empty((Bsz, S, G, N), dtype=f32, device=dev)
     if Bsz == 0 or S == 0 or H == 0:
         return dx, ddt, dA.zero_(), dBm, dCm
-    # scratch: the states entering each chunk, the gradients of the states
-    # leaving each chunk, exp(acum_last) per chunk and head, each head's dB
-    # and dC before the group sum, each chunk's share of dA
-    nz = S // c
-    states = torch.empty((Bsz, nz, H, P, N), dtype=f32, device=dev)
-    grads = torch.empty((Bsz, nz, H, P, N), dtype=f32, device=dev)
-    decay = torch.empty((Bsz, nz, H), dtype=f32, device=dev)
-    dBp = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
-    dCp = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    # scratch: the states entering each chunk and the gradients of the states
+    # leaving it, each head slice's dB and dC, each chunk's share of dA
+    nz, rep = S // c, H // G
+    hps = _bwd_heads_per_block(Bsz, nz, G, rep)
+    slices = -(-rep // hps)
+    hin = torch.empty((Bsz, nz, H, P, N), dtype=f32, device=dev)
+    gst = torch.empty((Bsz, nz, H, P, N), dtype=f32, device=dev)
+    dBp = torch.empty((Bsz, S, G, slices, N), dtype=f32, device=dev)
+    dCp = torch.empty((Bsz, S, G, slices, N), dtype=f32, device=dev)
     dAp = torch.empty((Bsz, nz, H), dtype=f32, device=dev)
     lib = _build.load("ssd_scan_bwd")
     err = lib.ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
         0 if dstate is None else dstate.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
-        states.data_ptr(), grads.data_ptr(), decay.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
-        dAp.data_ptr(), Bsz, S, H, P, G, N, c,
+        hin.data_ptr(), gst.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+        Bsz, S, H, P, G, N, c, hps,
         *_strides(x, "x"), *dt.stride(), *_strides(Bm, "Bm"), *_strides(Cm, "Cm"),
         torch.cuda.current_stream(dev).cuda_stream,
     )

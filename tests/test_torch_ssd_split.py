@@ -45,6 +45,8 @@ from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan_fwd as jssd_kernel
 from repro.models import ssm as jssm
 from repro_torch.kernels import ssd_scan as tssd
+from split_terms import products as _products
+from split_terms import terms as _terms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # bf16 terms of every fp32 operand, as kernels/ssd_scan.py passes them to
@@ -66,39 +68,18 @@ SSD_REL_TOL = _smoke_ssd_tol()
 
 def test_term_counts_match_the_kernel_source():
     """The counts emulated here are the ones csrc/ssd_scan.cu compiles, and
-    the kernel's products run the same term pairs."""
+    the kernel's products run the same term pairs (csrc/ssd_common.cuh,
+    shared with the backward)."""
     src = open(os.path.join(ROOT, "src/repro_torch/csrc/ssd_scan.cu")).read()
     compiled = re.search(r"return \(int\)\(terms == (\d) \? dispatch_n<(\d)>\(a, s\) : "
                          r"dispatch_n<(\d)>\(a, s\)\);", src)
     assert compiled and int(compiled.group(1)) == int(compiled.group(2))
     assert {int(compiled.group(2)), int(compiled.group(3))} == {TERMS, AUTOGRAD_TERMS}
     assert (TERMS, AUTOGRAD_TERMS) == (2, 3)
-    assert "if (i + j < T) mma_bf16(d, a[i], b0[j], b1[j]);" in src
+    common = open(os.path.join(ROOT, "src/repro_torch/csrc/ssd_common.cuh")).read()
+    assert '#include "ssd_common.cuh"' in src
+    assert "if (i + j < T) mma_bf16(d, a[i], b0[j], b1[j]);" in common
     assert SSD_REL_TOL == 1e-4
-
-
-def _terms(x, n):
-    """x (fp32 values) as n bf16-valued fp32 tensors: hi, then what each
-    earlier term leaves (a residual of a rounding is exact in fp32)."""
-    out, rest = [], x.float()
-    for _ in range(n):
-        t = rest.to(torch.bfloat16).float()
-        out.append(t)
-        rest = rest - t
-    return out
-
-
-def _products(a, b, eq):
-    """sum over the term pairs i + j < max(len(a), len(b)) of einsum(eq,
-    a_i, b_j): the products the kernel issues, each exact, summed in fp32."""
-    n = max(len(a), len(b))
-    acc = None
-    for i, x in enumerate(a):
-        for j, y in enumerate(b):
-            if i + j < n:
-                z = torch.einsum(eq, x, y)
-                acc = z if acc is None else acc + z
-    return acc
 
 
 def split_ssd(x, dt, A, Bm, Cm, chunk, terms):

@@ -10,9 +10,12 @@ fp32 inputs as the model gives them (seeded random data).  For each it
 prints one JSON line: the device ms per call of the SSD kernels under
 torch.profiler with the L2 cache flushed before each call (in all and by
 kernel), and the call's ms by CUDA events, also L2 flushed.  The same for
-the scan's backward ``ssd_scan_bwd`` (#5b) at those rows and at the train
-rows (mamba2 B 4 x 4096, hymba B 2 x 4096), with a random dy; a tree
-without the backward prints one line that says so.  Then it serves
+the scan's backward ``ssd_scan_bwd`` (#5b) at those rows, at the train rows
+(mamba2 B 4 x 4096, hymba B 2 x 4096) and at the sharded scan's folded
+ranks (mamba2, 4 x 384 rows, with a random gradient of the final state),
+with a random dy; a tree without the backward prints one line that says
+so.  Kernels are named by their ``ssd_scan_*_kernel`` / ``ssd_bwd_*_kernel``
+stem.  ``--prefill 0`` stops there; otherwise it serves
 mamba2-370m at full width and depth (bf16, seeded random weights, dense
 cache, max_seq 2048, 8 slots) and profiles ``--prefill-reps`` prefill launches
 of ``--prefill`` tokens, one request at a time: device ms per kernel class
@@ -26,6 +29,7 @@ Needs a CUDA device.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,7 +86,9 @@ def main():
             cls = kernel_class(ev.key)
             by_class[cls] = by_class.get(cls, 0.0) + ms
             if cls.startswith("ssd_scan"):
-                by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + ms
+                stem = re.search(r"ssd_(?:scan|bwd)_[a-z]+_kernel", ev.key)
+                key = stem.group(0) if stem else ev.key[:60]
+                by_kernel[key] = by_kernel.get(key, 0.0) + ms
         return by_class, by_kernel
 
     gen = torch.Generator(device="cuda")
@@ -90,7 +96,8 @@ def main():
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows = {"mamba2": (1, 2048, 32, 64, 1, 128, 64), "hymba": (1, 1024, 50, 64, 1, 16, 64)}
     train_rows = {"mamba2_train": (4, 4096, 32, 64, 1, 128, 64),
-                  "hymba_train": (2, 4096, 50, 64, 1, 16, 64)}
+                  "hymba_train": (2, 4096, 50, 64, 1, 16, 64),
+                  "mamba2_ring4": (4, 384, 32, 64, 1, 128, 64)}  # with d(final state)
     has_bwd = hasattr(ssd, "ssd_scan_bwd")
     if not has_bwd:
         print(json.dumps({"src": src, "card": card, "ssd_scan_bwd": "absent in this tree"}),
@@ -106,7 +113,8 @@ def main():
             run = lambda: ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)  # noqa: E731
         else:
             dy = rn(B, S, H, P)
-            run = lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)  # noqa: E731
+            ds = rn(B, H, P, N) if row.endswith("ring4") else None
+            run = lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, ds, chunk=chunk)  # noqa: E731
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -132,6 +140,8 @@ def main():
         }), flush=True)
     del scratch
     torch.cuda.empty_cache()
+    if args.prefill == 0:
+        return 0
 
     # prefill launches of mamba2-370m at full width and depth
     cfg = get_config("mamba2-370m")
