@@ -23,7 +23,11 @@ Phases, each printing one JSON line:
                  qwen2.5-32b's (40 / 8 of 128, GQA group 5: bf16 causal and
                  packed prefill rows, the decode body at 8 slots, fp32 chunk
                  and verify, the paged decode over a bf16 fp pool and an
-                 int8 pool), each
+                 int8 pool) and at gemma-7b's (16 / 16 of 256: bf16 causal
+                 and packed prefill rows, fp32 causal, chunk and verify, the
+                 decode body at 8 slots in both types, the paged decode with
+                 bf16 and fp32 queries and over int8 and fp8 pools, each
+                 with the body the wrapper planned), each
                  case with the body that ran (the tensor-core tile or decode
                  body, in its bf16 or its fp32 instantiation, checked against
                  the wrapper's plan) and its device time (torch.profiler);
@@ -165,6 +169,17 @@ Phases, each printing one JSON line:
                  prefill, chunk and verify launch, on the tile or fp32
                  body); pool bytes, peak memory under the card's, a
                  profiled decode tick beside the weights' bytes bound.
+  4o. slice_gemma -- gemma-7b (16 / 16 heads of 256, GeGLU, tied
+                 embeddings) at full width cut to 2 layers, fp32: card vs
+                 CPU, dense cache and paged pool (streams identical,
+                 first-token logits within 1e-3), and an int8 pool with
+                 chunk 256 and spec_k 4 (a flip only on a near-tie, within
+                 5e-3): the fp32 tile and decode bodies and the CUDA-core #4
+                 / 4q at head dim 256 on the model's path.
+  4p. serve_gemma -- gemma-7b whole (28 layers, 8.54e9 parameters, 17.1 GB)
+                 in bf16 on the serve trace, 8 slots, max_seq 2048, 512
+                 pages of 16, runs (a) and (b) as serve_qwen's, its gates,
+                 and no call of a kernel's plain version in either run.
   5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
@@ -235,7 +250,9 @@ Phases, each printing one JSON line:
                  and a profiled mesh step by kernel class.
   10. the kernels line (each kernel's launches now including the mesh_op,
                  train_mesh, serve_ring, serve_moe, serve_ssm_ring,
-                 serve_qwen and train_ssm runs; the ranks' combine a row of
+                 serve_qwen, serve_gemma and train_ssm runs; rows of their
+                 own for the head-dim-256 instantiations of #1, #4 and 4q,
+                 counted over serve_gemma; the ranks' combine a row of
                  its own; #5b's row from train_ssm; the fp32 forward's
                  pre-pass a row of its own, counted over the same main-path
                  runs as the fp32 forward's row, once per launch), the card
@@ -403,6 +420,8 @@ HYMBA_HEADS = (25, 5, 64)
 QWEN_MOE_HEADS = (16, 16, 128)
 # qwen2.5-32b's: GQA group 5 at head dim 128
 QWEN_HEADS = (40, 8, 128)
+# gemma-7b's: multi-head attention at head dim 256
+GEMMA_HEADS = (16, 16, 256)
 FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
 
 
@@ -675,6 +694,7 @@ def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
         kernel="paged_flash_decode", case=f"window{window}" if window else "full",
         B=B, heads=list(heads), page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
         splits=pk.default_num_splits(B, nkv, max_pages),
+        body=pk._plan(B, nh, nkv, hd, max_pages, None, dtype)[0],
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact,
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
@@ -790,6 +810,7 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
         kernel="paged_flash_decode_quant", case=f"window{window}" if window else "full",
         kv_dtype=kv_dtype, B=B, heads=list(heads), page_size=ps, depths=depths,
         dtype=DTYPE_NAMES[dtype], splits=pk.default_num_splits(B, nkv, max_pages),
+        body=pk._plan(B, nh, nkv, hd, max_pages, None, dtype)[0],
         max_abs_err=err, max_abs_err_lse=err_lse, tol=tol, tol_lse=LSE_TOL,
         empty_rows_exact=empty_exact, quant_launches=launched,
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
@@ -1049,13 +1070,21 @@ def device_time(prof, per=1, classify=None):
 
 
 def _profiled(fn, reps):
+    """``fn`` run ``reps`` times under torch.profiler.  A warm-up window is
+    opened and discarded first, as tests/test_torch_cuda.py does: a
+    profiling session can close before the tracer has delivered the card's
+    events, and then reports no device time at all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return prof
+    def window(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return prof
+
+    window(1)
+    return window(reps)
 
 
 def bwd_counts():
@@ -1223,9 +1252,12 @@ def serve_trace(eng, lengths, arrivals, new_tokens, vocab, seed):
     return [done[r] for r in rids]
 
 
-def cross_device(arch="granite-8b", phase="slice"):
+def cross_device(arch="granite-8b", phase="slice", quant_run=False):
     """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions).
-    QKV biases (qwen2.5-32b) are drawn nonzero: init leaves them 0."""
+    QKV biases (qwen2.5-32b) are drawn nonzero: init leaves them 0.
+    ``quant_run``: a third run over an int8 pool with chunk 256 and spec_k
+    4, held as slice_quant holds its pools (a flip only on a near-tie,
+    first-token logits within SLICE_LOGIT_TOL["int8"])."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     if cfg.qkv_bias:
@@ -1266,10 +1298,74 @@ def cross_device(arch="granite-8b", phase="slice"):
               f"{tag}: kernels must run on the card only: {launches}")
         if paged:
             check(launches["cuda"][1] > 0, f"{tag}: the paged engine never launched #4")
+    if quant_run:
+        out["int8_chunk_spec"] = _slice_int8_chunk_spec(cfg, params, params_cpu, lengths,
+                                                         arrivals, phase)
     del params, params_cpu
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
           "lengths": lengths, "new_tokens": 8, **out})
+
+
+def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase):
+    """cross_device's int8 run: chunk 256 (budget 512), spec_k 4, page 16,
+    card vs CPU.  Streams identical but for near-tie flips (both sides
+    score the two candidates within twice the limit), first-token logits
+    within SLICE_LOGIT_TOL["int8"], decode ticks on 4q only, chunks and
+    verifies on the fp32 bodies (the pool's dequantized view), no kernel on
+    the CPU side."""
+    tol = SLICE_LOGIT_TOL["int8"]
+    serve = ServeConfig(max_seq=256, num_slots=4, paged=True, page_size=16,
+                        cache_dtype=torch.float32, prefill_chunk=256, tick_token_budget=512,
+                        spec_k=4, kv_dtype="int8")
+    side = {}
+    for dev, p in (("cuda", params), ("cpu", params_cpu)):
+        fa.flash_attention_fwd.launches = fa.flash_attention_fwd.launches_fp32 = 0
+        pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
+        eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
+        eng.capture_logits = True
+        res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
+        side[dev] = dict(
+            streams=[r.generated for r in res], logits=[eng.debug_logits[r.rid] for r in res],
+            launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                      "flash_attention_fwd (fp32)": fa.flash_attention_fwd.launches_fp32,
+                      "paged_flash_decode": pk.paged_flash_decode.launches,
+                      "paged_flash_decode_quant": pk.paged_flash_decode.quant_launches},
+            decode_launches=eng.decode_launches, prefill_launches=eng.prefill_launches,
+            chunk_launches=eng.chunk_launches, verify_launches=eng.verify_launches,
+            spec_accepted=eng.spec_accepted,
+            pages_in_use=eng.kv_cache_stats()["pages_in_use"])
+    card, cpu = side["cuda"], side["cpu"]
+    err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu["logits"]))
+    flips = []
+    for i, (a, b) in enumerate(zip(card["streams"], cpu["streams"])):
+        if a != b:
+            j = _first_flip(a, b)
+            la, lb = card["logits"][i][j], cpu["logits"][i][j]
+            flips.append(dict(request=i, token=j, card=a[j], cpu=b[j],
+                              card_gap=float(la[a[j]] - la[b[j]]),
+                              cpu_gap=float(lb[b[j]] - lb[a[j]])))
+    rec = dict(streams_identical=card["streams"] == cpu["streams"], near_tie_flips=flips,
+               first_logits_max_abs_err=err, logit_tol=tol, cuda_launches=card["launches"],
+               cpu_launches=sum(cpu["launches"].values()),
+               **{k: card[k] for k in ("decode_launches", "prefill_launches", "chunk_launches",
+                                       "verify_launches", "spec_accepted", "pages_in_use")})
+    tag = f"{phase} int8_chunk_spec"
+    L = cfg.num_layers
+    check(all(max(f["card_gap"], f["cpu_gap"]) <= 2 * tol for f in flips),
+          f"{tag}: streams differ beyond a near-tie: {rec}")
+    check(err <= tol, f"{tag}: first-token logits differ by {err} > {tol}")
+    check(rec["cpu_launches"] == 0, f"{tag}: kernels launched on the CPU side: {rec}")
+    check(card["launches"]["paged_flash_decode"] == 0
+          and card["launches"]["paged_flash_decode_quant"] == L * card["decode_launches"] > 0,
+          f"{tag}: decode ticks must run 4q once per layer: {rec}")
+    check(card["launches"]["flash_attention_fwd"]
+          == card["launches"]["flash_attention_fwd (fp32)"]
+          == L * (card["prefill_launches"] + card["chunk_launches"] + card["verify_launches"])
+          > 0 and card["chunk_launches"] > 0 and card["verify_launches"] > 0,
+          f"{tag}: chunks and verifies must run the fp32 bodies once per layer: {rec}")
+    check(card["pages_in_use"] == cpu["pages_in_use"] == 0, f"{tag}: pages left: {rec}")
+    return rec
 
 
 # the serve trace: prompt lengths and arrival ticks, 32 greedy tokens each
@@ -2997,20 +3093,47 @@ QWEN_ARCH = "qwen2.5-32b"
 QWEN_PAGES = 512
 
 
-def serve_qwen(card):
-    """qwen2.5-32b whole (64 layers, 32.8e9 parameters) in bf16 on the card,
-    the serve trace, 8 slots, max_seq 2048, a pool of QWEN_PAGES pages of
-    16: (a) one-shot over the fp pool, (b) chunk 256, budget 512, spec_k 4
-    over an int8 pool.  A profiled decode tick of (a), beside the bytes
-    bound its weights alone set."""
-    cfg = get_config(QWEN_ARCH)
+class _PlainCalls:
+    """Counts calls of the kernels' plain versions (the flash forward's, the
+    paged decode's and its combine's, and the masked attention under them)
+    while it is entered: on the card the wrappers must launch their kernels
+    and never reach these."""
+
+    NAMES = ((ref, "attention_ref"), (ref, "masked_attention"), (pk, "paged_decode_ref"),
+             (pk, "combine_split_partials"))
+
+    def __init__(self):
+        self.calls = {name: 0 for _, name in self.NAMES}
+
+    def __enter__(self):
+        self._orig = [(mod, name, getattr(mod, name)) for mod, name in self.NAMES]
+        for mod, name, fn in self._orig:
+            def counting(*args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name] += 1
+                return _fn(*args, **kwargs)
+            setattr(mod, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def _serve_whole(card, arch, num_pages, phase):
+    """``arch`` whole in bf16 on the card, the serve trace, 8 slots, max_seq
+    2048, a pool of ``num_pages`` pages of 16: (a) one-shot over the fp pool,
+    (b) chunk 256, budget 512, spec_k 4 over an int8 pool.  A profiled
+    decode tick of (a), beside the bytes bound its weights alone set; no
+    plain version of a kernel called in either run.  Returns the launches
+    counted on its runs, keyed as the kernels line's rows."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = tfm.param_count(params)
     weight_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
-    base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=QWEN_PAGES,
+    base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=num_pages,
                 cache_dtype=torch.bfloat16)
     runs, problems, counted = {}, [], {"flash_attention_fwd (tile)": 0,
                                        "flash_attention_fwd (fp32)": 0, "flash_fwd_split": 0,
@@ -3018,14 +3141,17 @@ def serve_qwen(card):
     for key, extra in (("oneshot_fp", {}),
                        ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
                                                 spec_k=4, kv_dtype="int8"))):
-        rec, probs, bodies = _serve_full_run(cfg, params, ServeConfig(**base, **extra),
-                                             SERVE_LENGTHS, SERVE_ARRIVALS,
-                                             profile=None if extra else profile_decode,
-                                             phase="serve_qwen")
-        rec.update(init_s=init_s, weight_bytes=weight_bytes,
+        with _PlainCalls() as plain:
+            rec, probs, bodies = _serve_full_run(cfg, params, ServeConfig(**base, **extra),
+                                                 SERVE_LENGTHS, SERVE_ARRIVALS,
+                                                 profile=None if extra else profile_decode,
+                                                 phase=phase)
+        rec.update(init_s=init_s, weight_bytes=weight_bytes, plain_calls=plain.calls,
                    weights_bound_ms_per_tick=1e3 * weight_bytes / HBM_BYTES_PER_S)
         if rec["peak_mem_gb"] * 1e9 > torch.cuda.get_device_properties(0).total_memory:
-            problems.append(f"serve_qwen {key}: peak {rec['peak_mem_gb']} GB above the card's")
+            problems.append(f"{phase} {key}: peak {rec['peak_mem_gb']} GB above the card's")
+        if any(plain.calls.values()):
+            problems.append(f"{phase} {key}: a kernel's plain version ran: {plain.calls}")
         runs[key] = rec
         problems += probs
         counted["flash_attention_fwd (tile)"] += bodies["tile"]
@@ -3035,14 +3161,37 @@ def serve_qwen(card):
             counted[k] += rec["launches"][k]
     del params
     torch.cuda.empty_cache()
-    emit({"phase": "serve_qwen", "arch": QWEN_ARCH, "num_layers": cfg.num_layers,
+    emit({"phase": phase, "arch": arch, "num_layers": cfg.num_layers,
           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params, "dtype": "bf16",
-          "max_seq": 2048, "num_slots": 8, "page_size": 16, "num_pages": QWEN_PAGES,
+          "max_seq": 2048, "num_slots": 8, "page_size": 16, "num_pages": num_pages,
           "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
           "runs": runs, "card": card})
     check(not problems, "; ".join(problems))
     return counted
+
+
+def serve_qwen(card):
+    """qwen2.5-32b whole (64 layers, 32.8e9 parameters) in bf16 on the card
+    (``_serve_whole``, a pool of QWEN_PAGES pages of 16)."""
+    return _serve_whole(card, QWEN_ARCH, QWEN_PAGES, "serve_qwen")
+
+
+# --------------------------------------------------------------------------
+# phases 4o and 4p: gemma-7b (head dim 256, GeGLU, tied embeddings)
+# --------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma-7b"
+# serve_gemma's pool: 512 pages of 16 (8,192 tokens) hold the serve trace's
+# 5,314 tokens; at 28 layers x 16 kv heads x 256 x 2 (K, V) x 2 B a token
+# that is 3.76 GB in bf16 (458,752 bytes a token), beside 17.1 GB of weights
+GEMMA_PAGES = 512
+
+
+def serve_gemma(card):
+    """gemma-7b whole (28 layers, 8.54e9 parameters) in bf16 on the card
+    (``_serve_whole``): every attention launch on a head-dim-256 body."""
+    return _serve_whole(card, GEMMA_ARCH, GEMMA_PAGES, "serve_gemma")
 
 
 # --------------------------------------------------------------------------
@@ -4144,6 +4293,22 @@ def main():
         flash.append(flash_case(name, 2048, torch.float32, gen, heads=QWEN_HEADS))
     paged.append(paged_case(None, torch.bfloat16, gen, flush, heads=QWEN_HEADS))
     quant.append(quant_paged_case("int8", None, torch.bfloat16, gen, flush, heads=QWEN_HEADS))
+    # gemma-7b's attention (16 / 16 heads of 256), as serve_gemma and
+    # slice_gemma launch it: bf16 causal and packed prefill rows on the tile
+    # body, fp32 causal, the int8 pool's chunks and verifies on the fp32
+    # bodies, the decode body at 8 slots in both types, #4 with bf16 and
+    # fp32 queries, 4q over int8 and fp8 pools
+    for S in (1024, 2048):
+        flash.append(flash_case("causal", S, torch.bfloat16, gen, heads=GEMMA_HEADS))
+    for name in ("segment", "decode"):
+        flash.append(flash_case(name, 2048, torch.bfloat16, gen, heads=GEMMA_HEADS))
+    for name in ("causal", "chunk", "verify", "decode"):
+        flash.append(flash_case(name, 2048, torch.float32, gen, heads=GEMMA_HEADS))
+    for dtype in (torch.bfloat16, torch.float32):
+        paged.append(paged_case(None, dtype, gen, flush, heads=GEMMA_HEADS))
+    for kv_dtype in QUANT_DTYPES:
+        quant.append(quant_paged_case(kv_dtype, None, torch.bfloat16, gen, flush,
+                                      heads=GEMMA_HEADS))
     # hymba-1.5b over a ring of 4 (serve_ssm_ring): the folded decode rows of
     # its dense cache (window 1024, 4 ranks x 8 slots, stride 4)
     ring_flash.append(flash_case("decode", 2048, torch.bfloat16, gen, heads=HYMBA_HEADS,
@@ -4232,6 +4397,9 @@ def main():
     # qwen2.5-32b: card vs CPU at 2 layers, then served whole
     cross_device(QWEN_ARCH, phase="slice_qwen")
     qwen_launches = serve_qwen(card)
+    # gemma-7b (head dim 256): card vs CPU at 2 layers, then served whole
+    cross_device(GEMMA_ARCH, phase="slice_gemma", quant_run=True)
+    gemma_launches = serve_gemma(card)
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
@@ -4252,8 +4420,9 @@ def main():
     for key in ("flash_attention_fwd (fp32)", "flash_fwd_split", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_split"):
         launches[key] += ssm_train[key]
-    # serve_moe's and serve_qwen's runs join the serving rows
-    for key, n in list(moe_launches.items()) + list(qwen_launches.items()):
+    # serve_moe's, serve_qwen's and serve_gemma's runs join the serving rows
+    for key, n in (list(moe_launches.items()) + list(qwen_launches.items())
+                   + list(gemma_launches.items())):
         launches[key] += n
     # serve_ssm_ring's ring runs: #5 folded, hymba's prefill blocks and
     # folded decode rows, the ranks' combine
@@ -4340,6 +4509,31 @@ def main():
             "plain_ms": main_bwd["plain_ms_pair"], "bound_ms": main_bwd[f"bound_ms_{part}"],
             "bound_by": main_bwd[f"bound_by_{part}"],
             "library_ms": main_bwd["library_ms_pair"],
+        })
+    # the head-dim-256 instantiations (gemma-7b), counted over serve_gemma:
+    # the bf16 tile body of its prefills, the fp32 bodies of its int8 pool's
+    # chunks and verifies, #4 and 4q of its decode ticks
+    gemma = list(GEMMA_HEADS)
+    for name, key, src, replaces, rec in (
+        ("flash_attention_fwd (head dim 256: tile body)", "flash_attention_fwd (tile)",
+         FLASH_TC_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "causal" and r["S"] == 2048
+              and r["dtype"] == "bf16" and r["heads"] == gemma)),
+        ("flash_attention_fwd (head dim 256: fp32 bodies)", "flash_attention_fwd (fp32)",
+         FLASH_TC_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "chunk" and r["dtype"] == "fp32"
+              and r["heads"] == gemma)),
+        ("paged_flash_decode (head dim 256)", "paged_flash_decode", PAGED_SRC, PAGED_REPLACES,
+         next(r for r in paged if r["dtype"] == "bf16" and r["heads"] == gemma)),
+        ("paged_flash_decode (quantized branch, head dim 256)", "paged_flash_decode_quant",
+         PAGED_SRC, QUANT_REPLACES,
+         next(r for r in quant if r["kv_dtype"] == "int8" and r["heads"] == gemma)),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": gemma_launches[key], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
     kernels.append({
         "name": "paged_decode_combine (the ring's lse combine)", "route": "cuda",

@@ -1,10 +1,11 @@
-"""Architecture registry of the port: the dense decoders, the attention-free
-SSD stack, the hybrid attention + SSD model and the MoE decoders.
+"""Architecture registry of the port: the dense decoders (gemma-7b among
+them: head dim 256, GeGLU, tied embeddings), the attention-free SSD stack,
+the hybrid attention + SSD model and the MoE decoders.
 ``--arch <id>`` resolves here."""
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, register
 
 ARCHS = [
     "granite-8b", "paper-mha-7b", "qwen2.5-32b", "mamba2-370m", "hymba-1.5b", "qwen2-moe-a2.7b",
-    "mixtral-8x7b",
+    "mixtral-8x7b", "gemma-7b",
 ]

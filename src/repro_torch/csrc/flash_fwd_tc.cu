@@ -75,14 +75,21 @@
 //     are never loaded); a warpgroup's softmax takes a tile unmasked when the
 //     band and segments show all of it to its rows, and masks element by
 //     element only otherwise;
-//   * tiles run heaviest first (causal prefill: the last rows first).
+//   * tiles run heaviest first (causal prefill: the last rows first);
+//   * head dim 256 (gemma-7b): a warpgroup's o over 64 rows x 256 dims is
+//     128 fp32 registers a thread, so the key tile is 32 (S 16 registers,
+//     P's three terms 24) and S = Q K^T runs on m64n32k16; fp32 inputs
+//     there take one warpgroup of 64 rows a CTA (Q's two terms at 128 rows
+//     would take 128 KB) over two rings of two stages (TileCfg).
 //
 // (b) flash_fwd_decode_kernel -- at most 32 packed rows (Sq * G <= 32: a
-//   decode tick, a speculative verify).  What bounds it: reading K and V of
+//   decode tick, a speculative verify; 16 at D = 256, whose o accumulators
+//   over 16 rows are already 128 registers a lane).  What bounds it: reading K and V of
 //   the visible keys once per kv head (4*D flops per 4*D bytes).
 //   * one CTA per (key split, kv head, batch row); 4 warps walk disjoint
 //     16-key tiles of the split's share of the interval, each with its own
-//     2-stage cp.async ring (all terms) and no block barrier, and products
+//     2-stage cp.async ring (all terms; one stage for fp32 at D = 256,
+//     where two would not fit) and no block barrier, and products
 //     on mma.sync.m16n8k16 (bf16, fp32 accumulators) over the G*Sq packed
 //     rows;
 //   * the warps' (m, l, acc) merge in shared memory in a fixed order; with
@@ -148,34 +155,42 @@ __device__ __forceinline__ bool band_visible(long long qpos, long long key, long
 // (a) the tile body
 // ===========================================================================
 
-constexpr int TB_THREADS = 256;  // two warpgroups
-constexpr int TB_ROWS = 128;     // packed rows per CTA, 64 per warpgroup
-constexpr int TB_BK = 64;        // keys per K/V tile
 constexpr int TB_STAGES = 4;  // stages of each K / V ring where they fit
 // fp32 outputs: every FOLD tiles the o accumulators are added into o and
 // restarted from 0 (see Numerics above)
 constexpr int FOLD = 16;
 // A 1-D TMA box must start on a 16-byte boundary in global memory and land
 // 128-byte aligned in shared memory: a tile's key segment ids (from key j0)
-// are loaded as a box of TB_SEG_BOX ids from j0 & ~3 into a stage's
+// are loaded as a box of SEG_BOX ids from j0 & ~3 into a stage's
 // TB_SEG_INTS slots and read from offset j0 & 3.
-constexpr int TB_SEG_BOX = TB_BK + 4;
 constexpr int TB_SEG_INTS = 96;
 
-// T: bf16 terms per input value (1 for bf16 inputs, 2 for fp32 inputs)
+// T: bf16 terms per input value (1 for bf16 inputs, 2 for fp32 inputs).
+// D <= 128: two warpgroups (128 packed rows a CTA) over 64-key tiles.
+// D = 256: a warpgroup's o accumulators over 64 rows x 256 dims are 128
+// fp32 registers a thread, so the key tile is 32 (S takes 16 registers, P's
+// three terms 24, where 64 keys would take 32 and 48); and at T = 2 Q's two
+// terms at 128 rows would take 128 KB of shared memory, so a CTA is one
+// warpgroup of 64 rows (Q 64 KB, two rings of two 32 KB stages).
 template <int D, int T>
 struct TileCfg {
+  static constexpr int WG = D == 256 && T == 2 ? 1 : 2;  // warpgroups of 64 packed rows
+  static constexpr int THREADS = 128 * WG;
+  static constexpr int ROWS = 64 * WG;                 // packed rows per CTA
+  static constexpr int BK = D == 256 ? 32 : 64;        // keys per K/V tile
+  static constexpr int SEG_BOX = BK + 4;
   static constexpr int SWB = D >= 64 ? 128 : 64;       // swizzle span (bytes) = column block row
   static constexpr int CB = SWB / 2;                   // dims per column block
   static constexpr int NCB = D / CB;                   // column blocks
   static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // descriptor swizzle mode
-  static constexpr int Q_TERM = TB_ROWS * D * 2;       // one term of Q
-  static constexpr int KV_TERM = TB_BK * D * 2;        // one term of a K or V tile
+  static constexpr int Q_TERM = ROWS * D * 2;          // one term of Q
+  static constexpr int KV_TERM = BK * D * 2;           // one term of a K or V tile
   static constexpr int Q_BYTES = T * Q_TERM;
   static constexpr int KV_BYTES = T * KV_TERM;         // a K or V tile, all terms
   // stages of each ring: 4, or 2 where 4 do not fit (fp32 at D = 128: Q 64 KB
-  // + 2 x 2 x 32 KB)
-  static constexpr int STAGES = D * T >= 256 ? 2 : TB_STAGES;
+  // + 2 x 2 x 32 KB; fp32 at D = 256: Q 64 KB + 2 x 2 x 32 KB)
+  static constexpr int STAGES = D == 256 ? (T == 1 ? TB_STAGES : 2)
+                                         : (D * T >= 256 ? 2 : TB_STAGES);
   static constexpr int V_OFF = Q_BYTES + STAGES * KV_BYTES;       // K ring at Q_BYTES
   static constexpr int SEG_OFF = V_OFF + STAGES * KV_BYTES;       // int [stages][TB_SEG_INTS]
   static constexpr int BAR_OFF = SEG_OFF + STAGES * TB_SEG_INTS * 4;
@@ -210,31 +225,34 @@ __device__ __forceinline__ uint32_t tile_off(int r, int c8, int rows) {
 // P as the A operand of P.V: three bf16 terms per value, hi + mid + lo, so
 // P carries fp32's 24 bits; keys 16u..16u+15 are the score accumulator's
 // blocks 2u and 2u+1 (the m16n8 accumulator and A-fragment layouts agree)
+template <int BK>
 struct PFrag {
-  uint32_t r[3][TB_BK / 16][4];
+  uint32_t r[3][BK / 16][4];
 };
 
-__device__ __forceinline__ void make_pfrag(const float (&p)[32], PFrag& f) {
+template <int BK>
+__device__ __forceinline__ void make_pfrag(const float (&p)[BK / 2], PFrag<BK>& f) {
 #pragma unroll
-  for (int u = 0; u < TB_BK / 16; ++u)
+  for (int u = 0; u < BK / 16; ++u)
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       split3_bf16(p[8 * u + 2 * x], p[8 * u + 2 * x + 1], f.r[0][u][x], f.r[1][u][x],
                   f.r[2][u][x]);
 }
 
-// O += P V for one 64-key tile: the pairs i + j < max(3, T) of P's terms
-// and the T terms of the V tile at sV (term j at + j * KV_TERM).  V's tile is
+// O += P V for one key tile: the pairs i + j < max(3, T) of P's terms and
+// the T terms of the V tile at sV (term j at + j * KV_TERM).  V's tile is
 // MN-major (dims contiguous); one product per column block, whose N fits
 // one swizzle atom (the leading offset is then unused, so it takes the
 // stride offset's value).  Issues and commits; the caller waits.
 template <int D, int T>
 __device__ __forceinline__ void pv_products(
-    float (&oacc)[TileCfg<D, T>::NCB][TileCfg<D, T>::CB / 2], const PFrag& p, uint32_t sV) {
+    float (&oacc)[TileCfg<D, T>::NCB][TileCfg<D, T>::CB / 2],
+    const PFrag<TileCfg<D, T>::BK>& p, uint32_t sV) {
   using C = TileCfg<D, T>;
   constexpr int NP = T > 3 ? T : 3;
 #pragma unroll
-  for (int u = 0; u < TB_BK / 16; ++u) {
+  for (int u = 0; u < C::BK / 16; ++u) {
 #pragma unroll
     for (int c = 0; c < C::NCB; ++c) {
 #pragma unroll
@@ -242,7 +260,7 @@ __device__ __forceinline__ void pv_products(
 #pragma unroll
         for (int j = 0; j < T; ++j) {
           if (term + j >= NP) continue;  // resolved at compile time
-          const uint64_t dv = smem_desc(sV + j * C::KV_TERM + c * TB_BK * C::SWB + u * 16 * C::SWB,
+          const uint64_t dv = smem_desc(sV + j * C::KV_TERM + c * C::BK * C::SWB + u * 16 * C::SWB,
                                         8 * C::SWB, 8 * C::SWB, C::LAYOUT);
           if constexpr (C::CB == 64)
             wgmma_rs_m64n64(oacc[c], p.r[term][u], dv);
@@ -254,11 +272,12 @@ __device__ __forceinline__ void pv_products(
   wgmma_commit();
 }
 
-// S = Q K^T for one warpgroup's 64 rows and a 64-key tile: the term pairs
+// S = Q K^T for one warpgroup's 64 rows and a key tile: the term pairs
 // i + j < T of Q (term i at sQw + i * Q_TERM) and K (term j at sK + j *
 // KV_TERM).  Issues and commits; the caller waits.
 template <int D, int T>
-__device__ __forceinline__ void qk_products(float (&s)[32], uint32_t sQw, uint32_t sK) {
+__device__ __forceinline__ void qk_products(float (&s)[TileCfg<D, T>::BK / 2], uint32_t sQw,
+                                            uint32_t sK) {
   using C = TileCfg<D, T>;
 #pragma unroll
   for (int i = 0; i < T; ++i)
@@ -267,11 +286,14 @@ __device__ __forceinline__ void qk_products(float (&s)[32], uint32_t sQw, uint32
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t cb = (kk * 16) / C::CB, within = ((kk * 16) % C::CB) * 2;
-        const uint64_t da = smem_desc(sQw + i * C::Q_TERM + cb * TB_ROWS * C::SWB + within, 16,
+        const uint64_t da = smem_desc(sQw + i * C::Q_TERM + cb * C::ROWS * C::SWB + within, 16,
                                       8 * C::SWB, C::LAYOUT);
-        const uint64_t db = smem_desc(sK + j * C::KV_TERM + cb * TB_BK * C::SWB + within, 16,
+        const uint64_t db = smem_desc(sK + j * C::KV_TERM + cb * C::BK * C::SWB + within, 16,
                                       8 * C::SWB, C::LAYOUT);
-        wgmma_ss_m64n64(s, da, db, i + j + kk > 0);  // the first product overwrites s
+        if constexpr (C::BK == 64)
+          wgmma_ss_m64n64(s, da, db, i + j + kk > 0);  // the first product overwrites s
+        else
+          wgmma_ss_m64n32(s, da, db, i + j + kk > 0);
       }
   wgmma_commit();
 }
@@ -284,18 +306,20 @@ struct RowMask {
 
 // Online softmax of one tile's scores in the log2 domain: s becomes P
 // (fp32), m2 / lsum move on, alpha rescales the rows' earlier accumulators.
-// Element e of s sits at row (e / 2) % 2 of this thread's pair and key
-// column (e / 4) * 8 + 2 * (lane % 4) + e % 2.
-__device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m2)[2], float (&lsum)[2],
+// Element e of s (BK / 2 of them) sits at row (e / 2) % 2 of this thread's
+// pair and key column (e / 4) * 8 + 2 * (lane % 4) + e % 2.
+template <int BK>
+__device__ __forceinline__ void tile_softmax(float (&s)[BK / 2], float (&m2)[2], float (&lsum)[2],
                                              float (&alpha)[2], bool full, float scale_log2,
                                              const RowMask& rm, const int* segk, long long j0,
                                              long long jhi, long long kv_off, int stride_kv,
                                              long long lo, long long hi, bool has_seg, int lane) {
+  constexpr int NE = BK / 2;
   // the row max of the raw scores (scale > 0), hidden ones at -inf
   float rmax[2] = {neg_inf(), neg_inf()};
   if (!full) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < NE; ++e) {
       const int h2 = (e / 2) % 2;
       const int col = (e / 4) * 8 + 2 * (lane % 4) + e % 2;
       const long long key = j0 + col;
@@ -305,7 +329,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m2)[2], flo
     }
   }
 #pragma unroll
-  for (int e = 0; e < 32; ++e) rmax[(e / 2) % 2] = fmaxf(rmax[(e / 2) % 2], s[e]);
+  for (int e = 0; e < NE; ++e) rmax[(e / 2) % 2] = fmaxf(rmax[(e / 2) % 2], s[e]);
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const float m_new = fmaxf(m2[h2], quad_max(rmax[h2]) * scale_log2);
@@ -314,7 +338,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m2)[2], flo
   }
   float psum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < NE; ++e) {
     s[e] = fast_exp2(fmaf(s[e], scale_log2, -m2[(e / 2) % 2]));
     psum[(e / 2) % 2] += s[e];
   }
@@ -323,10 +347,10 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m2)[2], flo
 }
 
 // tm_k, tm_v: k and v (all terms: [T * B, Skv, Hkv, D]) as 4-D tensor maps
-// (D, Hkv, Skv, B * T) with a box of one column block x 64 keys; tm_seg:
-// seg_kv (1-D, a box of 64) when seg_q is given.  q: [T * B, Sq, H, D].
+// (D, Hkv, Skv, B * T) with a box of one column block x BK keys; tm_seg:
+// seg_kv (1-D, a box of SEG_BOX) when seg_q is given.  q: [T * B, Sq, H, D].
 template <int D, int T>
-__global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
+__global__ void __launch_bounds__(TileCfg<D, T>::THREADS, 1) flash_fwd_tile_kernel(
     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_seg, const bf16* __restrict__ q,
     const int* __restrict__ band, int band_stride, const int* __restrict__ seg_q,
@@ -345,23 +369,23 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int G = H / Hkv;
   const int R = Sq * G;  // packed rows of this (batch row, kv head)
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * TB_ROWS;  // heaviest tiles first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::ROWS;  // heaviest tiles first
   const int hk = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const bool has_seg = seg_q != nullptr;
-  // the thread that loads the K / V tiles: warpgroup 1's first, the later of
-  // the two to be done with a tile
-  const bool loader = tid == 128;
+  // the thread that loads the K / V tiles: the last warpgroup's first, the
+  // later of the two to be done with a tile
+  const bool loader = tid == (C::WG - 1) * 128;
 
   const int* bd = band + (size_t)b * band_stride;
   const long long q_off = bd[0], kv_off = bd[1], lo = bd[2], hi = bd[3];
 
   // the CTA's visible key interval, solved from the band
-  const int i_first = r0 / G, i_last = (min(r0 + TB_ROWS, R) - 1) / G;
+  const int i_first = r0 / G, i_last = (min(r0 + C::ROWS, R) - 1) / G;
   long long jlo = ceil_div(q_off + (long long)stride_q * i_first - hi - kv_off, stride_kv);
   long long jhi = floor_div(q_off + (long long)stride_q * i_last - lo - kv_off, stride_kv);
   if (jlo < 0) jlo = 0;
   if (jhi > Skv - 1) jhi = Skv - 1;
-  const int n_tiles = jhi >= jlo ? (int)((jhi - jlo) / TB_BK) + 1 : 0;
+  const int n_tiles = jhi >= jlo ? (int)((jhi - jlo) / C::BK) + 1 : 0;
 
   // this warpgroup's rows (one past R computes rows it never writes)
   const int wr0 = r0 + wg * 64;
@@ -396,11 +420,11 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   if (tid == 0) {
     for (int st = 0; st < S; ++st) {
       mbar_init(full_k + st * 8, 1);
-      mbar_init(empty_k + st * 8, TB_THREADS);
+      mbar_init(empty_k + st * 8, C::THREADS);
       mbar_init(full_v + st * 8, 1);
-      mbar_init(empty_v + st * 8, TB_THREADS);
+      mbar_init(empty_v + st * 8, C::THREADS);
     }
-    mbar_init(bar_q, TB_THREADS);
+    mbar_init(bar_q, C::THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -411,13 +435,13 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   for (int term = 0; term < T; ++term) {
     constexpr int CH = D / 8;
     const size_t qb = ((size_t)term * B + b) * Sq * H * D;
-    for (int idx = tid; idx < TB_ROWS * CH; idx += TB_THREADS) {
+    for (int idx = tid; idx < C::ROWS * CH; idx += C::THREADS) {
       const int r = idx / CH, c8 = idx % CH;
       const int pr = r0 + r;
       const bool valid = pr < R;
       const size_t off =
           valid ? qb + ((size_t)(pr / G) * H + hk * G + pr % G) * D + c8 * 8 : 0;
-      cp_async16(sQ + term * C::Q_TERM + tile_off<D>(r, c8, TB_ROWS), q + off, valid);
+      cp_async16(sQ + term * C::Q_TERM + tile_off<D>(r, c8, C::ROWS), q + off, valid);
     }
   }
   cp_async_mbar_arrive(bar_q);
@@ -429,13 +453,13 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     const int st = u % S;
     if (u >= S) mbar_wait(empty0 + st * 8, (u / S - 1) & 1);
     const uint32_t full = full0 + st * 8;
-    mbar_expect_tx(full, C::KV_BYTES + (seg ? TB_SEG_BOX * 4 : 0));
-    const int j0 = (int)(jlo + (long long)u * TB_BK);
+    mbar_expect_tx(full, C::KV_BYTES + (seg ? C::SEG_BOX * 4 : 0));
+    const int j0 = (int)(jlo + (long long)u * C::BK);
 #pragma unroll
     for (int term = 0; term < T; ++term)
 #pragma unroll
       for (int c = 0; c < C::NCB; ++c)
-        tma_load_4d(ring + st * C::KV_BYTES + term * C::KV_TERM + c * TB_BK * C::SWB, map, full,
+        tma_load_4d(ring + st * C::KV_BYTES + term * C::KV_TERM + c * C::BK * C::SWB, map, full,
                     c * C::CB, hk, j0, b + term * B);
     if (seg) tma_load_1d(sSeg + st * TB_SEG_INTS * 4, &tm_seg, full, j0 & ~3);
   };
@@ -468,7 +492,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   // all of it to this warpgroup's rows.
   auto begin_tile = [&](int t) -> bool {
     const int st = t % S;
-    const long long j0 = jlo + (long long)t * TB_BK, j1 = j0 + TB_BK - 1;
+    const long long j0 = jlo + (long long)t * C::BK, j1 = j0 + C::BK - 1;
     if (t == 0) {
       mbar_wait(bar_q, 0);
       fence_proxy_async();  // Q's cp.async data, as wgmma reads it
@@ -478,7 +502,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
     if (has_seg) {
       const long long kend = j1 < jhi ? j1 : jhi;
       const int wt = tid % 128;
-      const bool same = wt < TB_BK && j0 + wt <= kend && segk[st * TB_SEG_INTS + wt] == rowseg;
+      const bool same = wt < C::BK && j0 + wt <= kend && segk[st * TB_SEG_INTS + wt] == rowseg;
       const int n_same = named_count(3 + wg, 128, same);
       seg_all = rows_uniform && n_same == (int)(kend - j0 + 1);
     }
@@ -488,10 +512,14 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   };
   auto wait_v = [&](int t) { mbar_wait(full_v + (t % S) * 8, (t / S) & 1); };
   // turns: this warpgroup issues its products after the other one issued
-  // its own (warpgroup 0 first); the last turn of warpgroup 1 hands none on
-  auto turn_begin = [&]() { named_sync(1 + wg, 2 * 128); };
+  // its own (warpgroup 0 first); the last turn of warpgroup 1 hands none on.
+  // A CTA of one warpgroup takes no turns.
+  auto turn_begin = [&]() {
+    if constexpr (C::WG == 2) named_sync(1 + wg, 2 * 128);
+  };
   auto turn_end = [&](bool last) {
-    if (!(last && wg == 1)) named_arrive(2 - wg, 2 * 128);
+    if constexpr (C::WG == 2)
+      if (!(last && wg == 1)) named_arrive(2 - wg, 2 * 128);
   };
 
   float oacc[C::NCB][ON / 2];
@@ -532,9 +560,9 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
   // wgmma.  Tile t's scores are issued beside tile t-1's P.V, so t's softmax
   // runs while those products (and the other warpgroup's) do.
   if (n_tiles > 0) {
-    if (wg == 1) named_arrive(1, 2 * 128);  // warpgroup 0 takes the first turn
-    PFrag pf;
-    float s[32];
+    if (C::WG == 2 && wg == 1) named_arrive(1, 2 * 128);  // warpgroup 0 takes the first turn
+    PFrag<C::BK> pf;
+    float s[C::BK / 2];
     {
       const bool full = begin_tile(0);
       fence_operands(s);
@@ -545,10 +573,10 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       wgmma_wait<0>();
       fence_operands(s);
       float alpha[2];
-      tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk, jlo, jhi, kv_off, stride_kv,
-                   lo, hi, has_seg, lane);
+      tile_softmax<C::BK>(s, m2, lsum, alpha, full, scale_log2, rm, segk, jlo, jhi, kv_off,
+                          stride_kv, lo, hi, has_seg, lane);
       mbar_arrive(empty_k);  // K tile 0 is done with
-      make_pfrag(s, pf);
+      make_pfrag<C::BK>(s, pf);
       load_next(0);
     }
     for (int t = 1; t < n_tiles; ++t) {
@@ -566,8 +594,9 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
       wgmma_wait<1>();  // the scores; the P.V products may still run
       fence_operands(s);
       float alpha[2];
-      tile_softmax(s, m2, lsum, alpha, full, scale_log2, rm, segk + st * TB_SEG_INTS,
-                   jlo + (long long)t * TB_BK, jhi, kv_off, stride_kv, lo, hi, has_seg, lane);
+      tile_softmax<C::BK>(s, m2, lsum, alpha, full, scale_log2, rm, segk + st * TB_SEG_INTS,
+                          jlo + (long long)t * C::BK, jhi, kv_off, stride_kv, lo, hi, has_seg,
+                          lane);
       wgmma_wait<0>();
       mbar_arrive(empty_k + st * 8);  // K tile t and V tile t - 1 are done with
       mbar_arrive(empty_v + sp * 8);
@@ -601,7 +630,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1) flash_fwd_tile_kernel(
           folded = true;
         }
       }
-      make_pfrag(s, pf);
+      make_pfrag<C::BK>(s, pf);
       load_next(t);
     }
     wait_v(n_tiles - 1);
@@ -644,15 +673,19 @@ constexpr int DB_THREADS = 128;  // 4 warps
 constexpr int DB_WARPS = 4;
 constexpr int DB_KT = 16;  // keys per warp tile
 
+// D = 256 takes one 16-row tile (MT = 1: a warp's o accumulators are 128
+// fp32 registers a lane), and at T = 2 one stage a warp (two-stage rings
+// of both terms would take 264 KB of shared memory)
 template <int D, int MT, int T>
 struct DecCfg {
+  static constexpr int STAGES = D == 256 && T == 2 ? 1 : 2;
   static constexpr int ROWS = MT * 16;               // packed rows held (>= Sq * G)
   static constexpr int RSB = (D + 8) * 2;            // smem row stride, bytes (ldmatrix conflict-free)
   static constexpr int Q_TERM = ROWS * RSB;          // one term of Q
   static constexpr int Q_BYTES = T * Q_TERM;
   static constexpr int TILE_BYTES = DB_KT * RSB;     // one term of a K or V tile
   static constexpr int KV_BYTES = T * TILE_BYTES;    // a K or V tile, all terms
-  static constexpr int WARP_BYTES = 2 * 2 * KV_BYTES;  // 2 stages of K and V
+  static constexpr int WARP_BYTES = STAGES * 2 * KV_BYTES;  // the stages of K and V
   static constexpr int STAGING = DB_WARPS * WARP_BYTES;
   static constexpr int ACC_BYTES = DB_WARPS * ROWS * D * 4;  // the merge's partial sums
   static constexpr int SCRATCH = STAGING > ACC_BYTES ? STAGING : ACC_BYTES;
@@ -660,6 +693,7 @@ struct DecCfg {
   static constexpr int ML_OFF = SEG_OFF + DB_WARPS * 2 * DB_KT * 4;  // float m, l [warps][ROWS]
   static constexpr int FIN_OFF = ML_OFF + 2 * DB_WARPS * ROWS * 4;   // float M, L, f[warps] [ROWS]
   static constexpr int SMEM = FIN_OFF + (2 + DB_WARPS) * ROWS * 4;
+  static_assert(D <= 128 || MT == 1, "D = 256 holds one 16-row tile");
 };
 
 // a K and a V tile of 16 keys, all terms (term t of k at k + t * term_stride)
@@ -772,23 +806,26 @@ __global__ void __launch_bounds__(DB_THREADS) flash_fwd_decode_kernel(
     lsum[mt][0] = lsum[mt][1] = 0.f;
   }
 
-  // this warp's tiles: t_begin + warp, + 4, ...; its own 2-stage ring
+  // this warp's tiles: t_begin + warp, + 4, ...; its own 2-stage ring (the
+  // next tile loads while this one computes), or with one stage each tile
+  // loads in its turn
+  constexpr int S1 = C::STAGES - 1;  // 1: two stages, 0: one
   const uint32_t sWarp = sScratch + warp * C::WARP_BYTES;
   int* segk_warp = segk_all + warp * 2 * DB_KT;
   int t = t_begin + warp;
-  if (t < t_end)
+  if (S1 && t < t_end)
     dec_load_kv<D, MT, T>(sWarp, sWarp + C::KV_BYTES, segk_warp, k, v, seg_kv,
                           jlo + (long long)t * DB_KT, b, hk, Skv, Hkv, kv_terms, lane);
   cp_async_commit();
-  for (int st = 0; t < t_end; t += DB_WARPS, st ^= 1) {
-    if (t + DB_WARPS < t_end) {
-      const uint32_t sn = sWarp + (st ^ 1) * 2 * C::KV_BYTES;
-      dec_load_kv<D, MT, T>(sn, sn + C::KV_BYTES, segk_warp + (st ^ 1) * DB_KT, k, v, seg_kv,
-                            jlo + (long long)(t + DB_WARPS) * DB_KT, b, hk, Skv, Hkv, kv_terms,
-                            lane);
+  for (int st = 0; t < t_end; t += DB_WARPS, st ^= S1) {
+    if (t + S1 * DB_WARPS < t_end) {
+      const uint32_t sn = sWarp + (st ^ S1) * 2 * C::KV_BYTES;
+      dec_load_kv<D, MT, T>(sn, sn + C::KV_BYTES, segk_warp + (st ^ S1) * DB_KT, k, v, seg_kv,
+                            jlo + (long long)(t + S1 * DB_WARPS) * DB_KT, b, hk, Skv, Hkv,
+                            kv_terms, lane);
     }
     cp_async_commit();
-    cp_async_wait<1>();
+    cp_async_wait<S1>();
     __syncwarp();
     const uint32_t sK = sWarp + st * 2 * C::KV_BYTES, sV = sK + C::KV_BYTES;
     const int* segk = segk_warp + st * DB_KT;
@@ -1015,7 +1052,7 @@ cudaError_t launch_tile(const Args& a) {
                                 (cuuint64_t)a.B * T};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)a.Hkv * D * 2,
                                    (cuuint64_t)a.Skv * a.Hkv * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)C::CB, 1, (cuuint32_t)TB_BK, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)C::CB, 1, (cuuint32_t)C::BK, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     const CUtensorMapSwizzle swizzle =
         D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -1028,7 +1065,7 @@ cudaError_t launch_tile(const Args& a) {
       return cudaErrorInvalidValue;
     if (a.seg_kv != nullptr) {
       const cuuint64_t seg_dims[1] = {(cuuint64_t)a.Skv};
-      const cuuint32_t seg_box[1] = {(cuuint32_t)TB_SEG_BOX};
+      const cuuint32_t seg_box[1] = {(cuuint32_t)C::SEG_BOX};
       if (encode(&tm_seg, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(a.seg_kv),
                  seg_dims, strides, seg_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
@@ -1041,8 +1078,8 @@ cudaError_t launch_tile(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int R = a.Sq * (a.H / a.Hkv);
-  dim3 grid((R + TB_ROWS - 1) / TB_ROWS, a.Hkv, a.B);
-  kern<<<grid, TB_THREADS, smem, a.stream>>>(
+  dim3 grid((R + C::ROWS - 1) / C::ROWS, a.Hkv, a.B);
+  kern<<<grid, C::THREADS, smem, a.stream>>>(
       tm_k, tm_v, tm_seg, static_cast<const bf16*>(a.q), static_cast<const int*>(a.band),
       a.band_stride, static_cast<const int*>(a.seg_q),
       static_cast<typename OutType<T>::type*>(a.o), static_cast<float*>(a.lse), a.Sq, a.Skv, a.H,
@@ -1079,15 +1116,19 @@ cudaError_t dispatch_tile(int D, const Args& a) {
     case 32: return launch_tile<32, T>(a);
     case 64: return launch_tile<64, T>(a);
     case 128: return launch_tile<128, T>(a);
+    case 256: return launch_tile<256, T>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// at most 32 packed rows, 16 at D = 256 (the wrapper's plan sends more to
+// the tile body)
 template <int D, int T>
 cudaError_t decode_rows(const Args& a) {
   const int R = a.Sq * (a.H / a.Hkv);
   if (R <= 16) return launch_decode<D, 1, T>(a);
-  if (R <= 32) return launch_decode<D, 2, T>(a);
+  if constexpr (D <= 128)
+    if (R <= 32) return launch_decode<D, 2, T>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -1097,6 +1138,7 @@ cudaError_t dispatch_decode(int D, const Args& a) {
     case 32: return decode_rows<32, T>(a);
     case 64: return decode_rows<64, T>(a);
     case 128: return decode_rows<128, T>(a);
+    case 256: return decode_rows<256, T>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1133,7 +1175,7 @@ extern "C" int flash_fwd_tile(const void* q, const void* k, const void* v, const
   return (int)cudaErrorInvalidValue;
 }
 
-// Sq * (H / Hkv) <= 32.  With splits > 1, o_parts (fp32 [splits, B, Sq, H,
+// Sq * (H / Hkv) <= 32 (16 at D = 256).  With splits > 1, o_parts (fp32 [splits, B, Sq, H,
 // D]) and lse_parts (fp32 [splits, B, H, Sq]) are the partials' scratch.
 extern "C" int flash_fwd_decode(const void* q, const void* k, const void* v, const void* band,
                                 int band_stride, const void* seg_q, const void* seg_kv, void* o,

@@ -62,6 +62,10 @@
 //     same tiles, ring and split, in fp32 on the CUDA cores: a token per
 //     lane pair for the scores, the group's rows by shuffles, P through
 //     shared memory for P.V;
+//   * head dim 256 (gemma-7b): o alone is 128 fp32 registers a thread, so
+//     the tensor-core body reads Q's fragments from shared memory instead of
+//     holding all 64 registers of them (QFrag), and the fp32 body's ring
+//     keeps one stage per warp (two would need 261 KB);
 //   * the warps' (m, l, o) merge in shared memory in a fixed order.  A row
 //     that one block serves gets o and lse from it; a row shared by several
 //     gets a normalized fp32 partial and its lse from each, and
@@ -87,7 +91,6 @@ constexpr int NT = 128;  // 4 warps
 constexpr int NW = NT / 32;
 constexpr int KT = 16;  // local slots per tile
 constexpr int MAX_GROUP = 16;  // query heads per kv head: one 16-row mma tile
-constexpr int STAGES = 2;  // ring stages per warp: a tile in flight beside the one in use
 constexpr int MIN_SHARE = 8;  // tiles per block at least (two per warp)
 
 enum PoolType { POOL_FP = 0, POOL_INT8 = 1, POOL_FP8 = 2 };
@@ -112,7 +115,9 @@ struct Args {
 // A warp's ring: STAGES stages of [K tile | V tile | 16 k scales | 16 v
 // scales], token rows RS bytes apart.  RS is an odd multiple of 16 bytes, so
 // the 8 rows an ldmatrix (or a quarter-warp's 16-byte loads) touches hit
-// distinct banks.
+// distinct banks.  Two stages (a tile in flight beside the one in use),
+// one where two would not fit: fp32 rows at D = 256 (4 warps x 2 stages x
+// 33 KB = 261 KB).
 template <int EB, int D>  // EB: bytes per pool element
 struct Ring {
   static constexpr int ELEM = EB;
@@ -120,13 +125,26 @@ struct Ring {
   static constexpr int CH = D * EB / 16;  // 16-byte chunks per token row (even)
   static constexpr int TILE = KT * RS;
   static constexpr int STAGE = 2 * TILE + 2 * KT * 4;
+  static constexpr int STAGES = D * EB > 512 ? 1 : 2;
   static constexpr int WARP = STAGES * STAGE;
   static constexpr int ALL = NW * WARP;
 };
 
+// Q's A fragments stay in registers up to D = 128; at D = 256 they would
+// take 64 registers a thread beside o's 128, so the tensor-core body keeps
+// Q (bf16, rows QRS bytes apart: ldmatrix conflict-free) in shared memory
+// and reads each 16 dims' fragment where it multiplies
+template <int D>
+struct QFrag {
+  static constexpr bool REG = D <= 128;
+  static constexpr int QRS = (D + 8) * 2;
+  static constexpr int BYTES = REG ? 0 : MAX_GROUP * QRS;
+};
+
 // Shared memory of a block: the rings (after the loop: the warps' partial
-// outputs, [NW][16][D] fp32), then the merge's row statistics, then (fp32
-// body) Q and the warps' P tiles.
+// outputs, [NW][16][D] fp32), then the merge's row statistics, then Q (the
+// tensor-core body at D = 256: bf16 [16][D + 8]; the fp32 body: fp32
+// [16][D]) and (fp32 body) the warps' P tiles.
 template <typename R, int D>
 struct Smem {
   static constexpr int ACC = NW * MAX_GROUP * D * 4;
@@ -135,7 +153,7 @@ struct Smem {
   static constexpr int ML_FLOATS = 3 * NW * MAX_GROUP + 2 * MAX_GROUP;
   static constexpr int Q = ML + ML_FLOATS * 4;  // fp32 body: Q [16][D], P [NW][16][KT]
   static constexpr int P = Q + MAX_GROUP * D * 4;
-  static constexpr int MMA = Q;
+  static constexpr int MMA = Q + QFrag<D>::BYTES;
   static constexpr int SIMT = P + NW * MAX_GROUP * KT * 4;
 };
 
@@ -257,7 +275,7 @@ __device__ __forceinline__ uint32_t issue_tile(uint32_t stage, const Args& a, co
 template <typename R, int D, bool QUANT, typename Body>
 __device__ __forceinline__ void walk_tiles(const Args& a, const Share& sh, int hk, int warp,
                                            int lane, uint8_t* smem, Body&& body) {
-  constexpr int S = STAGES;
+  constexpr int S = R::STAGES;
   const uint32_t sWarp = smem_u32(smem) + warp * R::WARP;
   const uint8_t* pWarp = smem + warp * R::WARP;
   const int* bt_row = a.bt + (size_t)blockIdx.z * a.max_pages;
@@ -387,9 +405,14 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(const __grid_const
   // Over a quantized pool the head dimension is permuted within each 16:
   // this thread's k indices 2q, 2q+1 | 2q+8, 2q+9 (q = lane % 4) read dims
   // 4q, 4q+1 | 4q+2, 4q+3, the four codes one ldmatrix gives it below.
-  uint32_t qf[D / 16][4];
-  {
-    const bf16* qb = static_cast<const bf16*>(a.q) + ((size_t)b * a.H + hk * G) * D;
+  // Up to D = 128 all of them in registers; at D = 256 (QFrag) Q waits in
+  // shared memory with its dims in fragment order (column k of a 16 holds
+  // the dim k reads), and one ldmatrix brings each 16 dims' fragment where
+  // it multiplies.
+  using QF = QFrag<D>;
+  uint32_t qf[QF::REG ? D / 16 : 1][4];
+  const bf16* qb = static_cast<const bf16*>(a.q) + ((size_t)b * a.H + hk * G) * D;
+  if constexpr (QF::REG) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
@@ -399,7 +422,28 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(const __grid_const
                                          : 2 * (lane % 4) + 8 * (e >> 1));
         qf[kk][e] = row < G ? *reinterpret_cast<const uint32_t*>(qb + (size_t)row * D + col) : 0u;
       }
+  } else {
+    // [16][D + 8] bf16, rows past G zero; k = 2q + 8h + p of a 16 holds dim
+    // 4q + 2h + p over a quantized pool, dim k otherwise
+    bf16* qs = reinterpret_cast<bf16*>(smem + SM::Q);
+    for (int idx = tid; idx < MAX_GROUP * D; idx += NT) {
+      const int row = idx / D, k = idx % D, k16 = k % 16;
+      const int dim = QUANT ? k - k16 + 4 * ((k16 % 8) / 2) + 2 * (k16 / 8) + k16 % 2 : k;
+      qs[row * (QF::QRS / 2) + k] = row < G ? qb[(size_t)row * D + dim] : __float2bfloat16(0.f);
+    }
+    __syncthreads();
   }
+  // the A fragment of dims 16 kk .. 16 kk + 15
+  const uint32_t sQf = smem_u32(smem + SM::Q) + (((lane / 8) % 2) * 8 + lane % 8) * QF::QRS +
+                       (lane / 16) * 16;
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (QF::REG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = qf[kk][e];
+    } else {
+      ldsm_x4(sQf + kk * 32, f);
+    }
+  };
 
   float oacc[NB][4];
   float m2[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
@@ -426,8 +470,10 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(const __grid_const
         ldsm_x4(sK + ((lane / 16) * 8 + lane % 8) * R::RS + (kk * 16 + ((lane / 8) % 2) * 8) * 2,
                 bk);
         float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        mma_bf16(u[0], qf[kk], bk[0], bk[1]);
-        mma_bf16(u[1], qf[kk], bk[2], bk[3]);
+        uint32_t af[4];
+        q_frag(kk, af);
+        mma_bf16(u[0], af, bk[0], bk[1]);
+        mma_bf16(u[1], af, bk[2], bk[3]);
 #pragma unroll
         for (int e = 0; e < 8; ++e) s[e / 4][e % 4] += u[e / 4][e % 4];
       }
@@ -441,10 +487,12 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(const __grid_const
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          uint32_t af[4];
+          q_frag(kk + half, af);
 #pragma unroll
           for (int nb = 0; nb < 2; ++nb) {
             const uint32_t w = bk[2 * half + nb];
-            mma_bf16(u[nb], qf[kk + half], codes_bf16x2<POOL>(w), codes_bf16x2<POOL>(w >> 16));
+            mma_bf16(u[nb], af, codes_bf16x2<POOL>(w), codes_bf16x2<POOL>(w >> 16));
           }
 #pragma unroll
           for (int e = 0; e < 8; ++e) s[e / 4][e % 4] += u[e / 4][e % 4];
@@ -724,8 +772,9 @@ __global__ void __launch_bounds__(NT) paged_decode_simt_kernel(const __grid_cons
 // weigh 0 and are never read, so a row with none left is exactly o = 0, lse
 // = NEG_INF.  After the main kernel (solve: geo holds its arguments), a row
 // merges the partials of its eff blocks, and a row with eff = 1 (written by
-// its block) is left alone; alone, every row merges all S.
-template <int BF16_OUT>
+// its block) is left alone; alone, every row merges all S.  A lane holds
+// dims lane + 32 c for c < D / 32 <= DCMAX (4 up to D = 128, 8 at 256).
+template <int BF16_OUT, int DCMAX>
 __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
     const float* __restrict__ o_parts, const float* __restrict__ lse_parts, void* __restrict__ o,
     float* __restrict__ lse, int B, int S_all, int H, int D, const __grid_constant__ Args geo,
@@ -760,7 +809,9 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
   for (int off = 16; off > 0; off >>= 1) W += __shfl_xor_sync(0xffffffffu, W, off);
   // o: dims lane + 32 c; split i's weight from lane i % 32, splits in order
   // (an empty split weighs 0 and its partial, never written, is not used)
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[DCMAX];
+#pragma unroll
+  for (int c = 0; c < DCMAX; ++c) acc[c] = 0.f;
   const int DC = D / 32;
   for (int s0 = 0; s0 < S; s0 += 32) {
     const float ls = s0 + lane < S ? lp[(size_t)(s0 + lane) * H] : kNegInf;
@@ -771,7 +822,7 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
       const float wi = __shfl_sync(0xffffffffu, w, i);
       const float* src = op + (size_t)(s0 + i) * H * D + lane;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < DCMAX; ++c)
         if (c < DC) {
           const float x = src[32 * c];
           acc[c] = !(wi <= 0.f) ? fmaf(wi, x, acc[c]) : acc[c];
@@ -779,7 +830,7 @@ __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < DCMAX; ++c)
     if (c < DC) orow[lane + 32 * c] = OutT(acc[c] / W);
   if (lane == 0) lse[row] = M + logf(W);
 }
@@ -789,7 +840,10 @@ cudaError_t launch_combine(const float* o_parts, const float* lse_parts, void* o
                            cudaStream_t stream) {
   const long long rows = (long long)B * H;
   const unsigned blocks = (unsigned)((rows + 3) / 4);
-  auto kern = bf16_out ? paged_decode_combine_kernel<1> : paged_decode_combine_kernel<0>;
+  auto kern = D > 128 ? (bf16_out ? paged_decode_combine_kernel<1, 8>
+                                  : paged_decode_combine_kernel<0, 8>)
+                       : (bf16_out ? paged_decode_combine_kernel<1, 4>
+                                  : paged_decode_combine_kernel<0, 4>);
   kern<<<blocks, 128, 0, stream>>>(o_parts, lse_parts, o, lse, B, S, H, D, geo, solve);
   return cudaGetLastError();
 }
@@ -815,6 +869,7 @@ cudaError_t dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
     case 32: return launch<POOL, 32, MMA>(a, B, stream);
     case 64: return launch<POOL, 64, MMA>(a, B, stream);
     case 128: return launch<POOL, 128, MMA>(a, B, stream);
+    case 256: return launch<POOL, 256, MMA>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -864,11 +919,11 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
 }
 
 // The combine alone: o_parts [B, S, H, D] and lse_parts [B, S, H] fp32 ->
-// o [B, H, D] (dtype: 0 = float32, 1 = bfloat16; D 32, 64 or 128) and lse
+// o [B, H, D] (dtype: 0 = float32, 1 = bfloat16; D 32, 64, 128 or 256) and lse
 // [B, H] fp32.
 extern "C" int paged_decode_combine(const void* o_parts, const void* lse_parts, void* o, void* lse,
                                     int B, int S, int H, int D, int dtype, void* stream) {
-  if (S < 1 || (dtype != 0 && dtype != 1) || D % 32 != 0 || D > 128)
+  if (S < 1 || (dtype != 0 && dtype != 1) || D % 32 != 0 || D > 256)
     return (int)cudaErrorInvalidValue;
   const Args none{};
   return (int)launch_combine(static_cast<const float*>(o_parts),

@@ -7,10 +7,12 @@ bf16 inputs as one term per value and fp32 inputs as two bf16 terms (hi +
 lo) written by a split pre-pass.  The forward is ``csrc/flash_fwd_tc.cu``,
 with two bodies picked by shape (``_fwd_plan``): the tile body (wgmma) for
 prefill, chunks, windows and training, the decode body (mma.sync, split
-keys) for at most ``DECODE_MAX_ROWS`` packed rows; each has a bf16 and an
-fp32 instantiation.  The backward is ``csrc/flash_bwd.cu``: the dQ and
-dK/dV kernels (``_bwd_plan``).  See the notes at the sources' tops for the
-designs.
+keys) for at most ``DECODE_MAX_ROWS`` packed rows (``DECODE_MAX_ROWS_D256``
+at head dim 256); each has a bf16 and an fp32 instantiation, at head dims
+``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
+dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (head dim 256
+in the backward is ROADMAP A.6b: it raises until then).  See the notes at
+the sources' tops for the designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
 (``ref.attention_ref``, ``ref.attention_bwd_ref``) for CPU tensors; there is
@@ -35,11 +37,16 @@ from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the forward's bodies take head dim 256 (gemma-7b) too; the backward's not
+# yet (ROADMAP A.6b)
+FWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode body takes up to 32 packed rows (Sq * H / Hkv): a decode tick
-# (Sq = 1) and a speculative verify (Sq = spec_k), in either type
+# (Sq = 1) and a speculative verify (Sq = spec_k), in either type; at head
+# dim 256 one 16-row tile (its o accumulators fill a lane's registers)
 DECODE_MAX_ROWS = 32
+DECODE_MAX_ROWS_D256 = 16
 # key splits fill the card when B * Hkv CTAs would leave most of its SMs idle
 NUM_SMS = 132  # H100 SXM
 MAX_SPLITS = 8
@@ -85,9 +92,9 @@ def _band_device(band: BandArg, batch: int, device) -> Tuple[torch.Tensor, int]:
 
 
 def _check_kernel_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         stride_q: int, stride_kv: int) -> None:
+                         stride_q: int, stride_kv: int, head_dims: Tuple[int, ...]) -> None:
     """What the CUDA kernels take: q [B,Sq,H,D]; k, v [B,Skv,Hkv,D] with
-    q's device and dtype (fp32/bf16), D in KERNEL_HEAD_DIMS, contiguous."""
+    q's device and dtype (fp32/bf16), D in ``head_dims``, contiguous."""
     B, _, _, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     for name, t in (("k", k), ("v", v)):
@@ -97,8 +104,8 @@ def _check_kernel_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(B, Skv, Hkv, D)}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} kernel takes float32 or bfloat16, not {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{fn} kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if D not in head_dims:
+        raise ValueError(f"{fn} kernel takes head dims {head_dims}, not {D}")
     if stride_q < 1 or stride_kv < 1:
         raise ValueError("strides must be >= 1")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -128,12 +135,12 @@ def _fwd_plan(B: int, Sq: int, H: int, Hkv: int, D: int, dtype) -> Tuple[str, in
     (Sq * H / Hkv) fit the decode body, with the keys split across CTAs when
     B * Hkv CTAs would leave most of the SMs idle, else "tile"; with a
     "_fp32" suffix for fp32 inputs (their two-term instantiations)."""
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if D not in FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd kernel takes head dims {FWD_HEAD_DIMS}, not {D}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {dtype}")
     suffix = "_fp32" if dtype == torch.float32 else ""
-    if Sq * (H // Hkv) > DECODE_MAX_ROWS:
+    if Sq * (H // Hkv) > (DECODE_MAX_ROWS_D256 if D == 256 else DECODE_MAX_ROWS):
         return "tile" + suffix, 1
     ctas = B * Hkv
     if 2 * ctas > NUM_SMS:
@@ -152,11 +159,16 @@ def _bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, dtype) -> str
     """The backward's body, from the shapes and type alone (the host never
     reads the band): "tc_bf16" for bf16 inputs, "tc_fp32" for fp32 inputs
     (split into two bf16 terms by a pre-pass).  Both run the tensor-core dQ
-    and dK/dV kernels; raises for what they do not take."""
+    and dK/dV kernels; raises for what they do not take, head dim 256
+    among them (ROADMAP A.6b)."""
     if H < 1 or Hkv < 1 or H % Hkv:
         raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if D == 256:
+        raise ValueError(
+            f"flash_attention_bwd kernel takes head dims {BWD_HEAD_DIMS}, not 256: the backward "
+            "at head dim 256 (gemma-7b training) is not ported yet (ROADMAP A.6b)")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head dims {BWD_HEAD_DIMS}, not {D}")
     if dtype == torch.float32:
         return "tc_fp32"
     if dtype == torch.bfloat16:
@@ -197,7 +209,7 @@ def flash_attention_fwd(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")
-    _check_kernel_inputs("flash_attention_fwd", q, k, v, stride_q, stride_kv)
+    _check_kernel_inputs("flash_attention_fwd", q, k, v, stride_q, stride_kv, FWD_HEAD_DIMS)
     band_d, band_stride = _band_device(band, B, q.device)
     seg_q, seg_kv = _seg_device(seg_q, seg_kv, Sq, Skv, q.device)
     o = torch.empty_like(q)
@@ -346,8 +358,8 @@ def flash_attention_bwd(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
-    _check_kernel_inputs("flash_attention_bwd", q, k, v, stride_q, stride_kv)
     body = _bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, stride_q, stride_kv, BWD_HEAD_DIMS)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q ({tuple(q.shape)}, {q.dtype}, {q.device})")
     if not do.is_contiguous():

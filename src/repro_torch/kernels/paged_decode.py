@@ -61,7 +61,7 @@ H100_SMS = 132
 # implicit page run; the largest divisor of m wins
 _DENSE_CHUNKS = (128, 64, 32, 16, 8, 4, 2, 1)
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_MAX_GROUP = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the pool's element type at the C interface: 0 = q's type, 1 = int8, 2 = fp8
@@ -79,6 +79,26 @@ def default_num_splits(batch: int, hkv: int, max_pages: int) -> int:
     gives a row only as many of them as get 8 tiles of 16 slots each."""
     want = -(-BLOCKS_PER_SM * H100_SMS // max(1, batch * hkv))
     return max(1, min(want, max_pages))
+
+
+def _plan(B: int, H: int, hkv: int, D: int, max_pages: int, num_splits: Optional[int],
+          dtype) -> Tuple[str, int]:
+    """(body, blocks per (row, kv head)) of the CUDA kernel, from the shapes
+    and q's type alone: "mma" (tensor cores) for bf16 queries, "simt" (CUDA
+    cores) for fp32 ones; the split count is ``num_splits`` (default
+    :func:`default_num_splits`) cut to [1, max_pages].  Raises for what the
+    kernel does not take."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_flash_decode kernel takes float32 or bfloat16, not {dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_flash_decode kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
+    if hkv < 1 or H % hkv:
+        raise ValueError(f"H={H} not divisible by Hkv={hkv}")
+    if H // hkv > KERNEL_MAX_GROUP:
+        raise ValueError(f"GQA group {H // hkv} > {KERNEL_MAX_GROUP}")
+    if num_splits is None:
+        num_splits = default_num_splits(B, hkv, max_pages)
+    return ("mma" if dtype == torch.bfloat16 else "simt"), max(1, min(int(num_splits), max_pages))
 
 
 def dense_chunk_for(m: int) -> int:
@@ -219,12 +239,7 @@ def paged_flash_decode(
             raise ValueError(f"the quantized kernel loads 16 codes at a time: D={D} % 16 != 0")
     if q.shape != (B, 1, H, D):
         raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged_flash_decode kernel takes float32 or bfloat16, not {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_flash_decode kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
-    if H // hkv > KERNEL_MAX_GROUP:
-        raise ValueError(f"GQA group {H // hkv} > {KERNEL_MAX_GROUP}")
+    _, num_splits = _plan(B, H, hkv, D, max_pages, num_splits, q.dtype)
     if stride_kv < 1:
         raise ValueError("stride_kv must be >= 1")
     if block_table.shape != (B, max_pages):
@@ -239,9 +254,6 @@ def paged_flash_decode(
         pos_ptr, pos_stride, pos_value = pos_d.data_ptr(), int(pos_d.numel() == B and B > 1), 0
     else:
         pos_ptr, pos_stride, pos_value = None, 0, int(pos)
-    if num_splits is None:
-        num_splits = default_num_splits(B, hkv, max_pages)
-    num_splits = max(1, min(int(num_splits), max_pages))
     hi = (window - 1) if window else BAND_INF
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)

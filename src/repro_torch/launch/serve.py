@@ -34,7 +34,11 @@ their plain PyTorch versions.  Weights are random, from seed 0.
 ``--arch qwen2-moe-a2.7b`` / ``mixtral-8x7b`` serve the MoE decoders in
 every mode of the dense family, on one rank (with ``--fake-devices`` the
 engine raises ``NotImplementedError``); on the card ``--arch
-qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.
+qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.  ``--arch
+gemma-7b`` serves gemma (head dim 256, GeGLU, tied embeddings) in every mode
+of the dense family; ``--reduced`` runs JAX's reduced config (head dim 32)
+on the CPU, and on the card ``--dtype bfloat16 --paged --page-size 16
+--num-pages 512 --max-seq 2048`` serves it whole.
 
 Robustness knobs, as in JAX's CLI: ``--oversubscribe 1.5`` admits against
 1.5x the physical page pool (preempt-and-recompute under pressure; needs

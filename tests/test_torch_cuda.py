@@ -70,6 +70,30 @@ FLASH_CASES = {
     # a window with segment ids whose tiles start off a multiple of 4 keys:
     # the tile body's 1-D TMA box of ids must start 16-byte aligned
     "segments_window": (1, 300, 300, 4, 2, 64, (3, 0, 0, 41), 1, 1, True),
+    # head dim 256 (gemma-7b: 16 / 16 heads): the tile body's 32-key tiles
+    # (one warpgroup a CTA in fp32) with segments and a window off a multiple
+    # of 4 keys, GQA 2 under a window, a ragged causal row, a chunk, rows
+    # long enough for the fp32 body's fold; the decode body's one 16-row
+    # tile (ticks with a hidden row, a verify), and 18 packed rows, past
+    # its 16, on the tile body
+    "gemma_segments": (1, 384, 384, 16, 16, 256, (0, 0, 0, INF), 1, 1, True),
+    "gemma_segments_window": (1, 300, 300, 4, 2, 256, (3, 0, 0, 41), 1, 1, True),
+    "gemma_group2_window": (1, 200, 200, 4, 2, 256, (0, 0, 0, 63), 1, 1, False),
+    "gemma_causal_ragged": (1, 333, 333, 2, 2, 256, (0, 0, 0, INF), 1, 1, False),
+    "gemma_long": (1, 2048, 2048, 2, 2, 256, (0, 0, 0, INF), 1, 1, False),
+    "gemma_chunk": (8, 256, 1024, 16, 16, 256,
+                    [(p, 0, 0, INF) for p in (0, 256, 512, 700, 300, 768, 100, 900)], 1, 1,
+                    False),
+    "decode_slots_gemma": (8, 1, 300, 16, 16, 256,
+                           [(p, 0, 0, INF) for p in (0, 17, 64, 150, 299, 5000, 220)]
+                           + [(3, 0, 5, INF)], 1, 1, False),
+    "verify_gemma": (8, 5, 1024, 16, 16, 256,
+                     [(p, 0, 0, INF) for p in (0, 5, 100, 777, 1000, 1019, 1020, 3000)], 1, 1,
+                     False),
+    "gemma_rows_18": (2, 9, 300, 4, 2, 256, [(150, 0, 0, INF), (299, 0, 0, INF)], 1, 1, False),
+    # 4 kv-head CTAs: the keys split 8 ways, merged by the combine
+    "decode_split_gemma": (2, 1, 2048, 4, 2, 256, [(2047, 0, 0, INF), (900, 0, 0, 511)], 1, 1,
+                           False),
 }
 
 
@@ -119,8 +143,11 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
     # empty rows: exactly o = 0 and lse = NEG_INF
     assert torch.equal(lse[~live], lse_ref[~live])
     assert torch.all(o.transpose(1, 2)[~live] == 0)
-    if case in ("hidden_rows", "decode_slots_granite", "decode_slots_hymba"):
+    if case in ("hidden_rows", "decode_slots_granite", "decode_slots_hymba",
+                "decode_slots_gemma"):
         assert (~live).any()
+    if D == 256:  # 16 packed rows at most on the decode body
+        assert body.startswith("decode") == (Sq * (H // Hkv) <= 16)
 
 
 # (case, dtype): every body of both types -- the tile body (granite
@@ -128,7 +155,9 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
 # and with several (hymba's decode slots)
 REPEAT_CASES = [(c, torch.bfloat16) for c in ("granite_segments", "hymba_window", "chunk",
                                               "decode_slots_hymba", "verify")] + [
-    (c, torch.float32) for c in ("granite_segments", "chunk", "decode_slots_hymba", "verify")]
+    (c, torch.float32) for c in ("granite_segments", "chunk", "decode_slots_hymba", "verify")] + [
+    (c, d) for c in ("gemma_segments", "decode_slots_gemma", "verify_gemma")
+    for d in (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.parametrize("case,dtype", REPEAT_CASES,
@@ -403,6 +432,11 @@ PAGED_CASES = {
     "window_holes_group5": ((300, 161, 5), 8, 10, 2, 64, 1, 0, 200, 5, True),
     # the largest group (16 heads per kv head), a 25-tile row over 4 blocks
     "group16": ((400, 33), 16, 32, 2, 64, 1, 0, None, 4, False),
+    # head dim 256 (gemma-7b's 16 / 16 heads; Q's fragments from shared
+    # memory, the fp32 body's one-stage rings), and GQA 2 with a window and
+    # holes over 3 blocks
+    "gemma_like": ((37, 1, 250, 16, 0, 129), 16, 16, 16, 256, 1, 0, None, None, False),
+    "gemma_group2_window_holes": ((300, 161, 5), 8, 8, 4, 256, 1, 0, 200, 3, True),
 }
 
 
@@ -489,6 +523,10 @@ QUANT_SHAPES = {
     # name: (depths, page_size, H, Hkv, D, window, num_splits, holes)
     "d32_pages4_window": ((70, 33, 0), 4, 8, 2, 32, 24, 3, True),
     "d64_pages48_group16": ((300, 97), 48, 16, 1, 64, None, 3, False),
+    # head dim 256: gemma-7b's heads at serving depths, and GQA 2 with a
+    # window and holes
+    "d256_gemma": ((1, 17, 250, 777, 0), 16, 16, 16, 256, None, None, False),
+    "d256_group2_window": ((300, 97, 0), 16, 8, 4, 256, 128, 3, True),
 }
 
 
@@ -591,6 +629,22 @@ def test_split_combine_matches_plain(dev, dtype):
     o_parts[empty] = float("nan")
     o2, lse2 = pk.split_combine(o_parts, lse_parts, dtype)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_combine_d256_matches_plain(dev, dtype):
+    """The combine at head dim 256 (8 dims a lane), an all-empty row."""
+    rng = np.random.default_rng(17)
+    B, S, H_, D_ = 3, 6, 4, 256
+    o_parts = _randn(rng, B, S, H_, D_, dtype=torch.float32, dev=dev)
+    lse_parts = _randn(rng, B, S, H_, dtype=torch.float32, dev=dev) * 4
+    lse_parts[1] = ref.NEG_INF
+    o, lse = pk.split_combine(o_parts, lse_parts, dtype)
+    o_ref, lse_ref = pk.combine_split_partials(o_parts, lse_parts)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[[0, 2]], lse_ref[[0, 2]], atol=LSE_TOL, rtol=0)
+    assert torch.all(o[1] == 0) and torch.all(lse[1] == ref.NEG_INF)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp_pool", "int8_pool"])
@@ -1086,12 +1140,20 @@ def test_ssm_engine_on_card_matches_cpu(dev, arch, sp):
 
 
 NAN_FLASH = {
-    # name: (dtype, B, Sq, Skv, band, the body _fwd_plan picks for it)
+    # name: (dtype, B, Sq, Skv, band, the body _fwd_plan picks for it[,
+    # heads (H, Hkv, D): granite's 32 / 8 of 128 unless given])
     "fp32": (torch.float32, 2, 64, 200, (0, 0, -INF, INF), "tile_fp32"),
     "tile": (torch.bfloat16, 2, 256, 300, (0, 0, -INF, INF), "tile"),
     "decode_split": (torch.bfloat16, 2, 1, 2048, (2047, 0, 0, INF), "decode"),
     "decode_one_split": (torch.bfloat16, 80, 1, 300, (299, 0, 0, INF), "decode"),
     "decode_split_fp32": (torch.float32, 2, 1, 2048, (2047, 0, 0, INF), "decode_fp32"),
+    # head dim 256: both bodies in both types, the decode split merged
+    "gemma_fp32": (torch.float32, 2, 64, 200, (0, 0, -INF, INF), "tile_fp32", (4, 4, 256)),
+    "gemma_tile": (torch.bfloat16, 2, 256, 300, (0, 0, -INF, INF), "tile", (4, 4, 256)),
+    "gemma_decode_split": (torch.bfloat16, 2, 1, 2048, (2047, 0, 0, INF), "decode",
+                           (4, 4, 256)),
+    "gemma_decode_split_fp32": (torch.float32, 2, 1, 2048, (2047, 0, 0, INF), "decode_fp32",
+                                (4, 4, 256)),
 }
 
 
@@ -1101,22 +1163,23 @@ def test_flash_fwd_nan_score_reaches_o_and_lse(dev, case):
     it NaN in o and lse, through every body and the decode body's split
     combine, as JAX's kernels do -- the engine's NaN guard reads it there.
     Rows of the other batch entries stay the plain version's."""
-    dtype, B, Sq, Skv, band, body = NAN_FLASH[case]
+    dtype, B, Sq, Skv, band, body, *heads = NAN_FLASH[case]
+    H_, Hkv, D_ = heads[0] if heads else (32, 8, 128)
     rng = np.random.default_rng(23)
-    q = _randn(rng, B, Sq, 32, 128, dtype=dtype, dev=dev)
-    k = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
-    v = _randn(rng, B, Skv, 8, 128, dtype=dtype, dev=dev)
+    q = _randn(rng, B, Sq, H_, D_, dtype=dtype, dev=dev)
+    k = _randn(rng, B, Skv, Hkv, D_, dtype=dtype, dev=dev)
+    v = _randn(rng, B, Skv, Hkv, D_, dtype=dtype, dev=dev)
     k[0, 0] = float("nan")  # key 0 of batch row 0, every kv head
     counters = FWD_COUNTERS[1:]
     before = [getattr(fa.flash_attention_fwd, c) for c in counters]
-    o, lse = fa.flash_attention_fwd(q, k, v, band, scale=128**-0.5)
+    o, lse = fa.flash_attention_fwd(q, k, v, band, scale=D_**-0.5)
     torch.cuda.synchronize()
     after = [getattr(fa.flash_attention_fwd, c) - b for c, b in zip(counters, before)]
     fp32 = dtype == torch.float32
     assert after == [int(c == f"launches_{body}" or (fp32 and c == "launches_fp32"))
                      for c in counters]
     assert torch.isnan(o[0].float()).all() and torch.isnan(lse[0]).all()
-    o_ref, lse_ref = ref.attention_ref(q[1:], k[1:], v[1:], scale=128**-0.5, band=band)
+    o_ref, lse_ref = ref.attention_ref(q[1:], k[1:], v[1:], scale=D_**-0.5, band=band)
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(o[1:].float(), o_ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse[1:], lse_ref, atol=LSE_TOL, rtol=0)
@@ -1153,3 +1216,43 @@ def test_paged_decode_nan_score_reaches_o_and_lse(dev, kv_dtype, dtype, splits):
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(o[1:].float(), o_ref[1:].float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse[1:], lse_ref[1:], atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["simt", "mma"])
+@pytest.mark.parametrize("kv_dtype", ["fp"] + QUANT_DTYPES)
+def test_paged_decode_nan_score_reaches_o_and_lse_d256(dev, kv_dtype, dtype):
+    """The NaN path at head dim 256 (gemma-7b's 16 / 16 heads), over 4
+    splits: the poisoned slot's o and lse are NaN, the others the plain
+    version's."""
+    from repro_torch.core import kv_quant
+
+    rng = np.random.default_rng(25)
+    depths = (300, 200, 37)
+    k_pool, v_pool, bt = _pool(rng, depths, 16, -(-max(depths) // 16) + 1, 16, 256,
+                               torch.float32 if kv_dtype != "fp" else dtype, dev)
+    if kv_dtype == "fp":
+        ks = vs = None
+        k_pool[int(bt[0, 0])][0] = float("nan")
+    else:
+        (k_pool, ks), (v_pool, vs) = (kv_quant.quantize(t, kv_dtype) for t in (k_pool, v_pool))
+        ks[int(bt[0, 0])][0] = float("nan")
+    q = _randn(rng, len(depths), 1, 16, 256, dtype=dtype, dev=dev)
+    pos = torch.tensor([d - 1 for d in depths], dtype=torch.int32, device=dev)
+    o, lse = pk.paged_flash_decode(q, k_pool, v_pool, bt, pos, 0, stride_kv=1, num_splits=4,
+                                   k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isnan(o[0].float()).all() and torch.isnan(lse[0]).all()
+    o_ref, lse_ref = pk.paged_decode_ref(q, k_pool, v_pool, bt, pos, 0, stride_kv=1, k_scale=ks,
+                                         v_scale=vs)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o[1:].float(), o_ref[1:].float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=LSE_TOL, rtol=0)
+
+
+def test_flash_bwd_refuses_head_dim_256(dev):
+    """The backward at head dim 256 is not ported yet (ROADMAP A.6b): it
+    raises on the card rather than running anything."""
+    q = torch.zeros(1, 64, 2, 256, device=dev)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="A.6b"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q, (0, 0, 0, INF), scale=1.0)

@@ -18,7 +18,9 @@ shows that one input term fewer breaks the gate, so the count the kernel
 uses is needed.  Readings of this emulation: T = 2 reads 0.13-0.20 of the
 gate at unit-normal inputs (|o| up to 3.9) and 0.59-0.74 in the
 ``large_o`` case (v x 3 over windows of 3 keys: |o| up to 11.7); T = 3
-would read 0.01-0.04; T = 1 (bf16 q, k, v) reads 75-440x the gate.
+would read 0.01-0.04; T = 1 (bf16 q, k, v) reads 75-440x the gate.  The
+``_d256`` cases (gemma-7b's head dim: 256 dims sum into every score) hold
+T = 2 to the same gate, and T = 1 breaks it there too.
 
 What the emulation cannot show: it sums in round-to-nearest fp32, with the
 whole row's softmax at once.  The tensor cores truncate as they accumulate,
@@ -192,7 +194,8 @@ def _run(name, B, Sq, Skv, H, Hkv, D, terms_list, oracle):
     return ratios, float(o_want.abs().max())
 
 
-# name -> (B, Sq, Skv, H, Hkv, D); interpret-mode Pallas at S = 128
+# name -> (B, Sq, Skv, H, Hkv, D); interpret-mode Pallas at S = 128 (64
+# at head dim 256)
 PALLAS_CASES = {
     "causal": (1, 128, 128, 2, 2, 128),
     "causal_gqa4": (1, 128, 128, 8, 2, 128),
@@ -200,7 +203,14 @@ PALLAS_CASES = {
     "striped": (1, 128, 128, 2, 2, 64),
     "segment": (1, 128, 128, 2, 2, 128),
     "large_o": (1, 128, 128, 2, 2, 128),
+    "causal_d256": (1, 64, 64, 2, 2, 256),
+    "segment_gqa2_d256": (1, 64, 64, 4, 2, 256),
 }
+
+
+def _name(case):
+    """The band kind of a case: its key without the shape's suffixes."""
+    return case.split("_gqa")[0].split("_d256")[0]
 
 
 def _limit(name):
@@ -211,7 +221,7 @@ def _limit(name):
 
 @pytest.mark.parametrize("case", list(PALLAS_CASES))
 def test_split_matches_pallas_interpret(case):
-    name = case.split("_gqa")[0]
+    name = _name(case)
     ratio = _run(name, *PALLAS_CASES[case], [T_FP32], "pallas")[0][T_FP32]
     assert ratio <= _limit(name), (case, ratio)
 
@@ -227,22 +237,28 @@ ORACLE_CASES = {
     "segment": (1, 1024, 1024, 2, 2, 128),
     "per_row": (4, 5, 1024, 8, 2, 128),
     "large_o": (1, 1024, 1024, 4, 1, 128),
+    # gemma-7b's head dim 256 (MHA): a causal row, a window, a verify per
+    # slot (5 rows: the decode body), large |o|
+    "causal_d256": (1, 1024, 1024, 2, 2, 256),
+    "window_d256": (1, 512, 512, 2, 2, 256),
+    "per_row_d256": (4, 5, 1024, 4, 4, 256),
+    "large_o_d256": (1, 1024, 1024, 2, 2, 256),
 }
 
 
 @pytest.mark.parametrize("case", list(ORACLE_CASES))
 def test_split_matches_jnp_oracle(case):
-    name = case.split("_gqa")[0]
+    name = _name(case)
     ratios, o_max = _run(name, *ORACLE_CASES[case], [T_FP32], "jnp")
     assert ratios[T_FP32] <= _limit(name), (case, ratios)
     if name == "large_o":
         assert o_max >= 2.0, o_max
 
 
-# one input term fewer (bf16 q, k, v: T = 1) on three cases
-@pytest.mark.parametrize("case", ["causal", "causal_gqa5", "large_o"])
+# one input term fewer (bf16 q, k, v: T = 1) on four cases
+@pytest.mark.parametrize("case", ["causal", "causal_gqa5", "large_o", "causal_d256"])
 def test_one_term_fewer_breaks_the_gate(case):
-    name = case.split("_gqa")[0]
+    name = _name(case)
     ratios, _ = _run(name, *ORACLE_CASES[case], [T_FP32, T_FP32 - 1], "jnp")
     assert ratios[T_FP32] <= _limit(name), ratios
     assert ratios[T_FP32 - 1] > 2.0, ratios

@@ -232,6 +232,21 @@ FWD_PLANS = {
     "decode_rows_32_fp32": ((8, 8, 32, 8, 128, torch.float32), ("decode_fp32", 5)),
     "tile_rows_36_fp32": ((8, 9, 32, 8, 128, torch.float32), ("tile_fp32", 1)),
     "decode_wide_batch_fp32": ((16, 1, 32, 8, 128, torch.float32), ("decode_fp32", 1)),
+    # gemma-7b (16 / 16 heads of 256): bf16 packed prefill on the tile body,
+    # an int8 pool's fp32 chunk (256 per slot) on the fp32 tile body, the
+    # decode tick of 8 slots (128 CTAs: no split) and a verify (spec_k 4: 5
+    # rows) on the decode body
+    "gemma_packed_prefill": ((1, 1500, 16, 16, 256, torch.bfloat16), ("tile", 1)),
+    "gemma_chunk_fp32": ((8, 256, 16, 16, 256, torch.float32), ("tile_fp32", 1)),
+    "gemma_decode": ((8, 1, 16, 16, 256, torch.bfloat16), ("decode", 1)),
+    "gemma_decode_fp32": ((8, 1, 16, 16, 256, torch.float32), ("decode_fp32", 1)),
+    "gemma_verify_fp32": ((8, 5, 16, 16, 256, torch.float32), ("decode_fp32", 1)),
+    # at head dim 256 the decode body takes 16 packed rows, not 32: 17 and
+    # GQA 2 x 9 go to the tile body; a slot's tick with few kv heads splits
+    "gemma_rows_16": ((2, 16, 16, 16, 256, torch.bfloat16), ("decode", 8)),
+    "gemma_rows_17": ((2, 17, 16, 16, 256, torch.bfloat16), ("tile", 1)),
+    "gemma_group2_rows_18": ((2, 9, 4, 2, 256, torch.float32), ("tile_fp32", 1)),
+    "gemma_one_slot": ((1, 1, 16, 16, 256, torch.bfloat16), ("decode", 8)),
 }
 
 
@@ -244,9 +259,11 @@ def test_fwd_plan_routes_main_path_shapes(name):
     if body.startswith("decode"):
         B, Sq, H, Hkv = shape[:4]
         assert Sq * (H // Hkv) <= tfa.DECODE_MAX_ROWS and 1 <= splits <= tfa.MAX_SPLITS
+        if shape[4] == 256:
+            assert Sq * (H // Hkv) <= tfa.DECODE_MAX_ROWS_D256
 
 
-@pytest.mark.parametrize("D", [16, 48, 96, 256])
+@pytest.mark.parametrize("D", [16, 48, 96])
 def test_fwd_plan_refuses_other_head_dims(D):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="head dims"):
@@ -288,6 +305,9 @@ def test_bwd_plan_refuses_other_head_dims(D):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="head dims"):
             tfa._bwd_plan(1, 64, 64, 8, 2, D, dtype)
+    if D == 256:  # the forward takes it; the backward's port is ROADMAP A.6b
+        with pytest.raises(ValueError, match="A.6b"):
+            tfa._bwd_plan(1, 4096, 4096, 16, 16, D, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
@@ -387,6 +407,38 @@ def test_dense_chunk_and_splits_match_jax():
         assert tpk.default_num_splits(8, 8, mp) == min(mp, 5)  # 2 x 132 blocks over 64 pairs
     assert tpk.default_num_splits(1, 8, 128) == 33
     assert tpk.default_num_splits(64, 8, 128) == 1
+
+
+# (B, H, Hkv, D, max_pages, num_splits, dtype) -> the paged kernel's (body,
+# blocks per (row, kv head))
+PAGED_PLANS = {
+    # granite-8b's serving pool (8 slots, 128 pages of 16) and qwen2.5-32b's
+    "granite_bf16": ((8, 32, 8, 128, 128, None, torch.bfloat16), ("mma", 5)),
+    "qwen_fp32": ((8, 40, 8, 128, 128, None, torch.float32), ("simt", 5)),
+    # gemma-7b (16 / 16 heads of 256): 128 (row, kv head) pairs take 3
+    # blocks each; the card-vs-CPU slice's fp32 queries; a split count past
+    # the row's pages is cut to them
+    "gemma_bf16": ((8, 16, 16, 256, 128, None, torch.bfloat16), ("mma", 3)),
+    "gemma_fp32": ((4, 16, 16, 256, 16, None, torch.float32), ("simt", 5)),
+    "gemma_capped": ((8, 16, 16, 256, 2, 6, torch.bfloat16), ("mma", 2)),
+}
+
+
+@pytest.mark.parametrize("name", list(PAGED_PLANS))
+def test_paged_plan_routes_main_path_shapes(name):
+    shape, want = PAGED_PLANS[name]
+    assert tpk._plan(*shape) == want
+
+
+@pytest.mark.parametrize("shape,err", [
+    ((8, 16, 16, 192, 128, None, torch.bfloat16), "head dims"),
+    ((8, 16, 16, 512, 128, None, torch.float32), "head dims"),
+    ((8, 34, 2, 256, 128, None, torch.bfloat16), "GQA group"),
+    ((8, 16, 16, 256, 128, None, torch.float16), "float32 or bfloat16"),
+])
+def test_paged_plan_refuses_what_the_kernel_does_not_take(shape, err):
+    with pytest.raises((ValueError, TypeError), match=err):
+        tpk._plan(*shape)
 
 
 def _paged_case(rng, depths, page_size, hkv, d, holes=False):
