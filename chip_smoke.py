@@ -41,7 +41,11 @@ Phases, each printing one JSON line:
                  fp32 inputs through the split pre-pass) also check the body
                  the wrapper planned and that two launches give
                  bitwise-identical gradients; the env line's ptxas summary
-                 covers the backward library too.
+                 covers the backward library too.  The backward also at
+                 gemma-7b's heads (16 / 16 of 256, the two-warpgroup
+                 kernels), fp32 and bf16: causal at 4096 (train_gemma's
+                 row), window, striped and segment at 1024, a ragged 1000
+                 and a group of 2 (16 / 8 heads).
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
                  weights served by the engine on the card (kernels) and on the
                  CPU (plain versions), dense and paged caches; the greedy streams
@@ -195,6 +199,15 @@ Phases, each printing one JSON line:
                  Then 2 causal steps with bf16 params: losses finite and near
                  ln(vocab), the forward on the tile body and every backward on
                  the bf16 body.
+  6e. train_gemma_parity (after train) -- gemma-7b at full width cut to 2
+                 layers, fp32, seq 256: train_parity's step and limits
+                 (head dim 256 through #1-#3; the CPU side holds ~21 GB).
+  6f. train_gemma (after 6e) -- gemma-7b at full width cut to 8 of 28
+                 layers (3.0e9 parameters), the train phase's runs and gates:
+                 #1 2 x 8 x 6 on the fp32 tile body at head dim 256, #2 and
+                 #3 8 x 6 each on the fp32 tensor-core body, then 2 bf16
+                 steps on the bf16 bodies; no call of a kernel's plain
+                 version in either (as serve_gemma); a profiled step.
   6a. train_ssm_parity -- mamba2-370m and hymba-1.5b at full width cut to 2
                  layers, fp32, seq 512: one make_train_step on the card (#5,
                  #5b; hymba's #1 fp32 body, #2, #3) and one on the CPU from
@@ -252,7 +265,9 @@ Phases, each printing one JSON line:
                  train_mesh, serve_ring, serve_moe, serve_ssm_ring,
                  serve_qwen, serve_gemma and train_ssm runs; rows of their
                  own for the head-dim-256 instantiations of #1, #4 and 4q,
-                 counted over serve_gemma; the ranks' combine a row of
+                 counted over serve_gemma, and of #2 and #3, counted over
+                 train_gemma (whose launches also join the backward's and
+                 the fp32 forward's rows); the ranks' combine a row of
                  its own; #5b's row from train_ssm; the fp32 forward's
                  pre-pass a row of its own, counted over the same main-path
                  runs as the fp32 forward's row, once per launch), the card
@@ -422,6 +437,8 @@ QWEN_MOE_HEADS = (16, 16, 128)
 QWEN_HEADS = (40, 8, 128)
 # gemma-7b's: multi-head attention at head dim 256
 GEMMA_HEADS = (16, 16, 256)
+# a group of 2 at gemma's head dim: the backward's sum over the group
+GEMMA_GQA2_HEADS = (16, 8, 256)
 FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
 
 
@@ -1093,11 +1110,13 @@ def bwd_counts():
             "split": fa.split_terms.launches}
 
 
-def bwd_case(name, S, dtype, gen):
-    """One flash-backward case (dQ and dK/dV kernels) at granite-8b's heads.
-    The segment case gives row 0 a document id no key has: a fully masked
-    row, whose dq must be exactly 0.  The window and striped cases pass
-    delta in; the others derive it from o."""
+def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
+    """One flash-backward case (dQ and dK/dV kernels) at ``heads`` (query
+    heads, kv heads, head dim; granite-8b's by default).  The segment case
+    gives row 0 a document id no key has: a fully masked row, whose dq must
+    be exactly 0.  The window and striped cases pass delta in; the others
+    derive it from o."""
+    H, HKV, D = heads
     INF = ref.BAND_INF
     band, sq, skv, seg_q, seg_kv, given = (0, 0, 0, INF), 1, 1, None, None, False
     if name == "window":
@@ -1165,7 +1184,7 @@ def bwd_case(name, S, dtype, gen):
     split, _ = device_time(_profiled(run, 5), per=5)  # the kernels' device ms apart
     rec = dict(
         kernel="flash_attention_bwd", case=name, S=S, dtype=DTYPE_NAMES[dtype],
-        body=body[0] if len(body) == 1 else body, pre_pass_launches=ran["split"],
+        heads=list(heads), body=body[0] if len(body) == 1 else body, pre_pass_launches=ran["split"],
         delta="given" if given else "from_o", max_abs_err=errs, tol_atol=atol, tol_rtol=rtol,
         max_err_over_tol=ratio, bitwise_repeat=bitwise, masked_row_dq_zero=masked_row_zero,
         ms_dq=split.get("flash_bwd_dq", 0.0), ms_dkv=split.get("flash_bwd_dkv", 0.0),
@@ -3094,13 +3113,13 @@ QWEN_PAGES = 512
 
 
 class _PlainCalls:
-    """Counts calls of the kernels' plain versions (the flash forward's, the
-    paged decode's and its combine's, and the masked attention under them)
-    while it is entered: on the card the wrappers must launch their kernels
-    and never reach these."""
+    """Counts calls of the kernels' plain versions (the flash forward's and
+    backward's, the split pre-pass's, the paged decode's and its
+    combine's, and the masked attention under them) while it is entered: on
+    the card the wrappers must launch their kernels and never reach these."""
 
-    NAMES = ((ref, "attention_ref"), (ref, "masked_attention"), (pk, "paged_decode_ref"),
-             (pk, "combine_split_partials"))
+    NAMES = ((ref, "attention_ref"), (ref, "masked_attention"), (ref, "attention_bwd_ref"),
+             (fa, "split_terms_ref"), (pk, "paged_decode_ref"), (pk, "combine_split_partials"))
 
     def __init__(self):
         self.calls = {name: 0 for _, name in self.NAMES}
@@ -3299,9 +3318,22 @@ def train_parity(arch="granite-8b", seq=512, phase="train_parity"):
           f"{phase} ({arch}): kernels must run on the card only, with remat: {launches}")
 
 
-def full_train(card):
-    """granite-8b at full width, 8 layers, fp32 + AdamW, remat, seq 4096."""
-    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=8)
+# train_gemma_parity's sequence: its CPU side holds ~21 GB (params, grads
+# and two moments of 1.34e9 fp32 weights), and at seq 512 its CPU step took
+# 41 s of a 67 s phase on an H100 host's CPU, so it takes 256.
+# train_gemma's depth: 8 of 28 layers, 3.0e9 parameters, 48 GB of fp32
+# params, grads and moments beside ~13 GB of [4096, 256,000] fp32 logits,
+# their log-softmax and gradient (peak 69.5 GB on an H100)
+GEMMA_PARITY_SEQ = 256
+GEMMA_TRAIN_LAYERS = 8
+
+
+def full_train(card, arch="granite-8b", layers=8, phase="train"):
+    """``arch`` at full width cut to ``layers`` layers, fp32 + AdamW, remat,
+    seq 4096, batch 1: 4 causal steps and 2 of 4 packed documents, then 2
+    bf16 steps (``full_train_bf16``); no call of a kernel's plain version.
+    Returns the launches of the fp32 runs, keyed as the kernels line's rows."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     ctx = ParallelCtx(device="cuda")
     seq, steps, steps_docs = 4096, 4, 2
     grad_norms = []
@@ -3313,13 +3345,15 @@ def full_train(card):
     bodies0, bwd0 = fwd_body_counts(), bwd_counts()
     tile_fp32 = fa.flash_attention_fwd.launches_tile_fp32
     runs, last = [], None
-    for n, docs in ((steps, None), (steps_docs, 4)):
-        last = None  # the previous run's params go before the next run starts
-        t0 = time.perf_counter()
-        last = fit(cfg, ctx, TrainConfig(steps=n, seq=seq, batch=1, seed=0, docs=docs),
-                   hooks=hooks)
-        runs.append(dict(docs=docs, losses=last["history"], step_s=last["step_seconds"],
-                         fit_s=time.perf_counter() - t0, params=tfm.param_count(last["params"])))
+    with _PlainCalls() as plain:
+        for n, docs in ((steps, None), (steps_docs, 4)):
+            last = None  # the previous run's params go before the next run starts
+            t0 = time.perf_counter()
+            last = fit(cfg, ctx, TrainConfig(steps=n, seq=seq, batch=1, seed=0, docs=docs),
+                       hooks=hooks)
+            runs.append(dict(docs=docs, losses=last["history"], step_s=last["step_seconds"],
+                             fit_s=time.perf_counter() - t0,
+                             params=tfm.param_count(last["params"])))
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
                 "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
@@ -3335,43 +3369,49 @@ def full_train(card):
     step_s = [x for r in runs for x in r["step_s"]]
     total = steps + steps_docs
     rec = {
-        "phase": "train", "arch": "granite-8b", "num_layers": cfg.num_layers,
-        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
-        "vocab": cfg.vocab_size, "params": runs[0]["params"], "param_dtype": "fp32",
-        "optimizer": "adamw", "remat": True, "seq": seq, "batch": 1,
+        "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": runs[0]["params"],
+        "param_dtype": "fp32", "optimizer": "adamw", "remat": True, "seq": seq, "batch": 1,
         "runs": [{k: v for k, v in r.items() if k != "params"} for r in runs],
         "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
         "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
         "launches": launches, "flash_attention_fwd_bodies": bodies,
         "flash_fwd_split_launches": fwd_split, "flash_attention_bwd_bodies": bwd_bodies,
-        "ln_vocab": float(np.log(cfg.vocab_size)),
+        "plain_calls": plain.calls, "ln_vocab": float(np.log(cfg.vocab_size)),
         "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq), "card": card,
     }
     emit(rec)
-    check(len(losses) == total and all(np.isfinite(losses)), f"train: losses not finite: {losses}")
+    check(len(losses) == total and all(np.isfinite(losses)),
+          f"{phase}: losses not finite: {losses}")
     check(abs(losses[0] - np.log(cfg.vocab_size)) < 1.5,
-          f"train: first loss {losses[0]} is not near ln(vocab) = {np.log(cfg.vocab_size)}")
+          f"{phase}: first loss {losses[0]} is not near ln(vocab) = {np.log(cfg.vocab_size)}")
     check(launches == {"flash_attention_fwd": 2 * cfg.num_layers * total,
                        "flash_bwd_dq": cfg.num_layers * total,
                        "flash_bwd_dkv": cfg.num_layers * total},
-          f"train: launch counts off the remat schedule: {launches}")
+          f"{phase}: launch counts off the remat schedule: {launches}")
     check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]}
           and tile_fp32 == bodies["fp32"] == fwd_split,
-          f"train: the fp32 forward must run the fp32 tile body after one pre-pass each: "
+          f"{phase}: the fp32 forward must run the fp32 tile body after one pre-pass each: "
           f"{bodies}, tile {tile_fp32}, pre-pass {fwd_split}")
     n_bwd = cfg.num_layers * total
     check(bwd_bodies == {"tc_fp32": n_bwd, "tc_bf16": 0, "split": n_bwd},
-          f"train: every fp32 backward must run the fp32 tensor-core body: {bwd_bodies}")
+          f"{phase}: every fp32 backward must run the fp32 tensor-core body: {bwd_bodies}")
+    check(not any(plain.calls.values()) and not any(rec["bf16"]["plain_calls"].values()),
+          f"{phase}: a kernel's plain version ran: {plain.calls}, bf16 "
+          f"{rec['bf16']['plain_calls']}")
+    check(peak_gb * 1e9 <= torch.cuda.get_device_properties(0).total_memory,
+          f"{phase}: peak {peak_gb} GB above the card's")
     bf = rec["bf16"]
     check(len(bf["losses"]) == 2 and all(np.isfinite(bf["losses"]))
           and abs(bf["losses"][0] - np.log(cfg.vocab_size)) < 1.5,
-          f"train (bf16): losses not finite or not near ln(vocab): {bf}")
+          f"{phase} (bf16): losses not finite or not near ln(vocab): {bf}")
     n_bf = cfg.num_layers * 2
     check(bf["launches"] == {"flash_attention_fwd": 2 * n_bf, "flash_bwd_dq": n_bf,
                              "flash_bwd_dkv": n_bf}
           and bf["flash_attention_fwd_bodies"] == {"tile": 2 * n_bf, "decode": 0, "fp32": 0}
           and bf["flash_attention_bwd_bodies"] == {"tc_fp32": 0, "tc_bf16": n_bf, "split": 0},
-          f"train (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
+          f"{phase} (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
     return {**{k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
             "flash_attention_fwd (fp32)": bodies["fp32"], "flash_fwd_split": fwd_split,
             "flash_bwd_split": bwd_bodies["split"]}
@@ -3385,8 +3425,9 @@ def full_train_bf16(cfg, ctx, seq):
     bodies0, bwd0 = fwd_body_counts(), bwd_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=1, seed=0,
-                                    param_dtype=torch.bfloat16))
+    with _PlainCalls() as plain:
+        out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=1, seed=0,
+                                        param_dtype=torch.bfloat16))
     fit_s = time.perf_counter() - t0
     rec = {
         "param_dtype": "bf16", "steps": 2, "losses": out["history"],
@@ -3397,6 +3438,7 @@ def full_train_bf16(cfg, ctx, seq):
                      "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv},
         "flash_attention_fwd_bodies": fwd_body_delta(bodies0),
         "flash_attention_bwd_bodies": {b: n - bwd0[b] for b, n in bwd_counts().items()},
+        "plain_calls": plain.calls,
     }
     del out
     torch.cuda.empty_cache()
@@ -4357,6 +4399,15 @@ def main():
             for name in ("causal", "window", "striped", "segment"):
                 if S != 2048 or name == "causal":
                     bwd.append(bwd_case(name, S, dtype, gen))
+    # gemma-7b's backward (16 / 16 heads of 256), as train_gemma launches
+    # it: the training row (causal, 4096), the masks at 1024, a ragged S
+    # (1000: a part-filled last CTA and tile) and a group of 2
+    for dtype in (torch.float32, torch.bfloat16):
+        bwd.append(bwd_case("causal", 4096, dtype, gen, heads=GEMMA_HEADS))
+        for name in ("window", "striped", "segment"):
+            bwd.append(bwd_case(name, 1024, dtype, gen, heads=GEMMA_HEADS))
+        bwd.append(bwd_case("causal", 1000, dtype, gen, heads=GEMMA_HEADS))
+        bwd.append(bwd_case("causal", 1024, dtype, gen, heads=GEMMA_GQA2_HEADS))
     split = split_case(4096, gen)
     fwd_split = fwd_split_case(4096, gen)  # the train phase's forward
     # the mesh executor's blocks: 4 ranks folded into the forward's batch,
@@ -4407,6 +4458,11 @@ def main():
         launches[key] += ring[part]
     train_parity()
     launches.update(full_train(card))
+    # gemma-7b (head dim 256): card vs CPU at 2 layers, then trained at 8
+    train_parity(GEMMA_ARCH, seq=GEMMA_PARITY_SEQ, phase="train_gemma_parity")
+    gemma_train = full_train(card, GEMMA_ARCH, GEMMA_TRAIN_LAYERS, phase="train_gemma")
+    for key, n in gemma_train.items():
+        launches[key] += n
     # SSM and hybrid training (#5 forward, #5b backward) card vs CPU, over a
     # ring of 4 vs one rank, then whole; the MoE family's train step card vs
     # CPU
@@ -4472,8 +4528,8 @@ def main():
     # over the folded fp pool's partials
     ring_combine = next(r for r in ring_paged if r["kv_dtype"] == "fp")["combine"]
     # the training path runs the backward in fp32 at 4096 causal tokens
-    main_bwd = next(r for r in bwd
-                    if r["case"] == "causal" and r["S"] == 4096 and r["dtype"] == "fp32")
+    main_bwd = next(r for r in bwd if r["case"] == "causal" and r["S"] == 4096
+                    and r["dtype"] == "fp32" and r["heads"] == granite)
     kernels = []
     for name, key, src, replaces, rec in (
         ("flash_attention_fwd", "flash_attention_fwd (tile)", FLASH_TC_SRC, FLASH_REPLACES,
@@ -4509,6 +4565,22 @@ def main():
             "plain_ms": main_bwd["plain_ms_pair"], "bound_ms": main_bwd[f"bound_ms_{part}"],
             "bound_by": main_bwd[f"bound_by_{part}"],
             "library_ms": main_bwd["library_ms_pair"],
+        })
+    # #2 and #3 at head dim 256, counted over train_gemma, timed at its row
+    # (fp32, causal, 4096)
+    gemma_bwd = next(r for r in bwd if r["case"] == "causal" and r["S"] == 4096
+                     and r["dtype"] == "fp32" and r["heads"] == list(GEMMA_HEADS))
+    for name, replaces, part, err in (
+        ("flash_bwd_dq (head dim 256)", BWD_DQ_REPLACES, "dq", gemma_bwd["max_abs_err"]["dq"]),
+        ("flash_bwd_dkv (head dim 256)", BWD_DKV_REPLACES, "dkv",
+         max(gemma_bwd["max_abs_err"]["dk"], gemma_bwd["max_abs_err"]["dv"])),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": BWD_SRC, "replaces": replaces,
+            "launches": gemma_train[f"flash_bwd_{part}"], "max_abs_err": err,
+            "ms": gemma_bwd[f"ms_{part}"], "plain_ms": gemma_bwd["plain_ms_pair"],
+            "bound_ms": gemma_bwd[f"bound_ms_{part}"], "bound_by": gemma_bwd[f"bound_by_{part}"],
+            "library_ms": gemma_bwd["library_ms_pair"],
         })
     # the head-dim-256 instantiations (gemma-7b), counted over serve_gemma:
     # the bf16 tile body of its prefills, the fp32 bodies of its int8 pool's

@@ -10,8 +10,8 @@ prefill, chunks, windows and training, the decode body (mma.sync, split
 keys) for at most ``DECODE_MAX_ROWS`` packed rows (``DECODE_MAX_ROWS_D256``
 at head dim 256); each has a bf16 and an fp32 instantiation, at head dims
 ``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
-dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (head dim 256
-in the backward is ROADMAP A.6b: it raises until then).  See the notes at
+dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (at 256 with
+32-row streamed tiles, and dK/dV over two warpgroups).  See the notes at
 the sources' tops for the designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
@@ -37,10 +37,9 @@ from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
-# the forward's bodies take head dim 256 (gemma-7b) too; the backward's not
-# yet (ROADMAP A.6b)
+# both directions take head dim 256 (gemma-7b) too
 FWD_HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode body takes up to 32 packed rows (Sq * H / Hkv): a decode tick
 # (Sq = 1) and a speculative verify (Sq = spec_k), in either type; at head
@@ -159,14 +158,10 @@ def _bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, dtype) -> str
     """The backward's body, from the shapes and type alone (the host never
     reads the band): "tc_bf16" for bf16 inputs, "tc_fp32" for fp32 inputs
     (split into two bf16 terms by a pre-pass).  Both run the tensor-core dQ
-    and dK/dV kernels; raises for what they do not take, head dim 256
-    among them (ROADMAP A.6b)."""
+    and dK/dV kernels, at every head dim of ``BWD_HEAD_DIMS``; raises for
+    what they do not take."""
     if H < 1 or Hkv < 1 or H % Hkv:
         raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
-    if D == 256:
-        raise ValueError(
-            f"flash_attention_bwd kernel takes head dims {BWD_HEAD_DIMS}, not 256: the backward "
-            "at head dim 256 (gemma-7b training) is not ported yet (ROADMAP A.6b)")
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd kernel takes head dims {BWD_HEAD_DIMS}, not {D}")
     if dtype == torch.float32:

@@ -206,6 +206,30 @@ def test_split_matches_jnp_oracle_gqa(dtype):
     assert ratio <= 1.0, (dtype, ratio)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", BANDS)
+def test_split_matches_pallas_interpret_d256(name, dtype):
+    """Head dim 256 (gemma-7b), where each score sums 256 products: S = 128,
+    MHA and a group of 2, against the Pallas backward in interpret mode."""
+    dt = DTYPES[dtype]
+    split = (IN_TERMS[dt], P_TERMS)
+    for H, Hkv in ((2, 2), (4, 2)):
+        ratio = _run(name, 128, H, Hkv, 256, dt, [split], "pallas")[split]
+        assert ratio <= 1.0, (name, dtype, H, Hkv, ratio)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", BANDS)
+def test_split_matches_jnp_oracle_d256(name, dtype):
+    """Head dim 256 at S = 1024, MHA (2 / 2 heads) and a group of 2 (4 / 2),
+    against the jnp oracle."""
+    dt = DTYPES[dtype]
+    split = (IN_TERMS[dt], P_TERMS)
+    for H, Hkv in ((2, 2), (4, 2)):
+        ratio = _run(name, 1024, H, Hkv, 256, dt, [split], "jnp")[split]
+        assert ratio <= 1.0, (name, dtype, H, Hkv, ratio)
+
+
 # the next-cheaper splits, each on the S = 1024 causal case: fp32 with one
 # term for P and dS, or one term for the inputs; bf16 with one term for P
 # and dS.  Readings of this emulation: 23x, 48x and 11x their limits (the

@@ -247,6 +247,14 @@ BWD_CASES = {
     # boundary: the kernels' 1-D TMA boxes are aligned down
     "offset_window": (1, 256, 256, 2, 2, 64, (5, 0, 0, 31), 1, 1, False),
     "segments_window": (2, 301, 299, 6, 3, 32, (3, 0, 0, 40), 1, 1, True),
+    # head dim 256 (gemma-7b): 32-row streamed tiles, dK/dV over two
+    # warpgroups; causal MHA, a ragged window at GQA 2, segments, stripes,
+    # a cross-length band
+    "causal_d256": (1, 256, 256, 4, 4, 256, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+    "window_gqa2_d256": (1, 333, 333, 8, 4, 256, (0, 0, 0, 63), 1, 1, False),
+    "segments_d256": (2, 200, 200, 4, 2, 256, (0, 0, 0, ref.BAND_INF), 1, 1, True),
+    "striped_d256": (1, 192, 192, 2, 2, 256, (1, 0, 0, ref.BAND_INF), 2, 2, False),
+    "cross_length_d256": (1, 100, 260, 4, 2, 256, (0, -160, 0, ref.BAND_INF), 1, 1, False),
 }
 # (atol, rtol) of dq/dk/dv.  fp32: both sides sum in fp32 in other orders;
 # bf16: the outputs are rounded to bf16 (one ulp is at most 2**-7 of the value)
@@ -1249,10 +1257,28 @@ def test_paged_decode_nan_score_reaches_o_and_lse_d256(dev, kv_dtype, dtype):
     torch.testing.assert_close(lse[1:], lse_ref[1:], atol=LSE_TOL, rtol=0)
 
 
-def test_flash_bwd_refuses_head_dim_256(dev):
-    """The backward at head dim 256 is not ported yet (ROADMAP A.6b): it
-    raises on the card rather than running anything."""
-    q = torch.zeros(1, 64, 2, 256, device=dev)
-    lse = torch.zeros(1, 2, 64, device=dev)
-    with pytest.raises(ValueError, match="A.6b"):
-        fa.flash_attention_bwd(q, q, q, q, lse, q, (0, 0, 0, INF), scale=1.0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_bwd_d256_matches_plain_and_repeats(dev, dtype):
+    """The backward at head dim 256, ragged (Sq 1000 over Skv 1000, not a
+    multiple of the 64-key CTAs or the 32-row tiles) at GQA 2: against the
+    plain version, on the body the plan names, and bitwise on a repeat."""
+    rng = np.random.default_rng(29)
+    B, S, H, Hkv, D = 1, 1000, 4, 2, 256
+    q = _randn(rng, B, S, H, D, dtype=dtype, dev=dev)
+    k = _randn(rng, B, S, Hkv, D, dtype=dtype, dev=dev)
+    v = _randn(rng, B, S, Hkv, D, dtype=dtype, dev=dev)
+    do = _randn(rng, B, S, H, D, dtype=dtype, dev=dev)
+    band = (0, 0, 0, INF)
+    o, lse = ref.attention_ref(q, k, v, scale=D**-0.5, band=band)
+    body = fa._bwd_plan(B, S, S, H, Hkv, D, dtype)
+    before = getattr(fa.flash_attention_bwd, f"launches_{body}")
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, band, scale=D**-0.5)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert body == ("tc_fp32" if dtype == torch.float32 else "tc_bf16")
+    assert getattr(fa.flash_attention_bwd, f"launches_{body}") == before + 2
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, scale=D**-0.5, band=band)
+    atol, rtol = BWD_TOLS[dtype]
+    for name, a, b, w in zip(("dq", "dk", "dv"), first, second, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol, msg=name)

@@ -16,8 +16,12 @@ chunked prefill and speculation.  The kernels' plain versions at head dim
 256 are held to JAX's Pallas kernels in interpret mode at
 ``tests/test_torch_kernels.py``'s and ``tests/test_torch_quant.py``'s
 tolerances: the flash forward (causal, window, segments; group 1 and 2)
-and the paged decode over fp, int8 and fp8 pools.  Inputs come from numpy
-with fixed seeds.
+and the paged decode over fp, int8 and fp8 pools; the flash backward the
+same way.  Training at head dim 256 (``tests/test_torch_train.py``'s
+checks and tolerances: loss 1e-5, gradients 1e-4): ``loss_fn`` and its
+gradients against ``jax.value_and_grad`` (causal and 3 packed documents,
+remat on and off bitwise equal), and three train steps.  Inputs come from
+numpy with fixed seeds.
 """
 
 import dataclasses
@@ -32,6 +36,7 @@ import torch
 
 import test_torch_continuous as tcont
 import test_torch_model as tmodel
+import test_torch_train as ttrain
 from repro.configs import get_config as jget_config
 from repro.kernels import flash_attention as jfa
 from repro.kernels import paged_decode as jpk
@@ -53,9 +58,10 @@ from test_torch_quant import _quant_case, dequant_close
 
 ARCH = "gemma-7b"
 INF = jref.BAND_INF
-# tests/test_torch_kernels.py's flash forward and paged decode tolerances,
-# tests/test_torch_quant.py's for the quantized branch
+# tests/test_torch_kernels.py's flash forward, backward and paged decode
+# tolerances, tests/test_torch_quant.py's for the quantized branch
 FWD_TOL = 2e-5
+BWD_TOL = 2e-4
 PAGED_ATOL, PAGED_RTOL = 2e-5, 1e-5
 QUANT_ATOL = 1e-5
 
@@ -267,6 +273,50 @@ def test_flash_fwd_plain_d256_matches_pallas(name):
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_p), atol=FWD_TOL, rtol=FWD_TOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_p), atol=FWD_TOL, rtol=FWD_TOL)
     assert tfa._fwd_plan(B, S, H, Hkv, D, torch.float32) == ("tile_fp32", 1)
+
+
+@pytest.mark.parametrize("name", list(FWD_CASES))
+def test_flash_bwd_plain_d256_matches_pallas(name):
+    """The backward's plain version (and the wrapper on CPU tensors) at head
+    dim 256 against JAX's Pallas backward in interpret mode (blocks of 32),
+    with the body the card would take."""
+    band, seg, H, Hkv = FWD_CASES[name]
+    B, S, D = 1, 64, 256
+    rng = np.random.default_rng(zlib.crc32(f"bwd{name}".encode()))
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)))
+    jkw, tkw = {}, {}
+    if seg:
+        ids = np.sort(rng.integers(0, 3, S)).astype(np.int32)
+        jkw = dict(seg_q=jnp.asarray(ids), seg_kv=jnp.asarray(ids))
+        tkw = dict(seg_q=torch.from_numpy(ids), seg_kv=torch.from_numpy(ids))
+    qj, kj, vj, doj = (jnp.asarray(x) for x in (q, k, v, do))
+    oj, lsej = jref.attention_ref(qj, kj, vj, scale=D**-0.5, band=band, **jkw)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    ot, lset = torch.from_numpy(np.array(oj)), torch.from_numpy(np.array(lsej))
+    plain = tref.attention_bwd_ref(qt, kt, vt, ot, lset, dot, scale=D**-0.5, band=band, **tkw)
+    wrapped = tfa.flash_attention_bwd(qt, kt, vt, ot, lset, dot, band, scale=D**-0.5, **tkw)
+    pallas = jfa.flash_attention_bwd(qj, kj, vj, oj, lsej, doj, jnp.asarray(band, jnp.int32),
+                                     scale=D**-0.5, block_q=32, block_kv=32, interpret=True,
+                                     **jkw)
+    for g, w, p in zip(plain, wrapped, pallas):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), atol=BWD_TOL, rtol=BWD_TOL)
+        assert torch.equal(g, w)
+    assert tfa._bwd_plan(B, S, S, H, Hkv, D, torch.float32) == "tc_fp32"
+    assert tfa._bwd_plan(B, S, S, H, Hkv, D, torch.bfloat16) == "tc_bf16"
+
+
+@pytest.mark.parametrize("docs", [None, 3], ids=["causal", "docs"])
+def test_loss_and_grads_match_jax(model, docs):
+    """loss_fn and its gradients (GeGLU, the tied embedding, head dim 256
+    through the backward's plain version) against jax.value_and_grad;
+    remat on and off bitwise equal."""
+    ttrain.test_loss_and_grads_match_jax(model[:3], docs)
+
+
+def test_three_train_steps_match_jax(model_d256):
+    jcfg, _, tcfg, _ = model_d256
+    ttrain.three_train_steps_match_jax(jcfg, tcfg)
 
 
 @pytest.mark.parametrize("pool", ["fp", "int8", "fp8"])

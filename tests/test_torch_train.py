@@ -196,8 +196,14 @@ def test_schedules_match_jax():
 
 def test_three_train_steps_match_jax():
     """Three make_train_step steps fed JAX's batches, against JAX's steps."""
-    jcfg = jget_config("granite-8b").reduced()
-    tcfg = tget_config("granite-8b").reduced()
+    three_train_steps_match_jax(jget_config("granite-8b").reduced(),
+                                tget_config("granite-8b").reduced())
+
+
+def three_train_steps_match_jax(jcfg, tcfg):
+    """Three steps of the port's make_train_step against JAX's from the same
+    weights and batches (the third packs 2 documents a row): the losses and
+    the params after them."""
     opt = jadamw.AdamWConfig(total_steps=3, warmup_steps=1)
     jparams = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(_np_tree(jparams), device="cpu")

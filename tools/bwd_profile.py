@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The flash backward's device time at the training row, one tree at a time.
 
-    python3 tools/bwd_profile.py [--src DIR] [--seq 4096] [--reps 5]
+    python3 tools/bwd_profile.py [--src DIR] [--seq 4096] [--reps 5] [--heads H,HKV,D]
 
 Calls ``flash_attention_bwd`` of the ``repro_torch`` package found under
 ``--src`` (default: this checkout's ``src``) at granite-8b's heads (32 / 8 of
-128), batch 1, causal, ``--seq`` tokens, in fp32 and in bf16 (seeded random
+128; ``--heads 16,16,256`` for gemma-7b's), batch 1, causal, ``--seq``
+tokens, in fp32 and in bf16 (seeded random
 inputs; the forward's saved state from the plain version).  Prints one JSON
 line per type: the device ms of each backward kernel (dQ, dK/dV, and the
 fp32 pre-pass where the tree has one) under torch.profiler, the call's ms by
@@ -36,6 +37,7 @@ def main():
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--heads", default="32,8,128", help="query heads, kv heads, head dim")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -53,7 +55,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    H, HKV, D, S = 32, 8, 128, args.seq
+    (H, HKV, D), S = (int(x) for x in args.heads.split(",")), args.seq
     band = (0, 0, 0, ref.BAND_INF)
 
     def events_ms(fn):
