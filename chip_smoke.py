@@ -45,7 +45,13 @@ Phases, each printing one JSON line:
                  gemma-7b's heads (16 / 16 of 256, the two-warpgroup
                  kernels), fp32 and bf16: causal at 4096 (train_gemma's
                  row), window, striped and segment at 1024, a ragged 1000
-                 and a group of 2 (16 / 8 heads).
+                 and a group of 2 (16 / 8 heads).  And at whisper-base's heads
+                 (8 / 8 of 64), fp32 and bf16: the forward over the encoder's
+                 non-causal 1536 rows, the cross-attention prefill (64 rows
+                 over 1536), the cross-attention decode (8 slots x 1 row over
+                 1536) and the decoder's dense-cache decode (8 slots over
+                 448); the backward over the encoder's band and the cross
+                 band (448 rows, and a ragged 440, over 1536).
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
                  weights served by the engine on the card (kernels) and on the
                  CPU (plain versions), dense and paged caches; the greedy streams
@@ -112,8 +118,8 @@ Phases, each printing one JSON line:
                  against serve's (a flip only on a near-tie, RING_NEAR_TIE);
                  decode and prefill rates, TTFT, the combine's bytes, and a
                  profiled decode tick (#4 and combine device ms, idle share).
-  4i. slice_moe -- qwen2-moe-a2.7b and mixtral-8x7b at full width cut to 2
-                 layers, fp32, JAX's default capacity factor 1.25: the same
+  4i. slice_moe -- qwen2-moe-a2.7b and mixtral-8x7b at full width cut to 1
+                 layer (2 before, cut for time), fp32, JAX's default capacity factor 1.25: the same
                  weights served on the card and on the CPU, dense cache and
                  paged pool, prompts of 64, 137 and 200 tokens at ticks 0, 0,
                  1, 8 greedy tokens: streams identical, first-token logits
@@ -149,8 +155,8 @@ Phases, each printing one JSON line:
                  layer per decode tick; the ssd_halo / ssd_state / ssd_tail
                  hops and bytes equal ``_ssd_comm_model``'s formula.
   4l. serve_ssm_ring -- this slice's main path: mamba2-370m and hymba-1.5b
-                 at full width and depth, bf16, 8 slots, max_seq 2048, 32
-                 greedy tokens, prompts of 48 ... 1536 tokens (each a
+                 at full width and depth, bf16, 8 slots, max_seq 2048, 16
+                 greedy tokens (32 before, cut for time), prompts of 48 ... 1536 tokens (each a
                  multiple of 4 whose quarter is <= 64 or a multiple of 64)
                  at ticks 0 ... 13, over a ring of 4, then at sp_size 1 in
                  the same call.  Counters set to 0 before each run: 4k's
@@ -184,7 +190,30 @@ Phases, each printing one JSON line:
                  in bf16 on the serve trace, 8 slots, max_seq 2048, 512
                  pages of 16, runs (a) and (b) as serve_qwen's, its gates,
                  and no call of a kernel's plain version in either run.
-  5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 512:
+  4q. slice_whisper -- whisper-base whole (6 + 6 layers), fp32, its
+                 LayerNorms drawn away from their init: 8 prompts of 4-64
+                 tokens, 128 new tokens each, 8 slots, max_seq 448, the
+                 dense cache, on the card and on the CPU: streams identical,
+                 first-token logits within 1e-3.
+  4r. serve_whisper -- whisper-base whole in bf16 on 4q's trace: the encoder
+                 (1536 rows of zero frames) once per admission, #1 launched
+                 per prefill once per encoder layer and twice per decoder
+                 layer (the decoder rows' self- and cross-attention on the
+                 body ``_fwd_plan`` picks for the bucket), twice per decoder
+                 layer per decode tick on the decode body; no plain version
+                 called; rates, peak memory, a profiled decode tick.
+  4s. slice_pixtral -- pixtral-12b at full width cut to 2 of 40 layers,
+                 fp32: 3 prompts of 1,040-1,100 tokens (the 1024 patch
+                 positions, then text), 8 new tokens, on the card over the
+                 dense cache and the paged pool against the CPU: streams
+                 identical, first-token logits within 1e-3.
+  4t. serve_pixtral -- pixtral-12b whole (40 layers, 12.25e9 parameters,
+                 24.5 GB) in bf16: 8 requests of 1024 + 32 ... 512 tokens at
+                 the serve trace's ticks, 32 new tokens, 8 slots, max_seq
+                 2048, 768 pages of 16, one-shot over the fp pool (#1 tile,
+                 #4) and over an int8 pool (#1 tile, 4q); serve_qwen's gates
+                 and a profiled decode tick beside the weights' bound.
+  5. train_parity -- granite-8b at full width cut to 2 layers, fp32, seq 256:
                  one make_train_step on the card and one on the CPU from the same
                  weights and batch; loss, grad norm, and per leaf the gradients
                  and the updated params held to stated tolerances.
@@ -199,8 +228,8 @@ Phases, each printing one JSON line:
                  Then 2 causal steps with bf16 params: losses finite and near
                  ln(vocab), the forward on the tile body and every backward on
                  the bf16 body.
-  6e. train_gemma_parity (after train) -- gemma-7b at full width cut to 2
-                 layers, fp32, seq 256: train_parity's step and limits
+  6e. train_gemma_parity (after train) -- gemma-7b at full width cut to 1
+                 layer, fp32, seq 128: train_parity's step and limits
                  (head dim 256 through #1-#3; the CPU side holds ~21 GB).
   6f. train_gemma (after 6e) -- gemma-7b at full width cut to 8 of 28
                  layers (3.0e9 parameters), the train phase's runs and gates:
@@ -208,12 +237,26 @@ Phases, each printing one JSON line:
                  #3 8 x 6 each on the fp32 tensor-core body, then 2 bf16
                  steps on the bf16 bodies; no call of a kernel's plain
                  version in either (as serve_gemma); a profiled step.
+  6g. train_whisper_parity (after 6f) -- whisper-base at full width cut to
+                 2 + 2 layers, fp32, batch 2 x 448 decoder tokens and 1536
+                 frames: train_parity's step and limits; #1 twice and #2 /
+                 #3 once per attention call (2 encoder, 2 decoder self-, 2
+                 cross-attention).
+  6h. train_whisper -- whisper-base whole, fp32 + AdamW, remat, batch 16 x
+                 448: 4 steps, the train phase's gates at 18 attention calls
+                 a step, then 2 bf16 steps; s per step, tok/s, peak memory,
+                 a profiled step.
+  6i. train_pixtral -- pixtral-12b at full width cut to PIXTRAL_TRAIN_LAYERS
+                 of 40 layers, fp32 + AdamW, remat, seq 4096 (the 1024
+                 patch positions in each row), 4 steps: the train phase's
+                 gates, no plain version called, a profiled step.
   6a. train_ssm_parity -- mamba2-370m and hymba-1.5b at full width cut to 2
                  layers, fp32, seq 512: one make_train_step on the card (#5,
                  #5b; hymba's #1 fp32 body, #2, #3) and one on the CPU from
                  the same weights and batch, under train_parity's limits;
                  per layer #5 twice (remat) and #5b once, on the card only.
-  6b. train_moe_parity -- qwen2-moe-a2.7b the same way at seq 256 (#1-#3).
+  6b. train_moe_parity -- qwen2-moe-a2.7b the same way at 1 layer, seq 128
+                 (#1-#3).
   6c. train_ssm_ring_parity -- mamba2-370m and hymba-1.5b at full width, 2
                  layers, fp32, seq 4096: a train step at sp_size 4 on the
                  virtual ring (the sharded scan; hymba's attention through
@@ -263,8 +306,12 @@ Phases, each printing one JSON line:
                  and a profiled mesh step by kernel class.
   10. the kernels line (each kernel's launches now including the mesh_op,
                  train_mesh, serve_ring, serve_moe, serve_ssm_ring,
-                 serve_qwen, serve_gemma and train_ssm runs; rows of their
-                 own for the head-dim-256 instantiations of #1, #4 and 4q,
+                 serve_qwen, serve_gemma, serve_whisper, serve_pixtral,
+                 train_whisper, train_pixtral and train_ssm runs; rows of
+                 their own for #1 at whisper's bands (tile and decode
+                 bodies, counted over serve_whisper) and #2 / #3 at them
+                 (counted over train_whisper), for the head-dim-256
+                 instantiations of #1, #4 and 4q,
                  counted over serve_gemma, and of #2 and #3, counted over
                  train_gemma (whose launches also join the backward's and
                  the fp32 forward's rows); the ranks' combine a row of
@@ -561,13 +608,16 @@ def fwd_body_delta(before):
     return {b: n - before[b] for b, n in fwd_body_counts(tuple(before)).items()}
 
 
-def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
+def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
     """One flash-forward case; granite-8b's heads unless ``heads`` (H, Hkv,
     D) says otherwise.  ``verify`` and ``chunk`` are the serving path's
     speculative verify (spec_k 4) and prefill chunk (256) over S cached
     positions, each batch row at its own depth; ``decode`` is a dense-cache
     tick, one band per slot (with hymba's heads, its window of 1024; other
-    heads see the whole cache).
+    heads see the whole cache).  Full bands (whisper's): ``full`` is S rows
+    over S keys (the encoder), ``cross`` ``q_rows`` rows over S keys
+    (cross-attention prefill), ``cross_decode`` 8 slots of one row each over
+    S keys (cross-attention decode).
     ``ranks`` n > 1: the launch of sequence-sharded serving over a ring of
     n, the ranks folded into the rows -- row b*n + i is rank i's S/n slots
     of slot b, band (pos_b, i, 0, hi), stride n -- and slot 0's chunk starts
@@ -585,6 +635,9 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     elif name == "segment":
         cuts = np.sort(np.random.default_rng(S).choice(np.arange(1, S), 5, replace=False))
         seg = torch.from_numpy(np.searchsorted(cuts, np.arange(S), side="right").astype(np.int32)).cuda()
+    elif name in ("full", "cross", "cross_decode"):
+        band = ops.full_band()
+        B, Sq = (8, 1) if name == "cross_decode" else (1, S if name == "full" else q_rows)
     elif name in ("decode", "verify", "chunk"):
         B, Sq = 8, {"decode": 1, "verify": 4, "chunk": 256}[name]
         pos = torch.from_numpy(
@@ -625,9 +678,9 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1):
     visible_keys = int(mask.any(dim=-2).sum()) * rows
     attn_mask = mask[:, None] if mask.dim() == 3 else mask
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if name == "causal":
+    if name in ("causal", "full", "cross", "cross_decode"):  # no mask
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, scale=hd**-0.5, enable_gqa=True)
+            qt, kt, vt, is_causal=name == "causal", scale=hd**-0.5, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=attn_mask, scale=hd**-0.5, enable_gqa=True)
@@ -1086,11 +1139,12 @@ def device_time(prof, per=1, classify=None):
     return by_class, by_kernel
 
 
-def _profiled(fn, reps):
+def _profiled(fn, reps, attempts=3):
     """``fn`` run ``reps`` times under torch.profiler.  A warm-up window is
     opened and discarded first, as tests/test_torch_cuda.py does: a
     profiling session can close before the tracer has delivered the card's
-    events, and then reports no device time at all."""
+    events, and then reports no device time at all.  A window that still
+    holds no device event is opened again, ``attempts`` times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     def window(n):
@@ -1101,7 +1155,11 @@ def _profiled(fn, reps):
         return prof
 
     window(1)
-    return window(reps)
+    for _ in range(attempts):
+        prof = window(reps)
+        if any(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.key_averages()):
+            break
+    return prof
 
 
 def bwd_counts():
@@ -1110,16 +1168,20 @@ def bwd_counts():
             "split": fa.split_terms.launches}
 
 
-def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
+def bwd_case(name, S, dtype, gen, heads=(H, HKV, D), Sq=None):
     """One flash-backward case (dQ and dK/dV kernels) at ``heads`` (query
-    heads, kv heads, head dim; granite-8b's by default).  The segment case
-    gives row 0 a document id no key has: a fully masked row, whose dq must
-    be exactly 0.  The window and striped cases pass delta in; the others
-    derive it from o."""
+    heads, kv heads, head dim; granite-8b's by default), ``Sq`` rows (default
+    S) over S keys.  The segment case gives row 0 a document id no key has:
+    a fully masked row, whose dq must be exactly 0.  The window and striped
+    cases pass delta in; the others derive it from o.  ``full`` is a full
+    band (whisper's encoder, S rows; its cross-attention, Sq rows)."""
     H, HKV, D = heads
+    Sq = S if Sq is None else Sq
     INF = ref.BAND_INF
     band, sq, skv, seg_q, seg_kv, given = (0, 0, 0, INF), 1, 1, None, None, False
-    if name == "window":
+    if name == "full":
+        band = ops.full_band()
+    elif name == "window":
         band, given = (0, 0, 0, 255), True
     elif name == "striped":
         band, sq, skv, given = (1, 0, 0, INF), 2, 2, True
@@ -1129,10 +1191,10 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
         seg_kv = torch.from_numpy(ids.copy()).cuda()
         ids[0] = -1
         seg_q = torch.from_numpy(ids).cuda()
-    q = randn(gen, 1, S, H, D, dtype=dtype)
+    q = randn(gen, 1, Sq, H, D, dtype=dtype)
     k = randn(gen, 1, S, HKV, D, dtype=dtype)
     v = randn(gen, 1, S, HKV, D, dtype=dtype)
-    do = randn(gen, 1, S, H, D, dtype=dtype)
+    do = randn(gen, 1, Sq, H, D, dtype=dtype)
     kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv, seg_q=seg_q, seg_kv=seg_kv)
     o, lse = ref.attention_ref(q, k, v, band=band, **kw)  # the forward's saved state
     delta = (do.float() * o.float()).sum(-1) if given else None
@@ -1153,7 +1215,7 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
         ratio = max(ratio, float((diff / (atol + rtol * w.float().abs())).max()))
     masked_row_zero = seg_q is None or bool(torch.all(got[0][:, 0] == 0))
     del got, again, want
-    mask = ref.band_mask(S, S, band, stride_q=sq, stride_kv=skv, device="cuda")
+    mask = ref.band_mask(Sq, S, band, stride_q=sq, stride_kv=skv, device="cuda")
     if seg_q is not None:
         mask = mask & (seg_q[:, None] == seg_kv[None, :])
     pairs = int(mask.sum())
@@ -1161,9 +1223,9 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
     vis_rows = int(mask.any(dim=1).sum())
     # library yardstick: the backward of one SDPA call (dq, dk, dv together)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    if name == "causal":
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=D**-0.5,
-                                             enable_gqa=True)
+    if name in ("causal", "full"):  # no mask
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=name == "causal",
+                                             scale=D**-0.5, enable_gqa=True)
     else:
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=D**-0.5,
                                              enable_gqa=True)
@@ -1174,7 +1236,7 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
     # dQ: q, dO read and dq written for every row, K/V of the visible keys,
     # lse and delta; dK/dV: q, dO, lse, delta of the rows that see a key,
     # k, v read and dk, dv written
-    dq_bytes = 3 * S * H * D * item + 2 * vis_keys * HKV * D * item + 2 * H * S * 4 + seg_bytes
+    dq_bytes = 3 * Sq * H * D * item + 2 * vis_keys * HKV * D * item + 2 * H * Sq * 4 + seg_bytes
     dkv_bytes = 2 * vis_rows * H * D * item + 4 * S * HKV * D * item + 2 * H * vis_rows * 4 \
         + seg_bytes
     # bounds at the tensor cores' bf16 peak, the kernels' own units; the
@@ -1183,7 +1245,7 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
     dkv_bound, dkv_by = bound(dkv_bytes, 8 * D * H * pairs, dtype, BWD_PEAK)
     split, _ = device_time(_profiled(run, 5), per=5)  # the kernels' device ms apart
     rec = dict(
-        kernel="flash_attention_bwd", case=name, S=S, dtype=DTYPE_NAMES[dtype],
+        kernel="flash_attention_bwd", case=name, S=S, Sq=Sq, dtype=DTYPE_NAMES[dtype],
         heads=list(heads), body=body[0] if len(body) == 1 else body, pre_pass_launches=ran["split"],
         delta="given" if given else "from_o", max_abs_err=errs, tol_atol=atol, tol_rtol=rtol,
         max_err_over_tol=ratio, bitwise_repeat=bitwise, masked_row_dq_zero=masked_row_zero,
@@ -1198,7 +1260,7 @@ def bwd_case(name, S, dtype, gen, heads=(H, HKV, D)):
     )
     del out, qt, kt, vt, mask
     torch.cuda.empty_cache()
-    want_body = fa._bwd_plan(1, S, S, H, HKV, D, dtype)
+    want_body = fa._bwd_plan(1, Sq, S, H, HKV, D, dtype)
     check(body == [want_body] and ran["split"] == (2 if want_body == "tc_fp32" else 0),
           f"flash_attention_bwd ran {ran}, not the {want_body} body: {rec}")
     check(ratio <= 1.0 and bitwise and masked_row_zero,
@@ -2495,6 +2557,9 @@ def slice_ssm_ring():
 # most 64 or a multiple of 64 (the exact mode's rule at sp_size 4)
 SSM_RING_LENGTHS = [48, 64, 128, 256, 512, 768, 1024, 1536]
 SSM_RING_ARRIVALS = [0, 0, 1, 2, 3, 5, 8, 13]
+# serve_ssm_ring's greedy tokens a request: 32 before, cut to 16 for the
+# run's time (its decode ticks took ~33 s of a 98 s phase on a slow host)
+SSM_RING_NEW_TOKENS = 16
 # the sharded scan's parts around #5, each under a profiler range in the
 # profiled prefill: the halo hops, the state gather and prefix, the
 # correction (#5 itself is a C call the profiler does not tie to a range:
@@ -2568,7 +2633,8 @@ def profile_ssm_prefill(eng, cfg, length=1536):
 
 def serve_ssm_ring(card):
     """This slice's main path: mamba2-370m and hymba-1.5b at full width and
-    depth, bf16, 8 slots, max_seq 2048, 32 greedy tokens, over a ring of 4
+    depth, bf16, 8 slots, max_seq 2048, SSM_RING_NEW_TOKENS greedy tokens,
+    over a ring of 4
     (the sharded scan; hymba's attention through the Mesh-Attention forward
     and the folded decode), then the same trace at sp_size 1 in the same
     call."""
@@ -2591,7 +2657,8 @@ def serve_ssm_ring(card):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             eng, res, launches, batches, hops, nbytes = _ssm_ring_run(
-                cfg, params, ctx, serve, SSM_RING_LENGTHS, SSM_RING_ARRIVALS, 32, seed=2)
+                cfg, params, ctx, serve, SSM_RING_LENGTHS, SSM_RING_ARRIVALS,
+                SSM_RING_NEW_TOKENS, seed=2)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             stats = eng.tick_stats()
@@ -2619,7 +2686,8 @@ def serve_ssm_ring(card):
                 "bytes_per_prefill": {k: v / len(res) for k, v in nbytes.items()},
             }
             tag = f"serve_ssm_ring {arch} sp_size {sp}"
-            if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+            if not all(r.status == "ok" and len(r.generated) == SSM_RING_NEW_TOKENS
+                       for r in res):
                 problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
             if sp > 1:
                 problems += _ssm_ring_problems(
@@ -2779,14 +2847,20 @@ class _DropCounter:
         moe_mod._dispatch_indices = self._orig
 
 
+# slice_moe's depth: 2 layers before, cut to 1 for the run's time (48-50
+# s on slow hosts, most of it the CPU side's experts)
+MOE_SLICE_LAYERS = 1
+
+
 def cross_device_moe():
-    """qwen2-moe-a2.7b and mixtral-8x7b at full width, 2 layers, fp32, the
-    JAX's default capacity factor 1.25: card (kernels) vs CPU (plain versions),
-    dense cache and paged pool; capacity must drop entries on both."""
+    """qwen2-moe-a2.7b and mixtral-8x7b at full width, MOE_SLICE_LAYERS
+    layers, fp32, JAX's default capacity factor 1.25: card (kernels) vs CPU
+    (plain versions), dense cache and paged pool; capacity must drop entries
+    on both."""
     lengths, arrivals = [64, 137, 200], [0, 0, 1]
     out, problems = {}, []
     for arch in MOE_ARCHS:
-        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        cfg = dataclasses.replace(get_config(arch), num_layers=MOE_SLICE_LAYERS)
         params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
         params_cpu = _tree_to(params, "cpu")
         out[arch] = {}
@@ -2832,8 +2906,9 @@ def cross_device_moe():
                 problems.append(f"{tag}: capacity dropped nothing: {out[arch][key]}")
         del params, params_cpu
         torch.cuda.empty_cache()
-    emit({"phase": "slice_moe", "num_layers": 2, "dtype": "fp32", "capacity_factor": 1.25,
-          "lengths": lengths, "arrivals": arrivals, "new_tokens": 8, **out})
+    emit({"phase": "slice_moe", "num_layers": MOE_SLICE_LAYERS, "dtype": "fp32",
+          "capacity_factor": 1.25, "lengths": lengths, "arrivals": arrivals, "new_tokens": 8,
+          **out})
     check(not problems, "; ".join(problems))
 
 
@@ -2952,9 +3027,11 @@ def _serve_full_run(cfg, params, serve, lengths, arrivals, profile, phase="serve
     if launches["flash_attention_fwd"] != want_flash or want_flash == 0:
         problems.append(f"{tag}: #1 launched {launches['flash_attention_fwd']} times, want "
                         f"{want_flash} ({L} x {engine})")
-    # bf16 prefill on the tile body; a quantized pool's chunks and verifies
-    # on the fp32 bodies (its dequantized view is fp32)
-    want_bodies = ({"tile": 0, "decode": 0, "fp32": want_flash} if quant
+    # bf16 one-shot prefill on the tile body (its own fresh K/V); a
+    # quantized pool's chunks and verifies on the fp32 bodies (its
+    # dequantized view is fp32)
+    over_pool = L * (engine["chunk"] + engine["verify"])
+    want_bodies = ({"tile": want_flash - over_pool, "decode": 0, "fp32": over_pool} if quant
                    else {"tile": want_flash, "decode": 0, "fp32": 0})
     if bodies != want_bodies:
         problems.append(f"{tag}: flash bodies {bodies}, want {want_bodies}")
@@ -3138,13 +3215,20 @@ class _PlainCalls:
             setattr(mod, name, fn)
 
 
-def _serve_whole(card, arch, num_pages, phase):
-    """``arch`` whole in bf16 on the card, the serve trace, 8 slots, max_seq
-    2048, a pool of ``num_pages`` pages of 16: (a) one-shot over the fp pool,
-    (b) chunk 256, budget 512, spec_k 4 over an int8 pool.  A profiled
-    decode tick of (a), beside the bytes bound its weights alone set; no
-    plain version of a kernel called in either run.  Returns the launches
-    counted on its runs, keyed as the kernels line's rows."""
+# _serve_whole's runs: (a) one-shot over the fp pool, (b) chunk 256, budget
+# 512, spec_k 4 over an int8 pool
+WHOLE_RUNS = (("oneshot_fp", {}),
+              ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512, spec_k=4,
+                                       kv_dtype="int8")))
+
+
+def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LENGTHS):
+    """``arch`` whole in bf16 on the card, ``lengths`` at the serve trace's
+    arrival ticks, 8 slots, max_seq 2048, a pool of ``num_pages`` pages of
+    16, each of ``runs`` (key, ServeConfig fields).  A profiled decode tick
+    of the first run, beside the bytes bound its weights alone set; no plain
+    version of a kernel called in any run.  Returns the launches counted on
+    its runs, keyed as the kernels line's rows."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
@@ -3154,16 +3238,14 @@ def _serve_whole(card, arch, num_pages, phase):
     weight_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
     base = dict(max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=num_pages,
                 cache_dtype=torch.bfloat16)
-    runs, problems, counted = {}, [], {"flash_attention_fwd (tile)": 0,
-                                       "flash_attention_fwd (fp32)": 0, "flash_fwd_split": 0,
-                                       "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
-    for key, extra in (("oneshot_fp", {}),
-                       ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512,
-                                                spec_k=4, kv_dtype="int8"))):
+    records, problems, counted = {}, [], {"flash_attention_fwd (tile)": 0,
+                                          "flash_attention_fwd (fp32)": 0, "flash_fwd_split": 0,
+                                          "paged_flash_decode": 0, "paged_flash_decode_quant": 0}
+    for i, (key, extra) in enumerate(runs):
         with _PlainCalls() as plain:
             rec, probs, bodies = _serve_full_run(cfg, params, ServeConfig(**base, **extra),
-                                                 SERVE_LENGTHS, SERVE_ARRIVALS,
-                                                 profile=None if extra else profile_decode,
+                                                 lengths, SERVE_ARRIVALS,
+                                                 profile=None if i else profile_decode,
                                                  phase=phase)
         rec.update(init_s=init_s, weight_bytes=weight_bytes, plain_calls=plain.calls,
                    weights_bound_ms_per_tick=1e3 * weight_bytes / HBM_BYTES_PER_S)
@@ -3171,7 +3253,7 @@ def _serve_whole(card, arch, num_pages, phase):
             problems.append(f"{phase} {key}: peak {rec['peak_mem_gb']} GB above the card's")
         if any(plain.calls.values()):
             problems.append(f"{phase} {key}: a kernel's plain version ran: {plain.calls}")
-        runs[key] = rec
+        records[key] = rec
         problems += probs
         counted["flash_attention_fwd (tile)"] += bodies["tile"]
         counted["flash_attention_fwd (fp32)"] += bodies["fp32"]
@@ -3184,8 +3266,8 @@ def _serve_whole(card, arch, num_pages, phase):
           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params, "dtype": "bf16",
           "max_seq": 2048, "num_slots": 8, "page_size": 16, "num_pages": num_pages,
-          "lengths": SERVE_LENGTHS, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
-          "runs": runs, "card": card})
+          "lengths": lengths, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
+          "runs": records, "card": card})
     check(not problems, "; ".join(problems))
     return counted
 
@@ -3211,6 +3293,225 @@ def serve_gemma(card):
     """gemma-7b whole (28 layers, 8.54e9 parameters) in bf16 on the card
     (``_serve_whole``): every attention launch on a head-dim-256 body."""
     return _serve_whole(card, GEMMA_ARCH, GEMMA_PAGES, "serve_gemma")
+
+
+# --------------------------------------------------------------------------
+# phases 4q-4t: the encoder-decoder and VLM families (whisper-base,
+# pixtral-12b)
+# --------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-base"
+# whisper-base's heads: 8 / 8 of 64, for its encoder, decoder and
+# cross-attention alike
+WHISPER_HEADS = (8, 8, 64)
+# the whisper trace: 8 prompts of 4-64 decoder tokens at the serve trace's
+# ticks, 128 greedy tokens, 8 slots, max_seq 448 (whisper's decoder
+# context); the buckets 16 ... 64 and the encoder's 1536 rows
+WHISPER_LENGTHS = [4, 9, 16, 23, 32, 41, 50, 64]
+WHISPER_NEW = 128
+WHISPER_MAX_SEQ = 448
+PIXTRAL_ARCH = "pixtral-12b"
+# pixtral's prompts: an image's 1024 patch positions, then text (the
+# engine's zero patches embed every position below 1024 to zero, so a
+# shorter prompt carries no text).  slice_pixtral: 3 prompts at 2 layers;
+# serve_pixtral: 8 requests at the serve trace's ticks
+PIXTRAL_SLICE_LENGTHS = [1040, 1072, 1100]
+PIXTRAL_LENGTHS = [1024 + n for n in (32, 64, 96, 128, 192, 256, 384, 512)]
+# serve_pixtral's pool: 768 pages of 16 (12,288 tokens) hold the trace's
+# 10,112 (prompts and 32 new tokens each); at 40 layers x 8 kv heads x 128
+# x 2 (K, V) x 2 B a token (163,840 B) that is 2.0 GB in bf16, beside 24.5
+# GB of weights
+PIXTRAL_PAGES = 768
+
+
+def _perturb_norms(params, seed):
+    """Draw the LayerNorm gains and biases away from their init (1, 0).  The
+    engine feeds zero frames, so the encoder's output is its norms' biases'
+    work: with zero biases the cross-attention K/V would be zero."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for path, leaf in tree_leaves(params):
+        if path.rsplit("/", 1)[-1] in ("ln", "ln_b", "final_ln", "final_ln_b"):
+            noise = torch.randn(leaf.shape, generator=gen, device="cuda")
+            leaf.add_((0.2 * noise).to(leaf.dtype))
+
+
+def _card_vs_cpu(cfg, params, serves, lengths, arrivals, new_tokens, phase):
+    """The engine on the card under each of ``serves`` (key -> ServeConfig)
+    and once on the CPU (the first), from the same fp32 weights: each card
+    run's streams must equal the CPU's, its first-token logits within 1e-3,
+    and only the card may launch a kernel."""
+    params_cpu = _tree_to(params, "cpu")
+    out, runs = {}, [("cpu", next(iter(serves)), params_cpu)]
+    runs += [("cuda", key, params) for key in serves]
+    for dev, key, p in runs:
+        fa.flash_attention_fwd.launches = pk.paged_flash_decode.launches = 0
+        eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serves[key])
+        eng.capture_logits = True
+        t0 = time.perf_counter()
+        res = serve_trace(eng, lengths, arrivals, new_tokens, cfg.vocab_size, seed=1)
+        out[(dev, key)] = dict(
+            streams=[r.generated for r in res], statuses=[r.status for r in res],
+            first=[eng.debug_logits[r.rid][0] for r in res], wall_s=time.perf_counter() - t0,
+            launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                      "paged_flash_decode": pk.paged_flash_decode.launches})
+        del eng
+    cpu = out[runs[0][:2]]
+    rec, problems = {"cpu": {k: cpu[k] for k in ("wall_s", "launches")}}, []
+    for key in serves:
+        card = out[("cuda", key)]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
+        rec[key] = dict(streams_identical=card["streams"] == cpu["streams"],
+                        first_logits_max_abs_err=err, wall_s=card["wall_s"],
+                        launches=card["launches"])
+        tag = f"{phase} {key}"
+        if card["streams"] != cpu["streams"]:
+            problems.append(f"{tag}: card and CPU streams differ: {card['streams']} vs "
+                            f"{cpu['streams']}")
+        if err > 1e-3:
+            problems.append(f"{tag}: first-token logits differ by {err} > 1e-3")
+        if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+            problems.append(f"{tag}: not every request finished ok")
+        if card["launches"]["flash_attention_fwd"] == 0 or (
+                serves[key].paged and card["launches"]["paged_flash_decode"] == 0):
+            problems.append(f"{tag}: a kernel of the path never launched: {card['launches']}")
+    if any(cpu["launches"].values()):
+        problems.append(f"{phase}: the CPU side launched a kernel: {cpu['launches']}")
+    return rec, problems
+
+
+def slice_whisper():
+    """whisper-base whole (6 + 6 layers), fp32, its LayerNorms drawn away
+    from their init: the whisper trace (128 new tokens) over the dense cache
+    on the card and on the CPU.  Streams identical, first-token logits
+    within 1e-3."""
+    cfg = get_config(WHISPER_ARCH)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    _perturb_norms(params, seed=5)
+    serve = ServeConfig(max_seq=WHISPER_MAX_SEQ, num_slots=8, cache_dtype=torch.float32)
+    rec, problems = _card_vs_cpu(cfg, params, {"dense": serve}, WHISPER_LENGTHS,
+                                 SERVE_ARRIVALS, WHISPER_NEW, "slice_whisper")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_whisper", "arch": WHISPER_ARCH, "layers": [cfg.encoder_layers,
+          cfg.num_layers], "dtype": "fp32", "lengths": WHISPER_LENGTHS,
+          "new_tokens": WHISPER_NEW, "max_seq": WHISPER_MAX_SEQ, **rec})
+    check(not problems, "; ".join(problems))
+
+
+def serve_whisper(card):
+    """whisper-base whole in bf16 on the whisper trace, 8 slots, the dense
+    cache: the encoder once per admission, cross- and self-attention decode
+    on #1's decode body.  Counters set to 0 just before the run: #1 =
+    (encoder + 2 x decoder layers) per prefill -- the encoder's on the tile
+    body, the decoder rows' self- and cross-attention on the body
+    ``_fwd_plan`` picks for the bucket (the decode body up to 32 rows) --
+    and 2 x decoder layers per decode tick on the decode body; no call of a
+    kernel's plain version.  Rates, peak memory, a profiled decode tick.
+    Returns the launches counted, keyed as the kernels line's rows."""
+    cfg = get_config(WHISPER_ARCH)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    _perturb_norms(params, seed=5)
+    eng = ServeEngine(cfg, params, ParallelCtx(device="cuda"), serve=ServeConfig(
+        max_seq=WHISPER_MAX_SEQ, num_slots=8, cache_dtype=torch.bfloat16))
+    eng.generate(np.arange(16, dtype=np.int32)[None], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    skip = eng.tick_stats()["ticks"]
+    engine0 = (eng.prefill_launches, eng.decode_launches)
+    fa.flash_attention_fwd.launches = pk.paged_flash_decode.launches = 0
+    bodies0 = fwd_body_counts()
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain:
+        res = serve_trace(eng, WHISPER_LENGTHS, [a + skip for a in SERVE_ARRIVALS], WHISPER_NEW,
+                          cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "paged_flash_decode": pk.paged_flash_decode.launches}
+    bodies = fwd_body_delta(bodies0)
+    prefills, decodes = (b - a for a, b in zip(engine0, (eng.prefill_launches,
+                                                          eng.decode_launches)))
+    stats = eng.tick_stats()
+    pf_tok, pf_s = sum(stats["prefill_tokens"][skip:]), sum(stats["prefill_s"][skip:])
+    dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+    dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+    dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+    rec = {
+        "phase": "serve_whisper", "arch": WHISPER_ARCH,
+        "layers": [cfg.encoder_layers, cfg.num_layers], "d_model": cfg.d_model,
+        "heads": list(WHISPER_HEADS), "encoder_seq": cfg.encoder_seq, "vocab": cfg.vocab_size,
+        "params": tfm.param_count(params), "dtype": "bf16", "cache": "dense",
+        "max_seq": WHISPER_MAX_SEQ, "num_slots": 8, "lengths": WHISPER_LENGTHS,
+        "arrival_ticks": SERVE_ARRIVALS, "new_tokens": WHISPER_NEW,
+        "statuses": [r.status for r in res], "ticks": stats["ticks"] - skip, "wall_s": wall,
+        "prefill_launches": prefills, "prefill_tokens": pf_tok, "prefill_s": pf_s,
+        "prefill_tok_per_s": pf_tok / pf_s, "decode_tokens": dec_tok, "decode_s": dec_s,
+        "decode_tok_per_s": dec_tok / dec_s, "decode_ticks": len(dec_ticks),
+        "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+        "ttft_ticks": [r.ttft_ticks for r in res],
+        "cache_bytes": eng.kv_cache_stats()["cache_bytes"],
+        "cross_cache_bytes": sum(eng._cache[k].numel() * eng._cache[k].element_size()
+                                 for k in ("cross_k", "cross_v")),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "flash_attention_fwd_bodies": bodies, "plain_calls": plain.calls,
+        "card": card,
+    }
+    per_prefill, per_tick = _attn_calls(cfg), 2 * cfg.num_layers
+    want_bodies = {"tile": 0, "decode": per_tick * decodes, "fp32": 0}
+    for n in WHISPER_LENGTHS:
+        rows = eng.scheduler.bucket_for(n)
+        want_bodies[fa._fwd_plan(1, cfg.encoder_seq, *WHISPER_HEADS, torch.bfloat16)[0]] += \
+            cfg.encoder_layers
+        want_bodies[fa._fwd_plan(1, rows, *WHISPER_HEADS, torch.bfloat16)[0]] += \
+            2 * cfg.num_layers
+    rec["decode_profile"] = profile_decode(eng, cfg)
+    del eng, params
+    torch.cuda.empty_cache()
+    emit(rec)
+    check(all(r.status == "ok" and len(r.generated) == WHISPER_NEW for r in res),
+          f"serve_whisper: not every request finished ok: {rec['statuses']}")
+    check(prefills == len(WHISPER_LENGTHS) and decodes > 0,
+          f"serve_whisper: {prefills} prefill and {decodes} decode launches")
+    check(launches == {"flash_attention_fwd": per_prefill * prefills + per_tick * decodes,
+                       "paged_flash_decode": 0}
+          and bodies == want_bodies,
+          f"serve_whisper: #1 must launch {per_prefill} x {prefills} and {per_tick} x "
+          f"{decodes} times, on the bodies {want_bodies}: {launches}, {bodies}")
+    check(not any(plain.calls.values()), f"serve_whisper: a plain version ran: {plain.calls}")
+    return {"flash_attention_fwd (tile)": bodies["tile"],
+            "flash_attention_fwd (decode)": bodies["decode"]}
+
+
+def slice_pixtral():
+    """pixtral-12b at full width cut to 2 of 40 layers, fp32: 3 prompts of
+    1,040-1,100 tokens (an image's 1024 patch positions, then text), 8 new
+    tokens, on the card over the dense cache and the paged pool (16-token
+    pages) against the CPU over the dense cache.  Streams identical,
+    first-token logits within 1e-3."""
+    cfg = dataclasses.replace(get_config(PIXTRAL_ARCH), num_layers=2)
+    params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    base = dict(max_seq=1152, num_slots=4, cache_dtype=torch.float32)
+    serves = {"dense": ServeConfig(**base),
+              "paged": ServeConfig(**base, paged=True, page_size=16)}
+    rec, problems = _card_vs_cpu(cfg, params, serves, PIXTRAL_SLICE_LENGTHS, [0, 0, 1], 8,
+                                 "slice_pixtral")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_pixtral", "arch": PIXTRAL_ARCH, "num_layers": 2, "dtype": "fp32",
+          "lengths": PIXTRAL_SLICE_LENGTHS, "new_tokens": 8, "max_seq": 1152, **rec})
+    check(not problems, "; ".join(problems))
+
+
+def serve_pixtral(card):
+    """pixtral-12b whole (40 layers, 12.2e9 parameters) in bf16 on the card
+    (``_serve_whole``): 8 requests of 1024 + 32 ... 512 tokens, a pool of
+    PIXTRAL_PAGES pages of 16, one-shot over the fp pool (#1 tile, #4) and
+    over an int8 pool (#1 tile, 4q).  No chunked prefill and no speculation:
+    JAX refuses both for a frontend arch."""
+    runs = (("oneshot_fp", {}), ("oneshot_int8", dict(kv_dtype="int8")))
+    return _serve_whole(card, PIXTRAL_ARCH, PIXTRAL_PAGES, "serve_pixtral", runs=runs,
+                        lengths=PIXTRAL_LENGTHS)
 
 
 # --------------------------------------------------------------------------
@@ -3247,27 +3548,37 @@ def _train_kernel_counts():
             ssd.ssd_scan_bwd.launches)
 
 
+def _attn_calls(cfg) -> int:
+    """Attention calls of one forward: each decoder layer's (and its
+    cross-attention, with an encoder), each encoder layer's."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.num_layers * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+
+
 def _train_launches(cfg, steps=1):
-    """What a remat train step launches per layer: #1 twice and #2, #3 once
-    where the layer has attention; #5 twice and #5b once where it has an
-    SSD block."""
-    L = cfg.num_layers * steps
-    attn, scan = cfg.family != "ssm", cfg.ssm is not None
-    return dict(zip(_PARITY_KERNELS, (2 * L * attn, L * attn, L * attn, 2 * L * scan, L * scan)))
+    """What a remat train step launches per attention call: #1 twice and
+    #2, #3 once; per SSD block #5 twice and #5b once."""
+    A = _attn_calls(cfg) * steps
+    L = cfg.num_layers * steps * (cfg.ssm is not None)
+    return dict(zip(_PARITY_KERNELS, (2 * A, A, A, 2 * L, L)))
 
 
-def train_parity(arch="granite-8b", seq=512, phase="train_parity"):
+def train_parity(arch="granite-8b", seq=512, phase="train_parity", layers=2, batch=1):
     """One make_train_step on the card and on the CPU from the same weights:
-    ``arch`` at full width cut to 2 layers, fp32, batch 1."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    ``arch`` at full width cut to ``layers`` layers (and as many encoder
+    layers, if it has an encoder), fp32."""
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers,
+                              encoder_layers=min(cfg.encoder_layers, layers))
     opt = AdamWConfig()
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     sides = {"cuda": params, "cpu": _tree_to(params, "cpu")}
-    out, launches = {}, {}
+    out, launches, batch_rows = {}, {}, batch
     for dev, p in sides.items():
         ctx = ParallelCtx(device=dev)
         state = init_opt_state(p)
-        batch = make_batch(cfg, seq, 1, seed=0, step=0, ctx=ctx)
+        batch = make_batch(cfg, seq, batch_rows, seed=0, step=0, ctx=ctx)
         before = _train_kernel_counts()
         t0 = time.perf_counter()
         p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
@@ -3294,8 +3605,9 @@ def train_parity(arch="granite-8b", seq=512, phase="train_parity"):
                                      - p_cpu[path].detach()).abs().max()),
         )
     rec = {
-        "phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
-        "seq": seq, "batch": 1, "loss": {"cuda": card["loss"], "cpu": cpu["loss"]},
+        "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "dtype": "fp32",
+        "seq": seq, "batch": batch_rows, "loss": {"cuda": card["loss"], "cpu": cpu["loss"]},
         "grad_norm": {"cuda": card["grad_norm"], "cpu": cpu["grad_norm"]},
         "wall_s": {"cuda": card["wall_s"], "cpu": cpu["wall_s"]},
         "launches": launches, "leaves": leaves, "tols": PARITY_TOLS,
@@ -3320,22 +3632,46 @@ def train_parity(arch="granite-8b", seq=512, phase="train_parity"):
 
 # train_gemma_parity's sequence: its CPU side holds ~21 GB (params, grads
 # and two moments of 1.34e9 fp32 weights), and at seq 512 its CPU step took
-# 41 s of a 67 s phase on an H100 host's CPU, so it takes 256.
+# 41 s of a 67 s phase on an H100 host's CPU (256: 44.5-52.2 s), so it takes
+# 128.
 # train_gemma's depth: 8 of 28 layers, 3.0e9 parameters, 48 GB of fp32
 # params, grads and moments beside ~13 GB of [4096, 256,000] fp32 logits,
 # their log-softmax and gradient (peak 69.5 GB on an H100)
-GEMMA_PARITY_SEQ = 256
+GEMMA_PARITY_SEQ = 128
 GEMMA_TRAIN_LAYERS = 8
+# train_parity's and train_moe_parity's sequences and the depth of the
+# latter and of train_gemma_parity, cut for time (an earlier full run: 35.5 s
+# at seq 512, 58.0 s at seq 256 and 2 layers, 44.5 s at seq 256 and 2 layers
+# on an H100 host, most of it their CPU steps over 0.84e9 / 1.76e9 / 1.34e9
+# weights and the weights moved and compared on the host: at seq 128 the
+# MoE phase still took 70.1 s, its CPU step 42.8 s, as the step's weight-
+# sized passes (AdamW, the experts' gradients) do not shrink with seq)
+TRAIN_PARITY_SEQ = 256
+MOE_PARITY_SEQ = 128
+MOE_PARITY_LAYERS = 1
+GEMMA_PARITY_LAYERS = 1
+# train_whisper's batch (x 448 decoder tokens and 1536 encoder frames a row)
+WHISPER_TRAIN_BATCH = 16
+# train_pixtral's depth: 8 of 40 layers (3.53e9 parameters, 56.5 GB of fp32
+# params, grads and moments) peaked at 78.7 GB on an H100, past 72, so 6
+# (2.98e9 parameters, 47.7 GB): the rest is [4096, 131,072] fp32 logits,
+# their log-softmax and gradient, AdamW's temporaries and the layers' saved
+# inputs
+PIXTRAL_TRAIN_LAYERS = 6
 
 
-def full_train(card, arch="granite-8b", layers=8, phase="train"):
-    """``arch`` at full width cut to ``layers`` layers, fp32 + AdamW, remat,
-    seq 4096, batch 1: 4 causal steps and 2 of 4 packed documents, then 2
-    bf16 steps (``full_train_bf16``); no call of a kernel's plain version.
-    Returns the launches of the fp32 runs, keyed as the kernels line's rows."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch=1,
+               steps=4, steps_docs=2, bf16=True):
+    """``arch`` at full width cut to ``layers`` layers (None: whole), fp32 +
+    AdamW, remat, ``seq`` x ``batch``: ``steps`` causal steps and
+    ``steps_docs`` of 4 packed documents, then (``bf16``) 2 bf16 steps
+    (``full_train_bf16``); no call of a kernel's plain version; a profiled
+    step.  Returns the launches of the fp32 runs, keyed as the kernels
+    line's rows."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     ctx = ParallelCtx(device="cuda")
-    seq, steps, steps_docs = 4096, 4, 2
     grad_norms = []
     hooks = {"on_step": lambda s, m: grad_norms.append(float(m["grad_norm"]))}
     torch.cuda.synchronize()
@@ -3347,9 +3683,11 @@ def full_train(card, arch="granite-8b", layers=8, phase="train"):
     runs, last = [], None
     with _PlainCalls() as plain:
         for n, docs in ((steps, None), (steps_docs, 4)):
+            if not n:
+                continue
             last = None  # the previous run's params go before the next run starts
             t0 = time.perf_counter()
-            last = fit(cfg, ctx, TrainConfig(steps=n, seq=seq, batch=1, seed=0, docs=docs),
+            last = fit(cfg, ctx, TrainConfig(steps=n, seq=seq, batch=batch, seed=0, docs=docs),
                        hooks=hooks)
             runs.append(dict(docs=docs, losses=last["history"], step_s=last["step_seconds"],
                              fit_s=time.perf_counter() - t0,
@@ -3362,7 +3700,8 @@ def full_train(card, arch="granite-8b", layers=8, phase="train"):
     fwd_split = fa.fwd_split_terms.launches
     bwd_bodies = {b: n - bwd0[b] for b, n in bwd_counts().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile = profile_train_step(cfg, ctx, last.pop("params"), seq)
+    profile = profile_train_step(cfg, ctx, last.pop("params"), seq, batch=batch,
+                                 docs=4 if steps_docs else None)
     del last
     torch.cuda.empty_cache()
     losses = [x for r in runs for x in r["losses"]]
@@ -3370,54 +3709,59 @@ def full_train(card, arch="granite-8b", layers=8, phase="train"):
     total = steps + steps_docs
     rec = {
         "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers,
         "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
         "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": runs[0]["params"],
-        "param_dtype": "fp32", "optimizer": "adamw", "remat": True, "seq": seq, "batch": 1,
+        "param_dtype": "fp32", "optimizer": "adamw", "remat": True, "seq": seq, "batch": batch,
         "runs": [{k: v for k, v in r.items() if k != "params"} for r in runs],
         "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
-        "tokens_per_s": [seq / t for t in step_s], "peak_mem_gb": peak_gb,
+        "tokens_per_s": [seq * batch / t for t in step_s], "peak_mem_gb": peak_gb,
         "launches": launches, "flash_attention_fwd_bodies": bodies,
         "flash_fwd_split_launches": fwd_split, "flash_attention_bwd_bodies": bwd_bodies,
         "plain_calls": plain.calls, "ln_vocab": float(np.log(cfg.vocab_size)),
-        "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq), "card": card,
+        "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq, batch) if bf16 else None,
+        "card": card,
     }
     emit(rec)
     check(len(losses) == total and all(np.isfinite(losses)),
           f"{phase}: losses not finite: {losses}")
     check(abs(losses[0] - np.log(cfg.vocab_size)) < 1.5,
           f"{phase}: first loss {losses[0]} is not near ln(vocab) = {np.log(cfg.vocab_size)}")
-    check(launches == {"flash_attention_fwd": 2 * cfg.num_layers * total,
-                       "flash_bwd_dq": cfg.num_layers * total,
-                       "flash_bwd_dkv": cfg.num_layers * total},
+    A = _attn_calls(cfg)
+    check(launches == {"flash_attention_fwd": 2 * A * total, "flash_bwd_dq": A * total,
+                       "flash_bwd_dkv": A * total},
           f"{phase}: launch counts off the remat schedule: {launches}")
     check(bodies == {"tile": 0, "decode": 0, "fp32": launches["flash_attention_fwd"]}
           and tile_fp32 == bodies["fp32"] == fwd_split,
           f"{phase}: the fp32 forward must run the fp32 tile body after one pre-pass each: "
           f"{bodies}, tile {tile_fp32}, pre-pass {fwd_split}")
-    n_bwd = cfg.num_layers * total
+    n_bwd = A * total
     check(bwd_bodies == {"tc_fp32": n_bwd, "tc_bf16": 0, "split": n_bwd},
           f"{phase}: every fp32 backward must run the fp32 tensor-core body: {bwd_bodies}")
-    check(not any(plain.calls.values()) and not any(rec["bf16"]["plain_calls"].values()),
+    bf = rec["bf16"]
+    check(not any(plain.calls.values()) and not (bf and any(bf["plain_calls"].values())),
           f"{phase}: a kernel's plain version ran: {plain.calls}, bf16 "
-          f"{rec['bf16']['plain_calls']}")
+          f"{bf and bf['plain_calls']}")
     check(peak_gb * 1e9 <= torch.cuda.get_device_properties(0).total_memory,
           f"{phase}: peak {peak_gb} GB above the card's")
-    bf = rec["bf16"]
-    check(len(bf["losses"]) == 2 and all(np.isfinite(bf["losses"]))
-          and abs(bf["losses"][0] - np.log(cfg.vocab_size)) < 1.5,
-          f"{phase} (bf16): losses not finite or not near ln(vocab): {bf}")
-    n_bf = cfg.num_layers * 2
-    check(bf["launches"] == {"flash_attention_fwd": 2 * n_bf, "flash_bwd_dq": n_bf,
-                             "flash_bwd_dkv": n_bf}
-          and bf["flash_attention_fwd_bodies"] == {"tile": 2 * n_bf, "decode": 0, "fp32": 0}
-          and bf["flash_attention_bwd_bodies"] == {"tc_fp32": 0, "tc_bf16": n_bf, "split": 0},
-          f"{phase} (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
+    if bf:
+        check(len(bf["losses"]) == 2 and all(np.isfinite(bf["losses"]))
+              and abs(bf["losses"][0] - np.log(cfg.vocab_size)) < 1.5,
+              f"{phase} (bf16): losses not finite or not near ln(vocab): {bf}")
+        n_bf = A * 2
+        check(bf["launches"] == {"flash_attention_fwd": 2 * n_bf, "flash_bwd_dq": n_bf,
+                                 "flash_bwd_dkv": n_bf}
+              and bf["flash_attention_fwd_bodies"] == {"tile": 2 * n_bf, "decode": 0,
+                                                       "fp32": 0}
+              and bf["flash_attention_bwd_bodies"] == {"tc_fp32": 0, "tc_bf16": n_bf,
+                                                       "split": 0},
+              f"{phase} (bf16): launches off the remat schedule or off the bf16 bodies: {bf}")
     return {**{k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
             "flash_attention_fwd (fp32)": bodies["fp32"], "flash_fwd_split": fwd_split,
             "flash_bwd_split": bwd_bodies["split"]}
 
 
-def full_train_bf16(cfg, ctx, seq):
+def full_train_bf16(cfg, ctx, seq, batch=1):
     """2 causal steps of the train phase's model with bf16 params (the JAX
     package's ``param_dtype`` option); counters set to 0 just before."""
     fa.flash_attention_fwd.launches = 0
@@ -3426,7 +3770,7 @@ def full_train_bf16(cfg, ctx, seq):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _PlainCalls() as plain:
-        out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=1, seed=0,
+        out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=batch, seed=0,
                                         param_dtype=torch.bfloat16))
     fit_s = time.perf_counter() - t0
     rec = {
@@ -3669,11 +4013,11 @@ MESH_BACKENDS = (("mesh", 2), ("ring", 1), ("mesh", 4))
 # 2**-6 of the output's max for o and of each gradient's max.
 MESH_OP_TOLS = {torch.float32: (2e-5, 5e-5), torch.bfloat16: (2**-6, 2**-6)}
 MESH_OP_O_RELATIVE = {torch.float32: False, torch.bfloat16: True}
-# the most layers that fit the card: 8 layers peaked at 42.0 GB, and each
-# more layer adds ~4.3 GB (fp32 params, grads, the clipped grads, m, v: 20 B
-# per weight, and its remat input), so 14 (~68 GB) leave room for the
-# allocator's fragmentation
-MESH_TRAIN_LAYERS = 14
+# 8 layers peaked at 42.0 GB, and each more layer adds ~4.3 GB (fp32 params,
+# grads, the clipped grads, m, v: 20 B per weight, and its remat input), so
+# 14 (~68 GB) were the most that fit; cut to 4 for the run's time (14 took
+# 54.3 s of an earlier full run, 8 took 31.9-33.3 s on slower hosts)
+MESH_TRAIN_LAYERS = 4
 
 
 def _mesh_cfg_for(kind, a, transport=None, window=None, layout="striped"):
@@ -4394,11 +4738,13 @@ def main():
         ssd_bwd_case("mamba2_large_dt", 1, 2048, 32, 64, 1, 128, 64, gen, flush, dt_value=3.0),
     ]
     del scratch
+    # the training row (4096) in every mask and causal at 2048; the S 1024
+    # rows went for the run's time (after every paged row, so the forward's
+    # and the decode's cases keep their inputs)
     for dtype in (torch.float32, torch.bfloat16):
-        for S in (1024, 2048, 4096):
-            for name in ("causal", "window", "striped", "segment"):
-                if S != 2048 or name == "causal":
-                    bwd.append(bwd_case(name, S, dtype, gen))
+        bwd.append(bwd_case("causal", 2048, dtype, gen))
+        for name in ("causal", "window", "striped", "segment"):
+            bwd.append(bwd_case(name, 4096, dtype, gen))
     # gemma-7b's backward (16 / 16 heads of 256), as train_gemma launches
     # it: the training row (causal, 4096), the masks at 1024, a ragged S
     # (1000: a part-filled last CTA and tile) and a group of 2
@@ -4421,6 +4767,20 @@ def main():
     # contiguous, window-1024 blocks of a 1,536-token prompt
     mesh_blocks.append(mesh_block_case("window", torch.bfloat16, gen, heads=HYMBA_HEADS,
                                        S=1536, layout="contiguous", window=1024))
+    # whisper-base's attention (8 / 8 heads of 64), drawn last so that every
+    # earlier case keeps its inputs: the forward as serve_whisper and
+    # slice_whisper launch it -- the encoder's non-causal 1536 rows, the
+    # cross-attention prefill (the trace's largest bucket, 64 rows, over the
+    # 1536 encoder rows), the cross-attention decode (8 slots x 1 row over
+    # 1536), the decoder's dense-cache decode (8 slots over max_seq 448) --
+    # and the backward as train_whisper launches it: the encoder's band, the
+    # decoder rows' cross band (448 rows over 1536) and a ragged 440 rows
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in ("full", "cross", "cross_decode"):
+            flash.append(flash_case(name, 1536, dtype, gen, heads=WHISPER_HEADS))
+        flash.append(flash_case("decode", WHISPER_MAX_SEQ, dtype, gen, heads=WHISPER_HEADS))
+        for rows in (1536, WHISPER_MAX_SEQ, 440):
+            bwd.append(bwd_case("full", 1536, dtype, gen, heads=WHISPER_HEADS, Sq=rows))
     emit({"phase": "kernels", "card": card,
           "cases": flash + paged + quant + combine + ssd_cases + ssd_bwd_cases + bwd + [split]
           + [fwd_split] + mesh_blocks
@@ -4451,24 +4811,42 @@ def main():
     # gemma-7b (head dim 256): card vs CPU at 2 layers, then served whole
     cross_device(GEMMA_ARCH, phase="slice_gemma", quant_run=True)
     gemma_launches = serve_gemma(card)
+    # whisper-base (encoder-decoder) whole card vs CPU, then served in bf16;
+    # pixtral-12b (VLM) card vs CPU at 2 layers, then served whole
+    slice_whisper()
+    whisper_launches = serve_whisper(card)
+    slice_pixtral()
+    pixtral_launches = serve_pixtral(card)
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
                       ("paged_flash_decode", "paged_flash_decode")):
         launches[key] += ring[part]
-    train_parity()
+    train_parity(seq=TRAIN_PARITY_SEQ)
     launches.update(full_train(card))
-    # gemma-7b (head dim 256): card vs CPU at 2 layers, then trained at 8
-    train_parity(GEMMA_ARCH, seq=GEMMA_PARITY_SEQ, phase="train_gemma_parity")
+    # gemma-7b (head dim 256): card vs CPU at 1 layer, then trained at 8
+    train_parity(GEMMA_ARCH, seq=GEMMA_PARITY_SEQ, phase="train_gemma_parity",
+                 layers=GEMMA_PARITY_LAYERS)
     gemma_train = full_train(card, GEMMA_ARCH, GEMMA_TRAIN_LAYERS, phase="train_gemma")
     for key, n in gemma_train.items():
         launches[key] += n
+    # whisper-base at 2 + 2 layers card vs CPU, then trained whole; pixtral-12b
+    # trained at full width, PIXTRAL_TRAIN_LAYERS of its 40 layers
+    train_parity(WHISPER_ARCH, seq=WHISPER_MAX_SEQ, phase="train_whisper_parity", batch=2)
+    whisper_train = full_train(card, WHISPER_ARCH, None, phase="train_whisper",
+                               seq=WHISPER_MAX_SEQ, batch=WHISPER_TRAIN_BATCH, steps_docs=0)
+    pixtral_train = full_train(card, PIXTRAL_ARCH, PIXTRAL_TRAIN_LAYERS, phase="train_pixtral",
+                               steps_docs=0, bf16=False)
+    for part in (whisper_train, pixtral_train):
+        for key, n in part.items():
+            launches[key] += n
     # SSM and hybrid training (#5 forward, #5b backward) card vs CPU, over a
     # ring of 4 vs one rank, then whole; the MoE family's train step card vs
     # CPU
     for arch in SSM_ARCHS:
         train_parity(arch, seq=512, phase="train_ssm_parity")
-    train_parity("qwen2-moe-a2.7b", seq=256, phase="train_moe_parity")
+    train_parity("qwen2-moe-a2.7b", seq=MOE_PARITY_SEQ, phase="train_moe_parity",
+                 layers=MOE_PARITY_LAYERS)
     train_ssm_ring_parity()
     ssm_train = train_ssm(card)
     launches["ssd_scan_fwd (training)"] = ssm_train["ssd_scan_fwd"]
@@ -4476,9 +4854,11 @@ def main():
     for key in ("flash_attention_fwd (fp32)", "flash_fwd_split", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_split"):
         launches[key] += ssm_train[key]
-    # serve_moe's, serve_qwen's and serve_gemma's runs join the serving rows
+    # serve_moe's, serve_qwen's, serve_gemma's, serve_whisper's and
+    # serve_pixtral's runs join the serving rows
     for key, n in (list(moe_launches.items()) + list(qwen_launches.items())
-                   + list(gemma_launches.items())):
+                   + list(gemma_launches.items()) + list(whisper_launches.items())
+                   + list(pixtral_launches.items())):
         launches[key] += n
     # serve_ssm_ring's ring runs: #5 folded, hymba's prefill blocks and
     # folded decode rows, the ranks' combine
@@ -4606,6 +4986,44 @@ def main():
             "launches": gemma_launches[key], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    # whisper-base's bands (8 / 8 heads of 64): #1 counted over serve_whisper
+    # (the encoder and cross-attention prefill on the tile body, timed at the
+    # encoder's row; cross- and self-attention decode on the decode body,
+    # timed at the cross-attention decode row), #2 / #3 over train_whisper
+    # (timed at the cross band, 448 x 1536, fp32)
+    wh = list(WHISPER_HEADS)
+    for name, count, src, replaces, rec in (
+        ("flash_attention_fwd (whisper-base: non-causal encoder and cross-attention, tile body)",
+         whisper_launches["flash_attention_fwd (tile)"], FLASH_TC_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "full" and r["dtype"] == "bf16"
+              and r["heads"] == wh)),
+        ("flash_attention_fwd (whisper-base: cross- and self-attention decode, decode body)",
+         whisper_launches["flash_attention_fwd (decode)"], FLASH_TC_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "cross_decode" and r["dtype"] == "bf16"
+              and r["heads"] == wh)),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": count, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    whisper_bwd = next(r for r in bwd if r["case"] == "full" and r["Sq"] == WHISPER_MAX_SEQ
+                       and r["dtype"] == "fp32" and r["heads"] == wh)
+    for name, replaces, part, err in (
+        ("flash_bwd_dq (whisper-base: encoder and cross bands)", BWD_DQ_REPLACES, "dq",
+         whisper_bwd["max_abs_err"]["dq"]),
+        ("flash_bwd_dkv (whisper-base: encoder and cross bands)", BWD_DKV_REPLACES, "dkv",
+         max(whisper_bwd["max_abs_err"]["dk"], whisper_bwd["max_abs_err"]["dv"])),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": BWD_SRC, "replaces": replaces,
+            "launches": whisper_train[f"flash_bwd_{part}"], "max_abs_err": err,
+            "ms": whisper_bwd[f"ms_{part}"], "plain_ms": whisper_bwd["plain_ms_pair"],
+            "bound_ms": whisper_bwd[f"bound_ms_{part}"],
+            "bound_by": whisper_bwd[f"bound_by_{part}"],
+            "library_ms": whisper_bwd["library_ms_pair"],
         })
     kernels.append({
         "name": "paged_decode_combine (the ring's lse combine)", "route": "cuda",

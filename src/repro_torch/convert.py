@@ -7,8 +7,9 @@ The layouts are the same (``x @ W`` with ``W: [D_in, D_out]``, stacked
 transposes.  ``opt_state_from_jax`` does the same for JAX's AdamW
 ``OptState(step, m, v)``, so a JAX run can continue in the port, and
 ``cache_from_jax`` for a decode cache (pools, scale tables, block table,
-positions; the per-slot SSM conv window and state), so both can continue
-from one pool or one recurrent state.  ml_dtypes' bfloat16 and
+positions; the per-slot SSM conv window and state; the encoder's per-slot
+cross-attention K/V), so both can continue from one pool, one recurrent
+state or one encoding.  ml_dtypes' bfloat16 and
 float8_e4m3fn arrays carry over bit for bit.  This module takes numpy only:
 it never imports JAX.
 """
@@ -68,7 +69,8 @@ def opt_state_from_jax(opt_state, device=None) -> OptState:
 def cache_from_jax(cache: Dict[str, Any], device=None) -> Dict[str, Any]:
     """JAX's decode cache with numpy leaves (``jax.tree.map(np.asarray,
     cache)``: ``k``/``v``, optional ``k_scale``/``v_scale`` and ``bt``, ``pos``,
-    and for SSM / hybrid archs ``ssm: {conv, state}``) -> the port's cache
+    for SSM / hybrid archs ``ssm: {conv, state}``, for encoder archs
+    ``cross_k``/``cross_v``) -> the port's cache
     dict on ``device`` (default: the card), the element types kept (int8 and
     fp8 codes bit for bit; the SSM state in fp32)."""
     dev = resolve_device(device)
@@ -80,7 +82,7 @@ def cache_from_jax(cache: Dict[str, Any], device=None) -> Dict[str, Any]:
             out[key] = {"conv": _tensor(np.asarray(val["conv"]), dev, None),
                         "state": _tensor(np.asarray(val["state"]), dev, torch.float32)}
             continue
-        if key not in ("k", "v", "k_scale", "v_scale", "bt", "pos"):
+        if key not in ("k", "v", "k_scale", "v_scale", "bt", "pos", "cross_k", "cross_v"):
             raise ValueError(f"cache_from_jax: no port counterpart for cache entry {key!r}")
         out[key] = _tensor(np.asarray(val), dev, None)
     out["pos"] = out["pos"].to(torch.int32)

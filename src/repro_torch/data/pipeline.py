@@ -12,6 +12,12 @@ With ``ctx.sp_size > 1`` and a striped-layout arch the batch comes in the
 striped order of ``core.tiling.stripe_permutation`` (paper §3.7): tokens,
 labels, positions, and with packed documents the segment ids and the loss
 mask, as JAX permutes them.
+
+Frontend archs add their stub's side input, standard normal fp32 from a
+numpy stream of its own (JAX's shapes, not JAX's numbers): whisper's mel
+``frames`` [batch, encoder_seq, frontend_dim], pixtral's ``patches``
+[batch, num_patches, frontend_dim].  They are not striped: the encoder's
+rows and the patches are gathered by true position.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.parallel.context import ParallelCtx
 __all__ = ["make_batch", "batch_spec_shapes", "doc_lengths"]
 
 _TOKEN_STREAM = 0x70C5  # keeps the token draws apart from doc_lengths' stream
+_FRONTEND_STREAM = 0xF2A3  # and the frontend stub's features apart from both
 
 
 def batch_spec_shapes(
@@ -77,10 +84,9 @@ def make_batch(
     ``segments`` carries per-token document ids (the attention mask becomes
     causal-within-document), ``positions`` restart at each document start,
     and the loss ``mask`` zeroes the label that would cross a document
-    boundary.  Boundaries are shared across rows."""
+    boundary.  Boundaries are shared across rows.  Frontend archs add
+    ``frames`` (audio) or ``patches`` (vlm), fp32."""
     ctx = ctx or ParallelCtx()
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet")
     dev = resolve_device(ctx.device)
     rng = np.random.default_rng([seed, step, _TOKEN_STREAM])
     toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)
@@ -99,4 +105,9 @@ def make_batch(
     if n > 1 and cfg.causal_layout == "striped":
         perm = stripe_permutation(seq, n)
         out = {k: v[..., perm] for k, v in out.items()}
+    shapes = batch_spec_shapes(cfg, seq, batch)
+    for key in ("frames", "patches"):
+        if key in shapes:
+            frng = np.random.default_rng([seed, step, _FRONTEND_STREAM])
+            out[key] = frng.standard_normal(shapes[key][0], dtype=np.float32)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}

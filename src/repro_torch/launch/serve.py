@@ -38,7 +38,19 @@ qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.  ``--arch
 gemma-7b`` serves gemma (head dim 256, GeGLU, tied embeddings) in every mode
 of the dense family; ``--reduced`` runs JAX's reduced config (head dim 32)
 on the CPU, and on the card ``--dtype bfloat16 --paged --page-size 16
---num-pages 512 --max-seq 2048`` serves it whole.
+--num-pages 512 --max-seq 2048`` serves it whole.  ``--arch pixtral-12b``
+(the VLM: zero patches fill the first 1024 positions, so give it prompts
+longer than that on the card, 8 with ``--reduced``) and ``--arch
+whisper-base`` (the encoder-decoder: zero frames, the encoder once per
+admission, ``--max-seq 448`` on the card) serve through one-shot bucketed
+prefill only: ``--prefill-chunk`` and ``--spec-k`` raise the engine's
+``ValueError`` for both, ``--paged`` for whisper, and ``--fake-devices``
+``NotImplementedError``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch whisper-base \
+        --reduced --stream
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch pixtral-12b \
+        --reduced --stream --paged --page-size 4 [--kv-dtype int8]
 
 Robustness knobs, as in JAX's CLI: ``--oversubscribe 1.5`` admits against
 1.5x the physical page pool (preempt-and-recompute under pressure; needs

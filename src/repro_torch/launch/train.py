@@ -4,9 +4,12 @@
         [--device cpu] [--reduced] [--steps 100] [--seq 128] [--batch 8] \
         [--ckpt-dir DIR] [--docs N] [--fake-devices 8 --attn mesh --tile-a 2]
 
-Every arch of ``configs`` trains: the dense and MoE decoders, and the SSM and
+Every arch of ``configs`` trains: the dense and MoE decoders, the SSM and
 hybrid ones (mamba2-370m, hymba-1.5b: the SSD scan's forward #5 and
-backward #5b on the card).
+backward #5b on the card), pixtral-12b (its batches carry the stub's
+patches) and whisper-base (its batches carry mel frames; the encoder
+trains with the decoder).  pixtral-12b and whisper-base train at one rank:
+with ``--fake-devices`` they raise ``NotImplementedError``.
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
 plain PyTorch versions.  ``--fake-devices N`` is JAX's emulated device

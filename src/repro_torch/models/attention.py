@@ -1,9 +1,11 @@
 """Attention layer: GQA/MHA projections over the dispatch seam (copy of
-``repro/models/attention.py`` for the dense decoder).
+``repro/models/attention.py``): causal self-attention for the decoders,
+non-causal self-attention for whisper's encoder, and cross-attention from
+the decoder's rows to the encoder's.
 
 The projections are plain matrix products; the attention itself goes through
-``repro_torch.core.dispatch``.  No backend module is imported here.  MLA,
-cross-attention and the latent wire come in later slices.
+``repro_torch.core.dispatch``.  No backend module is imported here.  MLA and
+the latent wire come in later slices.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
 from repro_torch.core.masking import MaskSpec
-from repro_torch.models.layers import dense_init, rms_norm, rope
+from repro_torch.models.layers import dense_init, norm_params, pre_norm, rope
 from repro_torch.parallel.context import ParallelCtx
 
 __all__ = [
     "init_attention_params",
+    "init_cross_attention_params",
     "attention_block",
+    "cross_attention_block",
     "distributed_attention",
     "decode_attention_step",
     "chunk_attention_step",
@@ -103,7 +107,7 @@ def chunk_attention_step(
 def init_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, dtype, device) -> dict:
     D, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     p = {
-        "ln": torch.zeros((L, D), dtype=dtype, device=device),
+        **norm_params(cfg.norm, (L, D), dtype, device),
         "wq": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
         "wk": dense_init(gen, (L, D, Hkv * hd), dtype=dtype, device=device),
         "wv": dense_init(gen, (L, D, Hkv * hd), dtype=dtype, device=device),
@@ -116,6 +120,20 @@ def init_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, dtype,
             bv=torch.zeros((L, Hkv * hd), dtype=dtype, device=device),
         )
     return p
+
+
+def init_cross_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, dtype,
+                                device) -> dict:
+    """Cross-attention: H heads for q and for the encoder's k, v (no GQA, no
+    RoPE), the decoder-side norm."""
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.hd
+    return {
+        **norm_params(cfg.norm, (L, D), dtype, device),
+        "wq": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
+        "wk": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
+        "wv": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
+        "wo": dense_init(gen, (L, H * hd, D), dtype=dtype, device=device),
+    }
 
 
 def _project_qkv(x, p, cfg: ModelConfig, positions):
@@ -143,12 +161,40 @@ def attention_block(
     causal: bool = True,
     segments: Optional[torch.Tensor] = None,  # [S] int32 packed-document ids
 ) -> torch.Tensor:
-    """Pre-norm self-attention with residual."""
+    """Pre-norm self-attention with residual (``causal=False``: whisper's
+    encoder, every row sees every key)."""
     B, S, _ = x.shape
-    h = rms_norm(x, p["ln"])
+    h = pre_norm(x, p, cfg.norm)
     q, k, v = _project_qkv(h, p, cfg, positions)
     o = distributed_attention(
         q, k, v, ctx, causal=causal, window=cfg.window, layout=cfg.causal_layout,
         segments=segments,
     )
+    return x + o.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_kv(enc: torch.Tensor, p: dict, cfg: ModelConfig):
+    """The encoder rows' cross-attention k, v [B, S_enc, H, hd]: what
+    ``cross_attention_block`` attends to and what prefill caches."""
+    B, S = enc.shape[0], enc.shape[1]
+    k = (enc @ p["wk"]).reshape(B, S, cfg.num_heads, cfg.hd)
+    v = (enc @ p["wv"]).reshape(B, S, cfg.num_heads, cfg.hd)
+    return k, v
+
+
+def cross_attention_block(
+    x: torch.Tensor,  # [B, S_dec, D]
+    enc: torch.Tensor,  # [B, S_enc, D] (encoder output)
+    p: dict,
+    cfg: ModelConfig,
+    ctx: ParallelCtx,
+    kv=None,  # ``cross_kv(enc, p, cfg)`` when the caller has it already
+) -> torch.Tensor:
+    """Pre-norm cross-attention with residual: the decoder's rows attend to
+    every encoder row (a full band, Sq = S_dec against Skv = S_enc)."""
+    B, S, _ = x.shape
+    h = pre_norm(x, p, cfg.norm)
+    q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.hd)
+    k, v = cross_kv(enc, p, cfg) if kv is None else kv
+    o = distributed_attention(q, k, v, ctx, causal=False)
     return x + o.reshape(B, S, -1) @ p["wo"]

@@ -1,5 +1,5 @@
-"""Shared building blocks: norm, rotary embedding, initializer (copy of
-``repro/models/layers.py`` for the dense decoder)."""
+"""Shared building blocks: norms, rotary embedding, initializer, loss (copy
+of ``repro/models/layers.py``)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,8 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["rms_norm", "rope", "dense_init", "vocab_cross_entropy"]
+__all__ = ["rms_norm", "layer_norm", "pre_norm", "norm_params", "rope", "dense_init",
+           "vocab_cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -16,6 +17,32 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32 (biased variance), gain ``w``
+    (init 1) and bias ``b`` (init 0), as whisper's."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()).to(dt)
+
+
+def pre_norm(x: torch.Tensor, p: dict, norm: str) -> torch.Tensor:
+    """A block's input norm from its ``ln`` (and, for LayerNorm, ``ln_b``)."""
+    if norm == "layernorm":
+        return layer_norm(x, p["ln"], p["ln_b"])
+    return rms_norm(x, p["ln"])
+
+
+def norm_params(norm: str, shape, dtype, device) -> dict:
+    """A norm's parameters as JAX inits them: LayerNorm gain 1 and bias 0;
+    RMSNorm's ``(1 + w)`` gain at w = 0."""
+    if norm == "layernorm":
+        return {"ln": torch.ones(shape, dtype=dtype, device=device),
+                "ln_b": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"ln": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:

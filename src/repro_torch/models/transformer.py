@@ -1,10 +1,15 @@
-"""Decoder stack: init / forward / loss / cache / prefill / decode for the
-dense, MoE, SSM and hybrid families of ``repro/models/transformer.py``.
+"""Model assembly: init / forward / loss / cache / prefill / decode for the
+families of ``repro/models/transformer.py`` but MLA.
 
   dense   -- attention + gated MLP
   moe     -- attention + MoE (``models/moe.py``; one rank: no expert parallelism)
   ssm     -- SSD blocks only (``models/ssm.py``; attention-free, no MLP)
   hybrid  -- parallel attention + SSD heads, mean-fused, then the MLP (hymba)
+  audio   -- whisper: a stubbed frontend (a projection of the mel frames), a
+             non-causal encoder, and a decoder of causal self-attention,
+             cross-attention to the encoder and an ungated MLP; LayerNorm
+  vlm     -- pixtral: the decoder backbone, whose positions below
+             ``num_patches`` take projected patch embeddings (stubbed frontend)
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
@@ -21,8 +26,10 @@ codes plus ``k_scale``/``v_scale`` tables; every write path (prefill, packed
 prefill, decode append, chunk, verify) quantizes at write time.  Writes that
 JAX drops with ``mode="drop"`` and sentinel indices are filtered with a
 boolean mask before writing here.  The SSM state and conv window stay
-per-slot dense (``cache["ssm"]``); the paged, packed, chunked and verify
-paths raise for SSM and hybrid archs, as in JAX.  Every MoE call takes
+per-slot dense (``cache["ssm"]``), and so do the encoder's cross-attention
+K/V (``cache["cross_k"]``, ``cache["cross_v"]``, written by prefill); the
+paged path raises for SSM, hybrid and encoder archs, the packed, chunked
+and verify paths also for frontend archs, as in JAX.  Every MoE call takes
 the same [B, S, D] rows as its JAX counterpart (the bucket, the packed row,
 the chunk, the verify window), so each has JAX's capacity.
 """
@@ -37,10 +44,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_quant
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dense_init, rms_norm, rope, vocab_cross_entropy
+from repro_torch.models.layers import (
+    dense_init,
+    layer_norm,
+    norm_params,
+    pre_norm,
+    rms_norm,
+    rope,
+    vocab_cross_entropy,
+)
 from repro_torch.models.mlp import init_mlp_params, mlp_block
 from repro_torch.parallel.context import ParallelCtx
 
@@ -58,28 +74,41 @@ __all__ = [
 ]
 
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense, MoE, SSM and hybrid families: GQA/MHA
-    attention, routed (and shared) experts, SSD blocks, RMSNorm, gated MLP."""
+    """The port serves the dense, MoE, SSM, hybrid, VLM and audio families:
+    GQA/MHA attention, routed (and shared) experts, SSD blocks, RMSNorm or
+    LayerNorm, gated or plain MLPs, a non-causal encoder with
+    cross-attention, and the stubbed audio and vision frontends.  MLA is
+    not ported."""
     unsupported = [
         name for name, bad in (
-            ("family not dense / moe / ssm / hybrid",
-             cfg.family not in ("dense", "moe", "ssm", "hybrid")),
+            ("family not " + " / ".join(_FAMILIES), cfg.family not in _FAMILIES),
             ("SSM config or hybrid flag off its family",
              (cfg.ssm is not None) != (cfg.family in ("ssm", "hybrid"))
              or cfg.hybrid != (cfg.family == "hybrid")),
             ("MoE config off its family", (cfg.moe is not None) != (cfg.family == "moe")),
             ("MLA", cfg.mla is not None),
-            ("encoder", bool(cfg.encoder_layers)),
-            ("frontend", cfg.frontend is not None),
-            ("layernorm", cfg.norm != "rmsnorm"),
-            ("ungated MLP", not cfg.mlp_gated),
+            (f"norm {cfg.norm!r}", cfg.norm not in ("rmsnorm", "layernorm")),
+            (f"frontend {cfg.frontend!r}", cfg.frontend not in (None, "audio_stub", "vision_stub")),
         ) if bad
     ]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port serves the "
-            "dense, moe, ssm and hybrid decoder families"
+            "dense, moe, ssm, hybrid, vlm and audio families"
+        )
+
+
+def check_ring_supported(cfg: ModelConfig, sp_size: int, what: str) -> None:
+    """Frontend and encoder archs run at sp_size 1 only: over a ring they
+    raise (ROADMAP A.9)."""
+    if sp_size > 1 and (cfg.encoder_layers or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: {what} a frontend or encoder arch over a sequence-parallel ring is "
+            "not ported: ROADMAP A.9 (frontend and encoder archs over the ring)"
         )
 
 
@@ -107,11 +136,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
         layers["moe"] = moe_mod.init_moe_params(gen, cfg, L, dtype, dev)
     elif cfg.family != "ssm" and cfg.d_ff > 0:
         layers["mlp"] = init_mlp_params(gen, cfg, L, dtype, dev)
+    if cfg.encoder_layers:
+        layers["xattn"] = attn.init_cross_attention_params(gen, cfg, L, dtype, dev)
     p["layers"] = layers
-    p["final_ln"] = torch.zeros((D,), dtype=dtype, device=dev)
+    p.update(_final_norm_params(cfg, dtype, dev))
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, V), dtype=dtype, device=dev)
+    if cfg.encoder_layers:
+        Le = cfg.encoder_layers
+        p["encoder"] = {
+            "layers": {"attn": attn.init_attention_params(gen, cfg, Le, dtype, dev),
+                       "mlp": init_mlp_params(gen, cfg, Le, dtype, dev)},
+            **_final_norm_params(cfg, dtype, dev),
+        }
+    if cfg.frontend:
+        p["frontend"] = {"proj": dense_init(gen, (cfg.frontend_dim, D), dtype=dtype, device=dev)}
     return p
+
+
+def _final_norm_params(cfg: ModelConfig, dtype, device) -> Dict:
+    """``final_ln`` (and ``final_ln_b`` for LayerNorm) of a stack."""
+    return {f"final_{k}": v for k, v in norm_params(cfg.norm, (cfg.d_model,), dtype,
+                                                        device).items()}
 
 
 def param_count(params) -> int:
@@ -120,12 +166,13 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def _layer_slices(params: Dict):
-    """Every layer's params: views of the stacked leaves, one ``unbind`` per
-    leaf, so a backward stacks each leaf's per-layer gradients in one op."""
+def _layer_slices(layers: Dict):
+    """Every layer's params (``layers``: a stack's ``{group: {name: [L,
+    ...]}}``): views of the stacked leaves, one ``unbind`` per leaf, so a
+    backward stacks each leaf's per-layer gradients in one op."""
     per_leaf = {
         group: {name: leaf.unbind(0) for name, leaf in leaves.items()}
-        for group, leaves in params["layers"].items()
+        for group, leaves in layers.items()
     }
     n = len(next(iter(next(iter(per_leaf.values())).values())))
     return [
@@ -139,8 +186,16 @@ def _head(params: Dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _final_norm(x: torch.Tensor, p: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """A stack's final norm (the decoder's, or the encoder's with ``p`` its
+    params)."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["final_ln"], p["final_ln_b"])
+    return rms_norm(x, p["final_ln"])
+
+
 def _logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["final_ln"])
+    x = _final_norm(x, params, cfg)
     return x @ _head(params, cfg).to(x.dtype)
 
 
@@ -174,8 +229,10 @@ def _ffn_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
 
 
 def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segments=None,
-                   ssm_cache=None):
-    """One layer -> (x, aux) (aux: the MoE layer's, else None)."""
+                   ssm_cache=None, enc=None, enc_kv=None):
+    """One layer -> (x, aux) (aux: the MoE layer's, else None).  With
+    ``enc`` (the encoder's output) the layer cross-attends to it after its
+    self-attention; ``enc_kv``, when given, is that layer's ``cross_kv``."""
     if cfg.family == "ssm":
         return _ssm_block(x, lp, cfg, ctx, ssm_cache), None
     if cfg.hybrid:
@@ -184,7 +241,52 @@ def _decoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions, segment
         x = x + 0.5 * (a + s)
     else:
         x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, segments=segments)
+    if enc is not None:
+        x = attn.cross_attention_block(x, enc, lp["xattn"], cfg, ctx, kv=enc_kv)
     return _ffn_block(x, lp, cfg, ctx)
+
+
+def _encoder_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions):
+    """One encoder layer: non-causal self-attention, then the MLP."""
+    x = attn.attention_block(x, lp["attn"], cfg, ctx, positions, causal=False)
+    return mlp_block(x, lp["mlp"], cfg)
+
+
+def _encode_audio(params, cfg: ModelConfig, ctx: ParallelCtx, frames) -> torch.Tensor:
+    """Stubbed conv frontend: mel frames [B, encoder_seq, frontend_dim] ->
+    projected embeddings -> the encoder's layers and final norm ->
+    [B, encoder_seq, D].  Each layer is checkpointed as the decoder's are."""
+    proj = params["frontend"]["proj"]
+    x = torch.as_tensor(frames, device=proj.device).to(params["embed"].dtype) @ proj
+    pos = torch.arange(cfg.encoder_seq, dtype=torch.int32, device=x.device)
+    enc = params["encoder"]
+    remat = ctx.remat and torch.is_grad_enabled()
+    for lp in _layer_slices(enc["layers"]):
+        if remat:
+            x = checkpoint(_encoder_block, x, lp, cfg, ctx, pos, use_reentrant=False)
+        else:
+            x = _encoder_block(x, lp, cfg, ctx, pos)
+    return _final_norm(x, enc, cfg)
+
+
+def _merge_patches(x, params, positions, patches, num_patches: int) -> torch.Tensor:
+    """VLM stub: positions < ``num_patches`` take the projected patch
+    embeddings [B, P, frontend_dim] @ proj, gathered by true position."""
+    proj = params["frontend"]["proj"]
+    px = torch.as_tensor(patches, device=x.device).to(x.dtype) @ proj  # [B, P, D]
+    positions = torch.as_tensor(positions, device=x.device).to(torch.int64)
+    gathered = px[:, positions.clamp(0, num_patches - 1)]  # [B, S, D]
+    return torch.where((positions < num_patches)[None, :, None], gathered, x)
+
+
+def _embed_inputs(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, positions):
+    """(x, enc): the token embeddings with the patches merged (vlm), and the
+    encoder's output (audio) or None."""
+    x = _embed(params, batch["tokens"])
+    if cfg.frontend == "vision_stub":
+        x = _merge_patches(x, params, positions, batch["patches"], cfg.num_patches)
+    enc = _encode_audio(params, cfg, ctx, batch["frames"]) if cfg.encoder_layers else None
+    return x, enc
 
 
 def _forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
@@ -193,16 +295,17 @@ def _forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
     check_supported(cfg)
     positions = batch["positions"]
     segments = batch.get("segments")
-    x = _embed(params, batch["tokens"])
+    x, enc = _embed_inputs(params, cfg, ctx, batch, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = ctx.remat and torch.is_grad_enabled()
-    for lp in _layer_slices(params):
+    for lp in _layer_slices(params["layers"]):
         if remat:
             x, a = checkpoint(
-                _decoder_block, x, lp, cfg, ctx, positions, segments, use_reentrant=False
+                _decoder_block, x, lp, cfg, ctx, positions, segments, None, enc,
+                use_reentrant=False,
             )
         else:
-            x, a = _decoder_block(x, lp, cfg, ctx, positions, segments)
+            x, a = _decoder_block(x, lp, cfg, ctx, positions, segments, enc=enc)
         if a is not None:
             aux = aux + a
     return _logits(x, params, cfg), aux
@@ -210,8 +313,10 @@ def _forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
 
 def forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict) -> torch.Tensor:
     """-> logits [B, S, V].  batch: tokens [B, S], positions [S], optional
-    segments [S] (packed multi-document rows: causal within each document).
-    Under autograd with ``ctx.remat`` each layer is checkpointed."""
+    segments [S] (packed multi-document rows: causal within each document),
+    frames [B, encoder_seq, frontend_dim] (audio) / patches [B, num_patches,
+    frontend_dim] (vlm).  Under autograd with ``ctx.remat`` each layer is
+    checkpointed."""
     return _forward(params, cfg, ctx, batch)[0]
 
 
@@ -246,7 +351,9 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     ``"ssm": {"conv": [L, B, width-1, conv_dim] in ``dtype``, "state":
     [L, B, H, P, N] fp32}``, one global copy per slot at any n (the states
     are replicated over the ring, as in JAX); the attention-free family has
-    no K/V."""
+    no K/V.  Encoder archs add the per-slot dense cross-attention K/V
+    ``"cross_k"/"cross_v": [L, B, encoder_seq, H, hd]`` in ``dtype``, which
+    prefill writes from the encoder's output."""
     check_supported(cfg)
     ctx = ctx or ParallelCtx()
     dev = resolve_device(ctx.device)
@@ -259,6 +366,10 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
         cache["ssm"] = ssm_mod.init_ssm_cache(cfg, L, batch, dtype, dev)
     if cfg.family == "ssm":
         return cache
+    if cfg.encoder_layers:
+        for key in ("cross_k", "cross_v"):
+            cache[key] = torch.zeros((L, batch, cfg.encoder_seq, cfg.num_heads, cfg.hd),
+                                     dtype=dtype, device=dev)
     if paged is not None:
         if paged.n != ctx.sp_size:
             raise ValueError(
@@ -279,8 +390,10 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
 
 
 def _layer_cache(cache, i: int) -> Dict:
-    """Layer i's views of the K/V (and scale) tensors and of the SSM state."""
-    out = {key: cache[key][i] for key in ("k", "v", "k_scale", "v_scale") if key in cache}
+    """Layer i's views of the K/V (scale, cross-attention K/V) tensors and of
+    the SSM state."""
+    out = {key: cache[key][i] for key in ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
+           if key in cache}
     if "ssm" in cache:
         out["ssm"] = {key: val[i] for key, val in cache["ssm"].items()}
     return out
@@ -334,7 +447,7 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
         _write_ssm(cache_l, new)
         return y
     B, S = x.shape[0], x.shape[1]
-    h = rms_norm(x, lp["attn"]["ln"])
+    h = pre_norm(x, lp["attn"], cfg.norm)
     q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, pos)
     # the decode cache is always striped over the ring's ranks
     o = attn.decode_attention_step(
@@ -348,6 +461,13 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
         s, new = ssm_mod.ssm_decode_step(x, lp["ssm"], cache_l["ssm"], cfg)
         _write_ssm(cache_l, new)
         y = x + 0.5 * ((y - x) + (s - x))
+    if cfg.encoder_layers:
+        # cross-attention against the encoder K/V prefill cached
+        xp = lp["xattn"]
+        qc = (pre_norm(y, xp, cfg.norm) @ xp["wq"]).reshape(B, S, cfg.num_heads, cfg.hd)
+        oc, _ = kops.block_attention(qc, cache_l["cross_k"], cache_l["cross_v"],
+                                     kops.full_band())
+        y = y + oc.reshape(B, S, -1) @ xp["wo"]
     return _ffn_block(y, lp, cfg, ctx)[0]
 
 
@@ -368,7 +488,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: ParallelCtx):
         coords = dispatch.paged_write_coords(bt, pos, page_size, ctx.ring, ctx.sp_size,
                                              layout="striped")
     x = _embed(params, tokens)
-    for i, lp in enumerate(_layer_slices(params)):
+    for i, lp in enumerate(_layer_slices(params["layers"])):
         x = _decode_block(x, lp, _layer_cache(cache, i), cfg, ctx, pos, bt=bt,
                           write_coords=coords)
     logits = _logits(x, params, cfg)
@@ -446,17 +566,22 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
     ring (``ctx.sp_size`` > 1) the SSD blocks run the sequence-sharded scan
     (``models/ssm.py``) and keep its global state and conv tail.
 
+    Frontend archs take their side inputs in ``batch`` as ``forward`` does:
+    pixtral merges ``patches`` below ``num_patches``; whisper encodes
+    ``frames`` once and writes every layer's cross-attention K/V into
+    ``cache["cross_k"/"cross_v"]`` (dense cache only).
+
     Returns (logits [B, 1, V], cache)."""
     check_supported(cfg)
     tokens, positions = batch["tokens"], batch["positions"]
     positions = torch.as_tensor(positions, device=params["embed"].device)
     B, S = tokens.shape
-    x = _embed(params, tokens)
     has_attn = cfg.family != "ssm"
     paged = "bt" in cache
+    if paged and (cfg.ssm is not None or cfg.encoder_layers):
+        raise ValueError("the paged cache serves attention-only decoder archs")
+    x, enc = _embed_inputs(params, cfg, ctx, batch, positions)
     if paged:
-        if cfg.ssm is not None:
-            raise ValueError("the paged cache serves attention-only decoder archs")
         if B != 1:
             raise ValueError("paged prefill writes one request (batch=1) per call")
         n = ctx.sp_size
@@ -476,17 +601,24 @@ def prefill(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cache):
         if isinstance(cols, torch.Tensor):
             cols = cols.to(x.device)
 
-    for i, lp in enumerate(_layer_slices(params)):
+    for i, lp in enumerate(_layer_slices(params["layers"])):
         if has_attn:
-            h = rms_norm(x, lp["attn"]["ln"])
+            h = pre_norm(x, lp["attn"], cfg.norm)
             kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
             if paged:
                 _write_kv(cache, i, (pages, cols), kk[0, toks], vv[0, toks])
             else:
                 _write_kv(cache, i, (slice(None), cols), kk, vv)
+        enc_kv = None
+        if enc is not None:
+            # the encoder rows' cross K/V: cached for decode, attended here
+            enc_kv = attn.cross_kv(enc, lp["xattn"], cfg)
+            for key, new in zip(("cross_k", "cross_v"), enc_kv):
+                cache[key][i].copy_(new)
         # the SSD block keeps its final conv window and state in the cache
         ssm_cache = _layer_cache(cache, i) if cfg.ssm is not None else None
-        x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache)[0]
+        x = _decoder_block(x, lp, cfg, ctx, positions, ssm_cache=ssm_cache, enc=enc,
+                           enc_kv=enc_kv)[0]
 
     if "length" in batch:
         length = torch.as_tensor(batch["length"], device=x.device).to(torch.int64).reshape(B)
@@ -519,9 +651,10 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
 
     ``cache`` is the dense pool ([L, num_slots, cap, ...]) or the paged pool
     with its block table.  Returns (first-token logits [k, V], cache).
-    Attention-only decoder archs: the SSD state has no per-document reset."""
+    Attention-only decoder archs: the SSD state has no per-document reset,
+    and encoder / frontend archs have per-row side inputs that do not pack."""
     check_supported(cfg)
-    if cfg.ssm is not None:
+    if cfg.ssm is not None or cfg.encoder_layers or cfg.frontend:
         raise ValueError("packed prefill supports attention-only decoder archs")
     dev = params["embed"].device
     tokens = batch["tokens"]
@@ -555,8 +688,8 @@ def prefill_packed(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict, cach
         p = positions[toks].to(torch.int64)
         cols = (p % n) * (cap // n) + p // n
 
-    for i, lp in enumerate(_layer_slices(params)):
-        h = rms_norm(x, lp["attn"]["ln"])
+    for i, lp in enumerate(_layer_slices(params["layers"])):
+        h = pre_norm(x, lp["attn"], cfg.norm)
         kk, vv = _project_kv_for_cache(h, lp["attn"], cfg, positions)
         _write_kv(cache, i, (rows, cols), kk[0, toks], vv[0, toks])
         x = _decoder_block(x, lp, cfg, ctx, positions, segments=segments)[0]
@@ -582,9 +715,10 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
     """Shared core of ``prefill_chunk`` and ``verify_step``: append a [B, C]
     chunk batch into the live cache (in place) through the banded multi-row
     attention and return the hidden states [B, C, D] of every chunk
-    position, before the final norm."""
+    position, before the final norm.  Attention-only decoder archs: no SSM
+    state, no encoder, no frontend."""
     check_supported(cfg)
-    if cfg.ssm is not None:
+    if cfg.ssm is not None or cfg.encoder_layers or cfg.frontend is not None:
         raise ValueError("chunked prefill serves attention-only decoder archs")
     dev = params["embed"].device
     starts = torch.as_tensor(starts, device=dev).to(torch.int64)
@@ -601,9 +735,9 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
         block_table=bt, page_size=cache["k"].shape[2] // n,
     )
     x = _embed(params, tokens)
-    for i, lp in enumerate(_layer_slices(params)):
+    for i, lp in enumerate(_layer_slices(params["layers"])):
         cache_l = _layer_cache(cache, i)
-        h = rms_norm(x, lp["attn"]["ln"])
+        h = pre_norm(x, lp["attn"], cfg.norm)
         q, k_new, v_new, scale = _decode_qkv(h, lp["attn"], cfg, positions)
         # the decode cache is always striped over the ring: chunk rows
         # scatter by absolute position exactly like single-token appends

@@ -39,6 +39,16 @@ of the ring's n, and its n-th at most the SSD chunk or a multiple of it.
 The paged pool, continuous prefill and speculative verify raise
 ``ValueError`` for them.
 
+Frontend archs serve through one-shot bucketed prefill alone, as in JAX:
+each prompt prefills alone (no packing) with the stub's side input, zero
+``frames`` (whisper: the encoder runs once per admission and its
+cross-attention K/V land in the slot's dense ``cross_k``/``cross_v`` rows)
+or zero ``patches`` (pixtral: positions below ``num_patches`` embed to the
+projection of zero).  Continuous prefill and speculative verify raise
+``ValueError`` for both, the paged pool for whisper (its cross K/V have no
+page structure); pixtral may use the paged pool, fp or quantized.  At
+sp_size > 1 both raise ``NotImplementedError`` (ROADMAP A.9).
+
 With ``ctx.sp_size`` n > 1 the engine serves over a sequence-parallel ring
 (a ``VirtualRing``: every rank on one device), as JAX's does over its mesh
 axis: the cache is sharded over the ranks (``core/decode_attention.py``),
@@ -142,6 +152,7 @@ class ServeEngine:
                 f"{cfg.name}: serving a MoE arch over a sequence-parallel ring needs expert "
                 "parallelism (the dispatch all-to-all over the ranks): ROADMAP A.7"
             )
+        tfm.check_ring_supported(cfg, n, "serving")
         if serve.max_seq % n:
             raise ValueError(f"max_seq={serve.max_seq} must be divisible by sp_size={n}")
         if serve.decode_kernel != "auto":
@@ -166,7 +177,8 @@ class ServeEngine:
         self.pack_plan = serve.pack_plan
         # continuous prefill (None = one-shot bucketed prefill)
         self.prefill_chunk = serve.prefill_chunk
-        if self.prefill_chunk is not None and cfg.ssm is not None:
+        side_inputs = cfg.ssm is not None or cfg.encoder_layers or cfg.frontend is not None
+        if self.prefill_chunk is not None and side_inputs:
             raise ValueError(
                 "continuous prefill serves attention-only decoder archs "
                 "(SSM state / encoder / frontend inputs have no chunk-append)"
@@ -176,7 +188,7 @@ class ServeEngine:
         self.spec_k = serve.spec_k
         self.spec_max_misses = serve.spec_max_misses
         self._spec_on = serve.spec_k >= 2 and serve.spec_draft != "off"
-        if self._spec_on and cfg.ssm is not None:
+        if self._spec_on and side_inputs:
             raise ValueError(
                 "speculative decode rides the chunk-attention verify path: "
                 "attention-only decoder archs (no SSM / encoder / frontend)"
@@ -187,7 +199,7 @@ class ServeEngine:
         self.dequant_fallbacks = 0  # quantized ticks served by the gather path
         self.allocator: Optional[PageAllocator] = None
         if serve.paged:
-            if cfg.ssm is not None:
+            if cfg.ssm is not None or cfg.encoder_layers:
                 raise ValueError(
                     "the paged KV cache serves attention-only decoder archs "
                     "(SSM state / encoder cross-K/V have no page structure)"
@@ -217,9 +229,9 @@ class ServeEngine:
             prefill_chunk=serve.prefill_chunk, tick_token_budget=serve.tick_token_budget,
         )
         self.pack_max = max(1, serve.pack_max)
-        # packed prefill: attention-only decoder archs (the SSD state does
-        # not pack)
-        self._can_pack = serve.pack_prefill and cfg.ssm is None
+        # packed prefill: attention-only decoder archs (the SSD state and
+        # the frontend / encoder side inputs do not pack)
+        self._can_pack = serve.pack_prefill and not side_inputs
         # THE cache: allocated once, updated in place for the engine's lifetime
         self._cache = tfm.init_cache(
             cfg, self.num_slots, self.max_seq, dtype=serve.cache_dtype, ctx=self.ctx,
@@ -282,6 +294,18 @@ class ServeEngine:
         if n > 1 and self.cfg.causal_layout == "striped":
             return np.asarray(stripe_permutation(bucket, n))
         return np.arange(bucket)
+
+    def _aux_inputs(self, batch_size: int) -> Dict:
+        """Frontend stub inputs (audio frames / vision patches): zeros, as
+        JAX's engine feeds them."""
+        cfg, extra = self.cfg, {}
+        if cfg.frontend == "audio_stub":
+            extra["frames"] = torch.zeros((batch_size, cfg.encoder_seq, cfg.frontend_dim),
+                                          dtype=torch.float32, device=self.device)
+        if cfg.frontend == "vision_stub":
+            extra["patches"] = torch.zeros((batch_size, cfg.num_patches, cfg.frontend_dim),
+                                           dtype=torch.float32, device=self.device)
+        return extra
 
     def _sync_block_table(self):
         """Upload the allocator's block table when it moved since last sync."""
@@ -526,6 +550,7 @@ class ServeEngine:
             "tokens": self._to_device(toks[:, perm]),
             "positions": self._to_device(perm.astype(np.int32)),
             "length": torch.tensor([plen]),
+            **self._aux_inputs(1),
         }
         if self.paged:
             batch["slot"] = slot
@@ -534,10 +559,10 @@ class ServeEngine:
             logits, self._cache = tfm.prefill(self.params, self.cfg, self.ctx, batch, self._cache)
         else:
             # prefill straight into the slot's rows: views of every cache
-            # leaf (K/V, and the SSM conv window and state)
+            # leaf (K/V, the encoder's cross K/V, the SSM conv window and state)
             row = {
-                key: self._cache[key][:, slot : slot + 1] for key in ("k", "v")
-                if key in self._cache
+                key: self._cache[key][:, slot : slot + 1]
+                for key in ("k", "v", "cross_k", "cross_v") if key in self._cache
             }
             if "ssm" in self._cache:
                 row["ssm"] = {key: val[:, slot : slot + 1]

@@ -94,6 +94,18 @@ FLASH_CASES = {
     # 4 kv-head CTAs: the keys split 8 ways, merged by the combine
     "decode_split_gemma": (2, 1, 2048, 4, 2, 256, [(2047, 0, 0, INF), (900, 0, 0, 511)], 1, 1,
                            False),
+    # whisper-base (8 / 8 heads of 64): the encoder's non-causal 1536 rows,
+    # cross-attention prefill (the 64-token bucket over 1536 encoder rows;
+    # a ragged 37 at batch 2), cross-attention decode (8 slots x 1 over
+    # 1536, the keys split across CTAs) and the decoder's dense-cache
+    # self-attention decode (8 slots over max_seq 448)
+    "whisper_encoder": (1, 1536, 1536, 8, 8, 64, (0, 0, -INF, INF), 1, 1, False),
+    "whisper_cross_prefill": (1, 64, 1536, 8, 8, 64, (0, 0, -INF, INF), 1, 1, False),
+    "whisper_cross_ragged": (2, 37, 1536, 8, 8, 64, (0, 0, -INF, INF), 1, 1, False),
+    "whisper_cross_decode": (8, 1, 1536, 8, 8, 64, (0, 0, -INF, INF), 1, 1, False),
+    "whisper_self_decode": (8, 1, 448, 8, 8, 64,
+                            [(p, 0, 0, INF) for p in (4, 17, 64, 100, 200, 300, 447, 0)], 1, 1,
+                            False),
 }
 
 
@@ -255,6 +267,17 @@ BWD_CASES = {
     "segments_d256": (2, 200, 200, 4, 2, 256, (0, 0, 0, ref.BAND_INF), 1, 1, True),
     "striped_d256": (1, 192, 192, 2, 2, 256, (1, 0, 0, ref.BAND_INF), 2, 2, False),
     "cross_length_d256": (1, 100, 260, 4, 2, 256, (0, -160, 0, ref.BAND_INF), 1, 1, False),
+    # whisper-base's training bands (8 / 8 heads of 64): the encoder's
+    # non-causal square, the decoder rows' full band over the encoder rows
+    # (448 x 1536), and ragged row counts (440; 441, whose rows' lse and
+    # delta vectors start off a 16-byte boundary in every head but the first)
+    "whisper_encoder": (2, 1536, 1536, 8, 8, 64, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1,
+                        False),
+    "whisper_cross": (2, 448, 1536, 8, 8, 64, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
+    "whisper_cross_ragged": (1, 440, 1536, 8, 8, 64, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1,
+                             False),
+    "whisper_cross_odd": (1, 441, 1536, 8, 8, 64, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1,
+                          False),
 }
 # (atol, rtol) of dq/dk/dv.  fp32: both sides sum in fp32 in other orders;
 # bf16: the outputs are rounded to bf16 (one ulp is at most 2**-7 of the value)
@@ -955,6 +978,64 @@ def test_engine_on_card_matches_cpu(dev, paged, pack):
         streams[name] = [done[r].generated for r in rids]
         if paged:
             assert eng.kv_cache_stats()["pages_in_use"] == 0
+    assert streams["card"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Sq", [448, 440])
+def test_flash_attention_op_cross_band_grads_match_plain(dev, Sq, dtype):
+    """ops.flash_attention with causal=False and Sq != Skv (whisper's
+    cross-attention under autograd): the forward kernel, then the dQ and
+    dK/dV kernels, against the same op on the CPU (the plain versions)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(Sq)
+    shapes = [(2, Sq, 8, 64), (2, 1536, 8, 64), (2, 1536, 8, 64), (2, Sq, 8, 64)]
+    q, k, v, do = (_randn(rng, *s, dtype=dtype, dev=dev) for s in shapes)
+    grads = {}
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
+              fa.flash_attention_bwd.launches_dkv)
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(where).detach().requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, causal=False)
+        grads[where] = (out, *torch.autograd.grad(out, leaves, do.to(where)))
+    after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq,
+             fa.flash_attention_bwd.launches_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    atol, rtol = BWD_TOLS[dtype]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.float().cpu(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("arch,paged", [("whisper-base", False), ("pixtral-12b", False),
+                                        ("pixtral-12b", True)])
+def test_frontend_engine_on_card_matches_cpu(dev, arch, paged):
+    """Reduced whisper-base (the encoder once per admission, cross-attention
+    decode over the slot's rows) and pixtral-12b (prompts past its 8
+    patches), fp32: the engine on the card and on the CPU serve identical
+    greedy streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    def to(tree, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    serve = ServeConfig(max_seq=64, num_slots=3, paged=paged, page_size=4 if paged else None)
+    rng = np.random.default_rng(0)
+    trace = [(5, 0), (19, 0), (11, 1), (30, 3)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n, _ in trace]
+    streams = {}
+    for name, p, device in (("card", to(params, dev), "cuda"), ("cpu", params, "cpu")):
+        eng = ServeEngine(cfg, p, ParallelCtx(device=device), serve=serve)
+        rids = [eng.submit(x, 6, arrival_tick=t) for x, (_, t) in zip(prompts, trace)]
+        done = eng.run()
+        streams[name] = [done[r].generated for r in rids]
     assert streams["card"] == streams["cpu"]
 
 

@@ -248,14 +248,19 @@ def test_params_from_jax_keeps_bf16_and_layout(model):
 
 
 def test_other_families_raise():
-    """The MoE family is ported (its archs resolve); MLA and the encoder
-    are not, and still raise."""
+    """The MoE, VLM and audio families are ported (their archs resolve, and
+    a decoder given an encoder builds its encoder and cross-attention); MLA
+    is not, and still raises, as minicpm3-4b's config does."""
     assert tget_config("mixtral-8x7b").family == "moe"
     assert tget_config("qwen2-moe-a2.7b").moe.num_shared == 4
+    assert tget_config("pixtral-12b").family == "vlm"
+    assert tget_config("whisper-base").family == "audio"
     base = tget_config("granite-8b").reduced()
+    params = ttfm.init_params(dataclasses.replace(base, encoder_layers=2), device="cpu")
+    assert params["encoder"]["layers"]["attn"]["wq"].shape[0] == 2
+    assert params["layers"]["xattn"]["wk"].shape[0] == base.num_layers
     for cfg, what in (
         (dataclasses.replace(base, mla=MLAConfig(32, 16, 16, 16, 32)), "MLA"),
-        (dataclasses.replace(base, encoder_layers=2), "encoder"),
         (dataclasses.replace(base, family="moe"), "MoE config off its family"),
     ):
         with pytest.raises(NotImplementedError, match=what):
