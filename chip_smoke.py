@@ -51,7 +51,17 @@ Phases, each printing one JSON line:
                  over 1536), the cross-attention decode (8 slots x 1 row over
                  1536) and the decoder's dense-cache decode (8 slots over
                  448); the backward over the encoder's band and the cross
-                 band (448 rows, and a ragged 440, over 1536).
+                 band (448 rows, and a ragged 440, over 1536).  And at
+                 minicpm3-4b's MLA (drawn last): the tile body at head dim
+                 96 over the expanded 40 / 40 heads (causal 2048) and at
+                 288 over the absorbed latent (40 query heads on one kv
+                 head: a 256-token chunk and a 4-row verify over 2048), fp32
+                 and bf16; the paged decode's wide bodies at head dim 288,
+                 group 40, with bf16 and fp32 queries over fp, int8 and fp8
+                 pools, all at MLA's scale 96^-0.5 (the bf16 paged rows pass
+                 an element past 1e-3 only as one bf16 rounding step).
+                 Granite's S 1024 forward rows are drawn, not run, since
+                 PR 31 (the run's time).
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
                  weights served by the engine on the card (kernels) and on the
                  CPU (plain versions), dense and paged caches; the greedy streams
@@ -192,7 +202,7 @@ Phases, each printing one JSON line:
                  and no call of a kernel's plain version in either run.
   4q. slice_whisper -- whisper-base whole (6 + 6 layers), fp32, its
                  LayerNorms drawn away from their init: 8 prompts of 4-64
-                 tokens, 128 new tokens each, 8 slots, max_seq 448, the
+                 tokens, 64 new tokens each (128 before PR 31), 8 slots, max_seq 448, the
                  dense cache, on the card and on the CPU: streams identical,
                  first-token logits within 1e-3.
   4r. serve_whisper -- whisper-base whole in bf16 on 4q's trace: the encoder
@@ -207,6 +217,21 @@ Phases, each printing one JSON line:
                  positions, then text), 8 new tokens, on the card over the
                  dense cache and the paged pool against the CPU: streams
                  identical, first-token logits within 1e-3.
+  4u. slice_minicpm (after 4t) -- minicpm3-4b (MLA) at full width cut to
+                 2 layers, fp32: card vs CPU over the dense cache and the
+                 paged pool (streams identical, first-token logits within
+                 1e-3: #1's fp32 tile body at head dims 96 and 288, the wide
+                 CUDA-core #4) and an int8 pool with chunk 256 and spec_k 4
+                 (its first prompt slice_quant's looping one, for drafts; a
+                 flip only on a near-tie, within 5e-3).
+  4v. serve_minicpm -- minicpm3-4b whole (62 layers, 4.26e9 parameters, 8.52
+                 GB) in bf16 on the serve trace, 512 pages of 16, runs (a)
+                 and (b) as serve_qwen's: #1's tile body at head dim 96 62
+                 times a prefill launch, #4 / 4q at 288 (group 40) 62 times
+                 a decode tick, #1's fp32 tile body at 288 62 times a chunk
+                 or verify launch, no plain version called; ms a tick, a
+                 profiled tick's device time against the weights bound, its
+                 idle share, peak memory.
   4t. serve_pixtral -- pixtral-12b whole (40 layers, 12.25e9 parameters,
                  24.5 GB) in bf16: 8 requests of 1024 + 32 ... 512 tokens at
                  the serve trace's ticks, 32 new tokens, 8 slots, max_seq
@@ -314,7 +339,8 @@ Phases, each printing one JSON line:
                  instantiations of #1, #4 and 4q,
                  counted over serve_gemma, and of #2 and #3, counted over
                  train_gemma (whose launches also join the backward's and
-                 the fp32 forward's rows); the ranks' combine a row of
+                 the fp32 forward's rows), for MLA's #1 at head dims 96 and
+                 288 and #4 / 4q at 288, counted over serve_minicpm; the ranks' combine a row of
                  its own; #5b's row from train_ssm; the fp32 forward's
                  pre-pass a row of its own, counted over the same main-path
                  runs as the fp32 forward's row, once per launch), the card
@@ -486,7 +512,17 @@ QWEN_HEADS = (40, 8, 128)
 GEMMA_HEADS = (16, 16, 256)
 # a group of 2 at gemma's head dim: the backward's sum over the group
 GEMMA_GQA2_HEADS = (16, 8, 256)
+# minicpm3-4b's MLA: prefill over the expanded heads (40 / 40 of 96, V padded
+# from 64 to the qk width), and decode, chunks and verifies over the
+# absorbed latent (40 query heads on one latent head of 256 + 32), both at
+# the softmax scale of the expanded heads, qk^-0.5 = 96^-0.5
+MLA_PREFILL_HEADS = (40, 40, 96)
+MLA_LATENT_HEADS = (40, 1, 288)
+MLA_SCALE = 96**-0.5
 FLASH_TC_SRC = "src/repro_torch/csrc/flash_fwd_tc.cu"
+# #1's tile body at MLA's head dims (96, 288): the same kernels
+# (csrc/flash_fwd_tc.cuh), a library of their own
+FLASH_MLA_SRC = "src/repro_torch/csrc/flash_fwd_mla.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -529,7 +565,7 @@ def ptxas_summary(lib_path, prefix="flash_fwd_"):
 
     def kernel_name(mangled):
         # <length><prefix><word>_kernel[I<template args>E]
-        k = re.search(r"\d(" + prefix + r"[a-z]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+        k = re.search(r"\d(" + prefix + r"[a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
         if k is None:
             return None
         args = re.findall(r"Li(\d+)E", k.group(2) or "")
@@ -608,7 +644,8 @@ def fwd_body_delta(before):
     return {b: n - before[b] for b, n in fwd_body_counts(tuple(before)).items()}
 
 
-def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
+def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64, scale=None,
+               measure=True):
     """One flash-forward case; granite-8b's heads unless ``heads`` (H, Hkv,
     D) says otherwise.  ``verify`` and ``chunk`` are the serving path's
     speculative verify (spec_k 4) and prefill chunk (256) over S cached
@@ -621,9 +658,13 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
     ``ranks`` n > 1: the launch of sequence-sharded serving over a ring of
     n, the ranks folded into the rows -- row b*n + i is rank i's S/n slots
     of slot b, band (pos_b, i, 0, hi), stride n -- and slot 0's chunk starts
-    at 0, so the first rows of ranks 1 .. n-1 see no key."""
+    at 0, so the first rows of ranks 1 .. n-1 see no key.  ``scale``: the
+    softmax scale (default hd^-0.5; MLA's latent takes MLA_SCALE).
+    ``measure=False`` draws the case's inputs from ``gen`` and returns None
+    (a row cut for the run's time keeps every later row's inputs)."""
     INF = ref.BAND_INF
     nh, nkv, hd = heads
+    scale = hd**-0.5 if scale is None else scale
     B, Sq, Skv, sq, skv, seg = 1, S, S, 1, 1, None
     band = (0, 0, 0, INF)
     hymba = tuple(heads) == HYMBA_HEADS
@@ -652,7 +693,9 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
     q = randn(gen, B, Sq, nh, hd, dtype=dtype)
     k = randn(gen, B, Skv, nkv, hd, dtype=dtype)
     v = randn(gen, B, Skv, nkv, hd, dtype=dtype)
-    kw = dict(scale=hd**-0.5, stride_q=sq, stride_kv=skv, seg_q=seg, seg_kv=seg)
+    if not measure:
+        return None
+    kw = dict(scale=scale, stride_q=sq, stride_kv=skv, seg_q=seg, seg_kv=seg)
     plain_band = band if not isinstance(band, torch.Tensor) else tuple(band[:, i] for i in range(4))
     run = lambda: fa.flash_attention_fwd(q, k, v, band, **kw)  # noqa: E731
     plain = lambda: ref.attention_ref(q, k, v, band=plain_band, **kw)  # noqa: E731
@@ -680,10 +723,10 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if name in ("causal", "full", "cross", "cross_decode"):  # no mask
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=name == "causal", scale=hd**-0.5, enable_gqa=True)
+            qt, kt, vt, is_causal=name == "causal", scale=scale, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=attn_mask, scale=hd**-0.5, enable_gqa=True)
+            qt, kt, vt, attn_mask=attn_mask, scale=scale, enable_gqa=True)
     item = q.element_size()
     # q read and o written once, the visible keys' K and V read once, lse
     # written, the segment ids read
@@ -713,11 +756,27 @@ def flash_case(name, S, dtype, gen, heads=(H, HKV, D), ranks=1, q_rows=64):
     return rec
 
 
-def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
+def bf16_rounding_flips(o, o_ref, tol):
+    """(elements of o off o_ref by more than tol, whether each of them is one
+    bf16 rounding step: the two sides round fp32 values that straddle a
+    bf16 boundary to neighbouring values, one ulp apart)."""
+    d = (o.float() - o_ref.float()).abs()
+    over = d > tol
+    if not bool(over.any()):
+        return 0, True
+    mag = torch.maximum(o.float().abs(), o_ref.float().abs())[over]
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)  # bf16: 8 significant bits
+    return int(over.sum()), bool((d[over] <= ulp).all())
+
+
+def paged_case(window, dtype, gen, flush, heads=(H, HKV, D), scale=None, ulp_flips=False):
     """One paged-decode case at the main path's pool: 8 slots, page 16,
     max_seq 2048; mixed depths, partial last pages, -1 past each row's depth,
     one all-empty row; granite-8b's heads unless ``heads`` (H, Hkv, D) says
-    otherwise."""
+    otherwise; ``scale`` the softmax scale (default the wrapper's, hd^-0.5).
+    ``ulp_flips`` (MLA's rows, bf16 o): an element past the tolerance passes
+    when it is one bf16 rounding step from the plain version's
+    (``bf16_rounding_flips``)."""
     nh, nkv, hd = heads
     B, ps, max_seq = 8, 16, 2048
     max_pages = max_seq // ps
@@ -736,7 +795,7 @@ def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
     k_pool = randn(gen, num_pages, ps, nkv, hd, dtype=dtype)
     v_pool = randn(gen, num_pages, ps, nkv, hd, dtype=dtype)
     q = randn(gen, B, 1, nh, hd, dtype=dtype)
-    kw = dict(stride_kv=1, window=window)
+    kw = dict(stride_kv=1, window=window, scale=scale)
     run = lambda: pk.paged_flash_decode(q, k_pool, v_pool, bt_t, pos, 0, **kw)  # noqa: E731
     plain = lambda: pk.paged_decode_ref(q, k_pool, v_pool, bt_t, pos, 0, **kw)  # noqa: E731
     o, lse = run()
@@ -760,6 +819,7 @@ def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
     flops = 4 * hd * nh * visible_tokens
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     tol = TOLS[("paged_flash_decode", dtype)]
+    flips, flips_ok = bf16_rounding_flips(o, o_ref, tol)
     rec = dict(
         kernel="paged_flash_decode", case=f"window{window}" if window else "full",
         B=B, heads=list(heads), page_size=ps, depths=depths, dtype=DTYPE_NAMES[dtype],
@@ -770,9 +830,10 @@ def paged_case(window, dtype, gen, flush, heads=(H, HKV, D)):
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
         plain_ms=time_ms(plain, flush=flush), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, visible_tokens=visible_tokens,
-        visible_pages=visible_pages,
+        visible_pages=visible_pages, rounding_flips=flips,
     )
-    check(err <= tol and err_lse <= LSE_TOL and empty_exact,
+    within = err <= tol or (ulp_flips and dtype == torch.bfloat16 and flips_ok)
+    check(within and err_lse <= LSE_TOL and empty_exact,
           f"paged_flash_decode disagrees with its plain version: {rec}")
     return rec
 
@@ -830,11 +891,13 @@ def split_combine_case(dtype, gen):
     return rec
 
 
-def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
+def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D), scale=None,
+                     ulp_flips=False):
     """The quantized decode (4q) at the main path's pool: 8 slots, page 16,
     max_seq 2048, granite heads unless ``heads`` says otherwise; codes and
     scales quantized on the card from random K/V; the same depths as
-    ``paged_case`` (an all-empty row last)."""
+    ``paged_case`` (an all-empty row last); ``scale`` and ``ulp_flips`` as
+    there."""
     nh, nkv, hd = heads
     B, ps, max_seq = 8, 16, 2048
     max_pages = max_seq // ps
@@ -853,7 +916,7 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
     kq, ks = kv_quant.quantize(randn(gen, num_pages, ps, nkv, hd, dtype=torch.float32), kv_dtype)
     vq, vs = kv_quant.quantize(randn(gen, num_pages, ps, nkv, hd, dtype=torch.float32), kv_dtype)
     q = randn(gen, B, 1, nh, hd, dtype=dtype)
-    kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs)
+    kw = dict(stride_kv=1, window=window, k_scale=ks, v_scale=vs, scale=scale)
     run = lambda: pk.paged_flash_decode(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
     plain = lambda: pk.paged_decode_ref(q, kq, vq, bt_t, pos, 0, **kw)  # noqa: E731
     before = pk.paged_flash_decode.quant_launches
@@ -876,6 +939,7 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
     visible_tokens = sum(max(d - lo_b, 0) for d, lo_b in zip(depths, lo))
     bound_ms, bound_by = bound(nbytes, 4 * hd * nh * visible_tokens, dtype)
     tol = TOLS[("paged_flash_decode", dtype)]
+    flips, flips_ok = bf16_rounding_flips(o, o_ref, tol)
     rec = dict(
         kernel="paged_flash_decode_quant", case=f"window{window}" if window else "full",
         kv_dtype=kv_dtype, B=B, heads=list(heads), page_size=ps, depths=depths,
@@ -886,9 +950,11 @@ def quant_paged_case(kv_dtype, window, dtype, gen, flush, heads=(H, HKV, D)):
         ms=time_ms(run, flush=flush), **paged_device_ms(run, flush),
         plain_ms=time_ms(plain, flush=flush), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, visible_pages=visible_pages, bytes=nbytes,
+        rounding_flips=flips,
     )
     check(launched == 1, f"the quantized decode did not go through its kernel: {rec}")
-    check(err <= tol and err_lse <= LSE_TOL and empty_exact,
+    within = err <= tol or (ulp_flips and dtype == torch.bfloat16 and flips_ok)
+    check(within and err_lse <= LSE_TOL and empty_exact,
           f"quantized paged_flash_decode disagrees with its plain version: {rec}")
     return rec
 
@@ -1333,12 +1399,15 @@ def serve_trace(eng, lengths, arrivals, new_tokens, vocab, seed):
     return [done[r] for r in rids]
 
 
-def cross_device(arch="granite-8b", phase="slice", quant_run=False):
+def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=False):
     """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions).
     QKV biases (qwen2.5-32b) are drawn nonzero: init leaves them 0.
     ``quant_run``: a third run over an int8 pool with chunk 256 and spec_k
     4, held as slice_quant holds its pools (a flip only on a near-tie,
-    first-token logits within SLICE_LOGIT_TOL["int8"])."""
+    first-token logits within SLICE_LOGIT_TOL["int8"]).  ``loop_prompt``:
+    that run's first prompt is slice_quant's looping one (12 tokens 8
+    times) in place of a random one, so that the prompt-lookup proposer has
+    drafts to verify where the model's own stream never repeats a token."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     if cfg.qkv_bias:
@@ -1381,14 +1450,15 @@ def cross_device(arch="granite-8b", phase="slice", quant_run=False):
             check(launches["cuda"][1] > 0, f"{tag}: the paged engine never launched #4")
     if quant_run:
         out["int8_chunk_spec"] = _slice_int8_chunk_spec(cfg, params, params_cpu, lengths,
-                                                         arrivals, phase)
+                                                         arrivals, phase, loop_prompt)
     del params, params_cpu
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
           "lengths": lengths, "new_tokens": 8, **out})
 
 
-def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase):
+def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase,
+                           loop_prompt=False):
     """cross_device's int8 run: chunk 256 (budget 512), spec_k 4, page 16,
     card vs CPU.  Streams identical but for near-tie flips (both sides
     score the two candidates within twice the limit), first-token logits
@@ -1405,7 +1475,16 @@ def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase):
         pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
         eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
         eng.capture_logits = True
-        res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
+        if loop_prompt:
+            loop = _slice_quant_trace(cfg.vocab_size)[0][0]
+            rng = np.random.default_rng(1)
+            prompts = [loop] + [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+                                for n in lengths[1:]]
+            rids = [eng.submit(pr, 8, arrival_tick=t) for pr, t in zip(prompts, arrivals)]
+            done = eng.run()
+            res = [done[r] for r in rids]
+        else:
+            res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
         side[dev] = dict(
             streams=[r.generated for r in res], logits=[eng.debug_logits[r.rid] for r in res],
             launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
@@ -3264,6 +3343,7 @@ def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LE
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "num_layers": cfg.num_layers,
           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+          "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params, "dtype": "bf16",
           "max_seq": 2048, "num_slots": 8, "page_size": 16, "num_pages": num_pages,
           "lengths": lengths, "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32,
@@ -3296,6 +3376,27 @@ def serve_gemma(card):
 
 
 # --------------------------------------------------------------------------
+# phases 4u and 4v: minicpm3-4b (MLA)
+# --------------------------------------------------------------------------
+
+MINICPM_ARCH = "minicpm3-4b"
+# serve_minicpm's pool: 512 pages of 16 (8,192 tokens) hold the serve trace's
+# 5,314 tokens; at 62 layers x one latent head of 288 x 2 (K and V, the same
+# latent written twice) x 2 B a token that is 0.58 GB in bf16 (71,424 bytes
+# a token), beside 8.52 GB of weights
+MINICPM_PAGES = 512
+
+
+def serve_minicpm(card):
+    """minicpm3-4b whole (62 layers, 4.26e9 parameters) in bf16 on the card
+    (``_serve_whole``): prefill on #1's tile body at head dim 96, decode
+    ticks on #4 / 4q at head dim 288 with 40 query heads on the latent, the
+    int8 pool's chunks and verifies on #1's fp32 tile body at 288; no plain
+    version called."""
+    return _serve_whole(card, MINICPM_ARCH, MINICPM_PAGES, "serve_minicpm")
+
+
+# --------------------------------------------------------------------------
 # phases 4q-4t: the encoder-decoder and VLM families (whisper-base,
 # pixtral-12b)
 # --------------------------------------------------------------------------
@@ -3309,6 +3410,10 @@ WHISPER_HEADS = (8, 8, 64)
 # context); the buckets 16 ... 64 and the encoder's 1536 rows
 WHISPER_LENGTHS = [4, 9, 16, 23, 32, 41, 50, 64]
 WHISPER_NEW = 128
+# slice_whisper's new tokens a prompt: its CPU side decodes every one of them
+# (26.6 of its 30.1 s at 128 in PR 30's final run), cut for the run's time in
+# PR 31 (serve_whisper keeps 128)
+WHISPER_SLICE_NEW = 64
 WHISPER_MAX_SEQ = 448
 PIXTRAL_ARCH = "pixtral-12b"
 # pixtral's prompts: an image's 1024 patch positions, then text (the
@@ -3382,20 +3487,20 @@ def _card_vs_cpu(cfg, params, serves, lengths, arrivals, new_tokens, phase):
 
 def slice_whisper():
     """whisper-base whole (6 + 6 layers), fp32, its LayerNorms drawn away
-    from their init: the whisper trace (128 new tokens) over the dense cache
-    on the card and on the CPU.  Streams identical, first-token logits
-    within 1e-3."""
+    from their init: the whisper trace (WHISPER_SLICE_NEW new tokens) over
+    the dense cache on the card and on the CPU.  Streams identical,
+    first-token logits within 1e-3."""
     cfg = get_config(WHISPER_ARCH)
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     _perturb_norms(params, seed=5)
     serve = ServeConfig(max_seq=WHISPER_MAX_SEQ, num_slots=8, cache_dtype=torch.float32)
     rec, problems = _card_vs_cpu(cfg, params, {"dense": serve}, WHISPER_LENGTHS,
-                                 SERVE_ARRIVALS, WHISPER_NEW, "slice_whisper")
+                                 SERVE_ARRIVALS, WHISPER_SLICE_NEW, "slice_whisper")
     del params
     torch.cuda.empty_cache()
     emit({"phase": "slice_whisper", "arch": WHISPER_ARCH, "layers": [cfg.encoder_layers,
           cfg.num_layers], "dtype": "fp32", "lengths": WHISPER_LENGTHS,
-          "new_tokens": WHISPER_NEW, "max_seq": WHISPER_MAX_SEQ, **rec})
+          "new_tokens": WHISPER_SLICE_NEW, "max_seq": WHISPER_MAX_SEQ, **rec})
     check(not problems, "; ".join(problems))
 
 
@@ -4607,6 +4712,32 @@ def _profile_mesh_step(cfg, ctx, params, seq):
             "device_idle_share": (1 - busy / wall_ms) if device_ms else None}
 
 
+def mla_kernel_cases(gen):
+    """minicpm3-4b's kernel rows (the kernels phase): #1 at head dims 96
+    and 288, #4 / 4q at head dim 288 with a group of 40, at MLA's scale.
+    #4 / 4q's bf16 limit (1e-3) is below one bf16 ulp of any o above 0.25,
+    and at MLA's scale (96^-0.5 over 288 dims) the softmax is peaked enough
+    that o reaches there: their bf16 rows take an element past the limit
+    only as one rounding step from the plain version (``ulp_flips``), and
+    say how many."""
+    out = {"flash": [], "paged": [], "quant": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        out["flash"].append(flash_case("causal", 2048, dtype, gen, heads=MLA_PREFILL_HEADS))
+        for name in ("chunk", "verify"):
+            out["flash"].append(flash_case(name, 2048, dtype, gen, heads=MLA_LATENT_HEADS,
+                                           scale=MLA_SCALE))
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    flush = lambda: scratch.add_(1)  # noqa: E731
+    for dtype in (torch.bfloat16, torch.float32):
+        out["paged"].append(paged_case(None, dtype, gen, flush, heads=MLA_LATENT_HEADS,
+                                       scale=MLA_SCALE, ulp_flips=True))
+        for kv_dtype in QUANT_DTYPES:
+            out["quant"].append(quant_paged_case(kv_dtype, None, dtype, gen, flush,
+                                                 heads=MLA_LATENT_HEADS, scale=MLA_SCALE,
+                                                 ulp_flips=True))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -4619,6 +4750,7 @@ def main():
     libs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {**(ptxas_summary(libs["flash_fwd_tc"]) or {}),
+             **(ptxas_summary(libs["flash_fwd_mla"]) or {}),
              **(ptxas_summary(libs["flash_bwd"], prefix="flash_bwd_") or {}),
              **(ptxas_summary(libs["paged_decode"], prefix="paged_decode_") or {}),
              **(ptxas_summary(libs["ssd_scan"], prefix="ssd_scan_") or {}),
@@ -4634,9 +4766,13 @@ def main():
     gen.manual_seed(0)
     flash, paged, bwd = [], [], []
     for dtype in (torch.float32, torch.bfloat16):
+        # granite's S 1024 rows (the S 2048 rows' shapes at half the length)
+        # are cut for the run's time since PR 31: drawn, not run
         for S in (1024, 2048):
             for name in ("causal", "window", "striped", "segment", "decode", "verify", "chunk"):
-                flash.append(flash_case(name, S, dtype, gen))
+                rec = flash_case(name, S, dtype, gen, measure=S == 2048)
+                if rec is not None:
+                    flash.append(rec)
         # hymba-1.5b's attention: window prefill, and the dense-cache decode
         # tick of its 8 slots over max_seq 2048
         for S in (1024, 1536):
@@ -4781,6 +4917,16 @@ def main():
         flash.append(flash_case("decode", WHISPER_MAX_SEQ, dtype, gen, heads=WHISPER_HEADS))
         for rows in (1536, WHISPER_MAX_SEQ, 440):
             bwd.append(bwd_case("full", 1536, dtype, gen, heads=WHISPER_HEADS, Sq=rows))
+    # minicpm3-4b's MLA (drawn after every earlier case): #1's tile body at
+    # head dim 96 over the expanded 40 / 40 heads (causal prefill at 2048)
+    # and at head dim 288 over the absorbed latent (40 query heads on one kv
+    # head: a 256-token chunk and a 4-row verify over 2048), both types; #4
+    # and 4q at head dim 288, group 40 (8 slots, depths to 2047), bf16 and
+    # fp32 queries, over fp, int8 and fp8 pools
+    mla = mla_kernel_cases(gen)
+    flash += mla["flash"]
+    paged += mla["paged"]
+    quant += mla["quant"]
     emit({"phase": "kernels", "card": card,
           "cases": flash + paged + quant + combine + ssd_cases + ssd_bwd_cases + bwd + [split]
           + [fwd_split] + mesh_blocks
@@ -4817,6 +4963,10 @@ def main():
     whisper_launches = serve_whisper(card)
     slice_pixtral()
     pixtral_launches = serve_pixtral(card)
+    # minicpm3-4b (MLA: #1 at head dims 96 and 288, #4 / 4q at 288, group
+    # 40): card vs CPU at 2 layers, then served whole
+    cross_device(MINICPM_ARCH, phase="slice_minicpm", quant_run=True, loop_prompt=True)
+    minicpm_launches = serve_minicpm(card)
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
@@ -4854,11 +5004,11 @@ def main():
     for key in ("flash_attention_fwd (fp32)", "flash_fwd_split", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_split"):
         launches[key] += ssm_train[key]
-    # serve_moe's, serve_qwen's, serve_gemma's, serve_whisper's and
-    # serve_pixtral's runs join the serving rows
+    # serve_moe's, serve_qwen's, serve_gemma's, serve_whisper's,
+    # serve_pixtral's and serve_minicpm's runs join the serving rows
     for key, n in (list(moe_launches.items()) + list(qwen_launches.items())
                    + list(gemma_launches.items()) + list(whisper_launches.items())
-                   + list(pixtral_launches.items())):
+                   + list(pixtral_launches.items()) + list(minicpm_launches.items())):
         launches[key] += n
     # serve_ssm_ring's ring runs: #5 folded, hymba's prefill blocks and
     # folded decode rows, the ranks' combine
@@ -4985,6 +5135,33 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": gemma_launches[key], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    # minicpm3-4b's MLA, counted over serve_minicpm: #1's bf16 tile body at
+    # head dim 96 (its prefills), its fp32 tile body at 288 (the int8 pool's
+    # chunks and verifies over the latent), #4 and 4q at 288, group 40 (its
+    # decode ticks), each timed at that run's row
+    latent = list(MLA_LATENT_HEADS)
+    for name, key, src, replaces, rec in (
+        ("flash_attention_fwd (head dim 96: tile body, MLA prefill)",
+         "flash_attention_fwd (tile)", FLASH_MLA_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "causal" and r["dtype"] == "bf16"
+              and r["heads"] == list(MLA_PREFILL_HEADS))),
+        ("flash_attention_fwd (head dim 288: fp32 tile body, MLA chunks and verifies)",
+         "flash_attention_fwd (fp32)", FLASH_MLA_SRC, FLASH_REPLACES,
+         next(r for r in flash if r["case"] == "chunk" and r["dtype"] == "fp32"
+              and r["heads"] == latent)),
+        ("paged_flash_decode (head dim 288, group 40)", "paged_flash_decode", PAGED_SRC,
+         PAGED_REPLACES, next(r for r in paged if r["dtype"] == "bf16" and r["heads"] == latent)),
+        ("paged_flash_decode (quantized branch, head dim 288, group 40)",
+         "paged_flash_decode_quant", PAGED_SRC, QUANT_REPLACES,
+         next(r for r in quant if r["kv_dtype"] == "int8" and r["dtype"] == "bf16"
+              and r["heads"] == latent)),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": minicpm_launches[key], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
     # whisper-base's bands (8 / 8 heads of 64): #1 counted over serve_whisper

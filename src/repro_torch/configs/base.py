@@ -2,9 +2,8 @@
 
 One ``ModelConfig`` describes an architecture; ``reduced()`` gives the
 family-preserving small config the CPU tests use.  The sub-configs (MoE, SSM,
-MLA) are kept so a config reads the same in both packages, although the
-port serves the dense, SSM, hybrid, MoE, VLM and audio families only (no
-MLA yet).
+MLA) are kept so a config reads the same in both packages; the port serves
+every family (MLA in the dense one).
 """
 
 from __future__ import annotations

@@ -66,6 +66,11 @@
 //     the tensor-core body reads Q's fragments from shared memory instead of
 //     holding all 64 registers of them (QFrag), and the fp32 body's ring
 //     keeps one stage per warp (two would need 261 KB);
+//   * head dim 288 at GQA groups up to 48 (minicpm3-4b's absorbed MLA
+//     latent: 40 query heads on one latent head): o over the group's rows
+//     and all of D would be 432 registers a lane, so the block shares each
+//     tile through one ring and its 9 warps own (16-row tile, third of D)
+//     pieces of o (paged_decode_wide_*_kernel, below);
 //   * the warps' (m, l, o) merge in shared memory in a fixed order.  A row
 //     that one block serves gets o and lse from it; a row shared by several
 //     gets a normalized fp32 partial and its lse from each, and
@@ -314,7 +319,7 @@ __device__ __forceinline__ void walk_tiles(const Args& a, const Share& sh, int h
 // A row with no visible slot: its one block writes o = 0, lse = NEG_INF
 template <typename OutT>
 __device__ void write_empty(const Args& a, int b, int hk, int G, int D) {
-  for (int idx = threadIdx.x; idx < G * (D + 1); idx += NT) {
+  for (int idx = threadIdx.x; idx < G * (D + 1); idx += blockDim.x) {
     const int g = idx / (D + 1), d = idx % (D + 1);
     const size_t bh = (size_t)b * a.H + hk * G + g;
     if (d < D)
@@ -764,6 +769,473 @@ __global__ void __launch_bounds__(NT) paged_decode_simt_kernel(const __grid_cons
 }
 
 // ===========================================================================
+// D = 288 at GQA groups up to 48: MLA's absorbed latent (minicpm3-4b: 40
+// query heads against one latent "head" of kv_lora_rank + rope = 288 dims)
+// ===========================================================================
+//
+// The bodies above keep a warp's o over all of the group's rows and all of
+// D in registers: 48 padded rows x 288 dims would be 432 a lane.  So here
+// the block shares each K / V tile: 9 warps, warp w owning row tile w / 3
+// (16 of the 48 padded rows) and third w % 3 of D (96 dims) of o, and all of
+// them walk the block's tiles together through one ring in shared memory
+// (filled by every thread's cp.asyncs, WIDE_STAGES tiles in flight, a block
+// barrier per tile).  Each warp computes its row tile's scores over the
+// whole of D (the three warps of a row tile repeat that product: bytes, not
+// products, bound the kernel) and so holds its rows' (m, l) itself: a warp
+// writes its own (rows, dims) of o, with no merge between warps.  A row
+// tile wholly past the group computes nothing.  The split over the row's
+// tiles, the combine, the quantized branch, the masks and the NaN paths
+// are those of the bodies above.
+
+constexpr int WIDE_D = 288;
+constexpr int WIDE_GROUP = 48;  // three 16-row tiles
+constexpr int WIDE_WARPS = 9;   // 3 row tiles x 3 thirds of D
+constexpr int WIDE_NT = 32 * WIDE_WARPS;
+
+// A stage: [K tile | V tile | 16 k scales | 16 v scales | 16 visible flags],
+// token rows RS bytes apart (an odd multiple of 16: ldmatrix conflict-free)
+template <int EB, int D>
+struct WideRing {
+  static constexpr int ELEM = EB;
+  static constexpr int RS = D * EB + 16;
+  static constexpr int CH = D * EB / 16;
+  static constexpr int TILE = KT * RS;
+  static constexpr int SCALES = 2 * TILE;
+  static constexpr int VIS = SCALES + 2 * KT * 4;
+  static constexpr int STAGE = VIS + KT * 4;
+  static constexpr int STAGES = EB == 4 ? 3 : 4;
+  static constexpr int ALL = STAGES * STAGE;
+};
+
+// shared memory of a wide block: the ring, Q (bf16 [48][D + 8] in fragment
+// order for the tensor-core body, fp32 [48][D] for the CUDA-core one), and
+// (CUDA-core body) the warps' P tiles [WIDE_WARPS][16][KT]
+template <typename R, int D>
+struct WideSmem {
+  static constexpr int Q = R::ALL;
+  static constexpr int QRS = (D + 8) * 2;
+  static constexpr int MMA = Q + WIDE_GROUP * QRS;
+  static constexpr int P = Q + WIDE_GROUP * D * 4;
+  static constexpr int SIMT = P + WIDE_WARPS * 16 * KT * 4;
+};
+
+// The block's copy of tile t into a stage: every thread's 16-byte chunks of
+// its K and V rows; threads 0-15 the tile's visible flags (and the k
+// scales), 16-31 the v scales.  A hidden slot is zero-filled and never read.
+template <typename R, int D, bool QUANT>
+__device__ __forceinline__ void wide_issue(uint32_t stage, int* vis, const Args& a,
+                                           const Share& sh, const int* bt_row, int t, int hk) {
+  constexpr int EB = R::ELEM;
+  for (int idx = threadIdx.x; idx < KT * R::CH + 2 * KT; idx += WIDE_NT) {
+    const int r = idx < KT * R::CH ? idx / R::CH : (idx - KT * R::CH) % KT;
+    const int j = (sh.tile0 + t) * KT + r;
+    const int phys = j >= sh.j_lo && j <= sh.j_hi ? bt_row[j / a.page_size] : -1;
+    const bool ok = phys >= 0;
+    const size_t row = ok ? ((size_t)phys * a.page_size + j % a.page_size) * a.Hkv + hk : 0;
+    if (idx < KT * R::CH) {
+      const int c = idx % R::CH;
+      const uint32_t dst = stage + r * R::RS + c * 16;
+      const size_t off = row * (D * EB) + c * 16;
+      cp_async16(dst, static_cast<const uint8_t*>(a.k_pool) + off, ok);
+      cp_async16(dst + R::TILE, static_cast<const uint8_t*>(a.v_pool) + off, ok);
+    } else {
+      const int kind = (idx - KT * R::CH) / KT;  // 0: k scale and the flag, 1: v scale
+      if (kind == 0) vis[r] = ok;
+      if constexpr (QUANT)
+        cp_async4(stage + R::SCALES + kind * KT * 4 + r * 4,
+                  (kind == 0 ? a.k_scale : a.v_scale) + row, ok);
+    }
+  }
+}
+
+// The block's walk over its share: WIDE_STAGES - 1 tiles in flight ahead of
+// the one in use; body(stage bytes, stage address, visible mask) runs on
+// every tile with a visible slot, in every thread (a block barrier on each
+// side of it)
+template <typename R, int D, bool QUANT, typename Body>
+__device__ __forceinline__ void wide_walk(const Args& a, const Share& sh, int hk, uint8_t* smem,
+                                          Body&& body) {
+  constexpr int S = R::STAGES;
+  const uint32_t s0 = smem_u32(smem);
+  const int* bt_row = a.bt + (size_t)blockIdx.z * a.max_pages;
+  const int n = sh.t_end - sh.t_begin;
+  auto vis_of = [&](int st) { return reinterpret_cast<int*>(smem + st * R::STAGE + R::VIS); };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) wide_issue<R, D, QUANT>(s0 + i * R::STAGE, vis_of(i), a, sh, bt_row, sh.t_begin + i, hk);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    const int in = i + S - 1;
+    if (in < n)
+      wide_issue<R, D, QUANT>(s0 + (in % S) * R::STAGE, vis_of(in % S), a, sh, bt_row,
+                              sh.t_begin + in, hk);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    __syncthreads();  // tile i has landed, for every thread
+    const int st = i % S;
+    const int* vis = vis_of(st);
+    uint32_t vm = 0;
+#pragma unroll
+    for (int r = 0; r < KT; ++r) vm |= vis[r] ? 1u << r : 0u;
+    if (vm != 0)  // uniform over the block
+      body(smem + st * R::STAGE, s0 + st * R::STAGE, vm);
+    __syncthreads();  // stage st is free again
+  }
+  cp_async_wait<0>();
+}
+
+// One element of o (the row's only block: direct) or of the block's
+// partial, from its unnormalized sum acc and the row sum L
+template <typename OutT>
+__device__ __forceinline__ void wide_store(const Args& a, int b, int hk, int G, int split,
+                                           bool direct, int row, int d, float acc, float L) {
+  const float val = !(L <= 0.f) ? acc / L : 0.f;  // a NaN sum passes
+  const int h = hk * G + row;
+  if (direct)
+    static_cast<OutT*>(a.o)[((size_t)b * a.H + h) * WIDE_D + d] = OutT(val);
+  else
+    a.o_parts[(((size_t)b * a.splits + split) * a.H + h) * WIDE_D + d] = val;
+}
+
+// The row's lse (m2: its running max in the log2 domain), as wide_store
+__device__ __forceinline__ void wide_store_lse(const Args& a, int b, int hk, int G, int split,
+                                               bool direct, int row, float m2, float L) {
+  const float val = !(L <= 0.f) ? m2 * kLn2 + logf(L) : kNegInf;
+  const int h = hk * G + row;
+  if (direct)
+    a.lse[(size_t)b * a.H + h] = val;
+  else
+    a.lse_parts[((size_t)b * a.splits + split) * a.H + h] = val;
+}
+
+// bf16 q: products on mma.sync, as paged_decode_mma_kernel's
+template <int POOL, int D>
+__global__ void __launch_bounds__(WIDE_NT) paged_decode_wide_mma_kernel(
+    const __grid_constant__ Args a) {
+  constexpr bool QUANT = POOL != POOL_FP;
+  using R = WideRing<QUANT ? 1 : 2, D>;
+  using SM = WideSmem<R, D>;
+  constexpr int DT = D / 3;       // dims of o per warp
+  constexpr int NB = DT / 8;      // its n-blocks
+  static_assert(D % 96 == 0, "a third of D is whole 32-dim blocks");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp / 3, dt = warp % 3;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const Share sh = solve_share(a, b, split);
+  if (split >= sh.eff) return;  // no share: the row's merge skips this block
+  if (sh.t_begin == sh.t_end) {  // (eff = 1)
+    write_empty<bf16>(a, b, hk, G, D);
+    return;
+  }
+  // Q [48][D + 8] bf16, rows past G zero, dims in fragment order over a
+  // quantized pool (paged_decode_mma_kernel's QFrag layout)
+  {
+    const bf16* qb = static_cast<const bf16*>(a.q) + ((size_t)b * a.H + hk * G) * D;
+    bf16* qs = reinterpret_cast<bf16*>(smem + SM::Q);
+    for (int idx = tid; idx < WIDE_GROUP * D; idx += WIDE_NT) {
+      const int row = idx / D, k = idx % D, k16 = k % 16;
+      const int dim = QUANT ? k - k16 + 4 * ((k16 % 8) / 2) + 2 * (k16 / 8) + k16 % 2 : k;
+      qs[row * (SM::QRS / 2) + k] = row < G ? qb[(size_t)row * D + dim] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const bool active = rt * 16 < G;  // uniform over the warp
+  const uint32_t sQf = smem_u32(smem + SM::Q) +
+                       (rt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * SM::QRS + (lane / 16) * 16;
+
+  float oacc[NB][4];
+  float m2[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+
+  wide_walk<R, D, QUANT>(a, sh, hk, smem, [&](const uint8_t* pst, uint32_t sK, uint32_t vm) {
+    if (!active) return;
+    const uint32_t sV = sK + R::TILE;
+    const float* ksc = reinterpret_cast<const float*>(pst + R::SCALES);
+    const float* vsc = ksc + KT;
+    // S = Q K^T over all of D, 16 rows x 16 slots, each k16 product into a
+    // fresh accumulator added on the CUDA cores (paged_decode_mma_kernel)
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if constexpr (!QUANT) {
+#pragma unroll 6
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4], af[4];
+        ldsm_x4(sK + ((lane / 16) * 8 + lane % 8) * R::RS + (kk * 16 + ((lane / 8) % 2) * 8) * 2,
+                bk);
+        ldsm_x4(sQf + kk * 32, af);
+        float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        mma_bf16(u[0], af, bk[0], bk[1]);
+        mma_bf16(u[1], af, bk[2], bk[3]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[e / 4][e % 4] += u[e / 4][e % 4];
+      }
+    } else {
+#pragma unroll 3
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        uint32_t bk[4];
+        ldsm_x4(sK + (((lane / 8) % 2) * 8 + lane % 8) * R::RS + (kk + lane / 16) * 16, bk);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          uint32_t af[4];
+          ldsm_x4(sQf + (kk + half) * 32, af);
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const uint32_t w = bk[2 * half + nb];
+            mma_bf16(u[nb], af, codes_bf16x2<POOL>(w), codes_bf16x2<POOL>(w >> 16));
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[e / 4][e % 4] += u[e / 4][e % 4];
+        }
+      }
+    }
+    float rmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = nb * 8 + 2 * (lane % 4) + (e & 1);
+        float x = s[nb][e] * a.scale_log2;
+        if constexpr (QUANT) x *= ksc[slot];
+        x = (vm >> slot) & 1u ? x : neg_inf();
+        s[nb][e] = x;
+        rmax[e / 2] = fmaxf(rmax[e / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float m_new = fmaxf(m2[h2], quad_max(rmax[h2]));
+      alpha[h2] = fast_exp2(m2[h2] - m_new);
+      m2[h2] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[nb][e] - m2[e / 2]);
+        psum[e / 2] += p;
+        if constexpr (QUANT)
+          s[nb][e] = p * vsc[nb * 8 + 2 * (lane % 4) + (e & 1)];
+        else
+          s[nb][e] = p;
+      }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) lsum[h2] = lsum[h2] * alpha[h2] + psum[h2];
+    uint32_t pf[3][4];
+    split3_bf16(s[0][0], s[0][1], pf[0][0], pf[1][0], pf[2][0]);
+    split3_bf16(s[0][2], s[0][3], pf[0][1], pf[1][1], pf[2][1]);
+    split3_bf16(s[1][0], s[1][1], pf[0][2], pf[1][2], pf[2][2]);
+    split3_bf16(s[1][2], s[1][3], pf[0][3], pf[1][3], pf[2][3]);
+    auto pv2 = [&](int n0, uint32_t b00, uint32_t b01, uint32_t b10, uint32_t b11) {
+      float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int term = 2; term >= 0; --term) {
+        mma_bf16(u[0], pf[term], b00, b01);
+        mma_bf16(u[1], pf[term], b10, b11);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        oacc[n0 + e / 4][e % 4] = oacc[n0 + e / 4][e % 4] * alpha[(e % 4) / 2] + u[e / 4][e % 4];
+    };
+    // o = alpha o + P V over this warp's third of D
+    if constexpr (!QUANT) {
+#pragma unroll
+      for (int lp = 0; lp < DT / 16; ++lp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(sV + (((lane / 8) % 2) * 8 + lane % 8) * R::RS +
+                          ((dt * (DT / 16) + lp) * 16 + (lane / 16) * 8) * 2,
+                      bv);
+        pv2(2 * lp, bv[0], bv[1], bv[2], bv[3]);
+      }
+    } else {
+#pragma unroll
+      for (int lc = 0; lc < DT / 32; ++lc) {
+        uint32_t bv[4];
+        ldsm_x4_trans(sV + (((lane / 8) % 2) * 8 + lane % 8) * R::RS +
+                          (2 * (dt * (DT / 32) + lc) + lane / 16) * 16,
+                      bv);
+#pragma unroll
+        for (int g2 = 0; g2 < 2; ++g2) {
+          const uint32_t lo8 = __byte_perm(bv[2 * g2], 0, 0x3120);
+          const uint32_t hi8 = __byte_perm(bv[2 * g2 + 1], 0, 0x3120);
+          pv2(2 * (2 * lc + g2), codes_bf16x2<POOL>(lo8), codes_bf16x2<POOL>(hi8),
+              codes_bf16x2<POOL>(lo8 >> 16), codes_bf16x2<POOL>(hi8 >> 16));
+        }
+      }
+    }
+  });
+
+  if (!active) return;
+  const bool direct = sh.eff == 1;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float L = quad_sum(lsum[h2]);
+    const int row = rt * 16 + lane / 4 + 8 * h2;
+    if (row >= G) continue;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int col = 2 * (lane % 4) + p;
+        const int d = dt * DT + (QUANT ? 16 * (n / 2) + 2 * col + (n & 1) : 8 * n + col);
+        wide_store<bf16>(a, b, hk, G, split, direct, row, d, oacc[n][2 * h2 + p], L);
+      }
+    if (dt == 0 && lane % 4 == 0) wide_store_lse(a, b, hk, G, split, direct, row, m2[h2], L);
+  }
+}
+
+// fp32 q: on the CUDA cores, as paged_decode_simt_kernel's: a slot per lane
+// pair for the scores (each half of D), the row tile's rows by shuffles, P
+// through shared memory for P.V, a lane holding dims lane + 32 c of the
+// warp's third
+template <int POOL, int D>
+__global__ void __launch_bounds__(WIDE_NT) paged_decode_wide_simt_kernel(
+    const __grid_constant__ Args a) {
+  constexpr bool QUANT = POOL != POOL_FP;
+  using R = WideRing<QUANT ? 1 : 4, D>;
+  using SM = WideSmem<R, D>;
+  constexpr int DH = D / 2;        // dims per half-warp in the scores
+  constexpr int DT = D / 3;        // dims of o per warp
+  constexpr int DC = DT / 32;      // dims per lane in P.V
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp / 3, dt = warp % 3;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const Share sh = solve_share(a, b, split);
+  if (split >= sh.eff) return;
+  if (sh.t_begin == sh.t_end) {
+    write_empty<float>(a, b, hk, G, D);
+    return;
+  }
+  float* Qs = reinterpret_cast<float*>(smem + SM::Q);  // [48][D], zero past G
+  float* pw = reinterpret_cast<float*>(smem + SM::P) + warp * 16 * KT;  // [16][KT]
+  {
+    const float* qb = static_cast<const float*>(a.q) + ((size_t)b * a.H + hk * G) * D;
+    for (int idx = tid; idx < WIDE_GROUP * D; idx += WIDE_NT)
+      Qs[idx] = idx / D < G ? qb[idx] : 0.f;
+  }
+  __syncthreads();
+  const int g0 = rt * 16;
+  const int ng = G - g0 < 16 ? G - g0 : 16;  // this warp's rows (<= 0: none)
+
+  float m[16], l[16], acc[16][DC];
+#pragma unroll
+  for (int g = 0; g < 16; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[g][c] = 0.f;
+  }
+
+  const int r = lane & (KT - 1), half = lane >> 4;
+  wide_walk<R, D, QUANT>(a, sh, hk, smem, [&](const uint8_t* Kt, uint32_t, uint32_t vm) {
+    if (ng <= 0) return;
+    const uint8_t* Vt = Kt + R::TILE;
+    const float* ksc = reinterpret_cast<const float*>(Kt + R::SCALES);
+    const float* vsc = ksc + KT;
+    float s[16];
+#pragma unroll
+    for (int g = 0; g < 16; ++g) s[g] = 0.f;
+    const float* qh = Qs + g0 * D + half * DH;
+    if constexpr (!QUANT) {
+      const float* kr = reinterpret_cast<const float*>(Kt + r * R::RS) + half * DH;
+#pragma unroll 4
+      for (int d = 0; d < DH; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {
+          if (g >= ng) break;
+          const float4 q4 = *reinterpret_cast<const float4*>(qh + g * D + d);
+          s[g] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
+        }
+      }
+    } else {
+      const uint8_t* kr = Kt + r * R::RS + half * DH;
+#pragma unroll 1
+      for (int d = 0; d < DH; d += 16) {
+        const uint4 c4 = *reinterpret_cast<const uint4*>(kr + d);
+        const uint32_t w[4] = {c4.x, c4.y, c4.z, c4.w};
+        float kf[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) kf[e] = code_f32<POOL>(w[e / 4] >> (8 * (e % 4)));
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {
+          if (g >= ng) break;
+#pragma unroll
+          for (int e = 0; e < 16; e += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qh + g * D + d + e);
+            s[g] += q4.x * kf[e] + q4.y * kf[e + 1] + q4.z * kf[e + 2] + q4.w * kf[e + 3];
+          }
+        }
+      }
+    }
+    const bool vis = (vm >> r) & 1u;
+    const float kmul = QUANT ? a.scale_log2 * ksc[r] : a.scale_log2;
+    const float vmul = QUANT ? vsc[r] : 1.f;
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      if (g >= ng) break;  // uniform over the warp
+      const float sg = s[g] + __shfl_xor_sync(0xffffffffu, s[g], 16);
+      const float x = vis ? sg * kmul : neg_inf();
+      float tmax = x;
+#pragma unroll
+      for (int off = 1; off < KT; off <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m[g], tmax);
+      const float alpha = fast_exp2(m[g] - m_new);
+      const float p = fast_exp2(x - m_new);
+      float ps = p;
+#pragma unroll
+      for (int off = 1; off < KT; off <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[g] = l[g] * alpha + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[g][c] *= alpha;
+      if (half == 0) pw[g * KT + r] = p * vmul;
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int tk = 0; tk < KT; ++tk) {
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = dt * DT + lane + 32 * c;
+        if constexpr (QUANT)
+          vv[c] = code_f32<POOL>(Vt[tk * R::RS + d]);
+        else
+          vv[c] = reinterpret_cast<const float*>(Vt + tk * R::RS)[d];
+      }
+#pragma unroll
+      for (int g = 0; g < 16; ++g) {
+        if (g >= ng) break;
+        const float pt = pw[g * KT + tk];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[g][c] += pt * vv[c];
+      }
+    }
+    __syncwarp();  // this warp's P tile is free again
+  });
+
+  const bool direct = sh.eff == 1;
+#pragma unroll
+  for (int g = 0; g < 16; ++g) {
+    if (g >= ng) break;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      wide_store<float>(a, b, hk, G, split, direct, g0 + g, dt * DT + lane + 32 * c, acc[g][c],
+                        l[g]);
+    if (dt == 0 && lane == 0) wide_store_lse(a, b, hk, G, split, direct, g0 + g, m[g], l[g]);
+  }
+}
+
+// ===========================================================================
 // the split combine
 // ===========================================================================
 
@@ -773,7 +1245,8 @@ __global__ void __launch_bounds__(NT) paged_decode_simt_kernel(const __grid_cons
 // = NEG_INF.  After the main kernel (solve: geo holds its arguments), a row
 // merges the partials of its eff blocks, and a row with eff = 1 (written by
 // its block) is left alone; alone, every row merges all S.  A lane holds
-// dims lane + 32 c for c < D / 32 <= DCMAX (4 up to D = 128, 8 at 256).
+// dims lane + 32 c for c < D / 32 <= DCMAX (4 up to D = 128, 8 at 256, 9 at
+// 288).
 template <int BF16_OUT, int DCMAX>
 __global__ void __launch_bounds__(128) paged_decode_combine_kernel(
     const float* __restrict__ o_parts, const float* __restrict__ lse_parts, void* __restrict__ o,
@@ -840,10 +1313,12 @@ cudaError_t launch_combine(const float* o_parts, const float* lse_parts, void* o
                            cudaStream_t stream) {
   const long long rows = (long long)B * H;
   const unsigned blocks = (unsigned)((rows + 3) / 4);
-  auto kern = D > 128 ? (bf16_out ? paged_decode_combine_kernel<1, 8>
-                                  : paged_decode_combine_kernel<0, 8>)
-                       : (bf16_out ? paged_decode_combine_kernel<1, 4>
-                                  : paged_decode_combine_kernel<0, 4>);
+  auto kern = D > 256   ? (bf16_out ? paged_decode_combine_kernel<1, 9>
+                                    : paged_decode_combine_kernel<0, 9>)
+              : D > 128 ? (bf16_out ? paged_decode_combine_kernel<1, 8>
+                                    : paged_decode_combine_kernel<0, 8>)
+                        : (bf16_out ? paged_decode_combine_kernel<1, 4>
+                                    : paged_decode_combine_kernel<0, 4>);
   kern<<<blocks, 128, 0, stream>>>(o_parts, lse_parts, o, lse, B, S, H, D, geo, solve);
   return cudaGetLastError();
 }
@@ -864,12 +1339,30 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 template <int POOL, bool MMA>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  constexpr int D = WIDE_D;
+  constexpr int EB = POOL != POOL_FP ? 1 : (MMA ? 2 : 4);
+  using SM = WideSmem<WideRing<EB, D>, D>;
+  constexpr int smem = MMA ? SM::MMA : SM::SIMT;
+  auto kern = MMA ? paged_decode_wide_mma_kernel<POOL, D> : paged_decode_wide_simt_kernel<POOL, D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.splits, a.Hkv, B);
+  kern<<<grid, WIDE_NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return launch_combine(a.o_parts, a.lse_parts, a.o, a.lse, B, a.splits, a.H, D, MMA ? 1 : 0, a,
+                        1, stream);
+}
+
+template <int POOL, bool MMA>
 cudaError_t dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<POOL, 32, MMA>(a, B, stream);
     case 64: return launch<POOL, 64, MMA>(a, B, stream);
     case 128: return launch<POOL, 128, MMA>(a, B, stream);
     case 256: return launch<POOL, 256, MMA>(a, B, stream);
+    case WIDE_D: return launch_wide<POOL, MMA>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -902,7 +1395,8 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
                             int page_size, int max_pages, int splits, int kv_off, int stride_kv,
                             int hi, float scale, int dtype, int pool_type, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > MAX_GROUP || page_size < 1 || stride_kv < 1 ||
+  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > (D == WIDE_D ? WIDE_GROUP : MAX_GROUP) ||
+      page_size < 1 || stride_kv < 1 ||
       max_pages < 1 || splits < 1 || (splits > 1 && (o_parts == nullptr || lse_parts == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((pool_type != POOL_FP) != (k_scale != nullptr && v_scale != nullptr))
@@ -919,11 +1413,11 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
 }
 
 // The combine alone: o_parts [B, S, H, D] and lse_parts [B, S, H] fp32 ->
-// o [B, H, D] (dtype: 0 = float32, 1 = bfloat16; D 32, 64, 128 or 256) and lse
-// [B, H] fp32.
+// o [B, H, D] (dtype: 0 = float32, 1 = bfloat16; D 32, 64, 128, 256 or 288)
+// and lse [B, H] fp32.
 extern "C" int paged_decode_combine(const void* o_parts, const void* lse_parts, void* o, void* lse,
                                     int B, int S, int H, int D, int dtype, void* stream) {
-  if (S < 1 || (dtype != 0 && dtype != 1) || D % 32 != 0 || D > 256)
+  if (S < 1 || (dtype != 0 && dtype != 1) || D % 32 != 0 || (D > 256 && D != WIDE_D))
     return (int)cudaErrorInvalidValue;
   const Args none{};
   return (int)launch_combine(static_cast<const float*>(o_parts),

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd_tc", "flash_bwd", "paged_decode", "ssd_scan", "ssd_scan_bwd")
+SOURCES = ("flash_fwd_tc", "flash_fwd_mla", "flash_bwd", "paged_decode", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,11 +101,12 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
-    if name == "flash_fwd_tc":
+    if name in ("flash_fwd_tc", "flash_fwd_mla"):
         # the tile body: q k v band band_stride seg_q seg_kv o lse B Sq Skv H
         # Hkv D scale stride_q stride_kv terms stream
         lib.flash_fwd_tile.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd_tile.restype = i
+    if name == "flash_fwd_tc":
         # the decode body: q k v band band_stride seg_q seg_kv o lse o_parts
         # lse_parts splits B Sq Skv H Hkv D scale stride_q stride_kv terms
         # stream
@@ -115,6 +117,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # the fp32 pre-pass: src[] dst[] n[] count stream
         lib.flash_fwd_split.argtypes = [p, p, p, i, p]
         lib.flash_fwd_split.restype = i
+    elif name == "flash_fwd_mla":
+        pass  # the tile body alone, declared above
     elif name == "flash_bwd":
         # q k v do lse delta band seg_q seg_kv dq B Sq Skv H Hkv D scale
         # stride_q stride_kv terms stream

@@ -4,12 +4,14 @@ their plain versions.
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_fwd``
 and ``flash_attention_bwd``).  Both run every product on the tensor cores,
 bf16 inputs as one term per value and fp32 inputs as two bf16 terms (hi +
-lo) written by a split pre-pass.  The forward is ``csrc/flash_fwd_tc.cu``,
-with two bodies picked by shape (``_fwd_plan``): the tile body (wgmma) for
-prefill, chunks, windows and training, the decode body (mma.sync, split
-keys) for at most ``DECODE_MAX_ROWS`` packed rows (``DECODE_MAX_ROWS_D256``
-at head dim 256); each has a bf16 and an fp32 instantiation, at head dims
-``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
+lo) written by a split pre-pass.  The forward is ``csrc/flash_fwd_tc.cuh``,
+built as ``csrc/flash_fwd_tc.cu`` and, at MLA's head dims 96 and 288, as
+``csrc/flash_fwd_mla.cu``, with two bodies picked by shape (``_fwd_plan``):
+the tile body (wgmma) for prefill, chunks, windows and training, the decode
+body (mma.sync, split keys) for at most ``DECODE_MAX_ROWS`` packed rows
+(``DECODE_MAX_ROWS_D256`` at head dim 256; none at
+``TILE_ONLY_HEAD_DIMS``); each has a bf16 and an fp32 instantiation, at
+head dims ``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
 dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (at 256 with
 32-row streamed tiles, and dK/dV over two warpgroups).  See the notes at
 the sources' tops for the designs.
@@ -37,9 +39,12 @@ from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
-# both directions take head dim 256 (gemma-7b) too
-FWD_HEAD_DIMS = (32, 64, 128, 256)
+# both directions take head dim 256 (gemma-7b) too; the forward also takes
+# minicpm3-4b's MLA widths, 96 (the expanded heads of prefill) and 288 (the
+# absorbed latent of decode, chunks and verifies), on the tile body alone
+FWD_HEAD_DIMS = (32, 64, 96, 128, 256, 288)
 BWD_HEAD_DIMS = (32, 64, 128, 256)
+TILE_ONLY_HEAD_DIMS = (96, 288)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode body takes up to 32 packed rows (Sq * H / Hkv): a decode tick
 # (Sq = 1) and a speculative verify (Sq = spec_k), in either type; at head
@@ -132,14 +137,16 @@ def _fwd_plan(B: int, Sq: int, H: int, Hkv: int, D: int, dtype) -> Tuple[str, in
     """(body, key splits) of the forward, from the shapes and type alone (the
     host never reads the band): "decode" when the packed rows of one kv head
     (Sq * H / Hkv) fit the decode body, with the keys split across CTAs when
-    B * Hkv CTAs would leave most of the SMs idle, else "tile"; with a
-    "_fp32" suffix for fp32 inputs (their two-term instantiations)."""
+    B * Hkv CTAs would leave most of the SMs idle, else "tile" (always at
+    ``TILE_ONLY_HEAD_DIMS``); with a "_fp32" suffix for fp32 inputs (their
+    two-term instantiations)."""
     if D not in FWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd kernel takes head dims {FWD_HEAD_DIMS}, not {D}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_fwd kernel takes float32 or bfloat16, not {dtype}")
     suffix = "_fp32" if dtype == torch.float32 else ""
-    if Sq * (H // Hkv) > (DECODE_MAX_ROWS_D256 if D == 256 else DECODE_MAX_ROWS):
+    if (D in TILE_ONLY_HEAD_DIMS
+            or Sq * (H // Hkv) > (DECODE_MAX_ROWS_D256 if D == 256 else DECODE_MAX_ROWS)):
         return "tile" + suffix, 1
     ctas = B * Hkv
     if 2 * ctas > NUM_SMS:
@@ -226,7 +233,8 @@ def flash_attention_fwd(
     )
     dims = (B, Sq, Skv, H, Hkv, D, float(scale), int(stride_q), int(stride_kv), terms)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib = _build.load("flash_fwd_tc")
+    # MLA's head dims are a library of their own (csrc/flash_fwd_mla.cu)
+    lib = _build.load("flash_fwd_mla" if D in TILE_ONLY_HEAD_DIMS else "flash_fwd_tc")
     if body.startswith("tile"):
         _build.check(lib.flash_fwd_tile(*ptrs, *dims, stream), "flash_fwd_tile")
     else:

@@ -11,7 +11,9 @@ launched by the same C call, merges the fp32 partials of the rows several
 blocks shared by lse straight into o and lse; ``combine_split_partials`` is
 that merge's plain version (plain jnp outside the Pallas call in JAX).
 bf16 queries run on the tensor cores (``mma.sync``), fp32 queries on the
-CUDA cores.
+CUDA cores.  At head dim 288 (minicpm3-4b's absorbed MLA latent: 40 query
+heads on one kv head) the wide bodies take groups up to 48: the block
+shares each K / V tile and its warps own (rows, dims) pieces of o.
 
 Geometry matches ``core/decode_attention.py``: local slot ``j`` holds global
 position ``kv_offset + stride_kv * j`` and lives at offset ``j % page_size``
@@ -61,8 +63,11 @@ H100_SMS = 132
 # implicit page run; the largest divisor of m wins
 _DENSE_CHUNKS = (128, 64, 32, 16, 8, 4, 2, 1)
 
-KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256, 288)
+# query heads per kv head: one 16-row tile, or at head dim 288 (MLA's
+# absorbed latent) the wide bodies' three
 KERNEL_MAX_GROUP = 16
+KERNEL_MAX_GROUP_D288 = 48
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the pool's element type at the C interface: 0 = q's type, 1 = int8, 2 = fp8
 _POOL_CODES = {torch.int8: 1}
@@ -94,8 +99,9 @@ def _plan(B: int, H: int, hkv: int, D: int, max_pages: int, num_splits: Optional
         raise ValueError(f"paged_flash_decode kernel takes head dims {KERNEL_HEAD_DIMS}, not {D}")
     if hkv < 1 or H % hkv:
         raise ValueError(f"H={H} not divisible by Hkv={hkv}")
-    if H // hkv > KERNEL_MAX_GROUP:
-        raise ValueError(f"GQA group {H // hkv} > {KERNEL_MAX_GROUP}")
+    max_group = KERNEL_MAX_GROUP_D288 if D == 288 else KERNEL_MAX_GROUP
+    if H // hkv > max_group:
+        raise ValueError(f"GQA group {H // hkv} > {max_group} at head dim {D}")
     if num_splits is None:
         num_splits = default_num_splits(B, hkv, max_pages)
     return ("mma" if dtype == torch.bfloat16 else "simt"), max(1, min(int(num_splits), max_pages))

@@ -38,7 +38,11 @@ qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.  ``--arch
 gemma-7b`` serves gemma (head dim 256, GeGLU, tied embeddings) in every mode
 of the dense family; ``--reduced`` runs JAX's reduced config (head dim 32)
 on the CPU, and on the card ``--dtype bfloat16 --paged --page-size 16
---num-pages 512 --max-seq 2048`` serves it whole.  ``--arch pixtral-12b``
+--num-pages 512 --max-seq 2048`` serves it whole.  ``--arch minicpm3-4b``
+serves MLA (the latent cache: one head of 288 dims; prefill at head dim 96)
+in every mode of the dense family at sp_size 1 (``--fake-devices`` raises
+``NotImplementedError``); on the card ``--dtype bfloat16 --paged
+--page-size 16 --num-pages 512 --max-seq 2048`` serves it whole.  ``--arch pixtral-12b``
 (the VLM: zero patches fill the first 1024 positions, so give it prompts
 longer than that on the card, 8 with ``--reduced``) and ``--arch
 whisper-base`` (the encoder-decoder: zero frames, the encoder once per

@@ -60,9 +60,12 @@ def main(argv=None):
     from repro_torch.parallel.context import ParallelCtx
     from repro_torch.train.loop import TrainConfig, fit
 
+    from repro_torch.models.transformer import check_trainable
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_trainable(cfg)  # MLA (minicpm3-4b) serves but does not train yet
     dev = resolve_device(args.device)
     if args.fake_devices >= 8:
         ctx = ParallelCtx(sp_size=4, mesh_a=args.tile_a, attn_impl=args.attn,

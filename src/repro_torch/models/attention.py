@@ -4,8 +4,14 @@ non-causal self-attention for whisper's encoder, and cross-attention from
 the decoder's rows to the encoder's.
 
 The projections are plain matrix products; the attention itself goes through
-``repro_torch.core.dispatch``.  No backend module is imported here.  MLA and
-the latent wire come in later slices.
+``repro_torch.core.dispatch``.  No backend module is imported here.
+
+MLA (minicpm3-4b): q through a low-rank bottleneck, k and v from one latent
+per token (``kv_lora_rank`` dims of compressed KV and ``qk_rope_head_dim``
+of shared roped key), expanded per head for prefill and training (V padded
+up to the qk width, so one flash call serves q, k and v, and sliced back
+after it).  The latent wire over a ring (JAX's ``latent_wire_attention``)
+is not ported: ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
 from repro_torch.core.masking import MaskSpec
-from repro_torch.models.layers import dense_init, norm_params, pre_norm, rope
+from repro_torch.models.layers import dense_init, norm_params, pre_norm, rms_norm, rope
 from repro_torch.parallel.context import ParallelCtx
 
 __all__ = [
@@ -106,6 +112,21 @@ def chunk_attention_step(
 
 def init_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, dtype, device) -> dict:
     D, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(dtype=dtype, device=device)
+        return {
+            **norm_params(cfg.norm, (L, D), dtype, device),
+            "wq_a": dense_init(gen, (L, D, m.q_lora_rank), **kw),
+            "q_ln": torch.zeros((L, m.q_lora_rank), **kw),
+            "wq_b": dense_init(gen, (L, m.q_lora_rank, H * qk), **kw),
+            "wkv_a": dense_init(gen, (L, D, m.kv_lora_rank + m.qk_rope_head_dim), **kw),
+            "kv_ln": torch.zeros((L, m.kv_lora_rank), **kw),
+            "wkv_b": dense_init(gen, (L, m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
+                                **kw),
+            "wo": dense_init(gen, (L, H * m.v_head_dim, D), **kw),
+        }
     p = {
         **norm_params(cfg.norm, (L, D), dtype, device),
         "wq": dense_init(gen, (L, D, H * hd), dtype=dtype, device=device),
@@ -136,8 +157,54 @@ def init_cross_attention_params(gen: torch.Generator, cfg: ModelConfig, L: int, 
     }
 
 
+def mla_latent(x, p, cfg: ModelConfig, positions):
+    """MLA's per-token latent [B,S,1,kvr+rope]: the normed compressed KV and
+    the roped shared key.  What the cache stores and what prefill writes."""
+    m = cfg.mla
+    kv_a = x @ p["wkv_a"]  # [B,S,kvr + rope]
+    c_kv = rms_norm(kv_a[..., : m.kv_lora_rank], p["kv_ln"])
+    k_rope = rope(kv_a[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)
+    return torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)
+
+
+def mla_q(x, p, cfg: ModelConfig, positions):
+    """-> (q_nope [B,S,H,nope], q_rope [B,S,H,rope] roped)."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    cq = rms_norm(x @ p["wq_a"], p["q_ln"])
+    q = (cq @ p["wq_b"]).reshape(B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return q[..., : m.qk_nope_head_dim], rope(q[..., m.qk_nope_head_dim:], positions,
+                                              cfg.rope_theta)
+
+
+def _mla_q_latent(x, p, cfg: ModelConfig, positions):
+    """-> (q [B,S,H,qk] roped, latent [B,S,1,kvr+rope] roped)."""
+    q_nope, q_rope = mla_q(x, p, cfg, positions)
+    return torch.cat([q_nope, q_rope], dim=-1), mla_latent(x, p, cfg, positions)
+
+
+def _mla_expand(lat, wkv_b, cfg: ModelConfig):
+    """latent [B,m,1,kvr+rope] -> per-head (k [B,m,H,qk], v [B,m,H,qk]: V
+    zero-padded from v_head_dim up to qk, so one flash call serves q, k and
+    v; the caller slices o back)."""
+    m = cfg.mla
+    H = cfg.num_heads
+    B, S = lat.shape[0], lat.shape[1]
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kv_b = (lat[:, :, 0, : m.kv_lora_rank] @ wkv_b).reshape(
+        B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    r = lat[..., m.kv_lora_rank:].expand(B, S, H, m.qk_rope_head_dim)  # roped already
+    k = torch.cat([kv_b[..., : m.qk_nope_head_dim], r], dim=-1)
+    v = torch.nn.functional.pad(kv_b[..., m.qk_nope_head_dim:], (0, qk - m.v_head_dim))
+    return k.contiguous(), v.contiguous()
+
+
 def _project_qkv(x, p, cfg: ModelConfig, positions):
-    """-> q [B,S,H,hd], k [B,S,Hkv,hd], v [B,S,Hkv,hd] (q, k roped)."""
+    """-> q [B,S,H,hd], k [B,S,Hkv,hd], v [B,S,Hkv,hd] (q, k roped); MLA:
+    per-head q, k and padded v of the qk width."""
+    if cfg.mla is not None:
+        q, lat = _mla_q_latent(x, p, cfg, positions)
+        return (q,) + _mla_expand(lat, p["wkv_b"], cfg)
     B, S, _ = x.shape
     hd = cfg.hd
     q = x @ p["wq"]
@@ -170,6 +237,8 @@ def attention_block(
         q, k, v, ctx, causal=causal, window=cfg.window, layout=cfg.causal_layout,
         segments=segments,
     )
+    if cfg.mla is not None:
+        o = o[..., : cfg.mla.v_head_dim]
     return x + o.reshape(B, S, -1) @ p["wo"]
 
 

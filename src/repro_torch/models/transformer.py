@@ -1,5 +1,5 @@
 """Model assembly: init / forward / loss / cache / prefill / decode for the
-families of ``repro/models/transformer.py`` but MLA.
+families of ``repro/models/transformer.py``.
 
   dense   -- attention + gated MLP
   moe     -- attention + MoE (``models/moe.py``; one rank: no expert parallelism)
@@ -10,6 +10,14 @@ families of ``repro/models/transformer.py`` but MLA.
              cross-attention to the encoder and an ungated MLP; LayerNorm
   vlm     -- pixtral: the decoder backbone, whose positions below
              ``num_patches`` take projected patch embeddings (stubbed frontend)
+
+A dense config with ``mla`` (minicpm3-4b) runs Multi-head Latent Attention:
+prefill and the forward expand the latent per head (``models/attention.py``),
+while the cache holds the latent itself, one "head" of kv_lora_rank + rope
+dims written as both K and V, and decode, chunks and verifies absorb
+W^{kv_b}_K into q and W^{kv_b}_V into the output (``_decode_qkv``,
+``_decode_attn_out``), at the softmax scale qk^-0.5.  MLA is served at
+sp_size 1; its training and the ring raise (ROADMAP A.7, A.9).
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
@@ -81,8 +89,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """The port serves the dense, MoE, SSM, hybrid, VLM and audio families:
     GQA/MHA attention, routed (and shared) experts, SSD blocks, RMSNorm or
     LayerNorm, gated or plain MLPs, a non-causal encoder with
-    cross-attention, and the stubbed audio and vision frontends.  MLA is
-    not ported."""
+    cross-attention, the stubbed audio and vision frontends, and MLA in a
+    dense decoder (served at sp_size 1: ``check_ring_supported``;
+    ``check_trainable``)."""
     unsupported = [
         name for name, bad in (
             ("family not " + " / ".join(_FAMILIES), cfg.family not in _FAMILIES),
@@ -90,7 +99,7 @@ def check_supported(cfg: ModelConfig) -> None:
              (cfg.ssm is not None) != (cfg.family in ("ssm", "hybrid"))
              or cfg.hybrid != (cfg.family == "hybrid")),
             ("MoE config off its family", (cfg.moe is not None) != (cfg.family == "moe")),
-            ("MLA", cfg.mla is not None),
+            ("MLA off the dense family", cfg.mla is not None and cfg.family != "dense"),
             (f"norm {cfg.norm!r}", cfg.norm not in ("rmsnorm", "layernorm")),
             (f"frontend {cfg.frontend!r}", cfg.frontend not in (None, "audio_stub", "vision_stub")),
         ) if bad
@@ -103,12 +112,27 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_ring_supported(cfg: ModelConfig, sp_size: int, what: str) -> None:
-    """Frontend and encoder archs run at sp_size 1 only: over a ring they
-    raise (ROADMAP A.9)."""
+    """Frontend, encoder and MLA archs run at sp_size 1 only: over a ring
+    they raise (ROADMAP A.9)."""
     if sp_size > 1 and (cfg.encoder_layers or cfg.frontend is not None):
         raise NotImplementedError(
             f"{cfg.name}: {what} a frontend or encoder arch over a sequence-parallel ring is "
             "not ported: ROADMAP A.9 (frontend and encoder archs over the ring)"
+        )
+    if sp_size > 1 and cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} an MLA arch over a sequence-parallel ring needs the latent "
+            "wire (JAX's latent_wire_attention): ROADMAP A.9 (MLA over the ring)"
+        )
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """MLA serves but does not train yet: its backward needs #2 / #3 at head
+    dim 96 (ROADMAP A.7)."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MLA arch needs the flash backward (#2 / #3) at head dim "
+            f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}: ROADMAP A.7 (MLA training)"
         )
 
 
@@ -335,10 +359,20 @@ def loss_fn(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
 # --------------------------------------------------------------------------
 
 
+def attn_cache_dims(cfg: ModelConfig):
+    """(kv heads, head dim) as the cache stores them: MLA's absorbed-latent
+    cache is one "head" of kv_lora_rank + rope dims (JAX's
+    ``_attn_cache_dims``, whose k and v widths agree)."""
+    if cfg.mla is not None:
+        return 1, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    return cfg.num_kv_heads, cfg.hd
+
+
 def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx=None,
                paged=None, kv_dtype: str = "fp"):
     """Decode cache with a per-slot position vector ``pos: [B]`` on
-    ``ctx.device``.  Dense: K/V ``[L, B, cap, Hkv, D]``.  ``paged`` (a
+    ``ctx.device``.  Dense: K/V ``[L, B, cap, Hkv, D]`` (MLA: Hkv 1, D the
+    latent's width: ``attn_cache_dims``).  ``paged`` (a
     ``serve.kv_pool.PagedLayout``) switches K/V to a physical page pool
     ``[L, num_pages, n*page_size, Hkv, D]`` plus an int32 block table
     ``"bt": [B, max_pages]`` (-1 = unallocated).  ``kv_dtype`` "int8" /
@@ -360,7 +394,8 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16, ctx
     store = kv_quant.storage_dtype(kv_dtype, dtype)
     if kv_dtype != "fp" and paged is None:
         raise ValueError("quantized KV storage requires the paged cache")
-    L, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+    L = cfg.num_layers
+    hkv, d = attn_cache_dims(cfg)
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if cfg.ssm is not None:
         cache["ssm"] = ssm_mod.init_ssm_cache(cfg, L, batch, dtype, dev)
@@ -416,7 +451,9 @@ def _write_kv(cache, i: int, index, kk, vv) -> None:
 def _decode_qkv(h, lp, cfg: ModelConfig, pos):
     """Cache-space projections for decode.  h [B,S,D] -> (q [B,S,H,hd],
     k_new [B,S,Hkv,hd], v_new, scale).  ``pos``: scalar, [B] per-slot
-    vector (S=1 decode) or a [B, S] position grid."""
+    vector (S=1 decode) or a [B, S] position grid.  MLA: W^{kv_b}_K absorbed
+    into q (q [B,S,H,kvr+rope] against the latent [B,S,1,kvr+rope], which
+    is both k_new and v_new) at the scale qk^-0.5 of the expanded heads."""
     B, S = h.shape[0], h.shape[1]
     pos = torch.as_tensor(pos, device=h.device)
     if pos.dim() == 2:
@@ -425,6 +462,15 @@ def _decode_qkv(h, lp, cfg: ModelConfig, pos):
         positions = pos[:, None]
     else:
         positions = pos.reshape(1)
+    if cfg.mla is not None:
+        m = cfg.mla
+        q_nope, q_rope = attn.mla_q(h, lp, cfg, positions)
+        lat = attn.mla_latent(h, lp, cfg, positions)
+        # q_lat[h, r] = sum_n q_nope[h, n] Wb[r, h, n]
+        wb_k = lp["wkv_b"].reshape(m.kv_lora_rank, cfg.num_heads, -1)[..., : m.qk_nope_head_dim]
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wb_k)
+        q_eff = torch.cat([q_lat, q_rope], dim=-1)
+        return q_eff, lat, lat, (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     hd = cfg.hd
     q = h @ lp["wq"]
     k = h @ lp["wk"]
@@ -435,6 +481,17 @@ def _decode_qkv(h, lp, cfg: ModelConfig, pos):
     k = rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
     return q, k, v, hd**-0.5
+
+
+def _decode_attn_out(o, x, lp, cfg: ModelConfig) -> torch.Tensor:
+    """x + the attention output o [B,S,H,D] through ``wo``; MLA: o's latent
+    dims (the first kv_lora_rank) through W^{kv_b}_V first."""
+    B, S = o.shape[0], o.shape[1]
+    if cfg.mla is not None:
+        m = cfg.mla
+        wb_v = lp["wkv_b"].reshape(m.kv_lora_rank, cfg.num_heads, -1)[..., m.qk_nope_head_dim:]
+        o = torch.einsum("bshr,rhv->bshv", o[..., : m.kv_lora_rank], wb_v)
+    return x + o.reshape(B, S, -1) @ lp["wo"]
 
 
 def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=None,
@@ -456,7 +513,7 @@ def _decode_block(x, lp, cache_l, cfg: ModelConfig, ctx: ParallelCtx, pos, bt=No
         write_coords=write_coords, k_scale=cache_l.get("k_scale"),
         v_scale=cache_l.get("v_scale"),
     )[0]
-    y = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
+    y = _decode_attn_out(o, x, lp["attn"], cfg)
     if cfg.hybrid:
         s, new = ssm_mod.ssm_decode_step(x, lp["ssm"], cache_l["ssm"], cfg)
         _write_ssm(cache_l, new)
@@ -535,7 +592,11 @@ def _paged_prefill_coords(positions, bt_rows, n: int, page_size: int, write_mask
 
 
 def _project_kv_for_cache(h, lp, cfg: ModelConfig, positions):
-    """The K/V a prefill writes into the cache for ``h`` [B, S, D]."""
+    """The K/V (MLA: the latent, as both) a prefill writes into the cache for
+    ``h`` [B, S, D]."""
+    if cfg.mla is not None:
+        lat = attn.mla_latent(h, lp, cfg, positions)
+        return lat, lat
     B, S = h.shape[0], h.shape[1]
     k = h @ lp["wk"]
     v = h @ lp["wv"]
@@ -747,7 +808,7 @@ def _chunk_forward(params, cfg: ModelConfig, ctx: ParallelCtx, tokens, starts, l
             k_scale=cache_l.get("k_scale"), v_scale=cache_l.get("v_scale"),
             write_coords=coords,
         )[0]
-        x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
+        x = _decode_attn_out(o, x, lp["attn"], cfg)
         x = _ffn_block(x, lp, cfg, ctx)[0]
     return x
 

@@ -106,6 +106,26 @@ FLASH_CASES = {
     "whisper_self_decode": (8, 1, 448, 8, 8, 64,
                             [(p, 0, 0, INF) for p in (4, 17, 64, 100, 200, 300, 447, 0)], 1, 1,
                             False),
+    # minicpm3-4b's MLA on the tile body alone: head dim 96 (prefill over the
+    # expanded 40 / 40 heads: a ragged causal row, segments under a window
+    # off a multiple of 4 keys, a short prompt of 9 rows) and head dim 288
+    # (the absorbed latent, 40 query heads on one kv head: a chunk, a
+    # verify, decode ticks with a hidden row, segments and a window with
+    # GQA 2, rows long enough for the fp32 body's fold)
+    "mla_prefill_d96": (1, 333, 333, 40, 40, 96, (0, 0, 0, INF), 1, 1, False),
+    "mla_segments_window_d96": (1, 300, 300, 4, 2, 96, (3, 0, 0, 41), 1, 1, True),
+    "mla_short_d96": (2, 9, 9, 40, 40, 96, (0, 0, 0, INF), 1, 1, False),
+    "mla_chunk_d288": (8, 256, 1024, 40, 1, 288,
+                       [(p, 0, 0, INF) for p in (0, 256, 512, 700, 300, 768, 100, 900)], 1, 1,
+                       False),
+    "mla_verify_d288": (8, 5, 1024, 40, 1, 288,
+                        [(p, 0, 0, INF) for p in (0, 5, 100, 777, 1000, 1019, 1020, 3000)], 1,
+                        1, False),
+    "mla_decode_d288": (8, 1, 300, 40, 1, 288,
+                        [(p, 0, 0, INF) for p in (0, 17, 64, 150, 299, 5000, 220)]
+                        + [(3, 0, 5, INF)], 1, 1, False),
+    "mla_segments_window_d288": (1, 300, 300, 4, 2, 288, (3, 0, 0, 41), 1, 1, True),
+    "mla_long_d288": (1, 2048, 2048, 2, 2, 288, (0, 0, 0, INF), 1, 1, False),
 }
 
 
@@ -156,10 +176,12 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
     assert torch.equal(lse[~live], lse_ref[~live])
     assert torch.all(o.transpose(1, 2)[~live] == 0)
     if case in ("hidden_rows", "decode_slots_granite", "decode_slots_hymba",
-                "decode_slots_gemma"):
+                "decode_slots_gemma", "mla_decode_d288"):
         assert (~live).any()
     if D == 256:  # 16 packed rows at most on the decode body
         assert body.startswith("decode") == (Sq * (H // Hkv) <= 16)
+    if D in fa.TILE_ONLY_HEAD_DIMS:
+        assert body.startswith("tile")
 
 
 # (case, dtype): every body of both types -- the tile body (granite
@@ -468,6 +490,13 @@ PAGED_CASES = {
     # holes over 3 blocks
     "gemma_like": ((37, 1, 250, 16, 0, 129), 16, 16, 16, 256, 1, 0, None, None, False),
     "gemma_group2_window_holes": ((300, 161, 5), 8, 8, 4, 256, 1, 0, 200, 3, True),
+    # head dim 288 (minicpm3-4b's absorbed latent: the wide bodies): 40 query
+    # heads on one kv head at serving depths, a window with holes over 3
+    # blocks, the full 48 rows, and a group of 12 (two idle row tiles)
+    "mla_like": ((37, 1, 250, 16, 0, 129, 2047, 900), 16, 40, 1, 288, 1, 0, None, None, False),
+    "mla_window_holes": ((300, 161, 5), 8, 40, 1, 288, 1, 0, 200, 3, True),
+    "mla_group48": ((400, 33), 16, 48, 1, 288, 1, 0, None, 4, False),
+    "mla_group12": ((400, 33, 0), 16, 24, 2, 288, 1, 0, None, None, False),
 }
 
 
@@ -558,6 +587,10 @@ QUANT_SHAPES = {
     # window and holes
     "d256_gemma": ((1, 17, 250, 777, 0), 16, 16, 16, 256, None, None, False),
     "d256_group2_window": ((300, 97, 0), 16, 8, 4, 256, 128, 3, True),
+    # head dim 288 (the wide bodies): minicpm3-4b's 40 heads on the latent at
+    # serving depths, and a window with holes over 3 blocks
+    "d288_mla": ((1, 17, 250, 777, 2047, 0), 16, 40, 1, 288, None, None, False),
+    "d288_window_holes": ((300, 97, 0), 16, 40, 1, 288, 128, 3, True),
 }
 
 
@@ -662,11 +695,13 @@ def test_split_combine_matches_plain(dev, dtype):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("D_", [256, 288])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_split_combine_d256_matches_plain(dev, dtype):
-    """The combine at head dim 256 (8 dims a lane), an all-empty row."""
+def test_split_combine_d256_matches_plain(dev, dtype, D_):
+    """The combine at head dims 256 and 288 (8 and 9 dims a lane), an
+    all-empty row."""
     rng = np.random.default_rng(17)
-    B, S, H_, D_ = 3, 6, 4, 256
+    B, S, H_ = 3, 6, 4
     o_parts = _randn(rng, B, S, H_, D_, dtype=torch.float32, dev=dev)
     lse_parts = _randn(rng, B, S, H_, dtype=torch.float32, dev=dev) * 4
     lse_parts[1] = ref.NEG_INF

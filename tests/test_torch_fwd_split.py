@@ -56,9 +56,11 @@ P_TERMS = tfa.FWD_P_TERMS
 
 
 def test_term_counts_match_the_kernel_source():
-    """The counts emulated here are the ones csrc/flash_fwd_tc.cu compiles,
-    and the gates the ones chip_smoke.py holds the kernel to."""
-    src = open(os.path.join(ROOT, "src/repro_torch/csrc/flash_fwd_tc.cu")).read()
+    """The counts emulated here are the ones csrc/flash_fwd_tc.cu compiles
+    (its kernels in csrc/flash_fwd_tc.cuh), and the gates the ones
+    chip_smoke.py holds the kernel to."""
+    src = "".join(open(os.path.join(ROOT, "src/repro_torch/csrc", f)).read()
+                  for f in ("flash_fwd_tc.cuh", "flash_fwd_tc.cu"))
     assert re.search(r"struct PFrag \{\s*uint32_t r\[3\]", src)
     for body in ("tile", "decode"):
         assert re.search(rf"if \(terms == 1\) return \(int\)dispatch_{body}<1>", src)

@@ -29,7 +29,7 @@ missing = {{
     "repro_torch.testing.chaos", "repro_torch.core.mesh_attention_collective",
     "repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2_7b",
     "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.qwen2_5_32b",
-    "repro_torch.configs.gemma_7b",
+    "repro_torch.configs.gemma_7b", "repro_torch.configs.minicpm3_4b",
 }} - set(names)
 assert not missing, missing
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))

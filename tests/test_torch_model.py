@@ -249,24 +249,31 @@ def test_params_from_jax_keeps_bf16_and_layout(model):
 
 def test_other_families_raise():
     """The MoE, VLM and audio families are ported (their archs resolve, and
-    a decoder given an encoder builds its encoder and cross-attention); MLA
-    is not, and still raises, as minicpm3-4b's config does."""
+    a decoder given an encoder builds its encoder and cross-attention), and
+    so is MLA in the dense family: minicpm3-4b resolves and a reduced MLA
+    config builds its latent projections.  A config off its family still
+    raises."""
     assert tget_config("mixtral-8x7b").family == "moe"
     assert tget_config("qwen2-moe-a2.7b").moe.num_shared == 4
     assert tget_config("pixtral-12b").family == "vlm"
     assert tget_config("whisper-base").family == "audio"
+    assert tget_config("minicpm3-4b").mla.kv_lora_rank == 256
     base = tget_config("granite-8b").reduced()
     params = ttfm.init_params(dataclasses.replace(base, encoder_layers=2), device="cpu")
     assert params["encoder"]["layers"]["attn"]["wq"].shape[0] == 2
     assert params["layers"]["xattn"]["wk"].shape[0] == base.num_layers
+    mla = ttfm.init_params(dataclasses.replace(base, mla=MLAConfig(32, 16, 16, 16, 32)),
+                           device="cpu")
+    assert mla["layers"]["attn"]["wkv_b"].shape == (base.num_layers, 16, 4 * (16 + 32))
     for cfg, what in (
-        (dataclasses.replace(base, mla=MLAConfig(32, 16, 16, 16, 32)), "MLA"),
+        (dataclasses.replace(base, family="moe", mla=MLAConfig(32, 16, 16, 16, 32)),
+         "MLA off the dense family"),
         (dataclasses.replace(base, family="moe"), "MoE config off its family"),
     ):
         with pytest.raises(NotImplementedError, match=what):
             ttfm.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
-        tget_config("minicpm3-4b")
+        tget_config("minicpm3-8b")
 
 
 @pytest.mark.parametrize("shared_coords", [False, True], ids=["per_call", "per_tick"])
