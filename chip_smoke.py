@@ -59,7 +59,11 @@ Phases, each printing one JSON line:
                  and bf16; the paged decode's wide bodies at head dim 288,
                  group 40, with bf16 and fp32 queries over fp, int8 and fp8
                  pools, all at MLA's scale 96^-0.5 (the bf16 paged rows pass
-                 an element past 1e-3 only as one bf16 rounding step).
+                 an element past 1e-3 only as one bf16 rounding step); then
+                 the backward at head dim 96 over the expanded 40 / 40 heads,
+                 fp32 and bf16: causal at 4096 (train_minicpm's row), packed
+                 segments at 1024, a ragged 1000 (the env line's ptxas
+                 summary: no spill in the four D 96 kernels).
                  Granite's S 1024 forward rows are drawn, not run, since
                  PR 31 (the run's time).
   3. slice    -- granite-8b at full width, depth cut to 2 layers, fp32: the same
@@ -243,24 +247,25 @@ Phases, each printing one JSON line:
                  weights and batch; loss, grad norm, and per leaf the gradients
                  and the updated params held to stated tolerances.
   6. train    -- granite-8b at full width cut to 8 layers, fp32 params, AdamW,
-                 remat, seq 4096, batch 1: 4 causal steps, then 2 steps with 4
-                 packed documents, through ``repro_torch.train.loop.fit``.  The
-                 counters are set to 0 just before and read just after: the
-                 forward kernel must have run 2 x 8 x 6 times (all on the fp32
-                 tile body), dQ and dK/dV 8 x 6 times each, every backward on the
-                 fp32 tensor-core body (and its pre-pass).  One more step runs
+                 remat, seq 4096, batch 1: 2 causal steps, then 1 step with 4
+                 packed documents, through ``repro_torch.train.loop.fit``.
+                 The counters are set to 0 just before and read just after:
+                 the forward kernel must have run 2 x 8 x 3 times (all on the
+                 fp32 tile body), dQ and dK/dV 8 x 3 times each, every
+                 backward on the fp32 tensor-core body (and its pre-pass).  One more step runs
                  under torch.profiler for the device time per kernel class.
-                 Then 2 causal steps with bf16 params: losses finite and near
+                 Then 1 causal step with bf16 params: losses finite and near
                  ln(vocab), the forward on the tile body and every backward on
                  the bf16 body.
   6e. train_gemma_parity (after train) -- gemma-7b at full width cut to 1
                  layer, fp32, seq 128: train_parity's step and limits
                  (head dim 256 through #1-#3; the CPU side holds ~21 GB).
   6f. train_gemma (after 6e) -- gemma-7b at full width cut to 8 of 28
-                 layers (3.0e9 parameters), the train phase's runs and gates:
-                 #1 2 x 8 x 6 on the fp32 tile body at head dim 256, #2 and
-                 #3 8 x 6 each on the fp32 tensor-core body, then 2 bf16
-                 steps on the bf16 bodies; no call of a kernel's plain
+                 layers (3.0e9 parameters), the train phase's runs and gates
+                 (2 causal, 1 packed and 1 bf16 step): #1 2 x 8 x
+                 3 on the fp32 tile body at head dim 256, #2 and #3 8 x 3
+                 each on the fp32 tensor-core body, then the bf16 step on the
+                 bf16 bodies; no call of a kernel's plain
                  version in either (as serve_gemma); a profiled step.
   6g. train_whisper_parity (after 6f) -- whisper-base at full width cut to
                  2 + 2 layers, fp32, batch 2 x 448 decoder tokens and 1536
@@ -275,6 +280,20 @@ Phases, each printing one JSON line:
                  of 40 layers, fp32 + AdamW, remat, seq 4096 (the 1024
                  patch positions in each row), 4 steps: the train phase's
                  gates, no plain version called, a profiled step.
+  6j. train_minicpm_parity -- minicpm3-4b (MLA: the expanded 40 / 40 heads
+                 of 96 through #1 and #2 / #3) at full width cut to 1 layer,
+                 fp32: train_parity's step card vs CPU at seq 256, then the
+                 same weights on the card at sp_size 4 (mesh a = 2, striped)
+                 against sp_size 1 at seq 2048 (train_mesh_parity's step,
+                 limits and gates: launches = the schedules' blocks, Q and
+                 KV hop bytes = ``CommModel.chunk_bytes``).
+  6k. train_minicpm -- minicpm3-4b at full width cut to
+                 MINICPM_TRAIN_LAYERS of 62 layers, fp32 + AdamW, remat, seq
+                 4096: 2 causal steps and 1 of packed documents, then 1 bf16
+                 step; the train phase's gates (#1 on the fp32 tile body at
+                 head dim 96, #2 / #3 on the fp32 tensor-core body, no plain
+                 version called), peak memory at most MINICPM_PEAK_GB, a
+                 profiled step.
   6a. train_ssm_parity -- mamba2-370m and hymba-1.5b at full width cut to 2
                  layers, fp32, seq 512: one make_train_step on the card (#5,
                  #5b; hymba's #1 fp32 body, #2, #3) and one on the CPU from
@@ -321,7 +340,10 @@ Phases, each printing one JSON line:
   8. train_mesh_parity -- paper-mha-7b at full width, 2 layers, fp32, seq
                  4096: one make_train_step at sp_size 4 on the virtual ring
                  (mesh a = 2, and ring) against one at sp_size 1, on the card,
-                 from the same weights and batch (train_parity's limits).
+                 from the same weights and batch (train_parity's limits);
+                 each ring step's launches equal its schedules' blocks x
+                 layers (x 2 for remat's forward; the backward per rank), its
+                 Q and KV hops carry ``CommModel.chunk_bytes`` each.
   9. train_mesh -- paper-mha-7b at full width cut to MESH_TRAIN_LAYERS layers,
                  fp32 + AdamW, remat, seq 16384, batch 1, sp_size 4: 2 steps
                  on mesh (a = 2), then 2 on ring, through fit; losses finite
@@ -340,7 +362,9 @@ Phases, each printing one JSON line:
                  counted over serve_gemma, and of #2 and #3, counted over
                  train_gemma (whose launches also join the backward's and
                  the fp32 forward's rows), for MLA's #1 at head dims 96 and
-                 288 and #4 / 4q at 288, counted over serve_minicpm; the ranks' combine a row of
+                 288 and #4 / 4q at 288, counted over serve_minicpm, and
+                 for #2 and #3 at head dim 96, counted over train_minicpm
+                 (whose launches also join the backward's rows); the ranks' combine a row of
                  its own; #5b's row from train_ssm; the fp32 forward's
                  pre-pass a row of its own, counted over the same main-path
                  runs as the fp32 forward's row, once per launch), the card
@@ -3696,19 +3720,20 @@ def train_parity(arch="granite-8b", seq=512, phase="train_parity", layers=2, bat
     card, cpu = out["cuda"], out["cpu"]
     leaves = {}
     # the gradient the step applied (after clipping), read back from the first
-    # moment: m = (1 - b1) * g after one step from zero moments
+    # moment: m = (1 - b1) * g after one step from zero moments.  Each CPU
+    # leaf is moved to the card and compared there: the host's passes over
+    # GB-sized leaves would take most of the phase
     m_cpu = dict(tree_leaves(cpu["m"]))
     p_cpu = dict(tree_leaves(cpu["params"]))
     p_card = dict(tree_leaves(card["params"]))
     for path, m_card in tree_leaves(card["m"]):
-        g_card = m_card.cpu() / (1 - opt.b1)
-        g_cpu = m_cpu[path] / (1 - opt.b1)
-        gmax = float(g_cpu.abs().max())
+        m_ref, p_ref = m_cpu[path].cuda(), p_cpu[path].detach().cuda()
         leaves[path] = dict(
-            grad_max_abs_err=float((g_card - g_cpu).abs().max()), grad_max_abs=gmax,
-            param_max_abs_err=float((p_card[path].detach().cpu()
-                                     - p_cpu[path].detach()).abs().max()),
+            grad_max_abs_err=float((m_card - m_ref).abs().max()) / (1 - opt.b1),
+            grad_max_abs=float(m_ref.abs().max()) / (1 - opt.b1),
+            param_max_abs_err=float((p_card[path].detach() - p_ref).abs().max()),
         )
+        del m_ref, p_ref
     rec = {
         "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
         "encoder_layers": cfg.encoder_layers, "dtype": "fp32",
@@ -3763,14 +3788,29 @@ WHISPER_TRAIN_BATCH = 16
 # their log-softmax and gradient, AdamW's temporaries and the layers' saved
 # inputs
 PIXTRAL_TRAIN_LAYERS = 6
+# minicpm3-4b's training (MLA: the expanded 40 / 40 heads of 96 through #1
+# and #2 / #3).  The parity phase: 1 layer, card vs CPU at seq 256, then
+# sp_size 4 (mesh a = 2) vs 1 on the card at seq 2048.  train_minicpm's
+# depth from the memory reckoning: 62,674,944 parameters a layer and
+# 376,056,320 in the embedding and the untied head, so 40 of 62 layers hold
+# 2.88e9 parameters, 46.1 GB of fp32 params, grads and moments, beside ~3.6
+# GB of [4096, 73,448] fp32 logits, their log-softmax and gradient, and
+# AdamW's temporaries over the stacked [L, 2560, 6400] leaves; its peak must
+# stay under MINICPM_PEAK_GB
+MINICPM_PARITY_LAYERS = 1
+MINICPM_PARITY_SEQ = 256
+MINICPM_MESH_SEQ = 2048
+MINICPM_TRAIN_LAYERS = 40
+MINICPM_PEAK_GB = 72.0
 
 
 def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch=1,
-               steps=4, steps_docs=2, bf16=True):
+               steps=4, steps_docs=2, bf16_steps=2, max_peak_gb=None):
     """``arch`` at full width cut to ``layers`` layers (None: whole), fp32 +
     AdamW, remat, ``seq`` x ``batch``: ``steps`` causal steps and
-    ``steps_docs`` of 4 packed documents, then (``bf16``) 2 bf16 steps
-    (``full_train_bf16``); no call of a kernel's plain version; a profiled
+    ``steps_docs`` of 4 packed documents, then ``bf16_steps`` bf16 steps
+    (``full_train_bf16``); no call of a kernel's plain version; the fp32
+    runs' peak memory under the card's (and ``max_peak_gb``); a profiled
     step.  Returns the launches of the fp32 runs, keyed as the kernels
     line's rows."""
     cfg = get_config(arch)
@@ -3815,7 +3855,7 @@ def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch
     rec = {
         "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
         "encoder_layers": cfg.encoder_layers,
-        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+        "d_model": cfg.d_model, "heads": list(_attn_dims(cfg)),
         "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": runs[0]["params"],
         "param_dtype": "fp32", "optimizer": "adamw", "remat": True, "seq": seq, "batch": batch,
         "runs": [{k: v for k, v in r.items() if k != "params"} for r in runs],
@@ -3824,7 +3864,8 @@ def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch
         "launches": launches, "flash_attention_fwd_bodies": bodies,
         "flash_fwd_split_launches": fwd_split, "flash_attention_bwd_bodies": bwd_bodies,
         "plain_calls": plain.calls, "ln_vocab": float(np.log(cfg.vocab_size)),
-        "profile": profile, "bf16": full_train_bf16(cfg, ctx, seq, batch) if bf16 else None,
+        "profile": profile,
+        "bf16": full_train_bf16(cfg, ctx, seq, batch, bf16_steps) if bf16_steps else None,
         "card": card,
     }
     emit(rec)
@@ -3847,13 +3888,14 @@ def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch
     check(not any(plain.calls.values()) and not (bf and any(bf["plain_calls"].values())),
           f"{phase}: a kernel's plain version ran: {plain.calls}, bf16 "
           f"{bf and bf['plain_calls']}")
-    check(peak_gb * 1e9 <= torch.cuda.get_device_properties(0).total_memory,
-          f"{phase}: peak {peak_gb} GB above the card's")
+    check(peak_gb * 1e9 <= torch.cuda.get_device_properties(0).total_memory
+          and (max_peak_gb is None or peak_gb <= max_peak_gb),
+          f"{phase}: peak {peak_gb} GB above the card's or {max_peak_gb}")
     if bf:
-        check(len(bf["losses"]) == 2 and all(np.isfinite(bf["losses"]))
+        check(len(bf["losses"]) == bf16_steps and all(np.isfinite(bf["losses"]))
               and abs(bf["losses"][0] - np.log(cfg.vocab_size)) < 1.5,
               f"{phase} (bf16): losses not finite or not near ln(vocab): {bf}")
-        n_bf = A * 2
+        n_bf = A * bf16_steps
         check(bf["launches"] == {"flash_attention_fwd": 2 * n_bf, "flash_bwd_dq": n_bf,
                                  "flash_bwd_dkv": n_bf}
               and bf["flash_attention_fwd_bodies"] == {"tile": 2 * n_bf, "decode": 0,
@@ -3866,20 +3908,21 @@ def full_train(card, arch="granite-8b", layers=8, phase="train", seq=4096, batch
             "flash_bwd_split": bwd_bodies["split"]}
 
 
-def full_train_bf16(cfg, ctx, seq, batch=1):
-    """2 causal steps of the train phase's model with bf16 params (the JAX
-    package's ``param_dtype`` option); counters set to 0 just before."""
+def full_train_bf16(cfg, ctx, seq, batch=1, steps=2):
+    """``steps`` causal steps of the train phase's model with bf16 params
+    (the JAX package's ``param_dtype`` option); counters set to 0 just
+    before."""
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
     bodies0, bwd0 = fwd_body_counts(), bwd_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _PlainCalls() as plain:
-        out = fit(cfg, ctx, TrainConfig(steps=2, seq=seq, batch=batch, seed=0,
+        out = fit(cfg, ctx, TrainConfig(steps=steps, seq=seq, batch=batch, seed=0,
                                         param_dtype=torch.bfloat16))
     fit_s = time.perf_counter() - t0
     rec = {
-        "param_dtype": "bf16", "steps": 2, "losses": out["history"],
+        "param_dtype": "bf16", "steps": steps, "losses": out["history"],
         "step_s": out["step_seconds"], "fit_s": fit_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": {"flash_attention_fwd": fa.flash_attention_fwd.launches,
@@ -4563,34 +4606,52 @@ def collective(card):
     return launches
 
 
-def train_mesh_parity():
-    """paper-mha-7b at full width, 2 layers, fp32, seq 4096: one train step at
-    sp_size 4 on the virtual ring (mesh a = 2, and ring) against one at
-    sp_size 1, all on the card, from the same weights and batch."""
-    cfg = dataclasses.replace(get_config("paper-mha-7b"), num_layers=2)
+def _attn_dims(cfg):
+    """(query heads, kv heads, head dim) of the attention kernels' calls:
+    MLA's expanded heads at the qk width (V padded to it)."""
+    if cfg.mla is not None:
+        return cfg.num_heads, cfg.num_heads, cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.num_heads, cfg.num_kv_heads, cfg.hd
+
+
+def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2), ("ring", 1)),
+                      phase="train_mesh_parity"):
+    """``arch`` at full width cut to ``layers`` layers, fp32: one train step
+    at sp_size 4 on the virtual ring (each of ``impls``: mesh a = 2, ring)
+    against one at sp_size 1, all on the card, from the same weights and
+    batch.  Each ring step launches #1 twice (remat) and #2 / #3 once per
+    layer and schedule block (the backward per rank), and its Q and KV hops
+    carry ``CommModel.chunk_bytes`` each."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     opt = AdamWConfig()
-    seq = 4096
     params0 = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-    ctxs = {
-        "sp1": ParallelCtx(device="cuda"),
-        "mesh": ParallelCtx(sp_size=MESH_N, attn_impl="mesh", mesh_a=2, device="cuda"),
-        "ring": ParallelCtx(sp_size=MESH_N, attn_impl="ring", device="cuda"),
-    }
+    nh, nkv, hd = _attn_dims(cfg)
+    comm = CommModel(seq=seq, hidden=nh * hd, n=MESH_N, kv_hidden=nkv * hd, bytes_per_elem=4)
+    ctxs = {"sp1": ParallelCtx(device="cuda")}
+    for impl, a in impls:
+        ctxs[impl] = ParallelCtx(sp_size=MESH_N, attn_impl=impl,
+                                 mesh_a=a if impl == "mesh" else None, device="cuda")
     out, ref_side = {}, None
     for name, ctx in ctxs.items():
         p = _clone_tree(params0)
         state = init_opt_state(p)
         batch = make_batch(cfg, seq, 1, seed=0, step=0, ctx=ctx)
         torch.cuda.synchronize()
+        c0 = mesh_counts()
         t0 = time.perf_counter()
         p, state, _, metrics = make_train_step(cfg, ctx, opt)(p, state, {}, batch)
         loss = float(metrics["loss"])
         wall = time.perf_counter() - t0
         side = dict(loss=loss, grad_norm=float(metrics["grad_norm"]), wall_s=wall,
-                    hops=dict(ctx.ring.stats.hops) if ctx.ring is not None else {})
+                    launches={key: n - c0[key] for key, n in mesh_counts().items()},
+                    hops=dict(ctx.ring.stats.hops) if ctx.ring is not None else {},
+                    bytes=dict(ctx.ring.stats.bytes) if ctx.ring is not None else {})
         if ref_side is None:
             ref_side = dict(params=dict(tree_leaves(p)), m=dict(tree_leaves(state.m)), **side)
         else:
+            fwd_s, bwd_s = _schedules_of(name, dict(impls)[name], "causal", seq)
+            side["want_launches"] = {"flash_attention_fwd": 2 * layers * len(fwd_s.blocks()),
+                                     "flash_bwd_dq": layers * len(bwd_s.blocks()) * MESH_N}
             leaves, p_now = {}, dict(tree_leaves(p))
             for path, m_card in tree_leaves(state.m):
                 g = m_card / (1 - opt.b1)
@@ -4606,27 +4667,35 @@ def train_mesh_parity():
         out[name] = side
         del p, state, batch
         torch.cuda.empty_cache()
-    rec = {"phase": "train_mesh_parity", "arch": "paper-mha-7b", "num_layers": 2,
-           "dtype": "fp32", "seq": seq, "batch": 1, "n": MESH_N, "tols": PARITY_TOLS,
+    rec = {"phase": phase, "arch": arch, "num_layers": layers, "dtype": "fp32", "seq": seq,
+           "batch": 1, "n": MESH_N, "heads": [nh, nkv, hd], "tols": PARITY_TOLS,
            "sides": {k: {kk: vv for kk, vv in v.items() if kk not in ("params", "m")}
                      for k, v in out.items()}}
     emit(rec)
     del params0, ref_side
     torch.cuda.empty_cache()
     base = out["sp1"]
-    for name in ("mesh", "ring"):
+    for name, _ in impls:
         side = out[name]
         check(abs(side["loss"] - base["loss"]) <= PARITY_TOLS["loss"],
-              f"train_mesh_parity: {name} loss differs: {side['loss']} vs {base['loss']}")
+              f"{phase}: {name} loss differs: {side['loss']} vs {base['loss']}")
         check(abs(side["grad_norm"] - base["grad_norm"])
               <= PARITY_TOLS["grad_norm_rel"] * base["grad_norm"],
-              f"train_mesh_parity: {name} grad norm differs")
+              f"{phase}: {name} grad norm differs")
         for path, leaf in side["leaves"].items():
             check(leaf["grad_max_abs_err"] <= PARITY_TOLS["grad_rel"] * leaf["grad_max_abs"],
-                  f"train_mesh_parity: {name} gradient of {path} differs: {leaf}")
+                  f"{phase}: {name} gradient of {path} differs: {leaf}")
             check(leaf["param_max_abs_err"] <= PARITY_TOLS["param"],
-                  f"train_mesh_parity: {name} updated {path} differs: {leaf}")
-        check(side["hops"].get("recv_kv", 0) > 0, f"train_mesh_parity: {name} made no KV hop")
+                  f"{phase}: {name} updated {path} differs: {leaf}")
+        check(side["hops"].get("recv_kv", 0) > 0, f"{phase}: {name} made no KV hop")
+        ran, want = side["launches"], side["want_launches"]
+        check(ran["flash_attention_fwd"] == want["flash_attention_fwd"]
+              and ran["flash_bwd_dq"] == ran["flash_bwd_dkv"] == ran["flash_bwd_split"]
+              == want["flash_bwd_dq"],
+              f"{phase}: {name} launches off the schedules x layers x remat: {ran} vs {want}")
+        for kk, ck in (("recv_q", "q"), ("recv_kv", "kv")):
+            check(side["bytes"].get(kk, 0) == side["hops"].get(kk, 0) * comm.chunk_bytes(ck),
+                  f"{phase}: {name} {kk} bytes off CommModel.chunk_bytes: {side}")
 
 
 def train_mesh(card):
@@ -4762,6 +4831,10 @@ def main():
 
     check(not any(k.get("serialized_wgmma") for k in ptxas.values()),
           f"ptxas serialized the wgmma products of a tensor-core kernel: {ptxas}")
+    bwd96 = {k: v for k, v in ptxas.items() if k.startswith("flash_bwd_") and "<96," in k}
+    check(len(bwd96) == 4 and not any(v.get("spill_stores") or v.get("spill_loads")
+                                       for v in bwd96.values()),
+          f"the backward's head-dim-96 kernels must build without spills: {bwd96}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flash, paged, bwd = [], [], []
@@ -4927,6 +5000,13 @@ def main():
     flash += mla["flash"]
     paged += mla["paged"]
     quant += mla["quant"]
+    # minicpm3-4b's backward (#2 / #3 at head dim 96 over the expanded 40 /
+    # 40 heads), drawn after every earlier case: train_minicpm's row (causal
+    # 4096), a packed-segment row and a ragged one (1000 rows, off the
+    # kernels' 64-row tiles)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S in (("causal", 4096), ("segment", 1024), ("causal", 1000)):
+            bwd.append(bwd_case(name, S, dtype, gen, heads=MLA_PREFILL_HEADS))
     emit({"phase": "kernels", "card": card,
           "cases": flash + paged + quant + combine + ssd_cases + ssd_bwd_cases + bwd + [split]
           + [fwd_split] + mesh_blocks
@@ -4973,11 +5053,14 @@ def main():
                       ("paged_flash_decode", "paged_flash_decode")):
         launches[key] += ring[part]
     train_parity(seq=TRAIN_PARITY_SEQ)
-    launches.update(full_train(card))
+    # train and train_gemma take 2 causal, 1 packed and 1 bf16 step, cut
+    # for the run's time
+    launches.update(full_train(card, steps=2, steps_docs=1, bf16_steps=1))
     # gemma-7b (head dim 256): card vs CPU at 1 layer, then trained at 8
     train_parity(GEMMA_ARCH, seq=GEMMA_PARITY_SEQ, phase="train_gemma_parity",
                  layers=GEMMA_PARITY_LAYERS)
-    gemma_train = full_train(card, GEMMA_ARCH, GEMMA_TRAIN_LAYERS, phase="train_gemma")
+    gemma_train = full_train(card, GEMMA_ARCH, GEMMA_TRAIN_LAYERS, phase="train_gemma",
+                             steps=2, steps_docs=1, bf16_steps=1)
     for key, n in gemma_train.items():
         launches[key] += n
     # whisper-base at 2 + 2 layers card vs CPU, then trained whole; pixtral-12b
@@ -4986,8 +5069,16 @@ def main():
     whisper_train = full_train(card, WHISPER_ARCH, None, phase="train_whisper",
                                seq=WHISPER_MAX_SEQ, batch=WHISPER_TRAIN_BATCH, steps_docs=0)
     pixtral_train = full_train(card, PIXTRAL_ARCH, PIXTRAL_TRAIN_LAYERS, phase="train_pixtral",
-                               steps_docs=0, bf16=False)
-    for part in (whisper_train, pixtral_train):
+                               steps_docs=0, bf16_steps=0)
+    # minicpm3-4b (MLA: #1 and #2 / #3 at head dim 96): card vs CPU and
+    # sp_size 4 vs 1 at 1 layer, then trained at MINICPM_TRAIN_LAYERS
+    train_parity(MINICPM_ARCH, seq=MINICPM_PARITY_SEQ, phase="train_minicpm_parity",
+                 layers=MINICPM_PARITY_LAYERS)
+    train_mesh_parity(MINICPM_ARCH, layers=MINICPM_PARITY_LAYERS, seq=MINICPM_MESH_SEQ,
+                      impls=(("mesh", 2),), phase="train_minicpm_parity")
+    minicpm_train = full_train(card, MINICPM_ARCH, MINICPM_TRAIN_LAYERS, phase="train_minicpm",
+                               steps=2, steps_docs=1, bf16_steps=1, max_peak_gb=MINICPM_PEAK_GB)
+    for part in (whisper_train, pixtral_train, minicpm_train):
         for key, n in part.items():
             launches[key] += n
     # SSM and hybrid training (#5 forward, #5b backward) card vs CPU, over a
@@ -5111,6 +5202,22 @@ def main():
             "ms": gemma_bwd[f"ms_{part}"], "plain_ms": gemma_bwd["plain_ms_pair"],
             "bound_ms": gemma_bwd[f"bound_ms_{part}"], "bound_by": gemma_bwd[f"bound_by_{part}"],
             "library_ms": gemma_bwd["library_ms_pair"],
+        })
+    # #2 and #3 at head dim 96 (MLA's expanded heads), counted over
+    # train_minicpm, timed at its row (fp32, causal, 4096)
+    mla_bwd = next(r for r in bwd if r["case"] == "causal" and r["S"] == 4096
+                   and r["dtype"] == "fp32" and r["heads"] == list(MLA_PREFILL_HEADS))
+    for name, replaces, part, err in (
+        ("flash_bwd_dq (head dim 96)", BWD_DQ_REPLACES, "dq", mla_bwd["max_abs_err"]["dq"]),
+        ("flash_bwd_dkv (head dim 96)", BWD_DKV_REPLACES, "dkv",
+         max(mla_bwd["max_abs_err"]["dk"], mla_bwd["max_abs_err"]["dv"])),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": BWD_SRC, "replaces": replaces,
+            "launches": minicpm_train[f"flash_bwd_{part}"], "max_abs_err": err,
+            "ms": mla_bwd[f"ms_{part}"], "plain_ms": mla_bwd["plain_ms_pair"],
+            "bound_ms": mla_bwd[f"bound_ms_{part}"], "bound_by": mla_bwd[f"bound_by_{part}"],
+            "library_ms": mla_bwd["library_ms_pair"],
         })
     # the head-dim-256 instantiations (gemma-7b), counted over serve_gemma:
     # the bf16 tile body of its prefills, the fp32 bodies of its int8 pool's

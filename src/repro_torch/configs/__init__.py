@@ -3,7 +3,8 @@ them: head dim 256, GeGLU, tied embeddings), the attention-free SSD stack,
 the hybrid attention + SSD model, the MoE decoders, the VLM (pixtral-12b: a
 decoder with a stubbed patch frontend) and the encoder-decoder (whisper-base:
 a stubbed audio frontend, a non-causal encoder and cross-attention), and
-minicpm3-4b (MLA: a latent KV cache; served, not trained yet).
+minicpm3-4b (MLA: a latent KV cache for serving, expanded heads for
+training).
 ``--arch <id>`` resolves here."""
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, get_config, register

@@ -61,6 +61,16 @@
 //     dV += P^T dO and dK += dS^T Q (dO and Q read MN-major).
 //   * D <= 128: streamed tiles of 64 rows through two stages, one warpgroup
 //     a CTA in both kernels (m64n64k16).
+//   * D = 96 (minicpm3-4b's MLA training: the expanded heads, V padded from
+//     64 to the qk width, as JAX's backward takes them): Cfg keys its
+//     swizzle on D % 64, so 96 is three column blocks of 32 dims in 64-byte
+//     swizzle (D 32's layout, three times), dQ += dS K and the dK/dV
+//     products on m64n32k16 a column block.  Registers: dK and dV's two 64 x
+//     96 fp32 accumulators are 96 a thread (128 at D 128).  Shared memory,
+//     fp32 inputs (two terms): 48 KB of resident tiles and two stages of
+//     50 KB, ~149 KB; bf16 ~77 KB.  So D 96 takes the one-warpgroup kernels
+//     below, not the wide ones.  The padded third of V is computed like the
+//     rest (dV's last 32 dims are 0 and dP sums zeros there), as JAX does.
 //   * D = 256 (gemma-7b; Cfg<256, T>, the kernels of namespace wide): a 64 x
 //     256 fp32 accumulator is 128 registers a thread and dK/dV has two, so a
 //     CTA is two warpgroups (256 threads) over its 64 rows, warpgroup w
@@ -143,10 +153,13 @@ constexpr int VSTRIDE = 384;  // bytes between a stage's row vectors (TMA writes
 // ones [BN, D]; D = 256 as the Design notes say.
 template <int D, int T>
 struct Cfg {
-  static constexpr int SWB = D >= 64 ? 128 : 64;       // swizzle span (bytes) = column block row
+  // swizzle span (bytes) = column block row: 128 where D is a multiple of
+  // 64, else 64 (D 32, and D 96 as three 32-dim blocks)
+  static constexpr int SWB = D % 64 == 0 ? 128 : 64;
   static constexpr int CB = SWB / 2;                   // dims per column block
+  static_assert(D % CB == 0, "a whole number of column blocks");
   static constexpr int NCB = D / CB;                   // column blocks
-  static constexpr uint64_t LAYOUT = D >= 64 ? 1 : 2;  // descriptor swizzle mode
+  static constexpr uint64_t LAYOUT = D % 64 == 0 ? 1 : 2;  // descriptor swizzle mode
   static constexpr int BN = D == 256 ? 32 : ROWS;      // rows of a streamed tile
   static constexpr int RING = D == 256 && T == 2 ? 1 : STAGES;  // stages of the ring
   static constexpr int WG = D == 256 ? 2 : 1;          // warpgroups a CTA
@@ -991,7 +1004,7 @@ bool encode_rows(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int BT
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                Cfg<D, 1>::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1099,6 +1112,7 @@ cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
     case 32: return DKV ? launch_dkv<32, T>(a) : launch_dq<32, T>(a);
     case 64: return DKV ? launch_dkv<64, T>(a) : launch_dq<64, T>(a);
+    case 96: return DKV ? launch_dkv<96, T>(a) : launch_dq<96, T>(a);
     case 128: return DKV ? launch_dkv<128, T>(a) : launch_dq<128, T>(a);
     case 256: return DKV ? launch_dkv<256, T>(a) : launch_dq<256, T>(a);
     default: return cudaErrorInvalidValue;

@@ -11,10 +11,10 @@ the tile body (wgmma) for prefill, chunks, windows and training, the decode
 body (mma.sync, split keys) for at most ``DECODE_MAX_ROWS`` packed rows
 (``DECODE_MAX_ROWS_D256`` at head dim 256; none at
 ``TILE_ONLY_HEAD_DIMS``); each has a bf16 and an fp32 instantiation, at
-head dims ``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ and
-dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (at 256 with
-32-row streamed tiles, and dK/dV over two warpgroups).  See the notes at
-the sources' tops for the designs.
+head dims ``FWD_HEAD_DIMS``.  The backward is ``csrc/flash_bwd.cu``: the dQ
+and dK/dV kernels (``_bwd_plan``), at head dims ``BWD_HEAD_DIMS`` (at 96 as
+three 32-dim column blocks, at 256 with 32-row streamed tiles and two
+warpgroups a CTA).  See the notes at the sources' tops for the designs.
 
 The wrappers launch the kernels for CUDA tensors and run the plain versions
 (``ref.attention_ref``, ``ref.attention_bwd_ref``) for CPU tensors; there is
@@ -39,11 +39,12 @@ from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_KV = 128
-# both directions take head dim 256 (gemma-7b) too; the forward also takes
-# minicpm3-4b's MLA widths, 96 (the expanded heads of prefill) and 288 (the
-# absorbed latent of decode, chunks and verifies), on the tile body alone
+# both directions take head dim 256 (gemma-7b) and minicpm3-4b's 96 (the
+# expanded heads of MLA's prefill and training) too; the forward also takes
+# 288 (the absorbed latent of decode, chunks and verifies); both MLA widths
+# run on its tile body alone
 FWD_HEAD_DIMS = (32, 64, 96, 128, 256, 288)
-BWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 96, 128, 256)
 TILE_ONLY_HEAD_DIMS = (96, 288)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode body takes up to 32 packed rows (Sq * H / Hkv): a decode tick

@@ -7,9 +7,11 @@
 Every arch of ``configs`` trains: the dense and MoE decoders, the SSM and
 hybrid ones (mamba2-370m, hymba-1.5b: the SSD scan's forward #5 and
 backward #5b on the card), pixtral-12b (its batches carry the stub's
-patches) and whisper-base (its batches carry mel frames; the encoder
-trains with the decoder).  pixtral-12b and whisper-base train at one rank:
-with ``--fake-devices`` they raise ``NotImplementedError``.
+patches), whisper-base (its batches carry mel frames; the encoder
+trains with the decoder) and minicpm3-4b (MLA: its expanded heads through
+the flash forward and backward at head dim 96).  pixtral-12b and
+whisper-base train at one rank: with ``--fake-devices`` they raise
+``NotImplementedError``; minicpm3-4b trains on one rank and over the ring.
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
 plain PyTorch versions.  ``--fake-devices N`` is JAX's emulated device
@@ -60,12 +62,9 @@ def main(argv=None):
     from repro_torch.parallel.context import ParallelCtx
     from repro_torch.train.loop import TrainConfig, fit
 
-    from repro_torch.models.transformer import check_trainable
-
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)  # MLA (minicpm3-4b) serves but does not train yet
     dev = resolve_device(args.device)
     if args.fake_devices >= 8:
         ctx = ParallelCtx(sp_size=4, mesh_a=args.tile_a, attn_impl=args.attn,

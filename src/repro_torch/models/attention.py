@@ -9,9 +9,11 @@ The projections are plain matrix products; the attention itself goes through
 MLA (minicpm3-4b): q through a low-rank bottleneck, k and v from one latent
 per token (``kv_lora_rank`` dims of compressed KV and ``qk_rope_head_dim``
 of shared roped key), expanded per head for prefill and training (V padded
-up to the qk width, so one flash call serves q, k and v, and sliced back
-after it).  The latent wire over a ring (JAX's ``latent_wire_attention``)
-is not ported: ROADMAP A.9.
+up to the qk width, so one flash call serves q, k and v, forward and
+backward, and sliced back after it).  Over a ring the expanded heads go
+through ``distributed_attention`` as a dense decoder's do (JAX's default,
+``mla_latent_wire`` off); the latent wire (JAX's
+``latent_wire_attention``) is not ported: ROADMAP A.9.
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ prefill and the forward expand the latent per head (``models/attention.py``),
 while the cache holds the latent itself, one "head" of kv_lora_rank + rope
 dims written as both K and V, and decode, chunks and verifies absorb
 W^{kv_b}_K into q and W^{kv_b}_V into the output (``_decode_qkv``,
-``_decode_attn_out``), at the softmax scale qk^-0.5.  MLA is served at
-sp_size 1; its training and the ring raise (ROADMAP A.7, A.9).
+``_decode_attn_out``), at the softmax scale qk^-0.5.  MLA trains at sp_size
+1 and over the ring (the expanded heads through the Mesh-Attention
+executor, JAX's default path) and is served at sp_size 1; serving over the
+ring and the latent wire raise (ROADMAP A.9).
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
@@ -90,8 +92,7 @@ def check_supported(cfg: ModelConfig) -> None:
     GQA/MHA attention, routed (and shared) experts, SSD blocks, RMSNorm or
     LayerNorm, gated or plain MLPs, a non-causal encoder with
     cross-attention, the stubbed audio and vision frontends, and MLA in a
-    dense decoder (served at sp_size 1: ``check_ring_supported``;
-    ``check_trainable``)."""
+    dense decoder (over a ring: ``check_ring_supported``)."""
     unsupported = [
         name for name, bad in (
             ("family not " + " / ".join(_FAMILIES), cfg.family not in _FAMILIES),
@@ -111,28 +112,27 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
-def check_ring_supported(cfg: ModelConfig, sp_size: int, what: str) -> None:
-    """Frontend, encoder and MLA archs run at sp_size 1 only: over a ring
-    they raise (ROADMAP A.9)."""
-    if sp_size > 1 and (cfg.encoder_layers or cfg.frontend is not None):
+def check_ring_supported(cfg: ModelConfig, ctx: ParallelCtx, what: str) -> None:
+    """Frontend and encoder archs run at sp_size 1 only; MLA archs run over
+    a ring on the expanded heads, but neither their serving (``what ==
+    "serving"``) nor the latent wire (``ctx.mla_latent_wire``) runs there:
+    each raises (ROADMAP A.9)."""
+    if ctx.sp_size == 1:
+        return
+    if cfg.encoder_layers or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} a frontend or encoder arch over a sequence-parallel ring is "
             "not ported: ROADMAP A.9 (frontend and encoder archs over the ring)"
         )
-    if sp_size > 1 and cfg.mla is not None:
+    if cfg.mla is not None and ctx.mla_latent_wire:
         raise NotImplementedError(
-            f"{cfg.name}: {what} an MLA arch over a sequence-parallel ring needs the latent "
-            "wire (JAX's latent_wire_attention): ROADMAP A.9 (MLA over the ring)"
+            f"{cfg.name}: {what} an MLA arch with the latent on the KV ring (mla_latent_wire, "
+            "JAX's latent_wire_attention) is not ported: ROADMAP A.9 (MLA over the ring)"
         )
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """MLA serves but does not train yet: its backward needs #2 / #3 at head
-    dim 96 (ROADMAP A.7)."""
-    if cfg.mla is not None:
+    if cfg.mla is not None and what == "serving":
         raise NotImplementedError(
-            f"{cfg.name}: training an MLA arch needs the flash backward (#2 / #3) at head dim "
-            f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}: ROADMAP A.7 (MLA training)"
+            f"{cfg.name}: {what} an MLA arch over a sequence-parallel ring needs the "
+            "sequence-sharded latent cache: ROADMAP A.9 (MLA over the ring)"
         )
 
 
@@ -317,6 +317,7 @@ def _forward(params, cfg: ModelConfig, ctx: ParallelCtx, batch: Dict):
     """-> (logits, aux): aux is the fp32 sum over layers of the MoE
     load-balance term (0 for the other families)."""
     check_supported(cfg)
+    check_ring_supported(cfg, ctx, "running")
     positions = batch["positions"]
     segments = batch.get("segments")
     x, enc = _embed_inputs(params, cfg, ctx, batch, positions)

@@ -125,13 +125,18 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
 
     def upd(p, g, mm, vv):
+        # JAX's arithmetic op for op, in place: two temporaries a leaf, as
+        # the leaves are GB-sized
         g32 = g.float()
-        mm.copy_(b1 * mm + (1 - b1) * g32)
-        vv.copy_(b2 * vv + (1 - b2) * torch.square(g32))
-        u = (mm / bc1) / (torch.sqrt(vv / bc2) + cfg.eps)
+        tmp = torch.mul(g32, 1 - b1)
+        mm.mul_(b1).add_(tmp)  # b1 * m + (1 - b1) * g
+        torch.square(g32, out=tmp).mul_(1 - b2)
+        vv.mul_(b2).add_(tmp)  # b2 * v + (1 - b2) * g^2
+        torch.div(vv, bc2, out=tmp).sqrt_().add_(cfg.eps)
+        u = torch.div(mm, bc1).div_(tmp)  # (m / bc1) / (sqrt(v / bc2) + eps)
         p32 = p.float()
-        u = u + cfg.weight_decay * p32
-        p.copy_((p32 - lr * u).to(p.dtype))
+        u.add_(torch.mul(p32, cfg.weight_decay, out=tmp)).mul_(lr)  # lr * (u + wd * p)
+        p.copy_(torch.sub(p32, u, out=u))
 
     tree_map(upd, params, grads, state.m, state.v)
     return params, OptState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

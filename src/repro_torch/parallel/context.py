@@ -51,6 +51,8 @@ class ParallelCtx:
     # dense -> the band kernel per row) | native | gather
     device: Union[str, torch.device] = "cuda"
     remat: bool = True  # recompute each layer's activations in the backward
+    mla_latent_wire: bool = False  # MLA: circulate the latent on the KV ring
+    # (JAX's latent_wire_attention; not ported: at sp_size > 1 it raises)
 
     def __post_init__(self):
         if self.sp_size < 1:

@@ -152,7 +152,7 @@ class ServeEngine:
                 f"{cfg.name}: serving a MoE arch over a sequence-parallel ring needs expert "
                 "parallelism (the dispatch all-to-all over the ranks): ROADMAP A.7"
             )
-        tfm.check_ring_supported(cfg, n, "serving")
+        tfm.check_ring_supported(cfg, self.ctx, "serving")
         if serve.max_seq % n:
             raise ValueError(f"max_seq={serve.max_seq} must be divisible by sp_size={n}")
         if serve.decode_kernel != "auto":

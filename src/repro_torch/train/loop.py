@@ -78,11 +78,10 @@ def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt_cfg: AdamWConfig,
     """Returns (params, opt_state, err, batch) -> (params, opt_state, err,
     metrics), as JAX's jitted step.  ``params`` and the moments are updated
     in place; ``err`` (the compression error state) passes through.
-    Frontend and encoder archs train at sp_size 1 only; MLA archs do not
-    train yet (``check_trainable``: ROADMAP A.7)."""
+    Frontend and encoder archs train at sp_size 1 only, and MLA archs
+    over a ring without the latent wire (``check_ring_supported``)."""
     _check_one_process(compression)
-    tfm.check_trainable(cfg)
-    tfm.check_ring_supported(cfg, ctx.sp_size, "training")
+    tfm.check_ring_supported(cfg, ctx, "training")
 
     def step_fn(params, opt_state: OptState, err, batch):
         leaves = [leaf for _, leaf in tree_leaves(params)]

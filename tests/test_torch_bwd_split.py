@@ -230,6 +230,19 @@ def test_split_matches_jnp_oracle_d256(name, dtype):
         assert ratio <= 1.0, (name, dtype, H, Hkv, ratio)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", BANDS)
+def test_split_matches_pallas_interpret_d96(name, dtype):
+    """Head dim 96 (minicpm3-4b's expanded MLA heads), where each score sums
+    96 products: S = 128, MHA and a group of 2, against the Pallas backward
+    in interpret mode."""
+    dt = DTYPES[dtype]
+    split = (IN_TERMS[dt], P_TERMS)
+    for H, Hkv in ((2, 2), (4, 2)):
+        ratio = _run(name, 128, H, Hkv, 96, dt, [split], "pallas")[split]
+        assert ratio <= 1.0, (name, dtype, H, Hkv, ratio)
+
+
 # the next-cheaper splits, each on the S = 1024 causal case: fp32 with one
 # term for P and dS, or one term for the inputs; bf16 with one term for P
 # and dS.  Readings of this emulation: 23x, 48x and 11x their limits (the

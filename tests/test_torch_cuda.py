@@ -300,7 +300,18 @@ BWD_CASES = {
                              False),
     "whisper_cross_odd": (1, 441, 1536, 8, 8, 64, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1,
                           False),
+    # head dim 96 (minicpm3-4b's expanded MLA heads: three 32-dim column
+    # blocks of 64-byte swizzle): causal MHA at its 40 / 40 heads, Sq and Skv
+    # off the 64-row tiles, segments, a window at GQA 2, stripes, a
+    # cross-length band
+    "causal_mha_d96": (1, 256, 256, 40, 40, 96, (0, 0, 0, ref.BAND_INF), 1, 1, False),
+    "ragged_d96": (1, 333, 271, 4, 4, 96, (0, 0, -ref.BAND_INF, ref.BAND_INF), 1, 1, False),
+    "segments_d96": (2, 200, 200, 4, 4, 96, (0, 0, 0, ref.BAND_INF), 1, 1, True),
+    "window_gqa2_d96": (1, 333, 333, 8, 4, 96, (0, 0, 0, 63), 1, 1, False),
+    "striped_d96": (1, 192, 192, 4, 4, 96, (1, 0, 0, ref.BAND_INF), 2, 2, False),
+    "cross_length_d96": (1, 100, 260, 4, 4, 96, (0, -160, 0, ref.BAND_INF), 1, 1, False),
 }
+BWD_D96_CASES = [name for name in BWD_CASES if name.endswith("_d96")]
 # (atol, rtol) of dq/dk/dv.  fp32: both sides sum in fp32 in other orders;
 # bf16: the outputs are rounded to bf16 (one ulp is at most 2**-7 of the value)
 BWD_TOLS = {torch.float32: (2e-4, 0.0), torch.bfloat16: (2e-3, 2**-7)}
@@ -352,6 +363,64 @@ def test_flash_bwd_repeat_is_bitwise(dev):
     second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_D96_CASES)
+def test_flash_bwd_d96_repeat_is_bitwise(dev, case, dtype):
+    """At head dim 96 every case takes the body its type names, and a second
+    launch gives identical gradients."""
+    q, k, v, o, lse, do, band, kw = _bwd_inputs(case, dtype, dev)
+    B, Sq, H, D = q.shape
+    body = fa._bwd_plan(B, Sq, k.shape[1], H, k.shape[2], D, dtype)
+    before = getattr(fa.flash_attention_bwd, f"launches_{body}")
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, band, **kw)
+    torch.cuda.synchronize()
+    assert body == ("tc_fp32" if dtype == torch.float32 else "tc_bf16")
+    assert getattr(fa.flash_attention_bwd, f"launches_{body}") == before + 2
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_bwd_mesh_blocks_d96_match_plain(dev, dtype):
+    """The backward as the Mesh-Attention executor launches it over a ring of
+    4 (mesh a = 2, striped, causal) at head dim 96: every AM block of every
+    rank with its own band ([4], strides 4), against the plain version and
+    bitwise on a repeat; rows that see no key get dq exactly 0."""
+    from repro_torch.core.masking import MaskSpec
+    from repro_torch.core.mesh_attention import MeshAttentionConfig, _band_for_block
+
+    rng = np.random.default_rng(96)
+    n, a, m, H, D = 4, 2, 320, 8, 96
+    cfg = MeshAttentionConfig(transport=None, n=n, a=a, mask=MaskSpec.causal())
+    q = _randn(rng, 1, m, H, D, dtype=dtype, dev=dev)
+    k = _randn(rng, 1, m, H, D, dtype=dtype, dev=dev)
+    v = _randn(rng, 1, m, H, D, dtype=dtype, dev=dev)
+    do = _randn(rng, 1, m, H, D, dtype=dtype, dev=dev)
+    atol, rtol = BWD_TOLS[dtype]
+    blind_rows = 0
+    for i in range(n):
+        for u in range(a):
+            for w in range(n // a):
+                band, sq, skv = _band_for_block(cfg, i, u, w, m, m)
+                kw = dict(scale=D**-0.5, stride_q=sq, stride_kv=skv)
+                o, lse = ref.attention_ref(q, k, v, band=band, **kw)
+                delta = (do.float() * o.float()).sum(-1)
+                band_t = torch.tensor(band, dtype=torch.int32, device=dev)
+                got = fa.flash_attention_bwd(q, k, v, None, lse, do, band_t, delta=delta, **kw)
+                again = fa.flash_attention_bwd(q, k, v, None, lse, do, band_t, delta=delta, **kw)
+                want = ref.attention_bwd_ref(q, k, v, o, lse, do, band=band, delta=delta, **kw)
+                for name, g, g2, r in zip(("dq", "dk", "dv"), got, again, want):
+                    assert torch.equal(g, g2), (i, u, w, name)
+                    torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol,
+                                               msg=f"{(i, u, w)} {name}")
+                blind = ~ref.band_mask(m, m, band, stride_q=sq, stride_kv=skv,
+                                       device=dev).any(dim=1)
+                assert torch.all(got[0][0][blind] == 0)
+                blind_rows += int(blind.sum())
+    assert blind_rows > 0  # some block shows a rank's first row no key
 
 
 def test_flash_bwd_repeat_is_bitwise_bf16(dev):

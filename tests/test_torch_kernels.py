@@ -293,6 +293,9 @@ BWD_PLANS = {
     # gemma-7b training (16 / 16 heads of 256) and its bf16 run
     "gemma_train_fp32": ((1, 4096, 4096, 16, 16, 256, torch.float32), "tc_fp32"),
     "gemma_train_bf16": ((1, 4096, 4096, 16, 16, 256, torch.bfloat16), "tc_bf16"),
+    # minicpm3-4b training (MLA's expanded 40 / 40 heads of 96) and its bf16 run
+    "minicpm_train_fp32": ((1, 4096, 4096, 40, 40, 96, torch.float32), "tc_fp32"),
+    "minicpm_train_bf16": ((1, 4096, 4096, 40, 40, 96, torch.bfloat16), "tc_bf16"),
 }
 
 
@@ -303,7 +306,7 @@ def test_bwd_plan_routes_by_type(name):
     assert tfa.BWD_TERMS[want] == (2 if shape[-1] == torch.float32 else 1)
 
 
-@pytest.mark.parametrize("D", [16, 48, 96])
+@pytest.mark.parametrize("D", [16, 48, 80])
 def test_bwd_plan_refuses_other_head_dims(D):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="head dims"):

@@ -23,8 +23,9 @@ and the fp / int8 / fp8 pools; the chunked prefill's token against one-shot
 (JAX's ``test_chunked_prefill_mla_token_equal``).  The plain versions of the
 flash forward at head dims 96 (40 / 40 heads) and 288 (40 heads on one kv
 head) and of the paged decode at head dim 288, group 40 (fp, int8, fp8
-pools) are held to JAX's Pallas kernels in interpret mode.  MLA training and
-MLA over a ring raise, naming their ROADMAP items.  Inputs come from numpy
+pools) are held to JAX's Pallas kernels in interpret mode.  MLA trains
+(tests/test_torch_minicpm_train.py); MLA serving over a ring and the latent
+wire raise, naming ROADMAP A.9.  Inputs come from numpy
 with fixed seeds.
 """
 
@@ -409,23 +410,33 @@ def test_paged_decode_plain_d288_matches_pallas(pool):
 
 
 def test_mla_training_and_ring_raise(reduced):
-    """MLA serves at sp_size 1 only: its training raises (the backward at
-    head dim 96, ROADMAP A.7) on every device, and so does the ring (the
-    latent wire, ROADMAP A.9)."""
+    """MLA trains (the backward at head dim 96): a train step and the CLI
+    run on the CPU.  Over a ring, only what is still unported raises,
+    naming ROADMAP A.9: serving (the sequence-sharded latent cache) and the
+    latent wire; training over the ring is
+    tests/test_torch_minicpm_train.py's."""
+    from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import train as tlaunch
-    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_map
     from repro_torch.train.loop import make_train_step
 
     _, _, tcfg, tp = reduced
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        make_train_step(tcfg, TCTX, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1"])
+    params = tree_map(torch.clone, tp)  # the step updates params in place
+    step = make_train_step(tcfg, TCTX, AdamWConfig())
+    _, _, _, metrics = step(params, init_opt_state(params), {},
+                            make_batch(tcfg, 16, 1, ctx=TCTX))
+    assert np.isfinite(float(metrics["loss"]))
+    assert tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
+                         "--seq", "16", "--batch", "1"]) == 0
     ring = TCtx(sp_size=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         TEngine(tcfg, tp, ring, serve=TServe(max_seq=64, num_slots=2))
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ttfm.check_ring_supported(tcfg, 4, "training")
+        ttfm.check_ring_supported(tcfg, ring, "serving")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        ttfm.check_ring_supported(tcfg, TCtx(sp_size=4, device="cpu", mla_latent_wire=True),
+                                  "training")
+    ttfm.check_ring_supported(tcfg, ring, "training")
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", ARCH])

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""The seconds of chip_smoke.py's CPU-heavy train-step parity phases, one
+tree at a time.
+
+    python3 tools/parity_timing.py [--tree DIR]
+
+Imports ``chip_smoke.py`` and the ``repro_torch`` package of ``--tree``
+(default: this checkout), builds the flash libraries, and runs the phases
+whose CPU side (a make_train_step on the host over 0.4e9-1.8e9 fp32
+weights, and the comparison of every leaf) takes most of their time, each as
+``chip_smoke.py`` runs it: ``train_parity`` (granite-8b), ``train_gemma_parity``,
+``train_moe_parity``, ``train_ssm_parity`` (mamba2-370m) and, where the
+tree has it, ``train_minicpm_parity``'s card-vs-CPU step.  Prints one line
+per phase: its seconds, the card's and the CPU's step wall time, and the
+worst gradient and parameter errors against the phase's limits.  Giving
+``--tree`` the parent commit's tree times the phases before a change; one
+call with both trees, in turns (parent, change, change, parent), compares
+them on one host.  Needs a CUDA device.
+"""
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=ROOT)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path[:0] = [tree, os.path.join(tree, "src")]
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("parity_timing: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(), flush=True)
+    cs._build.build(["flash_fwd_tc", "flash_fwd_mla", "flash_bwd", "ssd_scan", "ssd_scan_bwd"])
+    phases = [("granite-8b", cs.TRAIN_PARITY_SEQ, "train_parity", 2),
+              (cs.GEMMA_ARCH, cs.GEMMA_PARITY_SEQ, "train_gemma_parity", cs.GEMMA_PARITY_LAYERS),
+              ("qwen2-moe-a2.7b", cs.MOE_PARITY_SEQ, "train_moe_parity", cs.MOE_PARITY_LAYERS),
+              ("mamba2-370m", 512, "train_ssm_parity", 2)]
+    if hasattr(cs, "MINICPM_PARITY_SEQ"):
+        phases.append((cs.MINICPM_ARCH, cs.MINICPM_PARITY_SEQ, "train_minicpm_parity",
+                       cs.MINICPM_PARITY_LAYERS))
+    for arch, seq, phase, layers in phases:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):  # the phase's own (long) line
+            cs.train_parity(arch, seq=seq, phase=phase, layers=layers)
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(json.dumps({
+            "tree": tree, "phase": phase, "arch": arch, "seconds": time.perf_counter() - t0,
+            "wall_s": rec["wall_s"],
+            "grad_err_over_max": max(v["grad_max_abs_err"] / v["grad_max_abs"]
+                                     for v in rec["leaves"].values()),
+            "param_max_abs_err": max(v["param_max_abs_err"] for v in rec["leaves"].values()),
+            "tols": rec["tols"],
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
