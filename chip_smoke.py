@@ -443,6 +443,7 @@ from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves  # 
 from repro_torch.parallel.context import ParallelCtx  # noqa: E402
 from repro_torch.parallel.ring import VirtualRing  # noqa: E402
 from repro_torch.serve.config import ServeConfig  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.testing.chaos import ChaosConfig, ChaosInjector  # noqa: E402
 from repro_torch.train.loop import TrainConfig, fit, make_train_step  # noqa: E402
@@ -2958,61 +2959,61 @@ MOE_SLICE_LAYERS = 1
 def cross_device_moe():
     """qwen2-moe-a2.7b and mixtral-8x7b at full width, MOE_SLICE_LAYERS
     layers, fp32, JAX's default capacity factor 1.25: card (kernels) vs CPU
-    (plain versions), dense cache and paged pool; capacity must drop entries
-    on both."""
+    (plain versions) over the dense cache; capacity must drop entries on
+    both.  The paged pool's run was cut for the run's time:
+    slice_moe_ring holds the same weights card vs CPU over the fp and int8
+    pools, at sp_size 4.  -> each arch's (cfg, card weights, CPU weights),
+    which slice_moe_ring serves again over the ring."""
     lengths, arrivals = [64, 137, 200], [0, 0, 1]
-    out, problems = {}, []
+    out, problems, weights = {}, [], {}
+    serve = ServeConfig(max_seq=256, num_slots=4, cache_dtype=torch.float32)
     for arch in MOE_ARCHS:
         cfg = dataclasses.replace(get_config(arch), num_layers=MOE_SLICE_LAYERS)
         params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
         params_cpu = _tree_to(params, "cpu")
-        out[arch] = {}
-        for paged in (False, True):
-            serve = ServeConfig(max_seq=256, num_slots=4, paged=paged,
-                                page_size=16 if paged else None, cache_dtype=torch.float32)
-            side = {}
-            for dev, p in (("cuda", params), ("cpu", params_cpu)):
-                fa.flash_attention_fwd.launches = pk.paged_flash_decode.launches = 0
-                eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
-                eng.capture_logits = True
-                with _DropCounter() as drops:
-                    res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
-                side[dev] = dict(
-                    streams=[r.generated for r in res],
-                    first=[eng.debug_logits[r.rid][0] for r in res],
-                    launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                              "paged_flash_decode": pk.paged_flash_decode.launches},
-                    statuses=[r.status for r in res], dropped=drops.dropped,
-                )
-            card, cpu = side["cuda"], side["cpu"]
-            err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
-            key = "paged" if paged else "dense"
-            out[arch][key] = dict(
-                streams_identical=card["streams"] == cpu["streams"],
-                first_logits_max_abs_err=err, cuda_launches=card["launches"],
-                cpu_launches=sum(cpu["launches"].values()),
-                dropped_entries={"cuda": card["dropped"], "cpu": cpu["dropped"]},
+        weights[arch] = (cfg, params, params_cpu)
+        side = {}
+        for dev, p in (("cuda", params), ("cpu", params_cpu)):
+            fa.flash_attention_fwd.launches = pk.paged_flash_decode.launches = 0
+            eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
+            eng.capture_logits = True
+            with _DropCounter() as drops:
+                res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
+            side[dev] = dict(
+                streams=[r.generated for r in res],
+                first=[eng.debug_logits[r.rid][0] for r in res],
+                launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                          "paged_flash_decode": pk.paged_flash_decode.launches},
+                statuses=[r.status for r in res], dropped=drops.dropped,
             )
-            tag = f"slice_moe {arch} {key}"
-            if card["streams"] != cpu["streams"]:
-                problems.append(f"{tag}: card and CPU streams differ: {side}")
-            if err > 1e-3:
-                problems.append(f"{tag}: first-token logits differ by {err} > 1e-3")
-            if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
-                problems.append(f"{tag}: not every request finished ok")
-            if not (card["launches"]["flash_attention_fwd"] > 0
-                    and (card["launches"]["paged_flash_decode"] > 0) == paged
-                    and out[arch][key]["cpu_launches"] == 0):
-                problems.append(f"{tag}: kernels must run on the card only: "
-                                f"{card['launches']}, CPU {out[arch][key]['cpu_launches']}")
-            if not (card["dropped"] > 0 and cpu["dropped"] > 0):
-                problems.append(f"{tag}: capacity dropped nothing: {out[arch][key]}")
+        card, cpu = side["cuda"], side["cpu"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card["first"], cpu["first"]))
+        out[arch] = {"dense": dict(
+            streams_identical=card["streams"] == cpu["streams"],
+            first_logits_max_abs_err=err, cuda_launches=card["launches"],
+            cpu_launches=sum(cpu["launches"].values()),
+            dropped_entries={"cuda": card["dropped"], "cpu": cpu["dropped"]},
+        )}
+        tag = f"slice_moe {arch} dense"
+        if card["streams"] != cpu["streams"]:
+            problems.append(f"{tag}: card and CPU streams differ: {side}")
+        if err > 1e-3:
+            problems.append(f"{tag}: first-token logits differ by {err} > 1e-3")
+        if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+            problems.append(f"{tag}: not every request finished ok")
+        if not (card["launches"]["flash_attention_fwd"] > 0
+                and card["launches"]["paged_flash_decode"] == 0
+                and out[arch]["dense"]["cpu_launches"] == 0):
+            problems.append(f"{tag}: kernels must run on the card only: "
+                            f"{card['launches']}, CPU {out[arch]['dense']['cpu_launches']}")
+        if not (card["dropped"] > 0 and cpu["dropped"] > 0):
+            problems.append(f"{tag}: capacity dropped nothing: {out[arch]['dense']}")
         del params, params_cpu
-        torch.cuda.empty_cache()
     emit({"phase": "slice_moe", "num_layers": MOE_SLICE_LAYERS, "dtype": "fp32",
           "capacity_factor": 1.25, "lengths": lengths, "arrivals": arrivals, "new_tokens": 8,
           **out})
     check(not problems, "; ".join(problems))
+    return weights
 
 
 def _moe_kernel_class(name: str) -> str:
@@ -3256,8 +3257,9 @@ def serve_moe(card):
     torch.cuda.empty_cache()
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_SERVE_LAYERS)
     params = tfm.init_params(mixtral, seed=0, dtype=torch.bfloat16, device="cuda")
+    # its profiled tick was cut for the run's time (no gate read it)
     rec, probs, bodies = _serve_full_run(mixtral, params, ServeConfig(**base), SERVE_LENGTHS,
-                                         SERVE_ARRIVALS, profile=profile_moe_decode)
+                                         SERVE_ARRIVALS, profile=None)
     runs["mixtral_8_layers_oneshot_fp"], counted["mixtral"] = rec, (rec["launches"], bodies)
     problems += probs
     del params
@@ -3277,7 +3279,308 @@ def serve_moe(card):
         total["flash_fwd_split"] += launches["fwd_split"]
         total["paged_flash_decode"] += launches["paged_flash_decode"]
         total["paged_flash_decode_quant"] += launches["paged_flash_decode_quant"]
+    return total, runs["qwen_oneshot_fp"]
+
+
+# --------------------------------------------------------------------------
+# the MoE decoders over a ring of 4: expert parallelism
+# --------------------------------------------------------------------------
+
+# slice_moe_ring's runs: one-shot over the fp pool, and chunk 256 (budget
+# 512) with spec_k 4 over an int8 pool; its first prompt loops, so prompt
+# lookup drafts and verify windows run
+MOE_RING_RUNS = (("oneshot_fp", {}),
+                 ("chunk_spec_int8", dict(prefill_chunk=256, tick_token_budget=512, spec_k=4,
+                                          kv_dtype="int8")))
+# train_moe_ring_parity's sequence: 512 rows a rank
+MOE_RING_PARITY_SEQ = 2048
+
+
+def _moe_a2a_bytes(cfg, shapes, itemsize, n=RING_N):
+    """The reckoning of the moe_dispatch (and, equal, moe_return) bytes one
+    rank sends: for each MoE call on rows [B, S] with S a multiple of n
+    (an "ep" arch), its [B, E, C_loc, D] buffer at C_loc = ceil(S/n K cf /
+    E), (n - 1) / n of it; decode rows (S 1) send nothing."""
+    m = cfg.moe
+    if m.mode != "ep":
+        return 0
+    E = -(-m.num_experts // n) * n
+    total = 0
+    for b, length in shapes:
+        if length % n == 0:
+            c = int(np.ceil(length // n * m.top_k * m.capacity_factor / E))
+            total += b * E * c * cfg.d_model * itemsize * (n - 1) // n
     return total
+
+
+# a router choice may differ between the card and the CPU only where the
+# K-th and (K+1)-th router probabilities of the token lie this close: the
+# two sides' hidden states differ by fp32 rounding (the card's #1 and #4
+# take fp32 inputs as bf16 terms), which can move a near-tie expert in or
+# out of a token's top-K and so change what capacity drops
+ROUTE_NEAR_TIE = 1e-4
+
+
+class _RouteRecorder:
+    """Records every MoE routing while it is entered: each token's chosen
+    experts (as a set: sorted) and the gap between its K-th and (K+1)-th
+    router probability, on the host (correctness runs only)."""
+
+    def __enter__(self):
+        self.calls, self._orig = [], moe_mod._route
+
+        def recording(h, router_w, cfg_, E_pad):
+            idx, w, aux = self._orig(h, router_w, cfg_, E_pad)
+            k, e = cfg_.moe.top_k, cfg_.moe.num_experts
+            probs = torch.softmax(h.float() @ router_w.float()[:, :e], dim=-1)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.calls.append((idx.sort(dim=-1).values.cpu(),
+                               (top[..., k - 1] - top[..., k]).cpu()))
+            return idx, w, aux
+
+        moe_mod._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._route = self._orig
+
+
+def _route_flips(card_calls, cpu_calls):
+    """Tokens whose expert sets differ between two runs of one schedule, and
+    the largest router gap (either side's) among them."""
+    if len(card_calls) != len(cpu_calls):
+        return None, None
+    flips, worst = 0, 0.0
+    for (a, ga), (b, gb) in zip(card_calls, cpu_calls):
+        diff = (a != b).any(dim=-1)
+        if diff.any():
+            flips += int(diff.sum())
+            worst = max(worst, float(torch.maximum(ga, gb)[diff].max()))
+    return flips, worst
+
+
+class _AlwaysDraft:
+    """While entered, the engine's prompt-lookup proposer always drafts (the
+    fed token repeated), so verify windows run whatever a random model
+    generates: a random 1-layer qwen2-moe and mixtral repeated no token in
+    24 greedy tokens on an H100, and drafted nothing.  Verify
+    commits only what greedy decode gives, so the streams stay greedy."""
+
+    def __enter__(self):
+        self._orig = serve_engine.propose_ngram
+
+        def always(prompt, generated, k, **kwargs):
+            return self._orig(prompt, generated, k, **kwargs) or [int(generated[-1])] * k
+
+        serve_engine.propose_ngram = always
+        return self
+
+    def __exit__(self, *exc):
+        serve_engine.propose_ngram = self._orig
+
+
+def slice_moe_ring(weights):
+    """slice_moe's weights (qwen2-moe-a2.7b and mixtral-8x7b at full width,
+    MOE_SLICE_LAYERS layer, fp32, cf 1.25) served at sp_size 4 on the card
+    and on the CPU: one-shot over the fp pool, chunk 256 + spec_k 4 over an
+    int8 pool (the proposer always drafting: ``_AlwaysDraft``).  Streams
+    identical, the entries capacity drops counted on both sides and equal
+    (> 0 for qwen2-moe, whose "ep" dispatch caps each rank's quarter of a
+    row), the all-to-all bytes equal, no kernel on the CPU side.  Expert
+    choices may differ only at router near-ties (``ROUTE_NEAR_TIE``), and
+    only then may the drop counts."""
+    lengths, arrivals = [96, 137, 200], [0, 0, 1]
+    out, problems = {}, []
+    for arch in MOE_ARCHS:
+        cfg, params, params_cpu = weights.pop(arch)
+        loop = _slice_quant_trace(cfg.vocab_size)[0][0]  # 96 tokens, a loop of 12
+        rng = np.random.default_rng(1)
+        prompts = [loop] + [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+                            for n in lengths[1:]]
+        out[arch] = {}
+        for key, extra in MOE_RING_RUNS:
+            serve = ServeConfig(max_seq=512, num_slots=4, paged=True, page_size=16,
+                                cache_dtype=torch.float32, **extra)
+            side = {}
+            for dev, p in (("cuda", params), ("cpu", params_cpu)):
+                ctx = ParallelCtx(sp_size=RING_N, device=dev)
+                eng = ServeEngine(cfg, p, ctx, serve=serve)
+                before = _kernel_counts()
+                with _DropCounter() as drops, _RouteRecorder() as routes, _AlwaysDraft():
+                    rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(prompts, arrivals)]
+                    done = eng.run()
+                side[dev] = dict(
+                    routes=routes.calls, streams=[done[r].generated for r in rids],
+                    statuses=[done[r].status for r in rids], dropped=drops.dropped,
+                    launches=_delta(before, _kernel_counts()),
+                    ring_bytes={k: v for k, v in ctx.ring.stats.bytes.items()
+                                if k.startswith("moe_")},
+                    engine={"prefill": eng.prefill_launches, "chunk": eng.chunk_launches,
+                            "verify": eng.verify_launches, "decode": eng.decode_launches,
+                            "spec_accepted": eng.spec_accepted},
+                    pages_in_use=eng.kv_cache_stats()["pages_in_use"])
+                del eng
+            card, cpu = side.pop("cuda"), side.pop("cpu")
+            flips, worst_gap = _route_flips(card.pop("routes"), cpu.pop("routes"))
+            cpu_launches = sum(v for k, v in cpu["launches"].items() if not k.startswith("fwd_"))
+            out[arch][key] = dict(
+                streams_identical=card["streams"] == cpu["streams"],
+                route_flips=flips, route_flip_max_gap=worst_gap,
+                dropped_entries={"cuda": card["dropped"], "cpu": cpu["dropped"]},
+                ring_bytes={"cuda": card["ring_bytes"], "cpu": cpu["ring_bytes"]},
+                engine=card["engine"], cuda_launches=card["launches"], cpu_launches=cpu_launches)
+            tag = f"slice_moe_ring {arch} {key}"
+            if card["streams"] != cpu["streams"]:
+                problems.append(f"{tag}: card and CPU streams differ: {card}, {cpu}")
+            if flips is None or (flips and not worst_gap <= ROUTE_NEAR_TIE):
+                problems.append(f"{tag}: expert choices differ beyond a near-tie: {flips} "
+                                f"tokens, gap {worst_gap}")
+            if not all(st == "ok" for st in card["statuses"] + cpu["statuses"]):
+                problems.append(f"{tag}: not every request finished ok")
+            if (card["dropped"] != cpu["dropped"] and not flips) or (
+                    cfg.moe.mode == "ep" and not (card["dropped"] > 0 and cpu["dropped"] > 0)):
+                problems.append(f"{tag}: drops {out[arch][key]['dropped_entries']}, want equal "
+                                f"and > 0 for an ep arch")
+            if card["ring_bytes"] != cpu["ring_bytes"] or (cfg.moe.mode == "ep") != bool(
+                    card["ring_bytes"].get("moe_dispatch")):
+                problems.append(f"{tag}: all-to-all bytes {out[arch][key]['ring_bytes']}")
+            decode_kernel = "paged_flash_decode_quant" if extra else "paged_flash_decode"
+            if not (card["launches"][decode_kernel] == cfg.num_layers * card["engine"]["decode"]
+                    > 0 and card["launches"]["flash_attention_fwd"] > 0 and cpu_launches == 0):
+                problems.append(f"{tag}: kernels must run on the card only: {card['launches']}, "
+                                f"CPU {cpu_launches}")
+            if extra and not (card["engine"]["chunk"] > 0 and card["engine"]["verify"] > 0):
+                problems.append(f"{tag}: no chunk or no verify launch: {card['engine']}")
+            if card["pages_in_use"] or cpu["pages_in_use"]:
+                problems.append(f"{tag}: pages left after the drain")
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_moe_ring", "num_layers": MOE_SLICE_LAYERS, "dtype": "fp32",
+          "capacity_factor": 1.25, "sp_size": RING_N, "lengths": lengths, "arrivals": arrivals,
+          "new_tokens": 8, "page_size": 16, "route_near_tie": ROUTE_NEAR_TIE,
+          "runs": [k for k, _ in MOE_RING_RUNS], **out})
+    check(not problems, "; ".join(problems))
+
+
+def serve_moe_ring(card, sp1_rec):
+    """qwen2-moe-a2.7b whole, bf16, at sp_size 4 (the virtual ring: its "ep"
+    experts 15 a rank, each prefill's rows dispatched by all-to-all), the
+    serve trace one-shot over the fp pool.  Gates: every request ok, pages
+    drained, per layer one #4 launch a decode tick (the 4 ranks folded) and
+    the mesh blocks' #1 launches a prefill (on the body ``_fwd_plan`` picks
+    for a rank's quarter of the bucket), no call of a
+    kernel's plain version, the moe_dispatch / moe_return bytes equal to the
+    reckoning (decode rows send none), the peak under 80 GB.  Beside
+    ``sp1_rec``, serve_moe's one-shot fp run of the same weights in this
+    call: the ratio of ms a tick."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    ctx = ParallelCtx(sp_size=RING_N, device="cuda")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda", ctx=ctx)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    eng = ServeEngine(cfg, params, ctx, serve=ServeConfig(
+        max_seq=2048, num_slots=8, paged=True, page_size=16, cache_dtype=torch.bfloat16))
+    # warm-up (cuBLAS handles, allocator), outside the measured run
+    eng.generate(np.arange(32, dtype=np.int32)[None], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    skip = eng.tick_stats()["ticks"]
+    counts0 = (eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+               eng.prefill_launches)
+    ctx.ring.stats.reset()
+    before = _kernel_counts()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        res = serve_trace(eng, SERVE_LENGTHS, [a + skip for a in SERVE_ARRIVALS], 32,
+                          cfg.vocab_size, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _delta(before, _kernel_counts())
+    decode_l, chunk_l, verify_l, prefill_l = (
+        a - b for a, b in zip((eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+                               eng.prefill_launches), counts0))
+    stats = eng.tick_stats()
+    kv = eng.kv_cache_stats()
+    pf_tok, pf_s = sum(stats["prefill_tokens"][skip:]), sum(stats["prefill_s"][skip:])
+    dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+    dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+    dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+    buckets = [eng.scheduler.bucket_for(n) for n in SERVE_LENGTHS]
+    want_a2a = L * _moe_a2a_bytes(cfg, [(1, b) for b in buckets], 2)
+    ring_bytes = stats["ring_bytes"]
+    rec = {
+        "arch": cfg.name, "num_layers": L, "d_model": cfg.d_model,
+        "moe": dataclasses.asdict(cfg.moe), "params": tfm.param_count(params), "init_s": init_s,
+        "statuses": [r.status for r in res], "ticks": stats["ticks"] - skip, "wall_s": wall,
+        "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+        "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+        "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+        "sp1_ms_per_decode_tick": sp1_rec["ms_per_decode_tick"],
+        "sp1_decode_tok_per_s": sp1_rec["decode_tok_per_s"],
+        "sp1_prefill_tok_per_s": sp1_rec["prefill_tok_per_s"],
+        "ttft_ticks": [r.ttft_ticks for r in res], "buckets": buckets,
+        "prefill_launches": prefill_l, "decode_launches": decode_l,
+        "pages_in_use": kv["pages_in_use"], "peak_pages": kv["peak_in_use"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "plain_calls": plain.calls, "ring_bytes": ring_bytes,
+        "moe_a2a_bytes_reckoned": want_a2a, "hops": dict(ctx.ring.stats.hops),
+    }
+    rec["tick_ratio_to_sp1"] = rec["ms_per_decode_tick"] / rec["sp1_ms_per_decode_tick"]
+    rec["decode_profile"] = profile_moe_decode(eng, cfg)
+    problems = []
+    if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+        problems.append(f"serve_moe_ring: not every request finished ok: {rec['statuses']}")
+    if kv["pages_in_use"]:
+        problems.append(f"serve_moe_ring: {kv['pages_in_use']} pages left after the drain")
+    blocks = sum(_mesh_prefill_launches(b) for b in buckets)
+    problems += _ring_launch_problems("serve_moe_ring", L, launches, decode_l, chunk_l, verify_l,
+                                      "paged_flash_decode", prefill=L * blocks)
+    # a mesh block's rows are a rank's quarter of the bucket: 32 rows of MHA
+    # (the 128 bucket) fit #1's decode body, the longer ones take the tile
+    body = {b: fa._fwd_plan(1, b // RING_N, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                            torch.bfloat16)[0] for b in set(buckets)}
+    got = {"fwd_tile": launches["fwd_tile"], "fwd_decode": launches["fwd_decode"],
+           "fwd_fp32": launches["fwd_fp32"], "prefill_launches": prefill_l,
+           "paged_flash_decode_quant": launches["paged_flash_decode_quant"]}
+    want = {f"fwd_{k}": L * sum(_mesh_prefill_launches(b) for b in buckets if body[b] == k)
+            for k in ("tile", "decode")}
+    want.update(fwd_fp32=0, prefill_launches=len(res), paged_flash_decode_quant=0)
+    if got != want:
+        problems.append(f"serve_moe_ring: launches by body {got}, want {want}")
+    if any(plain.calls.values()):
+        problems.append(f"serve_moe_ring: a kernel's plain version was called: {plain.calls}")
+    if not (ring_bytes.get("moe_dispatch") == ring_bytes.get("moe_return") == want_a2a > 0):
+        problems.append(f"serve_moe_ring: all-to-all bytes {ring_bytes}, reckoned {want_a2a}")
+    if rec["peak_mem_gb"] >= 80:
+        problems.append(f"serve_moe_ring: peak {rec['peak_mem_gb']:.2f} GB")
+    del eng, params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_moe_ring", "dtype": "bf16", "sp_size": RING_N, "max_seq": 2048,
+          "num_slots": 8, "page_size": 16, "lengths": SERVE_LENGTHS,
+          "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32, "run": rec, "card": card})
+    check(not problems, "; ".join(problems))
+    return {"flash_attention_fwd (tile)": launches["fwd_tile"],
+            "flash_attention_fwd (decode)": launches["fwd_decode"],
+            "paged_flash_decode": launches["paged_flash_decode"]}
+
+
+def train_moe_ring_parity():
+    """qwen2-moe-a2.7b at full width, 1 layer, fp32, seq 2048, at capacity
+    factor E / K = 15, where neither side drops (C_loc = S/n, C = S), so
+    sp_size 4 and 1 compute one function: train_mesh_parity's step at
+    sp_size 4 (mesh a = 2) against sp_size 1 on the card, with its gates,
+    and the all-to-all bytes against the reckoning (remat runs each layer's
+    forward twice)."""
+    base = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, num_layers=1, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.num_experts / base.moe.top_k))
+    with _DropCounter() as drops:
+        train_mesh_parity(cfg=cfg, seq=MOE_RING_PARITY_SEQ, impls=(("mesh", 2),),
+                          phase="train_moe_ring_parity",
+                          a2a_bytes=2 * _moe_a2a_bytes(cfg, [(1, MOE_RING_PARITY_SEQ)], 4))
+    check(drops.dropped == 0, f"train_moe_ring_parity: capacity dropped {drops.dropped} entries")
 
 
 # --------------------------------------------------------------------------
@@ -4615,14 +4918,16 @@ def _attn_dims(cfg):
 
 
 def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2), ("ring", 1)),
-                      phase="train_mesh_parity"):
-    """``arch`` at full width cut to ``layers`` layers, fp32: one train step
-    at sp_size 4 on the virtual ring (each of ``impls``: mesh a = 2, ring)
-    against one at sp_size 1, all on the card, from the same weights and
-    batch.  Each ring step launches #1 twice (remat) and #2 / #3 once per
-    layer and schedule block (the backward per rank), and its Q and KV hops
-    carry ``CommModel.chunk_bytes`` each."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+                      phase="train_mesh_parity", cfg=None, a2a_bytes=None):
+    """``arch`` at full width cut to ``layers`` layers (or ``cfg``), fp32:
+    one train step at sp_size 4 on the virtual ring (each of ``impls``: mesh
+    a = 2, ring) against one at sp_size 1, all on the card, from the same
+    weights and batch.  Each ring step launches #1 twice (remat) and #2 / #3
+    once per layer and schedule block (the backward per rank), and its Q and
+    KV hops carry ``CommModel.chunk_bytes`` each; with ``a2a_bytes`` (an
+    "ep" MoE arch) its moe_dispatch and moe_return bytes are that."""
+    cfg = cfg or dataclasses.replace(get_config(arch), num_layers=layers)
+    arch, layers = cfg.name, cfg.num_layers
     opt = AdamWConfig()
     params0 = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     nh, nkv, hd = _attn_dims(cfg)
@@ -4668,6 +4973,8 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
         del p, state, batch
         torch.cuda.empty_cache()
     rec = {"phase": phase, "arch": arch, "num_layers": layers, "dtype": "fp32", "seq": seq,
+           **({"moe": dataclasses.asdict(cfg.moe), "a2a_bytes_reckoned": a2a_bytes}
+              if cfg.moe else {}),
            "batch": 1, "n": MESH_N, "heads": [nh, nkv, hd], "tols": PARITY_TOLS,
            "sides": {k: {kk: vv for kk, vv in v.items() if kk not in ("params", "m")}
                      for k, v in out.items()}}
@@ -4696,6 +5003,10 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
         for kk, ck in (("recv_q", "q"), ("recv_kv", "kv")):
             check(side["bytes"].get(kk, 0) == side["hops"].get(kk, 0) * comm.chunk_bytes(ck),
                   f"{phase}: {name} {kk} bytes off CommModel.chunk_bytes: {side}")
+        if a2a_bytes is not None:
+            check(side["bytes"].get("moe_dispatch") == side["bytes"].get("moe_return")
+                  == a2a_bytes > 0,
+                  f"{phase}: {name} all-to-all bytes {side['bytes']}, reckoned {a2a_bytes}")
 
 
 def train_mesh(card):
@@ -5028,9 +5339,14 @@ def main():
     # the SSM and hybrid archs over a ring of 4: the sequence-sharded scan
     slice_ssm_ring()
     ssm_ring = serve_ssm_ring(card)
-    # the MoE decoders: card vs CPU at 2 layers, then served at full width
-    cross_device_moe()
-    moe_launches = serve_moe(card)
+    # the MoE decoders: card vs CPU at 1 layer, at sp_size 1 and over a ring
+    # of 4 (expert parallelism; slice_moe's weights, freed before
+    # serve_moe's 57 GB fp32 check), then served at full width, qwen2-moe
+    # also whole at sp_size 4, and a train step at sp_size 4 vs 1
+    slice_moe_ring(cross_device_moe())
+    moe_launches, moe_sp1 = serve_moe(card)
+    moe_ring = serve_moe_ring(card, moe_sp1)
+    train_moe_ring_parity()
     # qwen2.5-32b: card vs CPU at 2 layers, then served whole
     cross_device(QWEN_ARCH, phase="slice_qwen")
     qwen_launches = serve_qwen(card)
@@ -5095,9 +5411,11 @@ def main():
     for key in ("flash_attention_fwd (fp32)", "flash_fwd_split", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_split"):
         launches[key] += ssm_train[key]
-    # serve_moe's, serve_qwen's, serve_gemma's, serve_whisper's,
-    # serve_pixtral's and serve_minicpm's runs join the serving rows
-    for key, n in (list(moe_launches.items()) + list(qwen_launches.items())
+    # serve_moe's, serve_moe_ring's, serve_qwen's, serve_gemma's,
+    # serve_whisper's, serve_pixtral's and serve_minicpm's runs join the
+    # serving rows
+    for key, n in (list(moe_launches.items()) + list(moe_ring.items())
+                   + list(qwen_launches.items())
                    + list(gemma_launches.items()) + list(whisper_launches.items())
                    + list(pixtral_launches.items()) + list(minicpm_launches.items())):
         launches[key] += n

@@ -57,9 +57,9 @@ def ulysses_attention(
     del H
     # seq-sharded -> head-sharded: split heads (axis 2 of each rank's
     # [B, S/n, H, D]) across ranks, concatenate sequence chunks (axis 1)
-    qh = transport.all_to_all(q, split_axis=2, concat_axis=1)
-    kh = transport.all_to_all(k, split_axis=2, concat_axis=1)
-    vh = transport.all_to_all(v, split_axis=2, concat_axis=1)
+    qh = transport.all_to_all(q, split_axis=2, concat_axis=1, kind="ulysses")
+    kh = transport.all_to_all(k, split_axis=2, concat_axis=1, kind="ulysses")
+    vh = transport.all_to_all(v, split_axis=2, concat_axis=1, kind="ulysses")
     seg_full = None
     if seg is not None:
         # after the transpose every rank holds the FULL sequence; gather the
@@ -67,4 +67,4 @@ def ulysses_attention(
         seg_full = transport.all_gather(seg.to(torch.int32))[0]
     oh = flash(qh, kh, vh, seg_full)
     # head-sharded -> seq-sharded
-    return transport.all_to_all(oh, split_axis=1, concat_axis=2)
+    return transport.all_to_all(oh, split_axis=1, concat_axis=2, kind="ulysses")

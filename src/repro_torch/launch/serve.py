@@ -25,16 +25,20 @@ sequence-parallel ring of 4 ranks (``ParallelCtx(sp_size=4)``, a
 ``VirtualRing``: every rank on the one device), as JAX's CLI builds a
 (N/4, 4) mesh with a sequence axis of 4; the port builds the sequence axis
 only.  The SSM archs then run the sequence-sharded SSD scan (prompt
-lengths multiples of 4):
+lengths multiples of 4), the "ep" MoE archs expert parallelism:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
-        --arch mamba2-370m --fake-devices 8 --stream  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
+        --arch mamba2-370m --fake-devices 8 --stream
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+        --arch qwen2-moe-a2.7b --fake-devices 8 --stream --paged --page-size 4  ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs
 their plain PyTorch versions.  Weights are random, from seed 0.
 
 ``--arch qwen2-moe-a2.7b`` / ``mixtral-8x7b`` serve the MoE decoders in
-every mode of the dense family, on one rank (with ``--fake-devices`` the
-engine raises ``NotImplementedError``); on the card ``--arch
-qwen2-moe-a2.7b --dtype bfloat16`` serves qwen2-moe whole.  ``--arch
+every mode of the dense family, on one rank and with ``--fake-devices``
+over the ring (qwen2-moe, mode "ep": each rank's tokens dispatched to the
+experts' ranks by all-to-all, capacity per rank; mixtral, mode "tp": the
+global path); on the card ``--arch qwen2-moe-a2.7b --dtype bfloat16``
+serves qwen2-moe whole, at sp_size 1 or 4.  ``--arch
 gemma-7b`` serves gemma (head dim 256, GeGLU, tied embeddings) in every mode
 of the dense family; ``--reduced`` runs JAX's reduced config (head dim 32)
 on the CPU, and on the card ``--dtype bfloat16 --paged --page-size 16
@@ -164,7 +168,7 @@ def main(argv=None):
                           decode_kernel=args.decode_kernel)
     else:
         ctx = ParallelCtx(device=args.device, decode_kernel=args.decode_kernel)
-    params = tfm.init_params(cfg, seed=0, dtype=dtype, device=args.device)
+    params = tfm.init_params(cfg, seed=0, dtype=dtype, device=args.device, ctx=ctx)
 
     def make_serve(spec_k):
         return ServeConfig(
@@ -229,6 +233,8 @@ def main(argv=None):
         }
         if args.prefill_chunk:
             summary["chunk_launches"] = eng.chunk_launches
+        if ctx.ring is not None:
+            summary["ring_bytes"] = stats["ring_bytes"]
         if eng._spec_on:
             summary["speculative"] = {
                 key: kv[key] for key in (

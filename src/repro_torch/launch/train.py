@@ -21,8 +21,10 @@ its sequence axis -- a virtual ring of 4 ranks in this process, with
 is not ported).  ``--attn`` (mesh | ring | ulysses) and ``--tile-a`` then
 configure that ring's attention; with N < 8 there is no ring and attention
 runs local flash, as in JAX.  The SSM and hybrid archs shard their sequence
-contiguously over the ring (the sharded SSD scan), the others striped.  ``--compress`` and ``--multi-pod`` need
-several processes and raise.
+contiguously over the ring (the sharded SSD scan), the others striped; the
+"ep" MoE arch (qwen2-moe-a2.7b) sends each rank's tokens to the experts'
+ranks by all-to-all (``models/moe.py``).  ``--compress`` and
+``--multi-pod`` need several processes and raise.
 """
 
 import argparse

@@ -19,8 +19,22 @@ The expert products are plain matrix products (``einsum``), as in JAX,
 where no Pallas kernel computes them.  The router product is fp32 x fp32.
 The port leaves TF32 off, PyTorch's default (``chip_smoke.py`` sets it off
 too): a TF32 router would flip expert choices at near-ties.
-Expert parallelism over a sequence ring (JAX's ``_moe_ep_segmented`` and
-``_moe_ep_manual``) is not ported: ``moe_block`` raises at sp_size > 1.
+
+**Expert parallelism over the sequence ring** (``_moe_ep``: JAX's
+``_moe_ep_segmented`` and ``_moe_ep_manual`` in one).  Where JAX takes it --
+mode "ep", sp_size n > 1, the padded expert count and S both multiples of n
+-- the router runs over the global h (so aux is the global term, as the
+segmented form has it), and each rank's contiguous chunk of the rows as they
+arrive (the striped order under the engine's striped prompts) dispatches on
+its own at C_loc = ceil(S/n·K·cf / E): capacity per (rank, row), not per
+row, so at cf 1.25 the result differs from sp_size 1 by design.  The
+``moe_dispatch`` all-to-all sends each rank's [E, C_loc] buffer to the
+experts' owners (rank r holds experts r·E/n ... (r+1)·E/n - 1), the expert
+products run batched over the ranks, and ``moe_return`` brings the rows
+home.  Every other case (mode "tp", a decode row, rows the ranks do not
+divide) takes the global path, as in JAX; on one process JAX's "tp"
+sharding of the expert d_ff changes no number.  A verify window
+[slots, spec_k] at spec_k 4 divides by 4 and dispatches, as in JAX.
 """
 
 from __future__ import annotations
@@ -115,41 +129,97 @@ def _route(h: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, E_pad: int
     return idx, w.to(h.dtype), aux
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
-              ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (x + moe(x), aux_loss), capacity per row from this
-    call's S."""
-    if ctx.sp_size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE over a sequence-parallel ring needs expert parallelism "
-            "(the dispatch all-to-all over the ranks): ROADMAP A.7"
-        )
+def _dispatch(h, idx, w, E: int, C: int):
+    """Each row of h [N, T, D] (its choices idx / weights w [N, T, K]) into
+    its own capacity buffer -> (xe [N, E, C, D], slot [N, T*K], contrib
+    [N, T, K]).  Dropped entries go to a spare row past the buffer (never
+    read), so no kept slot is written twice."""
+    N, T, D = h.shape
+    K = idx.shape[-1]
+    slot, valid = _dispatch_indices(idx, E, C)  # [N, T, K]
+    contrib = torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    # xe[r, e*C + c] = the token routed there
+    dest = torch.where(valid, slot, E * C).reshape(N, T * K)
+    xe = h.new_zeros((N, E * C + 1, D))
+    rows = torch.arange(N, device=h.device)[:, None]
+    xe[rows, dest] = h.repeat_interleave(K, dim=1)  # token t*K + k's row
+    return xe[:, : E * C].reshape(N, E, C, D), slot.reshape(N, T * K), contrib
+
+
+def _combine(ye, slot, contrib):
+    """ye [N, E, C, D] (each row's expert outputs), slot [N, T*K], contrib
+    [N, T, K] -> [N, T, D]: the weighted sum of each token's K outputs."""
+    N, T, K = contrib.shape
+    rows = torch.arange(N, device=ye.device)[:, None]
+    got = ye.reshape(N, -1, ye.shape[-1])[rows, slot].reshape(N, T, K, -1)
+    return torch.sum(got * contrib[..., None].to(got.dtype), dim=2)
+
+
+def _shared(h, p, cfg: ModelConfig):
+    """qwen2-moe's shared expert (its sigmoid gate in fp32) on h."""
+    act = _ACT[cfg.mlp_act]
+    g = torch.sigmoid((h @ p["shared_gate"]).to(torch.float32)).to(h.dtype)
+    return g * ((act(h @ p["ws1"]) * (h @ p["ws3"])) @ p["ws2"])
+
+
+def _moe_ep(x, p, cfg: ModelConfig, ctx: ParallelCtx):
+    """Expert parallelism over the ring (the module docstring): x [B, S, D]
+    in its global view -> (x + moe(x), aux)."""
     m = cfg.moe
     act = _ACT[cfg.mlp_act]
+    ring, n = ctx.ring, ctx.sp_size
     B, S, D = x.shape
-    K = m.top_k
     E = p["router"].shape[-1]
-    C = int(math.ceil(S * K * m.capacity_factor / E))
+    if E % n:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over {n} ranks: "
+                         "init_params(ctx=...) pads them to a multiple")
+    C = int(math.ceil(S // n * m.top_k * m.capacity_factor / E))
 
     h = rms_norm(x, p["ln"])
     idx, w, aux = _route(h, p["router"], cfg, E)
-    slot, valid = _dispatch_indices(idx, E, C)  # [B, S, K]
-    contrib = torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=w.device))
-    # xe[b, e*C + c] = the token routed there; dropped entries go to a spare
-    # row past the buffer (never read), so no kept slot is written twice
-    dest = torch.where(valid, slot, E * C).reshape(B, S * K)
-    xe = h.new_zeros((B, E * C + 1, D))
-    rows = torch.arange(B, device=x.device)[:, None]
-    xe[rows, dest] = h.repeat_interleave(K, dim=1)  # token t*K + k's row
-    xe = xe[:, : E * C].reshape(B, E, C, D)
+    # the local ranks' chunks [R, B, S/n, ...], one capacity buffer each
+    hs, idxs, ws = (ring.split(t, axis=1) for t in (h, idx, w))
+    R = hs.shape[0]
+    xe, slot, contrib = _dispatch(hs.flatten(0, 1), idxs.flatten(0, 1), ws.flatten(0, 1), E, C)
+    # segment-major -> expert-major: [R, B, E/n, n*C, D]
+    xe = ring.all_to_all(xe.unflatten(0, (R, B)), 1, 2, kind="moe_dispatch")
+    # the local ranks' experts [R, E/n, ...] of the stacked leaves
+    mine = [p[k].unflatten(0, (n, E // n)).narrow(0, ring.ranks[0], R)
+            for k in ("we1", "we3", "we2")]
+    up = torch.einsum("rbecd,redf->rbecf", xe, mine[0])
+    gate = torch.einsum("rbecd,redf->rbecf", xe, mine[1])
+    ye = torch.einsum("rbecf,refd->rbecd", act(up) * gate, mine[2])
+    # expert-major -> segment-major: [R, B, E, C, D]
+    ye = ring.all_to_all(ye, 2, 1, kind="moe_return")
+    out = ring.join(_combine(ye.flatten(0, 1), slot, contrib).unflatten(0, (R, B)), axis=1)
+    if m.num_shared:
+        out = out + _shared(h, p, cfg)
+    return x + out.to(x.dtype), aux
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (x + moe(x), aux_loss): JAX's ``moe_block``.  Over a
+    ring, where JAX takes its segmented expert parallelism, capacity is per
+    rank's chunk of each row (``_moe_ep``); else per row, from this call's
+    S."""
+    m = cfg.moe
+    n = ctx.sp_size
+    if (m.mode == "ep" and n > 1 and padded_experts(cfg, ctx) % n == 0
+            and x.shape[1] % n == 0):
+        return _moe_ep(x, p, cfg, ctx)
+    act = _ACT[cfg.mlp_act]
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    C = int(math.ceil(S * m.top_k * m.capacity_factor / E))
+
+    h = rms_norm(x, p["ln"])
+    idx, w, aux = _route(h, p["router"], cfg, E)
+    xe, slot, contrib = _dispatch(h, idx, w, E, C)
     up = torch.einsum("becd,edf->becf", xe, p["we1"])
     gate = torch.einsum("becd,edf->becf", xe, p["we3"])
-    ye = torch.einsum("becf,efd->becd", act(up) * gate, p["we2"]).reshape(B, E * C, D)
-    got = ye[rows, slot.reshape(B, S * K)].reshape(B, S, K, D)
-    out = torch.sum(got * contrib[..., None].to(got.dtype), dim=2)  # [B, S, D]
-
+    ye = torch.einsum("becf,efd->becd", act(up) * gate, p["we2"])
+    out = _combine(ye, slot, contrib)  # [B, S, D]
     if m.num_shared:
-        g = torch.sigmoid((h @ p["shared_gate"]).to(torch.float32)).to(h.dtype)
-        shared = (act(h @ p["ws1"]) * (h @ p["ws3"])) @ p["ws2"]
-        out = out + g * shared
+        out = out + _shared(h, p, cfg)
     return x + out.to(x.dtype), aux

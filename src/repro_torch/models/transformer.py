@@ -2,7 +2,8 @@
 families of ``repro/models/transformer.py``.
 
   dense   -- attention + gated MLP
-  moe     -- attention + MoE (``models/moe.py``; one rank: no expert parallelism)
+  moe     -- attention + MoE (``models/moe.py``; over a ring, "ep" archs take
+             the dispatch all-to-all of expert parallelism where JAX does)
   ssm     -- SSD blocks only (``models/ssm.py``; attention-free, no MLP)
   hybrid  -- parallel attention + SSD heads, mean-fused, then the MLP (hymba)
   audio   -- whisper: a stubbed frontend (a projection of the mel frames), a
@@ -41,7 +42,9 @@ K/V (``cache["cross_k"]``, ``cache["cross_v"]``, written by prefill); the
 paged path raises for SSM, hybrid and encoder archs, the packed, chunked
 and verify paths also for frontend archs, as in JAX.  Every MoE call takes
 the same [B, S, D] rows as its JAX counterpart (the bucket, the packed row,
-the chunk, the verify window), so each has JAX's capacity.
+the chunk, the verify window), so each has JAX's capacity; over a ring of n
+the rows come in the order JAX's do (a one-shot prefill's striped prompt, a
+chunk's or packed row's own order), so each rank's n-th is JAX's segment.
 """
 
 from __future__ import annotations
@@ -141,10 +144,13 @@ def check_ring_supported(cfg: ModelConfig, ctx: ParallelCtx, what: str) -> None:
 # --------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> Dict:
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None,
+                ctx: Optional[ParallelCtx] = None) -> Dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
     (default: the card).  Same pytree and init law as JAX's ``init_params``,
-    but not the same numbers: tests convert JAX weights instead."""
+    but not the same numbers: tests convert JAX weights instead.  Under
+    ``ctx`` an "ep" MoE arch gets its experts padded to a multiple of
+    sp_size (``moe.padded_experts``), as JAX's ``init_params(ctx=...)``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -157,7 +163,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     if cfg.ssm is not None:
         layers["ssm"] = ssm_mod.init_ssm_params(gen, cfg, L, dtype, dev)
     if cfg.moe is not None:
-        layers["moe"] = moe_mod.init_moe_params(gen, cfg, L, dtype, dev)
+        layers["moe"] = moe_mod.init_moe_params(gen, cfg, L, dtype, dev, ctx=ctx)
     elif cfg.family != "ssm" and cfg.d_ff > 0:
         layers["mlp"] = init_mlp_params(gen, cfg, L, dtype, dev)
     if cfg.encoder_layers:

@@ -10,11 +10,14 @@ backend (``attn_impl``), the tile height (``mesh_a``), the backward wire,
 the ring-transport mode and the autotuner with its plan cache.  ``device``
 is where the engine puts its cache and where ``init_cache`` allocates; it
 defaults to the card (see ``repro_torch.device``).  Training and serving
-both run over the ring: the engine shards its KV cache over the ranks and
-folds them into one launch per decode, chunk or verify step
-(``core/decode_attention.py``), and SSM and hybrid archs shard their SSD
-scan over the same ring (``models/ssm.py``); serving needs every rank in
-the process (a ``VirtualRing``).
+both run over the ring, for the dense (MLA: training only), MoE, SSM and
+hybrid families: the engine shards its KV cache over the ranks and folds
+them into one launch per decode, chunk or verify step
+(``core/decode_attention.py``), SSM and hybrid archs shard their SSD scan
+over the same ring (``models/ssm.py``), and "ep" MoE archs send each rank's
+tokens to the experts' ranks by all-to-all (``models/moe.py``); serving
+needs every rank in the process (a ``VirtualRing``).  Frontend and encoder
+archs run at sp_size 1 only (ROADMAP A.9).
 """
 
 from __future__ import annotations

@@ -43,10 +43,13 @@ Each exchange is counted per comm kind (``recv_q``, ``recv_kv``,
 ``combine`` for the decode's lse combine; ``ssd_halo``, ``ssd_state`` and
 ``ssd_tail`` for the sequence-sharded SSD scan of ``models/ssm.py``: the
 conv halo hops from the left neighbour, the gather of every rank's final
-state and total decay, and the gather of the conv tails): ``stats.hops``
-(logical hops or gathers), ``stats.messages`` (transfers: one per leaf, two
-in bidir) and ``stats.bytes`` (bytes one rank sends, the unit of
-``core/am.CommModel``).
+state and total decay, and the gather of the conv tails; ``ulysses`` for
+DS-Ulysses' transposes, ``moe_dispatch`` and ``moe_return`` for the expert
+parallelism of ``models/moe.py``: every ``all_to_all`` names its kind):
+``stats.hops`` (logical hops, gathers or all-to-alls), ``stats.messages``
+(transfers: one per leaf, two in bidir; one per all-to-all) and
+``stats.bytes`` (bytes one rank sends, the unit of ``core/am.CommModel``;
+an all-to-all's are the (n - 1) / n of a rank's buffer that leave it).
 
 **Group collectives** over an ``(a, b)`` grid of the n = a*b ranks (rank
 c = x*b + y; ``Grid``) serve Algorithm 1's collective form
@@ -337,11 +340,14 @@ class VirtualRing(_GroupCollectives):
 
         return _Pending(out, join)
 
-    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int, *,
+                   kind: str) -> torch.Tensor:
         """Tiled all-to-all of per-rank tensors x [n, *shape]: rank r gets
         chunk r (of n, along ``split_axis`` of ``shape``) of every rank s,
-        concatenated in rank order along ``concat_axis``.  Differentiable."""
+        concatenated in rank order along ``concat_axis``.  Differentiable.
+        Counted as one hop of ``kind``: the n - 1 chunks that leave a rank."""
         n = self.n
+        self.stats.add(kind, 1, (n - 1) * _payload_bytes([x], n * n))
         c = x.shape[1 + split_axis] // n
         y = x.unflatten(1 + split_axis, (n, c)).movedim(1 + split_axis, 0)  # [r, s, ...]
         k = 1 + concat_axis
@@ -546,8 +552,11 @@ class ProcessGroupRing(_GroupCollectives):
         return got.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1).unsqueeze(0) \
             .contiguous()
 
-    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
-        """As ``VirtualRing.all_to_all`` for this rank's x [1, *shape]."""
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int, *,
+                   kind: str) -> torch.Tensor:
+        """As ``VirtualRing.all_to_all`` for this rank's x [1, *shape], and
+        counted as it counts."""
+        self.stats.add(kind, 1, (self.n - 1) * _payload_bytes([x], self.n))
         return _AllToAll.apply(x, self, split_axis, concat_axis)
 
     def _gather(self, x: torch.Tensor, axis: int) -> torch.Tensor:

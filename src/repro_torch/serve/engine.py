@@ -60,14 +60,18 @@ prefill through the sequence-sharded SSD scan (``models/ssm.py``: one scan
 launch per layer for every rank, the conv halo and the states exchanged
 over the ring) and decode on replicated states; hymba's attention half
 prefills through the Mesh-Attention forward on the contiguous layout and
-decodes over the sharded dense cache.  MoE archs at n > 1 raise (ROADMAP
-A.7).
+decodes over the sharded dense cache.
 
-MoE archs serve every mode of the dense family on one rank.  Expert
-capacity couples the tokens of a row (``models/moe.py``), so the engine
-pads, packs, chunks and verifies exactly as JAX's does: each entry point
-then drops the same tokens as its JAX twin, and one-shot and chunked runs
-of one trace may part ways, as in JAX.
+MoE archs serve every mode of the dense family, on one rank and over the
+ring.  Expert capacity couples the tokens of a row (``models/moe.py``), so
+the engine pads, packs, chunks and verifies exactly as JAX's does: each
+entry point then drops the same tokens as its JAX twin, and one-shot and
+chunked runs of one trace may part ways, as in JAX.  Over the ring an "ep"
+arch's prefill rows and chunks (lengths that are multiples of n) dispatch
+each rank's n-th of a row at its own capacity through the ``moe_dispatch``
+/ ``moe_return`` all-to-alls, as JAX's segmented expert parallelism does;
+decode rows and verify windows take the global path.  ``tick_stats()``
+carries the ring's bytes per comm kind (``ring_bytes``).
 
 PyTorch runs eagerly, so there are no traces to count; the cache is updated
 in place.
@@ -147,11 +151,6 @@ class ServeEngine:
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
         n = self.ctx.sp_size
-        if n > 1 and cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: serving a MoE arch over a sequence-parallel ring needs expert "
-                "parallelism (the dispatch all-to-all over the ranks): ROADMAP A.7"
-            )
         tfm.check_ring_supported(cfg, self.ctx, "serving")
         if serve.max_seq % n:
             raise ValueError(f"max_seq={serve.max_seq} must be divisible by sp_size={n}")
@@ -991,13 +990,17 @@ class ServeEngine:
 
     def tick_stats(self) -> Dict[str, object]:
         """Per-tick series: prompt tokens ingested vs tokens generated, and
-        the host wall seconds of each tick's prefill and decode phases."""
+        the host wall seconds of each tick's prefill and decode phases; over
+        a ring, the bytes one rank sent per comm kind (``ring_bytes``: the
+        attention's hops and combines, the SSD scan's exchanges, the MoE
+        all-to-alls), summed since the ring's stats were last reset."""
         return {
             "ticks": self._tick,
             "prefill_tokens": list(self.tick_prefill_tokens),
             "decode_tokens": list(self.tick_decode_tokens),
             "prefill_s": list(self.tick_prefill_s),
             "decode_s": list(self.tick_decode_s),
+            "ring_bytes": dict(self.ctx.ring.stats.bytes) if self.ctx.ring is not None else {},
         }
 
     def kv_cache_stats(self) -> Dict[str, float]:

@@ -13,7 +13,10 @@ Sequence parallelism runs in one process: with ``ctx.sp_size > 1`` the
 batch comes striped (contiguous for the SSM and hybrid archs, whose SSD
 scan is sharded over the ring) and every attention call runs the mesh /
 ring / ulysses executor over the context's ring (a ``VirtualRing`` on one
-card), while the rest of the model sees the whole sequence.  What needs several processes
+card), while the rest of the model sees the whole sequence; an "ep" MoE arch
+dispatches each rank's tokens to the experts' ranks over the same ring
+(``models/moe.py``), its experts padded to a multiple of the ranks as JAX's
+``init_params(ctx=...)`` pads them.  What needs several processes
 raises or is absent: cross-pod gradient compression
 (``TrainConfig.compression``), the gradient all-reduce over sequence ranks
 of a multi-process ring, and the elastic re-meshing restart
@@ -133,7 +136,8 @@ def fit(
     preempt = _Preempt().install()
     monitor = StepMonitor(StragglerPolicy(action="checkpoint"))
 
-    params = tfm.init_params(cfg, seed=tcfg.seed, dtype=tcfg.param_dtype, device=ctx.device)
+    params = tfm.init_params(cfg, seed=tcfg.seed, dtype=tcfg.param_dtype, device=ctx.device,
+                             ctx=ctx)
     opt_state = init_opt_state(params)
     err: Dict = {}
     start_step = 0

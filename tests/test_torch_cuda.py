@@ -1467,3 +1467,48 @@ def test_flash_bwd_d256_matches_plain_and_repeats(dev, dtype):
     for name, a, b, w in zip(("dq", "dk", "dv"), first, second, want):
         assert torch.equal(a, b), name
         torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
+def test_moe_block_over_the_ring_matches_cpu_and_repeats(dev):
+    """qwen2-moe-a2.7b's MoE layer at full width (60 experts of 1408, top-4,
+    the shared expert), fp32, cf 1.25, over a virtual ring of 4 (the
+    dispatch all-to-all of expert parallelism): the card against the CPU
+    (the same experts chosen, the same entries dropped, y within 1e-4 of
+    its largest entry), and bitwise on a repeat on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.context import ParallelCtx
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=1)
+    params = tfm.init_params(cfg, seed=0, device="cpu", ctx=ParallelCtx(sp_size=4, device="cpu"))
+    p_cpu = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    p_cpu["ln"] = torch.rand(p_cpu["ln"].shape, generator=torch.Generator().manual_seed(1)) - 0.5
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    x = _randn(np.random.default_rng(33), 2, 256, cfg.d_model, dtype=torch.float32,
+               dev=torch.device("cpu"))
+    drops = {}
+    orig = moe._dispatch_indices
+
+    def counting(idx, E, C):
+        slot, valid = orig(idx, E, C)
+        drops[idx.device.type] = drops.get(idx.device.type, 0) + int((~valid).sum())
+        return slot, valid
+
+    moe._dispatch_indices = counting
+    try:
+        y_cpu, aux_cpu = moe.moe_block(x, p_cpu, cfg, ParallelCtx(sp_size=4, device="cpu"))
+        ring = ParallelCtx(sp_size=4, device=dev)
+        y, aux = moe.moe_block(x.to(dev), p_dev, cfg, ring)
+        y2, aux2 = moe.moe_block(x.to(dev), p_dev, cfg, ring)
+    finally:
+        moe._dispatch_indices = orig
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert drops["cuda"] == 2 * drops["cpu"] > 0
+    assert ring.ring.stats.hops["moe_dispatch"] == ring.ring.stats.hops["moe_return"] == 2
+    scale = float(y_cpu.abs().max())
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-4 * scale, rtol=0)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=0)

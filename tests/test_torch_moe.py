@@ -261,14 +261,25 @@ def test_forward_loss_and_grads_match_jax(model):
 
 
 def test_moe_over_a_ring_raises(model):
+    """Once refused (ROADMAP A.7), the block and the engine now run at
+    sp_size 4: qwen2-moe ("ep") through the dispatch all-to-all, mixtral
+    ("tp") through the global path, which then equals the one-rank block.
+    Their parity with JAX at sp_size 4: tests/test_torch_moe_ring.py."""
     jcfg, jp, tcfg = model
     tp = params_from_jax(_np_tree(jp), device="cpu")
     ring = TCtx(sp_size=4, device="cpu")
-    x = torch.zeros((1, 8, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        tmoe.moe_block(x, {k: v[0] for k, v in tp["layers"]["moe"].items()}, tcfg, ring)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 8, tcfg.d_model)).astype(np.float32))
+    lp = {k: v[0] for k, v in tp["layers"]["moe"].items()}
+    y, aux = tmoe.moe_block(x, lp, tcfg, ring)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux))
+    assert ("moe_dispatch" in ring.ring.stats.bytes) == (tcfg.moe.mode == "ep")
+    if tcfg.moe.mode == "tp":
+        y1, aux1 = tmoe.moe_block(x, lp, tcfg, TCTX)
+        assert torch.equal(y, y1) and torch.equal(aux, aux1)
     from repro_torch.serve.config import ServeConfig
     from repro_torch.serve.engine import ServeEngine
 
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ServeEngine(tcfg, tp, ring, serve=ServeConfig(max_seq=64, num_slots=2))
+    eng = ServeEngine(tcfg, tp, ring, serve=ServeConfig(max_seq=64, num_slots=2))
+    out = eng.generate(np.arange(8, dtype=np.int32)[None], max_new_tokens=3)
+    assert out.shape == (1, 3)

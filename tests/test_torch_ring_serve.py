@@ -537,8 +537,9 @@ def test_launch_serve_fake_devices_runs_the_ring(capsys):
 def test_ssm_and_hybrid_over_a_ring_still_raise(arch):
     """The SSM and hybrid archs, refused over a ring until the sequence-
     sharded SSD scan was ported, now build their cache and serve at sp_size
-    4 (their parity with JAX: tests/test_torch_ssm_ring.py).  MoE archs
-    still raise (ROADMAP A.7)."""
+    4 (their parity with JAX: tests/test_torch_ssm_ring.py).  MoE archs,
+    refused until expert parallelism was ported (ROADMAP A.7), now serve
+    there too (their parity with JAX: tests/test_torch_moe_ring.py)."""
     cfg = tget_config(arch).reduced()
     params = ttfm.init_params(cfg, device="cpu")
     cache = ttfm.init_cache(cfg, 2, 16, dtype=torch.float32, ctx=TCTX4)
@@ -553,8 +554,10 @@ def test_ssm_and_hybrid_over_a_ring_still_raise(arch):
     with pytest.raises(ValueError, match="multiple of the sequence-parallel size 4"):
         eng.submit(np.zeros(6, np.int32), 2)
     moe = tget_config("qwen2-moe-a2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TEngine(moe, ttfm.init_params(moe, device="cpu"), TCTX4)
+    eng = TEngine(moe, ttfm.init_params(moe, device="cpu", ctx=TCTX4), TCTX4,
+                  serve=TServe(max_seq=32, num_slots=2))
+    rid = eng.submit(rng.integers(0, moe.vocab_size, (16,), dtype=np.int32), 3)
+    assert eng.run()[rid].status == "ok"
 
 
 def test_ring_engine_checks_divisibility(weights):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The seconds of chip_smoke.py's CPU-heavy train-step parity phases, one
-tree at a time.
+"""The seconds of chip_smoke.py's CPU-heavy train-step parity phases, or of
+its MoE phases, one tree at a time.
 
-    python3 tools/parity_timing.py [--tree DIR]
+    python3 tools/parity_timing.py [--tree DIR] [--moe]
 
 Imports ``chip_smoke.py`` and the ``repro_torch`` package of ``--tree``
 (default: this checkout), builds the flash libraries, and runs the phases
@@ -15,7 +15,11 @@ per phase: its seconds, the card's and the CPU's step wall time, and the
 worst gradient and parameter errors against the phase's limits.  Giving
 ``--tree`` the parent commit's tree times the phases before a change; one
 call with both trees, in turns (parent, change, change, parent), compares
-them on one host.  Needs a CUDA device.
+them on one host.  ``--moe`` times the MoE family's phases instead, as
+``chip_smoke.py``'s main runs them, those the tree has: ``slice_moe``,
+(``slice_moe_ring``), ``serve_moe``, (``serve_moe_ring``,
+``train_moe_ring_parity``); one line per phase with its seconds (each
+phase's own line is dropped).  Needs a CUDA device.
 """
 
 import argparse
@@ -32,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--moe", action="store_true", help="time the MoE phases instead")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
@@ -45,7 +50,10 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
-    cs._build.build(["flash_fwd_tc", "flash_fwd_mla", "flash_bwd", "ssd_scan", "ssd_scan_bwd"])
+    cs._build.build(["flash_fwd_tc", "flash_fwd_mla", "flash_bwd", "ssd_scan", "ssd_scan_bwd"]
+                    + (["paged_decode"] if args.moe else []))
+    if args.moe:
+        return _moe_phases(cs, tree)
     phases = [("granite-8b", cs.TRAIN_PARITY_SEQ, "train_parity", 2),
               (cs.GEMMA_ARCH, cs.GEMMA_PARITY_SEQ, "train_gemma_parity", cs.GEMMA_PARITY_LAYERS),
               ("qwen2-moe-a2.7b", cs.MOE_PARITY_SEQ, "train_moe_parity", cs.MOE_PARITY_LAYERS),
@@ -67,6 +75,36 @@ def main():
             "param_max_abs_err": max(v["param_max_abs_err"] for v in rec["leaves"].values()),
             "tols": rec["tols"],
         }), flush=True)
+    return 0
+
+
+def _moe_phases(cs, tree):
+    """chip_smoke's MoE phases in main's order, each timed (the ring phases
+    where the tree has them)."""
+    card = cs.card_line()
+    state = {}
+
+    def slice_moe():
+        state["weights"] = cs.cross_device_moe()
+
+    def serve_moe():
+        out = cs.serve_moe(card)
+        state["sp1"] = out[1] if isinstance(out, tuple) else None
+
+    ring = hasattr(cs, "serve_moe_ring")
+    phases = [("slice_moe", slice_moe)]
+    if ring:
+        phases.append(("slice_moe_ring", lambda: cs.slice_moe_ring(state["weights"])))
+    phases.append(("serve_moe", serve_moe))
+    if ring:
+        phases += [("serve_moe_ring", lambda: cs.serve_moe_ring(card, state["sp1"])),
+                   ("train_moe_ring_parity", cs.train_moe_ring_parity)]
+    for phase, run in phases:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the phase's own (long) line
+            run()
+        print(json.dumps({"tree": tree, "phase": phase, "seconds": time.perf_counter() - t0}),
+              flush=True)
     return 0
 
 
