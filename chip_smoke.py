@@ -1424,7 +1424,8 @@ def serve_trace(eng, lengths, arrivals, new_tokens, vocab, seed):
     return [done[r] for r in rids]
 
 
-def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=False):
+def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=False,
+                 keep=None):
     """Full width, 2 layers, fp32: card (kernels) vs CPU (plain versions).
     QKV biases (qwen2.5-32b) are drawn nonzero: init leaves them 0.
     ``quant_run``: a third run over an int8 pool with chunk 256 and spec_k
@@ -1432,7 +1433,10 @@ def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=
     first-token logits within SLICE_LOGIT_TOL["int8"]).  ``loop_prompt``:
     that run's first prompt is slice_quant's looping one (12 tokens 8
     times) in place of a random one, so that the prompt-lookup proposer has
-    drafts to verify where the model's own stream never repeats a token."""
+    drafts to verify where the model's own stream never repeats a token.
+    ``keep`` (a dict) receives the config, the card's weights and the CPU
+    side of the paged and int8 runs (their ServeConfig, prompts, arrivals,
+    streams and logits), for a later phase to reuse."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
     params = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     if cfg.qkv_bias:
@@ -1457,6 +1461,12 @@ def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=
             streams[dev] = [r.generated for r in res]
             first_logits[dev] = [eng.debug_logits[r.rid][0] for r in res]
             launches[dev] = (fa.flash_attention_fwd.launches, pk.paged_flash_decode.launches)
+        if keep is not None and paged:
+            rng = np.random.default_rng(1)  # serve_trace's prompts
+            keep["oneshot_fp"] = dict(
+                serve=serve, arrivals=arrivals, streams=streams["cpu"],
+                prompts=[rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32) for n in lengths],
+                first_logits=first_logits["cpu"])
         err = max(float(np.abs(a - b).max())
                   for a, b in zip(first_logits["cuda"], first_logits["cpu"]))
         key = "paged" if paged else "dense"
@@ -1475,7 +1485,9 @@ def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=
             check(launches["cuda"][1] > 0, f"{tag}: the paged engine never launched #4")
     if quant_run:
         out["int8_chunk_spec"] = _slice_int8_chunk_spec(cfg, params, params_cpu, lengths,
-                                                         arrivals, phase, loop_prompt)
+                                                         arrivals, phase, loop_prompt, keep)
+    if keep is not None:
+        keep.update(cfg=cfg, params=params)
     del params, params_cpu
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "num_layers": 2, "dtype": "fp32",
@@ -1483,7 +1495,7 @@ def cross_device(arch="granite-8b", phase="slice", quant_run=False, loop_prompt=
 
 
 def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase,
-                           loop_prompt=False):
+                           loop_prompt=False, keep=None):
     """cross_device's int8 run: chunk 256 (budget 512), spec_k 4, page 16,
     card vs CPU.  Streams identical but for near-tie flips (both sides
     score the two candidates within twice the limit), first-token logits
@@ -1495,21 +1507,20 @@ def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase,
                         cache_dtype=torch.float32, prefill_chunk=256, tick_token_budget=512,
                         spec_k=4, kv_dtype="int8")
     side = {}
+    # serve_trace's prompts, the first slice_quant's looping one with loop_prompt
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (lengths[1:] if loop_prompt else lengths)]
+    if loop_prompt:
+        prompts = [_slice_quant_trace(cfg.vocab_size)[0][0]] + prompts
     for dev, p in (("cuda", params), ("cpu", params_cpu)):
         fa.flash_attention_fwd.launches = fa.flash_attention_fwd.launches_fp32 = 0
         pk.paged_flash_decode.launches = pk.paged_flash_decode.quant_launches = 0
         eng = ServeEngine(cfg, p, ParallelCtx(device=dev), serve=serve)
         eng.capture_logits = True
-        if loop_prompt:
-            loop = _slice_quant_trace(cfg.vocab_size)[0][0]
-            rng = np.random.default_rng(1)
-            prompts = [loop] + [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
-                                for n in lengths[1:]]
-            rids = [eng.submit(pr, 8, arrival_tick=t) for pr, t in zip(prompts, arrivals)]
-            done = eng.run()
-            res = [done[r] for r in rids]
-        else:
-            res = serve_trace(eng, lengths, arrivals, 8, cfg.vocab_size, seed=1)
+        rids = [eng.submit(pr, 8, arrival_tick=t) for pr, t in zip(prompts, arrivals)]
+        done = eng.run()
+        res = [done[r] for r in rids]
         side[dev] = dict(
             streams=[r.generated for r in res], logits=[eng.debug_logits[r.rid] for r in res],
             launches={"flash_attention_fwd": fa.flash_attention_fwd.launches,
@@ -1521,15 +1532,11 @@ def _slice_int8_chunk_spec(cfg, params, params_cpu, lengths, arrivals, phase,
             spec_accepted=eng.spec_accepted,
             pages_in_use=eng.kv_cache_stats()["pages_in_use"])
     card, cpu = side["cuda"], side["cpu"]
+    if keep is not None:
+        keep["chunk_spec_int8"] = dict(serve=serve, arrivals=arrivals, prompts=prompts,
+                                       streams=cpu["streams"], logits=cpu["logits"])
     err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu["logits"]))
-    flips = []
-    for i, (a, b) in enumerate(zip(card["streams"], cpu["streams"])):
-        if a != b:
-            j = _first_flip(a, b)
-            la, lb = card["logits"][i][j], cpu["logits"][i][j]
-            flips.append(dict(request=i, token=j, card=a[j], cpu=b[j],
-                              card_gap=float(la[a[j]] - la[b[j]]),
-                              cpu_gap=float(lb[b[j]] - lb[a[j]])))
+    flips = _near_tie_flips(card, cpu)
     rec = dict(streams_identical=card["streams"] == cpu["streams"], near_tie_flips=flips,
                first_logits_max_abs_err=err, logit_tol=tol, cuda_launches=card["launches"],
                cpu_launches=sum(cpu["launches"].values()),
@@ -1648,6 +1655,21 @@ def _slice_quant_trace(V):
         np.concatenate([prefix, rng.integers(0, V, (56,), dtype=np.int32)]),
     ]
     return prompts, [0, 0, 1, 2]
+
+
+def _near_tie_flips(card, cpu):
+    """Where two runs' streams part: each request's first differing token
+    and both sides' logit gaps between the two candidates (``card`` and
+    ``cpu``: dicts of streams and per-token logits)."""
+    flips = []
+    for i, (a, b) in enumerate(zip(card["streams"], cpu["streams"])):
+        if a != b:
+            j = _first_flip(a, b)
+            la, lb = card["logits"][i][j], cpu["logits"][i][j]
+            flips.append(dict(request=i, token=j, card=a[j], cpu=b[j],
+                              card_gap=float(la[a[j]] - la[b[j]]),
+                              cpu_gap=float(lb[b[j]] - lb[a[j]])))
+    return flips
 
 
 def _slice_serve(kv_dtype, paged=True):
@@ -2857,10 +2879,13 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _profiled_ticks(eng, cfg, ticks):
+def _profiled_ticks(eng, cfg, ticks, host_ops=True):
     """A few decode ticks of 8 slots at depth ~128 under torch.profiler ->
     (profile, host wall ms of those ticks).  Runs after the measured trace
-    (its launches are not counted) and drains the engine again."""
+    (its launches are not counted) and drains the engine again.
+    ``host_ops=False`` records the card's activity alone: what
+    ``_tick_summary`` reads, without the host ops' events, whose parse
+    takes seconds at full depth."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
@@ -2870,7 +2895,8 @@ def _profiled_ticks(eng, cfg, ticks):
                    arrival_tick=now)
     eng.step()  # admission + prefill + the first decode, outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             eng.step()
@@ -2900,9 +2926,16 @@ def _tick_summary(prof, wall_ms, ticks, classify=None):
 
 
 def profile_decode(eng, cfg, ticks=4, classify=None):
-    """Where a decode tick's time goes (``_profiled_ticks``, ``_tick_summary``)."""
-    prof, wall_ms = _profiled_ticks(eng, cfg, ticks)
-    return _tick_summary(prof, wall_ms, ticks, classify)
+    """Where a decode tick's time goes (``_profiled_ticks`` over the card's
+    activity alone, ``_tick_summary``).  The host ops' events are left out
+    for the run's time: ``_tick_summary`` reads none of them, and their
+    parse takes seconds a tick at full depth.  ``profile_s``: what the
+    profile cost the run, ticks and parse."""
+    t0 = time.perf_counter()
+    prof, wall_ms = _profiled_ticks(eng, cfg, ticks, host_ops=False)
+    rec = _tick_summary(prof, wall_ms, ticks, classify)
+    rec["profile_s"] = time.perf_counter() - t0
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -3628,13 +3661,16 @@ WHOLE_RUNS = (("oneshot_fp", {}),
                                        kv_dtype="int8")))
 
 
-def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LENGTHS):
+def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LENGTHS,
+                 keep=None, profile=True):
     """``arch`` whole in bf16 on the card, ``lengths`` at the serve trace's
     arrival ticks, 8 slots, max_seq 2048, a pool of ``num_pages`` pages of
     16, each of ``runs`` (key, ServeConfig fields).  A profiled decode tick
-    of the first run, beside the bytes bound its weights alone set; no plain
-    version of a kernel called in any run.  Returns the launches counted on
-    its runs, keyed as the kernels line's rows."""
+    of the first run (unless ``profile`` is False), beside the bytes bound
+    its weights alone set; no plain version of a kernel called in any run.
+    Returns the launches counted on its runs, keyed as the kernels line's
+    rows.  ``keep`` (a dict) receives the weights and the runs' records, for
+    a later phase to reuse."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
@@ -3651,7 +3687,8 @@ def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LE
         with _PlainCalls() as plain:
             rec, probs, bodies = _serve_full_run(cfg, params, ServeConfig(**base, **extra),
                                                  lengths, SERVE_ARRIVALS,
-                                                 profile=None if i else profile_decode,
+                                                 profile=profile_decode if profile and not i
+                                                 else None,
                                                  phase=phase)
         rec.update(init_s=init_s, weight_bytes=weight_bytes, plain_calls=plain.calls,
                    weights_bound_ms_per_tick=1e3 * weight_bytes / HBM_BYTES_PER_S)
@@ -3666,6 +3703,8 @@ def _serve_whole(card, arch, num_pages, phase, runs=WHOLE_RUNS, lengths=SERVE_LE
         counted["flash_fwd_split"] += rec["launches"]["fwd_split"]
         for k in ("paged_flash_decode", "paged_flash_decode_quant"):
             counted[k] += rec["launches"][k]
+    if keep is not None:
+        keep.update(params=params, records=records)
     del params
     torch.cuda.empty_cache()
     emit({"phase": phase, "arch": arch, "num_layers": cfg.num_layers,
@@ -3714,13 +3753,293 @@ MINICPM_ARCH = "minicpm3-4b"
 MINICPM_PAGES = 512
 
 
-def serve_minicpm(card):
+def serve_minicpm(card, keep=None):
     """minicpm3-4b whole (62 layers, 4.26e9 parameters) in bf16 on the card
     (``_serve_whole``): prefill on #1's tile body at head dim 96, decode
     ticks on #4 / 4q at head dim 288 with 40 query heads on the latent, the
     int8 pool's chunks and verifies on #1's fp32 tile body at 288; no plain
-    version called."""
-    return _serve_whole(card, MINICPM_ARCH, MINICPM_PAGES, "serve_minicpm")
+    version called.  ``keep``: as ``_serve_whole``'s.  No profiled tick, cut
+    for the run's time: serve_minicpm_ring profiles the ring's, and PERF.md
+    keeps an earlier sp_size 1 tick."""
+    return _serve_whole(card, MINICPM_ARCH, MINICPM_PAGES, "serve_minicpm", keep=keep,
+                        profile=False)
+
+
+def _mla_wire_ratio(cfg):
+    """(latent values, expanded K and V values) a token: kvr + rope and
+    2 x H x qk (minicpm3-4b: 288 and 7,680)."""
+    m = cfg.mla
+    return (m.kv_lora_rank + m.qk_rope_head_dim,
+            2 * cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim))
+
+
+def _mesh_prefill_kv_rows(bucket: int) -> int:
+    """The rows one rank's KV hops carry in one layer of one-shot prefill
+    over the ring: the segment-masked mesh schedule's (a = 2 at n = 4) KV
+    hops x a rank's quarter of the bucket."""
+    cfg = MeshAttentionConfig(transport=None, n=RING_N, a=2, mask=MaskSpec.segment())
+    hops = sum(1 for c in cfg.schedules(bucket)[0].comm_ops() if c == S.RECV_KV)
+    return hops * bucket // RING_N
+
+
+class _PrefillRows:
+    """Records the row length of every one-shot prefill call (``prefill``
+    and the packed ``prefill_packed``) while it is entered: the buckets the
+    mesh schedules run at, packed admissions included."""
+
+    def __enter__(self):
+        self.rows, self._orig = [], (tfm.prefill, tfm.prefill_packed)
+
+        def wrap(fn):
+            def recording(params, cfg, ctx, batch, cache, *args, **kwargs):
+                self.rows.append(int(batch["tokens"].shape[1]))
+                return fn(params, cfg, ctx, batch, cache, *args, **kwargs)
+            return recording
+
+        tfm.prefill, tfm.prefill_packed = (wrap(fn) for fn in self._orig)
+        return self
+
+    def __exit__(self, *exc):
+        tfm.prefill, tfm.prefill_packed = self._orig
+
+
+def slice_mla_ring(keep):
+    """slice_minicpm's weights (minicpm3-4b at full width, its 2 layers,
+    fp32) served on the card at sp_size 4 with the latent wire on, against
+    slice_minicpm's own CPU runs at sp_size 1 (one function: the ring
+    changes the order of sums, not what is summed), kept from that phase:
+    one-shot over the fp pool, and chunk 256 + spec_k 4 over an int8 pool
+    (its first prompt the looping one).  Gates: fp streams identical and
+    first-token logits within 1e-3; int8 a flip only on a near-tie and
+    first-token logits within SLICE_LOGIT_TOL["int8"], as slice_quant; per
+    layer one #4 / 4q launch a decode tick (the 4 ranks folded) and one
+    combine a decode, chunk or verify launch; #1 at head dim 96 for the
+    one-shot prefills' mesh blocks (a segment-masked block launches per
+    rank) and at 288 once per layer and chunk or verify, every one on the
+    fp32 bodies; no plain version called; the KV hops carry the latent."""
+    cfg, params = keep["cfg"], keep["params"]
+    L = cfg.num_layers
+    out, problems = {}, []
+    for key in ("oneshot_fp", "chunk_spec_int8"):
+        cpu = keep[key]
+        serve = cpu["serve"]
+        tol = SLICE_LOGIT_TOL[serve.kv_dtype]
+        ctx = ParallelCtx(sp_size=RING_N, device="cuda", mla_latent_wire=True)
+        eng = ServeEngine(cfg, params, ctx, serve=serve)
+        eng.capture_logits = True
+        before = _kernel_counts()
+        with _PlainCalls() as plain, _PrefillRows() as rows:
+            rids = [eng.submit(x, 8, arrival_tick=t) for x, t in zip(cpu["prompts"],
+                                                                     cpu["arrivals"])]
+            done = eng.run()
+        launches = _delta(before, _kernel_counts())
+        card = dict(streams=[done[r].generated for r in rids],
+                    logits=[eng.debug_logits[r] for r in rids])
+        cpu_logits = cpu.get("logits") or [[x] for x in cpu["first_logits"]]
+        err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card["logits"], cpu_logits))
+        flips = (_near_tie_flips(card, dict(streams=cpu["streams"], logits=cpu_logits))
+                 if serve.kv_dtype != "fp" else [])
+        counters = {"prefill_launches": eng.prefill_launches,
+                    "chunk_launches": eng.chunk_launches,
+                    "verify_launches": eng.verify_launches,
+                    "decode_launches": eng.decode_launches, "spec_accepted": eng.spec_accepted,
+                    "pages_in_use": eng.kv_cache_stats()["pages_in_use"]}
+        buckets = rows.rows
+        rec = dict(streams_identical=card["streams"] == cpu["streams"], near_tie_flips=flips,
+                   first_logits_max_abs_err=err, logit_tol=tol, cuda_launches=launches,
+                   plain_calls=plain.calls, ring_bytes=dict(ctx.ring.stats.bytes),
+                   buckets=buckets, **counters)
+        out[key] = rec
+        tag = f"slice_mla_ring {key}"
+        if serve.kv_dtype == "fp" and card["streams"] != cpu["streams"]:
+            problems.append(f"{tag}: card and CPU streams differ: {card['streams']} vs "
+                            f"{cpu['streams']}")
+        for f in flips:
+            if max(f["card_gap"], f["cpu_gap"]) > 2 * tol:
+                problems.append(f"{tag}: streams differ beyond a near-tie: {f}")
+        if err > tol:
+            problems.append(f"{tag}: first-token logits differ by {err} > {tol}")
+        if not all(done[r].status == "ok" for r in rids) or counters["pages_in_use"]:
+            problems.append(f"{tag}: a request not ok or pages left: {rec}")
+        if any(plain.calls.values()):
+            problems.append(f"{tag}: a kernel's plain version ran: {plain.calls}")
+        chunked = serve.prefill_chunk is not None
+        prefill = 0 if chunked else L * sum(_mesh_prefill_launches(b) for b in buckets)
+        decode_kernel = "paged_flash_decode_quant" if serve.kv_dtype != "fp" else \
+            "paged_flash_decode"
+        problems += _ring_launch_problems(tag, L, launches, counters["decode_launches"],
+                                          counters["chunk_launches"],
+                                          counters["verify_launches"], decode_kernel,
+                                          prefill=prefill)
+        # one kind of #1 launch a run: the mesh blocks at head dim 96 (one-shot)
+        # or the chunks and verifies at 288 over the latent; fp32 bodies only
+        if not (launches["fwd_fp32"] == launches["flash_attention_fwd"] == launches["fwd_split"]
+                > 0):
+            problems.append(f"{tag}: #1 off the fp32 bodies: {launches}")
+        if chunked:
+            if not (counters["chunk_launches"] > 0 and counters["verify_launches"] > 0
+                    and counters["prefill_launches"] == 0):
+                problems.append(f"{tag}: no chunk or no verify launch: {counters}")
+        elif not (counters["prefill_launches"] == len(buckets) > 0
+                  and rec["ring_bytes"].get("recv_kv", 0) > 0):
+            problems.append(f"{tag}: one-shot prefills over the ring: {counters}, "
+                            f"{rec['ring_bytes']}")
+        del eng, ctx
+    del params
+    keep.pop("params")
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_mla_ring", "arch": MINICPM_ARCH, "num_layers": L, "dtype": "fp32",
+          "sp_size": RING_N, "mla_latent_wire": True, "cpu_side": "slice_minicpm's, sp_size 1",
+          "new_tokens": 8, **out})
+    check(not problems, "; ".join(problems))
+
+
+def serve_minicpm_ring(card, keep):
+    """serve_minicpm's weights (minicpm3-4b whole, bf16) at sp_size 4, the
+    serve trace one-shot over the fp pool, twice: over the expanded heads
+    (JAX's default), then with the latent on the KV ring.  Gates: every
+    request ok, pages drained, per layer one #4 launch a decode tick (the 4
+    ranks folded) and the mesh blocks' #1 launches a prefill (on the body
+    ``_fwd_plan`` picks for a rank's quarter of the bucket), no call of a
+    kernel's plain version, the two runs' streams equal but for a near-tie
+    (RING_NEAR_TIE on the wire run's logits), the KV hops' bytes those of
+    the rows the schedules carry -- latent (288 values) plus segment id a
+    row under the wire, 2 x 40 x 96 values plus segment id without -- so
+    the wire moves 288 / 7,680 of the K / V bytes exactly, the Q hops' and
+    O sends' bytes equal, the peak under 80 GB.  Beside serve_minicpm's
+    one-shot fp run at sp_size 1 in this call: the ratio of ms a tick; a
+    profiled decode tick after the wire run."""
+    cfg = get_config(MINICPM_ARCH)
+    params, sp1 = keep["params"], keep["records"]["oneshot_fp"]
+    L = cfg.num_layers
+    lat, kv = _mla_wire_ratio(cfg)
+    runs, problems, total, streams = {}, [], {}, {}
+    for name, wire in (("expanded", False), ("wire", True)):
+        ctx = ParallelCtx(sp_size=RING_N, device="cuda", mla_latent_wire=wire)
+        eng = ServeEngine(cfg, params, ctx, serve=ServeConfig(
+            max_seq=2048, num_slots=8, paged=True, page_size=16, num_pages=MINICPM_PAGES,
+            cache_dtype=torch.bfloat16))
+        # warm-up (cuBLAS handles, allocator), outside the measured run
+        t0 = time.perf_counter()
+        eng.generate(np.arange(32, dtype=np.int32)[None], max_new_tokens=2)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        skip = eng.tick_stats()["ticks"]
+        counts0 = (eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+                   eng.prefill_launches)
+        ctx.ring.stats.reset()
+        eng.capture_logits = True
+        before = _kernel_counts()
+        with _PlainCalls() as plain, _PrefillRows() as prefill_rows:
+            t0 = time.perf_counter()
+            res = serve_trace(eng, SERVE_LENGTHS, [a + skip for a in SERVE_ARRIVALS], 32,
+                              cfg.vocab_size, seed=2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _delta(before, _kernel_counts())
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        decode_l, chunk_l, verify_l, prefill_l = (
+            a - b for a, b in zip((eng.decode_launches, eng.chunk_launches, eng.verify_launches,
+                                   eng.prefill_launches), counts0))
+        stats = eng.tick_stats()
+        kvs = eng.kv_cache_stats()
+        pf_tok, pf_s = sum(stats["prefill_tokens"][skip:]), sum(stats["prefill_s"][skip:])
+        dec_ticks = [i for i in range(skip, stats["ticks"]) if stats["decode_s"][i] > 0]
+        dec_s = sum(stats["decode_s"][i] for i in dec_ticks)
+        dec_tok = sum(stats["decode_tokens"][skip:]) - len(res)
+        buckets = prefill_rows.rows
+        rows = L * sum(_mesh_prefill_kv_rows(b) for b in buckets)
+        ring_bytes = stats["ring_bytes"]
+        # a KV hop row: bf16 K and V (or the latent) and the int32 segment id
+        want_kv = rows * (2 * (lat if wire else kv) + 4)
+        streams[name] = dict(streams=[r.generated for r in res],
+                             logits=[eng.debug_logits[r.rid] for r in res])
+        rec = {
+            "mla_latent_wire": wire, "statuses": [r.status for r in res],
+            "ticks": stats["ticks"] - skip, "wall_s": wall, "warmup_s": warmup_s,
+            "prefill_tokens": pf_tok, "prefill_s": pf_s, "prefill_tok_per_s": pf_tok / pf_s,
+            "decode_tokens": dec_tok, "decode_s": dec_s, "decode_tok_per_s": dec_tok / dec_s,
+            "decode_ticks": len(dec_ticks), "ms_per_decode_tick": 1e3 * dec_s / len(dec_ticks),
+            "sp1_ms_per_decode_tick": sp1["ms_per_decode_tick"],
+            "sp1_decode_tok_per_s": sp1["decode_tok_per_s"],
+            "sp1_prefill_tok_per_s": sp1["prefill_tok_per_s"],
+            "ttft_ticks": [r.ttft_ticks for r in res], "buckets": buckets,
+            "prefill_launches": prefill_l, "decode_launches": decode_l,
+            "pages_in_use": kvs["pages_in_use"], "peak_pages": kvs["peak_in_use"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "plain_calls": plain.calls, "ring_bytes": ring_bytes,
+            "kv_hop_rows_reckoned": rows, "recv_kv_bytes_reckoned": want_kv,
+            "hops": dict(ctx.ring.stats.hops),
+        }
+        rec["tick_ratio_to_sp1"] = rec["ms_per_decode_tick"] / rec["sp1_ms_per_decode_tick"]
+        if wire:
+            # after the last measured run (the decode path is the expanded
+            # run's); one tick, for the run's time
+            rec["decode_profile"] = profile_decode(eng, cfg, ticks=1,
+                                                   classify=_ring_kernel_class)
+        runs[name] = rec
+        tag = f"serve_minicpm_ring {name}"
+        if not all(r.status == "ok" and len(r.generated) == 32 for r in res):
+            problems.append(f"{tag}: not every request finished ok: {rec['statuses']}")
+        if kvs["pages_in_use"]:
+            problems.append(f"{tag}: {kvs['pages_in_use']} pages left after the drain")
+        problems += _ring_launch_problems(tag, L, launches, decode_l, chunk_l, verify_l,
+                                          "paged_flash_decode",
+                                          prefill=L * sum(_mesh_prefill_launches(b)
+                                                          for b in buckets))
+        # a mesh block's rows are a rank's quarter of the bucket, at head dim 96
+        body = {b: fa._fwd_plan(1, b // RING_N, cfg.num_heads, cfg.num_heads, kv // (
+            2 * cfg.num_heads), torch.bfloat16)[0] for b in set(buckets)}
+        got = {"fwd_tile": launches["fwd_tile"], "fwd_decode": launches["fwd_decode"],
+               "fwd_fp32": launches["fwd_fp32"], "prefill_launches": prefill_l,
+               "paged_flash_decode_quant": launches["paged_flash_decode_quant"]}
+        want = {f"fwd_{k}": L * sum(_mesh_prefill_launches(b) for b in buckets if body[b] == k)
+                for k in ("tile", "decode")}
+        want.update(fwd_fp32=0, prefill_launches=len(buckets), paged_flash_decode_quant=0)
+        if got != want:
+            problems.append(f"{tag}: launches by body {got}, want {want}")
+        if any(plain.calls.values()):
+            problems.append(f"{tag}: a kernel's plain version was called: {plain.calls}")
+        if ring_bytes.get("recv_kv") != want_kv:
+            problems.append(f"{tag}: KV hop bytes {ring_bytes.get('recv_kv')}, reckoned "
+                            f"{want_kv} ({rows} rows)")
+        if rec["peak_mem_gb"] >= 80:
+            problems.append(f"{tag}: peak {rec['peak_mem_gb']:.2f} GB")
+        del eng, ctx
+        torch.cuda.empty_cache()
+    keep.pop("params")
+    torch.cuda.empty_cache()
+    exp, wire_rec = runs["expanded"], runs["wire"]
+    rows = exp["kv_hop_rows_reckoned"]
+    # the K / V payload: each run's KV bytes less the segment ids' 4 B a row
+    payload = {k: runs[k]["ring_bytes"]["recv_kv"] - 4 * rows for k in runs}
+    flips = _near_tie_flips(streams["wire"], streams["expanded"])
+    summary = {"streams_equal": streams["wire"]["streams"] == streams["expanded"]["streams"],
+               "flips": flips, "kv_payload_bytes": payload,
+               "kv_payload_ratio": payload["wire"] / payload["expanded"],
+               "kv_payload_ratio_want": lat / kv}
+    if payload["wire"] * kv != payload["expanded"] * lat or not payload["wire"] > 0:
+        problems.append(f"serve_minicpm_ring: the wire's K / V bytes {payload}, want "
+                        f"{lat} / {kv} of the expanded run's")
+    for k in ("recv_q", "send_o", "combine"):
+        if wire_rec["ring_bytes"].get(k) != exp["ring_bytes"].get(k):
+            problems.append(f"serve_minicpm_ring: {k} bytes differ: {wire_rec['ring_bytes']} vs "
+                            f"{exp['ring_bytes']}")
+    for f in flips:
+        if max(f["card_gap"], f["cpu_gap"]) > RING_NEAR_TIE:
+            problems.append(f"serve_minicpm_ring: the runs part beyond a near-tie: {f}")
+    emit({"phase": "serve_minicpm_ring", "arch": MINICPM_ARCH, "num_layers": L,
+          "dtype": "bf16", "sp_size": RING_N, "max_seq": 2048, "num_slots": 8, "page_size": 16,
+          "num_pages": MINICPM_PAGES, "lengths": SERVE_LENGTHS,
+          "arrival_ticks": SERVE_ARRIVALS, "new_tokens": 32, "near_tie": RING_NEAR_TIE,
+          "runs": runs, "wire_vs_expanded": summary, "card": card})
+    check(not problems, "; ".join(problems))
+    return {"flash_attention_fwd (tile)": total["fwd_tile"],
+            "flash_attention_fwd (decode)": total["fwd_decode"],
+            "paged_flash_decode": total["paged_flash_decode"],
+            "paged_decode_combine": total["paged_decode_combine"]}
 
 
 # --------------------------------------------------------------------------
@@ -3738,9 +4057,9 @@ WHISPER_HEADS = (8, 8, 64)
 WHISPER_LENGTHS = [4, 9, 16, 23, 32, 41, 50, 64]
 WHISPER_NEW = 128
 # slice_whisper's new tokens a prompt: its CPU side decodes every one of them
-# (26.6 of its 30.1 s at 128 in PR 30's final run), cut for the run's time in
-# PR 31 (serve_whisper keeps 128)
-WHISPER_SLICE_NEW = 64
+# (26.6 of its 30.1 s at 128 in one whole run on an H100 host), cut for the
+# run's time to 64, then to 32 (serve_whisper keeps 128)
+WHISPER_SLICE_NEW = 32
 WHISPER_MAX_SEQ = 448
 PIXTRAL_ARCH = "pixtral-12b"
 # pixtral's prompts: an image's 1024 patch positions, then text (the
@@ -4918,14 +5237,20 @@ def _attn_dims(cfg):
 
 
 def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2), ("ring", 1)),
-                      phase="train_mesh_parity", cfg=None, a2a_bytes=None):
+                      phase="train_mesh_parity", cfg=None, a2a_bytes=None, wire_phase=None):
     """``arch`` at full width cut to ``layers`` layers (or ``cfg``), fp32:
     one train step at sp_size 4 on the virtual ring (each of ``impls``: mesh
     a = 2, ring) against one at sp_size 1, all on the card, from the same
     weights and batch.  Each ring step launches #1 twice (remat) and #2 / #3
     once per layer and schedule block (the backward per rank), and its Q and
     KV hops carry ``CommModel.chunk_bytes`` each; with ``a2a_bytes`` (an
-    "ep" MoE arch) its moe_dispatch and moe_return bytes are that."""
+    "ep" MoE arch) its moe_dispatch and moe_return bytes are that.
+    ``wire_phase`` (an MLA arch, with a "mesh" impl): a further step at
+    sp_size 4 with the latent on the KV ring (``mla_latent_wire``), held to
+    the mesh step under its own phase name: the same limits, the same
+    launches (its blocks' backward is autograd's, one #2 / #3 pair a rank
+    and block), the KV hops carrying kvr + rope of the 2 x H x qk values a
+    row (``_mla_wire_ratio``) and the Q hops the mesh step's bytes."""
     cfg = cfg or dataclasses.replace(get_config(arch), num_layers=layers)
     arch, layers = cfg.name, cfg.num_layers
     opt = AdamWConfig()
@@ -4936,7 +5261,13 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
     for impl, a in impls:
         ctxs[impl] = ParallelCtx(sp_size=MESH_N, attn_impl=impl,
                                  mesh_a=a if impl == "mesh" else None, device="cuda")
-    out, ref_side = {}, None
+    if wire_phase is not None:
+        ctxs["wire"] = ParallelCtx(sp_size=MESH_N, mesh_a=dict(impls)["mesh"], device="cuda",
+                                   mla_latent_wire=True)
+    # the sides others are held to: sp_size 1, and the mesh step for the wire
+    against = {name: "sp1" for name, _ in impls}
+    against["wire"] = "mesh"
+    out, refs = {}, {}
     for name, ctx in ctxs.items():
         p = _clone_tree(params0)
         state = init_opt_state(p)
@@ -4951,12 +5282,14 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
                     launches={key: n - c0[key] for key, n in mesh_counts().items()},
                     hops=dict(ctx.ring.stats.hops) if ctx.ring is not None else {},
                     bytes=dict(ctx.ring.stats.bytes) if ctx.ring is not None else {})
-        if ref_side is None:
-            ref_side = dict(params=dict(tree_leaves(p)), m=dict(tree_leaves(state.m)), **side)
-        else:
-            fwd_s, bwd_s = _schedules_of(name, dict(impls)[name], "causal", seq)
+        if name != "sp1":
+            impl, a = ("mesh", ctx.mesh_a) if name == "wire" else (name, dict(impls)[name])
+            fwd_s, bwd_s = _schedules_of(impl, a, "causal", seq)
+            # the wire's backward is autograd through its forward's blocks
+            blocks = len((fwd_s if name == "wire" else bwd_s).blocks())
             side["want_launches"] = {"flash_attention_fwd": 2 * layers * len(fwd_s.blocks()),
-                                     "flash_bwd_dq": layers * len(bwd_s.blocks()) * MESH_N}
+                                     "flash_bwd_dq": layers * blocks * MESH_N}
+            ref_side = refs[against[name]]
             leaves, p_now = {}, dict(tree_leaves(p))
             for path, m_card in tree_leaves(state.m):
                 g = m_card / (1 - opt.b1)
@@ -4969,6 +5302,8 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
                 )
             side["leaves"] = leaves
             del p_now
+        if name in against.values() and (name != "mesh" or "wire" in ctxs):
+            refs[name] = dict(params=dict(tree_leaves(p)), m=dict(tree_leaves(state.m)))
         out[name] = side
         del p, state, batch
         torch.cuda.empty_cache()
@@ -4976,13 +5311,28 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
            **({"moe": dataclasses.asdict(cfg.moe), "a2a_bytes_reckoned": a2a_bytes}
               if cfg.moe else {}),
            "batch": 1, "n": MESH_N, "heads": [nh, nkv, hd], "tols": PARITY_TOLS,
-           "sides": {k: {kk: vv for kk, vv in v.items() if kk not in ("params", "m")}
-                     for k, v in out.items()}}
+           "sides": {k: v for k, v in out.items() if k != "wire"}}
     emit(rec)
-    del params0, ref_side
+    del params0, refs
     torch.cuda.empty_cache()
-    base = out["sp1"]
+    _mesh_parity_gates(phase, out, impls, comm, a2a_bytes)
+    if wire_phase is not None:
+        lat, kv = _mla_wire_ratio(cfg)
+        emit({"phase": wire_phase, "arch": arch, "num_layers": layers, "dtype": "fp32",
+              "seq": seq, "batch": 1, "n": MESH_N, "mesh_a": ctxs["wire"].mesh_a,
+              "heads": [nh, nkv, hd], "tols": PARITY_TOLS, "against": "mesh",
+              "kv_values_a_row": [lat, kv], "side": out["wire"], "mesh": out["mesh"]})
+        _mesh_parity_gates(wire_phase, out, [("wire", None)], comm, None,
+                           kv_bytes=comm.chunk_bytes("kv") * lat // kv, against=against)
+
+
+def _mesh_parity_gates(phase, out, impls, comm, a2a_bytes, kv_bytes=None, against=None):
+    """train_mesh_parity's gates on each of ``impls``' sides against its
+    reference (``against``; sp_size 1 by default): loss, grad norm, every
+    gradient and updated leaf, the launches, and the bytes of each Q and KV
+    hop (``kv_bytes``: the KV hop's, when not CommModel's)."""
     for name, _ in impls:
+        base = out[(against or {}).get(name, "sp1")]
         side = out[name]
         check(abs(side["loss"] - base["loss"]) <= PARITY_TOLS["loss"],
               f"{phase}: {name} loss differs: {side['loss']} vs {base['loss']}")
@@ -5000,9 +5350,10 @@ def train_mesh_parity(arch="paper-mha-7b", layers=2, seq=4096, impls=(("mesh", 2
               and ran["flash_bwd_dq"] == ran["flash_bwd_dkv"] == ran["flash_bwd_split"]
               == want["flash_bwd_dq"],
               f"{phase}: {name} launches off the schedules x layers x remat: {ran} vs {want}")
-        for kk, ck in (("recv_q", "q"), ("recv_kv", "kv")):
-            check(side["bytes"].get(kk, 0) == side["hops"].get(kk, 0) * comm.chunk_bytes(ck),
-                  f"{phase}: {name} {kk} bytes off CommModel.chunk_bytes: {side}")
+        for kk, want in (("recv_q", comm.chunk_bytes("q")),
+                         ("recv_kv", kv_bytes or comm.chunk_bytes("kv"))):
+            check(side["bytes"].get(kk, 0) == side["hops"].get(kk, 0) * want,
+                  f"{phase}: {name} {kk} bytes off {want} a hop: {side}")
         if a2a_bytes is not None:
             check(side["bytes"].get("moe_dispatch") == side["bytes"].get("moe_return")
                   == a2a_bytes > 0,
@@ -5360,9 +5711,18 @@ def main():
     slice_pixtral()
     pixtral_launches = serve_pixtral(card)
     # minicpm3-4b (MLA: #1 at head dims 96 and 288, #4 / 4q at 288, group
-    # 40): card vs CPU at 2 layers, then served whole
-    cross_device(MINICPM_ARCH, phase="slice_minicpm", quant_run=True, loop_prompt=True)
-    minicpm_launches = serve_minicpm(card)
+    # 40): card vs CPU at 2 layers, then served whole; each followed by its
+    # run over a ring of 4 on the weights it holds (slice_mla_ring also on its
+    # CPU runs): the latent wire and the sequence-sharded latent cache
+    minicpm_slice, minicpm_whole = {}, {}
+    cross_device(MINICPM_ARCH, phase="slice_minicpm", quant_run=True, loop_prompt=True,
+                 keep=minicpm_slice)
+    slice_mla_ring(minicpm_slice)
+    minicpm_launches = serve_minicpm(card, keep=minicpm_whole)
+    mla_ring = serve_minicpm_ring(card, minicpm_whole)
+    for key in ("flash_attention_fwd (tile)", "paged_flash_decode"):
+        minicpm_launches[key] += mla_ring[key]
+    launches["flash_attention_fwd (decode)"] += mla_ring["flash_attention_fwd (decode)"]
     # serve_ring's launches join the serving rows
     for key, part in (("flash_attention_fwd (tile)", "fwd_tile"),
                       ("flash_attention_fwd (decode)", "fwd_decode"),
@@ -5391,7 +5751,8 @@ def main():
     train_parity(MINICPM_ARCH, seq=MINICPM_PARITY_SEQ, phase="train_minicpm_parity",
                  layers=MINICPM_PARITY_LAYERS)
     train_mesh_parity(MINICPM_ARCH, layers=MINICPM_PARITY_LAYERS, seq=MINICPM_MESH_SEQ,
-                      impls=(("mesh", 2),), phase="train_minicpm_parity")
+                      impls=(("mesh", 2),), phase="train_minicpm_parity",
+                      wire_phase="train_minicpm_wire_parity")
     minicpm_train = full_train(card, MINICPM_ARCH, MINICPM_TRAIN_LAYERS, phase="train_minicpm",
                                steps=2, steps_docs=1, bf16_steps=1, max_peak_gb=MINICPM_PEAK_GB)
     for part in (whisper_train, pixtral_train, minicpm_train):
@@ -5630,7 +5991,8 @@ def main():
     kernels.append({
         "name": "paged_decode_combine (the ring's lse combine)", "route": "cuda",
         "source": PAGED_SRC, "replaces": PAGED_REPLACES,
-        "launches": ring["paged_decode_combine"] + ssm_ring["paged_decode_combine"],
+        "launches": ring["paged_decode_combine"] + ssm_ring["paged_decode_combine"]
+        + mla_ring["paged_decode_combine"],
         "max_abs_err": ring_combine["max_abs_err"],
         "ms": ring_combine["ms"], "plain_ms": ring_combine["plain_ms"],
         "bound_ms": ring_combine["bound_ms"], "bound_by": ring_combine["bound_by"],

@@ -4,7 +4,9 @@
 Every attention call goes through ``distributed_attention`` (batched
 prefill / forward / training), ``decode_attention_step`` (one cached token)
 or ``chunk_attention_step`` (a chunk of cached tokens: continuous prefill
-and speculative verify).  An ``AttentionPlanConfig`` names a backend from
+and speculative verify); MLA's latent wire through
+``latent_wire_attention`` (the Mesh-Attention executor with the latent on
+its KV ring).  An ``AttentionPlanConfig`` names a backend from
 the registry: ``mesh`` (the paper's a x b tile), ``ring`` (a = 1 with the
 ring schedule) and ``ulysses`` run the batched path over a sequence-parallel
 ring of n ranks (the plan's ``transport``, JAX's ``axis_name``: a
@@ -47,7 +49,11 @@ from repro_torch.core.decode_attention import (
     sharded_cache_update,
 )
 from repro_torch.core.masking import MaskSpec
-from repro_torch.core.mesh_attention import MeshAttentionConfig, mesh_attention
+from repro_torch.core.mesh_attention import (
+    MeshAttentionConfig,
+    mesh_attention,
+    mesh_attention_wire,
+)
 from repro_torch.core.simulator import HardwareModel
 from repro_torch.core.tiling import best_square_a, stripe_permutation
 from repro_torch.core.ulysses import ulysses_attention
@@ -63,6 +69,7 @@ __all__ = [
     "distributed_attention",
     "decode_attention_step",
     "chunk_attention_step",
+    "latent_wire_attention",
     "chunk_write_coords",
     "paged_write_coords",
     "plan_from_ctx",
@@ -586,6 +593,34 @@ def distributed_attention(q, k, v, *, cfg: AttentionPlanConfig, ctx=None, segmen
         local = lambda q, k, v, seg=None: backend.apply(q, k, v, cfg, seg=seg)  # noqa: E731
     seg = None if segments is None else T.split(segments, axis=0)
     return T.join(local(T.split(q), T.split(k), T.split(v), seg=seg))
+
+
+def latent_wire_attention(
+    q, wire, wire_params, kv_transform, *, cfg: AttentionPlanConfig, ctx=None, segments=None
+):
+    """Mesh-Attention with a compressed KV wire (JAX's beyond-paper path):
+    the opaque ``wire`` (q's global view's [B, S, ...]) circulates on the
+    KV ring in the ranks' chunks, and ``kv_transform(chunk, wire_params) ->
+    (k, v)`` expands each chunk per head at its first use (MLA's latent).
+    ``a`` is the plan's or ``best_square_a(n)``, never autotuned;
+    ``segments`` (int32 [S], q's order) ride the rings.  Differentiable on
+    a ``VirtualRing`` (``core.mesh_attention.mesh_attention_wire``)."""
+    T = cfg.transport if cfg.transport is not None else getattr(ctx, "ring", None)
+    if T is None or cfg.n <= 1:
+        raise ValueError(
+            f"the latent wire runs over a ring of n > 1 ranks (n={cfg.n}): pass a plan with a "
+            "transport, or a ParallelCtx with sp_size > 1"
+        )
+    if T.n != cfg.n:
+        raise ValueError(f"the plan has n={cfg.n} but its transport {T!r} has {T.n} ranks")
+    a = cfg.a if cfg.a is not None else best_square_a(cfg.n)
+    macfg = _mesh_cfg(dataclasses.replace(cfg, transport=T), a=a)
+    seg = None
+    if segments is not None:
+        seg = T.split(torch.as_tensor(segments, device=q.device).to(torch.int32), axis=0)
+    o = mesh_attention_wire(T.split(q), T.split(wire), macfg,
+                            lambda chunk: kv_transform(chunk, wire_params), seg=seg)
+    return T.join(o)
 
 
 def decode_attention_step(

@@ -38,7 +38,15 @@ mode, so ``serial``, ``overlap`` and ``bidir`` are bitwise equal.  (JAX folds
 a received partial in at issue; the port folds it in at commit, so the two
 packages agree to rounding, not bitwise.)
 
-MLA's latent wire (``mesh_attention_wire``) waits for MLA in the port.
+MLA's latent wire (``mesh_attention_wire``, JAX's beyond-paper path) runs
+the same forward program with a ``kv_transform``: the KV ring carries an
+opaque wire chunk (MLA's latent, one "head" of kv_lora_rank + rope), and
+each received slot is expanded to per-head (k, v) once, at its first use.
+It has no Algorithm-3 rule: under autograd the program runs outside any
+``autograd.Function`` -- blocks through ``ops.differentiable_block_attention``,
+hops through the ring's index selects, the merges in plain PyTorch -- so
+autograd differentiates it as ``jax.grad`` does JAX's.  That needs every
+rank in the process (a ``VirtualRing``).
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ from repro_torch.core.tiling import TileLayout
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BAND_INF, NEG_INF
 
-__all__ = ["MeshAttentionConfig", "mesh_attention", "mesh_attention_with_lse"]
+__all__ = ["MeshAttentionConfig", "mesh_attention", "mesh_attention_with_lse",
+           "mesh_attention_wire"]
 
 Band = Tuple[int, int, int, int]
 FULL_BAND: Band = (0, 0, -BAND_INF, BAND_INF)
@@ -243,30 +252,38 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fwd_block(cfg, bands: _Bands, blk, q_slot, kv_slot, scale):
-    """Block (u, v) on every local rank -> (o [R,B,m,H,D], lse [R,B,H,m])."""
+    """Block (u, v) on every local rank -> (o [R,B,m,H,D], lse [R,B,H,m]),
+    through the block op with an autograd rule (used under grad by the
+    latent wire alone; its backward one launch pair per rank)."""
     q_u, s_q = q_slot
     k_v, v_v, s_kv = kv_slot
     R, B = q_u.shape[0], q_u.shape[1]
     sq, skv = bands.strides
     kw = dict(scale=scale, stride_q=sq, stride_kv=skv, block_q=cfg.block_q,
               block_kv=cfg.block_kv)
+    attend = ops.differentiable_block_attention
     if s_q is None:
-        o, lse = ops.block_attention(_fold(q_u), _fold(k_v), _fold(v_v), bands.rows(blk), **kw)
+        o, lse = attend(_fold(q_u), _fold(k_v), _fold(v_v), bands.rows(blk), groups=R, **kw)
         return o.view(R, B, *o.shape[1:]), lse.view(R, B, *lse.shape[1:])
     outs = [
-        ops.block_attention(q_u[r], k_v[r], v_v[r], bands.rank(blk, r),
-                            seg_q=s_q[r], seg_kv=s_kv[r], **kw)
+        attend(q_u[r], k_v[r], v_v[r], bands.rank(blk, r), seg_q=s_q[r], seg_kv=s_kv[r], **kw)
         for r in range(R)
     ]
     return torch.stack([o for o, _ in outs]), torch.stack([lse for _, lse in outs])
 
 
-def _fwd_program(q, k, v, cfg: MeshAttentionConfig, seg=None):
+def _fwd_program(q, k, v, cfg: MeshAttentionConfig, seg=None, kv_transform=None):
     """-> (o [R,B,m,H,D] in q's type, lse [R,B,H,m] fp32).  ``seg`` (int32
     [R, m], the local chunks of the segment-id array) rides the rings
     alongside Q and KV for document/segment masks; mask-pruned blocks are
     simply absent from the (possibly shorter) schedule, with the send
-    counters re-based so the surviving ring reduce stays aligned."""
+    counters re-based so the surviving ring reduce stays aligned.
+
+    ``kv_transform`` (the latent wire): ``k`` is then an opaque wire chunk
+    that circulates on the KV ring in place of (k, v), and
+    ``kv_transform(chunk) -> (k, v)`` expands each received slot once, at
+    its first use (without it the slots hold (k, v) as they are).  Under
+    grad autograd differentiates the program: the blocks' op has a rule."""
     T = cfg.transport
     n, a = cfg.n, cfg.a
     lay = TileLayout(n, a)
@@ -278,7 +295,19 @@ def _fwd_program(q, k, v, cfg: MeshAttentionConfig, seg=None):
     mode = cfg.comm_overlap
 
     qs: Dict[int, tuple] = {0: (q, seg)}
-    kvs: Dict[int, tuple] = {0: (k, v, seg)}
+    if kv_transform is None:
+        kv_transform, kv0 = (lambda k_, v_: (k_, v_)), (k, v)
+    else:
+        kv0 = (k,)
+    kvs: Dict[int, tuple] = {0: (*kv0, seg)}
+    kv_used: Dict[int, tuple] = {}
+
+    def kv_at(slot: int):  # a slot's (k, v, seg), expanded once, at first use
+        if slot not in kv_used:
+            *bufs, s_kv = kvs[slot]
+            kv_used[slot] = (*kv_transform(*bufs), s_kv)
+        return kv_used[slot]
+
     o_acc: Dict[int, Optional[tuple]] = {u: None for u in range(a)}
     nq = nkv = 0
     # leading sends over fully-pruned rows are absent; re-base the counter
@@ -300,7 +329,7 @@ def _fwd_program(q, k, v, cfg: MeshAttentionConfig, seg=None):
                 raise ValueError(comm)
         # compute phase: the step's blocks, from previously delivered slots
         for (u, vv) in step.compute:
-            o_b, l_b = _fwd_block(cfg, bands, (u, vv), qs[u], kvs[vv], scale)
+            o_b, l_b = _fwd_block(cfg, bands, (u, vv), qs[u], kv_at(vv), scale)
             o_acc[u] = _merge(o_acc[u], o_b, l_b)
         # commit phase: the transfers land in the next slots; received O partials
         # fold into their rows
@@ -479,6 +508,51 @@ def mesh_attention(q, k, v, cfg: MeshAttentionConfig, seg=None):
             q[0], k[0], v[0], band=_local_band(cfg), scale=cfg.scale, seg_q=s0, seg_kv=s0,
         ).unsqueeze(0)
     return _MeshAttention.apply(q, k, v, seg, cfg)
+
+
+def mesh_attention_wire(q, wire, cfg: MeshAttentionConfig, kv_transform, seg=None):
+    """Mesh-Attention with a compressed KV wire (JAX's beyond-paper path).
+
+    ``wire``: the local ranks' chunks [R, B, S/n, ...] of whatever should
+    circulate on the KV ring (MLA's latent [R, B, S/n, 1, kvr + rope]);
+    ``kv_transform(chunk) -> (k, v)`` expands one chunk, batch [B], per head
+    at its first use.  q: [R, B, S/n, H, D] -> o: [R, B, S/n, H, D].
+    Without grad it is the forward program as serving runs it; under grad
+    autograd differentiates the program (no Algorithm-3 rule), which needs
+    every rank in the process: on a ProcessGroupRing a wire whose q, wire or
+    expansion requires grad raises, and a forward on tensors that need no
+    gradient runs in any grad mode."""
+    spec = cfg.mask_spec()
+    if spec.needs_segments and seg is None:
+        raise ValueError(f"mask kind {spec.kind!r} needs a segment-id operand")
+    R = len(cfg.transport.ranks)
+    if q.dim() != 5 or q.shape[0] != R or wire.shape[:3] != q.shape[:3]:
+        raise ValueError(
+            f"the latent wire takes the local ranks' chunks q [R={R}, B, S/n, H, D] and the "
+            f"wire [R, B, S/n, ...]; got {tuple(q.shape)}, {tuple(wire.shape)}"
+        )
+    if seg is not None:
+        seg = seg.to(torch.int32)
+    B = q.shape[1]
+
+    def refuse_grad(*ts):
+        """A ProcessGroupRing's hops are plain P2P calls, which autograd
+        cannot follow: a wire that gradients must cross is refused there."""
+        if R < cfg.n and torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            raise NotImplementedError(
+                "the latent wire under autograd differentiates the ring's hops, which a "
+                "ProcessGroupRing runs as plain P2P calls: ROADMAP A.9 (multi-process sequence "
+                "parallelism)"
+            )
+
+    refuse_grad(q, wire)
+
+    def expand(chunk):  # [R, B, m, ...] -> per-head k, v [R, B, m, H, D]
+        k, v = kv_transform(_fold(chunk))
+        refuse_grad(k, v)  # the transform's own weights may want a gradient
+        return k.reshape(R, B, *k.shape[1:]), v.reshape(R, B, *v.shape[1:])
+
+    return _fwd_program(q, wire, None, cfg, seg=seg, kv_transform=expand)[0]
 
 
 def mesh_attention_with_lse(q, k, v, cfg: MeshAttentionConfig, seg=None):

@@ -44,9 +44,11 @@ of the dense family; ``--reduced`` runs JAX's reduced config (head dim 32)
 on the CPU, and on the card ``--dtype bfloat16 --paged --page-size 16
 --num-pages 512 --max-seq 2048`` serves it whole.  ``--arch minicpm3-4b``
 serves MLA (the latent cache: one head of 288 dims; prefill at head dim 96)
-in every mode of the dense family at sp_size 1 (``--fake-devices`` raises
-``NotImplementedError``); on the card ``--dtype bfloat16 --paged
---page-size 16 --num-pages 512 --max-seq 2048`` serves it whole.  ``--arch pixtral-12b``
+in every mode of the dense family, at sp_size 1 and with ``--fake-devices``
+over the ring (the latent cache sharded over the ranks; prefill over the
+expanded heads, as JAX's CLI, which has no latent-wire flag); on the card
+``--dtype bfloat16 --paged --page-size 16 --num-pages 512 --max-seq 2048``
+serves it whole, at sp_size 1 or 4.  ``--arch pixtral-12b``
 (the VLM: zero patches fill the first 1024 positions, so give it prompts
 longer than that on the card, 8 with ``--reduced``) and ``--arch
 whisper-base`` (the encoder-decoder: zero frames, the encoder once per

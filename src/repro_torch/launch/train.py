@@ -11,7 +11,9 @@ patches), whisper-base (its batches carry mel frames; the encoder
 trains with the decoder) and minicpm3-4b (MLA: its expanded heads through
 the flash forward and backward at head dim 96).  pixtral-12b and
 whisper-base train at one rank: with ``--fake-devices`` they raise
-``NotImplementedError``; minicpm3-4b trains on one rank and over the ring.
+``NotImplementedError``; minicpm3-4b trains on one rank and over the ring
+(its expanded heads on the KV ring: JAX's CLI has no latent-wire flag, and
+``ParallelCtx(mla_latent_wire=True)`` is the library's switch).
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``cpu`` runs their
 plain PyTorch versions.  ``--fake-devices N`` is JAX's emulated device

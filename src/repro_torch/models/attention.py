@@ -12,8 +12,12 @@ of shared roped key), expanded per head for prefill and training (V padded
 up to the qk width, so one flash call serves q, k and v, forward and
 backward, and sliced back after it).  Over a ring the expanded heads go
 through ``distributed_attention`` as a dense decoder's do (JAX's default,
-``mla_latent_wire`` off); the latent wire (JAX's
-``latent_wire_attention``) is not ported: ROADMAP A.9.
+``mla_latent_wire`` off); with ``ctx.mla_latent_wire`` at sp_size > 1 the
+latent itself circulates on the Mesh-Attention executor's KV ring and each
+received chunk is expanded per head at its first use
+(``dispatch.latent_wire_attention``, JAX's beyond-paper wire: 288 values a
+token on minicpm3-4b's KV hops in place of 2 x 40 x 96), in the forward,
+every prefill over the ring and training alike.
 """
 
 from __future__ import annotations
@@ -220,6 +224,29 @@ def _project_qkv(x, p, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def _latent_wire_attention(
+    q, lat, wkv_b, cfg: ModelConfig, ctx: ParallelCtx, *, causal, segments=None
+):
+    """MLA x Mesh-Attention with the compressed latent on the KV ring: wire
+    bytes per KV hop drop from 2·H·qk to kvr+rope (minicpm3-4b: 7,680 ->
+    288 values a token).  Backend "mesh" whatever ``ctx.attn_impl`` says,
+    at the expanded heads' scale qk^-0.5."""
+    scale = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+    if segments is not None:
+        plan = dispatch.plan_from_ctx(
+            ctx, mask=MaskSpec.segment(window=cfg.window), layout=cfg.causal_layout,
+            backend="mesh", scale=scale,
+        )
+    else:
+        plan = dispatch.plan_from_ctx(
+            ctx, causal=causal, layout=cfg.causal_layout, backend="mesh", scale=scale,
+        )
+    return dispatch.latent_wire_attention(
+        q, lat, wkv_b, lambda chunk, wb: _mla_expand(chunk, wb, cfg), cfg=plan, ctx=ctx,
+        segments=segments,
+    )
+
+
 def attention_block(
     x: torch.Tensor,  # [B, S, D]
     p: dict,  # one layer's params
@@ -234,11 +261,17 @@ def attention_block(
     encoder, every row sees every key)."""
     B, S, _ = x.shape
     h = pre_norm(x, p, cfg.norm)
-    q, k, v = _project_qkv(h, p, cfg, positions)
-    o = distributed_attention(
-        q, k, v, ctx, causal=causal, window=cfg.window, layout=cfg.causal_layout,
-        segments=segments,
-    )
+    if cfg.mla is not None and ctx.mla_latent_wire and ctx.sp_size > 1:
+        q, lat = _mla_q_latent(h, p, cfg, positions)
+        o = _latent_wire_attention(
+            q, lat, p["wkv_b"], cfg, ctx, causal=causal, segments=segments
+        )
+    else:
+        q, k, v = _project_qkv(h, p, cfg, positions)
+        o = distributed_attention(
+            q, k, v, ctx, causal=causal, window=cfg.window, layout=cfg.causal_layout,
+            segments=segments,
+        )
     if cfg.mla is not None:
         o = o[..., : cfg.mla.v_head_dim]
     return x + o.reshape(B, S, -1) @ p["wo"]

@@ -17,10 +17,13 @@ prefill and the forward expand the latent per head (``models/attention.py``),
 while the cache holds the latent itself, one "head" of kv_lora_rank + rope
 dims written as both K and V, and decode, chunks and verifies absorb
 W^{kv_b}_K into q and W^{kv_b}_V into the output (``_decode_qkv``,
-``_decode_attn_out``), at the softmax scale qk^-0.5.  MLA trains at sp_size
-1 and over the ring (the expanded heads through the Mesh-Attention
-executor, JAX's default path) and is served at sp_size 1; serving over the
-ring and the latent wire raise (ROADMAP A.9).
+``_decode_attn_out``), at the softmax scale qk^-0.5.  MLA trains and serves
+at sp_size 1 and over the ring: there the expanded heads go through the
+Mesh-Attention executor (JAX's default path), or, with
+``ctx.mla_latent_wire``, the latent itself rides its KV ring
+(``models/attention.py``); the serving cache is the latent, sharded over the
+ranks like any one-head cache, and decode, chunks and verifies absorb as on
+one rank.
 
 Parameters are a plain dict mirroring the JAX pytree -- stacked ``[L, ...]``
 leaves with ``x @ W`` weights of shape ``[D_in, D_out]`` -- so weights from
@@ -116,26 +119,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_ring_supported(cfg: ModelConfig, ctx: ParallelCtx, what: str) -> None:
-    """Frontend and encoder archs run at sp_size 1 only; MLA archs run over
-    a ring on the expanded heads, but neither their serving (``what ==
-    "serving"``) nor the latent wire (``ctx.mla_latent_wire``) runs there:
-    each raises (ROADMAP A.9)."""
+    """Frontend and encoder archs run at sp_size 1 only: over a ring they
+    raise (ROADMAP A.9)."""
     if ctx.sp_size == 1:
         return
     if cfg.encoder_layers or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} a frontend or encoder arch over a sequence-parallel ring is "
             "not ported: ROADMAP A.9 (frontend and encoder archs over the ring)"
-        )
-    if cfg.mla is not None and ctx.mla_latent_wire:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} an MLA arch with the latent on the KV ring (mla_latent_wire, "
-            "JAX's latent_wire_attention) is not ported: ROADMAP A.9 (MLA over the ring)"
-        )
-    if cfg.mla is not None and what == "serving":
-        raise NotImplementedError(
-            f"{cfg.name}: {what} an MLA arch over a sequence-parallel ring needs the "
-            "sequence-sharded latent cache: ROADMAP A.9 (MLA over the ring)"
         )
 
 

@@ -10,12 +10,13 @@ backend (``attn_impl``), the tile height (``mesh_a``), the backward wire,
 the ring-transport mode and the autotuner with its plan cache.  ``device``
 is where the engine puts its cache and where ``init_cache`` allocates; it
 defaults to the card (see ``repro_torch.device``).  Training and serving
-both run over the ring, for the dense (MLA: training only), MoE, SSM and
+both run over the ring, for the dense (MLA included), MoE, SSM and
 hybrid families: the engine shards its KV cache over the ranks and folds
 them into one launch per decode, chunk or verify step
 (``core/decode_attention.py``), SSM and hybrid archs shard their SSD scan
-over the same ring (``models/ssm.py``), and "ep" MoE archs send each rank's
-tokens to the experts' ranks by all-to-all (``models/moe.py``); serving
+over the same ring (``models/ssm.py``), "ep" MoE archs send each rank's
+tokens to the experts' ranks by all-to-all (``models/moe.py``), and MLA
+archs may put their latent on the KV ring (``mla_latent_wire``); serving
 needs every rank in the process (a ``VirtualRing``).  Frontend and encoder
 archs run at sp_size 1 only (ROADMAP A.9).
 """
@@ -54,8 +55,8 @@ class ParallelCtx:
     # dense -> the band kernel per row) | native | gather
     device: Union[str, torch.device] = "cuda"
     remat: bool = True  # recompute each layer's activations in the backward
-    mla_latent_wire: bool = False  # MLA: circulate the latent on the KV ring
-    # (JAX's latent_wire_attention; not ported: at sp_size > 1 it raises)
+    mla_latent_wire: bool = False  # MLA at sp_size > 1: circulate the latent on
+    # the KV ring and expand it per head at first use (latent_wire_attention)
 
     def __post_init__(self):
         if self.sp_size < 1:

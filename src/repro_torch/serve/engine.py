@@ -49,6 +49,15 @@ projection of zero).  Continuous prefill and speculative verify raise
 page structure); pixtral may use the paged pool, fp or quantized.  At
 sp_size > 1 both raise ``NotImplementedError`` (ROADMAP A.9).
 
+MLA archs (minicpm3-4b) serve every mode of the dense family, on one rank
+and over the ring: the latent cache (one "head" of kv_lora_rank + rope) is
+sharded over the ranks like any one-head cache, one-shot prefill runs the
+expanded heads through the Mesh-Attention forward -- or, with
+``ctx.mla_latent_wire``, the latent on its KV ring, which ``ring_bytes``
+shows as ``recv_kv`` bytes of (kvr + rope) / (2·H·qk) of the expanded
+run's (besides the segment ids both carry) -- and decode, chunks and
+verifies absorb W^{kv_b} as on one rank.
+
 With ``ctx.sp_size`` n > 1 the engine serves over a sequence-parallel ring
 (a ``VirtualRing``: every rank on one device), as JAX's does over its mesh
 axis: the cache is sharded over the ranks (``core/decode_attention.py``),

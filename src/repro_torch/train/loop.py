@@ -81,8 +81,9 @@ def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt_cfg: AdamWConfig,
     """Returns (params, opt_state, err, batch) -> (params, opt_state, err,
     metrics), as JAX's jitted step.  ``params`` and the moments are updated
     in place; ``err`` (the compression error state) passes through.
-    Frontend and encoder archs train at sp_size 1 only, and MLA archs
-    over a ring without the latent wire (``check_ring_supported``)."""
+    Frontend and encoder archs train at sp_size 1 only
+    (``check_ring_supported``); MLA archs train over a ring on the expanded
+    heads or, with ``ctx.mla_latent_wire``, through the latent wire."""
     _check_one_process(compression)
     tfm.check_ring_supported(cfg, ctx, "training")
 

@@ -1512,3 +1512,82 @@ def test_moe_block_over_the_ring_matches_cpu_and_repeats(dev):
     scale = float(y_cpu.abs().max())
     torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-4 * scale, rtol=0)
     torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_block_rule_matches_plain(dev, dtype):
+    """The block op with an autograd rule (what the latent wire's blocks run
+    under grad) at minicpm3-4b's expanded heads (40 / 40 of 96): 4 ranks x
+    2 rows folded, one striped band a rank, a random cotangent on o and on
+    lse.  One forward launch, one dQ and one dK/dV launch a rank; o, lse and
+    the gradients against the same rule on the CPU (the plain versions)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(41)
+    R, B, S, H, D = 4, 2, 128, 40, 96
+    cpu = torch.device("cpu")
+    q, k, v, do = (_randn(rng, R * B, S, H, D, dtype=dtype, dev=cpu) for _ in range(4))
+    dlse = _randn(rng, R * B, H, S, dtype=torch.float32, dev=cpu)
+    band = torch.tensor([(r, (r + 1) % R, 0, INF) for r in range(R) for _ in range(B)],
+                        dtype=torch.int32)
+    grads = {}
+    for where in (cpu, dev):
+        leaves = [x.to(where).requires_grad_(True) for x in (q, k, v)]
+        fwd0, dq0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches_dq
+        o, lse = ops.differentiable_block_attention(*leaves, band.to(where), groups=R,
+                                                    stride_q=R, stride_kv=R)
+        got = torch.autograd.grad((o.float() * do.to(where).float()).sum()
+                                  + (lse * dlse.to(where)).sum(), leaves)
+        grads[where.type] = [t.detach().cpu() for t in (o, lse, *got)]
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa.flash_attention_fwd.launches == fwd0 + 1
+            assert fa.flash_attention_bwd.launches_dq == dq0 + R
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(grads["cuda"][0].float(), grads["cpu"][0].float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(grads["cuda"][1], grads["cpu"][1], atol=LSE_TOL, rtol=0)
+    atol, rtol = BWD_TOLS[dtype]
+    for name, a, w in zip(("dq", "dk", "dv"), grads["cuda"][2:], grads["cpu"][2:]):
+        torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
+def test_latent_wire_grads_bitwise_across_modes(dev):
+    """The latent wire's program under autograd on the card, over a virtual
+    ring of 4 (mesh a = 2, causal, striped): the gradients of q, the wire
+    and the expansion's weights bitwise equal in the three comm_overlap
+    modes (overlap and bidir copy on a side stream), and within the
+    backward's limits of the CPU's."""
+    from repro_torch.core.mesh_attention import MeshAttentionConfig, mesh_attention_wire
+    from repro_torch.parallel.ring import VirtualRing
+
+    rng = np.random.default_rng(43)
+    R, B, m, H, D, C = 4, 1, 256, 8, 64, 32
+    cpu = torch.device("cpu")
+    q = _randn(rng, R, B, m, H, D, dtype=torch.float32, dev=cpu)
+    wire = _randn(rng, R, B, m, 1, C, dtype=torch.float32, dev=cpu)
+    wp = _randn(rng, C, 2 * H * D, dtype=torch.float32, dev=cpu) * C**-0.5
+    do = _randn(rng, R, B, m, H, D, dtype=torch.float32, dev=cpu)
+    out = {}
+    for where, modes in ((cpu, ("overlap",)), (dev, ("serial", "overlap", "bidir"))):
+        for mode in modes:
+            leaves = [x.to(where).requires_grad_(True) for x in (q, wire, wp)]
+
+            def expand(chunk, w=leaves[2]):
+                kv = (chunk[:, :, 0] @ w).reshape(*chunk.shape[:2], 2, H, D)
+                return kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
+
+            cfg = MeshAttentionConfig(transport=VirtualRing(R), n=R, a=2, causal=True,
+                                      comm_overlap=mode)
+            o = mesh_attention_wire(leaves[0], leaves[1], cfg, expand)
+            got = torch.autograd.grad((o * do.to(where)).sum(), leaves)
+            out[where.type, mode] = [t.detach().cpu() for t in (o, *got)]
+    torch.cuda.synchronize()
+    base = out["cuda", "overlap"]
+    for mode in ("serial", "bidir"):
+        for a, b in zip(out["cuda", mode], base):
+            assert torch.equal(a, b), mode
+    atol, rtol = BWD_TOLS[torch.float32]
+    for name, a, w in zip(("o", "dq", "dwire", "dwp"), base, out["cpu", "overlap"]):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(a, w, atol=atol * max(scale, 1.0), rtol=rtol, msg=name)

@@ -51,13 +51,27 @@ def model(request):
     return jcfg, jparams, tcfg
 
 
+_JAX_RING_REFERENCE = {}
+
+
+def _jax_ring_reference(jcfg, jparams, docs):
+    """JAX's batch, loss and gradients at sp_size 1 for the ring tests of
+    ``jparams``: the same for the mesh and the ring backend, so computed
+    once per weights and documents."""
+    key = (id(jparams), docs)
+    if key not in _JAX_RING_REFERENCE:
+        jbatch = jpipe.make_batch(jcfg, SEQ, BATCH, seed=5, step=2, docs=docs)
+        (jloss, _), jgrads = jax.value_and_grad(
+            lambda p: jtfm.loss_fn(p, jcfg, JCtx(), jbatch), has_aux=True)(jparams)
+        _JAX_RING_REFERENCE[key] = (jparams, jbatch, jloss, jgrads)
+    return _JAX_RING_REFERENCE[key][1:]
+
+
 @pytest.mark.parametrize("impl", ["mesh", "ring"])
 @pytest.mark.parametrize("docs", [None, 2], ids=["causal", "docs"])
 def test_ring_loss_and_grads_match_jax(model, impl, docs):
     jcfg, jparams, tcfg = model
-    jbatch = jpipe.make_batch(jcfg, SEQ, BATCH, seed=5, step=2, docs=docs)
-    (jloss, _), jgrads = jax.value_and_grad(
-        lambda p: jtfm.loss_fn(p, jcfg, JCtx(), jbatch), has_aux=True)(jparams)
+    jbatch, jloss, jgrads = _jax_ring_reference(jcfg, jparams, docs)
     perm = stripe_permutation(SEQ, N)
     batch = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[..., perm]))
              for k, v in jbatch.items()}

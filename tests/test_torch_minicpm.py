@@ -411,10 +411,11 @@ def test_paged_decode_plain_d288_matches_pallas(pool):
 
 def test_mla_training_and_ring_raise(reduced):
     """MLA trains (the backward at head dim 96): a train step and the CLI
-    run on the CPU.  Over a ring, only what is still unported raises,
-    naming ROADMAP A.9: serving (the sequence-sharded latent cache) and the
-    latent wire; training over the ring is
-    tests/test_torch_minicpm_train.py's."""
+    run on the CPU.  Over a ring nothing of MLA raises any more (ROADMAP
+    A.9's MLA bullet is done): the engine serves at sp_size 4 from the
+    sharded latent cache, the same streams as at sp_size 1, and a train
+    step runs through the latent wire (JAX at sp_size 4 holds both in
+    tests/test_torch_mla_ring.py)."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import train as tlaunch
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_map
@@ -429,14 +430,18 @@ def test_mla_training_and_ring_raise(reduced):
     assert tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
                          "--seq", "16", "--batch", "1"]) == 0
     ring = TCtx(sp_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        TEngine(tcfg, tp, ring, serve=TServe(max_seq=64, num_slots=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ttfm.check_ring_supported(tcfg, ring, "serving")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ttfm.check_ring_supported(tcfg, TCtx(sp_size=4, device="cpu", mla_latent_wire=True),
-                                  "training")
-    ttfm.check_ring_supported(tcfg, ring, "training")
+    ttfm.check_ring_supported(tcfg, ring, "serving")
+    prompts = np.random.default_rng(2).integers(0, tcfg.vocab_size, (2, 12), dtype=np.int32)
+    streams = [TEngine(tcfg, tp, ctx, serve=TServe(max_seq=64, num_slots=2)).generate(prompts, 4)
+               for ctx in (TCTX, ring)]
+    assert np.array_equal(*streams)
+    wire = TCtx(sp_size=4, device="cpu", mla_latent_wire=True)
+    ttfm.check_ring_supported(tcfg, wire, "training")
+    params = tree_map(torch.clone, tp)
+    step = make_train_step(tcfg, wire, AdamWConfig())
+    _, _, _, metrics = step(params, init_opt_state(params), {},
+                            make_batch(tcfg, 16, 1, ctx=wire))
+    assert np.isfinite(float(metrics["loss"])) and wire.ring.stats.bytes["recv_kv"] > 0
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", ARCH])

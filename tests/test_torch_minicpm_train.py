@@ -20,9 +20,9 @@ width (96 in the full config).  Held to JAX here:
     ``tests/test_torch_mesh_train.py``'s limits;
   * the train CLI at the reduced config, alone and over the ring.
 
-What is still unported raises, naming ROADMAP A.9: MLA serving over a ring
-(the sequence-sharded latent cache) and ``mla_latent_wire`` at sp_size > 1.
-Inputs come from numpy with fixed seeds.
+Over a ring the engine serves MLA and ``mla_latent_wire`` trains (JAX at
+sp_size 4 holds both in tests/test_torch_mla_ring.py).  Inputs come from
+numpy with fixed seeds.
 """
 
 import zlib
@@ -143,20 +143,40 @@ def test_launch_train_cpu(fake_devices, capsys):
 
 
 def test_serving_and_the_latent_wire_over_a_ring_raise(model):
-    """MLA serves at sp_size 1 only (the sequence-sharded latent cache), and
-    the latent wire is not ported (JAX's ``mla_latent_wire``): at sp_size 4
-    both raise, naming ROADMAP A.9; at sp_size 1 the wire flag changes
-    nothing, as in JAX."""
+    """Nothing of MLA raises over a ring any more (ROADMAP A.9's MLA bullet
+    is done): at sp_size 4 the engine serves from the sharded latent cache
+    (the streams of sp_size 1), and ``mla_latent_wire`` trains -- the step
+    builds and runs, and (v16: V padded under the wire, which the reduced
+    config of tests/test_torch_mla_ring.py does not reach) loss_fn through
+    the wire gives the expanded heads' loss and gradients; at sp_size 1 the
+    wire flag changes nothing, as in JAX.  JAX at sp_size 4 holds both in
+    tests/test_torch_mla_ring.py."""
     _, _, tcfg, tparams = model
     ring = TCtx(sp_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="latent cache: ROADMAP A.9"):
-        TEngine(tcfg, tparams, ring, serve=TServe(max_seq=64, num_slots=2))
+    prompts = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 12), dtype=np.int32)
+    streams = [TEngine(tcfg, tparams, ctx, serve=TServe(max_seq=64, num_slots=2))
+               .generate(prompts, 4) for ctx in (TCTX, ring)]
+    assert np.array_equal(*streams)
     wire = TCtx(sp_size=4, device="cpu", mla_latent_wire=True)
     batch = tpipe.make_batch(tcfg, 32, 1, ctx=wire)
-    for call in (lambda: tloop.make_train_step(tcfg, wire, tadamw.AdamWConfig()),
-                 lambda: ttfm.loss_fn(tparams, tcfg, wire, batch)):
-        with pytest.raises(NotImplementedError, match="mla_latent_wire.*ROADMAP A.9"):
-            call()
+    params = tadamw.tree_map(torch.clone, tparams)
+    _, _, _, metrics = tloop.make_train_step(tcfg, wire, tadamw.AdamWConfig())(
+        params, tadamw.init_opt_state(params), {}, batch)
+    assert np.isfinite(float(metrics["loss"])) and wire.ring.stats.bytes["recv_kv"] > 0
+    m = tcfg.mla
+    if m.v_head_dim < m.qk_nope_head_dim + m.qk_rope_head_dim:  # V padded under the wire
+        leaves = [leaf for _, leaf in tadamw.tree_leaves(tparams)]
+        grads = {}
+        for name, ctx in (("expanded", ring), ("wire", wire)):
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            loss, _ = ttfm.loss_fn(tparams, tcfg, ctx, batch)
+            grads[name] = (loss.detach(), torch.autograd.grad(loss, leaves))
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+        torch.testing.assert_close(grads["wire"][0], grads["expanded"][0], atol=1e-5, rtol=0)
+        for g, e in zip(grads["wire"][1], grads["expanded"][1]):
+            torch.testing.assert_close(g, e, atol=5e-5 * float(e.abs().max()), rtol=0)
     one = tpipe.make_batch(tcfg, 16, 1, ctx=TCTX)
     loss, _ = ttfm.loss_fn(tparams, tcfg, TCTX, one)
     loss_wire, _ = ttfm.loss_fn(tparams, tcfg, TCtx(device="cpu", mla_latent_wire=True), one)

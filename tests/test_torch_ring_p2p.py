@@ -2,7 +2,10 @@
 (``ProcessGroupRing``), run tests/torch_ring_worker.py's cases -- the mesh
 executor (a = 1, 2, 4; causal, window, document and full masks; striped and
 contiguous layouts; both backward wires; the three comm_overlap modes),
-Ring-Attention, Ulysses, the dispatch seam with gradients (mesh at
+Ring-Attention, Ulysses, the latent wire's forward (each rank also checks
+that the wire raises, naming ROADMAP A.9, where a gradient would cross its
+hops, and runs in the default grad mode where none would), the dispatch seam
+with gradients (mesh at
 every factorization of n = 4, ring, ulysses), and the sequence-sharded SSD
 block (mamba2-370m and hymba-1.5b reduced; ranks shorter than the conv
 halo too) -- and must give the virtual ring's per-rank results within 1e-6
@@ -16,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import torch_ring_worker as W
 from repro_torch.parallel.ring import VirtualRing
@@ -106,3 +110,22 @@ def test_p2p_dispatch_global_view_and_grads(results):
             for got in ranks:
                 np.testing.assert_allclose(got[name], virtual[name], atol=P2P_TOL, rtol=0,
                                            err_msg=name)
+
+
+def test_p2p_latent_wire_forward_matches_the_virtual_ring(results):
+    """The latent wire's forward over gloo: each rank's o and the KV hops'
+    bytes (the wire's, not k and v) as on the virtual ring, and the wire
+    differentiable there.  Each gloo rank checks itself that the wire raises
+    where a gradient would cross its hops, and that a forward in the default
+    grad mode on tensors that need no gradient gives the no-grad o."""
+    ranks, virtual = results
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["wire::o"][0], virtual["wire::o"][r], atol=P2P_TOL, rtol=0)
+        assert int(got["wire::fwd_bytes::recv_kv"]) == int(virtual["wire::fwd_bytes::recv_kv"]) \
+            == W.B * W.M * W.WIRE_C * 4 * int(virtual["wire::fwd_hops::recv_kv"]) > 0
+    cfg, q, wire, expand = W._wire_case(VirtualRing(W.N), W.make_inputs())
+    q.requires_grad_(True)
+    o = W.mesh_attention_wire(q, wire.requires_grad_(True), cfg, expand)
+    dq, dwire = torch.autograd.grad(o.sin().sum(), (q, wire))
+    np.testing.assert_allclose(o.detach().numpy(), virtual["wire::o"], atol=P2P_TOL, rtol=0)
+    assert float(dwire.abs().max()) > 0 and float(dq.abs().max()) > 0

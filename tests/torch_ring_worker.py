@@ -2,11 +2,15 @@
 them on one rank of a gloo group.
 
 ``run_cases(ring, inputs)`` runs the executor (mesh, ring and ulysses), the
-dispatch seam and the sequence-sharded SSD block over any transport: on a
+latent wire's forward, the dispatch seam and the sequence-sharded SSD block
+over any transport: on a
 ``VirtualRing`` it returns every rank's results ([n, ...]); on a
 ``ProcessGroupRing`` this rank's ([1, ...]), plus the transport's hop /
 message / byte counts per case.  The test
-(tests/test_torch_ring_p2p.py) runs it both ways and compares.
+(tests/test_torch_ring_p2p.py) runs it both ways and compares.  Each gloo
+rank also checks that the latent wire raises ``NotImplementedError`` naming
+ROADMAP A.9 where a gradient would have to cross its hops (plain P2P calls),
+and runs it in the default grad mode on tensors that need no gradient.
 
     python tests/torch_ring_worker.py RANK WORLD PORT INPUTS.npz OUT_DIR
 """
@@ -25,6 +29,7 @@ from repro_torch.core.masking import MaskSpec  # noqa: E402
 from repro_torch.core.mesh_attention import (  # noqa: E402
     MeshAttentionConfig,
     mesh_attention,
+    mesh_attention_wire,
     mesh_attention_with_lse,
 )
 from repro_torch.core.ring_attention import ring_config  # noqa: E402
@@ -52,6 +57,7 @@ DISPATCH_BACKENDS = (("mesh", 1), ("mesh", 2), ("mesh", 4), ("ring", 1), ("ulyss
 # the sequence-sharded SSD block (reduced configs): (arch, S); S 8 leaves each
 # rank 2 rows, fewer than the conv halo's 3
 SSM_CASES = (("mamba2-370m", S), ("mamba2-370m", 8), ("hymba-1.5b", S))
+WIRE_C = 6  # the latent wire's width: one "head" a token, expanded to H heads of k and v
 
 
 def make_inputs(seed: int = 7):
@@ -60,6 +66,8 @@ def make_inputs(seed: int = 7):
         "q": rng.standard_normal((B, S, H, D)).astype(np.float32),
         "k": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
         "v": rng.standard_normal((B, S, HKV, D)).astype(np.float32),
+        "wire": rng.standard_normal((B, S, 1, WIRE_C)).astype(np.float32),
+        "wire_params": rng.standard_normal((WIRE_C, 2 * H * D)).astype(np.float32),
     }
     for arch, length in SSM_CASES:
         cfg = get_config(arch).reduced()
@@ -101,6 +109,43 @@ def run_ssm_cases(ring, inputs):
     return out
 
 
+def _wire_case(ring, inputs, weights_grad=False):
+    """-> (mesh a = 2, causal, striped: the wire's config, this process's
+    chunks of q and of the wire, its kv_transform, whose weights require
+    grad if ``weights_grad``)."""
+    order = torch.from_numpy(_layout_order("striped"))
+    q = ring.split(torch.from_numpy(inputs["q"])[:, order])
+    wire = ring.split(torch.from_numpy(inputs["wire"])[:, order])
+    wp = torch.from_numpy(inputs["wire_params"]).requires_grad_(weights_grad)
+
+    def expand(chunk):  # [b, m, 1, C] -> per-head k, v [b, m, H, D]
+        kv = (chunk[:, :, 0] @ wp).reshape(*chunk.shape[:2], 2, H, D)
+        return kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
+
+    return MeshAttentionConfig(transport=ring, n=N, a=2, causal=True), q, wire, expand
+
+
+def check_wire_grad_raises(ring, inputs) -> np.ndarray:
+    """On a ProcessGroupRing the latent wire raises, naming ROADMAP A.9,
+    where autograd would have to follow its hops: q or the wire requiring
+    grad, or the expansion's weights.  A forward in the default grad mode on
+    tensors that need no gradient runs; -> its o, this rank's (equal to the
+    no-grad forward's, bitwise)."""
+    cfg, q, wire, expand = _wire_case(ring, inputs)
+    assert torch.is_grad_enabled()
+    o = mesh_attention_wire(q, wire, cfg, expand).numpy()
+    for weights_grad in (False, True):
+        cfg, q, wire, expand = _wire_case(ring, inputs, weights_grad)
+        try:
+            mesh_attention_wire(q.requires_grad_(not weights_grad), wire, cfg, expand)
+        except NotImplementedError as e:
+            assert "ROADMAP A.9" in str(e), e
+        else:
+            raise AssertionError("the latent wire under autograd did not raise on a "
+                                 f"ProcessGroupRing (weights_grad={weights_grad})")
+    return o
+
+
 def _layout_order(layout: str) -> np.ndarray:
     return stripe_permutation(S, N) if layout == "striped" else np.arange(S)
 
@@ -134,6 +179,14 @@ def run_cases(ring, inputs):
         for stat, kinds in vars(ring.stats).items():
             for kind, count in kinds.items():
                 out[f"{name}::all_{stat}::{kind}"] = np.asarray(count)
+    # the latent wire's forward: the wire on the KV ring, expanded at first use
+    cfg, q, wire, expand = _wire_case(ring, inputs)
+    ring.stats.reset()
+    with torch.no_grad():
+        out["wire::o"] = mesh_attention_wire(q, wire, cfg, expand).numpy()
+    for stat, kinds in vars(ring.stats).items():
+        for kind, count in kinds.items():
+            out[f"wire::fwd_{stat}::{kind}"] = np.asarray(count)
     # the ring schedule (a = 1) and Ulysses straight from their modules
     x = {k: ring.split(torch.from_numpy(v)[:, torch.from_numpy(_layout_order("striped"))])
          for k, v in qkv.items()}
@@ -169,7 +222,10 @@ def main(argv):
                             world_size=int(world), rank=int(rank))
     try:
         inputs = dict(np.load(inputs_path))
-        out = run_cases(ProcessGroupRing(), inputs)
+        ring = ProcessGroupRing()
+        out = run_cases(ring, inputs)
+        o_grad_mode = check_wire_grad_raises(ring, inputs)
+        assert np.array_equal(o_grad_mode, out["wire::o"]), "the wire's o in grad mode"
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -2,7 +2,7 @@
 """The seconds of chip_smoke.py's CPU-heavy train-step parity phases, or of
 its MoE phases, one tree at a time.
 
-    python3 tools/parity_timing.py [--tree DIR] [--moe]
+    python3 tools/parity_timing.py [--tree DIR] [--moe | --mla] [--log FILE]
 
 Imports ``chip_smoke.py`` and the ``repro_torch`` package of ``--tree``
 (default: this checkout), builds the flash libraries, and runs the phases
@@ -19,7 +19,11 @@ them on one host.  ``--moe`` times the MoE family's phases instead, as
 ``chip_smoke.py``'s main runs them, those the tree has: ``slice_moe``,
 (``slice_moe_ring``), ``serve_moe``, (``serve_moe_ring``,
 ``train_moe_ring_parity``); one line per phase with its seconds (each
-phase's own line is dropped).  Needs a CUDA device.
+phase's own line is dropped).  ``--mla`` times minicpm3-4b's phases the
+same way: ``slice_minicpm``, (``slice_mla_ring``), ``serve_minicpm``,
+(``serve_minicpm_ring``) and ``train_minicpm_parity``'s sp_size 4 half (with
+``train_minicpm_wire_parity`` where the tree has it).  ``--log`` appends
+the phases' own lines to FILE.  Needs a CUDA device.
 """
 
 import argparse
@@ -37,6 +41,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--moe", action="store_true", help="time the MoE phases instead")
+    ap.add_argument("--mla", action="store_true", help="time minicpm3-4b's phases instead")
+    ap.add_argument("--log", default=None, help="append the phases' own lines here")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
@@ -51,9 +57,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     cs._build.build(["flash_fwd_tc", "flash_fwd_mla", "flash_bwd", "ssd_scan", "ssd_scan_bwd"]
-                    + (["paged_decode"] if args.moe else []))
+                    + (["paged_decode"] if args.moe or args.mla else []))
     if args.moe:
-        return _moe_phases(cs, tree)
+        return _moe_phases(cs, tree, args.log)
+    if args.mla:
+        return _mla_phases(cs, tree, args.log)
     phases = [("granite-8b", cs.TRAIN_PARITY_SEQ, "train_parity", 2),
               (cs.GEMMA_ARCH, cs.GEMMA_PARITY_SEQ, "train_gemma_parity", cs.GEMMA_PARITY_LAYERS),
               ("qwen2-moe-a2.7b", cs.MOE_PARITY_SEQ, "train_moe_parity", cs.MOE_PARITY_LAYERS),
@@ -78,7 +86,56 @@ def main():
     return 0
 
 
-def _moe_phases(cs, tree):
+def _timed(phases, tree, log):
+    """Runs each (name, function), printing its seconds; the phase's own
+    lines go to ``log`` (appended) or nowhere."""
+    for phase, run in phases:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):  # the phase's own (long) line
+                run()
+        finally:
+            if log:
+                with open(log, "a") as f:
+                    f.write(out.getvalue())
+        print(json.dumps({"tree": tree, "phase": phase, "seconds": time.perf_counter() - t0}),
+              flush=True)
+    return 0
+
+
+def _mla_phases(cs, tree, log):
+    """chip_smoke's minicpm3-4b phases in main's order, each timed (the ring
+    phases where the tree has them)."""
+    card = cs.card_line()
+    ring = hasattr(cs, "serve_minicpm_ring")
+    state = {"slice": {}, "whole": {}}
+
+    def slice_minicpm():
+        kw = {"keep": state["slice"]} if ring else {}
+        cs.cross_device(cs.MINICPM_ARCH, phase="slice_minicpm", quant_run=True,
+                        loop_prompt=True, **kw)
+
+    def serve_minicpm():
+        cs.serve_minicpm(card, **({"keep": state["whole"]} if ring else {}))
+
+    def parity():
+        kw = {"wire_phase": "train_minicpm_wire_parity"} if ring else {}
+        cs.train_mesh_parity(cs.MINICPM_ARCH, layers=cs.MINICPM_PARITY_LAYERS,
+                             seq=cs.MINICPM_MESH_SEQ, impls=(("mesh", 2),),
+                             phase="train_minicpm_parity", **kw)
+
+    phases = [("slice_minicpm", slice_minicpm)]
+    if ring:
+        phases.append(("slice_mla_ring", lambda: cs.slice_mla_ring(state["slice"])))
+    phases.append(("serve_minicpm", serve_minicpm))
+    if ring:
+        phases.append(("serve_minicpm_ring", lambda: cs.serve_minicpm_ring(card, state["whole"])))
+    phases.append(("train_minicpm_parity (sp_size 4)", parity))
+    return _timed(phases, tree, log)
+
+
+def _moe_phases(cs, tree, log=None):
     """chip_smoke's MoE phases in main's order, each timed (the ring phases
     where the tree has them)."""
     card = cs.card_line()
@@ -99,13 +156,7 @@ def _moe_phases(cs, tree):
     if ring:
         phases += [("serve_moe_ring", lambda: cs.serve_moe_ring(card, state["sp1"])),
                    ("train_moe_ring_parity", cs.train_moe_ring_parity)]
-    for phase, run in phases:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):  # the phase's own (long) line
-            run()
-        print(json.dumps({"tree": tree, "phase": phase, "seconds": time.perf_counter() - t0}),
-              flush=True)
-    return 0
+    return _timed(phases, tree, log)
 
 
 if __name__ == "__main__":
